@@ -1,0 +1,67 @@
+"""Carry JAX parameters into the port.
+
+``jax.random`` and ``torch.Generator`` give different numbers from one
+seed, so parity tests make the weights once, in JAX, and move them over::
+
+    np_tree = jax.tree_util.tree_map(np.asarray, params)
+    model = params_from_jax(np_tree, cfg, device="cpu")
+
+This module imports no JAX: it takes the parameter tree as nested dicts of
+numpy arrays, with the JAX package's leading layer axis on ``layers``.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models.transformer import DenseTransformer
+
+
+def _to_tensor(a: np.ndarray) -> torch.Tensor:
+    # torch.tensor copies: JAX hands out read-only buffers
+    if a.dtype.name == "bfloat16":          # ml_dtypes bfloat16: reinterpret bits
+        return torch.tensor(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.tensor(a)
+
+
+def _flatten(tree: Mapping, prefix: str = ""):
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            yield from _flatten(val, name + ".")
+        else:
+            yield name, val
+
+
+@torch.no_grad()
+def params_from_jax(np_tree: Mapping, cfg, *, device="cuda",
+                    dtype: Optional[torch.dtype] = None) -> DenseTransformer:
+    """A :class:`DenseTransformer` holding the JAX parameters ``np_tree``.
+
+    The stacked ``layers`` subtree is unstacked along its leading axis into
+    ``layers[i]``; every other leaf maps by name.  Each value is cast to the
+    module's dtype for that parameter (``dtype``, default ``cfg.dtype``;
+    norms stay float32).  Raises ``ValueError`` if the names or shapes of
+    the two trees differ."""
+    model = DenseTransformer(cfg, device=device, dtype=dtype)
+    wanted = dict(model.named_parameters())
+    given: dict[str, np.ndarray] = {}
+    for name, leaf in _flatten({k: v for k, v in np_tree.items() if k != "layers"}):
+        given[name] = leaf
+    for name, leaf in _flatten(np_tree.get("layers", {})):
+        for i in range(leaf.shape[0]):
+            given[f"layers.{i}.{name}"] = leaf[i]
+    if set(given) != set(wanted):
+        raise ValueError(
+            f"parameter names differ: missing {sorted(set(wanted) - set(given))}, "
+            f"unexpected {sorted(set(given) - set(wanted))}"
+        )
+    for name, t in wanted.items():
+        src = _to_tensor(np.asarray(given[name]))
+        if tuple(src.shape) != tuple(t.shape):
+            raise ValueError(f"{name}: JAX shape {tuple(src.shape)} != {tuple(t.shape)}")
+        t.copy_(src.to(t.dtype))
+    return model

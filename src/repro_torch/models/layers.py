@@ -1,0 +1,289 @@
+"""Shared layers of the port: plain functions on tensors.
+
+Counterparts of the JAX package's ``models/layers.py``, with the same names
+and the same numerics, traps included: RMSNorm scales by ``(1 + scale)``,
+LayerNorm uses the population variance, norms compute in float32, RoPE
+rotates split halves over the full head_dim, gemma2 scales embeddings by
+sqrt(d).  Parameters arrive as mappings of tensors (the ``ParameterDict``s
+of :class:`repro_torch.models.transformer.DenseTransformer`).  The sharding
+hints of the JAX version (``constrain``, ``gather_fsdp``) do nothing on one
+GPU and are dropped.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Mapping, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import mha_flash
+
+Params = Mapping[str, torch.Tensor]
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def apply_norm(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    xf = x.float()
+    if "bias" in p:  # layernorm
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, correction=0)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        y = y * p["scale"] + p["bias"]
+    else:  # rmsnorm
+        ms = (xf * xf).mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + cfg.norm_eps) * (1.0 + p["scale"])
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exponents)                     # (head_dim/2,)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions[..., :, None].float() * freqs      # (..., seq, hd/2)
+    cos = torch.cos(angles)[..., None, :]                 # (..., seq, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# soft capping (gemma2)
+# ---------------------------------------------------------------------------
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    if not cap:
+        return x
+    return torch.tanh(x / cap) * cap
+
+
+# ---------------------------------------------------------------------------
+# feed-forward
+# ---------------------------------------------------------------------------
+
+def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "silu":
+        return F.silu(x)
+    return F.gelu(x, approximate="tanh")
+
+
+def apply_ffn(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    h = _act(x @ p["w_gate"], cfg.activation) * (x @ p["w_up"])
+    return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# embeddings / unembedding
+# ---------------------------------------------------------------------------
+
+def embed_tokens(p: Params, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    x = F.embedding(tokens, p["tok"])
+    if cfg.name.startswith("gemma2"):
+        # the factor is rounded to the activation dtype first, as in JAX
+        # (jnp.asarray(sqrt(d), x.dtype)); computed on the host, so a CUDA
+        # graph captures no host-to-device copy
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype).item()
+    return x
+
+
+def unembed(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    w = p["tok"].T if cfg.tie_embeddings else p["unembed"]
+    logits = (x @ w.to(x.dtype)).float()
+    return softcap(logits, cfg.final_softcap)
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA, sliding window, softcap) with optional KV cache
+# ---------------------------------------------------------------------------
+
+def _attn_mask(
+    q_pos: torch.Tensor,         # (S,) or (B, S)
+    kv_pos: torch.Tensor,        # (T,)
+    window: Optional[int],
+    kv_len_valid: Optional[torch.Tensor],   # (B,)
+    causal: bool = True,
+) -> torch.Tensor:
+    """(..., q, kv) boolean mask: causal, sliding window, cache length."""
+    qp = q_pos[..., :, None]
+    kp = kv_pos[None, :] if q_pos.dim() == 1 else kv_pos[None, None, :]
+    if causal:
+        m = kp <= qp
+    else:
+        m = torch.ones(qp.shape[:-1] + (kv_pos.shape[0],), dtype=torch.bool,
+                       device=kv_pos.device)
+    if window is not None:
+        m = m & (kp > qp - window)
+    if kv_len_valid is not None:
+        if kv_len_valid.dim() == 1 and q_pos.dim() > 1:
+            m = m & (kp < kv_len_valid[:, None, None])
+        else:
+            m = m & (kp < kv_len_valid)
+    return m
+
+
+def attention(
+    p: Params,
+    x: torch.Tensor,                  # (B, S, D)
+    cfg,
+    *,
+    positions: torch.Tensor,          # (B, S)
+    layer_window: Optional[int] = None,
+    cache: Optional[dict] = None,     # {"k","v"}: (B, S_max, nkv, hd); "pos": (B,)
+    causal: bool = True,
+    update_cache: bool = True,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Returns ``(y, (k, v))``: the output and this call's new keys/values.
+
+    With no cache (full-sequence forward, and prefill into an empty cache)
+    the attention is the flash kernel: on the same tokens from position 0
+    it computes what the JAX package's ``_sdpa`` (and ``_sdpa_deferred``
+    against an empty cache) computes.  With a cache and
+    ``update_cache=False`` it is the deferred two-part attention; the
+    caller appends the new keys/values for all layers at once.  The JAX
+    package's in-layer cache update (hybrid and audio decode) is not
+    ported yet."""
+    B, S, D = x.shape
+    h = cfg.resolved_head_dim
+    nh, nkv = cfg.n_heads, cfg.n_kv_heads
+    scale = cfg.attn_logit_scale or (1.0 / math.sqrt(h))
+
+    q = (x @ p["wq"].reshape(D, nh * h)).reshape(B, S, nh, h)
+    k = (x @ p["wk"].reshape(D, nkv * h)).reshape(B, S, nkv, h)
+    v = (x @ p["wv"].reshape(D, nkv * h)).reshape(B, S, nkv, h)
+    if cfg.qk_norm:
+        q = (_rms(q) * p["q_norm"]).to(x.dtype)
+        k = (_rms(k) * p["k_norm"]).to(x.dtype)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is None:
+        out = mha_flash(
+            q, k, v, scale=scale, softcap=cfg.attn_softcap, causal=causal,
+            window=layer_window or 0,
+        )
+    elif not update_cache:
+        out = _sdpa_deferred(
+            q, cache["k"], cache["v"], k, v,
+            scale=scale,
+            softcap_val=cfg.attn_softcap,
+            positions=positions,
+            window=layer_window,
+            kv_valid=cache["pos"],
+        )
+    else:
+        raise NotImplementedError(
+            "in-layer KV-cache update (hybrid / audio decode) is not ported "
+            "yet: ROADMAP.md, Queue 1 item 5"
+        )
+    y = out.reshape(B, S, nh * h) @ p["wo"].reshape(nh * h, D)
+    return y, (k, v)
+
+
+def _rms(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    return xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+
+
+def _sdpa(q, k, v, *, scale, softcap_val, q_pos, kv_pos, window, kv_valid,
+          causal=True):
+    """Grouped-query scaled dot-product attention, reference path."""
+    B, S, NH, H = q.shape
+    NKV = k.shape[2]
+    G = NH // NKV
+    qg = q.reshape(B, S, NKV, G, H)
+    logits = torch.einsum("bsngh,btnh->bngst", qg.float(), k.float())
+    logits = logits * scale
+    logits = softcap(logits, softcap_val)
+    mask = _attn_mask(q_pos, kv_pos, window, kv_valid, causal)  # (S,T) or (B,S,T)
+    if mask.dim() == 2:
+        mask = mask[None, None, None]
+    else:
+        mask = mask[:, None, None]
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bngst,btnh->bsngh", probs.to(v.dtype), v)
+    return out.reshape(B, S, NH, H)
+
+
+def _sdpa_deferred(q, k_cache, v_cache, k_new, v_new, *, scale, softcap_val,
+                   positions, window, kv_valid):
+    """Two-part attention for deferred cache append.
+
+    Scores against the (read-only) cache and against the new tokens are
+    computed separately and softmaxed jointly — equivalent to attending over
+    the updated cache, without writing it.
+    q: (B,S,NH,H); k_cache/v_cache: (B,T,NKV,H); k_new/v_new: (B,S,NKV,H);
+    kv_valid: (B,) number of valid cache entries (== write offset).
+
+    The JAX version multiplies bf16 operands into float32 scores
+    (``preferred_element_type``); ``torch.matmul`` on bf16 returns bf16, so
+    both score operands are upcast to float32 here.  That reads the cache
+    at twice its size; a hand-written decode kernel is later work.
+    """
+    B, S, NH, H = q.shape
+    T = k_cache.shape[1]
+    NKV = k_cache.shape[2]
+    G = NH // NKV
+    qg = q.reshape(B, S, NKV, G, H).float()
+    dev = q.device
+
+    # part 1: existing cache
+    s1 = torch.einsum("bsngh,btnh->bngst", qg, k_cache.float()) * scale
+    s1 = softcap(s1, softcap_val)
+    t = torch.arange(T, device=dev)
+    m1 = t[None, None, :] < kv_valid[:, None, None]              # (B,1,T)
+    m1 = m1 & (t[None, None, :] <= positions[..., None])
+    if window is not None:
+        m1 = m1 & (t[None, None, :] > positions[..., None] - window)
+    s1 = torch.where(m1[:, None, None], s1, NEG_INF)
+
+    # part 2: the new tokens (causal among themselves)
+    s2 = torch.einsum("bsngh,btnh->bngst", qg, k_new.float()) * scale
+    s2 = softcap(s2, softcap_val)
+    new_pos = kv_valid[:, None] + torch.arange(S, device=dev)[None, :]   # (B,S)
+    m2 = new_pos[:, None, :] <= positions[..., None]             # (B,S,S)
+    if window is not None:
+        m2 = m2 & (new_pos[:, None, :] > positions[..., None] - window)
+    s2 = torch.where(m2[:, None, None], s2, NEG_INF)
+
+    probs = torch.softmax(torch.cat([s1, s2], dim=-1), dim=-1)
+    p1, p2 = probs[..., :T], probs[..., T:]
+    out = torch.einsum("bngst,btnh->bsngh", p1.to(v_cache.dtype), v_cache)
+    out = out + torch.einsum("bngst,btnh->bsngh", p2.to(v_new.dtype), v_new)
+    return out.reshape(B, S, NH, H)
+
+
+def append_kv(cache_k, cache_v, new_k, new_v, pos):
+    """One batched cache append for ALL layers, **in place**.
+
+    cache_k/v: (L,B,T,nkv,hd); new_k/v: (L,B,S_new,nkv,hd); pos: (B,).
+    The JAX version returns new arrays; here the cache keeps its storage,
+    because a captured CUDA graph replays against fixed addresses.  As in
+    ``jax.lax.dynamic_update_slice``, each slot's start is clamped so the
+    write stays inside the cache (an idle slot's offset keeps counting up).
+    """
+    L, B, T = cache_k.shape[:3]
+    S_new = new_k.shape[2]
+    rest = tuple(cache_k.shape[3:])
+    start = pos.clamp(0, T - S_new)
+    # row of (slot b, position start[b] + s) in the cache viewed as (L, B*T, ...)
+    rows = (torch.arange(B, device=pos.device)[:, None] * T + start[:, None]
+            + torch.arange(S_new, device=pos.device)[None, :]).reshape(-1)
+    for c, u in ((cache_k, new_k), (cache_v, new_v)):
+        c.view((L, B * T) + rest).index_copy_(
+            1, rows, u.to(c.dtype).reshape((L, B * S_new) + rest))
+    return cache_k, cache_v
