@@ -7,8 +7,9 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
 
 1. device: name, count, power limit; TF32 off for float32 matmuls and
    convolutions;
-2. build: compile the flash-attention kernel for sm_90a with nvcc, print
-   the ptxas register / shared-memory / spill report;
+2. build: compile both kernels (flash attention B1, stream_pack B2) for
+   sm_90a, one nvcc for each source, both started together; print their
+   ptxas register / shared-memory / spill reports;
 3. kernel against its plain PyTorch version on the card over a sweep of
    dtypes, head dims, GQA groups, lengths (ragged ones included), windows,
    soft-caps (with scores large enough for the cap to matter) and masks,
@@ -21,7 +22,22 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    through the kernel (the wrapper's count, and the profiler's count of
    flash kernels inside one prefill replay);
 5. the same code on the card and on the CPU (2 layers, float32, one set of
-   weights): prefill logits within 1e-3 and identical greedy tokens.
+   weights): prefill logits within 1e-3 and identical greedy tokens;
+6. stream_pack kernel against its plain PyTorch version on the card over
+   lanes, shapes (the branchy cells' and a ragged one), dtypes and a shared
+   or separate x, each within atol + rtol*|ref|; then times at the four
+   branchy cells' shapes and one bf16 shape, each call inside a CUDA graph
+   and launched from Python, beside the plain version, one ``torch.matmul``
+   over the broadcast x (a yardstick only: the port never calls it) and the
+   card's bound;
+7. Nimble on the four branchy cells at full size, float32: plain eager
+   PyTorch, ``EagerInterpreter``, ``Nimble`` on one stream, on Algorithm 1's
+   streams (one CUDA graph over several CUDA streams) and packed onto
+   stream_pack; checks each against eager, prints the schedule's counts, the
+   planned arena beside the graph pool's bytes, microseconds per call, the
+   stream_pack kernels the profiler sees inside one packed replay (which
+   must equal the packed mm groups) and the streams it sees in one
+   multi-stream replay.
 
 The line before the last is the per-kernel JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -52,11 +68,15 @@ TOL = {"float32": (1e-4, 0.0), "bfloat16": (1e-2, 1e-2)}
 CAP_Q_SCALE = 8.0
 
 
-def tol_ratio(got, ref, dname: str) -> float:
+def ratio(got, ref, atol: float, rtol: float) -> float:
     """Largest ``|got - ref| / (atol + rtol * |ref|)``: within tolerance at <= 1."""
-    atol, rtol = TOL[dname]
     ref = ref.float()
     return ((got.float() - ref).abs() / (atol + rtol * ref.abs())).max().item()
+
+
+def tol_ratio(got, ref, dname: str) -> float:
+    """:func:`ratio` at flash attention's tolerance for ``dname``."""
+    return ratio(got, ref, *TOL[dname])
 
 
 def fail(msg: str) -> None:
@@ -96,6 +116,25 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def graph_ms(fn, reps: int = 20, iters: int = 50) -> float:
+    """Mean time of one call of ``fn`` inside a CUDA graph of ``reps``
+    back-to-back calls, replayed ``iters`` times: the device's time for the
+    call without the host's cost of launching it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return time_ms(graph.replay, iters) / reps
+
+
 def phase_device():
     import torch
 
@@ -113,16 +152,25 @@ def phase_device():
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.stream_pack import kernel as pack
 
     say("== phase 2: build")
+    sources = [flash.SOURCE, pack.SOURCE]
     t0 = time.perf_counter()
-    build.load(kernel.SOURCE)
-    say(f"built {build.library_path(kernel.SOURCE).name} in {time.perf_counter() - t0:.1f}s")
-    for line in build.build_log(kernel.SOURCE).splitlines():
-        if "ptxas" in line or "spill" in line:
-            say(f"  {line.strip()}")
+    with ThreadPoolExecutor(len(sources)) as pool:      # one nvcc per source
+        list(pool.map(build.build, sources))
+    say(f"built {', '.join(build.library_path(s).name for s in sources)} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    for source in sources:
+        build.load(source)
+        say(f"  {source.name}:")
+        for line in build.build_log(source).splitlines():
+            if "ptxas" in line or "spill" in line:
+                say(f"    {line.strip()}")
 
 
 def _qkv(BH_kv, group, Sq, Skv, hd, dtype, seed):
@@ -388,6 +436,242 @@ def phase_cpu_parity() -> None:
         fail("greedy tokens differ between the card and the CPU")
 
 
+# stream_pack (atol, rtol): float32 differs from its plain version only by
+# summation order; bf16 also by the rounding of the output to bf16
+PACK_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-2)}
+# (lanes, M, K, N) of the packed mm groups of the four branchy cells
+BRANCHY_PACKS = {"darts-like": (7, 8, 64, 64), "nasnet-m-like": (12, 8, 48, 48),
+                 "amoebanet-like": (11, 8, 56, 56), "inception-like": (6, 8, 96, 96)}
+
+
+def _pack_inputs(lanes, M, K, N, dtype, shared, seed):
+    """x (lanes, M, K), a stride-0 broadcast of one (M, K) when shared, and
+    w (lanes, K, N), standard normal on the card."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if shared:
+        x = torch.randn((M, K), generator=g, device="cuda").to(dtype).expand(lanes, M, K)
+    else:
+        x = torch.randn((lanes, M, K), generator=g, device="cuda").to(dtype)
+    w = torch.randn((lanes, K, N), generator=g, device="cuda").to(dtype)
+    return x, w
+
+
+def phase_stream_pack() -> dict:
+    import torch
+
+    from repro_torch.kernels.stream_pack import stream_pack_matmul, stream_pack_matmul_ref
+
+    say("== phase 6: stream_pack kernel vs plain version (tolerance |err| <= atol + "
+        "rtol*|ref|: f32 1e-4 + 1e-5*|ref| for summation order; bf16 1e-2 + "
+        "1e-2*|ref| for the rounding of the output)")
+    shapes = [(16, 16, 16), (64, 32, 16), (128, 128, 128), (256, 64, 128),
+              (8, 64, 64), (8, 48, 48), (8, 56, 56), (8, 96, 96), (32, 256, 256),
+              (200, 72, 40)]
+    worst, n = 0.0, 0
+    for dname in ("float32", "bfloat16"):
+        for lanes in (1, 2, 7, 12):
+            for M, K, N in shapes:
+                for shared in (False, True):
+                    x, w = _pack_inputs(lanes, M, K, N, getattr(torch, dname), shared, seed=n)
+                    # one block per dimension passes the TPU's block check for
+                    # any shape; the CUDA tile still meets the ragged edge
+                    got = stream_pack_matmul(x, w, block_m=M, block_n=N, block_k=K)
+                    ref = stream_pack_matmul_ref(x, w)
+                    torch.cuda.synchronize()
+                    err = (got.float() - ref.float()).abs().max().item()
+                    r = ratio(got, ref, *PACK_TOL[dname])
+                    if not (math.isfinite(err) and r <= 1.0):
+                        fail(f"stream_pack disagrees at {dname} lanes={lanes} M={M} K={K} "
+                             f"N={N} shared={shared}: max_abs_err {err} ({r:.3f} of "
+                             f"tolerance {PACK_TOL[dname]})")
+                    worst, n = max(worst, r), n + 1
+        say(f"  {dname}: lanes 1/2/7/12 x {len(shapes)} shapes x shared/separate x within "
+            f"tolerance")
+    say(f"  {n} cases within tolerance (worst at {worst:.2f} of its tolerance)")
+
+    say("-- timing: the branchy cells' packed mm groups (f32, shared x) and one bf16 shape")
+    record = {}
+    cases = [(name, *lmkn, "float32", True) for name, lmkn in BRANCHY_PACKS.items()]
+    cases.append(("bf16 12x32x256x256", 12, 32, 256, 256, "bfloat16", False))
+    for name, lanes, M, K, N, dname, shared in cases:
+        x, w = _pack_inputs(lanes, M, K, N, getattr(torch, dname), shared, seed=1000 + lanes)
+        got, ref = stream_pack_matmul(x, w), stream_pack_matmul_ref(x, w)
+        err = (got.float() - ref.float()).abs().max().item()
+        if not ratio(got, ref, *PACK_TOL[dname]) <= 1.0:
+            fail(f"stream_pack disagrees at {name}: max_abs_err {err}")
+        calls = {"kernel": lambda: stream_pack_matmul(x, w),
+                 "plain": lambda: stream_pack_matmul_ref(x, w),
+                 "library": lambda: torch.matmul(x, w)}
+        # launched one by one from Python, and inside a CUDA graph
+        eager = {k: time_ms(f, 200) for k, f in calls.items()}
+        graphed = {k: graph_ms(f) for k, f in calls.items()}
+        kernel_ms, plain_ms, library_ms = graphed["kernel"], graphed["plain"], graphed["library"]
+        itemsize = x.element_size()
+        # each input read once (a shared x once, not once per lane), the
+        # output written once
+        nbytes = ((1 if shared else lanes) * M * K + lanes * K * N + lanes * M * N) * itemsize
+        flops = 2.0 * lanes * M * N * K
+        t_ops, t_bytes = flops / PEAK_FLOPS[dname], nbytes / PEAK_BYTES
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        say(f"  {name} (lanes {lanes}, M {M}, K {K}, N {N}, {dname}, shared x {shared}): "
+            f"in a CUDA graph kernel_ms {kernel_ms:.5f} plain_ms {plain_ms:.5f} library_ms "
+            f"{library_ms:.5f} | launched from Python kernel_ms {eager['kernel']:.5f} "
+            f"plain_ms {eager['plain']:.5f} library_ms {eager['library']:.5f} | "
+            f"bound_ms {bound_ms:.6f} ({bound_by}) max_abs_err {err:.3e} | "
+            f"{flops / 1e6:.3f} MFLOP, {nbytes / 1e3:.1f} KB")
+        if name == "darts-like":     # the first cell of the main path's run
+            record = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    return record
+
+
+def kernels_in_one(run) -> list:
+    """The device kernels (torch.profiler events) of one call of ``run``,
+    after one unprofiled call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    return [e for e in prof.events() if "cuda" in str(getattr(e, "device_type", "")).lower()]
+
+
+def span(events) -> str:
+    """Summed kernel time and the device span of one call (µs)."""
+    if not events:
+        return "no device time seen"
+    busy = sum(e.time_range.elapsed_us() for e in events)
+    t0 = min(e.time_range.start for e in events)
+    t1 = max(e.time_range.end for e in events)
+    return f"kernels {busy:.2f} us over a span of {t1 - t0:.2f} us"
+
+
+def phase_nimble() -> tuple[int, int]:
+    import torch
+
+    from repro_torch.configs import branchy_cell
+    from repro_torch.core import EagerInterpreter, Nimble
+    from repro_torch.kernels.stream_pack import kernel as pack
+    from repro_torch.models.branchy import branchy_forward, example_input, init_branchy
+
+    say("== phase 7: Nimble on the four branchy cells, full size, float32, on the card "
+        "(replays within 1e-5 + 1e-5*|ref| of eager: the same aten kernels, cuBLAS may "
+        "pick another algorithm under capture; packed within 1e-4 + 1e-4*|ref|)")
+    configs = [branchy_cell.darts_like(), branchy_cell.nasnet_mobile_like(),
+               branchy_cell.amoebanet_like(), branchy_cell.inception_like()]
+    data = []
+    for cfg in configs:
+        params = init_branchy(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+        data.append((cfg, params, example_input(cfg, 0, device="cuda")))
+    torch.cuda.synchronize()
+
+    pack.launches = 0                     # the main path's run starts here
+    in_replays = 0                        # stream_pack kernels run inside replays
+    mm_groups_total = 0
+    for cfg, params, x in data:
+        def fn(p, x, _cfg=cfg):
+            return branchy_forward(p, x, _cfg)
+
+        with torch.no_grad():
+            ref = fn(params, x).clone()
+        engines, nimbles, pool = {}, {}, {}
+        engines["eager"] = lambda: fn(params, x)
+        engines["interpreter"] = lambda e=EagerInterpreter(fn, params, x): e(params, x)
+        for name, kw in (("single_stream", dict(multi_stream=False)), ("multi_stream", {}),
+                         ("packed", dict(pack_streams=True))):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            nimbles[name] = Nimble(fn, params, x, **kw)
+            torch.cuda.synchronize()
+            pool[name] = torch.cuda.memory_allocated() - before
+            engines[name] = lambda n=nimbles[name]: n(params, x)
+        st = nimbles["multi_stream"].stats
+        report = nimbles["packed"].schedule.pack_report
+        mm_groups = sum(1 for op, _ in report.groups if op == "mm")
+        mm_groups_total += mm_groups
+        packed_replays = 0
+        say(f"  {cfg.name}: {st.num_tasks} tasks, {st.num_streams} streams, {st.num_syncs} "
+            f"syncs, degree {st.degree_of_concurrency}, pack groups {report.groups} "
+            f"({report.baked_groups} baked)")
+        say(f"    planned arena_bytes {st.arena_bytes} | graph pool bytes (change of "
+            f"memory_allocated across schedule): single {pool['single_stream']}, multi "
+            f"{pool['multi_stream']}, packed {pool['packed']} (packed includes its "
+            f"pre-stacked weights)")
+
+        # correctness: each engine against eager, then each replay on
+        # another input, which it copies into its static input x (shared by
+        # the three schedules; restored from x0 after each)
+        tols = {"interpreter": (1e-5, 1e-5), "single_stream": (1e-5, 1e-5),
+                "multi_stream": (1e-5, 1e-5), "packed": (1e-4, 1e-4)}
+        x0, x2 = x.clone(), example_input(cfg, 1, device="cuda")
+        with torch.no_grad():
+            ref2 = fn(params, x2).clone()
+        for name, (atol, rtol) in tols.items():
+            got = engines[name]().clone()
+            torch.cuda.synchronize()
+            if got.shape != ref.shape or not torch.isfinite(got).all():
+                fail(f"{cfg.name} {name}: shape {tuple(got.shape)} or non-finite output")
+            r = ratio(got, ref, atol, rtol)
+            if not r <= 1.0:
+                fail(f"{cfg.name} {name} differs from eager: {r:.3f} of tolerance")
+            if name in nimbles:
+                got2 = nimbles[name](params, x2).clone()
+                x.copy_(x0)
+                r2 = ratio(got2, ref2, atol, rtol)
+                if not r2 <= 1.0:
+                    fail(f"{cfg.name} {name} on another input: {r2:.3f} of tolerance")
+            packed_replays += 2 if name == "packed" else 0
+        if not torch.equal(x, x0):
+            fail(f"{cfg.name}: the static input was not restored")
+        torch.cuda.synchronize()
+
+        iters = 200
+        us = {name: time_ms(run, iters, warmup=5) * 1e3 for name, run in engines.items()}
+        packed_replays += iters + 5
+        say("    us per call (CUDA events, mean of 200 after 5 warm-up): " + " | ".join(
+            f"{name} {v:.2f}" for name, v in us.items())
+            + f" | multi/single {us['single_stream'] / us['multi_stream']:.3f}x")
+
+        for name in ("single_stream", "multi_stream"):
+            events = kernels_in_one(engines[name])
+            ids = sorted({getattr(e, "device_resource_id", None) for e in events} - {None})
+            say(f"    one {name} replay: {len(events)} device ops on "
+                f"{len(ids) if ids else 'not measured'} stream ids {ids[:48]}; {span(events)}")
+            if name == "single_stream":
+                by_name: dict[str, list[float]] = {}
+                for e in events:
+                    by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+                top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:3]
+                say("      top kernels: " + " | ".join(
+                    f"{sum(v):.2f} us x{len(v)} {k[:70]}" for k, v in top))
+        events = kernels_in_one(engines["packed"])
+        packed_replays += 2
+        b2 = sum(1 for e in events if "stream_pack_" in e.name)
+        say(f"    one packed replay: {len(events)} device ops, {b2} stream_pack kernels "
+            f"for {mm_groups} mm pack groups (torch.profiler); {span(events)}")
+        if b2 != mm_groups:
+            fail(f"{cfg.name}: the profiler saw {b2} stream_pack kernels in a packed "
+                 f"replay for {mm_groups} mm groups")
+        in_replays += b2 * packed_replays
+    torch.cuda.synchronize()
+    launches = pack.launches             # ... and ends here
+    say(f"stream_pack wrapper calls {launches} (one warm-up run and one graph capture, "
+        f"which records the kernel without running it, per mm group); {in_replays} run "
+        f"inside the packed replays (the profiler's count in one replay times the "
+        f"replays of each cell)")
+    if launches != 2 * mm_groups_total:
+        fail(f"stream_pack launched {launches} times for {mm_groups_total} packed mm "
+             f"groups: not on Nimble's packed path")
+    return launches, in_replays
+
+
 def main() -> None:
     t_start = time.perf_counter()
     try:
@@ -404,13 +688,20 @@ def main() -> None:
     record = phase_kernel()
     launches, in_replays = phase_serve()
     phase_cpu_parity()
-    # launches: the wrapper's count over the main path's run; launches_in_replays:
-    # the kernels its CUDA-graph replays ran, which bypass the wrapper
+    pack_record = phase_stream_pack()
+    pack_launches, pack_in_replays = phase_nimble()
+    # launches: the wrapper's count over its path's run; launches_in_replays:
+    # the kernels that path's CUDA-graph replays ran, which bypass the wrapper
     kernels = [dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:94",
         launches=launches, launches_in_replays=in_replays, **record,
+    ), dict(
+        name="stream_pack_matmul", route="cuda",
+        source="src/repro_torch/kernels/stream_pack/csrc/stream_pack.cu",
+        replaces="src/repro/kernels/stream_pack/kernel.py:46",
+        launches=pack_launches, launches_in_replays=pack_in_replays, **pack_record,
     )]
     say(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     say(json.dumps({"kernels": kernels}))

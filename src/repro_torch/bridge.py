@@ -5,6 +5,7 @@ seed, so parity tests make the weights once, in JAX, and move them over::
 
     np_tree = jax.tree_util.tree_map(np.asarray, params)
     model = params_from_jax(np_tree, cfg, device="cpu")
+    branchy = branchy_params_from_jax(np_tree, device="cpu")
 
 This module imports no JAX: it takes the parameter tree as nested dicts of
 numpy arrays, with the JAX package's leading layer axis on ``layers``.
@@ -65,3 +66,10 @@ def params_from_jax(np_tree: Mapping, cfg, *, device="cuda",
             raise ValueError(f"{name}: JAX shape {tuple(src.shape)} != {tuple(t.shape)}")
         t.copy_(src.to(t.dtype))
     return model
+
+
+def branchy_params_from_jax(np_tree: Mapping, *, device="cuda") -> dict[str, torch.Tensor]:
+    """The branchy cells' parameters (``models/branchy.py``): a flat dict of
+    numpy arrays becomes a dict of tensors of the same names, dtypes and
+    shapes on ``device``."""
+    return {name: _to_tensor(np.asarray(a)).to(device) for name, a in np_tree.items()}

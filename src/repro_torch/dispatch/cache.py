@@ -1,9 +1,9 @@
 """Schedule cache: amortize the AoT pre-run across tenants and requests.
 
 The port's copy of the JAX package's ``dispatch/cache.py``.  It caches what
-the serving engine seals: a captured CUDA graph on the card, an eager
-callable on the CPU.  ``get_or_schedule`` (the ``TaskSchedule`` path) waits
-for the core slice.
+the serving engine seals (a captured CUDA graph on the card, an eager
+callable on the CPU) and, through ``get_or_schedule``, the ``TaskSchedule``
+that ``Nimble`` seals.
 
 Nimble (paper §4.1) pays the pre-run once per (function, shape) and replays
 forever after.  Under multi-tenant traffic the same (function, shape)
@@ -20,8 +20,9 @@ bounded cache:
   caps the sum — LRU entries are evicted until the total fits, so the
   reserved-arena footprint of the cache never exceeds the budget.  The
   bytes come from the caller's ``arena_bytes=`` (the serving engine
-  derives them from its buffer shapes); the entry-count ``capacity``
-  stays as a fallback ceiling for artifacts that report 0;
+  derives them from its buffer shapes) or a ``TaskSchedule``'s
+  ``stats.arena_bytes``; the entry-count ``capacity`` stays as a fallback
+  ceiling for artifacts that report 0;
 * build-coalescing: concurrent callers that miss on the same key wait on one
   per-key build lock, so a pre-run is never duplicated;
 * optionally **budget-pooled**: a :class:`MemoryBudget` shared by several
@@ -46,6 +47,7 @@ import time
 from collections import OrderedDict
 from typing import Any, Callable, Optional
 
+from repro_torch.core.aot import AoTScheduler, ScheduleKey, TaskSchedule
 from repro_torch.obs.tracer import get_tracer
 
 
@@ -204,21 +206,30 @@ class MemoryBudget:
 
 
 def _arena_bytes(value: Any, explicit: Optional[int] = None) -> int:
-    """Reserved arena estimate of a cached artifact: the caller's
-    ``explicit`` estimate (the serving engine derives one from its buffer
-    shapes), else 0.  Artifacts reporting 0 remain governed by the
-    entry-count ``capacity`` ceiling rather than the byte budget."""
+    """Reserved arena estimate of a cached artifact.
+
+    Resolution order: an ``explicit`` caller-provided estimate (the serving
+    engine derives one from its buffer shapes); then ``stats.arena_bytes``
+    (``TaskSchedule`` carries it); else 0.  Artifacts reporting 0 remain
+    governed by the entry-count ``capacity`` ceiling rather than the byte
+    budget."""
     if explicit is not None:
         return max(0, int(explicit))
-    return 0
+    return max(0, int(getattr(getattr(value, "stats", None), "arena_bytes", 0)))
 
 
 class ScheduleCache:
     """LRU cache of sealed schedules/executables with build coalescing.
 
-    Entry point: :meth:`get_or_build` — any hashable key, any builder
-    producing a sealed artifact (the serving engine caches its sealed
-    decode step and prefill buckets this way).
+    Two entry points:
+
+    * :meth:`get_or_schedule` — the Nimble path: key derived from
+      ``(fn, example_args, scheduler.options_key())``, value a
+      :class:`~repro_torch.core.aot.TaskSchedule` produced by the
+      scheduler's pre-run.
+    * :meth:`get_or_build` — the generic path: any hashable key, any builder
+      producing a sealed artifact (the serving engine caches its sealed
+      decode step and prefill buckets this way).
 
     Bounded two ways: ``capacity`` caps the entry count (always), and
     ``byte_budget`` — when set — caps the summed ``arena_bytes`` of the
@@ -232,6 +243,7 @@ class ScheduleCache:
         *,
         byte_budget: Optional[int] = None,
         budget: Optional[MemoryBudget] = None,
+        scheduler: Optional[AoTScheduler] = None,
         tracer: Optional[Any] = None,
     ) -> None:
         if capacity < 1:
@@ -243,6 +255,7 @@ class ScheduleCache:
         # shared cross-cache pool (MemoryBudget): every byte-total change
         # is charged to it, and inserts trigger a pool rebalance
         self.budget = budget
+        self.scheduler = scheduler or AoTScheduler()
         self.tracer = tracer if tracer is not None else get_tracer()
         self.stats = CacheStats()
         self._entries: "OrderedDict[Any, _Entry]" = OrderedDict()
@@ -398,6 +411,26 @@ class ScheduleCache:
             if self.budget is not None:
                 self.budget.rebalance()   # outside _mu: see MemoryBudget
             return value
+
+    def get_or_schedule(
+        self,
+        fn: Callable,
+        *example_args: Any,
+        scheduler: Optional[AoTScheduler] = None,
+        fn_id: Optional[str] = None,
+        key: Optional[ScheduleKey] = None,
+    ) -> TaskSchedule:
+        """The Nimble path: one shared pre-run per (fn, shapes, options).
+
+        ``key`` lets a caller that already derived the :class:`ScheduleKey`
+        (``Nimble.prepare`` does, to detect no-op re-prepares) skip the
+        second flatten of the argument pytree."""
+        sched = scheduler or self.scheduler
+        if key is None:
+            key = sched.schedule_key(fn, *example_args, fn_id=fn_id)
+        return self.get_or_build(
+            key, lambda: sched.schedule(fn, *example_args), pin=fn
+        )
 
     def snapshot(self) -> dict:
         """Cache state for metrics: stats plus per-entry memory accounting.

@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch/`` and not
 ``chip_smoke.py`` imports ``jax`` or anything of the JAX package
-``repro``, and importing the serving stack loads no JAX."""
+``repro``, and importing the serving stack or Nimble's core loads no JAX."""
 
 import ast
 import os
@@ -37,7 +37,10 @@ def test_port_file_list_is_complete():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for must in ("chip_smoke.py", "src/repro_torch/serving/engine.py",
                  "src/repro_torch/kernels/flash_attention/kernel.py",
-                 "src/repro_torch/launch/serve.py", "src/repro_torch/bridge.py"):
+                 "src/repro_torch/launch/serve.py", "src/repro_torch/bridge.py",
+                 "src/repro_torch/kernels/stream_pack/kernel.py",
+                 "src/repro_torch/core/aot.py", "src/repro_torch/core/trace.py",
+                 "src/repro_torch/core/rewriter.py", "src/repro_torch/models/branchy.py"):
         assert must in names
 
 
@@ -45,6 +48,7 @@ def test_importing_the_serving_stack_loads_no_jax():
     code = (
         "import sys\n"
         "import repro_torch.serving, repro_torch.launch.serve, repro_torch.bridge\n"
+        "import repro_torch.core, repro_torch.models.branchy, repro_torch.kernels.stream_pack\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )
