@@ -328,21 +328,38 @@ def phase_serve() -> tuple[int, int | None]:
     return launches, in_replays
 
 
-def device_kernels(fn) -> list[tuple[float, int, str]]:
-    """(device µs, count, name) of each kernel one call of ``fn`` runs, by
-    torch.profiler, after one unprofiled call."""
+def kernels_in_one(run, attempts: int = 3) -> list:
+    """The device kernels (torch.profiler events) of one call of ``run``,
+    after one unprofiled call.  A profiling session that records no device
+    event at all (an H100 run has returned an empty activity buffer for a
+    replay whose outputs were right) is a failed reading, not a count, and
+    is taken again, up to ``attempts`` sessions."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad():
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
+    events: list = []
+    for _ in range(attempts):
+        with torch.no_grad():
+            run()
             torch.cuda.synchronize()
-    rows = [(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0),
-             e.count, e.key) for e in prof.key_averages()]
-    return [r for r in rows if r[0] > 0]
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if "cuda" in str(getattr(e, "device_type", "")).lower()]
+        if events:
+            break
+        say("    (the profiler recorded no device event: profiling again)")
+    return events
+
+
+def by_kernel(events) -> list[tuple[float, int, str]]:
+    """(device µs, count, name) of each kernel among ``events``."""
+    by_name: dict[str, tuple[float, int]] = {}
+    for e in events:
+        us, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), count + 1)
+    return [(us, count, name) for name, (us, count) in by_name.items()]
 
 
 def step_breakdown(engine) -> int | None:
@@ -367,7 +384,7 @@ def step_breakdown(engine) -> int | None:
     # kernels that one replay runs on the card
     b = engine.prompt_buckets[-1]
     exe, padded = engine._get_prefill_exec(b), torch.zeros((1, b), dtype=torch.long)
-    rows = device_kernels(lambda: exe(params, cache, padded, 0, b))
+    rows = by_kernel(kernels_in_one(lambda: exe(params, cache, padded, 0, b)))
     per_replay = None
     if rows:
         per_replay = sum(c for _, c, key in rows if "flash_fwd" in key)
@@ -387,7 +404,7 @@ def step_breakdown(engine) -> int | None:
             torch.tensor(0, device=dev), torch.tensor(512, device=dev)),
     }
     for name, fn in eager.items():
-        rows = device_kernels(fn)
+        rows = by_kernel(kernels_in_one(fn))
         total = sum(r[0] for r in rows)
         if total <= 0:
             say(f"eager {name}: the profiler saw no device time")
@@ -528,21 +545,6 @@ def phase_stream_pack() -> dict:
     return record
 
 
-def kernels_in_one(run) -> list:
-    """The device kernels (torch.profiler events) of one call of ``run``,
-    after one unprofiled call."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with torch.no_grad():
-        run()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-    return [e for e in prof.events() if "cuda" in str(getattr(e, "device_type", "")).lower()]
-
-
 def span(events) -> str:
     """Summed kernel time and the device span of one call (µs)."""
     if not events:
@@ -645,14 +647,17 @@ def phase_nimble() -> tuple[int, int]:
             say(f"    one {name} replay: {len(events)} device ops on "
                 f"{len(ids) if ids else 'not measured'} stream ids {ids[:48]}; {span(events)}")
             if name == "single_stream":
-                by_name: dict[str, list[float]] = {}
-                for e in events:
-                    by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
-                top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:3]
+                top = sorted(by_kernel(events), reverse=True)[:3]
                 say("      top kernels: " + " | ".join(
-                    f"{sum(v):.2f} us x{len(v)} {k[:70]}" for k, v in top))
-        events = kernels_in_one(engines["packed"])
-        packed_replays += 2
+                    f"{us:.2f} us x{count} {key[:70]}" for us, count, key in top))
+        calls = [0]
+
+        def packed_replay():
+            calls[0] += 1
+            return engines["packed"]()
+
+        events = kernels_in_one(packed_replay)
+        packed_replays += calls[0]
         b2 = sum(1 for e in events if "stream_pack_" in e.name)
         say(f"    one packed replay: {len(events)} device ops, {b2} stream_pack kernels "
             f"for {mm_groups} mm pack groups (torch.profiler); {span(events)}")
