@@ -33,11 +33,15 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
 7. Nimble on the four branchy cells at full size, float32: plain eager
    PyTorch, ``EagerInterpreter``, ``Nimble`` on one stream, on Algorithm 1's
    streams (one CUDA graph over several CUDA streams) and packed onto
-   stream_pack; checks each against eager, prints the schedule's counts, the
-   planned arena beside the graph pool's bytes, microseconds per call, the
-   stream_pack kernels the profiler sees inside one packed replay (which
-   must equal the packed mm groups) and the streams it sees in one
-   multi-stream replay.
+   stream_pack; checks each against eager, and each replay on another input
+   and on other weights; prints the schedule's counts, the planned arena
+   beside the graph pool's bytes, microseconds per call, the stream_pack
+   kernels the profiler sees inside one packed replay (which must equal the
+   packed mm groups) and the streams it sees in one multi-stream replay.
+
+Each profiled graph replay has its outputs poisoned before it and must
+give them back right, so a replay that ran nothing cannot pass as a
+profiler that saw nothing.
 
 The line before the last is the per-kernel JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -266,6 +270,9 @@ def phase_kernel() -> dict:
 
 
 def phase_serve() -> tuple[int, int | None]:
+    """Returns the flash wrapper's calls over the served run, and the flash
+    kernels the profiler saw in one profiled prefill replay (None if it saw
+    no device time there)."""
     import numpy as np
     import torch
 
@@ -321,35 +328,70 @@ def phase_serve() -> tuple[int, int | None]:
     if st.prefill_replays != len(reqs) or st.decode_replays != st.steps:
         fail(f"graph replays: prefill {st.prefill_replays}, decode "
              f"{st.decode_replays} over {st.steps} steps")
-    per_replay = step_breakdown(engine)
-    in_replays = None if per_replay is None else st.prefill_replays * per_replay
-    say(f"flash kernels run inside the {st.prefill_replays} prefill replays: "
-        f"{'not measured' if in_replays is None else in_replays}")
+    in_replays = step_breakdown(engine)
     return launches, in_replays
 
 
-def kernels_in_one(run, attempts: int = 3) -> list:
+def _poison(out) -> None:
+    """Fill the tensors ``out`` holds with values no run writes: NaN, or -1
+    where they hold integers (token ids)."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    for t in pytree.tree_leaves(out):
+        if isinstance(t, torch.Tensor):
+            t.fill_(float("nan") if t.is_floating_point() else -1)
+
+
+def _same_outputs(got, want) -> bool:
+    import torch
+    from torch.utils import _pytree as pytree
+
+    got = [t for t in pytree.tree_leaves(got) if isinstance(t, torch.Tensor)]
+    want = [t for t in pytree.tree_leaves(want) if isinstance(t, torch.Tensor)]
+    return len(got) == len(want) and all(
+        g.shape == w.shape and bool(torch.isfinite(g.float()).all())
+        and ratio(g, w, 1e-5, 1e-5) <= 1.0 for g, w in zip(got, want))
+
+
+def kernels_in_one(run, check: bool = True, attempts: int = 3) -> list:
     """The device kernels (torch.profiler events) of one call of ``run``,
-    after one unprofiled call.  A profiling session that records no device
-    event at all (an H100 run has returned an empty activity buffer for a
-    replay whose outputs were right) is a failed reading, not a count, and
-    is taken again, up to ``attempts`` sessions."""
+    after one unprofiled call.
+
+    With ``check`` (a call that computes the same outputs each time, as a
+    graph replay does) the outputs of the call before are poisoned before
+    each profiled call (a graph replay writes into those same tensors
+    anew), and the profiled call must give the unprofiled call's outputs
+    again: one that ran nothing fails the run.  Only then is a session that
+    recorded no device event at all a failed reading (an H100 run has once
+    returned an empty activity buffer for a replay), taken again, up to
+    ``attempts`` sessions.  Without ``check`` (a call that moves state, as an
+    eager decode step does) one session is taken."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from torch.utils import _pytree as pytree
 
     events: list = []
-    for _ in range(attempts):
-        with torch.no_grad():
-            run()
-            torch.cuda.synchronize()
+    with torch.no_grad():
+        last = run()
+        torch.cuda.synchronize()
+        want = pytree.tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, last)
+        for _ in range(attempts if check else 1):
+            if check:
+                _poison(last)
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                run()
+                last = run()
                 torch.cuda.synchronize()
-        events = [e for e in prof.events()
-                  if "cuda" in str(getattr(e, "device_type", "")).lower()]
-        if events:
-            break
-        say("    (the profiler recorded no device event: profiling again)")
+            if check and not _same_outputs(last, want):
+                fail("a profiled call did not give the outputs of the call before it: "
+                     "it ran nothing, or not all of its work")
+            events = [e for e in prof.events()
+                      if "cuda" in str(getattr(e, "device_type", "")).lower()]
+            if events:
+                break
+            if check:
+                say("    (the profiler recorded no device event for a call whose outputs "
+                    "were right: profiling again)")
     return events
 
 
@@ -404,7 +446,7 @@ def step_breakdown(engine) -> int | None:
             torch.tensor(0, device=dev), torch.tensor(512, device=dev)),
     }
     for name, fn in eager.items():
-        rows = by_kernel(kernels_in_one(fn))
+        rows = by_kernel(kernels_in_one(fn, check=False))
         total = sum(r[0] for r in rows)
         if total <= 0:
             say(f"eager {name}: the profiler saw no device time")
@@ -555,7 +597,10 @@ def span(events) -> str:
     return f"kernels {busy:.2f} us over a span of {t1 - t0:.2f} us"
 
 
-def phase_nimble() -> tuple[int, int]:
+def phase_nimble() -> tuple[int, int, int]:
+    """Returns the stream_pack wrapper's calls over the run, the
+    stream_pack kernels the profiler saw in the profiled packed replays, and
+    the number of those replays (one per cell)."""
     import torch
 
     from repro_torch.configs import branchy_cell
@@ -570,51 +615,50 @@ def phase_nimble() -> tuple[int, int]:
                branchy_cell.amoebanet_like(), branchy_cell.inception_like()]
     data = []
     for cfg in configs:
-        params = init_branchy(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
-        data.append((cfg, params, example_input(cfg, 0, device="cuda")))
+        params, other = (init_branchy(torch.Generator(device="cuda").manual_seed(seed), cfg,
+                                      device="cuda") for seed in (0, 1))
+        data.append((cfg, params, other, example_input(cfg, 0, device="cuda")))
     torch.cuda.synchronize()
 
     pack.launches = 0                     # the main path's run starts here
-    in_replays = 0                        # stream_pack kernels run inside replays
+    in_replays = 0                        # stream_pack kernels seen in profiled replays
     mm_groups_total = 0
-    for cfg, params, x in data:
+    for cfg, params, other, x in data:
         def fn(p, x, _cfg=cfg):
             return branchy_forward(p, x, _cfg)
 
         with torch.no_grad():
             ref = fn(params, x).clone()
-        engines, nimbles, pool = {}, {}, {}
+        engines, nimbles = {}, {}
         engines["eager"] = lambda: fn(params, x)
         engines["interpreter"] = lambda e=EagerInterpreter(fn, params, x): e(params, x)
         for name, kw in (("single_stream", dict(multi_stream=False)), ("multi_stream", {}),
                          ("packed", dict(pack_streams=True))):
-            torch.cuda.synchronize()
-            before = torch.cuda.memory_allocated()
             nimbles[name] = Nimble(fn, params, x, **kw)
-            torch.cuda.synchronize()
-            pool[name] = torch.cuda.memory_allocated() - before
             engines[name] = lambda n=nimbles[name]: n(params, x)
         st = nimbles["multi_stream"].stats
         report = nimbles["packed"].schedule.pack_report
         mm_groups = sum(1 for op, _ in report.groups if op == "mm")
         mm_groups_total += mm_groups
-        packed_replays = 0
         say(f"  {cfg.name}: {st.num_tasks} tasks, {st.num_streams} streams, {st.num_syncs} "
             f"syncs, degree {st.degree_of_concurrency}, pack groups {report.groups} "
             f"({report.baked_groups} baked)")
-        say(f"    planned arena_bytes {st.arena_bytes} | graph pool bytes (change of "
-            f"memory_allocated across schedule): single {pool['single_stream']}, multi "
-            f"{pool['multi_stream']}, packed {pool['packed']} (packed includes its "
-            f"pre-stacked weights)")
+        pool = {name: n.stats.device_bytes for name, n in nimbles.items()}
+        say(f"    planned arena_bytes {st.arena_bytes} | graph pool bytes (ScheduleStats."
+            f"device_bytes, the change of memory_allocated across schedule): single "
+            f"{pool['single_stream']}, multi {pool['multi_stream']}, packed {pool['packed']} "
+            f"(packed includes its pre-stacked weights)")
 
         # correctness: each engine against eager, then each replay on
-        # another input, which it copies into its static input x (shared by
-        # the three schedules; restored from x0 after each)
+        # another input and on other weights, which it copies into its
+        # static inputs (shared by the three schedules; the packed one
+        # re-stacks the weights it baked): restored after each from copies
         tols = {"interpreter": (1e-5, 1e-5), "single_stream": (1e-5, 1e-5),
                 "multi_stream": (1e-5, 1e-5), "packed": (1e-4, 1e-4)}
         x0, x2 = x.clone(), example_input(cfg, 1, device="cuda")
+        p0 = {k: v.clone() for k, v in params.items()}
         with torch.no_grad():
-            ref2 = fn(params, x2).clone()
+            ref2, ref3 = fn(params, x2).clone(), fn(other, x2).clone()
         for name, (atol, rtol) in tols.items():
             got = engines[name]().clone()
             torch.cuda.synchronize()
@@ -625,18 +669,20 @@ def phase_nimble() -> tuple[int, int]:
                 fail(f"{cfg.name} {name} differs from eager: {r:.3f} of tolerance")
             if name in nimbles:
                 got2 = nimbles[name](params, x2).clone()
-                x.copy_(x0)
-                r2 = ratio(got2, ref2, atol, rtol)
-                if not r2 <= 1.0:
-                    fail(f"{cfg.name} {name} on another input: {r2:.3f} of tolerance")
-            packed_replays += 2 if name == "packed" else 0
-        if not torch.equal(x, x0):
-            fail(f"{cfg.name}: the static input was not restored")
+                got3 = nimbles[name](other, x2).clone()
+                back = nimbles[name](p0, x0).clone()
+                for what, g, want in (("another input", got2, ref2),
+                                      ("other weights", got3, ref3),
+                                      ("the first weights again", back, ref)):
+                    r2 = ratio(g, want, atol, rtol)
+                    if not r2 <= 1.0:
+                        fail(f"{cfg.name} {name} on {what}: {r2:.3f} of tolerance")
+        if not (torch.equal(x, x0) and all(torch.equal(params[k], p0[k]) for k in p0)):
+            fail(f"{cfg.name}: the static inputs were not restored")
         torch.cuda.synchronize()
 
         iters = 200
         us = {name: time_ms(run, iters, warmup=5) * 1e3 for name, run in engines.items()}
-        packed_replays += iters + 5
         say("    us per call (CUDA events, mean of 200 after 5 warm-up): " + " | ".join(
             f"{name} {v:.2f}" for name, v in us.items())
             + f" | multi/single {us['single_stream'] / us['multi_stream']:.3f}x")
@@ -650,31 +696,24 @@ def phase_nimble() -> tuple[int, int]:
                 top = sorted(by_kernel(events), reverse=True)[:3]
                 say("      top kernels: " + " | ".join(
                     f"{us:.2f} us x{count} {key[:70]}" for us, count, key in top))
-        calls = [0]
-
-        def packed_replay():
-            calls[0] += 1
-            return engines["packed"]()
-
-        events = kernels_in_one(packed_replay)
-        packed_replays += calls[0]
+        events = kernels_in_one(engines["packed"])
         b2 = sum(1 for e in events if "stream_pack_" in e.name)
         say(f"    one packed replay: {len(events)} device ops, {b2} stream_pack kernels "
             f"for {mm_groups} mm pack groups (torch.profiler); {span(events)}")
         if b2 != mm_groups:
             fail(f"{cfg.name}: the profiler saw {b2} stream_pack kernels in a packed "
                  f"replay for {mm_groups} mm groups")
-        in_replays += b2 * packed_replays
+        in_replays += b2
     torch.cuda.synchronize()
     launches = pack.launches             # ... and ends here
     say(f"stream_pack wrapper calls {launches} (one warm-up run and one graph capture, "
-        f"which records the kernel without running it, per mm group); {in_replays} run "
-        f"inside the packed replays (the profiler's count in one replay times the "
-        f"replays of each cell)")
+        f"which records the kernel without running it, per mm group); the profiler saw "
+        f"{in_replays} stream_pack kernels in the {len(data)} profiled packed replays, "
+        f"one per cell")
     if launches != 2 * mm_groups_total:
         fail(f"stream_pack launched {launches} times for {mm_groups_total} packed mm "
              f"groups: not on Nimble's packed path")
-    return launches, in_replays
+    return launches, in_replays, len(data)
 
 
 def main() -> None:
@@ -694,19 +733,22 @@ def main() -> None:
     launches, in_replays = phase_serve()
     phase_cpu_parity()
     pack_record = phase_stream_pack()
-    pack_launches, pack_in_replays = phase_nimble()
+    pack_launches, pack_in_replays, pack_profiled = phase_nimble()
     # launches: the wrapper's count over its path's run; launches_in_replays:
-    # the kernels that path's CUDA-graph replays ran, which bypass the wrapper
+    # the kernels the profiler saw in the path's profiled CUDA-graph
+    # replays (profiled_replays of them), which bypass the wrapper
     kernels = [dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:94",
-        launches=launches, launches_in_replays=in_replays, **record,
+        launches=launches, launches_in_replays=in_replays,
+        profiled_replays=0 if in_replays is None else 1, **record,
     ), dict(
         name="stream_pack_matmul", route="cuda",
         source="src/repro_torch/kernels/stream_pack/csrc/stream_pack.cu",
         replaces="src/repro/kernels/stream_pack/kernel.py:46",
-        launches=pack_launches, launches_in_replays=pack_in_replays, **pack_record,
+        launches=pack_launches, launches_in_replays=pack_in_replays,
+        profiled_replays=pack_profiled, **pack_record,
     )]
     say(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     say(json.dumps({"kernels": kernels}))

@@ -109,6 +109,12 @@ class ScheduleStats:
     arena_reuse_factor: float
     prerun_seconds: float
     compile_seconds: float           # warm-up + CUDA-graph capture
+    # what the schedule holds on the card: the change of
+    # torch.cuda.memory_allocated across schedule() (the graph pool, which
+    # keeps every intermediate, the baked weight stacks and one cuBLAS
+    # workspace per stream; allocations by other threads meanwhile count
+    # too).  0 on the CPU
+    device_bytes: int = 0
 
 
 @dataclasses.dataclass
@@ -132,7 +138,8 @@ class TaskSchedule:
         synchronisation.  The outputs are the graph's static output tensors:
         the next replay overwrites them, so copy what must outlive it.
         Calling with other tensors than the example ones therefore also
-        writes into the example tensors.
+        writes into the example tensors; weights a packed schedule baked
+        are then re-stacked from them before the launch.
         """
         return self.traced.unflatten_out(self.executable(self.traced.flatten_args(args)))
 
@@ -210,10 +217,14 @@ class _CapturedGraph:
     kept too, with what it holds: the streams and events of a multi-stream
     plan, the weights a packed plan stacked at schedule time (which the
     graph reads, and which would otherwise go back to the allocator).
+    ``refresh`` runs before each launch, after the arguments are copied in:
+    a packed plan's ``refresh_baked``.
     """
 
-    def __init__(self, run: Callable, static_in: list, device: torch.device):
+    def __init__(self, run: Callable, static_in: list, device: torch.device,
+                 refresh: Callable[[], None] = lambda: None):
         self._run = run
+        self._refresh = refresh
         self.static_in = static_in
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
@@ -233,6 +244,7 @@ class _CapturedGraph:
                 if a.shape != buf.shape:
                     raise TypeError(f"argument shape {tuple(a.shape)} != sealed {tuple(buf.shape)}")
                 buf.copy_(a)
+        self._refresh()
         self.graph.replay()
         return self.static_out
 
@@ -261,8 +273,8 @@ class AoTScheduler:
         self.multi_stream = multi_stream
         self.pack_streams = pack_streams
         # AoT argument preparation: pre-stack lane inputs that are function
-        # inputs (weights).  Inference-only discipline — Nimble's static-
-        # network assumption; turn off when inputs change across calls.
+        # inputs (weights) at schedule time, re-stacked only when written;
+        # off, every packed replay stacks them
         self.bake_weights = bake_weights
 
     def options_key(self) -> tuple[tuple[str, Any], ...]:
@@ -275,12 +287,8 @@ class AoTScheduler:
             ("pack_streams", self.pack_streams),
         )
 
-    def schedule_key(
-        self, fn: Callable, *example_args: Any, fn_id: Optional[str] = None
-    ) -> ScheduleKey:
-        return ScheduleKey.from_call(
-            fn, example_args, self.options_key(), fn_id=fn_id
-        )
+    def schedule_key(self, fn: Callable, *example_args: Any) -> ScheduleKey:
+        return ScheduleKey.from_call(fn, example_args, self.options_key())
 
     def schedule(self, fn: Callable, *example_args: Any) -> TaskSchedule:
         t0 = time.perf_counter()
@@ -288,6 +296,8 @@ class AoTScheduler:
         # --- pre-run: trace ----------------------------------------------
         flat = pytree.tree_leaves(example_args)
         device = _device_of(flat)
+        on_card = device.type == "cuda"
+        bytes_before = torch.cuda.memory_allocated(device) if on_card else 0
         traced = trace_to_taskgraph(fn, *example_args)
 
         # --- stream assignment (Algorithm 1) ----------------------------
@@ -303,7 +313,7 @@ class AoTScheduler:
             )
 
         # --- how the seal runs the tasks ---------------------------------
-        report = None
+        report, refresh = None, (lambda: None)
         if self.pack_streams and self.multi_stream:
             from .rewriter import pack_streams_fn
 
@@ -311,8 +321,8 @@ class AoTScheduler:
                 fn, traced, sa,
                 example_args=example_args if self.bake_weights else (),
             )
-            run, report = packed.run_flat, packed.report
-        elif self.multi_stream and device.type == "cuda":
+            run, report, refresh = packed.run_flat, packed.report, packed.refresh_baked
+        elif self.multi_stream and on_card:
             run = _StreamPlan(traced, sa, device).run
         else:
             def run(flat_args):
@@ -323,8 +333,9 @@ class AoTScheduler:
         t1 = time.perf_counter()
 
         # --- seal (CUDA-graph capture on the card) -----------------------
-        executable = _CapturedGraph(run, flat, device) if device.type == "cuda" else _Eager(run)
+        executable = _CapturedGraph(run, flat, device, refresh) if on_card else _Eager(run)
         t2 = time.perf_counter()
+        device_bytes = torch.cuda.memory_allocated(device) - bytes_before if on_card else 0
 
         stats = ScheduleStats(
             num_tasks=traced.graph.num_tasks,
@@ -335,6 +346,7 @@ class AoTScheduler:
             arena_reuse_factor=mem.reuse_factor,
             prerun_seconds=t1 - t0,
             compile_seconds=t2 - t1,
+            device_bytes=device_bytes,
         )
         return TaskSchedule(
             traced=traced,

@@ -19,7 +19,7 @@ Grouping rule (as in the JAX package): tasks are packable when they
 Among the matmul kind only ``aten.mm`` packs, onto B2.  A group whose
 members share their left operand (parallel branches off one activation)
 passes it once, with lane stride 0; weights that are function inputs are
-stacked once at schedule time.
+stacked once at schedule time, and re-stacked in place only when written.
 
 Synchronization edges from the sync plan map to the data dependencies of
 the packed op's consumers — the join is free (an unbind), which is why the
@@ -164,9 +164,11 @@ def pack_streams_fn(
     in the task schedule"): when ``example_args`` are given, pack-group
     inputs that are direct function inputs (typically the per-branch weights)
     are stacked ONCE at schedule time and baked into the schedule — per-call
-    work only stacks activation inputs.  Baking assumes the static-network
-    discipline (weights fixed between schedules), exactly Nimble's inference
-    assumption.
+    work only stacks activation inputs.  A baked stack follows the example
+    tensors it was stacked from: ``.refresh_baked()`` re-stacks, in place,
+    the lanes of every example tensor written since (by a CUDA-graph replay
+    that copied a caller's weights into it, or by an update in place), and a
+    call with other tensors than the example ones stacks those afresh.
 
     The callable takes ``fn``'s arguments; ``.run_flat(flat_args)`` takes
     them flattened and returns ``(flat_outputs, env)``, ``env`` holding
@@ -175,28 +177,51 @@ def pack_streams_fn(
     steps, report = plan_packs(traced, sa)
 
     # --- AoT: pre-stack lane inputs that are function inputs --------------
-    baked: dict[int, dict[int, torch.Tensor]] = {}
+    # baked[step][slot] = (stack, flat index of each lane's example tensor)
+    baked: dict[int, dict[int, tuple[torch.Tensor, list[int]]]] = {}
+    examples: list = []
+    stacked_at: dict[int, int] = {}        # flat index -> its _version when stacked
     if example_args:
-        value_of = dict(zip(traced.placeholders, traced.flatten_args(example_args)))
+        examples = traced.flatten_args(example_args)
+        index_of = {p: j for j, p in enumerate(traced.placeholders)}
         for si, (kind, members) in enumerate(steps):
             if kind != "pack":
                 continue
             for i, a0 in enumerate(members[0].args):
                 if not isinstance(a0, fx.Node) or _shared(members, i):
                     continue
-                if all(m.args[i] in value_of for m in members):
-                    baked.setdefault(si, {})[i] = torch.stack(
-                        [value_of[m.args[i]] for m in members])
+                if all(m.args[i] in index_of for m in members):
+                    js = [index_of[m.args[i]] for m in members]
+                    with torch.no_grad():
+                        stack = torch.stack([examples[j] for j in js])
+                    baked.setdefault(si, {})[i] = (stack, js)
+                    stacked_at.update((j, examples[j]._version) for j in js)
         report.baked_groups = sum(1 for v in baked.values() if v)
 
+    def refresh_baked() -> None:
+        """Copy every example tensor written since it was stacked into its
+        lanes of the baked stacks (no allocation, on the current stream)."""
+        stale = {j for j, v in stacked_at.items() if examples[j]._version != v}
+        if not stale:
+            return
+        with torch.no_grad():
+            for pre in baked.values():
+                for stack, js in pre.values():
+                    for lane, j in enumerate(js):
+                        if j in stale:
+                            stack[lane].copy_(examples[j])
+        for j in stale:
+            stacked_at[j] = examples[j]._version
+
     def run_flat(flat_args: list) -> tuple[list, dict]:
+        refresh_baked()
         env = traced.input_env(flat_args)
         lane_of: dict[fx.Node, tuple[torch.Tensor, int]] = {}   # node -> (pack, lane)
 
         def lanes(members: list[fx.Node], i: int, pre: dict) -> torch.Tensor:
             """Argument slot i of every member, stacked on a leading axis."""
-            if i in pre:
-                return pre[i]
+            if i in pre and all(flat_args[j] is examples[j] for j in pre[i][1]):
+                return pre[i][0]
             srcs = [lane_of.get(m.args[i]) for m in members]
             if all(srcs) and all(s[0] is srcs[0][0] for s in srcs) \
                     and [s[1] for s in srcs] == list(range(srcs[0][0].shape[0])):
@@ -240,5 +265,6 @@ def pack_streams_fn(
         return traced.unflatten_out(run_flat(traced.flatten_args(args))[0])
 
     packed_fn.run_flat = run_flat      # type: ignore[attr-defined]
+    packed_fn.refresh_baked = refresh_baked  # type: ignore[attr-defined]
     packed_fn.report = report          # type: ignore[attr-defined]
     return packed_fn

@@ -209,13 +209,16 @@ def _arena_bytes(value: Any, explicit: Optional[int] = None) -> int:
     """Reserved arena estimate of a cached artifact.
 
     Resolution order: an ``explicit`` caller-provided estimate (the serving
-    engine derives one from its buffer shapes); then ``stats.arena_bytes``
-    (``TaskSchedule`` carries it); else 0.  Artifacts reporting 0 remain
-    governed by the entry-count ``capacity`` ceiling rather than the byte
-    budget."""
+    engine derives one from its buffer shapes); then a ``TaskSchedule``'s
+    ``stats``: the larger of its planned ``arena_bytes`` and the
+    ``device_bytes`` its seal holds on the card (the CUDA graph pool keeps
+    every intermediate, so there it is the larger); else 0.  Artifacts
+    reporting 0 remain governed by the entry-count ``capacity`` ceiling
+    rather than the byte budget."""
     if explicit is not None:
         return max(0, int(explicit))
-    return max(0, int(getattr(getattr(value, "stats", None), "arena_bytes", 0)))
+    stats = getattr(value, "stats", None)
+    return max(0, int(getattr(stats, "arena_bytes", 0)), int(getattr(stats, "device_bytes", 0)))
 
 
 class ScheduleCache:
@@ -243,7 +246,6 @@ class ScheduleCache:
         *,
         byte_budget: Optional[int] = None,
         budget: Optional[MemoryBudget] = None,
-        scheduler: Optional[AoTScheduler] = None,
         tracer: Optional[Any] = None,
     ) -> None:
         if capacity < 1:
@@ -255,7 +257,6 @@ class ScheduleCache:
         # shared cross-cache pool (MemoryBudget): every byte-total change
         # is charged to it, and inserts trigger a pool rebalance
         self.budget = budget
-        self.scheduler = scheduler or AoTScheduler()
         self.tracer = tracer if tracer is not None else get_tracer()
         self.stats = CacheStats()
         self._entries: "OrderedDict[Any, _Entry]" = OrderedDict()
@@ -416,20 +417,15 @@ class ScheduleCache:
         self,
         fn: Callable,
         *example_args: Any,
-        scheduler: Optional[AoTScheduler] = None,
-        fn_id: Optional[str] = None,
-        key: Optional[ScheduleKey] = None,
+        scheduler: AoTScheduler,
+        key: ScheduleKey,
     ) -> TaskSchedule:
         """The Nimble path: one shared pre-run per (fn, shapes, options).
 
-        ``key`` lets a caller that already derived the :class:`ScheduleKey`
-        (``Nimble.prepare`` does, to detect no-op re-prepares) skip the
-        second flatten of the argument pytree."""
-        sched = scheduler or self.scheduler
-        if key is None:
-            key = sched.schedule_key(fn, *example_args, fn_id=fn_id)
+        ``key`` is ``scheduler.schedule_key(fn, *example_args)``, which
+        ``Nimble.prepare`` has already derived to detect no-op re-prepares."""
         return self.get_or_build(
-            key, lambda: sched.schedule(fn, *example_args), pin=fn
+            key, lambda: scheduler.schedule(fn, *example_args), pin=fn
         )
 
     def snapshot(self) -> dict:

@@ -14,6 +14,7 @@ card, in ``chip_smoke.py``.
 import dataclasses
 import functools
 import os
+from types import SimpleNamespace
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
@@ -41,6 +42,7 @@ from repro_torch.core import (  # noqa: E402
 from repro_torch.core import rewriter  # noqa: E402
 from repro_torch.core.aot import _Eager  # noqa: E402
 from repro_torch.dispatch import ScheduleCache  # noqa: E402
+from repro_torch.dispatch.cache import _arena_bytes  # noqa: E402
 from repro_torch.models import branchy  # noqa: E402
 
 CONFIGS = ["darts_like", "nasnet_mobile_like", "amoebanet_like", "inception_like"]
@@ -214,6 +216,32 @@ def test_packed_mm_groups_go_through_stream_pack(monkeypatch):
     assert calls == [((8, 64), (7, 64, 64))] * 4
 
 
+@pytest.mark.parametrize("bake", [True, False])
+def test_packed_schedule_follows_other_and_changed_weights(bake):
+    """A packed schedule called with other weights, or after its example
+    weights change in place, computes with those weights, baked or not;
+    JAX's ``Nimble`` on the other weights is the reference."""
+    c = _case("darts_like")
+    jcfg, cfg = jax_cells.darts_like(), cells.darts_like()
+    params = {k: v.clone() for k, v in c.args[0].items()}
+    x = c.args[1].clone()
+    nimble = Nimble(c.fn, params, x, pack_streams=True, bake_weights=bake)
+    assert nimble.schedule.pack_report.baked_groups == (cfg.n_cells if bake else 0)
+
+    jparams = jax_branchy.init_branchy(jax.random.key(1), jcfg)
+    jx = jax_branchy.example_input(jcfg, 1)
+    want = np.asarray(c.jax_nimble(jparams, jx))
+    other = branchy_params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
+    got = nimble(other, torch.from_numpy(np.array(jx)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(nimble(params, x).numpy(), c.jax_out, rtol=1e-4, atol=1e-4)
+
+    for k in params:                                    # weights updated in place
+        params[k].copy_(other[k])
+    got = nimble(params, torch.from_numpy(np.array(jx)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
 def test_changed_pytree_raises():
     c = _case("branchy4")
     x, ws = c.args
@@ -250,6 +278,18 @@ def test_cpu_tensors_seal_a_plain_callable():
     c = _case("branchy4")
     sched = Nimble(_branchy, *c.args).schedule
     assert isinstance(sched.executable, _Eager)
+    assert sched.stats.device_bytes == 0
+
+
+def test_cache_charges_a_schedule_its_larger_footprint():
+    """A schedule is charged the larger of its planned arena and the bytes
+    its seal holds on the card."""
+    def stats(arena, device):
+        return SimpleNamespace(stats=SimpleNamespace(arena_bytes=arena, device_bytes=device))
+
+    assert _arena_bytes(stats(18_432, 33_700_000)) == 33_700_000
+    assert _arena_bytes(stats(18_432, 0)) == 18_432
+    assert _arena_bytes(stats(18_432, 33_700_000), explicit=5) == 5
 
 
 def test_device_rules():
