@@ -24,12 +24,15 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
 5. the same code on the card and on the CPU (2 layers, float32, one set of
    weights): prefill logits within 1e-3 and identical greedy tokens;
 6. stream_pack kernel against its plain PyTorch version on the card over
-   lanes, shapes (the branchy cells' and a ragged one), dtypes and a shared
-   or separate x, each within atol + rtol*|ref|; then times at the four
-   branchy cells' shapes and one bf16 shape, each call inside a CUDA graph
-   and launched from Python, beside the plain version, one ``torch.matmul``
-   over the broadcast x (a yardstick only: the port never calls it) and the
-   card's bound;
+   lanes, shapes (the branchy cells', ragged ones, K or N off the 16-byte
+   vector, K too deep for the float32 panel), dtypes, a shared or separate
+   x, and x 4 bytes off a 16-byte boundary, each within atol + rtol*|ref|;
+   every kernel of the library (each tile, each loader) must be launched;
+   then times at the
+   four branchy cells' shapes and one bf16 shape, with the variant and tile
+   each took, each call inside a CUDA graph and launched from Python,
+   beside the plain version, one ``torch.matmul`` over the broadcast x (a
+   yardstick only: the port never calls it) and the card's bound;
 7. Nimble on the four branchy cells at full size, float32: plain eager
    PyTorch, ``EagerInterpreter``, ``Nimble`` on one stream, on Algorithm 1's
    streams (one CUDA graph over several CUDA streams) and packed onto
@@ -37,7 +40,8 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    and on other weights; prints the schedule's counts, the planned arena
    beside the graph pool's bytes, microseconds per call, the stream_pack
    kernels the profiler sees inside one packed replay (which must equal the
-   packed mm groups) and the streams it sees in one multi-stream replay.
+   packed mm groups) and their device time, and the streams it sees in one
+   multi-stream replay; two packed replays must give the same bits.
 
 Each profiled graph replay has its outputs poisoned before it and must
 give them back right, so a replay that ran nothing cannot pass as a
@@ -501,54 +505,85 @@ PACK_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-2)}
 # (lanes, M, K, N) of the packed mm groups of the four branchy cells
 BRANCHY_PACKS = {"darts-like": (7, 8, 64, 64), "nasnet-m-like": (12, 8, 48, 48),
                  "amoebanet-like": (11, 8, 56, 56), "inception-like": (6, 8, 96, 96)}
+# phase 6's (M, K, N): PR 12's ten, then K or N off the 16-byte vector
+# (element-wise loads), and K deep enough that the f32 panel does not fit
+# (the ring at 8, 16 and 32 rows)
+PACK_SHAPES = [(16, 16, 16), (64, 32, 16), (128, 128, 128), (256, 64, 128), (8, 64, 64),
+               (8, 48, 48), (8, 56, 56), (8, 96, 96), (32, 256, 256), (200, 72, 40),
+               (8, 13, 7), (33, 40, 29), (8, 1024, 64), (8, 1022, 40), (16, 1024, 64),
+               (64, 1024, 64)]
+# ... and with x 4 bytes past a 16-byte boundary, which takes the element-wise
+# loads of every tile
+PACK_OFFSET_SHAPES = [(8, 64, 64), (33, 40, 29), (16, 16, 16), (32, 256, 256),
+                      (16, 1024, 64), (64, 1024, 64)]
 
 
-def _pack_inputs(lanes, M, K, N, dtype, shared, seed):
+def pack_cases() -> list[tuple[str, int, tuple[int, int, int], bool, int]]:
+    """Phase 6's (dtype, lanes, (M, K, N), shared x, x's byte offset) cases."""
+    cases = [(dname, lanes, mkn, shared, 0) for dname in ("float32", "bfloat16")
+             for lanes in (1, 2, 7, 12) for mkn in PACK_SHAPES for shared in (False, True)]
+    return cases + [(dname, lanes, mkn, shared, 4) for dname in ("float32", "bfloat16")
+                    for lanes in (1, 7) for mkn in PACK_OFFSET_SHAPES
+                    for shared in (False, True)]
+
+
+def _pack_inputs(lanes, M, K, N, dtype, shared, seed, offset=0):
     """x (lanes, M, K), a stride-0 broadcast of one (M, K) when shared, and
-    w (lanes, K, N), standard normal on the card."""
+    w (lanes, K, N), standard normal on the card.  ``offset`` > 0 puts x's
+    first element that many bytes past a 16-byte boundary."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    if shared:
-        x = torch.randn((M, K), generator=g, device="cuda").to(dtype).expand(lanes, M, K)
-    else:
-        x = torch.randn((lanes, M, K), generator=g, device="cuda").to(dtype)
+    rows = (1 if shared else lanes) * M * K
+    skip = offset // torch.empty((), dtype=dtype).element_size()
+    x = torch.randn(skip + rows, generator=g, device="cuda").to(dtype)[skip:]
+    x = x.view(M, K).expand(lanes, M, K) if shared else x.view(lanes, M, K)
     w = torch.randn((lanes, K, N), generator=g, device="cuda").to(dtype)
     return x, w
+
+
+def _tile(launch) -> str:
+    return (f"{launch.variant} tile {launch.bm}x{launch.bn} kc {launch.kc} stages "
+            f"{launch.stages} grid {launch.grid} smem {launch.smem_bytes} B")
 
 
 def phase_stream_pack() -> dict:
     import torch
 
+    from repro_torch.kernels.stream_pack import kernel as pack
     from repro_torch.kernels.stream_pack import stream_pack_matmul, stream_pack_matmul_ref
 
     say("== phase 6: stream_pack kernel vs plain version (tolerance |err| <= atol + "
         "rtol*|ref|: f32 1e-4 + 1e-5*|ref| for summation order; bf16 1e-2 + "
         "1e-2*|ref| for the rounding of the output)")
-    shapes = [(16, 16, 16), (64, 32, 16), (128, 128, 128), (256, 64, 128),
-              (8, 64, 64), (8, 48, 48), (8, 56, 56), (8, 96, 96), (32, 256, 256),
-              (200, 72, 40)]
-    worst, n = 0.0, 0
-    for dname in ("float32", "bfloat16"):
-        for lanes in (1, 2, 7, 12):
-            for M, K, N in shapes:
-                for shared in (False, True):
-                    x, w = _pack_inputs(lanes, M, K, N, getattr(torch, dname), shared, seed=n)
-                    # one block per dimension passes the TPU's block check for
-                    # any shape; the CUDA tile still meets the ragged edge
-                    got = stream_pack_matmul(x, w, block_m=M, block_n=N, block_k=K)
-                    ref = stream_pack_matmul_ref(x, w)
-                    torch.cuda.synchronize()
-                    err = (got.float() - ref.float()).abs().max().item()
-                    r = ratio(got, ref, *PACK_TOL[dname])
-                    if not (math.isfinite(err) and r <= 1.0):
-                        fail(f"stream_pack disagrees at {dname} lanes={lanes} M={M} K={K} "
-                             f"N={N} shared={shared}: max_abs_err {err} ({r:.3f} of "
-                             f"tolerance {PACK_TOL[dname]})")
-                    worst, n = max(worst, r), n + 1
-        say(f"  {dname}: lanes 1/2/7/12 x {len(shapes)} shapes x shared/separate x within "
-            f"tolerance")
-    say(f"  {n} cases within tolerance (worst at {worst:.2f} of its tolerance)")
+    cases = pack_cases()
+    worst, reached = 0.0, {}
+    for n, (dname, lanes, (M, K, N), shared, offset) in enumerate(cases):
+        x, w = _pack_inputs(lanes, M, K, N, getattr(torch, dname), shared, seed=n,
+                            offset=offset)
+        launch = pack.launch_for(x, w)
+        # one block per dimension passes the TPU's block check for any
+        # shape; the CUDA tile still meets the ragged edge
+        got = stream_pack_matmul(x, w, block_m=M, block_n=N, block_k=K)
+        ref = stream_pack_matmul_ref(x, w)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        r = ratio(got, ref, *PACK_TOL[dname])
+        if not (math.isfinite(err) and r <= 1.0):
+            fail(f"stream_pack disagrees at {dname} lanes={lanes} M={M} K={K} N={N} "
+                 f"shared={shared} x offset {offset} B ({_tile(launch)}): max_abs_err "
+                 f"{err} ({r:.3f} of tolerance {PACK_TOL[dname]})")
+        worst = max(worst, r)
+        reached[launch.instance] = reached.get(launch.instance, 0) + 1
+    say(f"  float32 and bfloat16: lanes 1/2/7/12 x {len(PACK_SHAPES)} shapes x "
+        f"shared/separate, and lanes 1/7 x {len(PACK_OFFSET_SHAPES)} shapes x "
+        f"shared/separate with x 4 bytes off 16: all within tolerance")
+    say(f"  {len(cases)} cases within tolerance (worst at {worst:.2f} of its tolerance); "
+        f"cases by kernel (variant, bm, bn): "
+        + ", ".join(f"{v} {bm}x{bn} {n}" for (v, bm, bn), n in sorted(reached.items())))
+    missing = set(pack.INSTANCES) - set(reached)
+    if missing:
+        fail(f"phase 6 never launched the stream_pack kernels {sorted(missing)}")
 
     say("-- timing: the branchy cells' packed mm groups (f32, shared x) and one bf16 shape")
     record = {}
@@ -556,6 +591,7 @@ def phase_stream_pack() -> dict:
     cases.append(("bf16 12x32x256x256", 12, 32, 256, 256, "bfloat16", False))
     for name, lanes, M, K, N, dname, shared in cases:
         x, w = _pack_inputs(lanes, M, K, N, getattr(torch, dname), shared, seed=1000 + lanes)
+        launch = pack.launch_for(x, w)
         got, ref = stream_pack_matmul(x, w), stream_pack_matmul_ref(x, w)
         err = (got.float() - ref.float()).abs().max().item()
         if not ratio(got, ref, *PACK_TOL[dname]) <= 1.0:
@@ -575,9 +611,9 @@ def phase_stream_pack() -> dict:
         t_ops, t_bytes = flops / PEAK_FLOPS[dname], nbytes / PEAK_BYTES
         bound_ms = max(t_ops, t_bytes) * 1e3
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        say(f"  {name} (lanes {lanes}, M {M}, K {K}, N {N}, {dname}, shared x {shared}): "
-            f"in a CUDA graph kernel_ms {kernel_ms:.5f} plain_ms {plain_ms:.5f} library_ms "
-            f"{library_ms:.5f} | launched from Python kernel_ms {eager['kernel']:.5f} "
+        say(f"  {name} (lanes {lanes}, M {M}, K {K}, N {N}, {dname}, shared x {shared}; "
+            f"{_tile(launch)}): in a CUDA graph kernel_ms {kernel_ms:.5f} plain_ms "
+            f"{plain_ms:.5f} library_ms {library_ms:.5f} | launched from Python kernel_ms {eager['kernel']:.5f} "
             f"plain_ms {eager['plain']:.5f} library_ms {eager['library']:.5f} | "
             f"bound_ms {bound_ms:.6f} ({bound_by}) max_abs_err {err:.3e} | "
             f"{flops / 1e6:.3f} MFLOP, {nbytes / 1e3:.1f} KB")
@@ -679,6 +715,11 @@ def phase_nimble() -> tuple[int, int, int]:
                         fail(f"{cfg.name} {name} on {what}: {r2:.3f} of tolerance")
         if not (torch.equal(x, x0) and all(torch.equal(params[k], p0[k]) for k in p0)):
             fail(f"{cfg.name}: the static inputs were not restored")
+        # B2 sums each output in a fixed order: two replays give the same bits
+        first, second = engines["packed"]().clone(), engines["packed"]().clone()
+        if not torch.equal(first, second):
+            fail(f"{cfg.name}: two packed replays differ by "
+                 f"{(first - second).abs().max().item()}")
         torch.cuda.synchronize()
 
         iters = 200
@@ -697,9 +738,14 @@ def phase_nimble() -> tuple[int, int, int]:
                 say("      top kernels: " + " | ".join(
                     f"{us:.2f} us x{count} {key[:70]}" for us, count, key in top))
         events = kernels_in_one(engines["packed"])
-        b2 = sum(1 for e in events if "stream_pack_" in e.name)
+        b2_events = [e for e in events if "stream_pack_" in e.name]
+        b2 = len(b2_events)
+        b2_us = sum(e.time_range.elapsed_us() for e in b2_events)
         say(f"    one packed replay: {len(events)} device ops, {b2} stream_pack kernels "
-            f"for {mm_groups} mm pack groups (torch.profiler); {span(events)}")
+            f"for {mm_groups} mm pack groups (torch.profiler); {span(events)}; "
+            f"stream_pack kernels {b2_us:.2f} us ("
+            + ", ".join(f"{e.time_range.elapsed_us():.2f}" for e in b2_events)
+            + "); two replays bit-identical")
         if b2 != mm_groups:
             fail(f"{cfg.name}: the profiler saw {b2} stream_pack kernels in a packed "
                  f"replay for {mm_groups} mm groups")

@@ -5,31 +5,51 @@
 // (stream_pack_matmul, body _matmul_lane_kernel): out[g] = x[g] @ w[g] for
 // every lane g of x (lanes, M, K) and w (lanes, K, N), float32 accumulation,
 // output in the input type.  The TPU kernel walks K as its sequential grid
-// axis with a float32 accumulator in VMEM; here the grid is (N tiles, M
-// tiles, lanes), blocks run in any order, and each block loops over K itself
-// with the accumulator in registers.  x's lane stride is an argument: 0
-// means one x shared by every lane (parallel branches reading the same
-// activation), which is never copied.  The kernel masks the ragged edge, so
-// any M, N and K are taken.
+// axis with a float32 accumulator in VMEM.  Here the grid is (N tiles, M
+// tiles, lanes), blocks run in any order, and each block walks K itself with
+// the accumulator in registers: one load of the whole K panel (the panel
+// variant), or a ring of shared-memory stages (the ring variants).  x's lane
+// stride is an argument: 0 means one x shared by every lane (parallel
+// branches reading the same activation), which is never copied; every block
+// of every lane then reads the same x rows, from L2.  The ragged edge is
+// masked, so any M, N and K are taken.
 //
-// What bounds it.  On Nimble's path the products are tiny: at darts-like
-// shapes (7 lanes of 8x64 @ 64x64, float32, shared x) the work is 0.46
-// MFLOP over 131 KB, a bound of about 0.04 us on bytes, far below the cost
-// of one launch.  The kernel is bound by its launch and by one block's
-// serial K loop; its job on that path is to replace k launches by one.
+// What bounds it.  On Nimble's packed path the products are tiny: at the
+// darts-like shape (7 lanes of 8x64 @ 64x64, float32, shared x) the work is
+// 0.46 MFLOP over 131,072 bytes, a bound of 0.039 us on bytes (H100 SXM,
+// 3.35 TB/s).  At such sizes the floor is one launch inside a CUDA graph plus
+// one memory round trip per block, so the design spends exactly one round
+// trip on a block's loads where the panel fits, fits the tile's rows to M,
+// and cuts N into narrow slices so that tens of blocks share the work.
 //
-// Design (simple and right first).  64x64 output tiles.
-// * bf16: 4 warps, each owning 16 rows of the tile, on mma.sync.m16n8k16
-//   (bf16 in, float32 accumulate).  Each 32-deep K step stages the x tile
-//   (rows padded by 16 bytes) and the w tile in shared memory; A fragments
-//   are read as 32-bit pairs, B fragments with ldmatrix.trans from the
-//   row-major w tile, as B1 reads V.
-// * float32: no tensor cores (no TF32: the reference is full float32).  256
-//   threads, each owning a 4x4 block of the tile, on the FMA units; each
-//   16-deep K step stages the x tile transposed (padded against bank
-//   conflicts) and the w tile in shared memory.
-// Loads are element-wise and masked; cp.async/TMA staging, wgmma and
-// vector loads are later work.
+// The tile is chosen in Python (kernel.py, choose_launch); the entry point
+// sizes the grid and the dynamic shared memory from it.  Variants:
+// * f32 panel (stream_pack_f32, STAGES = 1): 128 threads, a BM x 16 tile
+//   with BM = 8, 16 or 32 fitted to M, each thread one column of BM/8 rows.
+//   The block copies x's BM rows of the whole K and its K x 16 slice of w
+//   into shared memory at once, waits once, passes one barrier, then runs
+//   the FMAs over the whole K with no barrier inside the loop.  Full float32
+//   on the FMA units: no TF32, the reference is full float32.
+// * f32 ring (STAGES = 4): the same tile and threads over a 4-stage ring of
+//   64-deep K chunks, for panels that do not fit the panel's budget; the
+//   copies of chunks c+1 .. c+3 are in flight while chunk c is multiplied.
+// * bf16 ring (stream_pack_bf16): mma.sync.m16n8k16 (bf16 in, float32
+//   accumulate), one warp per 16 rows of a BM x 32 tile (BM = 16, 32 or 64
+//   fitted to M), over a 4-stage ring of 64-deep K chunks.  A fragments are read
+//   with ldmatrix, B fragments with ldmatrix.trans from the row-major w
+//   chunk.  At M <= 64 and these sizes the work is bound by bytes and
+//   latency; wgmma's 64-row warpgroup tile would not change that, so bf16
+//   stays on mma.sync until B2 has a compute-bound caller (MoE expert GEMMs
+//   with hundreds of tokens per expert).
+// Each variant comes in two loaders.  VEC: cp.async 16-byte copies, the
+// ragged edge zero-filled by the copy's source size; it needs K and N to be
+// whole 16-byte vectors and 16-byte aligned bases.  Otherwise (K or N not a
+// multiple of the vector, or a base off 16 bytes): masked element-wise loads
+// into the same stages.  Every output element is one thread's sum in
+// ascending k: no split-K and no atomics, so two runs give the same bits.
+// Dynamic shared memory above 48 KB (a panel of up to 64 KB, a ring of up to
+// 56 KB) is allowed by stream_pack_init, which the wrapper calls once per
+// device before its first launch, outside any CUDA-graph capture.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,17 +58,171 @@
 
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
+// ---------------------------------------------------------------------------
+// asynchronous copies
+// ---------------------------------------------------------------------------
+
+// 16 bytes from global to shared memory, L2 only; src_bytes 0 fills zeros
+// and reads nothing
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The K walk shared by every variant: load(c, s) fills stage s with K chunk
+// c, compute(s) multiplies stage s into the accumulators.  STAGES == 1: one
+// load of the whole panel, one wait, one barrier.  Otherwise a ring: chunks
+// c+1 .. c+STAGES-1 are in flight while chunk c is multiplied; the barrier
+// at the top of step c also ends every reader of the stage that step c
+// refills (chunk c-1's).
+template <int STAGES, typename Load, typename Compute>
+__device__ __forceinline__ void walk_k(int nchunks, Load load, Compute compute) {
+  if constexpr (STAGES == 1) {
+    load(0, 0);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    compute(0);
+  } else {
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < nchunks) load(s, s);
+      cp_async_commit();
+    }
+    for (int c = 0; c < nchunks; ++c) {
+      cp_async_wait<STAGES - 2>();  // chunk c has landed
+      __syncthreads();
+      const int next = c + STAGES - 1;
+      if (next < nchunks) load(next, next % STAGES);
+      cp_async_commit();              // an empty group keeps the count
+      compute(c % STAGES);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// float32 on the FMA units
+// ---------------------------------------------------------------------------
+
+// the ring variants: RING_STAGES stages of RING_KC-deep K chunks
+constexpr int RING_STAGES = 4;
+constexpr int RING_KC = 64;
+
+constexpr int F32_THREADS = 128;
+constexpr int F32_BN = 16;  // tile columns: 16 threads across, 8 row groups down
+
+// shared memory per stage: x chunk BM x (kc + 4) (rows padded by 16 bytes),
+// w chunk kc x 16
+__host__ __device__ constexpr int f32_stage_floats(int bm, int kc) {
+  return bm * (kc + 4) + kc * F32_BN;
+}
+
+template <int BM, int STAGES, bool VEC>
+__global__ void __launch_bounds__(F32_THREADS)
+stream_pack_f32(const float* __restrict__ x, const float* __restrict__ w,
+                float* __restrict__ out, int M, int N, int K, int kc,
+                long long x_lane_stride) {
+  constexpr int TM = BM / 8;  // rows per thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* const sx = reinterpret_cast<float*>(smem_raw);  // STAGES x BM x ldx
+  const int ldx = kc + 4;
+  float* const sw = sx + STAGES * BM * ldx;              // STAGES x kc x 16
+
+  const int n0 = blockIdx.x * F32_BN, m0 = blockIdx.y * BM;
+  const int tid = threadIdx.x;
+  const int col = tid % F32_BN, rg = tid / F32_BN;  // rows rg + 8 i
+  const float* xb = x + (long long)blockIdx.z * x_lane_stride;
+  const float* wb = w + (size_t)blockIdx.z * K * N;
+  float* ob = out + (size_t)blockIdx.z * M * N;
+
+  auto load = [&](int c, int s) {
+    const int k0 = c * kc;
+    float* xs = sx + s * BM * ldx;
+    float* ws = sw + s * kc * F32_BN;
+    if constexpr (VEC) {
+      const int xv = kc / 4;  // 16-byte vectors in a chunk row of x
+      for (int i = tid; i < BM * xv; i += F32_THREADS) {
+        const int r = i / xv, j = i % xv;
+        const int gm = m0 + r, gk = k0 + 4 * j;
+        const bool ok = gm < M && gk < K;
+        cp_async16(xs + r * ldx + 4 * j, ok ? xb + (size_t)gm * K + gk : xb, ok);
+      }
+      for (int i = tid; i < kc * (F32_BN / 4); i += F32_THREADS) {
+        const int r = i / (F32_BN / 4), j = i % (F32_BN / 4);
+        const int gk = k0 + r, gn = n0 + 4 * j;
+        const bool ok = gk < K && gn < N;
+        cp_async16(ws + r * F32_BN + 4 * j, ok ? wb + (size_t)gk * N + gn : wb, ok);
+      }
+    } else {
+      for (int i = tid; i < BM * kc; i += F32_THREADS) {
+        const int r = i / kc, j = i % kc;
+        const int gm = m0 + r, gk = k0 + j;
+        xs[r * ldx + j] = (gm < M && gk < K) ? xb[(size_t)gm * K + gk] : 0.f;
+      }
+      for (int i = tid; i < kc * F32_BN; i += F32_THREADS) {
+        const int r = i / F32_BN, j = i % F32_BN;
+        const int gk = k0 + r, gn = n0 + j;
+        ws[i] = (gk < K && gn < N) ? wb[(size_t)gk * N + gn] : 0.f;
+      }
+    }
+  };
+
+  float acc[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) acc[i] = 0.f;
+
+  auto compute = [&](int s) {
+    const float* xs = sx + s * BM * ldx;
+    const float* ws = sw + s * kc * F32_BN + col;
+#pragma unroll 4
+    for (int k = 0; k < kc; k += 4) {
+      const float b0 = ws[(k + 0) * F32_BN], b1 = ws[(k + 1) * F32_BN];
+      const float b2 = ws[(k + 2) * F32_BN], b3 = ws[(k + 3) * F32_BN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(xs + (rg + 8 * i) * ldx + k);
+        acc[i] = fmaf(a.x, b0, acc[i]);
+        acc[i] = fmaf(a.y, b1, acc[i]);
+        acc[i] = fmaf(a.z, b2, acc[i]);
+        acc[i] = fmaf(a.w, b3, acc[i]);
+      }
+    }
+  };
+
+  walk_k<STAGES>((K + kc - 1) / kc, load, compute);
+
+  const int gn = n0 + col;
+  if (gn >= N) return;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int gm = m0 + rg + 8 * i;
+    if (gm < M) ob[(size_t)gm * N + gn] = acc[i];
+  }
+}
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_THREADS = 128;  // 4 warps x 16 rows = BM
-constexpr int BK16 = 32;
-constexpr int LDA16 = BK16 + 8;   // padded shared row of the x tile, elements
-constexpr int LDW16 = BN + 8;     // padded shared row of the w tile, elements
+constexpr int BF16_BN = 32;  // tile columns: each warp 16 rows x 32
+
+// shared memory per stage, elements: x chunk BM x 72, w chunk 64 x 40 (rows
+// padded by 16 bytes: ldmatrix's 8 rows fall on distinct banks)
+__host__ __device__ constexpr int bf16_stage_elems(int bm) {
+  return bm * (RING_KC + 8) + RING_KC * (BF16_BN + 8);
+}
 
 // d += a (16x16, row) * b (16x8, col), bf16 in, float32 accumulate
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -60,6 +234,13 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
   const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -67,170 +248,196 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "r"(addr));
 }
 
-__global__ void __launch_bounds__(MMA_THREADS)
+template <int BM, bool VEC>
+__global__ void __launch_bounds__(BM / 16 * 32)
 stream_pack_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
                  __nv_bfloat16* __restrict__ out, int M, int N, int K,
                  long long x_lane_stride) {
-  __shared__ __align__(16) __nv_bfloat16 As[BM * LDA16];
-  __shared__ __align__(16) __nv_bfloat16 Ws[BK16 * LDW16];
+  constexpr int BN = BF16_BN;
+  constexpr int THREADS = BM / 16 * 32;
+  constexpr int LDX = RING_KC + 8, LDW = BN + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* const sx = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // stages x BM x LDX
+  __nv_bfloat16* const sw = sx + RING_STAGES * BM * LDX;                 // stages x 64 x LDW
 
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
+  const int wm = tid >> 5, lane = tid & 31;  // warp wm: rows wm*16 .. wm*16 + 15
   const int g = lane >> 2, t = lane & 3;
   const __nv_bfloat16* xb = x + (long long)blockIdx.z * x_lane_stride;
   const __nv_bfloat16* wb = w + (size_t)blockIdx.z * K * N;
   __nv_bfloat16* ob = out + (size_t)blockIdx.z * M * N;
   const __nv_bfloat16 zero = __float2bfloat16(0.f);
 
-  // element e of acc[nb]: row warp*16 + g + 8 * (e >> 1), column nb*8 + 2t + (e & 1)
-  float acc[BN / 8][4];
+  auto load = [&](int c, int s) {
+    const int k0 = c * RING_KC;
+    __nv_bfloat16* xs = sx + s * BM * LDX;
+    __nv_bfloat16* ws = sw + s * RING_KC * LDW;
+    if constexpr (VEC) {
+      constexpr int XV = RING_KC / 8, WV = BN / 8;  // 16-byte vectors in a row
+      for (int i = tid; i < BM * XV; i += THREADS) {
+        const int r = i / XV, j = i % XV;
+        const int gm = m0 + r, gk = k0 + 8 * j;
+        const bool ok = gm < M && gk < K;
+        cp_async16(xs + r * LDX + 8 * j, ok ? xb + (size_t)gm * K + gk : xb, ok);
+      }
+      for (int i = tid; i < RING_KC * WV; i += THREADS) {
+        const int r = i / WV, j = i % WV;
+        const int gk = k0 + r, gn = n0 + 8 * j;
+        const bool ok = gk < K && gn < N;
+        cp_async16(ws + r * LDW + 8 * j, ok ? wb + (size_t)gk * N + gn : wb, ok);
+      }
+    } else {
+      for (int i = tid; i < BM * RING_KC; i += THREADS) {
+        const int r = i / RING_KC, j = i % RING_KC;
+        const int gm = m0 + r, gk = k0 + j;
+        xs[r * LDX + j] = (gm < M && gk < K) ? xb[(size_t)gm * K + gk] : zero;
+      }
+      for (int i = tid; i < RING_KC * BN; i += THREADS) {
+        const int r = i / BN, j = i % BN;
+        const int gk = k0 + r, gn = n0 + j;
+        ws[r * LDW + j] = (gk < K && gn < N) ? wb[(size_t)gk * N + gn] : zero;
+      }
+    }
+  };
+
+  // element e of acc[nb]: row wm*16 + g + 8 (e >> 1), column nb*8 + 2t + (e & 1)
+  float acc[4][4];
 #pragma unroll
-  for (int nb = 0; nb < BN / 8; ++nb)
+  for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += BK16) {
-    __syncthreads();  // previous step's readers are done
-    for (int idx = tid; idx < BM * BK16; idx += MMA_THREADS) {
-      const int r = idx / BK16, c = idx % BK16;
-      const int gm = m0 + r, gk = k0 + c;
-      As[r * LDA16 + c] = (gm < M && gk < K) ? xb[(size_t)gm * K + gk] : zero;
-    }
-    for (int idx = tid; idx < BK16 * BN; idx += MMA_THREADS) {
-      const int r = idx / BN, c = idx % BN;
-      const int gk = k0 + r, gn = n0 + c;
-      Ws[r * LDW16 + c] = (gk < K && gn < N) ? wb[(size_t)gk * N + gn] : zero;
-    }
-    __syncthreads();
-
+  auto compute = [&](int s) {
+    const __nv_bfloat16* xs = sx + s * BM * LDX;
+    const __nv_bfloat16* ws = sw + s * RING_KC * LDW;
+    const int m = lane >> 3;
 #pragma unroll
-    for (int kc = 0; kc < BK16 / 16; ++kc) {
-      // A fragments: a0 (row g, cols 2t..), a1 (row g+8), a2 (row g, cols
-      // 2t+8..), a3 (row g+8, cols 2t+8..)
-      const __nv_bfloat16* ar = &As[(warp * 16 + g) * LDA16 + kc * 16 + 2 * t];
-      const uint32_t a[4] = {
-          *reinterpret_cast<const uint32_t*>(ar),
-          *reinterpret_cast<const uint32_t*>(ar + 8 * LDA16),
-          *reinterpret_cast<const uint32_t*>(ar + 8),
-          *reinterpret_cast<const uint32_t*>(ar + 8 * LDA16 + 8)};
-      // B fragments by ldmatrix.trans: lanes 8m..8m+7 address the rows of
-      // matrix m (k +8 for odd m, columns +8 for m >= 2)
-      const int m = lane >> 3;
+    for (int kk = 0; kk < RING_KC; kk += 16) {
+      // A: lanes 0-15 address rows 0-15 at k 0, lanes 16-31 the same rows at
+      // k 8, giving a0 (rows 0-7, k 0-7), a1 (rows 8-15), a2 (k 8-15), a3
+      uint32_t a[4];
+      ldmatrix_x4(a, xs + (wm * 16 + (lane & 15)) * LDX + kk + (lane >> 4) * 8);
+      // B by ldmatrix.trans: lanes 8m..8m+7 address the rows of matrix m
+      // (k +8 for odd m, columns +8 for m >= 2)
 #pragma unroll
-      for (int dn = 0; dn < BN / 16; ++dn) {
+      for (int dn = 0; dn < 2; ++dn) {
         uint32_t b[4];
         ldmatrix_x4_trans(
-            b, &Ws[(kc * 16 + (m & 1) * 8 + (lane & 7)) * LDW16 + dn * 16 + (m >> 1) * 8]);
+            b, ws + (kk + (m & 1) * 8 + (lane & 7)) * LDW + dn * 16 + (m >> 1) * 8);
         mma_bf16(acc[2 * dn], a, b[0], b[1]);
         mma_bf16(acc[2 * dn + 1], a, b[2], b[3]);
       }
     }
-  }
+  };
+
+  walk_k<RING_STAGES>((K + RING_KC - 1) / RING_KC, load, compute);
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = m0 + warp * 16 + g + 8 * h;
+    const int row = m0 + wm * 16 + g + 8 * h;
     if (row >= M) continue;
 #pragma unroll
-    for (int nb = 0; nb < BN / 8; ++nb) {
+    for (int nb = 0; nb < 4; ++nb) {
       const int col = n0 + nb * 8 + 2 * t;
-      if (col < N) ob[(size_t)row * N + col] = __float2bfloat16(acc[nb][2 * h]);
-      if (col + 1 < N) ob[(size_t)row * N + col + 1] = __float2bfloat16(acc[nb][2 * h + 1]);
+      __nv_bfloat16* o = ob + (size_t)row * N + col;
+      if (VEC && col + 1 < N) {  // N even: a 4-byte aligned pair
+        *reinterpret_cast<__nv_bfloat162*>(o) =
+            __floats2bfloat162_rn(acc[nb][2 * h], acc[nb][2 * h + 1]);
+      } else {
+        if (col < N) o[0] = __float2bfloat16(acc[nb][2 * h]);
+        if (col + 1 < N) o[1] = __float2bfloat16(acc[nb][2 * h + 1]);
+      }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// float32 on the FMA units
+// the instantiations
 // ---------------------------------------------------------------------------
 
-constexpr int F32_THREADS = 256;  // 16 x 16 threads, each a 4x4 block
-constexpr int BK32 = 16;
+struct Instance {
+  int is_bf16, bm, stages, vec;
+  const void* fn;
+};
 
-__global__ void __launch_bounds__(F32_THREADS)
-stream_pack_f32(const float* __restrict__ x, const float* __restrict__ w,
-                float* __restrict__ out, int M, int N, int K, long long x_lane_stride) {
-  __shared__ float As[BK32][BM + 1];  // x tile, transposed
-  __shared__ float Ws[BK32][BN];
+// kernel.py's INSTANCES, each tile with both loaders
+#define F32(BM, S)                                                          \
+  {0, BM, S, 1, (const void*)stream_pack_f32<BM, S, true>},                 \
+  {0, BM, S, 0, (const void*)stream_pack_f32<BM, S, false>}
+#define BF16(BM)                                                            \
+  {1, BM, RING_STAGES, 1, (const void*)stream_pack_bf16<BM, true>},         \
+  {1, BM, RING_STAGES, 0, (const void*)stream_pack_bf16<BM, false>}
+const Instance kInstances[] = {
+    F32(8, 1),  F32(16, 1), F32(32, 1), F32(8, RING_STAGES), F32(16, RING_STAGES),
+    F32(32, RING_STAGES), BF16(16), BF16(32), BF16(64),
+};
+#undef F32
+#undef BF16
 
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;  // rows ty + 16 i
-  const int tx = tid & 15;  // columns tx + 16 j
-  const float* xb = x + (long long)blockIdx.z * x_lane_stride;
-  const float* wb = w + (size_t)blockIdx.z * K * N;
-  float* ob = out + (size_t)blockIdx.z * M * N;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK32) {
-    __syncthreads();  // previous step's readers are done
-    for (int idx = tid; idx < BM * BK32; idx += F32_THREADS) {
-      const int r = idx / BK32, c = idx % BK32;
-      const int gm = m0 + r, gk = k0 + c;
-      As[c][r] = (gm < M && gk < K) ? xb[(size_t)gm * K + gk] : 0.f;
-    }
-    for (int idx = tid; idx < BK32 * BN; idx += F32_THREADS) {
-      const int r = idx / BN, c = idx % BN;
-      const int gk = k0 + r, gn = n0 + c;
-      Ws[r][c] = (gk < K && gn < N) ? wb[(size_t)gk * N + gn] : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < BK32; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty + 16 * i;
-    if (row >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx + 16 * j;
-      if (col < N) ob[(size_t)row * N + col] = acc[i][j];
-    }
-  }
+const void* find_kernel(int is_bf16, int bm, int stages, int vec) {
+  for (const Instance& k : kInstances)
+    if (k.is_bf16 == is_bf16 && k.bm == bm && k.stages == stages && k.vec == vec) return k.fn;
+  return nullptr;
 }
 
 }  // namespace
 
+// Allows every kernel the device's largest dynamic shared memory.  Call once
+// per device before the first launch there, outside any CUDA-graph capture.
+// Returns the first CUDA error (0 on success).
+extern "C" int stream_pack_init(void) {
+  int dev = 0, most = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  for (const Instance& k : kInstances)
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  return (int)err;
+}
+
 // x: lane g at x + g * x_lane_stride, each (M, K) row-major with rows of K
 // elements (x_lane_stride 0: one x for every lane); w: (lanes, K, N) and
 // out: (lanes, M, N), contiguous; float32 (is_bf16 = 0) or bfloat16
-// (is_bf16 = 1).  Launches on `stream`, allocates nothing, and returns
-// cudaGetLastError() after the launch (0 on success).
+// (is_bf16 = 1).  The tile, as kernel.py's choose_launch gives it: stages
+// (1: the f32 panel; 4: a ring), vec (1: cp.async 16-byte copies; 0: masked
+// element-wise loads), bm x bn (f32: bn 16; bf16: bn 32) and the K depth kc
+// of one stage (f32: a multiple of 4, at least K for the panel, 64 for the
+// ring; bf16: 64).  The grid and the dynamic shared memory follow from the
+// tile.  Launches on `stream`, allocates nothing, and returns
+// cudaGetLastError() after the launch (0 on success; cudaErrorInvalidValue
+// for a tile it has no kernel for).
 extern "C" int stream_pack_matmul(const void* x, const void* w, void* out, int is_bf16,
                                   int lanes, int M, int N, int K,
-                                  long long x_lane_stride, void* stream) {
-  if (lanes <= 0 || M <= 0 || N <= 0 || K <= 0 || x_lane_stride < 0)
+                                  long long x_lane_stride, int stages, int vec, int bm,
+                                  int bn, int kc, void* stream) {
+  if (lanes <= 0 || M <= 0 || N <= 0 || K <= 0 || x_lane_stride < 0 || kc <= 0)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, lanes);
-  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* fn = nullptr;
+  int threads = 0;
+  size_t smem = 0;
   if (is_bf16) {
-    stream_pack_bf16<<<grid, MMA_THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-        static_cast<__nv_bfloat16*>(out), M, N, K, x_lane_stride);
+    if (bn == BF16_BN && stages == RING_STAGES && kc == RING_KC)
+      fn = find_kernel(1, bm, stages, vec);
+    threads = bm / 16 * 32;
+    smem = (size_t)RING_STAGES * bf16_stage_elems(bm) * sizeof(__nv_bfloat16);
   } else {
-    stream_pack_f32<<<grid, F32_THREADS, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<float*>(out), M, N, K, x_lane_stride);
+    const bool depth_ok =
+        kc % 4 == 0 && (stages == 1 ? kc >= K : stages == RING_STAGES && kc == RING_KC);
+    if (bn == F32_BN && depth_ok) fn = find_kernel(0, bm, stages, vec);
+    threads = F32_THREADS;
+    smem = (size_t)stages * f32_stage_floats(bm, kc) * sizeof(float);
   }
+  const long long gx = (N + bn - 1) / bn, gy = (M + bm - 1) / bm;
+  if (fn == nullptr || gx > 0x7fffffffLL || gy > 65535 || lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)lanes);
+  int m = M, n = N, k = K, depth = kc;
+  long long stride = x_lane_stride;
+  void* args_f32[] = {(void*)&x, (void*)&w, &out, &m, &n, &k, &depth, &stride};
+  void* args_bf16[] = {(void*)&x, (void*)&w, &out, &m, &n, &k, &stride};
+  cudaLaunchKernel(fn, grid, dim3(threads), is_bf16 ? args_bf16 : args_f32, smem,
+                   static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }

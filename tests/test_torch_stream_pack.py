@@ -9,6 +9,7 @@ of the output).
 """
 
 import os
+from pathlib import Path
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
@@ -155,3 +156,139 @@ def test_build_command_targets_hopper():
     src = kernel.SOURCE.read_text()
     # a hand-written kernel: no library GEMM behind it
     assert "cublas" not in src.lower() and "extern \"C\" int stream_pack_matmul(" in src
+
+
+# --- the launch chooser (plain Python: no card is needed to check it) -------
+
+MAX_SMEM = 232448       # bytes of shared memory an H100 block may opt into
+STATIC_SMEM = 49152     # bytes a block may use without opting in
+
+
+def _chip_smoke():
+    """The repo's chip_smoke.py as a module (its top level imports only the
+    standard library)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+SMOKE = _chip_smoke()
+# chip_smoke.py phase 6's (M, K, N) sweep and the four branchy cells' packed
+# mm groups (lanes, M, K, N)
+SWEEP = SMOKE.PACK_SHAPES
+CELLS = list(SMOKE.BRANCHY_PACKS.values())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lmkn", [(lanes, *mkn) for lanes in (1, 12) for mkn in SWEEP] + CELLS)
+def test_every_shape_gets_a_launch_the_card_takes(lmkn, dtype):
+    """Each shape of the sweep and of the cells gets a kernel the library
+    has, shared memory the card gives (above 48 KB only where the tile
+    needs it: stream_pack_init opts every kernel in), a grid within the
+    launch limits and a tile that covers the product."""
+    lanes, M, K, N = lmkn
+    for aligned in (True, False):
+        ln = kernel.choose_launch(lanes, M, N, K, dtype, aligned)
+        assert ln.instance in kernel.INSTANCES
+        assert ln.variant.startswith("f32" if dtype == "float32" else "bf16")
+        if ln.variant.startswith("f32"):
+            assert ln.kc >= K if ln.stages == 1 else ln.kc == kernel.RING_KC
+        else:
+            assert ln.kc == kernel.RING_KC and ln.stages == kernel.RING_STAGES
+        assert 0 < ln.smem_bytes <= MAX_SMEM
+        if ln.variant.startswith("f32_panel"):
+            assert ln.smem_bytes <= kernel.PANEL_MAX_SMEM
+        gx, gy, gz = ln.grid
+        assert gx <= kernel.MAX_GRID_X and gy <= kernel.MAX_GRID_YZ and gz == lanes
+        assert gx * ln.bn >= N > (gx - 1) * ln.bn and gy * ln.bm >= M > (gy - 1) * ln.bm
+        per_vec = 4 if dtype == "float32" else 8
+        assert ln.vec == (aligned and K % per_vec == 0 and N % per_vec == 0)
+
+
+def _phase6_launches():
+    return [kernel.choose_launch(lanes, M, N, K, dname, offset == 0)
+            for dname, lanes, (M, K, N), _shared, offset in SMOKE.pack_cases()]
+
+
+def test_phase6_launches_every_kernel():
+    """chip_smoke.py phase 6's cases reach every kernel of the library, each
+    loader of each tile, so each is held against the plain version on the
+    card."""
+    assert {ln.instance for ln in _phase6_launches()} == set(kernel.INSTANCES)
+    assert len(kernel.INSTANCES) == len(set(kernel.INSTANCES)) == 18
+
+
+def test_library_opts_into_dynamic_shared_memory():
+    """Tiles of every kind need more than the 48 KB a block gets without
+    stream_pack_init's opt-in, and phase 6 launches some of each, so the
+    card checks the opt-in; none asks for more than the card has."""
+    launches = _phase6_launches()
+    big = {ln.variant.split("/")[0] for ln in launches if ln.smem_bytes > STATIC_SMEM}
+    assert big == {"f32_panel", "f32_ring", "bf16_ring"}
+    assert max(ln.smem_bytes for ln in launches) <= MAX_SMEM
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lanes, K, N", [(lanes, K, N) for lanes, _, K, N in CELLS]
+                         + [(3, 13, 7)])
+def test_m8_takes_a_short_tile(lanes, K, N, dtype):
+    """M = 8 (the branchy cells' batch) gets a tile of at most 16 rows, not
+    the 64 of a fixed tile; the float32 cells take the panel in one load."""
+    ln = kernel.choose_launch(lanes, 8, N, K, dtype, True)
+    assert ln.bm <= 16
+    if dtype == "float32" and K % 4 == 0:
+        assert ln.variant == "f32_panel/vec" and ln.stages == 1 and ln.bm == 8
+        assert ln.grid[0] * ln.grid[2] >= 18    # tens of blocks, not one per lane
+
+
+@pytest.mark.parametrize("dtype, elem_bytes", [("float32", 4), ("bfloat16", 2)])
+def test_unaligned_operands_take_the_elementwise_loads(dtype, elem_bytes):
+    """K or N off the 16-byte vector, or a base pointer off 16 bytes, takes
+    the masked element-wise variant; the same shape aligned takes cp.async."""
+    per_vec = 16 // elem_bytes
+    assert kernel.choose_launch(2, 8, 64, 64, dtype, True).vec
+    assert not kernel.choose_launch(2, 8, 64, 64 + 1, dtype, True).vec        # K
+    assert not kernel.choose_launch(2, 8, 64 + per_vec // 2, 64, dtype, True).vec  # N
+    assert not kernel.choose_launch(2, 8, 64, 64, dtype, False).vec           # base
+    buf = torch.zeros(1 + 2 * 8 * 64, dtype=getattr(torch, dtype))
+    w = torch.zeros((2, 64, 64), dtype=buf.dtype)
+    x_on, x_off = buf[: 2 * 8 * 64].view(2, 8, 64), buf[1:].view(2, 8, 64)
+    assert kernel.vector_aligned(x_on, w) and not kernel.vector_aligned(x_off, w)
+    assert kernel.launch_for(x_on, w).variant.endswith("/vec")
+    assert kernel.launch_for(x_off, w).variant.endswith("/elem")
+    shared = buf[1: 1 + 8 * 64].view(8, 64).expand(2, 8, 64)     # lane stride 0
+    assert kernel.launch_for(shared, w).variant.endswith("/elem")
+
+
+@pytest.mark.parametrize("M, bm", [(8, 8), (16, 16), (64, 32)])
+def test_deep_k_streams(M, bm):
+    """A float32 K panel over the panel's budget takes the 4-stage ring, its
+    rows fitted to M as the panel's are."""
+    ring = kernel.choose_launch(2, M, 64, 1024, "float32", True)
+    assert ring.variant == "f32_ring/vec" and ring.stages == 4 and ring.kc == 64
+    assert ring.bm == bm and ring.bn == kernel.F32_BN
+
+
+@pytest.mark.parametrize("lanes, M, bm", [(12, 32, 32), (64, 64, 64), (3, 8, 16)])
+def test_bf16_streams_on_32_columns(lanes, M, bm):
+    """bf16 always streams through the ring, on 32 columns and rows fitted to
+    M; at (12, 32, 256, 256) that is 96 blocks."""
+    bf = kernel.choose_launch(lanes, M, 256, 256, "bfloat16", True)
+    assert bf.variant == "bf16_ring/vec" and bf.stages == 4 and bf.kc == 64
+    assert bf.bm == bm and bf.bn == 32 and bf.grid == (8, -(-M // bm), lanes)
+
+
+@pytest.mark.parametrize("shape", [(70000, 8, 64, 64), (2, 65535 * 32 + 1, 64, 64)])
+def test_grid_limits_raise_value_error(shape):
+    lanes, M, K, N = shape
+    with pytest.raises(ValueError, match="exceeds the launch grid"):
+        kernel.choose_launch(lanes, M, N, K, "float32", True)
+
+
+def test_chooser_refuses_other_dtypes():
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        kernel.choose_launch(1, 8, 8, 8, "float16", True)
