@@ -13,14 +13,18 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
 3. kernel against its plain PyTorch version on the card over a sweep of
    dtypes, head dims, GQA groups, lengths (ragged ones included), windows,
    soft-caps (with scores large enough for the cap to matter) and masks,
-   each within atol + rtol*|ref|; then times at phi4-mini prefill shapes beside the
-   plain version, ``F.scaled_dot_product_attention`` (a yardstick only: the
-   port never calls it) and the card's bound;
+   each within atol + rtol*|ref|, launching every kernel of the library;
+   model-layout inputs read through their strides (B=2, a head slice, a
+   transposed (B,H,S,hd) storage, layouts that take one counted copy) and a
+   captured call replayed on inputs changed in place; then times at
+   phi4-mini's prefill buckets and S=2048, in a CUDA graph and launched from
+   Python, beside the plain version, ``F.scaled_dot_product_attention`` (a
+   yardstick only: the port never calls it) and the card's bound;
 4. serve: phi4-mini-3.8b at full width and depth, bf16, random weights made
    on the card from a seed, 8 requests through ``ServingEngine`` with
    CUDA-graph-sealed steps; checks the tokens and that prefill went
    through the kernel (the wrapper's count, and the profiler's count of
-   flash kernels inside one prefill replay);
+   flash kernels inside one prefill replay) with no layout copy;
 5. the same code on the card and on the CPU (2 layers, float32, one set of
    weights): prefill logits within 1e-3 and identical greedy tokens;
 6. stream_pack kernel against its plain PyTorch version on the card over
@@ -74,6 +78,9 @@ TOL = {"float32": (1e-4, 0.0), "bfloat16": (1e-2, 1e-2)}
 # soft-cap cases scale q up so that scores reach about +-20 and the cap
 # bends them; at unit scale a cap of 50 would move the output by ~1e-3
 CAP_Q_SCALE = 8.0
+# phase 4's prefill buckets, and the lengths phase 3 times B1 at
+PREFILL_BUCKETS = (64, 128, 256, 512)
+TIMED_LENGTHS = PREFILL_BUCKETS + (2048,)
 
 
 def ratio(got, ref, atol: float, rtol: float) -> float:
@@ -191,38 +198,72 @@ def _qkv(BH_kv, group, Sq, Skv, hd, dtype, seed):
     return q, k, v
 
 
+# phase 3's (group, window, softcap, causal) combinations, run at every
+# dtype, head dim and length
+FLASH_COMBOS = [(1, 0, 0.0, True), (3, 0, 50.0, True), (4, 16, 0.0, True),
+                (3, 100, 50.0, True), (1, 0, 0.0, False), (4, 16, 50.0, False),
+                (3, 100, 0.0, False)]
+
+
+def flash_cases() -> list[tuple[str, int, int, int, int, int, int, float, bool]]:
+    """Phase 3's (dtype, hd, kv heads, group, Sq, Skv, window, softcap,
+    causal) cases: the first 130 (2 kv heads), then phi4-mini's 8 kv heads x
+    group 3 at S=2048 for every head dim, a grid that fills the card (the
+    130 take the split tile at S=200 and 1024, the single one at S=64)."""
+    cases = []
+    for dname in ("float32", "bfloat16"):
+        for hd in (32, 64, 128):
+            for S in (64, 200, 1024):
+                for group, window, cap, causal in FLASH_COMBOS:
+                    cases.append((dname, hd, 2, group, S, S, window, cap, causal))
+        for causal in (True, False):                 # Sq != Skv
+            cases.append((dname, 128, 2, 3, 64, 256, 0, 0.0, causal))
+    for hd in (32, 64, 128):
+        cases.append(("bfloat16", hd, 8, 3, 2048, 2048, 0, 0.0, True))
+        cases.append(("bfloat16", hd, 8, 3, 2048, 2000, 300, 50.0, False))
+    return cases
+
+
+def _flash_tile(q, k, v) -> str:
+    from repro_torch.kernels.flash_attention import kernel
+
+    launch = kernel.launch_for(q, k, v)
+    return (f"tile {launch.rows} rows x {launch.keys} keys, {launch.warpgroups} consumer "
+            f"warpgroup(s), {launch.threads} threads, grid {launch.grid}, smem "
+            f"{launch.smem_bytes} B, TMA boxes q {launch.q_box} kv {launch.kv_box}")
+
+
+def _ref_bshd(q, k, v, group, **kw):
+    """flash_attention_ref on model-layout (B, S, H, hd) tensors."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+
+    B, Sq, NH, hd = q.shape
+    flat = [t.transpose(1, 2).reshape(B * t.shape[2], t.shape[1], hd) for t in (q, k, v)]
+    return flash_attention_ref(*flat, group=group, **kw).reshape(B, NH, Sq, hd).transpose(1, 2)
+
+
 def phase_kernel() -> dict:
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attention import kernel
 
     say("== phase 3: flash_attention kernel vs plain version (tolerance "
         "|err| <= atol + rtol*|ref|: f32 1e-4 + 0 for summation order; bf16 "
         f"1e-2 + 1e-2*|ref| for bf16 rounding of p and output; soft-cap cases "
         f"scale q by {CAP_Q_SCALE:g} so the cap bends the scores)")
-    # (group, window, softcap, causal) combinations, run at every dtype,
-    # head dim and length
-    combos = [(1, 0, 0.0, True), (3, 0, 50.0, True), (4, 16, 0.0, True),
-              (3, 100, 50.0, True), (1, 0, 0.0, False), (4, 16, 50.0, False),
-              (3, 100, 0.0, False)]
-    cases = []
-    for dname in ("float32", "bfloat16"):
-        for hd in (32, 64, 128):
-            for S in (64, 200, 1024):
-                for group, window, cap, causal in combos:
-                    cases.append((dname, hd, group, S, S, window, cap, causal))
-        for causal in (True, False):                 # Sq != Skv
-            cases.append((dname, 128, 3, 64, 256, 0, 0.0, causal))
-    worst = 0.0
-    for i, (dname, hd, group, Sq, Skv, window, cap, causal) in enumerate(cases):
-        q, k, v = _qkv(2, group, Sq, Skv, hd, getattr(torch, dname), seed=i)
+    cases = flash_cases()
+    worst, reached = 0.0, {}
+    for i, (dname, hd, kv_heads, group, Sq, Skv, window, cap, causal) in enumerate(cases):
+        q, k, v = _qkv(kv_heads, group, Sq, Skv, hd, getattr(torch, dname), seed=i)
         if cap:
             q = q * CAP_Q_SCALE                      # a power of 2: exact in bf16
         kw = dict(group=group, softcap=cap, causal=causal, window=window)
+        launch = kernel.launch_for(q, k, v)
         got = flash_attention(q, k, v, **kw)
         ref = flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
+        reached[launch.instance] = reached.get(launch.instance, 0) + 1
         err = (got.float() - ref.float()).abs().max().item()
         ratio = tol_ratio(got, ref, dname)
         ok = math.isfinite(err) and ratio <= 1.0
@@ -235,41 +276,165 @@ def phase_kernel() -> dict:
             note = f" | cap moves the output by {moved:.3e}"
             if not moved >= 10 * TOL[dname][0]:
                 fail(f"soft-cap {cap} moves the output by only {moved}: the case is blind to it")
-        say(f"  {dname:8s} hd={hd:3d} group={group} Sq={Sq:4d} Skv={Skv:4d} "
-            f"window={window:3d} softcap={cap:4.0f} causal={int(causal)}: "
-            f"max_abs_err {err:.3e} ({ratio:.2f} of tolerance) "
-            f"{'ok' if ok else 'FAIL'}{note}")
+        say(f"  {dname:8s} hd={hd:3d} heads={kv_heads * group:2d}/{kv_heads} Sq={Sq:4d} "
+            f"Skv={Skv:4d} window={window:3d} softcap={cap:4.0f} causal={int(causal)} "
+            f"wg={launch.warpgroups}: max_abs_err {err:.3e} ({ratio:.2f} of "
+            f"tolerance) {'ok' if ok else 'FAIL'}{note}")
         if not ok:
             fail(f"kernel disagrees with its plain version: {ratio:.3f} of tolerance {TOL[dname]}")
         worst = max(worst, ratio)
-    say(f"  {len(cases)} cases within tolerance (worst at {worst:.2f} of its tolerance)")
+    say(f"  {len(cases)} cases within tolerance (worst at {worst:.2f} of its tolerance); "
+        "cases by kernel (dtype, hd, consumer warpgroups, keys): "
+        + ", ".join(f"{d} {hd} {w}x{kk} {n}" for (d, hd, w, kk), n in sorted(reached.items())))
+    missing = set(kernel.INSTANCES) - set(reached)
+    if missing:
+        fail(f"phase 3 never launched the flash kernels {sorted(missing)}")
+    flash_layouts()
+    return flash_timing(describe=_flash_tile)
 
-    say("-- timing at phi4-mini prefill shapes: q (24,S,128), kv (8,S,128), bf16, causal")
-    record = {}
-    for S in (512, 2048):
+
+def flash_layouts() -> None:
+    """Model-layout inputs read through their strides, held against the
+    plain version: each must take exactly the expected number of counted
+    layout copies.  Then a call captured in a CUDA graph, replayed after
+    new values were written into its inputs in place."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel, mha_flash
+
+    say("-- model layout (B, S, H, hd) through strides: 24 q heads over 8 kv heads")
+    B, S, NH, NKV = 2, 200, 24, 8
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    def misaligned_rows(t):
+        # the same values with a sequence stride 4 elements past the packed one
+        B_, S_, H_, hd_ = t.shape
+        row = H_ * hd_ + 4
+        store = torch.zeros(B_ * S_ * row, dtype=t.dtype, device=t.device)
+        view = store.as_strided(t.shape, (S_ * row, row, hd_, 1))
+        view.copy_(t)
+        return view
+
+    def offset_base(t):
+        # the same values one element past a 16-byte boundary
+        store = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = store[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    layouts = {
+        "contiguous (B,S,H,hd)": (lambda t: t, 0),
+        "q a head slice of a wider tensor":
+            (lambda t: torch.cat([t[:, :, :4], t, t[:, :, :4]], dim=2)[:, :, 4:4 + t.shape[2]], 0),
+        "(B,H,S,hd) storage as a transposed view":
+            (lambda t: t.transpose(1, 2).contiguous().transpose(1, 2), 0),
+        "sequence stride 8 bytes off 16 (bf16: one counted copy)": (misaligned_rows, 1),
+        "base pointer off 16 bytes (bf16: one counted copy)": (offset_base, 1),
+    }
+    for dname in ("bfloat16", "float32"):
+        dtype = getattr(torch, dname)
+        for hd in (64, 128):
+            q0, k, v = randn(B, S, NH, hd, dtype=dtype), randn(B, S, NKV, hd, dtype=dtype), \
+                randn(B, S, NKV, hd, dtype=dtype)
+            for name, (make, copies) in layouts.items():
+                q = make(q0)
+                if dname == "float32" and copies:
+                    copies = 0          # the float32 kernel reads element-wise
+                before = kernel.layout_copies
+                got = mha_flash(q, k, v, causal=True)
+                made = kernel.layout_copies - before
+                ref = _ref_bshd(q0, k, v, NH // NKV, causal=True)
+                torch.cuda.synchronize()
+                r = tol_ratio(got, ref, dname)
+                say(f"  {dname:8s} hd={hd:3d} B={B} S={S} {name}: strides {tuple(q.stride())}, "
+                    f"{made} layout copies, {r:.2f} of tolerance")
+                if not (r <= 1.0 and got.shape == (B, S, NH, hd) and got.is_contiguous()):
+                    fail(f"model layout '{name}' disagrees: {r:.3f} of tolerance")
+                if made != copies:
+                    fail(f"model layout '{name}' took {made} layout copies, expected {copies}")
+
+    # a captured call replayed on new values written into its inputs in place
+    q, k, v = (randn(1, 512, n, 128, dtype=torch.bfloat16) for n in (NH, NKV, NKV))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        mha_flash(q, k, v)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = mha_flash(q, k, v)
+    for step in range(2):
+        for t in (q, k, v):
+            t.copy_(randn(*t.shape, dtype=t.dtype))
+        out.fill_(float("nan"))
+        graph.replay()
+        ref = _ref_bshd(q, k, v, NH // NKV, causal=True)
+        torch.cuda.synchronize()
+        r = tol_ratio(out, ref, "bfloat16")
+        say(f"  graph replay {step + 1} after writing new q, k, v in place: "
+            f"{r:.2f} of tolerance")
+        if not r <= 1.0:
+            fail(f"a replay on inputs changed in place disagrees: {r:.3f} of tolerance")
+
+
+def flash_timing(describe=None) -> dict:
+    """B1 at phi4-mini's prefill shapes (q (24,S,128), kv (8,S,128), bf16,
+    causal, B=1) for every prefill bucket and S=2048: kernel,
+    ``F.scaled_dot_product_attention`` (a yardstick only: the port never
+    calls it) and the plain version, each inside a CUDA graph and launched
+    from Python, beside the card's bound.  ``describe(q, k, v)`` names the
+    launch the kernel makes.  Returns the record of S=512, the largest
+    prefill bucket, with the other lengths under ``by_length``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    say("-- timing at phi4-mini prefill shapes: q (24,S,128), kv (8,S,128), bf16, "
+        "causal; ms per call in a CUDA graph (graph) and launched from Python (eager)")
+    record, by_length = {}, {}
+    for S in TIMED_LENGTHS:
         q, k, v = _qkv(8, 3, S, S, 128, torch.bfloat16, seed=100 + S)
         kw = dict(group=3, causal=True)
         got, ref = flash_attention(q, k, v, **kw), flash_attention_ref(q, k, v, **kw)
         err = (got.float() - ref.float()).abs().max().item()
         if not tol_ratio(got, ref, "bfloat16") <= 1.0:
             fail(f"kernel disagrees at S={S}: max_abs_err {err}")
-        iters = 50 if S == 512 else 20
-        kernel_ms = time_ms(lambda: flash_attention(q, k, v, **kw), iters)
-        plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, **kw), max(5, iters // 5))
         q4, k4, v4 = q[None], k[None], v[None]
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True, enable_gqa=True), iters)
-        flops = 4 * S * S * 128 * 24 / 2
+        calls = {"kernel": lambda: flash_attention(q, k, v, **kw),
+                 "plain": lambda: flash_attention_ref(q, k, v, **kw),
+                 "library": lambda: F.scaled_dot_product_attention(
+                     q4, k4, v4, is_causal=True, enable_gqa=True)}
+        iters = 50 if S <= 512 else 20
+        graphed = {name: graph_ms(fn, reps=10 if name == "plain" else 20,
+                                  iters=5 if name == "plain" else iters)
+                   for name, fn in calls.items()}
+        eager = {name: time_ms(fn, 5 if name == "plain" else iters)
+                 for name, fn in calls.items()}
+        # causal: S(S+1)/2 (query, key) pairs per head, 4*hd operations each
+        flops = 4.0 * 128 * 24 * S * (S + 1) / 2
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
         bound_ms = max(t_ops, t_bytes) * 1e3
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        say(f"  S={S}: kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} "
-            f"library_ms {library_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by}) "
-            f"max_abs_err {err:.3e} | kernel at {bound_ms / kernel_ms:.1%} of bound")
-        if S == 512:     # the largest prefill bucket of phase 4
-            record = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+        launch = f" | {describe(q, k, v)}" if describe else ""
+        say(f"  S={S}: graph kernel_ms {graphed['kernel']:.5f} plain_ms "
+            f"{graphed['plain']:.5f} library_ms {graphed['library']:.5f} | eager "
+            f"kernel_ms {eager['kernel']:.5f} plain_ms {eager['plain']:.5f} library_ms "
+            f"{eager['library']:.5f} | bound_ms {bound_ms:.5f} ({bound_by}) | kernel at "
+            f"{bound_ms / graphed['kernel']:.1%} of bound, "
+            f"{graphed['library'] / graphed['kernel']:.3f}x the library's speed | "
+            f"max_abs_err {err:.3e}{launch}")
+        entry = dict(max_abs_err=err, ms=graphed["kernel"], plain_ms=graphed["plain"],
+                     bound_ms=bound_ms, bound_by=bound_by, library_ms=graphed["library"],
+                     eager_ms=eager["kernel"], eager_library_ms=eager["library"])
+        by_length[S] = entry
+        if S == max(PREFILL_BUCKETS):
+            record = dict(entry)
+    record["by_length"] = by_length
     return record
 
 
@@ -295,7 +460,7 @@ def phase_serve() -> tuple[int, int | None]:
         f"{time.perf_counter() - t0:.1f}s")
     torch.cuda.reset_peak_memory_stats()
 
-    kernel.launches = 0                      # the main path's run starts here
+    kernel.launches = kernel.layout_copies = 0   # the main path's run starts here
     t0 = time.perf_counter()
     engine = ServingEngine(cfg, params, max_slots=4, max_len=1024,
                            bucketing="pow2:64:512", device="cuda")
@@ -303,7 +468,7 @@ def phase_serve() -> tuple[int, int | None]:
     reqs = serve.make_requests(cfg, 8, max_new=16, seed=0, min_len=20, max_len=501)
     res = serve.serve(engine, reqs)
     torch.cuda.synchronize()
-    launches = kernel.launches               # ... and ends here
+    launches, copies = kernel.launches, kernel.layout_copies   # ... and ends here
     st = engine.stats
     captures = st.prefill_compiles + st.decode_compiles
     say(f"seal {seal_s:.2f}s ({st.prefill_compiles} prefill buckets + "
@@ -316,7 +481,7 @@ def phase_serve() -> tuple[int, int | None]:
     say(f"CUDA graphs: {captures} captures, {st.prefill_replays} prefill + "
         f"{st.decode_replays} decode replays | flash wrapper calls {launches} "
         f"(eager warm-up runs, plus graph captures that record the kernel "
-        f"without running it)")
+        f"without running it), layout copies {copies}")
 
     if len(res["done"]) != len(reqs):
         fail(f"{len(res['done'])} of {len(reqs)} requests finished")
@@ -329,6 +494,9 @@ def phase_serve() -> tuple[int, int | None]:
     if launches < cfg.n_layers * st.prefill_compiles or st.prefill_compiles < 1:
         fail(f"flash kernel launched {launches} times for {st.prefill_compiles} "
              f"captured prefill buckets: not on the main path")
+    if copies != 0:
+        fail(f"the served run made {copies} layout copies for the flash kernel: "
+             "the model's layouts must be read in place")
     if st.prefill_replays != len(reqs) or st.decode_replays != st.steps:
         fail(f"graph replays: prefill {st.prefill_replays}, decode "
              f"{st.decode_replays} over {st.steps} steps")
@@ -455,7 +623,10 @@ def step_breakdown(engine) -> int | None:
         if total <= 0:
             say(f"eager {name}: the profiler saw no device time")
             continue
-        say(f"eager {name}: {total / 1e3:.3f} ms of device time; top kernels:")
+        copies = sum(count for _, count, key in rows if "copy" in key.lower())
+        say(f"eager {name}: {total / 1e3:.3f} ms of device time, {len(rows)} kernel names, "
+            f"{sum(count for _, count, _ in rows)} kernels, {copies} of them copy kernels; "
+            "top kernels:")
         for us, count, key in sorted(rows, reverse=True)[:8]:
             say(f"  {us / total:6.1%} {us / 1e3:8.3f} ms x{count:<4d} {key[:90]}")
     return per_replay

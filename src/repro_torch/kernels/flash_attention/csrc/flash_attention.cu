@@ -2,235 +2,583 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (flash_attention, body _flash_kernel): the same function, scale, optional
-// tanh soft-cap, causal and/or sliding-window mask, GQA (q head bh reads kv
-// head bh / group), float32 running max / sum / accumulator, output in the
-// input type.  Unlike the TPU kernel it masks the ragged edge itself, so
-// any Sq and Skv are accepted; for every length the TPU accepts it computes
-// what the TPU computes, including 0 for a row whose every key is masked
-// (finite -1e30 fill and p zeroed under the mask, never -inf).
+// tanh soft-cap before the mask, causal (aligned top-left when Sq != Skv)
+// and/or sliding-window mask (kv > q - window), GQA (q head h reads kv head
+// h / group of the same batch index), float32 running max / sum /
+// accumulator, output in the input type.  Unlike the TPU kernel it masks
+// the ragged edge itself, so any Sq and Skv are accepted; for every length
+// the TPU accepts it computes what the TPU computes, including 0 for a row
+// whose every key is masked (finite -1e30 fill and p zeroed, never -inf).
+//
+// Layout.  Both kernels read the model layout through strides: q (B, Sq,
+// NH, hd), k and v (B, Skv, NH / group, hd), o (B, Sq, NH, hd), each with
+// its own batch, sequence and head strides in elements and a contiguous
+// last dimension.  The JAX-style (BH, S, hd) layout is B = 1, NH = BH, head
+// stride S * hd.
 //
 // What bounds it.  At phi4-mini prefill shapes (24 q heads over 8 kv
 // heads, head_dim 128, bf16, causal, S = 64..2048) the work is
-// 4*S*S*hd*BH/2 operations over (q+k+v+o) bytes: about 100 operations per
-// byte at S = 512 and 400 at S = 2048, so on paper the short buckets are
-// bound by bytes and the long ones by the tensor cores.  In practice both
-// kernels here are bound by issue: the shared-memory reads that feed the
-// arithmetic, and no overlap of the K/V tile loads with it.
+// 4 * hd * NH * S(S+1)/2 operations over (q + k + v + o) bytes: about 190
+// operations per byte at S = 512, near the card's ridge (~295), and 770 at
+// S = 2048, where the tensor cores bound it.
 //
-// Design (simple and right first).  One CTA per (bh, 64-row query tile),
-// heavy (late, causal) query tiles scheduled first.  Tiles wholly above the
-// diagonal or left of every query's window are skipped, as on the TPU.
+// bf16 design (warp specialisation, as Hopper's own GEMMs are built).  A CTA
+// takes 64 query rows of one (batch, head) with one producer warp and one
+// consumer warpgroup, or two that split its K/V tiles (even and odd) and
+// merge their partial results through shared memory: kernel.py's chooser
+// takes two when the grid fits the card in one wave, where the CTAs'
+// chains of tiles, not the card's throughput, set the time.  The producer
+// loads the Q tile once, then streams 64-key K and V tiles into a ring of
+// STAGES stages by TMA (cp.async.bulk.tensor from tensor maps built on the
+// host from the strides), each stage guarded by full barriers (K and V
+// apart) and an empty barrier that the consuming warpgroup's threads
+// arrive on.  Tiles wholly above the diagonal or left of every row's window
+// are never loaded; the TMA zero-fills rows past Sq / Skv.  The consumers
+// run S = Q K^T on wgmma.mma_async (m64n64k16, Q and K in shared memory,
+// both K-major), the online softmax on the accumulator fragments in
+// registers (float32 max and sum, masks on fragment coordinates only on
+// tiles that cross an edge, the scale and log2(e) folded into one fma before
+// ex2), then O += P V on wgmma (m64nHDk16) with P from registers: the S
+// accumulator, rounded to bf16 after the rescale (the rounding point of
+// P), already has the A-fragment layout; V is MN-major
+// in shared memory (hd contiguous), read through the descriptor's
+// transpose bit.  Within a warpgroup the products are pipelined: the Q K^T
+// of one tile and the PV of the one before are in flight together while
+// the softmax of the newer waits only for its scores.  Shared tiles use the
+// 128-byte swizzle (64-byte for hd 32) in both the tensor maps and the
+// wgmma descriptors.  The epilogue divides by the row sum and stores O
+// through its strides, masking rows past Sq.  Heavy (late, causal) query
+// tiles run first.  One consumer warpgroup needs at most 168 registers, so
+// two CTAs share an SM (their shared memory fits twice) and setmaxnreg has
+// nothing to move.
 //
-// * bf16: 4 warps, each owning 16 query rows.  Q stays in registers as the
-//   A operand of mma.sync.m16n8k16 (bf16 in, float32 accumulate); each
-//   64-key K/V tile is staged in shared memory (rows padded by 16 bytes, so
-//   fragment reads are free of bank conflicts); S = Q K^T, the online
-//   softmax and O += P V all stay in registers, P re-packed to bf16 as the
-//   A operand of the second product and V read with ldmatrix.trans.
-// * float32: no tensor cores (no TF32): 256 threads, each owning a 4x4
-//   block of the 64x64 score tile and 4 output rows, Q/K/V/P staged in
-//   shared memory as float32, row statistics combined over half-warps.
-//
-// wgmma, TMA, cp.async pipelining and warp specialisation are later work.
+// float32 on the FMA units (no TF32): 256 threads, each owning a 4x4 block
+// of the 64x64 score tile and 4 output rows, Q/K/V/P staged in shared
+// memory as float32, row statistics combined over half-warps.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from dlsym
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BKV = 64;
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+struct Strides {
+  long long b, s, h;  // elements
+};
+
+struct Shape {
+  Strides q, k, v, o;
+  int NH, group, Sq, Skv;
+  float scale, softcap;
+  int causal, window;
+};
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores
+// bf16: warp-specialised wgmma fed by a TMA ring
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_THREADS = 128;  // 4 warps x 16 query rows = BQ
+constexpr int STAGES = 3;
+
+// Threads of a bf16 CTA: NWG consumer warpgroups and one producer warp.
+constexpr int bf16_threads(int nwg) { return 128 * nwg + 32; }
+
+// Bytes in which the second consumer warpgroup of a split CTA hands its
+// partial result to the first: per thread its HD / 2 accumulators and two
+// rows' max and sum.
+constexpr size_t bf16_exchange_bytes(int hd, int nwg) {
+  return nwg == 2 ? 4 * 128 * (size_t)(hd / 2 + 4) : 0;
+}
+
+// Shared memory of one bf16 CTA: the 64-row Q tile, the K and V rings, 1 +
+// 3 * STAGES mbarriers and the split CTA's exchange.  kernel.py's smem_bytes
+// is the same formula.
+constexpr size_t bf16_smem_bytes(int hd, int nwg, int bkv) {
+  return 2 * (size_t)hd * (64 + 2 * STAGES * bkv) + 8 * (1 + 3 * STAGES) +
+         bf16_exchange_bytes(hd, nwg);
+}
+
+// One tensor-map box spans COLS bf16 columns: a 128-byte swizzle row (64
+// columns), or 64 bytes for hd 32; hd 128 takes two boxes side by side.
+template <int HD>
+struct Swz {
+  static constexpr int COLS = HD < 64 ? HD : 64;
+  static constexpr int BYTES = 2 * COLS;
+  static constexpr int CHUNKS = HD / COLS;
+  static constexpr uint64_t LAYOUT = BYTES == 128 ? 1 : 2;  // descriptor: B128 / B64
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// returns once the phase of parity `parity` has completed.  A lost arrival
+// fails the launch (illegal instruction) after two seconds of waiting, far
+// past any wait of a healthy launch, instead of spinning forever.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long since = 0;
+  for (uint32_t tries = 1;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries % 1024 == 0) {
+      long long now;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+      if (since == 0) since = now;
+      else if (now - since > 2000000000LL) __trap();
+    }
+  }
+}
+
+// 4-d TMA load of box {c, s, h, b} into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c, int s,
+                                         int h, int b, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(s), "r"(h), "r"(b), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units) and the swizzle layout
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accesses of `r` across a wgmma, and keeps
+// registers an asynchronous wgmma reads from being reused before it ends
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// 2^x on the special-function unit (relative error ~2^-22; exp2f's
+// accurate path costs a quarter of the kernel's time); 2^(-1e30) = +0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// d += a (16x16, row) * b (16x8, col), bf16 in, float32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// d (64 x N) (+)= A (64 x 16, shared, K-major) * B (16 x N, shared, K-major)
+template <int N>
+__device__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d);
+// d (64 x N) += A (64 x 16, registers) * B (16 x N, shared, MN-major)
+template <int N>
+__device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int HD>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-               int group, int Sq, int Skv, float scale, float softcap, int causal,
-               int window) {
-  constexpr int LDS = HD + 8;   // padded shared row, in bf16 elements
-  constexpr int KC = HD / 16;   // 16-deep chunks of head_dim (Q K^T)
-  constexpr int NB = HD / 8;    // 8-wide column blocks of the output
-  constexpr int VEC = HD / 8;   // 16-byte vectors per K/V row
-  constexpr int SB = BKV / 8;   // 8-wide column blocks of the score tile
-  __shared__ __align__(16) __nv_bfloat16 Ks[BKV * LDS];
-  __shared__ __align__(16) __nv_bfloat16 Vs[BKV * LDS];
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = q0 + warp * 16 + g;  // this thread's query rows: r0 and r0 + 8
-  const __nv_bfloat16* qb = q + (size_t)bh * Sq * HD;
-  const __nv_bfloat16* kb = k + (size_t)(bh / group) * Skv * HD;
-  const __nv_bfloat16* vb = v + (size_t)(bh / group) * Skv * HD;
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
-  // A fragments of Q: a0 (row g, cols 2t..), a1 (row g+8), a2 (row g, cols
-  // 2t+8..), a3 (row g+8, cols 2t+8..), per 16-deep chunk
-  uint32_t qa[KC][4];
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = r0 + 8 * h;
-      const uint32_t* src =
-          reinterpret_cast<const uint32_t*>(qb + (size_t)row * HD + kc * 16 + 2 * t);
-      qa[kc][h] = row < Sq ? src[0] : 0u;
-      qa[kc][h + 2] = row < Sq ? src[4] : 0u;
+// The K/V tiles [t0, t1) a CTA whose first query row is q0 visits: none
+// wholly above the diagonal, none wholly left of row q0's window.
+__device__ __forceinline__ void tile_range(const Shape& d, int q0, int bm, int bkv, int& t0,
+                                           int& t1) {
+  const int kv_end = d.causal ? min(d.Skv, q0 + bm) : d.Skv;
+  t1 = (kv_end + bkv - 1) / bkv;
+  t0 = 0;
+  // tile t is left of every row's window iff (t + 1) * bkv <= q0 - window + 1
+  if (d.window > 0 && q0 - d.window + 1 > 0) t0 = (q0 - d.window + 1) / bkv;
+  if (t0 > t1) t0 = t1;
+}
+
+template <int HD, int NWG, int BKV>
+__global__ void __launch_bounds__(bf16_threads(NWG), NWG == 1 ? 2 : 1)
+flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+               const Shape d) {
+  using W = Swz<HD>;
+  constexpr int BM = 64;
+  constexpr int Q_BYTES = BM * HD * 2;
+  constexpr int KV_BYTES = BKV * HD * 2;  // one K (or V) stage
+  // the 128-byte swizzle repeats every 1024 bytes: tiles start on 1024.
+  // With no static shared memory the dynamic block starts the CTA's shared
+  // window, so it is aligned; a launch where it is not traps.
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t sQ = smem_u32(smem_raw);
+  if (sQ & 1023u) __trap();
+  const uint32_t sK = sQ + Q_BYTES;
+  const uint32_t sV = sK + STAGES * KV_BYTES;
+  const uint32_t bar = sV + STAGES * KV_BYTES;  // q_full, k_full[S], v_full[S], empty[S]
+  auto k_full = [&](int s) { return bar + 8u * (1 + s); };
+  auto v_full = [&](int s) { return bar + 8u * (1 + STAGES + s); };
+  auto empty = [&](int s) { return bar + 8u * (1 + 2 * STAGES + s); };
+  // the split CTA's exchange, after the barriers
+  float* xch = reinterpret_cast<float*>(smem_raw + Q_BYTES + 2 * STAGES * KV_BYTES +
+                                        8 * (1 + 3 * STAGES));
+
+  const int b = blockIdx.x / d.NH, h = blockIdx.x % d.NH;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  int t0, t1;
+  tile_range(d, q0, BM, BKV, t0, t1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), 128);  // every thread of the consuming warpgroup releases it
     }
-
-  float m_i[2] = {NEG_INF, NEG_INF}, l_i[2] = {0.f, 0.f};
-  float acc[NB][4];
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
-
-  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
-  for (int k0 = 0; k0 < kv_end; k0 += BKV) {
-    // whole tile left of every query's window? (block-uniform)
-    if (window > 0 && k0 + BKV - 1 <= q0 - window) continue;
-    __syncthreads();  // previous tile's readers are done
-    for (int idx = tid; idx < BKV * VEC; idx += MMA_THREADS) {
-      const int r = idx / VEC, c = (idx % VEC) * 8;
-      uint4 kv4 = make_uint4(0u, 0u, 0u, 0u), vv4 = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < Skv) {
-        kv4 = *reinterpret_cast<const uint4*>(kb + (size_t)(k0 + r) * HD + c);
-        vv4 = *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + r) * HD + c);
-      }
-      *reinterpret_cast<uint4*>(&Ks[r * LDS + c]) = kv4;
-      *reinterpret_cast<uint4*>(&Vs[r * LDS + c]) = vv4;
-    }
-    __syncthreads();
-
-    // S = Q K^T: element e of s[nb] is row r0 + 8 * (e >> 1), key
-    // k0 + nb * 8 + 2t + (e & 1)
-    float s[SB][4];
-#pragma unroll
-    for (int nb = 0; nb < SB; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc)
-#pragma unroll
-      for (int nb = 0; nb < SB; ++nb) {
-        const __nv_bfloat16* kr = &Ks[(nb * 8 + g) * LDS + kc * 16 + 2 * t];
-        mma_bf16(s[nb], qa[kc], *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
-
-    uint32_t ok_bits = 0u;  // bit 4 * nb + e: score (nb, e) is unmasked
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int nb = 0; nb < SB; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qp = r0 + 8 * (e >> 1);
-        const int kp = k0 + nb * 8 + 2 * t + (e & 1);
-        float x = s[nb][e] * scale;
-        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-        bool ok = kp < Skv;
-        if (causal) ok = ok && kp <= qp;
-        if (window > 0) ok = ok && kp > qp - window;
-        if (ok) ok_bits |= 1u << (4 * nb + e);
-        x = ok ? x : NEG_INF;
-        s[nb][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float alpha[2], ps[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      // the 4 lanes of a quad hold one row
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m_i[h], mx[h]);
-      alpha[h] = expf(m_i[h] - m_new);
-      m_i[h] = m_new;
-    }
-#pragma unroll
-    for (int nb = 0; nb < SB; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = (ok_bits >> (4 * nb + e) & 1u) ? expf(s[nb][e] - m_i[e >> 1]) : 0.f;
-        s[nb][e] = p;
-        ps[e >> 1] += p;
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 1);
-      ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 2);
-      l_i[h] = alpha[h] * l_i[h] + ps[h];
-    }
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-      acc[nb][0] *= alpha[0];
-      acc[nb][1] *= alpha[0];
-      acc[nb][2] *= alpha[1];
-      acc[nb][3] *= alpha[1];
-    }
-
-    // O += P V: the score accumulators are the A fragments of P; the V
-    // fragments come from ldmatrix.trans (lanes 8m..8m+7 address the rows
-    // of matrix m: keys +8 for odd m, head dims +8 for m >= 2)
-    const int m = lane >> 3;
-#pragma unroll
-    for (int kc = 0; kc < BKV / 16; ++kc) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kc][0], s[2 * kc][1]), pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-          pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-          pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-      for (int dn = 0; dn < HD / 16; ++dn) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(
-            vf, &Vs[(kc * 16 + (m & 1) * 8 + (lane & 7)) * LDS + dn * 16 + (m >> 1) * 8]);
-        mma_bf16(acc[2 * dn], pa, vf[0], vf[1]);
-        mma_bf16(acc[2 * dn + 1], pa, vf[2], vf[3]);
-      }
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  __nv_bfloat16* ob = o + (size_t)bh * Sq * HD;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 4 * NWG) {
+    // ---- producer: one thread loads Q once, then runs the K/V ring ----
+    if (lane == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tk)) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tv)) : "memory");
+      mbar_expect_tx(bar, Q_BYTES);
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = r0 + 8 * h;
-    if (row >= Sq) continue;
-    const float denom = fmaxf(l_i[h], 1e-30f);
+      for (int c = 0; c < W::CHUNKS; ++c)
+        tma_load(sQ + c * BM * W::BYTES, &tq, c * W::COLS, q0, h, b, bar);
+      const int kvh = h / d.group;
+      for (int t = t0; t < t1; ++t) {
+        const int i = t - t0, s = i % STAGES;
+        mbar_wait(empty(s), ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(k_full(s), KV_BYTES);
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)row * HD + nb * 8 + 2 * t) =
-          pack_bf16(acc[nb][2 * h] / denom, acc[nb][2 * h + 1] / denom);
+        for (int c = 0; c < W::CHUNKS; ++c)
+          tma_load(sK + s * KV_BYTES + c * BKV * W::BYTES, &tk, c * W::COLS, t * BKV, kvh, b,
+                   k_full(s));
+        mbar_expect_tx(v_full(s), KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < W::CHUNKS; ++c)
+          tma_load(sV + s * KV_BYTES + c * BKV * W::BYTES, &tv, c * W::COLS, t * BKV, kvh, b,
+                   v_full(s));
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: the CTA's 64 query rows; with two, warpgroup
+    // wg takes the tiles wg, wg + 2, ... of the ring and the two merge ----
+    const int wg = warp / 4, wl = warp % 4;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int tid = threadIdx.x % 128;
+    const int r_first = q0;                       // the CTA's first row
+    const int r0 = r_first + 16 * wl + g;         // this thread's rows: r0, r0 + 8
+    // scores to log2 units: exp2(x * log2 e) = exp(x)
+    const float qk_scale = d.softcap > 0.f ? d.scale / d.softcap : d.scale * LOG2E;
+    const float cap_scale = d.softcap * LOG2E;
+
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    float m_i[2] = {NEG_INF, NEG_INF}, l_i[2] = {0.f, 0.f}, alpha[2];
+    float sc[BKV / 2];         // scores of the newest tile, then its p
+    uint32_t pa[BKV / 16][4];  // P of the tile whose PV product is next
+
+    // S = Q K^T of tile stage s over HD / 16 k-steps (issued, not waited)
+    auto issue_qk = [&](int s) {
+#pragma unroll
+      for (int kc = 0; kc < HD / 16; ++kc) {
+        const int c = kc * 16 / W::COLS, off = (kc * 16 % W::COLS) * 2;
+        const uint64_t da = make_desc(sQ + c * BM * W::BYTES + off, 16, 8 * W::BYTES,
+                                      W::LAYOUT);
+        const uint64_t db = make_desc(sK + s * KV_BYTES + c * BKV * W::BYTES + off, 16,
+                                      8 * W::BYTES, W::LAYOUT);
+        wgmma_ss<BKV>(sc, da, db, kc > 0);
+      }
+      wgmma_commit();
+    };
+    // O += P V of stage s over BKV / 16 k-steps; V is MN-major: 8-key
+    // groups 8 swizzle rows apart (SBO), 64-column chunks a box apart (LBO)
+    auto issue_pv = [&](int s) {
+#pragma unroll
+      for (int kc = 0; kc < BKV / 16; ++kc) {
+        const uint64_t db = make_desc(sV + s * KV_BYTES + kc * 16 * W::BYTES, BKV * W::BYTES,
+                                      8 * W::BYTES, W::LAYOUT);
+        wgmma_rs<HD>(acc, pa[kc], db);
+      }
+      wgmma_commit();
+    };
+    // the online softmax of the tile at key k0, in place on sc: masks,
+    // the running max, alpha, p and the running sum (acc is rescaled by
+    // alpha later, once the PV product in flight has finished with it)
+    auto softmax_pass = [&](int k0, auto masked, auto capped) {
+      constexpr bool CAP = decltype(capped)::value;
+      // element 4j + e of sc: row r0 + 8 * (e >> 1), key k0 + 8j + 2 t4 + (e & 1).
+      // Uncapped, sc keeps the raw scores and the scale goes into the
+      // exponent's fma (it is positive, so the max commutes with it);
+      // capped, sc holds the capped scores in log2 units.
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * j + e];
+          if constexpr (CAP) x = tanhf(x * qk_scale) * cap_scale;
+          if constexpr (decltype(masked)::value) {
+            const int qp = r0 + 8 * (e >> 1);
+            const int kp = k0 + 8 * j + 2 * t4 + (e & 1);
+            bool ok = kp < d.Skv;
+            if (d.causal) ok = ok && kp <= qp;
+            if (d.window > 0) ok = ok && kp > qp - d.window;
+            x = ok ? x : NEG_INF;
+          }
+          sc[4 * j + e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      const float mul = CAP ? 1.f : qk_scale;
+      float m_use[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // the 4 lanes of a quad hold one row
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_i[r], mx[r] == NEG_INF ? NEG_INF : mx[r] * mul);
+        alpha[r] = ex2(m_i[r] - m_new);
+        m_i[r] = m_new;
+        // a masked score gives 2^(-1e30 * mul - m) = 0; a row whose keys are
+        // all masked so far keeps max -1e30, and subtracts 0 instead
+        m_use[r] = m_new == NEG_INF ? 0.f : m_new;
+      }
+      float ps[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // two partial sums per row
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2(fmaf(sc[4 * j + e], mul, -m_use[e >> 1]));
+          sc[4 * j + e] = p;
+          ps[e >> 1][j & 1] += p;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float sum = ps[r][0] + ps[r][1];
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        l_i[r] = alpha[r] * l_i[r] + sum;
+      }
+    };
+    // one straight-line pass per case: the mask only on tiles that cross
+    // the diagonal, the window's edge or Skv, the cap only when asked for
+    auto softmax = [&](int k0) {
+      const bool masked = k0 + BKV > d.Skv || (d.causal && k0 + BKV - 1 > r_first) ||
+                          (d.window > 0 && k0 <= r_first + 63 - d.window);
+      using T = std::true_type;
+      using F = std::false_type;
+      if (d.softcap > 0.f) {
+        if (masked) softmax_pass(k0, T{}, T{});
+        else softmax_pass(k0, F{}, T{});
+      } else {
+        if (masked) softmax_pass(k0, T{}, F{});
+        else softmax_pass(k0, F{}, F{});
+      }
+    };
+    // acc *= alpha, then P to bf16 A fragments: P is rounded to bf16 here,
+    // after the rescale and before the PV product; the row sum keeps the
+    // float32 values
+    auto rescale_and_pack = [&]() {
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        acc[4 * j] *= alpha[0];
+        acc[4 * j + 1] *= alpha[0];
+        acc[4 * j + 2] *= alpha[1];
+        acc[4 * j + 3] *= alpha[1];
+      }
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j) {
+        pa[j / 2][2 * (j & 1)] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
+        pa[j / 2][2 * (j & 1) + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
+      }
+    };
+
+    // Software pipeline over this warpgroup's tiles i = wg, wg + NWG, ...
+    // (ring slot i % STAGES): the Q K^T product of one tile and the PV
+    // product of the one before are in flight together, and the softmax of
+    // the newer runs while the tensor cores finish the PV product.
+    const int n = t1 - t0;
+    const int mine = n > wg ? (n - wg + NWG - 1) / NWG : 0;
+    auto slot = [](int i) { return i % STAGES; };
+    auto parity = [](int i) { return (uint32_t)((i / STAGES) & 1); };
+    mbar_wait(bar, 0);
+    if (mine > 0) {
+      mbar_wait(k_full(slot(wg)), parity(wg));
+      wgmma_fence();
+      issue_qk(slot(wg));
+      wgmma_wait<0>();
+      fence_regs(sc);
+      softmax((t0 + wg) * BKV);
+      rescale_and_pack();
+    }
+    for (int j = 1; j < mine; ++j) {
+      const int i = wg + j * NWG, ip = i - NWG;
+      mbar_wait(k_full(slot(i)), parity(i));
+      mbar_wait(v_full(slot(ip)), parity(ip));
+      wgmma_fence();
+      issue_qk(slot(i));
+      issue_pv(slot(ip));
+      wgmma_wait<1>();  // Q K^T of tile i done; PV of tile ip may run on
+      fence_regs(sc);
+      softmax((t0 + i) * BKV);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(pa);   // the PV product read these registers until now
+      mbar_arrive(empty(slot(ip)));
+      rescale_and_pack();
+    }
+    if (mine > 0) {
+      const int ip = wg + (mine - 1) * NWG;
+      mbar_wait(v_full(slot(ip)), parity(ip));
+      wgmma_fence();
+      issue_pv(slot(ip));
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(pa);
+      mbar_arrive(empty(slot(ip)));
+    }
+
+    if constexpr (NWG == 2) {
+      // warpgroup 1 hands (acc, m, l) over in its own fragment order
+      // (element k of thread t at k * 128 + t: no bank conflicts) through
+      // named barrier 1; warpgroup 0 merges and writes the output
+      if (wg == 1) {
+#pragma unroll
+        for (int k = 0; k < HD / 2; ++k) xch[k * 128 + tid] = acc[k];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          xch[(HD / 2 + r) * 128 + tid] = m_i[r];
+          xch[(HD / 2 + 2 + r) * 128 + tid] = l_i[r];
+        }
+        asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+        return;
+      }
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      float a0[2], a1[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m1 = xch[(HD / 2 + r) * 128 + tid];
+        const float m = fmaxf(m_i[r], m1);
+        a0[r] = ex2(m_i[r] - m);  // both -1e30: 1 and 1, over zero sums
+        a1[r] = ex2(m1 - m);
+        l_i[r] = l_i[r] * a0[r] + xch[(HD / 2 + 2 + r) * 128 + tid] * a1[r];
+      }
+#pragma unroll
+      for (int k = 0; k < HD / 2; ++k)
+        acc[k] = acc[k] * a0[(k >> 1) & 1] + xch[k * 128 + tid] * a1[(k >> 1) & 1];
+    }
+
+    // epilogue: O / l through o's strides, rows past Sq masked
+    __nv_bfloat16* ob = o + (long long)b * d.o.b + (long long)h * d.o.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      if (row >= d.Sq) continue;
+      const float inv = 1.f / fmaxf(l_i[r], 1e-30f);
+      __nv_bfloat16* orow = ob + (long long)row * d.o.s;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t4) =
+            pack_bf16(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+    }
   }
 }
 
@@ -238,40 +586,41 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
 // float32 on the FMA units
 // ---------------------------------------------------------------------------
 
+constexpr int BQ = 64;
+constexpr int BKV32 = 64;
 constexpr int F32_THREADS = 256;
 
 template <int HD>
 constexpr size_t f32_smem_bytes() {
   // Q tile + K tile + V tile (each 64 x (HD+1)) + P tile (64 x 65), float32
-  return sizeof(float) * (size_t)(BQ * (HD + 1) + 2 * BKV * (HD + 1) + BQ * (BKV + 1));
+  return sizeof(float) * (size_t)(BQ * (HD + 1) + 2 * BKV32 * (HD + 1) + BQ * (BKV32 + 1));
 }
 
 template <int HD>
 __global__ void __launch_bounds__(F32_THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int group, int Sq,
-              int Skv, float scale, float softcap, int causal, int window) {
+              const float* __restrict__ v, float* __restrict__ o, const Shape d) {
   constexpr int LD = HD + 1;
-  constexpr int LDP = BKV + 1;
+  constexpr int LDP = BKV32 + 1;
   constexpr int KPT = HD / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + BQ * LD;
-  float* Vs = Ks + BKV * LD;
-  float* Ps = Vs + BKV * LD;
+  float* Vs = Ks + BKV32 * LD;
+  float* Ps = Vs + BKV32 * LD;
 
-  const int bh = blockIdx.x;
+  const int b = blockIdx.x / d.NH, h = blockIdx.x % d.NH;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int tid = threadIdx.x;
   const int tr = tid >> 4;  // rows tr + 16 i
   const int tc = tid & 15;  // score columns tc + 16 j, output columns tc + 16 c
-  const float* qb = q + (size_t)bh * Sq * HD;
-  const float* kb = k + (size_t)(bh / group) * Skv * HD;
-  const float* vb = v + (size_t)(bh / group) * Skv * HD;
+  const float* qb = q + (long long)b * d.q.b + (long long)h * d.q.h;
+  const float* kb = k + (long long)b * d.k.b + (long long)(h / d.group) * d.k.h;
+  const float* vb = v + (long long)b * d.v.b + (long long)(h / d.group) * d.v.h;
 
   for (int idx = tid; idx < BQ * HD; idx += F32_THREADS) {
     const int r = idx / HD, c = idx % HD;
-    Qs[r * LD + c] = (q0 + r < Sq) ? qb[(size_t)(q0 + r) * HD + c] : 0.f;
+    Qs[r * LD + c] = (q0 + r < d.Sq) ? qb[(long long)(q0 + r) * d.q.s + c] : 0.f;
   }
 
   float m[4], l[4], acc[4][KPT];
@@ -283,16 +632,15 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < KPT; ++c) acc[i][c] = 0.f;
   }
 
-  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
-  for (int k0 = 0; k0 < kv_end; k0 += BKV) {
-    if (window > 0 && k0 + BKV - 1 <= q0 - window) continue;
+  const int kv_end = d.causal ? min(d.Skv, q0 + BQ) : d.Skv;
+  for (int k0 = 0; k0 < kv_end; k0 += BKV32) {
+    if (d.window > 0 && k0 + BKV32 - 1 <= q0 - d.window) continue;
     __syncthreads();  // Q staged; previous tile's K/V/P readers are done
-    for (int idx = tid; idx < BKV * HD; idx += F32_THREADS) {
+    for (int idx = tid; idx < BKV32 * HD; idx += F32_THREADS) {
       const int r = idx / HD, c = idx % HD;
-      const bool ok = k0 + r < Skv;
-      const size_t gi = (size_t)(k0 + r) * HD + c;
-      Ks[r * LD + c] = ok ? kb[gi] : 0.f;
-      Vs[r * LD + c] = ok ? vb[gi] : 0.f;
+      const bool ok = k0 + r < d.Skv;
+      Ks[r * LD + c] = ok ? kb[(long long)(k0 + r) * d.k.s + c] : 0.f;
+      Vs[r * LD + c] = ok ? vb[(long long)(k0 + r) * d.v.s + c] : 0.f;
     }
     __syncthreads();
 
@@ -302,12 +650,12 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
+    for (int dd = 0; dd < HD; ++dd) {
       float qv[4], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(tr + 16 * i) * LD + d];
+      for (int i = 0; i < 4; ++i) qv[i] = Qs[(tr + 16 * i) * LD + dd];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tc + 16 * j) * LD + d];
+      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tc + 16 * j) * LD + dd];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -323,11 +671,11 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kp = k0 + tc + 16 * j;
-        float x = s[i][j] * scale;
-        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-        bool ok = kp < Skv;
-        if (causal) ok = ok && kp <= qp;
-        if (window > 0) ok = ok && kp > qp - window;
+        float x = s[i][j] * d.scale;
+        if (d.softcap > 0.f) x = tanhf(x / d.softcap) * d.softcap;
+        bool ok = kp < d.Skv;
+        if (d.causal) ok = ok && kp <= qp;
+        if (d.window > 0) ok = ok && kp > qp - d.window;
         x = ok ? x : NEG_INF;
         if (ok) ok_bits |= 1u << (4 * i + j);
         s[i][j] = x;
@@ -364,7 +712,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
 #pragma unroll 4
-    for (int jj = 0; jj < BKV; ++jj) {
+    for (int jj = 0; jj < BKV32; ++jj) {
       float pv[4], vv[KPT];
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = Ps[(tr + 16 * i) * LDP + jj];
@@ -377,14 +725,14 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  float* ob = o + (size_t)bh * Sq * HD;
+  float* ob = o + (long long)b * d.o.b + (long long)h * d.o.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + tr + 16 * i;
-    if (qp >= Sq) continue;
+    if (qp >= d.Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < KPT; ++c) ob[(size_t)qp * HD + tc + 16 * c] = acc[i][c] / denom;
+    for (int c = 0; c < KPT; ++c) ob[(long long)qp * d.o.s + tc + 16 * c] = acc[i][c] / denom;
   }
 }
 
@@ -392,63 +740,133 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 // host side
 // ---------------------------------------------------------------------------
 
-struct Args {
+// above 48 KB only as opted-in dynamic shared memory, once per kernel and
+// device.  The attribute is set outside stream capture only: the first call
+// of every instantiation comes from an eager warm-up before any capture.
+// `ready_on` is the caller's record of the device the kernel was opted in on.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem, cudaStream_t stream, int& ready_on) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess || device == ready_on) return err;
+  cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+  err = cudaStreamIsCapturing(stream, &status);
+  if (err != cudaSuccess || status != cudaStreamCaptureStatusNone) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) ready_on = device;
+  return err;
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, looked up once in the libcuda the
+// runtime has loaded (so the library needs no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// Error codes of the entry point past cudaError_t's range: the tensor map
+// could not be built (the wrapper's chooser refuses such layouts first).
+constexpr int ERR_NO_ENCODER = 9000;
+constexpr int ERR_ENCODE = 9001;
+
+// the 4-d map (hd, seq, heads, batch) of a bf16 tensor, boxes of `rows`
+// rows by one swizzle row of columns
+template <int HD>
+int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, const Strides& st,
+             int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return ERR_NO_ENCODER;
+  using W = Swz<HD>;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2, (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)W::COLS, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      W::BYTES == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : ERR_ENCODE;
+}
+
+struct Ptrs {
   const void *q, *k, *v;
   void* o;
-  int BH, group, Sq, Skv;
-  float scale, softcap;
-  int causal, window;
+  int B;
 };
 
-template <int HD>
-cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
-  const dim3 grid(a.BH, (a.Sq + BQ - 1) / BQ);
-  flash_fwd_bf16<HD><<<grid, MMA_THREADS, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.o), a.group,
-      a.Sq, a.Skv, a.scale, a.softcap, a.causal, a.window);
-  return cudaGetLastError();
+template <int HD, int NWG, int BKV>
+int launch_bf16(const Ptrs& p, const Shape& d, cudaStream_t stream) {
+  constexpr int BM = 64;
+  const size_t smem = bf16_smem_bytes(HD, NWG, BKV);
+  CUtensorMap tq, tk, tv;
+  const int nkv = d.NH / d.group;
+  int err = make_map<HD>(&tq, p.q, p.B, d.Sq, d.NH, d.q, BM);
+  if (!err) err = make_map<HD>(&tk, p.k, p.B, d.Skv, nkv, d.k, BKV);
+  if (!err) err = make_map<HD>(&tv, p.v, p.B, d.Skv, nkv, d.v, BKV);
+  if (err) return err;
+  static int ready_on = -1;
+  cudaError_t cerr = allow_smem(flash_fwd_bf16<HD, NWG, BKV>, smem, stream, ready_on);
+  if (cerr != cudaSuccess) return (int)cerr;
+  const dim3 grid(p.B * d.NH, (d.Sq + BM - 1) / BM);
+  flash_fwd_bf16<HD, NWG, BKV><<<grid, bf16_threads(NWG), smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(p.o), d);
+  return (int)cudaGetLastError();
 }
 
 template <int HD>
-cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
+int launch_f32(const Ptrs& p, const Shape& d, cudaStream_t stream) {
   constexpr size_t smem = f32_smem_bytes<HD>();
-  // above 48 KB only as opted-in dynamic shared memory.  The attribute is
-  // set outside stream capture only: the first call of every instantiation
-  // comes from an eager warm-up before any capture.
-  cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
-  cudaError_t err = cudaStreamIsCapturing(stream, &status);
-  if (err != cudaSuccess) return err;
-  if (status == cudaStreamCaptureStatusNone) {
-    err = cudaFuncSetAttribute(flash_fwd_f32<HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid(a.BH, (a.Sq + BQ - 1) / BQ);
+  static int ready_on = -1;
+  cudaError_t err = allow_smem(flash_fwd_f32<HD>, smem, stream, ready_on);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(p.B * d.NH, (d.Sq + BQ - 1) / BQ);
   flash_fwd_f32<HD><<<grid, F32_THREADS, smem, stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.group, a.Sq, a.Skv,
-      a.scale, a.softcap, a.causal, a.window);
-  return cudaGetLastError();
+      static_cast<const float*>(p.q), static_cast<const float*>(p.k),
+      static_cast<const float*>(p.v), static_cast<float*>(p.o), d);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_bf16_tile(const Ptrs& p, const Shape& d, int nwg, int bkv, cudaStream_t stream) {
+  if (nwg == 1 && bkv == 64) return launch_bf16<HD, 1, 64>(p, d, stream);
+  if (nwg == 2 && bkv == 64) return launch_bf16<HD, 2, 64>(p, d, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q: (BH, Sq, hd), k/v: (BH / group, Skv, hd), o: (BH, Sq, hd), all
-// contiguous and 16-byte aligned, float32 (is_bf16 = 0) or bfloat16
-// (is_bf16 = 1).  Launches on `stream` and returns cudaGetLastError() after
-// the launch (0 on success).
+// q (B, Sq, NH, hd), k and v (B, Skv, NH / group, hd), o (B, Sq, NH, hd):
+// `strides` holds the batch, sequence and head strides, in elements, of
+// q, k, v and o in that order (12 numbers); the last dimension is
+// contiguous.  float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1); the bf16
+// kernel runs the tile of `nwg` consumer warpgroups and `bkv` keys per K/V
+// tile (kernel.py's TILES), and needs 16-byte aligned base pointers and
+// strides (its tensor maps).  Launches on `stream` and returns
+// cudaGetLastError() after the launch (0 on success), or ERR_* above.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int is_bf16, int BH, int group, int Sq, int Skv,
-                                   int hd, float scale, float softcap, int causal,
-                                   int window, void* stream) {
-  if (BH <= 0 || Sq <= 0 || Skv <= 0 || group <= 0) return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, o, BH, group, Sq, Skv, scale, softcap, causal, window};
+                                   int is_bf16, int B, int NH, int group, int Sq, int Skv,
+                                   int hd, const long long* strides, float scale, float softcap,
+                                   int causal, int window, int nwg, int bkv, void* stream) {
+  if (B <= 0 || NH <= 0 || Sq <= 0 || Skv <= 0 || group <= 0 || NH % group)
+    return (int)cudaErrorInvalidValue;
+  const Strides* st = reinterpret_cast<const Strides*>(strides);
+  const Shape d{st[0], st[1], st[2], st[3], NH, group, Sq, Skv, scale, softcap, causal, window};
+  const Ptrs p{q, k, v, o, B};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 32: return (int)(is_bf16 ? launch_bf16<32>(a, s) : launch_f32<32>(a, s));
-    case 64: return (int)(is_bf16 ? launch_bf16<64>(a, s) : launch_f32<64>(a, s));
-    case 128: return (int)(is_bf16 ? launch_bf16<128>(a, s) : launch_f32<128>(a, s));
+    case 32: return is_bf16 ? launch_bf16_tile<32>(p, d, nwg, bkv, s) : launch_f32<32>(p, d, s);
+    case 64: return is_bf16 ? launch_bf16_tile<64>(p, d, nwg, bkv, s) : launch_f32<64>(p, d, s);
+    case 128: return is_bf16 ? launch_bf16_tile<128>(p, d, nwg, bkv, s) : launch_f32<128>(p, d, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,10 +1,13 @@
 """Model-layout flash attention.
 
-Takes model-layout tensors ``(B, S, heads, head_dim)``, flattens them to the
-kernel's ``(B·heads, S, head_dim)`` layout and picks by the tensors' device:
-CUDA tensors go to the Hopper kernel (which raises on what it cannot run),
-CPU tensors go to the plain PyTorch version.  The transposes are copies;
-passing strides to the kernel is later work.
+Takes model-layout tensors ``(B, S, heads, head_dim)`` and picks by the
+tensors' device: CUDA tensors go to the Hopper kernel, which reads them
+through their strides as they come (no layout copy for the layouts the
+model makes; see :func:`.kernel.prepare`) and writes a contiguous
+``(B, Sq, heads, head_dim)`` output, so the model's ``reshape(B, S,
+heads * head_dim)`` is a view; it raises on what it cannot run.  CPU
+tensors go to the plain PyTorch version in its ``(B·heads, S, head_dim)``
+layout.
 """
 
 from __future__ import annotations
@@ -27,13 +30,11 @@ def mha_flash(
 ) -> torch.Tensor:
     B, Sq, NH, hd = q.shape
     NKV = k.shape[2]
-    group = NH // NKV
-    # reshape alone may return a strided view (B == 1): the kernel takes
-    # contiguous rows only
-    qf = q.transpose(1, 2).reshape(B * NH, Sq, hd).contiguous()
-    kf = k.transpose(1, 2).reshape(B * NKV, k.shape[1], hd).contiguous()
-    vf = v.transpose(1, 2).reshape(B * NKV, v.shape[1], hd).contiguous()
-    fn = flash_attention_ref if q.device.type == "cpu" else kernel.flash_attention
-    out = fn(qf, kf, vf, group=group, scale=scale, softcap=softcap,
-             causal=causal, window=window)
+    kw = dict(group=NH // NKV, scale=scale, softcap=softcap, causal=causal, window=window)
+    if q.device.type != "cpu":
+        return kernel.attention(q, k, v, **kw)
+    out = flash_attention_ref(
+        q.transpose(1, 2).reshape(B * NH, Sq, hd),
+        k.transpose(1, 2).reshape(B * NKV, k.shape[1], hd),
+        v.transpose(1, 2).reshape(B * NKV, v.shape[1], hd), **kw)
     return out.reshape(B, NH, Sq, hd).transpose(1, 2)

@@ -5,11 +5,19 @@ against the Pallas kernel in interpret mode and against the JAX oracle,
 mirroring ``test_kernels.py``; the CUDA kernel itself is checked on the
 card by ``chip_smoke.py``.  Tolerances as in ``test_kernels.py``: float32
 2e-5 (summation order), bfloat16 3e-2 (bf16 rounding of the output).
+What surrounds the kernel is plain Python and is checked here: the launch
+chooser (tile, grid, shared memory, TMA boxes) on every shape of phase 3
+of ``chip_smoke.py`` and every prefill bucket, the strides ``mha_flash``
+passes for the layouts the model makes, which layouts take a counted
+copy, and the wrapper's refusals.
 """
 
 import os
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import importlib.util  # noqa: E402
+from pathlib import Path  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -159,3 +167,234 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         build.load(kernel.SOURCE)
     assert not (tmp_path / "build").exists()
+
+
+def _chip_smoke():
+    """The repo's chip_smoke.py as a module (its top level imports only the
+    standard library)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+SMOKE = _chip_smoke()
+# (B, NH, Sq, Skv, hd, dtype) -> rows, keys, consumer warpgroups, threads,
+# grid, shared memory, TMA boxes (columns, rows) of q and k/v: phi4-mini's
+# prefill buckets and S=2048 (phase 3's timed shapes), other head dims, and
+# the float32 kernel
+CHOOSER_TABLE = {
+    (1, 24, 64, 64, 128, "bfloat16"): (64, 64, 1, 160, (24, 1), 114768, (64, 64), (64, 64)),
+    (1, 24, 128, 128, 128, "bfloat16"): (64, 64, 2, 288, (24, 2), 149584, (64, 64), (64, 64)),
+    (1, 24, 256, 256, 128, "bfloat16"): (64, 64, 2, 288, (24, 4), 149584, (64, 64), (64, 64)),
+    (1, 24, 512, 512, 128, "bfloat16"): (64, 64, 1, 160, (24, 8), 114768, (64, 64), (64, 64)),
+    (1, 24, 2048, 2048, 128, "bfloat16"): (64, 64, 1, 160, (24, 32), 114768, (64, 64), (64, 64)),
+    (1, 24, 2048, 2048, 32, "bfloat16"): (64, 64, 1, 160, (24, 32), 28752, (32, 64), (32, 64)),
+    (2, 4, 200, 200, 64, "bfloat16"): (64, 64, 2, 288, (8, 4), 75856, (64, 64), (64, 64)),
+    (1, 24, 512, 512, 128, "float32"): (64, 64, 0, 256, (24, 8), 115712, None, None),
+}
+# an H100's limits: shared memory of an SM (228 KB, 1 KB of it reserved per
+# CTA) and of one CTA, and the rows or columns of one TMA box
+SM_SMEM, MAX_SMEM, TMA_MAX_BOX = 233472, 232448, 256
+
+
+@pytest.mark.parametrize("shape", sorted(CHOOSER_TABLE, key=str), ids=str)
+def test_chooser_table(shape):
+    launch = kernel.choose_launch(*shape)
+    want = CHOOSER_TABLE[shape]
+    assert (launch.rows, launch.keys, launch.warpgroups, launch.threads, launch.grid,
+            launch.smem_bytes, launch.q_box, launch.kv_box) == want
+    assert launch.instance in kernel.INSTANCES
+
+
+def _check_launch(launch, B, NH, Sq):
+    assert launch.instance in kernel.INSTANCES
+    assert launch.grid == (B * NH, -(-Sq // launch.rows))
+    assert launch.smem_bytes <= MAX_SMEM
+    if launch.dtype == "bfloat16":
+        # a 64-row query tile, one or two consumer warpgroups and a producer
+        # warp, each box within the TMA's limits and one swizzle row (128
+        # bytes; 64 for hd 32) wide
+        assert launch.rows == 64 and launch.threads == 128 * launch.warpgroups + 32
+        for cols, rows in (launch.q_box, launch.kv_box):
+            assert rows <= TMA_MAX_BOX and 2 * cols in (64, 128)
+            assert cols == min(launch.head_dim, 64)
+        assert launch.q_box[1] == launch.rows and launch.kv_box[1] == launch.keys
+        if launch.warpgroups == 1:       # two CTAs to an SM
+            assert 2 * (launch.smem_bytes + 1024) <= SM_SMEM
+    assert launch.smem_bytes == (
+        kernel.smem_bytes(launch.head_dim, launch.warpgroups, launch.keys)
+        if launch.dtype == "bfloat16" else kernel.f32_smem_bytes(launch.head_dim))
+
+
+@pytest.mark.parametrize("S", SMOKE.TIMED_LENGTHS)
+def test_chooser_on_prefill_shapes(S):
+    """phi4-mini's prefill attention (24 q heads, hd 128, bf16): buckets 128
+    and 256 fit the card in one wave and split each CTA's K/V tiles over two
+    warpgroups; bucket 64 has one K/V tile, 512 and 2048 fill the card."""
+    launch = kernel.choose_launch(1, 24, S, S, 128, "bfloat16")
+    _check_launch(launch, 1, 24, S)
+    assert launch.warpgroups == (2 if S in (128, 256) else 1)
+
+
+def test_phase3_launches_every_kernel():
+    """Phase 3 of chip_smoke.py fails unless every kernel of the library
+    ran; its cases must reach each of kernel.INSTANCES."""
+    reached = {}
+    for dname, hd, kv_heads, group, Sq, Skv, window, cap, causal in SMOKE.flash_cases():
+        launch = kernel.choose_launch(1, kv_heads * group, Sq, Skv, hd, dname)
+        _check_launch(launch, 1, kv_heads * group, Sq)
+        reached[launch.instance] = reached.get(launch.instance, 0) + 1
+    assert set(reached) == set(kernel.INSTANCES)
+    assert len(SMOKE.flash_cases()) == 136          # the first 130 and six of 24 heads
+
+
+def _layer_inputs(monkeypatch, dtype, B=2, S=24):
+    """The q, k, v that the port's ``layers.attention`` hands to
+    ``mha_flash`` (phi4-mini smoke config)."""
+    import dataclasses
+
+    import repro_torch.configs as TC
+    import repro_torch.models.layers as TL
+    import repro_torch.models.transformer as TT
+
+    cfg = dataclasses.replace(TC.get("phi4-mini-3.8b", smoke=True), dtype=dtype)
+    model = TT.init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+    seen = []
+
+    def spy(q, k, v, **kw):
+        seen.append((q, k, v))
+        return mha_flash(q, k, v, **kw)
+
+    monkeypatch.setattr(TL, "mha_flash", spy)
+    with torch.no_grad():
+        TT.prefill(model, torch.zeros((B, S), dtype=torch.long), cfg)
+    assert len(seen) == cfg.n_layers
+    return cfg, seen
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_model_layouts_take_no_copy(monkeypatch, dtype):
+    """The layouts ``layers.attention`` produces are read in place, with the
+    (batch, sequence, head) strides of a contiguous (B, S, H, hd)."""
+    cfg, seen = _layer_inputs(monkeypatch, dtype)
+    hd, nh, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    for q, k, v in seen:
+        o = torch.empty(q.shape, dtype=q.dtype)
+        assert all(kernel.readable(t) for t in (q, k, v))
+        before = kernel.layout_copies
+        assert all(a is b for a, b in zip(kernel.prepare(q, k, v), (q, k, v)))
+        assert kernel.layout_copies == before
+        S = q.shape[1]
+        assert kernel.stride_args(q, k, v, o) == [
+            S * nh * hd, nh * hd, hd, S * nkv * hd, nkv * hd, hd,
+            S * nkv * hd, nkv * hd, hd, S * nh * hd, nh * hd, hd]
+
+
+def _views(t, kind):
+    """Views of ``t``'s values (B, S, H, hd) in other storage layouts."""
+    B, S, H, hd = t.shape
+    if kind == "contiguous":
+        return t
+    if kind == "head_slice":             # heads 4..4+H of a wider tensor
+        return torch.cat([t[:, :, :4], t, t[:, :, :4]], dim=2)[:, :, 4:4 + H]
+    if kind == "bhsd_storage":           # (B, H, S, hd) storage, transposed view
+        return t.transpose(1, 2).contiguous().transpose(1, 2)
+    row = H * hd + 4                     # sequence stride 4 elements past packed
+    store = torch.zeros(B * S * row, dtype=t.dtype)
+    view = store.as_strided(t.shape, (S * row, row, hd, 1))
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("kind,copies", [("contiguous", 0), ("head_slice", 0),
+                                         ("bhsd_storage", 0), ("misaligned_rows", 1)])
+def test_layout_copies_are_counted(kind, copies):
+    """A bf16 sequence stride 8 bytes off 16 bytes cannot go into a tensor
+    map: exactly one counted copy, into a fresh contiguous tensor; the
+    float32 kernel reads element-wise and copies nothing."""
+    (q,) = (torch.from_numpy(a) for a in _data(9, (2, 16, 6, 64)))
+    for dtype, want in ((torch.bfloat16, copies), (torch.float32, 0)):
+        t = _views(q.to(dtype), kind)
+        before = kernel.layout_copies
+        (got,) = kernel.prepare(t)
+        assert kernel.layout_copies - before == want
+        assert torch.equal(got, t) and (got is t) == (want == 0)
+        if want:
+            assert got.is_contiguous() and kernel.readable(got)
+    # a base pointer one bf16 element off 16 bytes: one copy as well
+    off = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:].view(q.shape)
+    before = kernel.layout_copies
+    kernel.prepare(off)
+    assert kernel.layout_copies - before == 1
+
+
+def test_size_one_dims_get_a_legal_stride():
+    """A dimension of length 1 is never stepped along; its stride goes to
+    the library as hd whatever the view says.  The flat (BH, S, hd) layout
+    is B = 1 with BH heads."""
+    t = torch.zeros(1, 8, 3, 32).as_strided((1, 8, 3, 32), (7, 96, 32, 1))
+    assert kernel.stride_args(t) == [32, 96, 32]
+    assert kernel.readable(t.bfloat16())
+    flat = torch.zeros(6, 10, 64)
+    assert kernel.stride_args(flat) == [64, 64, 640]
+    assert kernel.launch_for(flat, flat[:2], flat[:2]).grid == (6, 1)
+
+
+def _qkv4(dtype=torch.bfloat16, hd=64, group=2):
+    return [torch.zeros(s, dtype=dtype) for s in ((1, 8, 2 * group, hd), (1, 8, 2, hd),
+                                                  (1, 8, 2, hd))]
+
+
+@pytest.mark.parametrize("case,match", [
+    ("float16", "float32 or all bfloat16"), ("mixed", "float32 or all bfloat16"),
+    ("hd96", "head_dim 96"), ("group", "kv heads"), ("kv_shape", "differ"),
+    ("batch", "batch"), ("dims", "4-d"), ("cpu", "CUDA"), ("empty", "empty"),
+])
+def test_wrapper_refuses(case, match):
+    q, k, v = _qkv4()
+    group = 2
+    if case == "float16":
+        q, k, v = (t.half() for t in (q, k, v))
+    elif case == "mixed":
+        k = k.float()
+    elif case == "hd96":
+        q, k, v = (t.new_zeros(t.shape[:-1] + (96,)) for t in (q, k, v))
+    elif case == "group":
+        group = 3
+    elif case == "kv_shape":
+        v = v[:, :4]
+    elif case == "batch":
+        k, v = (torch.cat([t, t]) for t in (k, v))
+    elif case == "dims":
+        q = q[0]
+    elif case == "empty":
+        q, k, v = (t[:, :0] for t in (q, k, v))
+    with pytest.raises(ValueError, match=match):
+        kernel.attention(q, k, v, group=group)
+
+
+@pytest.mark.parametrize("args,match", [
+    ((1, 24, 512, 512, 96, "bfloat16"), "head_dim"),
+    ((1, 24, 512, 512, 128, "float16"), "float16"),
+    ((1, 24, 64 * 65536 + 1, 64, 128, "float32"), "launch grid"),
+])
+def test_chooser_refuses(args, match):
+    with pytest.raises(ValueError, match=match):
+        kernel.choose_launch(*args)
+
+
+@pytest.mark.parametrize("kind", ["contiguous", "head_slice", "bhsd_storage",
+                                  "misaligned_rows"])
+def test_mha_flash_on_strided_views(kind):
+    """``mha_flash`` on views of other storage layouts against the JAX
+    package's ``_sdpa`` (float32, 3e-5: summation order)."""
+    from repro.models.layers import _sdpa as jax_sdpa
+
+    B, S, NH, NKV, hd = 2, 48, 6, 2, 32
+    arrays = _data(10, (B, S, NH, hd), (B, S, NKV, hd), (B, S, NKV, hd))
+    (jq, jk, jv), (tq, tk, tv) = _pair(arrays, "float32")
+    got = mha_flash(_views(tq, kind), _views(tk, kind), _views(tv, kind), window=20)
+    kw = dict(scale=1.0 / np.sqrt(hd), softcap_val=0.0, window=20, kv_valid=None)
+    _close(got, jax_sdpa(jq, jk, jv, q_pos=jnp.arange(S), kv_pos=jnp.arange(S), **kw), 3e-5)

@@ -117,6 +117,44 @@ def test_prefill_matches_decode_step_on_empty_cache(arch):
     _close(v, np.asarray(wcache["v"])[:, :, :PROMPT])
 
 
+# bf16 logits (atol, rtol).  Both packages round every activation and every
+# layer output to bf16 (one ulp is 2**-8 relative, 2**-6 at |logit| 4); on
+# top of that JAX's attention (``_sdpa`` and ``_sdpa_deferred``) rounds the
+# probabilities to bf16 before the PV product, where the port's plain
+# version keeps them in float32 (its CUDA kernel rounds P per tile, before
+# normalising).  Measured: at most 0.031 at |logits| <= 4.2 (two ulps).
+BF16_LOGITS_TOL = (5e-2, 2e-2)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("entry", ["prefill", "forward"])
+def test_bf16_logits_match_jax(entry, seed):
+    """phi4-mini smoke at bf16 on JAX's bf16 weights: the port's ``prefill``
+    against JAX ``decode_step`` on an empty sub-cache (the engine's prompt
+    pass), and ``forward`` against JAX ``forward``."""
+    arch = "phi4-mini-3.8b"
+    jcfg = dataclasses.replace(JC.get(arch, smoke=True), dtype="bfloat16")
+    tcfg = dataclasses.replace(TC.get(arch, smoke=True), dtype="bfloat16")
+    params, _ = JT.init_model(jax.random.key(0), jcfg)
+    bf = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.bfloat16), params)
+    model = params_from_jax(jax.tree_util.tree_map(np.asarray, bf), tcfg, device="cpu")
+    toks = np.random.default_rng(seed).integers(0, jcfg.vocab, (1, PROMPT))
+    if entry == "prefill":
+        sub = JT.init_cache(jcfg, 1, 32)
+        sub["pos"] = jnp.zeros((1,), jnp.int32)
+        want, _ = jax.jit(JT.decode_step, static_argnums=3)(bf, sub, jnp.asarray(toks), jcfg)
+        with torch.no_grad():
+            got, _ = TT.prefill(model, torch.from_numpy(toks), tcfg)
+    else:
+        want, _ = jax.jit(JT.forward, static_argnums=2)(bf, {"tokens": jnp.asarray(toks)}, jcfg)
+        with torch.no_grad():
+            got, _ = TT.forward(model, {"tokens": torch.from_numpy(toks)}, tcfg)
+    assert got.shape == (1, PROMPT, jcfg.padded_vocab) and model.embed["tok"].dtype == torch.bfloat16
+    atol, rtol = BF16_LOGITS_TOL
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=atol, rtol=rtol)
+
+
 def test_window_schedule_matches_jax():
     for arch in ARCHS:
         jcfg, _, tcfg, _ = _model(arch)
