@@ -13,13 +13,15 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
 3. kernel against its plain PyTorch version on the card over a sweep of
    dtypes, head dims, GQA groups, lengths (ragged ones included), windows,
    soft-caps (with scores large enough for the cap to matter) and masks,
-   each within atol + rtol*|ref|, launching every kernel of the library;
-   model-layout inputs read through their strides (B=2, a head slice, a
+   each within atol + rtol*|ref|, launching every kernel of the library,
+   and at arctic-480b's GQA group 7 (56 over 8 heads, hd 128); model-layout
+   inputs read through their strides (B=2, a head slice, a
    transposed (B,H,S,hd) storage, layouts that take one counted copy) and a
    captured call replayed on inputs changed in place; then times at
-   phi4-mini's prefill buckets and S=2048, in a CUDA graph and launched from
-   Python, beside the plain version, ``F.scaled_dot_product_attention`` (a
-   yardstick only: the port never calls it) and the card's bound;
+   phi4-mini's prefill buckets and S=2048, and at arctic-480b's at S=512, in
+   a CUDA graph and launched from Python, beside the plain version,
+   ``F.scaled_dot_product_attention`` (a yardstick only: the port never
+   calls it) and the card's bound;
 4. serve: phi4-mini-3.8b at full width and depth, bf16, random weights made
    on the card from a seed, 8 requests through ``ServingEngine`` with
    CUDA-graph-sealed steps; checks the tokens and that prefill went
@@ -36,7 +38,12 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    four branchy cells' shapes and one bf16 shape, with the variant and tile
    each took, each call inside a CUDA graph and launched from Python,
    beside the plain version, one ``torch.matmul`` over the broadcast x (a
-   yardstick only: the port never calls it) and the card's bound;
+   yardstick only: the port never calls it) and the card's bound; then the
+   MoE expert GEMMs of arctic-480b and deepseek-v2-236b at full width, bf16,
+   at every capacity the served path gives them (M 2-64), against the
+   plain version (computed a few lanes at a time), and at the decode
+   capacity (4) and prefill bucket 64's (64) timed beside ``torch.bmm``
+   and the weights' bytes;
 7. Nimble on the four branchy cells at full size, float32: plain eager
    PyTorch, ``EagerInterpreter``, ``Nimble`` on one stream, on Algorithm 1's
    streams (one CUDA graph over several CUDA streams) and packed onto
@@ -45,7 +52,19 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    beside the graph pool's bytes, microseconds per call, the stream_pack
    kernels the profiler sees inside one packed replay (which must equal the
    packed mm groups) and their device time, and the streams it sees in one
-   multi-stream replay; two packed replays must give the same bits.
+   multi-stream replay; two packed replays must give the same bits;
+8. serve: arctic-480b at full width and 2 of its 35 layers (about 55 GB of
+   bf16 weights), random weights made on the card from a seed, 4 slots of
+   1024 positions, buckets 64-512, 8 requests of 20-500 prompt tokens and 16
+   new ones through ``ServingEngine`` with CUDA-graph-sealed steps; checks
+   the tokens, the replays, the wrappers' counts, and that one decode
+   replay and one prefill replay each ran 3 x n_layers B2 kernels (the
+   expert GEMMs) and the prefill n_layers ``flash_fwd``; prints seal time,
+   TTFT p50, decode tok/s, peak memory and the top device ops of each
+   profiled replay with B2's share;
+9. the same for deepseek-v2-236b (2 of 60 layers, MLA: no flash kernel);
+10. arctic-smoke and deepseek-v2-smoke on the card and on the CPU at
+    float32, one set of weights: identical greedy tokens.
 
 Each profiled graph replay has its outputs poisoned before it and must
 give them back right, so a replay that ran nothing cannot pass as a
@@ -78,8 +97,10 @@ TOL = {"float32": (1e-4, 0.0), "bfloat16": (1e-2, 1e-2)}
 # soft-cap cases scale q up so that scores reach about +-20 and the cap
 # bends them; at unit scale a cap of 50 would move the output by ~1e-3
 CAP_Q_SCALE = 8.0
-# phase 4's prefill buckets, and the lengths phase 3 times B1 at
+# the served phases' prefill buckets and decode slots, and the lengths
+# phase 3 times B1 at
 PREFILL_BUCKETS = (64, 128, 256, 512)
+SERVE_SLOTS = 4
 TIMED_LENGTHS = PREFILL_BUCKETS + (2048,)
 
 
@@ -224,6 +245,14 @@ def flash_cases() -> list[tuple[str, int, int, int, int, int, int, float, bool]]
     return cases
 
 
+def gqa7_cases() -> list[tuple[str, int, int, int, int, int, int, float, bool]]:
+    """Phase 3's cases at arctic-480b's attention: 56 query heads over 8 kv
+    heads (GQA group 7), hd 128, causal, at the smallest and largest prefill
+    bucket, in both dtypes (same fields as :func:`flash_cases`)."""
+    return [(dname, 128, 8, 7, S, S, 0, 0.0, True)
+            for dname in ("bfloat16", "float32") for S in (64, 512)]
+
+
 def _flash_tile(q, k, v) -> str:
     from repro_torch.kernels.flash_attention import kernel
 
@@ -252,7 +281,7 @@ def phase_kernel() -> dict:
         "|err| <= atol + rtol*|ref|: f32 1e-4 + 0 for summation order; bf16 "
         f"1e-2 + 1e-2*|ref| for bf16 rounding of p and output; soft-cap cases "
         f"scale q by {CAP_Q_SCALE:g} so the cap bends the scores)")
-    cases = flash_cases()
+    cases = flash_cases() + gqa7_cases()
     worst, reached = 0.0, {}
     for i, (dname, hd, kv_heads, group, Sq, Skv, window, cap, causal) in enumerate(cases):
         q, k, v = _qkv(kv_heads, group, Sq, Skv, hd, getattr(torch, dname), seed=i)
@@ -290,7 +319,10 @@ def phase_kernel() -> dict:
     if missing:
         fail(f"phase 3 never launched the flash kernels {sorted(missing)}")
     flash_layouts()
-    return flash_timing(describe=_flash_tile)
+    record = flash_timing(describe=_flash_tile)
+    record["arctic_prefill"] = flash_timing(
+        describe=_flash_tile, q_heads=56, lengths=(512,), model="arctic-480b")
+    return record
 
 
 def flash_layouts() -> None:
@@ -380,25 +412,27 @@ def flash_layouts() -> None:
             fail(f"a replay on inputs changed in place disagrees: {r:.3f} of tolerance")
 
 
-def flash_timing(describe=None) -> dict:
-    """B1 at phi4-mini's prefill shapes (q (24,S,128), kv (8,S,128), bf16,
-    causal, B=1) for every prefill bucket and S=2048: kernel,
-    ``F.scaled_dot_product_attention`` (a yardstick only: the port never
-    calls it) and the plain version, each inside a CUDA graph and launched
-    from Python, beside the card's bound.  ``describe(q, k, v)`` names the
-    launch the kernel makes.  Returns the record of S=512, the largest
-    prefill bucket, with the other lengths under ``by_length``."""
+def flash_timing(describe=None, q_heads: int = 24, kv_heads: int = 8,
+                 lengths=TIMED_LENGTHS, model: str = "phi4-mini") -> dict:
+    """B1 at a model's prefill shapes (q (q_heads,S,128), kv (kv_heads,S,128),
+    bf16, causal, B=1; by default phi4-mini's, at every prefill bucket and
+    S=2048): kernel, ``F.scaled_dot_product_attention`` (a yardstick only:
+    the port never calls it) and the plain version, each inside a CUDA graph
+    and launched from Python, beside the card's bound.  ``describe(q, k, v)``
+    names the launch the kernel makes.  Returns the record of S=512, the
+    largest prefill bucket, with every length under ``by_length``."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 
-    say("-- timing at phi4-mini prefill shapes: q (24,S,128), kv (8,S,128), bf16, "
-        "causal; ms per call in a CUDA graph (graph) and launched from Python (eager)")
+    group = q_heads // kv_heads
+    say(f"-- timing at {model} prefill shapes: q ({q_heads},S,128), kv ({kv_heads},S,128), "
+        "bf16, causal; ms per call in a CUDA graph (graph) and launched from Python (eager)")
     record, by_length = {}, {}
-    for S in TIMED_LENGTHS:
-        q, k, v = _qkv(8, 3, S, S, 128, torch.bfloat16, seed=100 + S)
-        kw = dict(group=3, causal=True)
+    for S in lengths:
+        q, k, v = _qkv(kv_heads, group, S, S, 128, torch.bfloat16, seed=100 + S)
+        kw = dict(group=group, causal=True)
         got, ref = flash_attention(q, k, v, **kw), flash_attention_ref(q, k, v, **kw)
         err = (got.float() - ref.float()).abs().max().item()
         if not tol_ratio(got, ref, "bfloat16") <= 1.0:
@@ -415,7 +449,7 @@ def flash_timing(describe=None) -> dict:
         eager = {name: time_ms(fn, 5 if name == "plain" else iters)
                  for name, fn in calls.items()}
         # causal: S(S+1)/2 (query, key) pairs per head, 4*hd operations each
-        flops = 4.0 * 128 * 24 * S * (S + 1) / 2
+        flops = 4.0 * 128 * q_heads * S * (S + 1) / 2
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
         bound_ms = max(t_ops, t_bytes) * 1e3
@@ -438,37 +472,40 @@ def flash_timing(describe=None) -> dict:
     return record
 
 
-def phase_serve() -> tuple[int, int | None]:
-    """Returns the flash wrapper's calls over the served run, and the flash
-    kernels the profiler saw in one profiled prefill replay (None if it saw
-    no device time there)."""
+def serve_on_card(cfg) -> tuple:
+    """Serve ``cfg`` on the card: random weights drawn there from seed 0,
+    then 8 requests of 20-500 prompt tokens and 16 new ones through a
+    ``ServingEngine`` of 4 slots of 1024 positions, buckets 64-512, its
+    steps sealed as CUDA graphs.  Fails unless every request finished with
+    tokens in range and the graph replays equal the requests and the
+    steps.  Returns the drained engine and the wrappers' counts over the
+    served run: stream_pack launches, flash launches, layout copies."""
     import numpy as np
     import torch
 
-    import repro_torch.configs as C
-    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.stream_pack import kernel as pack
     from repro_torch.launch import serve
     from repro_torch.serving import ServingEngine
 
-    say("== phase 4: serve phi4-mini-3.8b, full width and depth, bf16, on the card")
-    cfg = dataclasses.replace(C.get("phi4-mini-3.8b"), dtype="bfloat16")
     t0 = time.perf_counter()
     params = serve.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    say(f"weights: {n_params / 1e9:.3f} B parameters, initialised on the card in "
-        f"{time.perf_counter() - t0:.1f}s")
+    say(f"weights: {n_params / 1e9:.3f} B parameters ({torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB on the card), initialised on the card in {time.perf_counter() - t0:.1f}s")
     torch.cuda.reset_peak_memory_stats()
 
-    kernel.launches = kernel.layout_copies = 0   # the main path's run starts here
+    pack.launches = flash.launches = flash.layout_copies = 0   # the path's run starts here
     t0 = time.perf_counter()
-    engine = ServingEngine(cfg, params, max_slots=4, max_len=1024,
-                           bucketing="pow2:64:512", device="cuda")
+    engine = ServingEngine(cfg, params, max_slots=SERVE_SLOTS, max_len=1024,
+                           bucketing=f"pow2:{min(PREFILL_BUCKETS)}:{max(PREFILL_BUCKETS)}",
+                           device="cuda")
     seal_s = time.perf_counter() - t0
     reqs = serve.make_requests(cfg, 8, max_new=16, seed=0, min_len=20, max_len=501)
     res = serve.serve(engine, reqs)
     torch.cuda.synchronize()
-    launches, copies = kernel.launches, kernel.layout_copies   # ... and ends here
+    counts = (pack.launches, flash.launches, flash.layout_copies)   # ... and ends here
     st = engine.stats
     captures = st.prefill_compiles + st.decode_compiles
     say(f"seal {seal_s:.2f}s ({st.prefill_compiles} prefill buckets + "
@@ -479,9 +516,9 @@ def phase_serve() -> tuple[int, int | None]:
         f"over {st.steps} steps | peak max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     say(f"CUDA graphs: {captures} captures, {st.prefill_replays} prefill + "
-        f"{st.decode_replays} decode replays | flash wrapper calls {launches} "
-        f"(eager warm-up runs, plus graph captures that record the kernel "
-        f"without running it), layout copies {copies}")
+        f"{st.decode_replays} decode replays | wrapper calls (eager warm-up runs, plus "
+        f"graph captures that record the kernel without running it): stream_pack "
+        f"{counts[0]}, flash {counts[1]}; layout copies {counts[2]}")
 
     if len(res["done"]) != len(reqs):
         fail(f"{len(res['done'])} of {len(reqs)} requests finished")
@@ -491,15 +528,28 @@ def phase_serve() -> tuple[int, int | None]:
         toks = np.asarray(r.generated)
         if toks.min() < 0 or toks.max() >= cfg.vocab:
             fail(f"request {r.rid}: token outside [0, {cfg.vocab})")
+    if st.prefill_replays != len(reqs) or st.decode_replays != st.steps:
+        fail(f"graph replays: prefill {st.prefill_replays}, decode "
+             f"{st.decode_replays} over {st.steps} steps")
+    return engine, counts
+
+
+def phase_serve() -> tuple[int, int | None]:
+    """Returns the flash wrapper's calls over the served run, and the flash
+    kernels the profiler saw in one profiled prefill replay (None if it saw
+    no device time there)."""
+    import repro_torch.configs as C
+
+    say("== phase 4: serve phi4-mini-3.8b, full width and depth, bf16, on the card")
+    cfg = dataclasses.replace(C.get("phi4-mini-3.8b"), dtype="bfloat16")
+    engine, (_, launches, copies) = serve_on_card(cfg)
+    st = engine.stats
     if launches < cfg.n_layers * st.prefill_compiles or st.prefill_compiles < 1:
         fail(f"flash kernel launched {launches} times for {st.prefill_compiles} "
              f"captured prefill buckets: not on the main path")
     if copies != 0:
         fail(f"the served run made {copies} layout copies for the flash kernel: "
              "the model's layouts must be read in place")
-    if st.prefill_replays != len(reqs) or st.decode_replays != st.steps:
-        fail(f"graph replays: prefill {st.prefill_replays}, decode "
-             f"{st.decode_replays} over {st.steps} steps")
     in_replays = step_breakdown(engine)
     return launches, in_replays
 
@@ -576,6 +626,21 @@ def by_kernel(events) -> list[tuple[float, int, str]]:
     return [(us, count, name) for name, (us, count) in by_name.items()]
 
 
+def replay_times(engine):
+    """Print the graph-replay times of the decode step and of each prefill
+    bucket (CUDA events); returns the decode step's token input."""
+    import torch
+
+    params, cache = engine.params, engine.kv_cache
+    toks = torch.zeros((engine.max_slots, 1), dtype=torch.long)
+    parts = [f"decode step {time_ms(lambda: engine._decode(params, cache, toks), 20):.3f}"]
+    for b in engine.prompt_buckets:
+        exe, padded = engine._get_prefill_exec(b), torch.zeros((1, b), dtype=torch.long)
+        parts.append(f"prefill {b} {time_ms(lambda: exe(params, cache, padded, 0, b), 5):.3f}")
+    say(f"graph replay ms: {' | '.join(parts)}")
+    return toks
+
+
 def step_breakdown(engine) -> int | None:
     """Where a served step's time goes: graph-replay times of the decode
     step and of each prefill bucket (CUDA events), then the device time
@@ -586,13 +651,7 @@ def step_breakdown(engine) -> int | None:
     import torch
 
     params, cache = engine.params, engine.kv_cache
-    toks = torch.zeros((engine.max_slots, 1), dtype=torch.long)
-    decode_ms = time_ms(lambda: engine._decode(params, cache, toks), 20)
-    parts = [f"decode step {decode_ms:.3f}"]
-    for b in engine.prompt_buckets:
-        exe, padded = engine._get_prefill_exec(b), torch.zeros((1, b), dtype=torch.long)
-        parts.append(f"prefill {b} {time_ms(lambda: exe(params, cache, padded, 0, b), 5):.3f}")
-    say(f"graph replay ms: {' | '.join(parts)}")
+    toks = replay_times(engine)
 
     # replays do not pass through the wrapper's counter: count the flash
     # kernels that one replay runs on the card
@@ -638,14 +697,14 @@ def phase_cpu_parity() -> None:
 
     import repro_torch.configs as C
     from repro_torch.launch import serve
-    from repro_torch.models import DenseTransformer, prefill
+    from repro_torch.models import Transformer, prefill
     from repro_torch.serving import ServingEngine
 
     say("== phase 5: card against CPU, phi4-mini full width, 2 layers, float32 "
         "(logits within 1e-3: float32 summation order differs across devices)")
     cfg = dataclasses.replace(C.get("phi4-mini-3.8b"), n_layers=2, dtype="float32")
     p_gpu = serve.init_params(cfg, seed=1, device="cuda")
-    p_cpu = DenseTransformer(cfg, device="cpu")
+    p_cpu = Transformer(cfg, device="cpu")
     p_cpu.load_state_dict(p_gpu.state_dict())
 
     tokens = torch.from_numpy(
@@ -791,7 +850,96 @@ def phase_stream_pack() -> dict:
         if name == "darts-like":     # the first cell of the main path's run
             record = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    record["expert_shapes"] = expert_gemms()
     return record
+
+
+# phase 6's MoE expert GEMMs on B2: (lanes, d_model, d_ff_expert) of each
+# served MoE model; w_gate and w_up are (lanes, d_model, d_ff_expert), w_down
+# (lanes, d_ff_expert, d_model), and M is the capacity serving gives them
+EXPERT_GEMMS = {"arctic-480b": (128, 7168, 4864), "deepseek-v2-236b": (160, 5120, 1536)}
+# the M that are timed: 4 decode slots, and prefill bucket 64 (dropless)
+EXPERT_TIMED_M = (4, 64)
+# lanes per call of the plain version on the card, which upcasts w to float32
+# (17.8 GB for all of arctic's lanes)
+REF_LANES = 16
+
+
+def expert_capacities(arch: str) -> tuple[int, ...]:
+    """Every M the served path gives ``arch``'s expert GEMMs: the capacity
+    of a decode step over ``SERVE_SLOTS`` slots and of a prefill at each of
+    ``PREFILL_BUCKETS``."""
+    import repro_torch.configs as C
+    from repro_torch.models.moe import capacity
+
+    cfg = C.get(arch)
+    return tuple(sorted({capacity(n, cfg) for n in (SERVE_SLOTS,) + PREFILL_BUCKETS}))
+
+
+def expert_gemms() -> list[dict]:
+    """B2 at the MoE expert GEMMs, bf16, random normal operands, at every M
+    of :func:`expert_capacities`: against the plain version, computed
+    REF_LANES lanes at a time, under ``PACK_TOL``; then, at the M of
+    ``EXPERT_TIMED_M``, times in a CUDA graph and launched from Python beside one
+    ``torch.bmm`` over the same operands (a yardstick only: the port never
+    calls it), the plain version (launched from Python) and the bound,
+    which is the weights' bytes."""
+    import torch
+
+    from repro_torch.kernels.stream_pack import kernel as pack
+    from repro_torch.kernels.stream_pack import stream_pack, stream_pack_matmul_ref
+
+    say("-- the MoE expert GEMMs at full width, bf16 (x (lanes,M,K) @ w (lanes,K,N)), at every "
+        f"capacity the served path gives them, timed at M {EXPERT_TIMED_M}; ms per call")
+    entries = []
+    for arch, (lanes, D, F) in EXPERT_GEMMS.items():
+        for gemm, K, N in (("gate/up", D, F), ("down", F, D)):
+            g = torch.Generator(device="cuda").manual_seed(lanes + K)
+            w = torch.randn((lanes, K, N), generator=g, device="cuda", dtype=torch.bfloat16)
+            for M in expert_capacities(arch):
+                x = torch.randn((lanes, M, K), generator=g, device="cuda", dtype=torch.bfloat16)
+                launch = pack.launch_for(x, w)
+                got = stream_pack(x, w)
+                worst = err = 0.0
+                for i in range(0, lanes, REF_LANES):
+                    ref = stream_pack_matmul_ref(x[i:i + REF_LANES], w[i:i + REF_LANES])
+                    part = got[i:i + REF_LANES]
+                    worst = max(worst, ratio(part, ref, *PACK_TOL["bfloat16"]))
+                    err = max(err, (part.float() - ref.float()).abs().max().item())
+                    del ref
+                if not (math.isfinite(err) and worst <= 1.0):
+                    fail(f"stream_pack disagrees at {arch} {gemm} M={M}: max_abs_err {err} "
+                         f"({worst:.3f} of tolerance {PACK_TOL['bfloat16']})")
+                if M not in EXPERT_TIMED_M:
+                    say(f"  {arch} {gemm} lanes {lanes} M {M} K {K} N {N} ({_tile(launch)}): "
+                        f"{worst:.2f} of tolerance, max_abs_err {err:.3e}")
+                    continue
+                calls = {"kernel": lambda: stream_pack(x, w), "library": lambda: torch.bmm(x, w)}
+                graphed = {k: graph_ms(f, reps=5, iters=10) for k, f in calls.items()}
+                eager = {k: time_ms(f, 20) for k, f in calls.items()}
+                plain_ms = time_ms(lambda: stream_pack_matmul_ref(x, w), 3, warmup=1)
+                nbytes = (lanes * M * K + lanes * K * N + lanes * M * N) * 2
+                flops = 2.0 * lanes * M * N * K
+                t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
+                bound_ms = max(t_ops, t_bytes) * 1e3
+                bound_by = "operations" if t_ops >= t_bytes else "bytes"
+                say(f"  {arch} {gemm} lanes {lanes} M {M} K {K} N {N} ({_tile(launch)}): "
+                    f"{worst:.2f} of tolerance, max_abs_err {err:.3e} | in a CUDA graph "
+                    f"kernel_ms {graphed['kernel']:.5f} library_ms (torch.bmm) "
+                    f"{graphed['library']:.5f} | from Python kernel_ms {eager['kernel']:.5f} "
+                    f"library_ms {eager['library']:.5f} plain_ms {plain_ms:.5f} | bound_ms "
+                    f"{bound_ms:.5f} ({bound_by}, {nbytes / 1e9:.3f} GB) | kernel at "
+                    f"{bound_ms / graphed['kernel']:.1%} of bound, "
+                    f"{graphed['library'] / graphed['kernel']:.3f}x the library's speed")
+                entries.append(dict(model=arch, gemm=gemm, lanes=lanes, M=M, K=K, N=N,
+                                    variant=launch.variant, bm=launch.bm, max_abs_err=err,
+                                    ms=graphed["kernel"], eager_ms=eager["kernel"],
+                                    plain_ms=plain_ms, library_ms=graphed["library"],
+                                    eager_library_ms=eager["library"], bound_ms=bound_ms,
+                                    bound_by=bound_by))
+            del w, x, got
+            torch.cuda.empty_cache()
+    return entries
 
 
 def span(events) -> str:
@@ -933,6 +1081,127 @@ def phase_nimble() -> tuple[int, int, int]:
     return launches, in_replays, len(data)
 
 
+def release() -> None:
+    """Give back the memory of the phases before: their engines hold
+    reference cycles (sealed steps that call back into the engine), so
+    collect them, then return the cached blocks to the card."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"memory: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+
+
+def phase_serve_moe(arch: str, number: int, n_layers: int = 2) -> dict:
+    """Serve ``arch`` at full width and ``n_layers`` layers, bf16, as phase 4
+    serves phi4-mini.  Returns the wrappers' counts over the served run
+    and the kernels the profiler saw in one decode and one prefill replay."""
+    import repro_torch.configs as C
+
+    say(f"== phase {number}: serve {arch}, full width, {n_layers} layers, bf16, on the card")
+    release()
+    cfg = dataclasses.replace(C.get(arch), n_layers=n_layers, dtype="bfloat16")
+    say(f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} of width {cfg.moe.d_ff_expert}"
+        + (f" beside a dense FFN of {cfg.d_ff}" if cfg.d_ff else "")
+        + (f", {cfg.moe.num_shared_experts} shared" if cfg.moe.num_shared_experts else "")
+        + f", d_model {cfg.d_model}, "
+        + ("MLA" if cfg.mla else f"GQA {cfg.n_heads} over {cfg.n_kv_heads} heads"))
+    engine, (b2, fl, copies) = serve_on_card(cfg)
+    st = engine.stats
+    captures = st.prefill_compiles + st.decode_compiles
+    # three expert GEMMs per layer in every sealed step, each launched once
+    # by the warm-up run and once by the capture; prefill attention on B1
+    # for GQA, none for MLA (plain PyTorch)
+    want_flash = 0 if cfg.mla else 2 * n_layers * st.prefill_compiles
+    if b2 != 2 * 3 * n_layers * captures or fl != want_flash or copies:
+        fail(f"stream_pack wrapper calls {b2} (want {2 * 3 * n_layers * captures}), flash "
+             f"{fl} (want {want_flash}), layout copies {copies}: not the main path")
+    seen = moe_replays(engine)
+    return dict(b2_launches=b2, flash_launches=fl, **seen)
+
+
+def moe_replays(engine) -> dict:
+    """:func:`replay_times`, then the device kernels of one decode replay
+    and one prefill replay of the largest bucket (torch.profiler): each
+    must run 3 × n_layers B2 kernels, and the prefill n_layers
+    ``flash_fwd`` unless the model attends with MLA.  A decode replay moves
+    the cache's offsets, so the profiled one starts from the same offsets
+    as the call before it."""
+    import torch
+
+    params, cache, cfg = engine.params, engine.kv_cache, engine.cfg
+    L = cfg.n_layers
+    toks = replay_times(engine)
+    pos0 = cache["pos"].clone()
+
+    def decode_replay():
+        cache["pos"].copy_(pos0)
+        return engine._decode(params, cache, toks)
+
+    b = engine.prompt_buckets[-1]
+    exe, padded = engine._get_prefill_exec(b), torch.zeros((1, b), dtype=torch.long)
+    seen = {"b2_in_replays": 0, "flash_in_replays": 0, "profiled_replays": 0}
+    for name, run in (("decode", decode_replay),
+                      (f"prefill {b}", lambda: exe(params, cache, padded, 0, b))):
+        rows = by_kernel(kernels_in_one(run))
+        if not rows:
+            fail(f"one {name} graph replay: the profiler saw no device time")
+        total = sum(us for us, _, _ in rows)
+        b2_us = sum(us for us, _, key in rows if "stream_pack_" in key)
+        b2 = sum(c for _, c, key in rows if "stream_pack_" in key)
+        fl = sum(c for _, c, key in rows if "flash_fwd" in key)
+        say(f"one {name} graph replay: {sum(c for _, c, _ in rows)} device ops, "
+            f"{total / 1e3:.3f} ms of kernels; {b2} stream_pack kernels, {b2_us / 1e3:.3f} ms "
+            f"({b2_us / total:.1%} of the kernel time); {fl} flash_fwd (torch.profiler); top:")
+        for us, count, key in sorted(rows, reverse=True)[:8]:
+            say(f"  {us / total:6.1%} {us / 1e3:8.3f} ms x{count:<4d} {key[:90]}")
+        want_fl = L if name != "decode" and cfg.mla is None else 0
+        if b2 != 3 * L or fl != want_fl:
+            fail(f"a {name} replay ran {b2} stream_pack and {fl} flash kernels for {L} "
+                 f"layers (want {3 * L} and {want_fl})")
+        seen["b2_in_replays"] += b2
+        seen["flash_in_replays"] += fl
+        seen["profiled_replays"] += 1
+    return seen
+
+
+def phase_moe_cpu_parity(number: int) -> None:
+    """The MoE smoke configs through ``ServingEngine`` on the card and on
+    the CPU, one set of weights (drawn on the card, copied over)."""
+    import repro_torch.configs as C
+    from repro_torch.kernels.stream_pack import kernel as pack
+    from repro_torch.launch import serve
+    from repro_torch.models import Transformer
+    from repro_torch.serving import ServingEngine
+
+    say(f"== phase {number}: card against CPU, arctic-smoke and deepseek-v2-smoke, float32 "
+        "(identical greedy tokens; B2 takes its float32 kernels on the card, its plain "
+        "version on the CPU; prompts of 8-119 tokens, buckets 16 and 128, the latter "
+        "past the dropless limit of 64)")
+    release()
+    for arch in ("arctic-480b", "deepseek-v2-236b"):
+        cfg = dataclasses.replace(C.get(arch, smoke=True), dtype="float32")
+        p_gpu = serve.init_params(cfg, seed=3, device="cuda")
+        p_cpu = Transformer(cfg, device="cpu")
+        p_cpu.load_state_dict(p_gpu.state_dict())
+        out = {}
+        for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+            pack.launches = 0
+            engine = ServingEngine(cfg, params, max_slots=4, max_len=256,
+                                   bucketing=(16, 128), device=dev)
+            reqs = serve.make_requests(cfg, 6, max_new=8, seed=2, min_len=8, max_len=120)
+            out[dev] = {r.rid: r.generated for r in serve.serve(engine, reqs)["done"]}
+            if dev == "cuda" and pack.launches == 0:
+                fail(f"{cfg.name} on the card never launched stream_pack")
+        say(f"  {cfg.name} greedy tokens cuda: {out['cuda']}")
+        say(f"  {cfg.name} greedy tokens cpu:  {out['cpu']}")
+        if out["cuda"] != out["cpu"]:
+            fail(f"{cfg.name}: greedy tokens differ between the card and the CPU")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     try:
@@ -951,21 +1220,33 @@ def main() -> None:
     phase_cpu_parity()
     pack_record = phase_stream_pack()
     pack_launches, pack_in_replays, pack_profiled = phase_nimble()
-    # launches: the wrapper's count over its path's run; launches_in_replays:
-    # the kernels the profiler saw in the path's profiled CUDA-graph
-    # replays (profiled_replays of them), which bypass the wrapper
+    arctic = phase_serve_moe("arctic-480b", 8)
+    deepseek = phase_serve_moe("deepseek-v2-236b", 9)
+    phase_moe_cpu_parity(10)
+    # launches: the wrappers' counts over the paths' runs (each path's
+    # counts set to 0 just before it), by path under launches_by_path;
+    # launches_in_replays: the kernels the profiler saw in the paths'
+    # profiled CUDA-graph replays (profiled_replays of them), which bypass
+    # the wrappers
+    flash_by_path = {"serve phi4-mini-3.8b": launches, "serve arctic-480b": arctic["flash_launches"]}
+    pack_by_path = {"nimble branchy cells": pack_launches,
+                    "serve arctic-480b": arctic["b2_launches"],
+                    "serve deepseek-v2-236b": deepseek["b2_launches"]}
     kernels = [dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:94",
-        launches=launches, launches_in_replays=in_replays,
-        profiled_replays=0 if in_replays is None else 1, **record,
+        launches=sum(flash_by_path.values()), launches_by_path=flash_by_path,
+        launches_in_replays=(in_replays or 0) + arctic["flash_in_replays"],
+        profiled_replays=(0 if in_replays is None else 1) + 1, **record,
     ), dict(
         name="stream_pack_matmul", route="cuda",
         source="src/repro_torch/kernels/stream_pack/csrc/stream_pack.cu",
         replaces="src/repro/kernels/stream_pack/kernel.py:46",
-        launches=pack_launches, launches_in_replays=pack_in_replays,
-        profiled_replays=pack_profiled, **pack_record,
+        launches=sum(pack_by_path.values()), launches_by_path=pack_by_path,
+        launches_in_replays=pack_in_replays + arctic["b2_in_replays"] + deepseek["b2_in_replays"],
+        profiled_replays=pack_profiled + arctic["profiled_replays"] + deepseek["profiled_replays"],
+        **pack_record,
     )]
     say(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     say(json.dumps({"kernels": kernels}))

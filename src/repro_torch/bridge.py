@@ -18,7 +18,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.transformer import DenseTransformer
+from repro_torch.models.transformer import Transformer
 
 
 def _to_tensor(a: np.ndarray) -> torch.Tensor:
@@ -39,15 +39,16 @@ def _flatten(tree: Mapping, prefix: str = ""):
 
 @torch.no_grad()
 def params_from_jax(np_tree: Mapping, cfg, *, device="cuda",
-                    dtype: Optional[torch.dtype] = None) -> DenseTransformer:
-    """A :class:`DenseTransformer` holding the JAX parameters ``np_tree``.
+                    dtype: Optional[torch.dtype] = None) -> Transformer:
+    """A :class:`Transformer` holding the JAX parameters ``np_tree``.
 
     The stacked ``layers`` subtree is unstacked along its leading axis into
-    ``layers[i]``; every other leaf maps by name.  Each value is cast to the
+    ``layers[i]`` (the MoE leaves ``moe.*`` and ``moe.shared.*`` and MLA's
+    ``attn.*`` among them); every other leaf maps by name.  Each value is cast to the
     module's dtype for that parameter (``dtype``, default ``cfg.dtype``;
     norms stay float32).  Raises ``ValueError`` if the names or shapes of
     the two trees differ."""
-    model = DenseTransformer(cfg, device=device, dtype=dtype)
+    model = Transformer(cfg, device=device, dtype=dtype)
     wanted = dict(model.named_parameters())
     given: dict[str, np.ndarray] = {}
     for name, leaf in _flatten({k: v for k, v in np_tree.items() if k != "layers"}):

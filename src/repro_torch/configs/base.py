@@ -226,7 +226,7 @@ ARCH_FAMILIES = {
     "seamless-m4t-medium": "audio",
 }
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "moe")
 
 
 def _module(name: str):

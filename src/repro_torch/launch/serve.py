@@ -2,6 +2,11 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
         --requests 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \\
+        --smoke --device cpu --dtype float32
+
+``--arch`` takes the dense and MoE architectures (``repro_torch.configs.
+all_archs()``); at full size the MoE ones need more than one card holds.
 
 Runs on the card unless ``--device cpu`` is given (use ``--smoke`` there).
 The weights are random, drawn on the target device from ``--seed``.

@@ -1,5 +1,5 @@
 from .transformer import (
-    DenseTransformer,
+    Transformer,
     decode_step,
     forward,
     init_cache,
@@ -8,7 +8,7 @@ from .transformer import (
 )
 
 __all__ = [
-    "DenseTransformer",
+    "Transformer",
     "decode_step",
     "forward",
     "init_cache",

@@ -4,8 +4,8 @@ Counterparts of the JAX package's ``models/layers.py``, with the same names
 and the same numerics, traps included: RMSNorm scales by ``(1 + scale)``,
 LayerNorm uses the population variance, norms compute in float32, RoPE
 rotates split halves over the full head_dim, gemma2 scales embeddings by
-sqrt(d).  Parameters arrive as mappings of tensors (the ``ParameterDict``s
-of :class:`repro_torch.models.transformer.DenseTransformer`).  The sharding
+sqrt(d).  Parameters arrive as mappings of tensors (the ``Group``s
+of :class:`repro_torch.models.transformer.Transformer`).  The sharding
 hints of the JAX version (``constrain``, ``gather_fsdp``) do nothing on one
 GPU and are dropped.
 """

@@ -35,7 +35,7 @@ from repro_torch.core.aot import ScheduleKey
 from repro_torch.dispatch.bucketing import BucketingPolicy, make_policy
 from repro_torch.dispatch.cache import ScheduleCache
 from repro_torch.dispatch.errors import DrainTimeoutError
-from repro_torch.models.transformer import decode_step, init_cache, prefill
+from repro_torch.models.transformer import cache_names, decode_step, init_cache, prefill
 from repro_torch.obs.tracer import get_tracer
 
 
@@ -109,7 +109,7 @@ def _resolve_device(device) -> torch.device:
 
 
 class ServingEngine:
-    """Sealed-step batched serving for the dense architectures."""
+    """Sealed-step batched serving for the dense and MoE architectures."""
 
     def __init__(
         self,
@@ -343,19 +343,21 @@ class ServingEngine:
 
     def _prefill_dyn(self, params, cache, tokens, slot, true_len):
         """Prefill one request (padded to a bucket) into cache slot ``slot``:
-        the prompt pass runs on an empty cache, its keys/values land at
+        the prompt pass runs on an empty cache, its keys/values (or MLA's
+        latents) land at
         offsets ``[0, P)`` of the slot and ``pos[slot] = true_len``, all in
         place.  ``slot`` and ``true_len`` are 0-dim device tensors, so one
         captured graph serves every slot and prompt length of the bucket."""
         cfg = self.cfg
-        logits, (new_k, new_v) = prefill(params, tokens, cfg)
+        logits, new = prefill(params, tokens, cfg)
         # next token from the true last prompt position (pre-pad)
         last = logits[0].index_select(0, (true_len - 1).reshape(1))[0, : cfg.vocab]
         nxt = torch.argmax(last)
         P = tokens.shape[1]
         s = slot.reshape(1)
-        cache["k"].narrow(2, 0, P).index_copy_(1, s, new_k.to(cache["k"].dtype))
-        cache["v"].narrow(2, 0, P).index_copy_(1, s, new_v.to(cache["v"].dtype))
+        # k/v, or MLA's ckv/krope: every leaf but pos, in prefill's order
+        for name, t in zip(cache_names(cfg), new):
+            cache[name].narrow(2, 0, P).index_copy_(1, s, t.to(cache[name].dtype))
         cache["pos"].index_copy_(0, s, true_len.reshape(1))
         return nxt
 

@@ -40,7 +40,8 @@ def test_port_file_list_is_complete():
                  "src/repro_torch/launch/serve.py", "src/repro_torch/bridge.py",
                  "src/repro_torch/kernels/stream_pack/kernel.py",
                  "src/repro_torch/core/aot.py", "src/repro_torch/core/trace.py",
-                 "src/repro_torch/core/rewriter.py", "src/repro_torch/models/branchy.py"):
+                 "src/repro_torch/core/rewriter.py", "src/repro_torch/models/branchy.py",
+                 "src/repro_torch/models/moe.py", "src/repro_torch/models/mla.py"):
         assert must in names
 
 

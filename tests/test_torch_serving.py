@@ -2,7 +2,8 @@
 
 The port's ``ServingEngine(device="cpu")`` must produce the same greedy
 tokens as the JAX ``ServingEngine`` on the same prompts, weights and
-bucketing (phi4-smoke and gemma2-smoke at float32).  The rest mirrors the
+bucketing (phi4-smoke, gemma2-smoke, arctic-smoke and deepseek-v2-smoke at
+float32).  The rest mirrors the
 engine contract of ``test_serving.py`` and a subset of ``test_cache_bytes.py``
 and the bucketing properties, against the port's classes.
 """
@@ -76,6 +77,35 @@ def test_tokens_identical_to_jax_engine(arch):
     got = {r.rid: r.generated for r in teng.run_until_drained()}
     assert got == want
     assert teng.stats.prefill_tokens == 5 and teng.stats.tokens_out == 35
+
+
+@pytest.mark.parametrize("arch", ["arctic-480b", "deepseek-v2-236b"])
+def test_moe_tokens_identical_to_jax_engine(arch):
+    """The MoE family: five requests over two slots with prompts of 5..100
+    tokens, padded to buckets 16 and 128.  At bucket 128 the experts take
+    the capacity factor (N = 128 > 64, capacity 80 of 4 experts top-2), at
+    16 and in decode they run dropless; DeepSeek prefills its latent
+    cache."""
+    jcfg = dataclasses.replace(JC.get(arch, smoke=True), dtype="float32")
+    tcfg = dataclasses.replace(TC.get(arch, smoke=True), dtype="float32")
+    params, _ = jax_init_model(jax.random.key(0), jcfg)
+    model = params_from_jax(jax.tree_util.tree_map(np.asarray, params), tcfg, device="cpu")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, jcfg.vocab, n) for n in (5, 100, 12, 70, 16)]
+    kw = dict(max_slots=2, max_len=160, prompt_buckets=(16, 128))
+
+    jeng = JaxServingEngine(jcfg, params, **kw)
+    for i, p in enumerate(prompts):
+        jeng.submit(JaxRequest(rid=i, prompt=p.astype(np.int32), max_new_tokens=6))
+    want = {r.rid: r.generated for r in jeng.run_until_drained()}
+
+    teng = ServingEngine(tcfg, model, device="cpu", **kw)
+    assert list(teng.kv_cache)[:2] == (["ckv", "krope"] if tcfg.mla else ["k", "v"])
+    for i, p in enumerate(prompts):
+        teng.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+    got = {r.rid: r.generated for r in teng.run_until_drained()}
+    assert got == want
+    assert teng.stats.prefill_tokens == 5 and teng.stats.tokens_out == 25
 
 
 # -- the engine contract (mirrors test_serving.py) -----------------------------

@@ -292,3 +292,35 @@ def test_grid_limits_raise_value_error(shape):
 def test_chooser_refuses_other_dtypes():
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         kernel.choose_launch(1, 8, 8, 8, "float16", True)
+
+
+# chip_smoke.py phase 6's MoE expert GEMMs: (lanes, d_model, d_ff_expert)
+EXPERTS = SMOKE.EXPERT_GEMMS
+
+
+@pytest.mark.parametrize("down", [False, True], ids=["gate_up", "down"])
+@pytest.mark.parametrize("arch", sorted(EXPERTS))
+def test_expert_gemms_get_a_launch_the_card_takes(arch, down):
+    """The MoE expert GEMMs at every capacity serving gives them (4 decode
+    slots, prefill buckets 64..512: M 2..64) at full width, bf16, 128 or
+    160 lanes: the bf16 ring with cp.async copies, rows fitted to M, 32
+    columns, a grid within the launch limits.  The lanes and widths are
+    the configs'; phase 6 checks B2 against its plain version at each of
+    these M, and times it at 4 and 64."""
+    import repro_torch.configs as TC
+    from repro_torch.models.moe import capacity
+
+    cfg = TC.get(arch)
+    lanes, D, F = EXPERTS[arch]
+    assert (lanes, D, F) == (cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert)
+    K, N = (F, D) if down else (D, F)
+    served = sorted({capacity(n, cfg) for n in (4, 64, 128, 256, 512)})
+    assert list(SMOKE.expert_capacities(arch)) == served
+    assert set(SMOKE.EXPERT_TIMED_M) <= set(served)
+    for M in served:
+        ln = kernel.choose_launch(lanes, M, N, K, "bfloat16", True)
+        assert ln.variant == "bf16_ring/vec" and ln.instance in kernel.INSTANCES
+        assert ln.bm == next(r for r in kernel.BF16_ROWS if M <= r) and ln.bn == 32
+        assert ln.stages == kernel.RING_STAGES and ln.kc == kernel.RING_KC
+        assert ln.grid == (-(-N // 32), 1, lanes) and ln.smem_bytes <= MAX_SMEM
+        assert ln.grid[0] <= kernel.MAX_GRID_X and lanes <= kernel.MAX_GRID_YZ

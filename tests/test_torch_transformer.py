@@ -1,12 +1,15 @@
-"""The port's dense transformer against the JAX package's, on the CPU.
+"""The port's transformer against the JAX package's, on the CPU.
 
 For the stablelm, phi4 and gemma2 smoke configs at float32 (LayerNorm+MHA,
-RMSNorm+GQA, window+softcap+tied+post-norm), with the JAX weights carried
-over through ``repro_torch.bridge``: ``forward``, ``decode_step`` at mixed
-per-slot positions, and the port's empty-cache ``prefill`` against JAX
+RMSNorm+GQA, window+softcap+tied+post-norm) and the MoE family's arctic
+(experts beside a dense branch) and deepseek-v2 (MLA, shared experts)
+smoke configs, with the JAX weights carried over through
+``repro_torch.bridge``: ``forward`` (and the router's aux loss),
+``decode_step`` at mixed per-slot positions, teacher-forced decode against
+``forward``, and the port's empty-cache ``prefill`` against JAX
 ``decode_step`` on a ``pos = 0`` sub-cache.  Prompts of 24 tokens exceed
-gemma2-smoke's window of 16.  Tolerance 1e-4 abs and rel (float32
-summation order).
+gemma2-smoke's window of 16; MoE prompts of 80 tokens take the capacity
+factor.  Tolerance 1e-4 abs and rel (float32 summation order).
 """
 
 import dataclasses
@@ -207,11 +210,149 @@ def test_bridge_refuses_a_foreign_tree_and_keeps_bf16_bits():
 
 def test_unported_families_are_refused():
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        TC.get("arctic-480b")
+        TC.get("llava-next-34b")
     assert sorted(TC.all_archs()) == sorted(
-        ["gemma2-27b", "phi4-mini-3.8b", "starcoder2-15b", "stablelm-1.6b"])
-    moe = dataclasses.replace(TC.get("phi4-mini-3.8b", smoke=True), family="moe")
+        ["gemma2-27b", "phi4-mini-3.8b", "starcoder2-15b", "stablelm-1.6b",
+         "arctic-480b", "deepseek-v2-236b"])
+    vlm = dataclasses.replace(TC.get("phi4-mini-3.8b", smoke=True), family="vlm")
     with pytest.raises(NotImplementedError, match="not ported"):
-        TT.DenseTransformer(moe, device="cpu")
+        TT.Transformer(vlm, device="cpu")
     with pytest.raises(NotImplementedError):
-        TT.init_cache(moe, 1, 8, device="cpu")
+        TT.init_cache(vlm, 1, 8, device="cpu")
+
+
+# -- the MoE family ------------------------------------------------------------
+
+MOE_ARCHS = ["arctic-480b", "deepseek-v2-236b"]
+
+
+def _cache_pair(jcfg, tcfg, B, T, pos, rng):
+    """The same random cache (k/v, or MLA's ckv/krope) for JAX and the port."""
+    names = TT.cache_names(tcfg)
+    shapes = {k: tuple(v.shape[1:]) for k, v in JT.init_cache(jcfg, B, T).items() if k != "pos"}
+    assert tuple(shapes) == names
+    arrays = {k: rng.standard_normal((jcfg.n_layers,) + shapes[k]).astype(np.float32)
+              for k in names}
+    jcache = {k: jnp.asarray(a) for k, a in arrays.items()}
+    jcache["pos"] = jnp.asarray(pos, jnp.int32)
+    tcache = {k: torch.from_numpy(a.copy()) for k, a in arrays.items()}
+    tcache["pos"] = torch.from_numpy(pos.copy())
+    return jcache, tcache
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_forward_logits_and_aux(arch):
+    """Logits and the router's aux loss summed over the layers."""
+    jcfg, params, tcfg, model = _model(arch)
+    toks = np.random.default_rng(0).integers(0, jcfg.vocab, (2, PROMPT))
+    want, waux = jax.jit(JT.forward, static_argnums=2)(params, {"tokens": jnp.asarray(toks)}, jcfg)
+    with torch.no_grad():
+        got, aux = TT.forward(model, {"tokens": torch.from_numpy(toks)}, tcfg)
+    assert got.shape == (2, PROMPT, jcfg.padded_vocab)
+    _close(got, want)
+    assert float(aux["aux_loss"]) > 0
+    np.testing.assert_allclose(float(aux["aux_loss"]), float(waux["aux_loss"]), rtol=TOL)
+
+
+@pytest.mark.parametrize("S_new", [1, 3])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_decode_step_mixed_slots(arch, S_new):
+    """Per-slot offsets, one slot empty; Arctic appends k/v after the layer
+    loop, DeepSeek writes its latents inside each layer.  Both in place,
+    ending where JAX's new cache is."""
+    jcfg, params, tcfg, model = _model(arch)
+    rng = np.random.default_rng(1)
+    B, T = 4, 32
+    pos = np.array([3, 20, 0, 9])
+    jcache, tcache = _cache_pair(jcfg, tcfg, B, T, pos, rng)
+    toks = rng.integers(0, jcfg.vocab, (B, S_new))
+    want, wcache = jax.jit(JT.decode_step, static_argnums=3)(params, jcache, jnp.asarray(toks), jcfg)
+    stores = {k: tcache[k] for k in TT.cache_names(tcfg)}
+    with torch.no_grad():
+        got, out_cache = TT.decode_step(model, tcache, torch.from_numpy(toks), tcfg)
+    assert out_cache is tcache
+    _close(got, want)
+    for k, store in stores.items():
+        assert tcache[k] is store                                # in place
+        _close(tcache[k], wcache[k])
+    np.testing.assert_array_equal(tcache["pos"].numpy(), np.asarray(wcache["pos"]))
+
+
+@pytest.mark.parametrize("P", [PROMPT, 80])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_prefill_matches_decode_step_on_empty_cache(arch, P):
+    """The engine's prompt pass at a dropless length and at one past 64,
+    where the prompt's length sets the experts' capacity."""
+    jcfg, params, tcfg, model = _model(arch)
+    toks = np.random.default_rng(2).integers(0, jcfg.vocab, (1, P))
+    sub = JT.init_cache(jcfg, 1, 96)
+    sub["pos"] = jnp.zeros((1,), jnp.int32)
+    want, wcache = jax.jit(JT.decode_step, static_argnums=3)(params, sub, jnp.asarray(toks), jcfg)
+    with torch.no_grad():
+        got, new = TT.prefill(model, torch.from_numpy(toks), tcfg)
+    _close(got, want)
+    for name, t in zip(TT.cache_names(tcfg), new):
+        assert t.shape[:3] == (jcfg.n_layers, 1, P)
+        _close(t, np.asarray(wcache[name])[:, :, :P])
+
+
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
+def test_decode_matches_forward_teacher_forced(arch):
+    """Step-by-step decode of the tokens equals the full-sequence forward
+    (the port's mirror of ``test_arch_smoke.py::test_decode_matches_forward``:
+    KV caching, MLA's latent absorption, the MoE dispatch at N = B)."""
+    jcfg, params, tcfg, model = _model(arch)
+    B, s = 2, 8
+    toks = np.random.default_rng(0).integers(0, jcfg.vocab, (B, s))
+    with torch.no_grad():
+        ref, _ = TT.forward(model, {"tokens": torch.from_numpy(toks)}, tcfg)
+        cache = TT.init_cache(tcfg, B, s, device="cpu")
+        for t in range(s):
+            logits, cache = TT.decode_step(model, cache, torch.from_numpy(toks[:, t: t + 1]), tcfg)
+            np.testing.assert_allclose(logits[:, 0].numpy(), ref[:, t].numpy(), rtol=TOL, atol=TOL)
+    assert cache["pos"].tolist() == [s] * B
+
+
+# MoE bf16 logits (atol, rtol): as BF16_LOGITS_TOL, and XLA also keeps the
+# MoE's fused elementwise work (activation, gate product and weighting,
+# combine) in float32 where the port rounds each step to bf16.  Measured:
+# at most 0.0703 at |logits| <= 4.6 (4.5 bf16 ulps at 4).
+MOE_BF16_LOGITS_TOL = (1e-1, 2e-2)
+
+
+@pytest.mark.parametrize("entry", ["prefill", "forward"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_bf16_logits_match_jax(arch, entry):
+    """The smoke configs at bf16 on JAX's weights (bf16, router and norms
+    float32): ``prefill`` against JAX ``decode_step`` on an empty sub-cache,
+    ``forward`` against JAX ``forward``."""
+    jcfg = dataclasses.replace(JC.get(arch, smoke=True), dtype="bfloat16")
+    tcfg = dataclasses.replace(TC.get(arch, smoke=True), dtype="bfloat16")
+    params, _ = JT.init_model(jax.random.key(0), jcfg)
+    model = params_from_jax(jax.tree_util.tree_map(np.asarray, params), tcfg, device="cpu")
+    toks = np.random.default_rng(0).integers(0, jcfg.vocab, (1, PROMPT))
+    if entry == "prefill":
+        sub = JT.init_cache(jcfg, 1, 32)
+        sub["pos"] = jnp.zeros((1,), jnp.int32)
+        want, _ = jax.jit(JT.decode_step, static_argnums=3)(params, sub, jnp.asarray(toks), jcfg)
+        with torch.no_grad():
+            got, _ = TT.prefill(model, torch.from_numpy(toks), tcfg)
+    else:
+        want, _ = jax.jit(JT.forward, static_argnums=2)(params, {"tokens": jnp.asarray(toks)}, jcfg)
+        with torch.no_grad():
+            got, _ = TT.forward(model, {"tokens": torch.from_numpy(toks)}, tcfg)
+    assert got.shape == (1, PROMPT, jcfg.padded_vocab)
+    assert model.layers[0]["moe"]["w_gate"].dtype == torch.bfloat16
+    atol, rtol = MOE_BF16_LOGITS_TOL
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=atol, rtol=rtol)
+
+
+def test_moe_cache_layout():
+    cfg = dataclasses.replace(TC.get("deepseek-v2-236b", smoke=True), dtype="float32")
+    cache = TT.init_cache(cfg, 3, 40, device="cpu")
+    assert list(cache) == ["ckv", "krope", "pos"]
+    assert cache["ckv"].shape == (cfg.n_layers, 3, 40, cfg.mla.kv_lora_rank)
+    assert cache["krope"].shape == (cfg.n_layers, 3, 40, cfg.mla.qk_rope_head_dim)
+    arctic = dataclasses.replace(TC.get("arctic-480b", smoke=True), dtype="float32")
+    assert list(TT.init_cache(arctic, 1, 8, device="cpu")) == ["k", "v", "pos"]
