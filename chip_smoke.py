@@ -11,15 +11,21 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    sm_90a, one nvcc for each source, both started together; print their
    ptxas register / shared-memory / spill reports;
 3. kernel against its plain PyTorch version on the card over a sweep of
-   dtypes, head dims, GQA groups, lengths (ragged ones included), windows,
-   soft-caps (with scores large enough for the cap to matter) and masks,
-   each within atol + rtol*|ref|, launching every kernel of the library,
-   and at arctic-480b's GQA group 7 (56 over 8 heads, hd 128); model-layout
+   dtypes, head dims (zamba2's 80 among them), GQA groups, lengths (ragged
+   ones included), windows, soft-caps (with scores large enough for the cap
+   to matter) and masks, each within atol + rtol*|ref|, launching every
+   kernel of the library, at arctic-480b's GQA group 7 (56 over 8 heads,
+   hd 128), and on the model layout at each shape, batch included, at
+   which phases 11-14 call it (``family_shapes``: llava's prefill buckets
+   and 2944 positions at GQA 7, seamless's bidirectional encoder and cross
+   attention, Sq = 1 among them, zamba2's hd 80; after phase 14 the run
+   fails if those phases called B1 at any other shape); model-layout
    inputs read through their strides (B=2, a head slice, a
    transposed (B,H,S,hd) storage, layouts that take one counted copy) and a
    captured call replayed on inputs changed in place; then times at
-   phi4-mini's prefill buckets and S=2048, and at arctic-480b's at S=512, in
-   a CUDA graph and launched from Python, beside the plain version,
+   phi4-mini's prefill buckets and S=2048, at arctic-480b's at S=512 and at
+   the four families' shapes, in a CUDA graph and launched from Python,
+   beside the plain version,
    ``F.scaled_dot_product_attention`` (a yardstick only: the port never
    calls it) and the card's bound;
 4. serve: phi4-mini-3.8b at full width and depth, bf16, random weights made
@@ -52,7 +58,8 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    beside the graph pool's bytes, microseconds per call, the stream_pack
    kernels the profiler sees inside one packed replay (which must equal the
    packed mm groups) and their device time, and the streams it sees in one
-   multi-stream replay; two packed replays must give the same bits;
+   multi-stream replay; two packed replays must give the same bits; the
+   ``JitPerOpEngine`` column (Fig. 7's TorchScript) within 1e-5 of eager;
 8. serve: arctic-480b at full width and 2 of its 35 layers (about 55 GB of
    bf16 weights), random weights made on the card from a seed, 4 slots of
    1024 positions, buckets 64-512, 8 requests of 20-500 prompt tokens and 16
@@ -64,7 +71,29 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    profiled replay with B2's share;
 9. the same for deepseek-v2-236b (2 of 60 layers, MLA: no flash kernel);
 10. arctic-smoke and deepseek-v2-smoke on the card and on the CPU at
-    float32, one set of weights: identical greedy tokens.
+    float32, one set of weights: identical greedy tokens;
+11. llava-next-34b at full width and 4 of its 60 layers, bf16: served as
+    phase 4 serves phi4-mini (text prompts), then one ``forward`` of 2880
+    vision embeddings and 64 tokens (B1 at S = 2944, GQA 7);
+12. seamless-m4t-medium at full width and depth, bf16: ``encode_memory``
+    of 4 x 128 frames (B1 bidirectional), the teacher-forced ``forward``
+    of 4 x 512 tokens, then 16 greedy steps of batch ``decode_step`` for 4
+    sequences with the memory in the cache (cross attention on B1 with one
+    query row), eagerly and as a captured CUDA graph: the same tokens;
+13. zamba2-2.7b at full width and depth, bf16: ``forward`` of 4 x 512
+    tokens (the chunked SSD; the shared block's attention on B1 at hd 80,
+    9 times), then the batch decode of phase 12 from an empty state;
+14. xlstm-125m at full width and depth, bf16: the same as phase 13 (the
+    chunked mLSTM, sLSTM at layers 3, 7 and 11; no attention);
+15. the smoke configs of llava-next, seamless, zamba2 and xlstm on the card
+    and on the CPU at float32, one set of weights: ``forward`` logits within
+    ``FAMILY_FORWARD_TOL`` and identical greedy tokens (llava through
+    ``ServingEngine``, the others by batch decode).
+
+Each phase prints its times (CUDA events, graph replays), the kernels of
+one profiled call, and the wrappers' counts; each forward and each decode
+must launch the flash kernel exactly as often as the model has attention
+over a full sequence or a memory.
 
 Each profiled graph replay has its outputs poisoned before it and must
 give them back right, so a replay that ran nothing cannot pass as a
@@ -76,6 +105,7 @@ The line before the last is the per-kernel JSON record; the last is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -228,18 +258,19 @@ FLASH_COMBOS = [(1, 0, 0.0, True), (3, 0, 50.0, True), (4, 16, 0.0, True),
 
 def flash_cases() -> list[tuple[str, int, int, int, int, int, int, float, bool]]:
     """Phase 3's (dtype, hd, kv heads, group, Sq, Skv, window, softcap,
-    causal) cases: the first 130 (2 kv heads), then phi4-mini's 8 kv heads x
-    group 3 at S=2048 for every head dim, a grid that fills the card (the
-    130 take the split tile at S=200 and 1024, the single one at S=64)."""
+    causal) cases: 172 with 2 kv heads (every head dim, zamba2-2.7b's 80
+    among them), then phi4-mini's 8 kv heads x group 3 at S=2048 for every
+    head dim, a grid that fills the card (the 172 take the split tile at
+    S=200 and 1024, the single one at S=64)."""
     cases = []
     for dname in ("float32", "bfloat16"):
-        for hd in (32, 64, 128):
+        for hd in (32, 64, 80, 128):
             for S in (64, 200, 1024):
                 for group, window, cap, causal in FLASH_COMBOS:
                     cases.append((dname, hd, 2, group, S, S, window, cap, causal))
         for causal in (True, False):                 # Sq != Skv
             cases.append((dname, 128, 2, 3, 64, 256, 0, 0.0, causal))
-    for hd in (32, 64, 128):
+    for hd in (32, 64, 80, 128):
         cases.append(("bfloat16", hd, 8, 3, 2048, 2048, 0, 0.0, True))
         cases.append(("bfloat16", hd, 8, 3, 2048, 2000, 300, 50.0, False))
     return cases
@@ -253,6 +284,56 @@ def gqa7_cases() -> list[tuple[str, int, int, int, int, int, int, float, bool]]:
             for dname in ("bfloat16", "float32") for S in (64, 512)]
 
 
+# the paths of phases 11-14 that launch B1; llava-next-34b's forward puts a
+# prompt of VLM_PROMPT tokens after its vision embeddings
+FAMILY_ARCHS = ("llava-next-34b", "seamless-m4t-medium", "zamba2-2.7b")
+VLM_PROMPT = 64
+
+
+def path_attention_shapes(cfg, batch: int, length: int, prompt: int,
+                          buckets) -> list[tuple[str, int, int, int, int, int, int, bool]]:
+    """B1's calls on the path of phases 11-14 for ``cfg``, as (label, B, q
+    heads, kv heads, Sq, Skv, hd, causal): llava served (a one-request
+    prefill at each of ``buckets``; its decode attention is plain) and a
+    forward of its vision embeddings and ``prompt`` tokens; seamless's
+    encoder over ``length // audio_frames_ratio`` frames, its decoder's self
+    and cross attention in a forward of ``batch`` x ``length`` tokens, and
+    the cross attention of a decode step (one query row); zamba2's shared
+    block in a forward of ``batch`` x ``length`` tokens (its decode
+    attention is plain); none for xLSTM."""
+    H, KV, hd, name = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.name
+    if cfg.family == "vlm":
+        S = cfg.vision_tokens + prompt
+        return [(f"{name} prefill {b}", 1, H, KV, b, b, hd, True) for b in buckets] + [
+            (f"{name} vision prompt", 1, H, KV, S, S, hd, True)]
+    if cfg.family == "audio":
+        T = length // cfg.audio_frames_ratio
+        return [(f"{name} encoder", batch, H, KV, T, T, hd, False),
+                (f"{name} decoder prompt", batch, H, KV, length, length, hd, True),
+                (f"{name} cross attention", batch, H, KV, length, T, hd, False),
+                (f"{name} cross attention, decode", batch, H, KV, 1, T, hd, False)]
+    if cfg.family == "hybrid":
+        return [(f"{name} shared block", batch, H, KV, length, length, hd, True)]
+    return []
+
+
+def family_shapes() -> list[tuple[str, int, int, int, int, int, int, bool]]:
+    """:func:`path_attention_shapes` of the full configs at the sizes phases
+    11-14 drive them."""
+    import repro_torch.configs as C
+
+    return [shape for arch in FAMILY_ARCHS for shape in path_attention_shapes(
+        C.get(arch), DECODE_BATCH, FORWARD_LEN, VLM_PROMPT, PREFILL_BUCKETS)]
+
+
+def family_cases() -> list[tuple[str, int, int, int, int, int, int, bool]]:
+    """Phase 3's model-layout cases at :func:`family_shapes`, in both
+    dtypes, as (dtype, B, hd, kv heads, group, Sq, Skv, causal)."""
+    return [(dname, B, hd, kv, q // kv, Sq, Skv, causal)
+            for dname in ("bfloat16", "float32")
+            for _, B, q, kv, Sq, Skv, hd, causal in family_shapes()]
+
+
 def _flash_tile(q, k, v) -> str:
     from repro_torch.kernels.flash_attention import kernel
 
@@ -260,6 +341,16 @@ def _flash_tile(q, k, v) -> str:
     return (f"tile {launch.rows} rows x {launch.keys} keys, {launch.warpgroups} consumer "
             f"warpgroup(s), {launch.threads} threads, grid {launch.grid}, smem "
             f"{launch.smem_bytes} B, TMA boxes q {launch.q_box} kv {launch.kv_box}")
+
+
+def _bshd_qkv(B, kv_heads, group, Sq, Skv, hd, dtype, seed):
+    """Contiguous model-layout q (B, Sq, heads, hd) and k, v (B, Skv,
+    kv_heads, hd), as the models' projections give them."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((B, S, n, hd), generator=g, device="cuda").to(dtype)
+            for S, n in ((Sq, kv_heads * group), (Skv, kv_heads), (Skv, kv_heads))]
 
 
 def _ref_bshd(q, k, v, group, **kw):
@@ -281,16 +372,26 @@ def phase_kernel() -> dict:
         "|err| <= atol + rtol*|ref|: f32 1e-4 + 0 for summation order; bf16 "
         f"1e-2 + 1e-2*|ref| for bf16 rounding of p and output; soft-cap cases "
         f"scale q by {CAP_Q_SCALE:g} so the cap bends the scores)")
-    cases = flash_cases() + gqa7_cases()
+    # (batch, case): B1 on (BH, S, hd) for batch None, else on the model
+    # layout (B, S, heads, hd) at the batch the family paths give it
+    cases = [(None, c) for c in flash_cases() + gqa7_cases()] + [
+        (B, (dname, hd, kv, group, Sq, Skv, 0, 0.0, causal))
+        for dname, B, hd, kv, group, Sq, Skv, causal in family_cases()]
     worst, reached = 0.0, {}
-    for i, (dname, hd, kv_heads, group, Sq, Skv, window, cap, causal) in enumerate(cases):
-        q, k, v = _qkv(kv_heads, group, Sq, Skv, hd, getattr(torch, dname), seed=i)
+    for i, (B, (dname, hd, kv_heads, group, Sq, Skv, window, cap, causal)) in enumerate(cases):
+        dtype = getattr(torch, dname)
+        if B is None:
+            q, k, v = _qkv(kv_heads, group, Sq, Skv, hd, dtype, seed=i)
+            run, plain = flash_attention, flash_attention_ref
+        else:
+            q, k, v = _bshd_qkv(B, kv_heads, group, Sq, Skv, hd, dtype, seed=i)
+            run, plain = kernel.attention, _ref_bshd
         if cap:
             q = q * CAP_Q_SCALE                      # a power of 2: exact in bf16
         kw = dict(group=group, softcap=cap, causal=causal, window=window)
         launch = kernel.launch_for(q, k, v)
-        got = flash_attention(q, k, v, **kw)
-        ref = flash_attention_ref(q, k, v, **kw)
+        got = run(q, k, v, **kw)
+        ref = plain(q, k, v, **kw)
         torch.cuda.synchronize()
         reached[launch.instance] = reached.get(launch.instance, 0) + 1
         err = (got.float() - ref.float()).abs().max().item()
@@ -300,15 +401,15 @@ def phase_kernel() -> dict:
         if cap:
             # the cap must matter here, or this case cannot catch a kernel
             # that ignores it
-            uncapped = flash_attention_ref(q, k, v, **{**kw, "softcap": 0.0})
+            uncapped = plain(q, k, v, **{**kw, "softcap": 0.0})
             moved = (uncapped.float() - ref.float()).abs().max().item()
             note = f" | cap moves the output by {moved:.3e}"
             if not moved >= 10 * TOL[dname][0]:
                 fail(f"soft-cap {cap} moves the output by only {moved}: the case is blind to it")
-        say(f"  {dname:8s} hd={hd:3d} heads={kv_heads * group:2d}/{kv_heads} Sq={Sq:4d} "
-            f"Skv={Skv:4d} window={window:3d} softcap={cap:4.0f} causal={int(causal)} "
-            f"wg={launch.warpgroups}: max_abs_err {err:.3e} ({ratio:.2f} of "
-            f"tolerance) {'ok' if ok else 'FAIL'}{note}")
+        say(f"  {dname:8s} B={B or 1} hd={hd:3d} heads={kv_heads * group:2d}/{kv_heads} "
+            f"Sq={Sq:4d} Skv={Skv:4d} window={window:3d} softcap={cap:4.0f} "
+            f"causal={int(causal)} wg={launch.warpgroups}: max_abs_err {err:.3e} ({ratio:.2f} "
+            f"of tolerance) {'ok' if ok else 'FAIL'}{note}")
         if not ok:
             fail(f"kernel disagrees with its plain version: {ratio:.3f} of tolerance {TOL[dname]}")
         worst = max(worst, ratio)
@@ -322,6 +423,11 @@ def phase_kernel() -> dict:
     record = flash_timing(describe=_flash_tile)
     record["arctic_prefill"] = flash_timing(
         describe=_flash_tile, q_heads=56, lengths=(512,), model="arctic-480b")
+    say("-- timing at the family paths' shapes (bf16; batch x heads as heads, which "
+        "gives the same grid and tile)")
+    record["family_shapes"] = {
+        label: flash_time(B * q, B * kv, Sq, Skv, hd, causal, label, describe=_flash_tile)
+        for label, B, q, kv, Sq, Skv, hd, causal in family_shapes()}
     return record
 
 
@@ -421,55 +527,67 @@ def flash_timing(describe=None, q_heads: int = 24, kv_heads: int = 8,
     and launched from Python, beside the card's bound.  ``describe(q, k, v)``
     names the launch the kernel makes.  Returns the record of S=512, the
     largest prefill bucket, with every length under ``by_length``."""
+    say(f"-- timing at {model} prefill shapes: q ({q_heads},S,128), kv ({kv_heads},S,128), "
+        "bf16, causal; ms per call in a CUDA graph (graph) and launched from Python (eager)")
+    record, by_length = {}, {}
+    for S in lengths:
+        entry = flash_time(q_heads, kv_heads, S, S, 128, True, f"S={S}", describe)
+        by_length[S] = entry
+        if S == max(PREFILL_BUCKETS):
+            record = dict(entry)
+    record["by_length"] = by_length
+    return record
+
+
+def flash_time(q_heads: int, kv_heads: int, Sq: int, Skv: int, hd: int, causal: bool,
+               label: str, describe=None) -> dict:
+    """B1 on q (q_heads, Sq, hd) and k/v (kv_heads, Skv, hd), bf16, against
+    its plain version, then timed with ``F.scaled_dot_product_attention``
+    and the plain version, each inside a CUDA graph and launched from
+    Python, beside the card's bound; returns the record."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 
     group = q_heads // kv_heads
-    say(f"-- timing at {model} prefill shapes: q ({q_heads},S,128), kv ({kv_heads},S,128), "
-        "bf16, causal; ms per call in a CUDA graph (graph) and launched from Python (eager)")
-    record, by_length = {}, {}
-    for S in lengths:
-        q, k, v = _qkv(kv_heads, group, S, S, 128, torch.bfloat16, seed=100 + S)
-        kw = dict(group=group, causal=True)
-        got, ref = flash_attention(q, k, v, **kw), flash_attention_ref(q, k, v, **kw)
-        err = (got.float() - ref.float()).abs().max().item()
-        if not tol_ratio(got, ref, "bfloat16") <= 1.0:
-            fail(f"kernel disagrees at S={S}: max_abs_err {err}")
-        q4, k4, v4 = q[None], k[None], v[None]
-        calls = {"kernel": lambda: flash_attention(q, k, v, **kw),
-                 "plain": lambda: flash_attention_ref(q, k, v, **kw),
-                 "library": lambda: F.scaled_dot_product_attention(
-                     q4, k4, v4, is_causal=True, enable_gqa=True)}
-        iters = 50 if S <= 512 else 20
-        graphed = {name: graph_ms(fn, reps=10 if name == "plain" else 20,
-                                  iters=5 if name == "plain" else iters)
-                   for name, fn in calls.items()}
-        eager = {name: time_ms(fn, 5 if name == "plain" else iters)
-                 for name, fn in calls.items()}
-        # causal: S(S+1)/2 (query, key) pairs per head, 4*hd operations each
-        flops = 4.0 * 128 * q_heads * S * (S + 1) / 2
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
-        bound_ms = max(t_ops, t_bytes) * 1e3
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        launch = f" | {describe(q, k, v)}" if describe else ""
-        say(f"  S={S}: graph kernel_ms {graphed['kernel']:.5f} plain_ms "
-            f"{graphed['plain']:.5f} library_ms {graphed['library']:.5f} | eager "
-            f"kernel_ms {eager['kernel']:.5f} plain_ms {eager['plain']:.5f} library_ms "
-            f"{eager['library']:.5f} | bound_ms {bound_ms:.5f} ({bound_by}) | kernel at "
-            f"{bound_ms / graphed['kernel']:.1%} of bound, "
-            f"{graphed['library'] / graphed['kernel']:.3f}x the library's speed | "
-            f"max_abs_err {err:.3e}{launch}")
-        entry = dict(max_abs_err=err, ms=graphed["kernel"], plain_ms=graphed["plain"],
-                     bound_ms=bound_ms, bound_by=bound_by, library_ms=graphed["library"],
-                     eager_ms=eager["kernel"], eager_library_ms=eager["library"])
-        by_length[S] = entry
-        if S == max(PREFILL_BUCKETS):
-            record = dict(entry)
-    record["by_length"] = by_length
-    return record
+    q, k, v = _qkv(kv_heads, group, Sq, Skv, hd, torch.bfloat16, seed=100 + Sq)
+    kw = dict(group=group, causal=causal)
+    got, ref = flash_attention(q, k, v, **kw), flash_attention_ref(q, k, v, **kw)
+    err = (got.float() - ref.float()).abs().max().item()
+    if not tol_ratio(got, ref, "bfloat16") <= 1.0:
+        fail(f"kernel disagrees at {label}: max_abs_err {err}")
+    q4, k4, v4 = q[None], k[None], v[None]
+    calls = {"kernel": lambda: flash_attention(q, k, v, **kw),
+             "plain": lambda: flash_attention_ref(q, k, v, **kw),
+             "library": lambda: F.scaled_dot_product_attention(
+                 q4, k4, v4, is_causal=causal, enable_gqa=True)}
+    iters = 50 if Sq * Skv <= 512 * 512 else 20
+    graphed = {name: graph_ms(fn, reps=10 if name == "plain" else 20,
+                              iters=5 if name == "plain" else iters)
+               for name, fn in calls.items()}
+    eager = {name: time_ms(fn, 5 if name == "plain" else iters)
+             for name, fn in calls.items()}
+    # (query, key) pairs per head: causal (top-left aligned) or all; 4*hd
+    # operations each
+    pairs = sum(min(i + 1, Skv) for i in range(Sq)) if causal else Sq * Skv
+    flops = 4.0 * hd * q_heads * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    launch = f" | {describe(q, k, v)}" if describe else ""
+    say(f"  {label} (q ({q_heads},{Sq},{hd}) kv ({kv_heads},{Skv},{hd}) causal {int(causal)}): "
+        f"graph kernel_ms {graphed['kernel']:.5f} plain_ms "
+        f"{graphed['plain']:.5f} library_ms {graphed['library']:.5f} | eager "
+        f"kernel_ms {eager['kernel']:.5f} plain_ms {eager['plain']:.5f} library_ms "
+        f"{eager['library']:.5f} | bound_ms {bound_ms:.5f} ({bound_by}) | kernel at "
+        f"{bound_ms / graphed['kernel']:.1%} of bound, "
+        f"{graphed['library'] / graphed['kernel']:.3f}x the library's speed | "
+        f"max_abs_err {err:.3e}{launch}")
+    return dict(max_abs_err=err, ms=graphed["kernel"], plain_ms=graphed["plain"],
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=graphed["library"],
+                eager_ms=eager["kernel"], eager_library_ms=eager["library"])
 
 
 def serve_on_card(cfg) -> tuple:
@@ -576,7 +694,7 @@ def _same_outputs(got, want) -> bool:
         and ratio(g, w, 1e-5, 1e-5) <= 1.0 for g, w in zip(got, want))
 
 
-def kernels_in_one(run, check: bool = True, attempts: int = 3) -> list:
+def kernels_in_one(run, check: bool = True, attempts: int = 4) -> list:
     """The device kernels (torch.profiler events) of one call of ``run``,
     after one unprofiled call.
 
@@ -584,16 +702,21 @@ def kernels_in_one(run, check: bool = True, attempts: int = 3) -> list:
     graph replay does) the outputs of the call before are poisoned before
     each profiled call (a graph replay writes into those same tensors
     anew), and the profiled call must give the unprofiled call's outputs
-    again: one that ran nothing fails the run.  Only then is a session that
-    recorded no device event at all a failed reading (an H100 run has once
-    returned an empty activity buffer for a replay), taken again, up to
-    ``attempts`` sessions.  Without ``check`` (a call that moves state, as an
+    again: one that ran nothing fails the run.  Only then is a reading
+    taken, and only when two sessions in a row record the same kernels:
+    an H100 run has returned an empty activity buffer for a replay, and
+    another a buffer of 25 of a replay's 300-odd kernels.  Up to
+    ``attempts`` sessions; if no two in a row agree, the reading with the
+    most device events.  Without ``check`` (a call that moves state, as an
     eager decode step does) one session is taken."""
+    import collections
+
     import torch
     from torch.profiler import ProfilerActivity, profile
     from torch.utils import _pytree as pytree
 
     events: list = []
+    readings: list = []                  # (kernel counts, events) of each session
     with torch.no_grad():
         last = run()
         torch.cuda.synchronize()
@@ -609,11 +732,22 @@ def kernels_in_one(run, check: bool = True, attempts: int = 3) -> list:
                      "it ran nothing, or not all of its work")
             events = [e for e in prof.events()
                       if "cuda" in str(getattr(e, "device_type", "")).lower()]
-            if events:
+            if not check:
                 break
-            if check:
+            if not events:
                 say("    (the profiler recorded no device event for a call whose outputs "
                     "were right: profiling again)")
+                continue
+            counts = collections.Counter(e.name for e in events)
+            if readings and readings[-1][0] == counts:
+                break
+            if readings:
+                say(f"    (two profiler sessions of one call recorded {len(readings[-1][1])} "
+                    f"and {len(events)} device events: profiling again)")
+            readings.append((counts, events))
+        else:
+            if check and readings:
+                events = max((ev for _, ev in readings), key=len)
     return events
 
 
@@ -959,7 +1093,7 @@ def phase_nimble() -> tuple[int, int, int]:
     import torch
 
     from repro_torch.configs import branchy_cell
-    from repro_torch.core import EagerInterpreter, Nimble
+    from repro_torch.core import EagerInterpreter, JitPerOpEngine, Nimble
     from repro_torch.kernels.stream_pack import kernel as pack
     from repro_torch.models.branchy import branchy_forward, example_input, init_branchy
 
@@ -987,6 +1121,7 @@ def phase_nimble() -> tuple[int, int, int]:
         engines, nimbles = {}, {}
         engines["eager"] = lambda: fn(params, x)
         engines["interpreter"] = lambda e=EagerInterpreter(fn, params, x): e(params, x)
+        engines["jit_per_op"] = lambda e=JitPerOpEngine(fn, params, x): e(params, x)
         for name, kw in (("single_stream", dict(multi_stream=False)), ("multi_stream", {}),
                          ("packed", dict(pack_streams=True))):
             nimbles[name] = Nimble(fn, params, x, **kw)
@@ -1008,7 +1143,8 @@ def phase_nimble() -> tuple[int, int, int]:
         # another input and on other weights, which it copies into its
         # static inputs (shared by the three schedules; the packed one
         # re-stacks the weights it baked): restored after each from copies
-        tols = {"interpreter": (1e-5, 1e-5), "single_stream": (1e-5, 1e-5),
+        tols = {"interpreter": (1e-5, 1e-5), "jit_per_op": (1e-5, 1e-5),
+                "single_stream": (1e-5, 1e-5),
                 "multi_stream": (1e-5, 1e-5), "packed": (1e-4, 1e-4)}
         x0, x2 = x.clone(), example_input(cfg, 1, device="cuda")
         p0 = {k: v.clone() for k, v in params.items()}
@@ -1202,6 +1338,418 @@ def phase_moe_cpu_parity(number: int) -> None:
             fail(f"{cfg.name}: greedy tokens differ between the card and the CPU")
 
 
+# the batch decode of phases 12-14: sequences, steps, and prompt length of the
+# full-sequence forward
+DECODE_BATCH, DECODE_STEPS, FORWARD_LEN = 4, 16, 512
+
+
+def _load(arch: str, number: int):
+    """``arch`` at full width and depth, bf16, random weights drawn on the
+    card from seed 0, after the memory of the phases before is collected."""
+    import torch
+
+    import repro_torch.configs as C
+    from repro_torch.launch import serve
+
+    release()
+    cfg = dataclasses.replace(C.get(arch), dtype="bfloat16")
+    t0 = time.perf_counter()
+    model = serve.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in model.parameters())
+    say(f"== phase {number}: {arch}, full width, {cfg.n_layers} layers"
+        + (f" + {cfg.n_enc_layers} encoder layers" if cfg.n_enc_layers else "")
+        + f", bf16, on the card: {n / 1e9:.3f} B parameters "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB), initialised in "
+        f"{time.perf_counter() - t0:.1f}s")
+    return cfg, model
+
+
+def _tokens(cfg, *shape, seed: int):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab, shape).astype(np.int64)).cuda()
+
+
+def _clone(tree):
+    import torch
+    from torch.utils import _pytree as pytree
+
+    return pytree.tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, tree)
+
+
+def _restore(cache, snapshot) -> None:
+    from torch.utils import _pytree as pytree
+
+    for dst, src in zip(pytree.tree_leaves(cache), pytree.tree_leaves(snapshot)):
+        dst.copy_(src)
+
+
+def timed_forward(model, cfg, batch, label: str, want_flash: int) -> dict:
+    """One ``forward`` on the card: finite logits of the right shape, the
+    flash kernel launched ``want_flash`` times (the wrapper's count); then
+    its time (CUDA events, mean of 3) and the device time of one call by
+    kernel (torch.profiler), B1's share among them."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.models import forward
+
+    before = flash.launches
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        logits, _ = forward(model, batch, cfg)
+        torch.cuda.synchronize()
+    made = flash.launches - before
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    S = logits.shape[1]
+    if logits.shape[-1] != cfg.padded_vocab or not bool(torch.isfinite(logits).all()):
+        fail(f"{label}: logits {tuple(logits.shape)} not finite or not of width {cfg.padded_vocab}")
+    if made != want_flash:
+        fail(f"{label}: the flash kernel launched {made} times, want {want_flash}")
+    del logits
+    with torch.no_grad():
+        ms = time_ms(lambda: forward(model, batch, cfg), 3, warmup=1)
+        rows = by_kernel(kernels_in_one(lambda: forward(model, batch, cfg)[0], check=False))
+    total = sum(us for us, _, _ in rows) or float("nan")
+    fl_us = sum(us for us, _, key in rows if "flash_fwd" in key)
+    fl = sum(c for _, c, key in rows if "flash_fwd" in key)
+    say(f"{label}: logits (.., {S}, {cfg.padded_vocab}) finite; {made} flash launches; "
+        f"{ms:.3f} ms per call (CUDA events), peak {peak:.2f} GiB; one call "
+        f"{total / 1e3:.3f} ms of kernels, "
+        f"{fl} flash_fwd {fl_us / 1e3:.3f} ms ({fl_us / total:.1%}); top:")
+    for us, count, key in sorted(rows, reverse=True)[:6]:
+        say(f"  {us / total:6.1%} {us / 1e3:8.3f} ms x{count:<4d} {key[:90]}")
+    return dict(ms=ms, flash=made, flash_ms=fl_us / 1e3, kernels_ms=total / 1e3, peak_gib=peak)
+
+
+def batch_decode(model, cfg, make_cache, first, label: str, want_flash_per_step: int) -> dict:
+    """``DECODE_STEPS`` greedy steps of ``decode_step`` over a batch, run
+    eagerly and then as one captured CUDA graph of a step replayed (its
+    token input fed from its own output), each from the state
+    ``make_cache()`` gives: both must give the same tokens, in range.
+    Then one replay's kernels (torch.profiler), which must hold
+    ``want_flash_per_step`` flash kernels.  Returns the times and counts."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.models import decode_step
+
+    def step(cache, tok):
+        logits, _ = decode_step(model, cache, tok, cfg)
+        return torch.argmax(logits[:, -1, : cfg.vocab], dim=-1)
+
+    before = flash.launches
+    with torch.no_grad():
+        cache, tok, eager = make_cache(), first.clone(), []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DECODE_STEPS):
+            nxt = step(cache, tok)
+            eager.append(nxt)
+            tok = nxt[:, None]
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) / DECODE_STEPS * 1e3
+        eager = torch.stack(eager, 1).cpu()
+
+        cache = make_cache()
+        snapshot = _clone(cache)
+        tok_in = first.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step(cache, tok_in)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        _restore(cache, snapshot)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = step(cache, tok_in)
+        got = []
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(DECODE_STEPS):
+            graph.replay()
+            got.append(out.clone())
+            tok_in.copy_(out[:, None])
+        stop.record()
+        stop.synchronize()
+        replay_ms = start.elapsed_time(stop) / DECODE_STEPS
+        got = torch.stack(got, 1).cpu()
+    launches = flash.launches - before
+    say(f"{label}: {DECODE_STEPS} greedy steps of {first.shape[0]} sequences: eager "
+        f"{eager_ms:.3f} ms a step (host clock), graph replay {replay_ms:.3f} ms a step "
+        f"(CUDA events, with the token feed); {launches} flash launches (eager steps, "
+        f"warm-up, capture)")
+    say(f"  tokens eager {eager.tolist()}")
+    say(f"  tokens graph {got.tolist()}")
+    if not torch.equal(eager, got):
+        fail(f"{label}: the captured step gives other tokens than the eager one")
+    if eager.min() < 0 or eager.max() >= cfg.vocab:
+        fail(f"{label}: a token outside [0, {cfg.vocab})")
+    if launches != (DECODE_STEPS + 2) * want_flash_per_step:
+        fail(f"{label}: {launches} flash launches, want "
+             f"{(DECODE_STEPS + 2) * want_flash_per_step}")
+
+    # one replay from a fixed state, profiled: its outputs must come back
+    mid = _clone(cache)
+    tok_mid = tok_in.clone()
+
+    def replay():
+        _restore(cache, mid)
+        tok_in.copy_(tok_mid)
+        graph.replay()
+        return out
+
+    rows = by_kernel(kernels_in_one(replay))
+    if not rows:
+        fail(f"{label}: the profiler saw no device time in a decode replay")
+    total = sum(us for us, _, _ in rows)
+    fl = sum(c for _, c, key in rows if "flash_fwd" in key)
+    say(f"  one decode replay (after the copies that restore its state): "
+        f"{sum(c for _, c, _ in rows)} device ops, {total / 1e3:.3f} ms of kernels, "
+        f"{fl} flash_fwd; top:")
+    for us, count, key in sorted(rows, reverse=True)[:6]:
+        say(f"  {us / total:6.1%} {us / 1e3:8.3f} ms x{count:<4d} {key[:90]}")
+    if fl != want_flash_per_step:
+        fail(f"{label}: a decode replay ran {fl} flash kernels, want {want_flash_per_step}")
+    return dict(eager_step_ms=eager_ms, replay_ms=replay_ms, flash_launches=launches,
+                flash_in_replay=fl, replay_kernels_ms=total / 1e3)
+
+
+def phase_vlm(number: int) -> dict:
+    """llava-next-34b at full width, 4 of its 60 layers: (i) served through
+    ``ServingEngine`` (text prompts, as in JAX) with CUDA-graph-sealed
+    steps, one prefill replay profiled (one flash kernel per layer); (ii)
+    one ``forward`` of 2880 vision embeddings and a 64-token prompt, B1 at
+    S = 2944, GQA 7."""
+    import torch
+
+    import repro_torch.configs as C
+    from repro_torch.kernels.flash_attention import kernel as flash
+
+    say(f"== phase {number}: serve llava-next-34b, full width, 4 layers, bf16, on the card")
+    release()
+    cfg = dataclasses.replace(C.get("llava-next-34b"), n_layers=4, dtype="bfloat16")
+    engine, (_, served, copies) = serve_on_card(cfg)
+    st = engine.stats
+    if served != 2 * cfg.n_layers * st.prefill_compiles or copies:
+        fail(f"flash launched {served} times for {st.prefill_compiles} captured prefill "
+             f"buckets (want {2 * cfg.n_layers * st.prefill_compiles}), {copies} layout copies")
+    in_replay = step_breakdown(engine)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    batch = {"tokens": _tokens(cfg, 1, 64, seed=5),
+             "vision_embeds": torch.randn((1, cfg.vision_tokens, cfg.vision_dim), generator=g,
+                                          device="cuda").to(torch.bfloat16)}
+    flash.launches = 0
+    fwd = timed_forward(engine.params, cfg, batch,
+                        f"forward: {cfg.vision_tokens} vision embeddings + 64 tokens",
+                        cfg.n_layers)
+    return dict(served_launches=served, forward_launches=fwd["flash"],
+                flash_in_replays=in_replay or 0, profiled_replays=0 if in_replay is None else 1,
+                forward=fwd)
+
+
+def phase_audio(number: int) -> dict:
+    """seamless-m4t-medium at full width and depth: ``encode_memory`` on
+    frames at the config's ratio (B1 bidirectional, hd 64), the
+    teacher-forced ``forward``, then the batch decode with the memory in
+    the cache (cross attention on B1 with one query row)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.models import encode_memory, init_cache
+
+    cfg, model = _load("seamless-m4t-medium", number)
+    B, S = DECODE_BATCH, FORWARD_LEN
+    T = S // cfg.audio_frames_ratio
+    g = torch.Generator(device="cuda").manual_seed(6)
+    frames = torch.randn((B, T, cfg.audio_dim), generator=g, device="cuda")
+    flash.launches = 0                                     # the path's run starts here
+    with torch.no_grad():
+        memory = encode_memory(model, frames, cfg)
+        torch.cuda.synchronize()
+    if memory.shape != (B, T, cfg.d_model) or not bool(torch.isfinite(memory).all()):
+        fail(f"memory {tuple(memory.shape)} not finite or not ({B}, {T}, {cfg.d_model})")
+    enc = flash.launches
+    with torch.no_grad():
+        enc_ms = time_ms(lambda: encode_memory(model, frames, cfg), 3, warmup=1)
+    say(f"encode_memory: frames ({B}, {T}, {cfg.audio_dim}) -> memory finite, {enc} flash "
+        f"launches (bidirectional), {enc_ms:.3f} ms per call (CUDA events)")
+    if enc != cfg.n_enc_layers:
+        fail(f"encode_memory launched the flash kernel {enc} times for {cfg.n_enc_layers} layers")
+    flash.launches = 0
+    fwd = timed_forward(model, cfg, {"tokens": _tokens(cfg, B, S, seed=6), "frames": frames},
+                        f"teacher-forced forward ({B} x {S} tokens over {T} frames)",
+                        cfg.n_enc_layers + 2 * cfg.n_layers)
+
+    def make_cache():
+        cache = init_cache(cfg, B, 64, memory_len=T, device="cuda")
+        cache["memory"].copy_(memory)
+        return cache
+
+    flash.launches = 0
+    dec = batch_decode(model, cfg, make_cache, _tokens(cfg, B, 1, seed=7),
+                       "batch decode with the memory in the cache", cfg.n_layers)
+    return dict(launches=enc + fwd["flash"] + dec["flash_launches"], encode_ms=enc_ms,
+                forward=fwd, decode=dec)
+
+
+def phase_recurrent(arch: str, number: int) -> dict:
+    """zamba2-2.7b (hybrid) or xlstm-125m (ssm) at full width and depth:
+    ``forward`` on ``DECODE_BATCH`` prompts of ``FORWARD_LEN`` tokens (the
+    chunked SSD or mLSTM; zamba2's shared block on B1 at hd 80), then the
+    batch decode from an empty state."""
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.models import init_cache
+
+    cfg, model = _load(arch, number)
+    B, S = DECODE_BATCH, FORWARD_LEN
+    apps = cfg.n_layers // cfg.hybrid_attn_every if cfg.hybrid_attn_every else 0
+    if cfg.ssm:
+        say(f"Mamba2: d_inner {cfg.ssm.expand * cfg.d_model}, state {cfg.ssm.state_dim}, "
+            f"chunk {cfg.ssm.chunk}; shared attention block after every "
+            f"{cfg.hybrid_attn_every}th layer ({apps} applications), "
+            f"{cfg.n_heads} heads of {cfg.resolved_head_dim}")
+    else:
+        say(f"xLSTM: sLSTM at layers {cfg.xlstm.slstm_at}, mLSTM elsewhere (chunk "
+            f"{cfg.xlstm.mlstm_chunk}), {cfg.n_heads} heads")
+    flash.launches = 0                                     # the path's run starts here
+    fwd = timed_forward(model, cfg, {"tokens": _tokens(cfg, B, S, seed=8)},
+                        f"forward ({B} x {S} tokens)", apps)
+    dec = batch_decode(model, cfg, lambda: init_cache(cfg, B, 64, device="cuda"),
+                       _tokens(cfg, B, 1, seed=9), "batch decode from an empty state", 0)
+    return dict(launches=fwd["flash"] + dec["flash_launches"], forward=fwd, decode=dec)
+
+
+@contextlib.contextmanager
+def b1_calls(seen: set):
+    """Add to ``seen`` the shape of every call of B1's model-layout entry
+    (``kernel.attention``, which every model path calls) as (dtype, B, q
+    heads, kv heads, Sq, Skv, hd, causal, scale, softcap, window); the
+    calls and the wrapper's count are otherwise unchanged."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    inner = kernel.attention
+
+    def recording(q, k, v, *, scale=None, softcap=0.0, causal=True, window=0, **kw):
+        seen.add((str(q.dtype)[6:], q.shape[0], q.shape[2], k.shape[2], q.shape[1],
+                  k.shape[1], q.shape[3], bool(causal),
+                  float(scale if scale is not None else 1.0 / math.sqrt(q.shape[3])),
+                  float(softcap), int(window or 0)))
+        return inner(q, k, v, scale=scale, softcap=softcap, causal=causal, window=window, **kw)
+
+    kernel.attention = recording
+    try:
+        yield seen
+    finally:
+        kernel.attention = inner
+
+
+def check_family_launches(seen: set) -> None:
+    """Fails unless every B1 call of phases 11-14 (:func:`b1_calls`) was at
+    a shape that phase 3 held against the plain version
+    (:func:`family_cases`: the same dtype, batch, heads, lengths, head dim
+    and mask, default scale, no cap, no window)."""
+    checked = {(dname, B, kv * group, kv, Sq, Skv, hd, causal, 1.0 / math.sqrt(hd), 0.0, 0)
+               for dname, B, hd, kv, group, Sq, Skv, causal in family_cases()}
+    unchecked = sorted(seen - checked)
+    if unchecked:
+        fail(f"phases 11-14 launched B1 at shapes phase 3 never checked: {unchecked}")
+    say(f"phases 11-14 called B1 at {len(seen)} shapes (dtype, B, heads, kv heads, Sq, Skv, "
+        f"hd, causal), each held against the plain version in phase 3: "
+        + "; ".join(" ".join(map(str, key[:8])) for key in sorted(seen)))
+
+
+# forward logits of the smoke configs, card against CPU at float32 (atol,
+# rtol): the two differ only in summation order (B1's float32 kernel and
+# cuBLAS against the CPU's plain attention and GEMMs, TF32 off)
+FAMILY_FORWARD_TOL = (1e-4, 1e-4)
+
+
+def phase_families_cpu_parity(number: int) -> None:
+    """The four new families' smoke configs at float32, one set of weights
+    (drawn on the card, copied to the CPU): ``forward`` logits of
+    ``DECODE_BATCH`` x 16 tokens (with vision embeddings or frames) within
+    :data:`FAMILY_FORWARD_TOL` of the CPU's, B1 inside the model on the card
+    (vlm, audio, hybrid: the shared block); then llava-next's engine on text
+    prompts, and eight greedy batch-decode steps of the other three (the
+    audio memory encoded on each device), identical on card and CPU."""
+    import numpy as np
+    import torch
+
+    import repro_torch.configs as C
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.launch import serve
+    from repro_torch.models import (Transformer, decode_step, encode_memory, forward,
+                                    init_cache)
+    from repro_torch.serving import ServingEngine
+
+    say(f"== phase {number}: card against CPU, llava-next, seamless, zamba2 and xlstm smoke "
+        "configs, float32 (forward logits within tolerance, identical greedy tokens; B1 on "
+        "the card in the forwards, the vlm prefill and the audio cross attention, its plain "
+        "version on the CPU)")
+    release()
+    for arch in ("llava-next-34b", "seamless-m4t-medium", "zamba2-2.7b", "xlstm-125m"):
+        cfg = dataclasses.replace(C.get(arch, smoke=True), dtype="float32")
+        p_gpu = serve.init_params(cfg, seed=4, device="cuda")
+        p_cpu = Transformer(cfg, device="cpu")
+        p_cpu.load_state_dict(p_gpu.state_dict())
+        frames = torch.from_numpy(np.random.default_rng(5).standard_normal(
+            (DECODE_BATCH, 4, max(cfg.audio_dim, 1)), dtype=np.float32))
+        first = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab, (DECODE_BATCH, 1)))
+        rng = np.random.default_rng(7)
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (DECODE_BATCH, 16)))}
+        if cfg.family == "vlm":
+            batch["vision_embeds"] = torch.from_numpy(rng.standard_normal(
+                (DECODE_BATCH, cfg.vision_tokens, cfg.vision_dim), dtype=np.float32))
+        if cfg.family == "audio":
+            batch["frames"] = frames
+        logits = {}
+        for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+            flash.launches = 0
+            with torch.no_grad():
+                logits[dev] = forward(params, {k: t.to(dev) for k, t in batch.items()},
+                                      cfg)[0].cpu()
+            if dev == "cuda" and cfg.family != "ssm" and not flash.launches:
+                fail(f"{cfg.name}: forward on the card never launched the flash kernel")
+        err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+        r = ratio(logits["cuda"], logits["cpu"], *FAMILY_FORWARD_TOL)
+        say(f"  {cfg.name} forward logits {tuple(logits['cpu'].shape)}: card against CPU "
+            f"max_abs_err {err:.3e} ({r:.2f} of tolerance {FAMILY_FORWARD_TOL}), max |logit| "
+            f"{logits['cpu'].abs().max().item():.3e}")
+        if not (bool(torch.isfinite(logits["cuda"]).all()) and r <= 1.0):
+            fail(f"{cfg.name}: forward logits on the card differ from the CPU's")
+        out = {}
+        for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+            flash.launches = 0
+            if cfg.family == "vlm":
+                engine = ServingEngine(cfg, params, max_slots=4, max_len=128,
+                                       bucketing=(16, 64), device=dev)
+                reqs = serve.make_requests(cfg, 6, max_new=8, seed=2, min_len=4, max_len=60)
+                out[dev] = {r.rid: r.generated for r in serve.serve(engine, reqs)["done"]}
+            else:
+                with torch.no_grad():
+                    cache = init_cache(cfg, DECODE_BATCH, 16, memory_len=frames.shape[1],
+                                       device=dev)
+                    if cfg.family == "audio":
+                        cache["memory"].copy_(encode_memory(params, frames.to(dev), cfg))
+                    tok, toks = first.to(dev), []
+                    for _ in range(8):
+                        logits, _ = decode_step(params, cache, tok, cfg)
+                        tok = torch.argmax(logits[:, -1, : cfg.vocab], dim=-1)[:, None]
+                        toks.append(tok[:, 0].tolist())
+                out[dev] = toks
+            if dev == "cuda" and cfg.family in ("vlm", "audio") and not flash.launches:
+                fail(f"{cfg.name} on the card never launched the flash kernel")
+        say(f"  {cfg.name} greedy tokens cuda: {out['cuda']}")
+        say(f"  {cfg.name} greedy tokens cpu:  {out['cpu']}")
+        if out["cuda"] != out["cpu"]:
+            fail(f"{cfg.name}: greedy tokens differ between the card and the CPU")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     try:
@@ -1223,12 +1771,24 @@ def main() -> None:
     arctic = phase_serve_moe("arctic-480b", 8)
     deepseek = phase_serve_moe("deepseek-v2-236b", 9)
     phase_moe_cpu_parity(10)
+    seen: set = set()
+    with b1_calls(seen):
+        vlm = phase_vlm(11)
+        audio = phase_audio(12)
+        hybrid = phase_recurrent("zamba2-2.7b", 13)
+        phase_recurrent("xlstm-125m", 14)
+    check_family_launches(seen)
+    phase_families_cpu_parity(15)
     # launches: the wrappers' counts over the paths' runs (each path's
     # counts set to 0 just before it), by path under launches_by_path;
     # launches_in_replays: the kernels the profiler saw in the paths'
     # profiled CUDA-graph replays (profiled_replays of them), which bypass
     # the wrappers
-    flash_by_path = {"serve phi4-mini-3.8b": launches, "serve arctic-480b": arctic["flash_launches"]}
+    flash_by_path = {"serve phi4-mini-3.8b": launches, "serve arctic-480b": arctic["flash_launches"],
+                     "serve llava-next-34b": vlm["served_launches"],
+                     "llava-next-34b forward": vlm["forward_launches"],
+                     "seamless-m4t-medium encode, forward, decode": audio["launches"],
+                     "zamba2-2.7b forward, decode": hybrid["launches"]}
     pack_by_path = {"nimble branchy cells": pack_launches,
                     "serve arctic-480b": arctic["b2_launches"],
                     "serve deepseek-v2-236b": deepseek["b2_launches"]}
@@ -1237,8 +1797,10 @@ def main() -> None:
         source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:94",
         launches=sum(flash_by_path.values()), launches_by_path=flash_by_path,
-        launches_in_replays=(in_replays or 0) + arctic["flash_in_replays"],
-        profiled_replays=(0 if in_replays is None else 1) + 1, **record,
+        launches_in_replays=(in_replays or 0) + arctic["flash_in_replays"]
+        + vlm["flash_in_replays"] + audio["decode"]["flash_in_replay"],
+        profiled_replays=(0 if in_replays is None else 1) + 1 + vlm["profiled_replays"] + 1,
+        **record,
     ), dict(
         name="stream_pack_matmul", route="cuda",
         source="src/repro_torch/kernels/stream_pack/csrc/stream_pack.cu",

@@ -8,7 +8,9 @@ seed, so parity tests make the weights once, in JAX, and move them over::
     branchy = branchy_params_from_jax(np_tree, device="cpu")
 
 This module imports no JAX: it takes the parameter tree as nested dicts of
-numpy arrays, with the JAX package's leading layer axis on ``layers``.
+numpy arrays, with the JAX package's leading layer axis on the stacked
+``layers`` (and audio's ``encoder`` and ``decoder``), or xLSTM's ``layers``
+as a list of per-layer dicts.
 """
 
 from __future__ import annotations
@@ -19,6 +21,9 @@ import numpy as np
 import torch
 
 from repro_torch.models.transformer import Transformer
+
+# the subtrees that JAX stacks on a leading layer axis
+STACKED = ("layers", "encoder", "decoder")
 
 
 def _to_tensor(a: np.ndarray) -> torch.Tensor:
@@ -42,20 +47,28 @@ def params_from_jax(np_tree: Mapping, cfg, *, device="cuda",
                     dtype: Optional[torch.dtype] = None) -> Transformer:
     """A :class:`Transformer` holding the JAX parameters ``np_tree``.
 
-    The stacked ``layers`` subtree is unstacked along its leading axis into
-    ``layers[i]`` (the MoE leaves ``moe.*`` and ``moe.shared.*`` and MLA's
-    ``attn.*`` among them); every other leaf maps by name.  Each value is cast to the
-    module's dtype for that parameter (``dtype``, default ``cfg.dtype``;
-    norms stay float32).  Raises ``ValueError`` if the names or shapes of
-    the two trees differ."""
+    The stacked subtrees (``layers``, ``encoder``, ``decoder``) are
+    unstacked along their leading axis into ``layers[i]`` and so on (the MoE
+    leaves ``moe.*`` and ``moe.shared.*``, MLA's ``attn.*`` and Mamba2's
+    ``mamba.*`` among them); a list (xLSTM's ``layers``) maps element by
+    element; every other leaf (``projector``, ``shared_attn``,
+    ``frontend_proj``, ``enc_final_norm`` among them) maps by name.  Each
+    value is cast to the module's dtype for that parameter (``dtype``,
+    default ``cfg.dtype``; the float32 leaves stay float32).  Raises
+    ``ValueError`` if the names or shapes of the two trees differ."""
     model = Transformer(cfg, device=device, dtype=dtype)
     wanted = dict(model.named_parameters())
     given: dict[str, np.ndarray] = {}
-    for name, leaf in _flatten({k: v for k, v in np_tree.items() if k != "layers"}):
-        given[name] = leaf
-    for name, leaf in _flatten(np_tree.get("layers", {})):
-        for i in range(leaf.shape[0]):
-            given[f"layers.{i}.{name}"] = leaf[i]
+    for key, sub in np_tree.items():
+        if isinstance(sub, (list, tuple)):
+            for i, layer in enumerate(sub):
+                given.update(_flatten(layer, f"{key}.{i}."))
+        elif key in STACKED:
+            for name, leaf in _flatten(sub):
+                for i in range(leaf.shape[0]):
+                    given[f"{key}.{i}.{name}"] = leaf[i]
+        else:
+            given.update(_flatten({key: sub}))
     if set(given) != set(wanted):
         raise ValueError(
             f"parameter names differ: missing {sorted(set(wanted) - set(given))}, "

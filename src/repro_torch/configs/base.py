@@ -6,9 +6,8 @@ dry-run — ShapeDtypeStruct, no allocation) and ``smoke_config()`` (a reduced
 same-family variant: ≤2 layers, d_model ≤ 512, ≤4 experts — runnable on CPU).
 
 Select with ``--arch <id>`` in the launchers; ``repro_torch.configs.get(name)``.
-This is a copy of the JAX package's ``configs/base.py``: the dataclasses are
-verbatim, the registry serves only the architectures whose family the port
-runs so far (``PORTED_FAMILIES``).
+This is a copy of the JAX package's ``configs/base.py``: the dataclasses and
+the registry are verbatim; the port runs every family.
 """
 
 from __future__ import annotations
@@ -211,40 +210,15 @@ ARCH_IDS = {
 }
 
 
-# family of each architecture, so that an unported one is refused by name
-# without importing a config module the port does not carry
-ARCH_FAMILIES = {
-    "gemma2-27b": "dense",
-    "phi4-mini-3.8b": "dense",
-    "arctic-480b": "moe",
-    "llava-next-34b": "vlm",
-    "starcoder2-15b": "dense",
-    "zamba2-2.7b": "hybrid",
-    "deepseek-v2-236b": "moe",
-    "xlstm-125m": "ssm",
-    "stablelm-1.6b": "dense",
-    "seamless-m4t-medium": "audio",
-}
-
-PORTED_FAMILIES = ("dense", "moe")
-
-
 def _module(name: str):
     mod = ARCH_IDS.get(name, name).replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 
 
 def get(name: str, *, smoke: bool = False) -> ModelConfig:
-    arch = next((a for a, m in ARCH_IDS.items() if name in (a, m)), name)
-    family = ARCH_FAMILIES.get(arch)
-    if family is not None and family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{arch} ({family} family) is not ported yet: ROADMAP.md, "
-            "Queue 1 item 5 (other model families)"
-        )
     m = _module(name)
     return m.smoke_config() if smoke else m.full_config()
 
 
 def all_archs() -> list[str]:
-    return [a for a in ARCH_IDS if ARCH_FAMILIES[a] in PORTED_FAMILIES]
+    return list(ARCH_IDS)

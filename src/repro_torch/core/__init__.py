@@ -1,7 +1,7 @@
 """Nimble's core: task graphs, stream assignment, AoT scheduling, engines."""
 
 from .aot import AoTScheduler, Nimble, ScheduleKey, ScheduleStats, TaskSchedule
-from .engine import DispatchProfile, EagerInterpreter, compare_engines
+from .engine import DispatchProfile, EagerInterpreter, JitPerOpEngine, compare_engines
 from .graph import Task, TaskGraph
 from .matching import ford_fulkerson, hopcroft_karp
 from .meg import minimum_equivalent_graph
@@ -12,7 +12,7 @@ from .trace import TracedGraph, trace_to_taskgraph
 
 __all__ = [
     "AoTScheduler", "Nimble", "ScheduleKey", "ScheduleStats", "TaskSchedule",
-    "DispatchProfile", "EagerInterpreter", "compare_engines",
+    "DispatchProfile", "EagerInterpreter", "JitPerOpEngine", "compare_engines",
     "Task", "TaskGraph",
     "ford_fulkerson", "hopcroft_karp",
     "minimum_equivalent_graph",

@@ -175,6 +175,80 @@ class EagerInterpreter:
     __call__ = run
 
 
+class JitPerOpEngine(EagerInterpreter):
+    """TorchScript analogue (the TorchScript column of the paper's Fig. 7):
+    the graph is known ahead, with no Python model code in the loop, and
+    each operator and the places of its arguments are resolved once, at
+    construction; but tasks are still *scheduled at run time*: every call
+    allocates each output through the caching-allocator model and
+    dispatches each operator in turn.  It sits between
+    :class:`EagerInterpreter` and Nimble's sealed replay.  The JAX version
+    compiles each primitive with ``jax.jit``; here the operator is the aten
+    overload the trace recorded, already bound to its kernel by PyTorch's
+    dispatcher, so resolving it once is the counterpart."""
+
+    def __init__(self, fn: Callable, *example_args: Any) -> None:
+        super().__init__(fn, *example_args)
+        traced = self.traced
+        slot: dict[fx.Node, int] = {n: i for i, n in enumerate(traced.placeholders)}
+        self._n_inputs = len(slot)
+        self._consts = []
+        for n in traced.gm.graph.nodes:
+            if n.op == "get_attr":
+                slot[n] = len(slot)
+                self._consts.append((slot[n], getattr(traced.gm, n.target)))
+        for n in traced.node_of_task:
+            slot[n] = len(slot)
+        self._n_slots = len(slot)
+
+        def where(n: fx.Node) -> tuple:
+            # (slot, None), or (slot of the producer, item) for a getitem
+            if n in slot:
+                return slot[n], None
+            return slot[n.args[0]], n.args[1]
+
+        self._program = []
+        for node in traced.node_of_task:
+            leaves, spec = pytree.tree_flatten((node.args, node.kwargs))
+            refs = [where(x) if isinstance(x, fx.Node) else None for x in leaves]
+            nbytes = [max(v.numel() * v.element_size(), 1) for v in out_vals(node)
+                      if isinstance(v, torch.Tensor)]
+            self._program.append((node.target, leaves, refs, spec, slot[node], nbytes))
+        self._outputs = [where(n) if isinstance(n, fx.Node) else None
+                         for n in traced.output_nodes]
+        self._output_consts = list(traced.output_nodes)
+
+    def run(self, *args: Any, profile: DispatchProfile | None = None) -> Any:
+        """One full execution: per task, allocate its outputs, gather its
+        arguments from their resolved places, call its operator."""
+        allocator = _CachingAllocator()
+        t_start = time.perf_counter()
+        env: list = [None] * self._n_slots
+        env[: self._n_inputs] = self.traced.flatten_args(args)
+        for i, value in self._consts:
+            env[i] = value
+
+        def get(ref):
+            i, item = ref
+            return env[i] if item is None else env[i][item]
+
+        with torch.no_grad():
+            for op, leaves, refs, spec, out, nbytes in self._program:
+                addrs = [allocator.alloc(b) for b in nbytes]
+                vals = [x if r is None else get(r) for x, r in zip(leaves, refs)]
+                call_args, call_kwargs = pytree.tree_unflatten(vals, spec)
+                env[out] = op(*call_args, **call_kwargs)
+                for a in addrs:
+                    allocator.free(a)
+        flat = [c if r is None else get(r) for r, c in zip(self._outputs, self._output_consts)]
+        if profile is not None:
+            profile.total_s += time.perf_counter() - t_start
+            profile.num_tasks += len(self._program)
+        return self.traced.unflatten_out(flat)
+
+    __call__ = run
+
+
 def _sync_if_cuda(tree: Any) -> None:
     if any(isinstance(t, torch.Tensor) and t.is_cuda for t in pytree.tree_leaves(tree)):
         torch.cuda.synchronize()
@@ -192,17 +266,20 @@ def compare_engines(
 
     Returns microseconds per call for each engine (host clock, each run
     ending in a synchronisation on the card) plus the speedup — the repo's
-    Fig. 2b / Fig. 7 measurement primitive.
+    Fig. 2b / Fig. 7 measurement primitive.  Besides the JAX version's
+    engines it times :class:`JitPerOpEngine` (``jit_us``), Fig. 7's
+    TorchScript column.
     """
     from .aot import Nimble
 
     eager = EagerInterpreter(fn, *args)
+    jit = JitPerOpEngine(fn, *args)
     nimble = Nimble(fn, *args, multi_stream=multi_stream, pack_streams=pack_streams)
 
     # correctness gate: identical numerics
     ref = eager.run(*args)
-    got = nimble(*args)
-    _assert_trees_close(ref, got)
+    _assert_trees_close(ref, jit.run(*args))
+    _assert_trees_close(ref, nimble(*args))
 
     def per_call_us(run) -> float:
         for _ in range(warmup):
@@ -215,9 +292,11 @@ def compare_engines(
         return (time.perf_counter() - t0) / iters * 1e6
 
     eager_us = per_call_us(eager.run)
+    jit_us = per_call_us(jit.run)
     aot_us = per_call_us(nimble)
     return {
         "eager_us": eager_us,
+        "jit_us": jit_us,
         "aot_us": aot_us,
         "speedup": eager_us / aot_us if aot_us else float("inf"),
         "num_tasks": eager.traced.graph.num_tasks,

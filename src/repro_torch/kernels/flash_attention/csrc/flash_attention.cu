@@ -52,6 +52,13 @@
 // two CTAs share an SM (their shared memory fits twice) and setmaxnreg has
 // nothing to move.
 //
+// Head dim 80 (zamba2-2.7b) runs the bf16 kernel on a 128-wide tile: the
+// tensor maps declare the inner dimension as 80, so the TMA fills columns
+// 80-127 of Q, K and V with zeros.  Q K^T takes only the 5 k-steps that
+// hold data (exact); P V computes 128 output columns, of which the
+// epilogue stores the first 80.  The 80-wide row is 160 bytes, so the
+// strides stay 16-byte aligned.  The float32 kernel instantiates HD = 80.
+//
 // float32 on the FMA units (no TF32): 256 threads, each owning a 4x4 block
 // of the 64x64 score tile and 4 output rows, Q/K/V/P staged in shared
 // memory as float32, row statistics combined over half-warps.
@@ -87,6 +94,10 @@ struct Shape {
 
 constexpr int STAGES = 3;
 
+// The width of a bf16 CTA's tiles for head dim hd: hd, or 128 for hd 80
+// (its columns past 80 zero-filled by the TMA).
+constexpr int padded_hd(int hd) { return hd == 80 ? 128 : hd; }
+
 // Threads of a bf16 CTA: NWG consumer warpgroups and one producer warp.
 constexpr int bf16_threads(int nwg) { return 128 * nwg + 32; }
 
@@ -94,24 +105,26 @@ constexpr int bf16_threads(int nwg) { return 128 * nwg + 32; }
 // partial result to the first: per thread its HD / 2 accumulators and two
 // rows' max and sum.
 constexpr size_t bf16_exchange_bytes(int hd, int nwg) {
-  return nwg == 2 ? 4 * 128 * (size_t)(hd / 2 + 4) : 0;
+  return nwg == 2 ? 4 * 128 * (size_t)(padded_hd(hd) / 2 + 4) : 0;
 }
 
 // Shared memory of one bf16 CTA: the 64-row Q tile, the K and V rings, 1 +
 // 3 * STAGES mbarriers and the split CTA's exchange.  kernel.py's smem_bytes
 // is the same formula.
 constexpr size_t bf16_smem_bytes(int hd, int nwg, int bkv) {
-  return 2 * (size_t)hd * (64 + 2 * STAGES * bkv) + 8 * (1 + 3 * STAGES) +
+  return 2 * (size_t)padded_hd(hd) * (64 + 2 * STAGES * bkv) + 8 * (1 + 3 * STAGES) +
          bf16_exchange_bytes(hd, nwg);
 }
 
 // One tensor-map box spans COLS bf16 columns: a 128-byte swizzle row (64
-// columns), or 64 bytes for hd 32; hd 128 takes two boxes side by side.
+// columns), or 64 bytes for hd 32; hd 128 (and hd 80, padded to 128) takes
+// two boxes side by side.
 template <int HD>
 struct Swz {
+  static constexpr int HDP = padded_hd(HD);
   static constexpr int COLS = HD < 64 ? HD : 64;
   static constexpr int BYTES = 2 * COLS;
-  static constexpr int CHUNKS = HD / COLS;
+  static constexpr int CHUNKS = HDP / COLS;
   static constexpr uint64_t LAYOUT = BYTES == 128 ? 1 : 2;  // descriptor: B128 / B64
 };
 
@@ -296,9 +309,10 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
                const Shape d) {
   using W = Swz<HD>;
+  constexpr int HDP = W::HDP;  // the tiles' width; columns past HD are zeros
   constexpr int BM = 64;
-  constexpr int Q_BYTES = BM * HD * 2;
-  constexpr int KV_BYTES = BKV * HD * 2;  // one K (or V) stage
+  constexpr int Q_BYTES = BM * HDP * 2;
+  constexpr int KV_BYTES = BKV * HDP * 2;  // one K (or V) stage
   // the 128-byte swizzle repeats every 1024 bytes: tiles start on 1024.
   // With no static shared memory the dynamic block starts the CTA's shared
   // window, so it is aligned; a launch where it is not traps.
@@ -369,14 +383,15 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     const float qk_scale = d.softcap > 0.f ? d.scale / d.softcap : d.scale * LOG2E;
     const float cap_scale = d.softcap * LOG2E;
 
-    float acc[HD / 2];
+    float acc[HDP / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.f;
     float m_i[2] = {NEG_INF, NEG_INF}, l_i[2] = {0.f, 0.f}, alpha[2];
     float sc[BKV / 2];         // scores of the newest tile, then its p
     uint32_t pa[BKV / 16][4];  // P of the tile whose PV product is next
 
-    // S = Q K^T of tile stage s over HD / 16 k-steps (issued, not waited)
+    // S = Q K^T of tile stage s over HD / 16 k-steps (issued, not waited);
+    // a padded tile's zero columns add nothing and are skipped
     auto issue_qk = [&](int s) {
 #pragma unroll
       for (int kc = 0; kc < HD / 16; ++kc) {
@@ -396,7 +411,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       for (int kc = 0; kc < BKV / 16; ++kc) {
         const uint64_t db = make_desc(sV + s * KV_BYTES + kc * 16 * W::BYTES, BKV * W::BYTES,
                                       8 * W::BYTES, W::LAYOUT);
-        wgmma_rs<HD>(acc, pa[kc], db);
+        wgmma_rs<HDP>(acc, pa[kc], db);
       }
       wgmma_commit();
     };
@@ -478,7 +493,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     // float32 values
     auto rescale_and_pack = [&]() {
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
+      for (int j = 0; j < HDP / 8; ++j) {
         acc[4 * j] *= alpha[0];
         acc[4 * j + 1] *= alpha[0];
         acc[4 * j + 2] *= alpha[1];
@@ -542,11 +557,11 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       // named barrier 1; warpgroup 0 merges and writes the output
       if (wg == 1) {
 #pragma unroll
-        for (int k = 0; k < HD / 2; ++k) xch[k * 128 + tid] = acc[k];
+        for (int k = 0; k < HDP / 2; ++k) xch[k * 128 + tid] = acc[k];
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          xch[(HD / 2 + r) * 128 + tid] = m_i[r];
-          xch[(HD / 2 + 2 + r) * 128 + tid] = l_i[r];
+          xch[(HDP / 2 + r) * 128 + tid] = m_i[r];
+          xch[(HDP / 2 + 2 + r) * 128 + tid] = l_i[r];
         }
         asm volatile("bar.arrive 1, 256;\n" ::: "memory");
         return;
@@ -555,18 +570,19 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       float a0[2], a1[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const float m1 = xch[(HD / 2 + r) * 128 + tid];
+        const float m1 = xch[(HDP / 2 + r) * 128 + tid];
         const float m = fmaxf(m_i[r], m1);
         a0[r] = ex2(m_i[r] - m);  // both -1e30: 1 and 1, over zero sums
         a1[r] = ex2(m1 - m);
-        l_i[r] = l_i[r] * a0[r] + xch[(HD / 2 + 2 + r) * 128 + tid] * a1[r];
+        l_i[r] = l_i[r] * a0[r] + xch[(HDP / 2 + 2 + r) * 128 + tid] * a1[r];
       }
 #pragma unroll
-      for (int k = 0; k < HD / 2; ++k)
+      for (int k = 0; k < HDP / 2; ++k)
         acc[k] = acc[k] * a0[(k >> 1) & 1] + xch[k * 128 + tid] * a1[(k >> 1) & 1];
     }
 
-    // epilogue: O / l through o's strides, rows past Sq masked
+    // epilogue: O / l through o's strides, rows past Sq masked, the HD
+    // columns of the row (a padded tile's last columns are not stored)
     __nv_bfloat16* ob = o + (long long)b * d.o.b + (long long)h * d.o.h;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -779,7 +795,8 @@ constexpr int ERR_NO_ENCODER = 9000;
 constexpr int ERR_ENCODE = 9001;
 
 // the 4-d map (hd, seq, heads, batch) of a bf16 tensor, boxes of `rows`
-// rows by one swizzle row of columns
+// rows by one swizzle row of columns; for hd 80 the second box reaches past
+// the row, and the TMA fills columns 80-127 with zeros
 template <int HD>
 int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, const Strides& st,
              int rows) {
@@ -866,6 +883,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   switch (hd) {
     case 32: return is_bf16 ? launch_bf16_tile<32>(p, d, nwg, bkv, s) : launch_f32<32>(p, d, s);
     case 64: return is_bf16 ? launch_bf16_tile<64>(p, d, nwg, bkv, s) : launch_f32<64>(p, d, s);
+    case 80: return is_bf16 ? launch_bf16_tile<80>(p, d, nwg, bkv, s) : launch_f32<80>(p, d, s);
     case 128: return is_bf16 ? launch_bf16_tile<128>(p, d, nwg, bkv, s) : launch_f32<128>(p, d, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -35,7 +35,7 @@ from pathlib import Path
 import torch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 SMS = 132                     # an H100 SXM's streaming multiprocessors
 MAX_GRID_X, MAX_GRID_Y = 2**31 - 1, 65535
 STAGES = 3                    # the bf16 K/V ring (csrc STAGES)
@@ -87,13 +87,20 @@ class Launch:
         return self.dtype, self.head_dim, self.warpgroups, self.keys
 
 
+def padded_head_dim(head_dim: int) -> int:
+    """The width of a bf16 CTA's tiles (csrc ``padded_hd``): the head dim,
+    or 128 for 80, whose columns past 80 the TMA fills with zeros."""
+    return 128 if head_dim == 80 else head_dim
+
+
 def smem_bytes(head_dim: int, warpgroups: int, keys: int) -> int:
     """Dynamic shared memory of a bf16 CTA (csrc ``bf16_smem_bytes``): the
     64-row Q tile, the K and V rings, the mbarriers and, with two
     warpgroups, the exchange in which the second hands its partial result
-    to the first."""
-    exchange = 4 * 128 * (head_dim // 2 + 4) if warpgroups == 2 else 0
-    return 2 * head_dim * (ROWS + 2 * STAGES * keys) + 8 * (1 + 3 * STAGES) + exchange
+    to the first, all at the padded width."""
+    hdp = padded_head_dim(head_dim)
+    exchange = 4 * 128 * (hdp // 2 + 4) if warpgroups == 2 else 0
+    return 2 * hdp * (ROWS + 2 * STAGES * keys) + 8 * (1 + 3 * STAGES) + exchange
 
 
 def f32_smem_bytes(head_dim: int) -> int:

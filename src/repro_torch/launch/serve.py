@@ -5,8 +5,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \\
         --smoke --device cpu --dtype float32
 
-``--arch`` takes the dense and MoE architectures (``repro_torch.configs.
-all_archs()``); at full size the MoE ones need more than one card holds.
+``--arch`` takes the architectures the engine serves: the dense, MoE and
+vlm families (text prompts); at full size the MoE ones and llava-next need
+more than one card holds.  The engine refuses the audio, hybrid and ssm
+families, which run batch ``decode_step`` instead.
 
 Runs on the card unless ``--device cpu`` is given (use ``--smoke`` there).
 The weights are random, drawn on the target device from ``--seed``.

@@ -1,6 +1,7 @@
 from .transformer import (
     Transformer,
     decode_step,
+    encode_memory,
     forward,
     init_cache,
     init_model,
@@ -10,6 +11,7 @@ from .transformer import (
 __all__ = [
     "Transformer",
     "decode_step",
+    "encode_memory",
     "forward",
     "init_cache",
     "init_model",

@@ -151,11 +151,14 @@ def attention(
     With no cache (full-sequence forward, and prefill into an empty cache)
     the attention is the flash kernel: on the same tokens from position 0
     it computes what the JAX package's ``_sdpa`` (and ``_sdpa_deferred``
-    against an empty cache) computes.  With a cache and
-    ``update_cache=False`` it is the deferred two-part attention; the
-    caller appends the new keys/values for all layers at once.  The JAX
-    package's in-layer cache update (hybrid and audio decode) is not
-    ported yet."""
+    against an empty cache) computes; ``causal=False`` is the encoder's
+    bidirectional attention.  With a cache and ``update_cache=False`` it is
+    the deferred two-part attention; the caller appends the new keys/values
+    for all layers at once.  With ``update_cache=True`` (hybrid and audio
+    decode) each slot's new keys/values are written into ``cache["k"]`` /
+    ``cache["v"]`` at its own ``pos`` **in place** (JAX returns a new
+    cache), then the tokens attend over the updated cache with
+    ``kv_valid = pos + S``; ``cache["pos"]`` is left to the caller."""
     B, S, D = x.shape
     h = cfg.resolved_head_dim
     nh, nkv = cfg.n_heads, cfg.n_kv_heads
@@ -185,9 +188,17 @@ def attention(
             kv_valid=cache["pos"],
         )
     else:
-        raise NotImplementedError(
-            "in-layer KV-cache update (hybrid / audio decode) is not ported "
-            "yet: ROADMAP.md, Queue 1 item 5"
+        pos = cache["pos"]
+        write_kv(cache["k"], cache["v"], k, v, pos)
+        out = _sdpa(
+            q, cache["k"], cache["v"],
+            scale=scale,
+            softcap_val=cfg.attn_softcap,
+            q_pos=positions,
+            kv_pos=torch.arange(cache["k"].shape[1], device=x.device),
+            window=layer_window,
+            kv_valid=pos + S,
+            causal=causal,
         )
     y = out.reshape(B, S, nh * h) @ p["wo"].reshape(nh * h, D)
     return y, (k, v)
@@ -267,23 +278,58 @@ def _sdpa_deferred(q, k_cache, v_cache, k_new, v_new, *, scale, softcap_val,
     return out.reshape(B, S, NH, H)
 
 
+def _slot_rows(B: int, T: int, S_new: int, pos: torch.Tensor) -> torch.Tensor:
+    """Rows ``b * T + start[b] + s`` of a ``(B, T, ...)`` cache viewed as
+    ``(B * T, ...)``: slot b's ``S_new`` new entries.  As in
+    ``jax.lax.dynamic_update_slice``, each start is clamped so the write
+    stays inside the cache (an idle slot's offset keeps counting up)."""
+    start = pos.clamp(0, T - S_new)
+    return (torch.arange(B, device=pos.device)[:, None] * T + start[:, None]
+            + torch.arange(S_new, device=pos.device)[None, :]).reshape(-1)
+
+
+def write_kv(cache_k, cache_v, new_k, new_v, pos):
+    """One layer's cache update, **in place**: cache_k/v (B,T,nkv,hd),
+    new_k/v (B,S_new,nkv,hd), each slot written at its own ``pos`` (B,),
+    clamped as JAX's ``dynamic_update_slice`` is."""
+    B, T = cache_k.shape[:2]
+    S_new = new_k.shape[1]
+    rest = tuple(cache_k.shape[2:])
+    rows = _slot_rows(B, T, S_new, pos)
+    for c, u in ((cache_k, new_k), (cache_v, new_v)):
+        c.view((B * T,) + rest).index_copy_(0, rows, u.to(c.dtype).reshape((B * S_new,) + rest))
+
+
 def append_kv(cache_k, cache_v, new_k, new_v, pos):
     """One batched cache append for ALL layers, **in place**.
 
     cache_k/v: (L,B,T,nkv,hd); new_k/v: (L,B,S_new,nkv,hd); pos: (B,).
     The JAX version returns new arrays; here the cache keeps its storage,
-    because a captured CUDA graph replays against fixed addresses.  As in
-    ``jax.lax.dynamic_update_slice``, each slot's start is clamped so the
-    write stays inside the cache (an idle slot's offset keeps counting up).
+    because a captured CUDA graph replays against fixed addresses.  Starts
+    are clamped as in :func:`write_kv`.
     """
     L, B, T = cache_k.shape[:3]
     S_new = new_k.shape[2]
     rest = tuple(cache_k.shape[3:])
-    start = pos.clamp(0, T - S_new)
-    # row of (slot b, position start[b] + s) in the cache viewed as (L, B*T, ...)
-    rows = (torch.arange(B, device=pos.device)[:, None] * T + start[:, None]
-            + torch.arange(S_new, device=pos.device)[None, :]).reshape(-1)
+    rows = _slot_rows(B, T, S_new, pos)
     for c, u in ((cache_k, new_k), (cache_v, new_v)):
         c.view((L, B * T) + rest).index_copy_(
             1, rows, u.to(c.dtype).reshape((L, B * S_new) + rest))
     return cache_k, cache_v
+
+
+def cross_attention(p: Params, x: torch.Tensor, memory: torch.Tensor, cfg) -> torch.Tensor:
+    """Encoder-decoder cross attention: queries from x (B, S, D), keys and
+    values from memory (B, T, D), no RoPE on the cross keys, every query
+    over every key (not causal).  On the flash kernel with Sq = S and
+    Skv = T (one query row in decode); its plain version on the CPU."""
+    B, S, D = x.shape
+    T = memory.shape[1]
+    h = cfg.resolved_head_dim
+    nh, nkv = cfg.n_heads, cfg.n_kv_heads
+    scale = cfg.attn_logit_scale or (1.0 / math.sqrt(h))
+    q = (x @ p["wq"].reshape(D, nh * h)).reshape(B, S, nh, h)
+    k = (memory @ p["wk"].reshape(D, nkv * h)).reshape(B, T, nkv, h)
+    v = (memory @ p["wv"].reshape(D, nkv * h)).reshape(B, T, nkv, h)
+    out = mha_flash(q, k, v, scale=scale, causal=False)
+    return out.reshape(B, S, nh * h) @ p["wo"].reshape(nh * h, D)

@@ -1,24 +1,28 @@
-"""Transformer of the port: one ``nn.Module`` and the functions that run
-it, for the dense and MoE families.
+"""The port's models: one ``nn.Module`` and the functions that run it, for
+every family (dense, moe, vlm, hybrid, ssm, audio).
 
 Counterpart of the JAX package's ``models/transformer.py``, with the same
 API shape::
 
     model         = init_model(generator, cfg, device="cuda")
-    logits, aux   = forward(model, {"tokens": tokens}, cfg)     # full sequence
-    logits, kv    = prefill(model, tokens, cfg)                 # empty cache
+    logits, aux   = forward(model, batch, cfg)          # full sequence
+    logits, kv    = prefill(model, tokens, cfg)         # empty cache (attention families)
+    memory        = encode_memory(model, frames, cfg)   # audio: the encoder, once
     cache         = init_cache(cfg, batch_size, max_len, device="cuda")
-    logits, cache = decode_step(model, cache, tokens, cfg)      # in place
+    logits, cache = decode_step(model, cache, tokens, cfg)   # in place
 
-The JAX package stacks the layers and runs them under ``lax.scan``; here
-they are an ``nn.ModuleList`` walked by a Python loop.  Each layer's
-parameters carry the JAX parameter names, so :mod:`repro_torch.bridge`
-maps a JAX parameter tree onto the module one leaf at a time.  A MoE
-layer (``cfg.moe``) has ``moe`` in place of ``ffn`` (Arctic keeps its
-parallel dense ``ffn`` too); an MLA layer (``cfg.mla``, DeepSeek-V2)
-has the latent projections as ``attn`` and caches latents
-(``ckv``/``krope``) instead of keys and values.  The ``vlm``, ``hybrid``,
-``ssm`` and ``audio`` families are not ported yet.
+``batch`` holds ``tokens`` and, per family, ``vision_embeds`` (vlm) or
+``frames`` (audio).  The JAX package stacks the layers and runs them under
+``lax.scan`` (and the hybrid's shared block under ``lax.cond``); here they
+are ``nn.ModuleList``s walked by a Python loop, the condition a Python
+``if`` on the layer index.  Each layer's parameters carry the JAX parameter
+names, so :mod:`repro_torch.bridge` maps a JAX parameter tree onto the
+module one leaf at a time.  A MoE layer (``cfg.moe``) has ``moe`` in place
+of ``ffn`` (Arctic keeps its parallel dense ``ffn`` too); an MLA layer
+(``cfg.mla``, DeepSeek-V2) has the latent projections as ``attn`` and
+caches latents (``ckv``/``krope``) instead of keys and values.  Every
+decode state (KV cache, latents, SSD and conv state, xLSTM cells) is
+updated in place, where JAX returns a new cache.
 """
 
 from __future__ import annotations
@@ -27,26 +31,19 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.configs.base import PORTED_FAMILIES
-
 from . import layers as L
+from . import ssm as SSM
+from . import xlstm as XL
 from .mla import mla_attention, mla_prefill, mla_shapes
 from .moe import apply_moe, moe_shapes
 
-FAMILY_TODO = (
-    "is not ported yet: only the dense and moe families run so far "
-    "(ROADMAP.md, Queue 1 item 5)"
-)
+ATTENTION_FAMILIES = ("dense", "moe", "vlm")
 # a random draw of more elements is made in chunks of the leading axis, so
 # that its float32 temporary stays near 1 GiB at any model size
 INIT_CHUNK = 2**28
-
-
-def _require_ported(cfg) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} {FAMILY_TODO}")
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -96,68 +93,124 @@ def _norm(cfg, device) -> Group:
     return Group(p)
 
 
+# leaves that are float32 whatever the model's dtype, as in JAX
+F32_LEAVES = ("scale", "bias", "q_norm", "k_norm", "kv_norm_scale", "router") \
+    + SSM.F32_LEAVES + XL.F32_LEAVES
+
+
+def _leaves(shapes: dict, dt, device) -> dict:
+    """:func:`_nest` with float32 for the leaves of :data:`F32_LEAVES` and
+    ``dt`` for the rest."""
+    return _nest(shapes, lambda n: torch.float32 if n.rsplit(".", 1)[-1] in F32_LEAVES
+                 else dt, device)
+
+
+def _attn_params(cfg, dt, device) -> Group:
+    """``init_attention``'s leaves: ``wq``, ``wk``, ``wv``, ``wo`` (and the
+    qk-norm scales)."""
+    d, h, nh, nkv = cfg.d_model, cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    shapes = {"wq": (d, nh, h), "wk": (d, nkv, h), "wv": (d, nkv, h), "wo": (nh, h, d)}
+    if cfg.qk_norm:
+        shapes.update({"q_norm": (h,), "k_norm": (h,)})
+    return Group(_leaves(shapes, dt, device))
+
+
+def _ffn_params(cfg, dt, device) -> Group:
+    d, f = cfg.d_model, cfg.d_ff
+    return Group(_leaves({"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}, dt, device))
+
+
+def _attn_block(cfg, dt, device) -> Group:
+    """One pre-norm attention block (``_init_attn_block`` in JAX)."""
+    if cfg.mla is not None:
+        attn = Group(_leaves(mla_shapes(cfg), dt, device))
+    else:
+        attn = _attn_params(cfg, dt, device)
+    block = {"attn": attn, "ln1": _norm(cfg, device), "ln2": _norm(cfg, device)}
+    if cfg.moe is not None:
+        block["moe"] = Group(_leaves(moe_shapes(cfg), dt, device))
+    if cfg.moe is None or cfg.d_ff:      # arctic: a parallel dense branch
+        block["ffn"] = _ffn_params(cfg, dt, device)
+    if cfg.post_attn_norm:
+        block["ln_post_attn"] = _norm(cfg, device)
+        block["ln_post_ffn"] = _norm(cfg, device)
+    return Group(block)
+
+
+def _xlstm_kind(cfg, i: int) -> str:
+    return "slstm" if i in cfg.xlstm.slstm_at else "mlstm"
+
+
 class Transformer(nn.Module):
-    """Parameters of a decoder, laid out as the JAX parameter tree:
-    ``embed`` (``tok``, ``unembed`` unless tied), ``final_norm`` and
-    ``layers[i]`` with ``attn`` (``wq``, ``wk``, ``wv``, ``wo``, or MLA's
-    ``w_dq``/``w_uq`` or ``w_q``, ``w_dkv``, ``w_uk``, ``w_uv``, ``w_o``,
-    ``kv_norm_scale``), ``ln1``, ``ln2``, ``ffn`` (``w_gate``, ``w_up``,
-    ``w_down``) and/or ``moe`` (``router``, ``w_gate``, ``w_up``,
-    ``w_down``, optional ``shared``) and, for gemma2, ``ln_post_attn`` /
-    ``ln_post_ffn``.  Norm parameters, ``kv_norm_scale`` and the router are
-    float32 and the rest is ``dtype`` (default ``cfg.dtype``), as in JAX.
-    The tensors are allocated uninitialised; :func:`init_model` or
-    :func:`repro_torch.bridge.params_from_jax` fills them."""
+    """Parameters of a model of any family, laid out as the JAX parameter
+    tree: ``embed`` (``tok``, ``unembed`` unless tied) and ``final_norm``,
+    then by family
+
+    * dense / moe / vlm: ``layers[i]`` with ``attn`` (``wq``, ``wk``,
+      ``wv``, ``wo``, or MLA's latent projections), ``ln1``, ``ln2``,
+      ``ffn`` (``w_gate``, ``w_up``, ``w_down``) and/or ``moe`` and, for
+      gemma2, ``ln_post_attn`` / ``ln_post_ffn``; vlm adds ``projector``
+      (``w1``, ``w2``);
+    * hybrid: ``layers[i]`` with ``mamba`` and ``ln``, and one
+      ``shared_attn`` block (as a dense layer);
+    * ssm (xLSTM): ``layers[i]`` with ``ln`` and ``cell``, an mLSTM or, at
+      ``xlstm.slstm_at``, an sLSTM;
+    * audio: ``encoder[i]`` (``attn``, ``ffn``, ``ln1``, ``ln2``),
+      ``decoder[i]`` (``self_attn``, ``cross_attn``, ``ffn``, ``ln1``-``ln3``),
+      ``enc_final_norm`` and ``frontend_proj`` (``w``).
+
+    The leaves of :data:`F32_LEAVES` (norms, router, gate biases, the SSD's
+    scalars) are float32 and the rest is ``dtype`` (default ``cfg.dtype``),
+    as in JAX.  The tensors are allocated uninitialised; :func:`init_model`
+    or :func:`repro_torch.bridge.params_from_jax` fills them."""
 
     def __init__(self, cfg, *, device="cuda", dtype: Optional[torch.dtype] = None):
         super().__init__()
-        _require_ported(cfg)
         self.cfg = cfg
         dt = dtype or getattr(torch, cfg.dtype)
-        d, h, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
-        nh, nkv = cfg.n_heads, cfg.n_kv_heads
+        d, fam = cfg.d_model, cfg.family
         embed = {"tok": _param((cfg.padded_vocab, d), dt, device)}
         if not cfg.tie_embeddings:
             embed["unembed"] = _param((d, cfg.padded_vocab), dt, device)
         self.embed = Group(embed)
         self.final_norm = _norm(cfg, device)
-        blocks = []
-        for _ in range(cfg.n_layers):
-            if cfg.mla is not None:
-                attn = _nest(mla_shapes(cfg), lambda n: torch.float32
-                             if n == "kv_norm_scale" else dt, device)
-            else:
-                attn = {
-                    "wq": _param((d, nh, h), dt, device),
-                    "wk": _param((d, nkv, h), dt, device),
-                    "wv": _param((d, nkv, h), dt, device),
-                    "wo": _param((nh, h, d), dt, device),
-                }
-                if cfg.qk_norm:
-                    attn["q_norm"] = _param((h,), torch.float32, device)
-                    attn["k_norm"] = _param((h,), torch.float32, device)
-            block = {
-                "attn": Group(attn),
-                "ln1": _norm(cfg, device),
-                "ln2": _norm(cfg, device),
-            }
-            if cfg.moe is not None:
-                block["moe"] = Group(_nest(moe_shapes(cfg), lambda n: torch.float32
-                                           if n == "router" else dt, device))
-            if cfg.moe is None or f:        # arctic: a parallel dense branch
-                block["ffn"] = Group({
-                    "w_gate": _param((d, f), dt, device),
-                    "w_up": _param((d, f), dt, device),
-                    "w_down": _param((f, d), dt, device),
-                })
-            if cfg.post_attn_norm:
-                block["ln_post_attn"] = _norm(cfg, device)
-                block["ln_post_ffn"] = _norm(cfg, device)
-            blocks.append(Group(block))
-        self.layers = nn.ModuleList(blocks)
+        if fam in ATTENTION_FAMILIES:
+            self.layers = nn.ModuleList(_attn_block(cfg, dt, device)
+                                        for _ in range(cfg.n_layers))
+            if fam == "vlm":
+                self.projector = Group(_leaves(
+                    {"w1": (cfg.vision_dim, d), "w2": (d, d)}, dt, device))
+        elif fam == "hybrid":
+            self.layers = nn.ModuleList(
+                Group({"mamba": Group(_leaves(SSM.mamba2_shapes(cfg), dt, device)),
+                       "ln": _norm(cfg, device)})
+                for _ in range(cfg.n_layers))
+            self.shared_attn = _attn_block(cfg, dt, device)
+        elif fam == "ssm":
+            shapes = {"slstm": XL.slstm_shapes(cfg), "mlstm": XL.mlstm_shapes(cfg)}
+            self.layers = nn.ModuleList(
+                Group({"ln": _norm(cfg, device),
+                       "cell": Group(_leaves(shapes[_xlstm_kind(cfg, i)], dt, device))})
+                for i in range(cfg.n_layers))
+        elif fam == "audio":
+            self.encoder = nn.ModuleList(
+                Group({"attn": _attn_params(cfg, dt, device), "ffn": _ffn_params(cfg, dt, device),
+                       "ln1": _norm(cfg, device), "ln2": _norm(cfg, device)})
+                for _ in range(cfg.n_enc_layers))
+            self.decoder = nn.ModuleList(
+                Group({"self_attn": _attn_params(cfg, dt, device),
+                       "cross_attn": _attn_params(cfg, dt, device),
+                       "ffn": _ffn_params(cfg, dt, device),
+                       **{n: _norm(cfg, device) for n in ("ln1", "ln2", "ln3")}})
+                for _ in range(cfg.n_layers))
+            self.enc_final_norm = _norm(cfg, device)
+            self.frontend_proj = Group(_leaves({"w": (cfg.audio_dim, d)}, dt, device))
+        else:
+            raise ValueError(f"unknown family {fam}")
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Full-sequence logits ``(B, S, padded_vocab)``."""
+        """Full-sequence logits ``(B, S, padded_vocab)`` of a text-only
+        batch (``vision_embeds`` or ``frames`` go through :func:`forward`)."""
         return forward(self, {"tokens": tokens}, self.cfg)[0]
 
 
@@ -186,13 +239,15 @@ def init_model(generator: torch.Generator, cfg, *, device="cuda") -> Transformer
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "tok":
             normal_(t, 0.02)
-        elif leaf == "bias":
+        elif leaf in ("bias", "conv_b", "A_log", "dt_bias"):
             t.zero_()
         elif leaf == "scale":
             # layernorm scales start at 1, rmsnorm's (1 + scale) at 0
             t.fill_(1.0 if cfg.norm == "layernorm" else 0.0)
-        elif leaf in ("q_norm", "k_norm", "kv_norm_scale"):
+        elif leaf in ("q_norm", "k_norm", "kv_norm_scale", "D"):
             t.fill_(1.0)
+        elif leaf in ("b_if", "b_gates"):
+            t.copy_(XL.gate_bias(leaf, t.numel()))
         elif name.endswith("moe.w_down"):
             normal_(t, 1.0 / math.sqrt(t.shape[1]))      # (E, F, D): fan-in F
         else:
@@ -212,19 +267,21 @@ def _window_schedule(cfg) -> Optional[list[int]]:
     return [2**30 if i % k == k - 1 else cfg.sliding_window for i in range(cfg.n_layers)]
 
 
-def _attn_ffn_block(lp, x, cfg, *, positions, window, cache=None, prompt=False):
+def _attn_ffn_block(lp, x, cfg, *, positions, window, cache=None, prompt=False,
+                    update_cache=False):
     """Pre-norm transformer block; returns ``(x, new_kv, aux)``.
 
     ``new_kv`` is this call's new keys/values, or MLA's new latents.  With
-    ``cache``, dense attention reads it read-only (deferred append) and MLA
-    writes its latents into it first; ``prompt`` runs MLA's prompt pass
-    (the absorbed form, as on an empty cache).  ``aux`` is the router's
-    loss, None without MoE."""
+    ``cache``, dense attention reads it read-only (deferred append) or,
+    with ``update_cache`` (the hybrid's shared block in decode), writes the
+    new keys/values into it in place first; MLA writes its latents into it
+    first; ``prompt`` runs MLA's prompt pass (the absorbed form, as on an
+    empty cache).  ``aux`` is the router's loss, None without MoE."""
     h = L.apply_norm(lp["ln1"], x, cfg)
     if cfg.mla is None:
         attn_out, new_kv = L.attention(
             lp["attn"], h, cfg, positions=positions, layer_window=window,
-            cache=cache, update_cache=False,
+            cache=cache, update_cache=update_cache,
         )
     elif prompt:
         attn_out, new_kv = mla_prefill(lp["attn"], h, cfg, positions=positions)
@@ -279,6 +336,62 @@ def _run_layers(p, x, cfg, positions, cache=None, prompt=False, keep_new=True):
 
 
 # ---------------------------------------------------------------------------
+# per-family layer stacks
+# ---------------------------------------------------------------------------
+
+def _xlstm_layer(lp, x, cfg, *, kind: str, cache=None):
+    """Pre-norm xLSTM layer; returns ``(x, state)`` (the state written into
+    ``cache`` in place when one is given)."""
+    h = L.apply_norm(lp["ln"], x, cfg)
+    block = XL.slstm_block if kind == "slstm" else XL.mlstm_block
+    out, state = block(lp["cell"], h, cfg, cache=cache)
+    return x + out, state
+
+
+def _is_attn_layer(cfg, i: int) -> bool:
+    """Zamba2 applies its shared attention block after every
+    ``hybrid_attn_every``-th Mamba2 layer."""
+    every = cfg.hybrid_attn_every
+    return i % every == every - 1
+
+
+def _forward_hybrid(p, x, cfg, positions):
+    """Zamba2: the Mamba2 layers (chunked SSD), the shared attention block
+    (flash attention) after every ``hybrid_attn_every``-th."""
+    for i, lp in enumerate(p.layers):
+        out, _ = SSM.mamba2_block(lp["mamba"], L.apply_norm(lp["ln"], x, cfg), cfg)
+        x = x + out
+        if _is_attn_layer(cfg, i):
+            x, _, _ = _attn_ffn_block(p.shared_attn, x, cfg, positions=positions, window=None)
+    return x
+
+
+def encode_memory(p: Transformer, frames: torch.Tensor, cfg) -> torch.Tensor:
+    """The audio encoder, run once (enc-dec prefill): frames (B, T,
+    audio_dim) through ``frontend_proj``, the encoder layers (bidirectional
+    flash attention) and ``enc_final_norm``; returns the memory (B, T, D)."""
+    x = frames.to(p.frontend_proj["w"].dtype) @ p.frontend_proj["w"]
+    positions = _positions(*x.shape[:2], x.device)
+    for lp in p.encoder:
+        o, _ = L.attention(lp["attn"], L.apply_norm(lp["ln1"], x, cfg), cfg,
+                           positions=positions, causal=False)
+        x = x + o
+        x = x + L.apply_ffn(lp["ffn"], L.apply_norm(lp["ln2"], x, cfg), cfg)
+    return L.apply_norm(p.enc_final_norm, x, cfg)
+
+
+def _decoder_layer(lp, x, memory, cfg, *, positions, cache=None):
+    """One audio decoder layer: causal self-attention (flash attention
+    without a cache; with one, the in-layer KV update), cross attention
+    over ``memory`` (flash attention), the FFN."""
+    o, _ = L.attention(lp["self_attn"], L.apply_norm(lp["ln1"], x, cfg), cfg,
+                       positions=positions, cache=cache)
+    x = x + o
+    x = x + L.cross_attention(lp["cross_attn"], L.apply_norm(lp["ln2"], x, cfg), memory, cfg)
+    return x + L.apply_ffn(lp["ffn"], L.apply_norm(lp["ln3"], x, cfg), cfg)
+
+
+# ---------------------------------------------------------------------------
 # forward (full sequence) and prefill into an empty cache
 # ---------------------------------------------------------------------------
 
@@ -286,16 +399,44 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device).expand(B, S)
 
 
+def _embed_input(p, batch, cfg) -> torch.Tensor:
+    """Token embeddings; for vlm, the projected vision embeddings (the tanh
+    gelu of ``vision_embeds @ w1``, then ``@ w2``) placed before them."""
+    x = L.embed_tokens(p.embed, batch["tokens"], cfg)
+    if cfg.family == "vlm":
+        ve = batch["vision_embeds"].to(x.dtype)               # (B, T_img, vision_dim)
+        proj = F.gelu(ve @ p.projector["w1"], approximate="tanh") @ p.projector["w2"]
+        x = torch.cat([proj, x], dim=1)
+    return x
+
+
 def forward(p: Transformer, batch: dict, cfg):
     """Full-sequence forward: returns ``(logits, {"aux_loss": ...})``, the
-    router losses summed over layers (0 for the dense family).  Dense
-    attention runs through the flash kernel (its plain version on the CPU),
-    MLA in its expanded form."""
-    _require_ported(cfg)
+    router losses summed over layers (0 but for MoE).  ``batch`` holds
+    ``tokens`` and, for vlm, ``vision_embeds`` (B, T_img, vision_dim), whose
+    logits come first, or, for audio, ``frames`` (B, T, audio_dim).  Every
+    full-sequence attention (dense, the hybrid's shared block, the encoder,
+    the decoder's self and cross attention) runs through the flash kernel
+    (its plain version on the CPU), MLA in its expanded form."""
     tokens = batch["tokens"]
-    x = L.embed_tokens(p.embed, tokens, cfg)
-    x, _, aux = _run_layers(p, x, cfg, _positions(*tokens.shape, tokens.device),
-                            keep_new=False)
+    fam = cfg.family
+    aux = None
+    if fam == "audio":
+        memory = encode_memory(p, batch["frames"], cfg)
+        x = L.embed_tokens(p.embed, tokens, cfg)
+        positions = _positions(*tokens.shape, tokens.device)
+        for lp in p.decoder:
+            x = _decoder_layer(lp, x, memory, cfg, positions=positions)
+    else:
+        x = _embed_input(p, batch, cfg)
+        positions = _positions(*x.shape[:2], x.device)
+        if fam in ATTENTION_FAMILIES:
+            x, _, aux = _run_layers(p, x, cfg, positions, keep_new=False)
+        elif fam == "hybrid":
+            x = _forward_hybrid(p, x, cfg, positions)
+        else:
+            for i, lp in enumerate(p.layers):
+                x, _ = _xlstm_layer(lp, x, cfg, kind=_xlstm_kind(cfg, i))
     x = L.apply_norm(p.final_norm, x, cfg)
     logits = L.unembed(p.embed, x, cfg)
     if aux is None:
@@ -304,7 +445,8 @@ def forward(p: Transformer, batch: dict, cfg):
 
 
 def prefill(p: Transformer, tokens: torch.Tensor, cfg):
-    """Prompt pass for a slot whose cache is empty.
+    """Prompt pass for a slot whose cache is empty (dense, moe and vlm; a
+    vlm prompt is text only, as the JAX engine serves it).
 
     What the JAX engine computes with ``decode_step`` on a sub-cache whose
     ``pos`` it has just set to 0.  Dense: with no valid cache entry the
@@ -317,7 +459,8 @@ def prefill(p: Transformer, tokens: torch.Tensor, cfg):
     ``(n_layers, B, P, n_kv_heads, head_dim)`` or the latents
     ``(n_layers, B, P, kv_lora_rank)`` and ``(n_layers, B, P,
     qk_rope_head_dim)``; the caller writes them into the cache at offset 0."""
-    _require_ported(cfg)
+    if cfg.family not in ATTENTION_FAMILIES:
+        raise ValueError(f"prefill serves the {ATTENTION_FAMILIES} families, not {cfg.family}")
     x = L.embed_tokens(p.embed, tokens, cfg)
     x, new, _ = _run_layers(p, x, cfg, _positions(*tokens.shape, tokens.device),
                             prompt=True)
@@ -329,22 +472,61 @@ def prefill(p: Transformer, tokens: torch.Tensor, cfg):
 # decode: cache init + single step
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg, batch_size: int, max_len: int, *, device="cuda") -> dict:
-    """Per-slot cache in ``cfg.dtype`` and ``pos`` ``(B,)``, every batch
-    slot at its own write offset (continuous batching): ``k``/``v`` of
-    shape ``(n_layers, B, max_len, n_kv_heads, head_dim)``, or for MLA the
-    latent cache ``ckv`` ``(n_layers, B, max_len, kv_lora_rank)`` and
-    ``krope`` ``(n_layers, B, max_len, qk_rope_head_dim)``."""
-    _require_ported(cfg)
+def init_cache(cfg, batch_size: int, max_len: int, *, memory_len: int = 0,
+               device="cuda") -> dict:
+    """Per-slot decode state, ``pos`` ``(B,)`` (every batch slot at its own
+    write offset), as JAX's ``init_cache(per_slot=True)`` lays it out:
+
+    * dense / vlm / moe: ``k``/``v`` ``(n_layers, B, max_len, n_kv_heads,
+      head_dim)`` in ``cfg.dtype``, or MLA's latents ``ckv`` ``(n_layers, B,
+      max_len, kv_lora_rank)`` and ``krope`` ``(..., qk_rope_head_dim)``;
+    * hybrid: ``ssm_h`` ``(n_layers, B, H, head_dim, state_dim)`` float32,
+      ``conv`` ``(n_layers, B, conv_width - 1, conv channels)`` and the
+      shared block's ``attn_k``/``attn_v`` ``(applications, B, max_len,
+      n_kv_heads, head_dim)``;
+    * ssm: ``layers``, a list with one dict per layer (sLSTM ``c``, ``n``,
+      ``m``, ``h``; mLSTM ``C``, ``n``, ``m``);
+    * audio: ``k``/``v`` of the decoder and ``memory`` ``(B, memory_len,
+      d_model)``, which the caller fills from :func:`encode_memory`."""
     dt = getattr(torch, cfg.dtype)
-    L_, B = cfg.n_layers, batch_size
-    if cfg.mla is not None:
-        m = cfg.mla
-        shapes = ((L_, B, max_len, m.kv_lora_rank), (L_, B, max_len, m.qk_rope_head_dim))
+    L_, B, fam = cfg.n_layers, batch_size, cfg.family
+
+    def zeros(shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    kv_shape = (B, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    if fam in ATTENTION_FAMILIES:
+        if cfg.mla is not None:
+            m = cfg.mla
+            shapes = ((L_, B, max_len, m.kv_lora_rank), (L_, B, max_len, m.qk_rope_head_dim))
+        else:
+            shapes = ((L_,) + kv_shape,) * 2
+        cache = {name: zeros(shape) for name, shape in zip(cache_names(cfg), shapes)}
+    elif fam == "hybrid":
+        s = cfg.ssm
+        _, H, conv_ch = SSM.ssm_dims(cfg)
+        n_apps = -(-cfg.n_layers // cfg.hybrid_attn_every)
+        cache = {"ssm_h": zeros((L_, B, H, s.head_dim, s.state_dim), torch.float32),
+                 "conv": zeros((L_, B, s.conv_width - 1, conv_ch)),
+                 "attn_k": zeros((n_apps,) + kv_shape), "attn_v": zeros((n_apps,) + kv_shape)}
+    elif fam == "ssm":
+        H, d = cfg.n_heads, cfg.d_model
+        hd_up = int(d * cfg.xlstm.proj_factor) // H
+        f32 = torch.float32
+        layers = []
+        for i in range(L_):
+            if _xlstm_kind(cfg, i) == "slstm":
+                layers.append({"c": zeros((B, d), f32), "n": torch.ones((B, d), device=device),
+                               "m": zeros((B, d), f32), "h": zeros((B, d))})
+            else:
+                layers.append({"C": zeros((B, H, hd_up, hd_up), f32), "n": zeros((B, H, hd_up), f32),
+                               "m": torch.full((B, H), -1e30, device=device)})
+        cache = {"layers": layers}
+    elif fam == "audio":
+        cache = {"k": zeros((L_,) + kv_shape), "v": zeros((L_,) + kv_shape),
+                 "memory": zeros((B, memory_len, cfg.d_model))}
     else:
-        shapes = ((L_, B, max_len, cfg.n_kv_heads, cfg.resolved_head_dim),) * 2
-    cache = {name: torch.zeros(shape, dtype=dt, device=device)
-             for name, shape in zip(cache_names(cfg), shapes)}
+        raise ValueError(f"unknown family {fam}")
     cache["pos"] = torch.zeros((batch_size,), dtype=torch.long, device=device)
     return cache
 
@@ -355,19 +537,47 @@ def decode_step(p: Transformer, cache: dict, tokens: torch.Tensor, cfg):
     Every slot decodes at its own offset ``cache["pos"]``.  Dense attention
     reads the cache read-only, and after the layer loop the new keys/values
     of all layers are appended at once; MLA writes each layer's new latents
-    into the cache inside the layer, then attends (as JAX does).  Then
-    ``pos`` advances.  Unlike the JAX version, which returns a new cache,
-    this updates ``cache`` **in place** (and returns it): a captured CUDA
-    graph needs fixed addresses."""
-    _require_ported(cfg)
+    into the cache inside the layer, then attends (as JAX does).  The
+    hybrid's SSD and conv state, its shared block's keys/values (written
+    inside the layer), the xLSTM cells and the audio decoder's keys/values
+    (written inside the layer, then cross attention over
+    ``cache["memory"]`` on the flash kernel) advance one token.  Then
+    ``pos`` advances: by ``S_new`` for the attention families, by 1 for
+    hybrid, ssm and audio, as in JAX.  Unlike the JAX version, which
+    returns a new cache, this updates ``cache`` **in place** (and returns
+    it): a captured CUDA graph needs fixed addresses."""
     pos = cache["pos"]
     S_new = tokens.shape[1]
+    fam = cfg.family
     x = L.embed_tokens(p.embed, tokens, cfg)
     positions = pos[:, None] + torch.arange(S_new, device=pos.device)[None, :]
-    # MLA has written its latents into the cache inside each layer
-    x, new, _ = _run_layers(p, x, cfg, positions, cache=cache, keep_new=cfg.mla is None)
-    if new is not None:
-        L.append_kv(cache["k"], cache["v"], *new, pos)
-    pos += S_new                                           # in place
+    if fam in ATTENTION_FAMILIES:
+        # MLA has written its latents into the cache inside each layer
+        x, new, _ = _run_layers(p, x, cfg, positions, cache=cache, keep_new=cfg.mla is None)
+        if new is not None:
+            L.append_kv(cache["k"], cache["v"], *new, pos)
+        step = S_new
+    elif fam == "hybrid":
+        for i, lp in enumerate(p.layers):
+            out, _ = SSM.mamba2_block(lp["mamba"], L.apply_norm(lp["ln"], x, cfg), cfg,
+                                      cache={"h": cache["ssm_h"][i], "conv": cache["conv"][i]})
+            x = x + out
+            if _is_attn_layer(cfg, i):
+                app = i // cfg.hybrid_attn_every
+                x, _, _ = _attn_ffn_block(
+                    p.shared_attn, x, cfg, positions=positions, window=None,
+                    cache={"k": cache["attn_k"][app], "v": cache["attn_v"][app], "pos": pos},
+                    update_cache=True)
+        step = 1
+    elif fam == "ssm":
+        for i, lp in enumerate(p.layers):
+            x, _ = _xlstm_layer(lp, x, cfg, kind=_xlstm_kind(cfg, i), cache=cache["layers"][i])
+        step = 1
+    else:
+        for i, lp in enumerate(p.decoder):
+            x = _decoder_layer(lp, x, cache["memory"], cfg, positions=positions,
+                               cache={"k": cache["k"][i], "v": cache["v"][i], "pos": pos})
+        step = 1
+    pos += step                                            # in place
     x = L.apply_norm(p.final_norm, x, cfg)
     return L.unembed(p.embed, x, cfg), cache

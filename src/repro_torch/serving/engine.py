@@ -109,7 +109,8 @@ def _resolve_device(device) -> torch.device:
 
 
 class ServingEngine:
-    """Sealed-step batched serving for the dense and MoE architectures."""
+    """Sealed-step batched serving for the dense, MoE and vlm architectures
+    (vlm prompts are text only, as in JAX)."""
 
     def __init__(
         self,
@@ -129,6 +130,14 @@ class ServingEngine:
             raise NotImplementedError(
                 "slot-replacement serving needs re-settable recurrent state; "
                 "use batch decode directly for SSM/hybrid archs"
+            )
+        if cfg.family == "audio":
+            # JAX's engine takes audio but fails in its prefill: a cache made
+            # with memory_len=0 passes its (B, 0, D) memory leaf unsliced
+            raise NotImplementedError(
+                "the engine serves no encoder-decoder model (no memory per "
+                "slot): run encode_memory, then init_cache(memory_len=T) with "
+                "cache['memory'] set, then batch decode_step"
             )
         self.cfg = cfg
         self.device = _resolve_device(device)

@@ -247,7 +247,112 @@ def test_phase3_launches_every_kernel():
         _check_launch(launch, 1, kv_heads * group, Sq)
         reached[launch.instance] = reached.get(launch.instance, 0) + 1
     assert set(reached) == set(kernel.INSTANCES)
-    assert len(SMOKE.flash_cases()) == 136          # the first 130 and six of 24 heads
+    assert len(SMOKE.flash_cases()) == 180          # 172 of 2 kv heads, eight of 24 heads
+
+
+@pytest.mark.parametrize("case", SMOKE.family_cases(), ids=str)
+def test_phase3_covers_the_families_shapes(case):
+    """Phase 3 also holds B1 at the shapes of the family paths (phases
+    11-14), at their own batch: llava's prefill buckets and S = 2944 at GQA
+    7, seamless's bidirectional encoder, cross attention with Sq != Skv and
+    Sq = 1, zamba2's hd 80; each takes a kernel of the library within the
+    card's limits."""
+    dname, B, hd, kv_heads, group, Sq, Skv, causal = case
+    launch = kernel.choose_launch(B, kv_heads * group, Sq, Skv, hd, dname)
+    _check_launch(launch, B, kv_heads * group, Sq)
+
+
+def test_family_cases_take_the_paths_tiles():
+    """At the paths' batch of 4, seamless's decoder prompt (16 heads, S 512)
+    fills the card and takes the single-warpgroup tile, where at batch 1 it
+    would split: phase 3 must check the tile the path runs."""
+    cases = {(B, Sq, Skv, hd): kernel.choose_tile(B, kv * group, Sq, Skv)
+             for d, B, hd, kv, group, Sq, Skv, causal in SMOKE.family_cases()}
+    assert cases[(4, 512, 512, 64)] == kernel.TILES[0]
+    assert kernel.choose_tile(1, 16, 512, 512) == kernel.TILES[1]
+    assert {(1, 128, 128, 128), (1, 512, 512, 128), (1, 2944, 2944, 128),
+            (4, 128, 128, 64), (4, 512, 128, 64), (4, 1, 128, 64),
+            (4, 512, 512, 80)} <= set(cases)
+
+
+def _drive_family_path(arch, B, S, prompt, buckets):
+    """The entry-point calls of chip_smoke.py's phase for ``arch`` (11-14),
+    on the smoke config at float32 on the CPU: llava served on one request
+    per bucket, then a forward of its vision embeddings and ``prompt``
+    tokens; the others ``encode_memory`` (audio), a forward of B x S tokens
+    and two batch-decode steps."""
+    import dataclasses
+
+    import repro_torch.configs as C
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_step, encode_memory, forward, init_cache
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = dataclasses.replace(C.get(arch, smoke=True), dtype="float32")
+    params = serve.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        if cfg.family == "vlm":
+            engine = ServingEngine(cfg, params, max_slots=2, max_len=4 * max(buckets),
+                                   bucketing=tuple(buckets), device="cpu")
+            reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, b - 1).astype(np.int64),
+                            max_new_tokens=2) for i, b in enumerate(buckets)]
+            serve.serve(engine, reqs)
+            assert engine.stats.prefill_compiles == len(buckets)
+            forward(params, {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (1, prompt))),
+                             "vision_embeds": torch.from_numpy(rng.standard_normal(
+                                 (1, cfg.vision_tokens, cfg.vision_dim), dtype=np.float32))}, cfg)
+            return cfg
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))}
+        T = S // cfg.audio_frames_ratio if cfg.family == "audio" else 0
+        if T:
+            batch["frames"] = torch.from_numpy(
+                rng.standard_normal((B, T, cfg.audio_dim), dtype=np.float32))
+            memory = encode_memory(params, batch["frames"], cfg)
+        forward(params, batch, cfg)
+        cache = init_cache(cfg, B, 8, memory_len=T, device="cpu")
+        if T:
+            cache["memory"].copy_(memory)
+        tok = batch["tokens"][:, :1]
+        for _ in range(2):
+            decode_step(params, cache, tok, cfg)
+    return cfg
+
+
+@pytest.mark.parametrize("arch", SMOKE.FAMILY_ARCHS + ("xlstm-125m",))
+def test_path_attention_shapes_are_the_paths(arch, monkeypatch):
+    """chip_smoke.path_attention_shapes, from which phase 3 takes the
+    family cases, lists exactly the flash attention calls the path makes:
+    each call of ``mha_flash`` is recorded while the smoke config runs the
+    phase's entry points on the CPU (phases 11-14 check the same on the
+    card, with the full configs, against phase 3's cases)."""
+    from repro_torch.models import layers
+
+    seen, inner = set(), layers.mha_flash
+
+    def recording(q, k, v, **kw):
+        seen.add((q.shape[0], q.shape[2], k.shape[2], q.shape[1], k.shape[1], q.shape[3],
+                  kw["causal"]))
+        return inner(q, k, v, **kw)
+
+    monkeypatch.setattr(layers, "mha_flash", recording)
+    B, S, prompt, buckets = 2, 16, 4, (16, 32)
+    cfg = _drive_family_path(arch, B, S, prompt, buckets)
+    want = {shape[1:] for shape in SMOKE.path_attention_shapes(cfg, B, S, prompt, buckets)}
+    assert seen == want
+
+
+def test_head_dim_80_runs_the_padded_tile():
+    """hd 80's bf16 tiles are 128 wide (shared memory as hd 128), loaded in
+    two 64-column boxes; the TMA fills columns 80-127 with zeros."""
+    for S in (64, 512, 2048):
+        l80 = kernel.choose_launch(4, 32, S, S, 80, "bfloat16")
+        l128 = kernel.choose_launch(4, 32, S, S, 128, "bfloat16")
+        assert (l80.smem_bytes, l80.warpgroups, l80.q_box) == \
+            (l128.smem_bytes, l128.warpgroups, l128.q_box)
+        assert l80.q_box == (64, 64) and l80.instance[1] == 80
+    assert kernel.padded_head_dim(80) == 128 and kernel.padded_head_dim(64) == 64
+    assert kernel.f32_smem_bytes(80) == 4 * (64 * 81 + 2 * 64 * 81 + 64 * 65)
 
 
 def _layer_inputs(monkeypatch, dtype, B=2, S=24):

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports ``jax`` or anything of the JAX package
-``repro``, and importing the serving stack or Nimble's core loads no JAX."""
+"""The port stands alone: no module of ``src/repro_torch/``, not
+``chip_smoke.py`` and not the port's examples import ``jax`` or anything
+of the JAX package ``repro``, and importing the serving stack, Nimble's
+core or the model families loads no JAX."""
 
 import ast
 import os
@@ -15,7 +16,9 @@ import pytest  # noqa: E402
 import torch  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "branchy_inference_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -41,7 +44,14 @@ def test_port_file_list_is_complete():
                  "src/repro_torch/kernels/stream_pack/kernel.py",
                  "src/repro_torch/core/aot.py", "src/repro_torch/core/trace.py",
                  "src/repro_torch/core/rewriter.py", "src/repro_torch/models/branchy.py",
-                 "src/repro_torch/models/moe.py", "src/repro_torch/models/mla.py"):
+                 "src/repro_torch/models/moe.py", "src/repro_torch/models/mla.py",
+                 "src/repro_torch/models/ssm.py", "src/repro_torch/models/xlstm.py",
+                 "src/repro_torch/core/engine.py",
+                 "src/repro_torch/configs/llava_next_34b.py",
+                 "src/repro_torch/configs/seamless_m4t_medium.py",
+                 "src/repro_torch/configs/zamba2_2_7b.py",
+                 "src/repro_torch/configs/xlstm_125m.py",
+                 "examples/quickstart_torch.py", "examples/branchy_inference_torch.py"):
         assert must in names
 
 
@@ -50,6 +60,7 @@ def test_importing_the_serving_stack_loads_no_jax():
         "import sys\n"
         "import repro_torch.serving, repro_torch.launch.serve, repro_torch.bridge\n"
         "import repro_torch.core, repro_torch.models.branchy, repro_torch.kernels.stream_pack\n"
+        "import repro_torch.models.ssm, repro_torch.models.xlstm\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

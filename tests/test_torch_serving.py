@@ -342,9 +342,22 @@ def test_engine_defaults_to_the_card():
 
 
 def test_engine_refuses_unported_families():
+    """Recurrent families are refused by both engines.  The audio family is
+    refused up front here, where the JAX engine fails in its prefill warm-up
+    (a cache of ``memory_len=0`` hands its ``(B, 0, D)`` memory leaf to the
+    one-slot prefill unsliced): serving audio is a feature neither package
+    has; batch ``decode_step`` over ``encode_memory`` serves it."""
     cfg = dataclasses.replace(TC.get("phi4-mini-3.8b", smoke=True), family="ssm")
     with pytest.raises(NotImplementedError):
         ServingEngine(cfg, None, device="cpu")
+    jcfg = dataclasses.replace(JC.get("seamless-m4t-medium", smoke=True), dtype="float32")
+    params, _ = jax_init_model(jax.random.key(0), jcfg)
+    with pytest.raises(TypeError, match="cannot reshape"):
+        JaxServingEngine(jcfg, params, max_slots=2, max_len=32, prompt_buckets=(16,))
+    tcfg = dataclasses.replace(TC.get("seamless-m4t-medium", smoke=True), dtype="float32")
+    model = params_from_jax(jax.tree_util.tree_map(np.asarray, params), tcfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="encode_memory"):
+        ServingEngine(tcfg, model, max_slots=2, max_len=32, prompt_buckets=(16,), device="cpu")
 
 
 # -- schedule key --------------------------------------------------------------
