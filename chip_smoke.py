@@ -88,7 +88,35 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
 15. the smoke configs of llava-next, seamless, zamba2 and xlstm on the card
     and on the CPU at float32, one set of weights: ``forward`` logits within
     ``FAMILY_FORWARD_TOL`` and identical greedy tokens (llava through
-    ``ServingEngine``, the others by batch decode).
+    ``ServingEngine``, the others by batch decode);
+16. the control plane in process: an ``AsyncDispatcher`` over two lanes,
+    phi4-mini-3.8b at full width and depth (class 0, a latency target) and
+    deepseek-v2-236b at full width and 2 layers (class 1), bf16, one shared
+    schedule cache; a burst of 16 mixed requests under per-engine steppers,
+    under a pool of two, and once more profiled (the profiler must see
+    exactly the ``flash_fwd`` and ``stream_pack`` kernels the lanes'
+    replays imply, up to three bursts; that session gives the device's
+    busy share of the burst).  phi4-mini's tokens
+    must equal the same engine's driven by ``run_until_drained``; the MoE
+    lane's requests must complete with their token counts.  Then a third
+    lane (phi4-mini smoke, float32, a schedule cache of one entry)
+    registers while the two serve, capturing its CUDA graphs between their
+    replays, and its first request re-seals an evicted bucket on its
+    stepper: ``builds_on_thread`` must be 0 everywhere else.  The third
+    lane's requests, served the same way on the CPU, give the same tokens;
+17. the worker plane: ``stepping="workers"`` with one spawned worker on
+    ``cuda:0`` building phi4-mini from ``ServingEngineSpec(smoke=False,
+    dtype="bfloat16", seed=0)``; its tokens equal an in-process engine's
+    built from the same spec; ``fork`` is refused (CUDA is initialised
+    here); then the worker is SIGKILLed in the middle of a step: the
+    requests in flight fail ``WorkerCrashed``, the queued ones replay on
+    the respawned worker token-identically; prints spawn and respawn times;
+18. journal and observability: a journaled run of that lane, stopped with
+    work in flight, is recovered by a fresh dispatcher (the lane rebuilt
+    from its journaled spec) and the unfinished requests replay
+    token-identically; the recovered run's Chrome trace must validate, and
+    a ``MetricsRegistry``'s Prometheus text must hold the dispatch, cache,
+    worker-plane and tracer families.
 
 Each phase prints its times (CUDA events, graph replays), the kernels of
 one profiled call, and the wrappers' counts; each forward and each decode
@@ -1750,6 +1778,485 @@ def phase_families_cpu_parity(number: int) -> None:
             fail(f"{cfg.name}: greedy tokens differ between the card and the CPU")
 
 
+# the control plane's lanes (phases 16-18): the served phases' slots,
+# positions and buckets
+LANE_ENGINE = dict(max_slots=SERVE_SLOTS, max_len=1024,
+                   bucketing=f"pow2:{min(PREFILL_BUCKETS)}:{max(PREFILL_BUCKETS)}")
+# a dense lane's latency target (ms): generous, so admission refuses nothing
+DENSE_TARGET_MS = 60_000.0
+
+
+def lane_requests(cfg, n: int, seed: int, max_new: int = 16, min_len: int = 20,
+                  max_len: int = 501) -> list:
+    """(prompt, max_new_tokens) pairs: ``serve.make_requests``'s prompts."""
+    from repro_torch.launch import serve
+
+    return [(r.prompt, r.max_new_tokens) for r in serve.make_requests(
+        cfg, n, max_new=max_new, seed=seed, min_len=min_len, max_len=max_len)]
+
+
+def direct_tokens(engine, work: list) -> list:
+    """Greedy tokens of ``work`` ((prompt, max_new) pairs) from ``engine``
+    driven directly by ``run_until_drained``, in order."""
+    from repro_torch.serving import Request
+
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=n) for i, (p, n) in enumerate(work)]
+    for r in reqs:
+        engine.submit(r)
+    engine.run_until_drained()
+    return [list(r.generated) for r in reqs]
+
+
+def percentile_ms(values) -> str:
+    import numpy as np
+
+    if not values:
+        return "p50 - p99 -"
+    v = np.asarray(values) * 1e3
+    return f"p50 {np.percentile(v, 50):.2f}ms p99 {np.percentile(v, 99):.2f}ms"
+
+
+def device_busy(events, wall_s: float) -> float:
+    """Share of ``wall_s`` in which at least one device kernel ran: the
+    union of the profiler's kernel intervals over the wall time."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e6 / wall_s if wall_s > 0 else 0.0
+
+
+def class_report(disp, lanes: dict, done: dict, before: dict) -> None:
+    """Per class: TTFT p50/p99 over the finished requests, decode tok/s of
+    the lane's engine over the run, grants, preemptions, sheds."""
+    snap = disp.snapshot()
+    classes = snap.get("classes", {})
+    for name, (cls, engine) in lanes.items():
+        reqs = done.get(name, [])
+        st = engine.stats
+        toks = st.tokens_out - before[name][0]
+        secs = st.decode_s - before[name][1]
+        c = classes.get(cls, classes.get(str(cls), {}))
+        say(f"  class {cls} [{name}]: {len(reqs)} requests, TTFT "
+            f"{percentile_ms([r.t_first - r.t_submit for r in reqs])}, decode "
+            f"{toks / secs if secs else 0.0:.1f} tok/s, grants "
+            f"{c.get('grant_ms', {}).get('count', 0)}, preemptions {c.get('preemptions', 0)}, "
+            f"shed {c.get('shed', 0)}")
+
+
+def dispatched_burst(disp, work: dict, *, profile_it: bool = False) -> dict:
+    """Submit ``work`` ({lane: [(prompt, max_new), ...]}) interleaved across
+    lanes, wait for every future; returns the finished requests by lane (in
+    submission order), the wall time and, with ``profile_it``, the device
+    kernels the profiler saw during the burst."""
+    import contextlib as _cl
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    order = []
+    for i in range(max(len(w) for w in work.values())):
+        for lane, w in work.items():
+            if i < len(w):
+                order.append((lane, w[i]))
+    ctx = profile(activities=[ProfilerActivity.CUDA]) if profile_it else _cl.nullcontext()
+    with ctx as prof:
+        t0 = time.perf_counter()
+        futs = [(lane, disp.submit(lane, p, max_new_tokens=n)) for lane, (p, n) in order]
+        done: dict = {lane: [] for lane in work}
+        for lane, f in futs:
+            done[lane].append(f.result(timeout=600))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = []
+    if profile_it:
+        events = [e for e in prof.events()
+                  if "cuda" in str(getattr(e, "device_type", "")).lower()]
+    return {"done": done, "wall_s": wall, "events": events}
+
+
+def check_lane(name: str, reqs: list, cfg, want: list | None = None, prefix: int = 0) -> None:
+    """Every request finished without error with tokens in range; with
+    ``want``, each request's tokens (their first ``prefix`` if given) equal
+    the direct engine's."""
+    import numpy as np
+
+    for i, r in enumerate(reqs):
+        if r.error or not (len(r.generated) == r.max_new_tokens or r.truncated):
+            fail(f"{name} request {i}: {len(r.generated)} tokens, error {r.error}")
+        toks = np.asarray(r.generated)
+        if toks.min() < 0 or toks.max() >= cfg.vocab:
+            fail(f"{name} request {i}: token outside [0, {cfg.vocab})")
+        if want is not None:
+            got = list(r.generated)[:prefix] if prefix else list(r.generated)
+            if got != want[i]:
+                fail(f"{name} request {i}: dispatched tokens {got} differ from the "
+                     f"direct engine's {want[i]}")
+
+
+def phase_dispatch(number: int) -> dict:
+    """The in-process ``AsyncDispatcher`` over the port's engines on the
+    card: a dense lane (phi4-mini at full width and depth, class 0, a
+    latency target) and a MoE lane (deepseek-v2 at full width, 2 layers,
+    class 1), bf16, one shared schedule cache; a burst of 16 mixed requests
+    under per-engine steppers (profiled) and under a pool of two; then a
+    third lane (phi4-mini smoke, float32, a schedule cache of one entry)
+    registered while the two serve, whose requests force one evict and
+    re-seal on its stepper while the others replay."""
+    import numpy as np
+    import torch
+
+    import repro_torch.configs as C
+    from repro_torch.core.capture import CAPTURE_LOCK
+    from repro_torch.dispatch import AsyncDispatcher, ScheduleCache
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.stream_pack import kernel as pack
+    from repro_torch.launch import serve
+    from repro_torch.serving import ServingEngine
+
+    say(f"== phase {number}: AsyncDispatcher on the card: phi4-mini-3.8b (full, class 0, "
+        f"target {DENSE_TARGET_MS:.0f}ms) + deepseek-v2-236b (full width, 2 layers, class 1), "
+        "bf16; per-engine, then pool of 2; a third lane registered while they serve")
+    release()
+    dense_cfg = dataclasses.replace(C.get("phi4-mini-3.8b"), dtype="bfloat16")
+    moe_cfg = dataclasses.replace(C.get("deepseek-v2-236b"), n_layers=2, dtype="bfloat16")
+    cache = ScheduleCache(capacity=64)
+    pack.launches = flash.launches = 0                  # the path's run starts here
+    t0 = time.perf_counter()
+    dense = ServingEngine(dense_cfg, serve.init_params(dense_cfg, seed=0, device="cuda"),
+                          schedule_cache=cache, device="cuda", **LANE_ENGINE)
+    moe = ServingEngine(moe_cfg, serve.init_params(moe_cfg, seed=0, device="cuda"),
+                        schedule_cache=cache, device="cuda", **LANE_ENGINE)
+    say(f"two lanes built and sealed in {time.perf_counter() - t0:.2f}s")
+    dense_work = lane_requests(dense_cfg, 8, seed=10)
+    moe_work = lane_requests(moe_cfg, 8, seed=11)
+    want = direct_tokens(dense, dense_work)          # the same engine, driven directly
+    lanes = {"phi4-mini": (0, dense), "deepseek-v2": (1, moe)}
+    out: dict = {}
+
+    def burst(mode: str, profiled: bool) -> dict:
+        disp = AsyncDispatcher(stepping=mode, pool_size=2, max_pending=1000)
+        disp.register_model("phi4-mini", dense, priority_class=0,
+                            latency_target_ms=DENSE_TARGET_MS)
+        disp.register_model("deepseek-v2", moe, priority_class=1)
+        before = {n: (e.stats.tokens_out, e.stats.decode_s) for n, (_, e) in lanes.items()}
+        replays0 = {n: (e.stats.prefill_replays, e.stats.decode_replays)
+                    for n, (_, e) in lanes.items()}
+        cache0 = cache.stats.as_dict()
+        with disp:
+            res = dispatched_burst(disp, {"phi4-mini": dense_work, "deepseek-v2": moe_work},
+                                   profile_it=profiled)
+            builds = disp.builds_by_stepper
+        cache1 = cache.stats.as_dict()
+        check_lane("phi4-mini", res["done"]["phi4-mini"], dense_cfg, want)
+        check_lane("deepseek-v2", res["done"]["deepseek-v2"], moe_cfg)
+        same = [list(r.generated) for r in res["done"]["deepseek-v2"]] == moe_want
+        say(f"{mode}{' (profiled)' if profiled else ''}: 16 requests in {res['wall_s']:.3f}s; "
+            f"phi4-mini tokens identical to the direct engine's (8 requests, bf16); "
+            f"deepseek-v2 8 complete with "
+            f"{sum(len(r.generated) for r in res['done']['deepseek-v2'])} tokens (same as the "
+            f"direct engine's: {'yes' if same else 'no'}, not required); builds on steppers "
+            f"{builds}; cache hits {cache1['hits'] - cache0['hits']}, misses "
+            f"{cache1['misses'] - cache0['misses']}, evictions "
+            f"{cache1['evictions'] - cache0['evictions']}")
+        class_report(disp, lanes, res["done"], before)
+        if any(builds.values()):
+            fail(f"{mode}: a stepper sealed a step on the steady path: {builds}")
+        res["pre"] = {n: e.stats.prefill_replays - replays0[n][0] for n, (_, e) in lanes.items()}
+        res["dec"] = {n: e.stats.decode_replays - replays0[n][1] for n, (_, e) in lanes.items()}
+        return res
+
+    moe_want = direct_tokens(moe, moe_work)
+    for mode in ("per-engine", "pool"):
+        out[f"wall_{mode}"] = burst(mode, False)["wall_s"]
+    # the kernels the profiler sees while the lanes serve: a session counts
+    # only if it saw exactly the B1 and B2 kernels the burst's replays
+    # imply (an H100 session has come back empty, another with 25 of a
+    # replay's 295 kernels), and only such a session gives the busy share
+    for attempt in range(1, 4):
+        res = burst("per-engine", True)
+        rows = by_kernel(res["events"])
+        fl = sum(c for _, c, key in rows if "flash_fwd" in key)
+        b2 = sum(c for _, c, key in rows if "stream_pack_" in key)
+        pre, dec = res["pre"], res["dec"]
+        want_fl = dense_cfg.n_layers * pre["phi4-mini"]
+        want_b2 = 3 * moe_cfg.n_layers * (pre["deepseek-v2"] + dec["deepseek-v2"])
+        whole = fl == want_fl and b2 == want_b2
+        busy = device_busy(res["events"], res["wall_s"])
+        say(f"  profiled burst {attempt}: {sum(c for _, c, _ in rows)} device kernels; flash_fwd "
+            f"{fl} (want {want_fl}: {dense_cfg.n_layers} x {pre['phi4-mini']} prefill replays), "
+            f"stream_pack {b2} (want {want_b2}: 3 x {moe_cfg.n_layers} x "
+            f"{pre['deepseek-v2'] + dec['deepseek-v2']} replays)"
+            + (f"; device busy {busy:.1%} of the burst's wall time" if whole else
+               ": not the kernels the replays imply, profiling again"))
+        if whole:
+            break
+    else:
+        fail(f"no profiled burst of three saw exactly the kernels its replays imply: "
+             f"flash_fwd {fl} (want {want_fl}), stream_pack {b2} (want {want_b2})")
+    if not want_fl or not want_b2:
+        fail(f"the dispatched lanes ran {want_fl} flash_fwd and {want_b2} stream_pack kernels "
+             "in their replays: both kernels must run inside the lanes")
+    out.update(flash_in_replays=fl, b2_in_replays=b2, busy=busy,
+               profiled_replays=sum(pre.values()) + sum(dec.values()))
+
+    # a third lane registered while the two serve: its seal captures CUDA
+    # graphs on this thread while the steppers replay; its schedule cache
+    # of one entry evicts prefill bucket 16 while it seals bucket 64, so
+    # its first request re-seals bucket 16 on its stepper
+    smoke_cfg = dataclasses.replace(C.get("phi4-mini-3.8b", smoke=True), dtype="float32")
+    smoke_params = serve.init_params(smoke_cfg, seed=5, device="cuda")
+    smoke_work = lane_requests(smoke_cfg, 6, seed=12, max_new=8, min_len=4, max_len=17)
+    long_work = {"phi4-mini": [(p, 48) for p, _ in dense_work],
+                 "deepseek-v2": [(p, 48) for p, _ in moe_work]}
+    disp = AsyncDispatcher(stepping="per-engine", max_pending=1000)
+    disp.register_model("phi4-mini", dense, priority_class=0, latency_target_ms=DENSE_TARGET_MS)
+    disp.register_model("deepseek-v2", moe, priority_class=1)
+    with disp:
+        futs = [(lane, disp.submit(lane, p, max_new_tokens=n))
+                for i in range(8) for lane, w in long_work.items() for p, n in [w[i]]]
+        time.sleep(0.05)
+        steps0 = dense.stats.steps + moe.stats.steps
+        lock0 = CAPTURE_LOCK.stats()
+        t0 = time.perf_counter()
+        small = ScheduleCache(capacity=1)
+        smoke = ServingEngine(smoke_cfg, smoke_params, max_slots=4, max_len=128,
+                              bucketing=(16, 64), schedule_cache=small, device="cuda")
+        disp.register_model("phi4-smoke", smoke, priority_class=0)
+        reg_s = time.perf_counter() - t0
+        steps1 = dense.stats.steps + moe.stats.steps
+        lock1 = CAPTURE_LOCK.stats()
+        sfuts = [disp.submit("phi4-smoke", p, max_new_tokens=n) for p, n in smoke_work]
+        smoke_done = [f.result(timeout=600) for f in sfuts]
+        done: dict = {"phi4-mini": [], "deepseek-v2": []}
+        for lane, f in futs:
+            done[lane].append(f.result(timeout=600))
+        steps2 = dense.stats.steps + moe.stats.steps
+        builds = disp.builds_by_stepper
+    check_lane("phi4-mini", done["phi4-mini"], dense_cfg, want, prefix=16)
+    check_lane("deepseek-v2", done["deepseek-v2"], moe_cfg)
+    check_lane("phi4-smoke", smoke_done, smoke_cfg)
+    say(f"third lane registered in {reg_s:.3f}s while the two served (their steps: {steps0} "
+        f"before, {steps1} after the registration, {steps2} at the end); capture lock: "
+        f"{lock1['captures'] - lock0['captures']} captures waited "
+        f"{(lock1['capture_wait_s'] - lock0['capture_wait_s']) * 1e3:.2f}ms in all for replays "
+        f"in flight; phi4-mini's first 16 tokens of 48 identical to the direct engine's")
+    if steps2 <= steps1 or steps1 < steps0:
+        fail("the two lanes did not keep stepping around the third lane's registration")
+    # the host time of one uncontended shared section, which every serving
+    # step's device sections pay (Nimble's graph launches take none)
+    t0 = time.perf_counter()
+    for _ in range(100_000):
+        with CAPTURE_LOCK.replaying():
+            pass
+    out["shared_section_us"] = (time.perf_counter() - t0) * 10
+    say(f"capture lock: one uncontended shared section takes {out['shared_section_us']:.3f} us "
+        "of host time (mean of 100000)")
+    say(f"forced re-seal: the one-entry cache evicted {small.stats.evictions} and built "
+        f"{small.stats.builds} steps; builds on steppers {builds}")
+    if builds.get("phi4-smoke") != 1 or any(v for k, v in builds.items() if k != "phi4-smoke"):
+        fail(f"want exactly one build, on the third lane's stepper (the forced re-seal): {builds}")
+    out["b2_launches"], out["flash_launches"] = pack.launches, flash.launches  # ... and ends here
+    say(f"wrapper calls over the phase (the lanes' seals: eager warm-up runs and captures): "
+        f"flash {flash.launches}, stream_pack {pack.launches}")
+    if not flash.launches or not pack.launches:
+        fail("a kernel of the dispatched path was never launched")
+
+    # the dispatched float32 case of the card-against-CPU checks: the third
+    # lane's requests through an AsyncDispatcher on the CPU, same weights
+    from repro_torch.models import Transformer
+
+    p_cpu = Transformer(smoke_cfg, device="cpu")
+    p_cpu.load_state_dict(smoke_params.state_dict())
+    cpu_engine = ServingEngine(smoke_cfg, p_cpu, max_slots=4, max_len=128,
+                               bucketing=(16, 64), device="cpu")
+    with AsyncDispatcher(stepping="per-engine") as cpu_disp:
+        cpu_disp.register_model("phi4-smoke", cpu_engine)
+        cpu_done = [f.result(timeout=600) for f in
+                    [cpu_disp.submit("phi4-smoke", p, max_new_tokens=n) for p, n in smoke_work]]
+    card, cpu = [list(r.generated) for r in smoke_done], [list(r.generated) for r in cpu_done]
+    say(f"dispatched phi4-mini smoke, float32: card {card}")
+    say(f"                                    cpu  {cpu}")
+    if card != cpu:
+        fail("the dispatched smoke lane's tokens differ between the card and the CPU")
+    return out
+
+
+def lane_spec():
+    """The worker plane's and the journal's recipe: phi4-mini at full width
+    and depth, bf16, seed 0, the served phases' slots and buckets."""
+    from repro_torch.serving import ServingEngineSpec
+
+    return ServingEngineSpec(arch="phi4-mini-3.8b", smoke=False, dtype="bfloat16", seed=0,
+                             device="cuda", **LANE_ENGINE)
+
+
+def phase_workers(number: int) -> dict:
+    """``stepping="workers"``: one spawned worker process on ``cuda:0``
+    builds phi4-mini from :func:`lane_spec`; its tokens must equal an
+    in-process engine's built from the same spec.  Then the worker is
+    SIGKILLed during a step: the requests in flight fail ``WorkerCrashed``,
+    the queued ones replay on the respawned worker, token-identical."""
+    import os
+    import signal
+
+    import repro_torch.configs as C
+    from repro_torch.dispatch import (AsyncDispatcher, WorkerCrashed, WorkerPlane,
+                                      WorkerSetupError)
+
+    say(f"== phase {number}: the worker plane on the card: one spawned worker, phi4-mini "
+        "full width, bf16, from ServingEngineSpec(smoke=False, seed=0)")
+    release()
+    try:
+        WorkerPlane(1, device="cuda", start_method="fork").start()
+        fail("a fork worker plane started after CUDA was initialised here")
+    except WorkerSetupError as exc:
+        say(f"fork after CUDA init refused: {exc}")
+    spec = lane_spec()
+    cfg = dataclasses.replace(C.get(spec.arch), dtype=spec.dtype)
+    t0 = time.perf_counter()
+    ref_engine = spec.build(0)
+    say(f"in-process engine from the spec: {time.perf_counter() - t0:.2f}s")
+    work = lane_requests(cfg, 8, seed=20)
+    long_work = [(p, 400) for p, _ in lane_requests(cfg, 4, seed=21, max_len=300)]
+    want = direct_tokens(ref_engine, work)
+
+    plane = WorkerPlane(1, device="cuda", start_method="spawn", hb_interval=0.2,
+                        hb_timeout=60.0, step_timeout=300.0, setup_timeout=600.0)
+    disp = AsyncDispatcher(stepping="workers", worker_plane=plane, max_pending=1000)
+    disp.register_model("phi4-mini", spec)
+    t0 = time.perf_counter()
+    out = {}
+    with disp:
+        ready_s = time.perf_counter() - t0
+        w = disp.snapshot()["async"]["workers"]["workers"][0]
+        say(f"worker pid {w['pid']} on device {w['device']} up in {ready_s:.2f}s "
+            f"(spawn to ready {w['spawn_s']:.2f}s, engine build and seal {w['register_s']:.2f}s)")
+        res = dispatched_burst(disp, {"phi4-mini": work})
+        check_lane("phi4-mini", res["done"]["phi4-mini"], cfg, want)
+        say(f"8 requests through the worker in {res['wall_s']:.3f}s: tokens identical to the "
+            "in-process engine's")
+        long_futs = [disp.submit("phi4-mini", p, max_new_tokens=n) for p, n in long_work]
+        queued = [disp.submit("phi4-mini", p, max_new_tokens=n) for p, n in work[:4]]
+        time.sleep(0.5)
+        pid = disp.snapshot()["async"]["workers"]["workers"][0]["pid"]
+        t_kill = time.perf_counter()
+        os.kill(pid, signal.SIGKILL)
+        crashed = 0
+        for f in long_futs:
+            try:
+                f.result(timeout=600)
+            except WorkerCrashed:
+                crashed += 1
+        replayed = [f.result(timeout=600) for f in queued]
+        replay_s = time.perf_counter() - t_kill
+        check_lane("phi4-mini (replayed)", replayed, cfg, want[:4])
+        w = disp.snapshot()["async"]["workers"]["workers"][0]
+        out["launches"] = w["stats"].get("kernel_launches", {})
+        say(f"SIGKILL of pid {pid} during a step: {crashed} of 4 requests in flight failed "
+            f"WorkerCrashed; the 4 queued replayed token-identical on pid {w['pid']} "
+            f"({w['restarts']} restart); kill to last replayed token {replay_s:.2f}s "
+            f"(respawn: spawn to ready {w['spawn_s']:.2f}s, rebuild and seal "
+            f"{w['register_s']:.2f}s)")
+        if crashed < 1 or w["restarts"] < 1 or w["pid"] == pid:
+            fail("the kill did not crash in-flight work or the worker did not respawn")
+        say(f"the worker's wrapper calls (its seals): {out['launches']}")
+        if not out["launches"].get("flash_attention"):
+            fail("the worker never launched the flash kernel")
+    if plane.leaked():
+        fail(f"worker processes outlived the plane: {plane.leaked()}")
+    out.update(plane=plane, spec=spec, cfg=cfg, work=work, want=want,
+               spawn_s=ready_s, respawn_s=replay_s)
+    return out
+
+
+def phase_journal(number: int, workers: dict) -> dict:
+    """A journaled in-process run of phi4-mini (the lane's spec journaled)
+    stopped with work in flight; a fresh dispatcher ``recover()``s it on
+    the card — the lane rebuilt from its spec, the unfinished requests
+    replayed token-identical; the recovered run's Chrome trace validates,
+    and a metrics registry exposes the dispatch, cache, worker-plane and
+    tracer families."""
+    import tempfile
+
+    import repro_torch.obs as obs
+    from repro_torch.dispatch import AsyncDispatcher, RequestJournal
+    from repro_torch.kernels.flash_attention import kernel as flash
+
+    say(f"== phase {number}: journal and recovery on the card, trace export, metrics registry")
+    release()
+    spec, cfg, work, want = workers["spec"], workers["cfg"], workers["work"], workers["want"]
+    want_by_prompt = {tuple(int(t) for t in p): w for (p, _), w in zip(work, want)}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_journal_")
+    path = f"{tmp}/journal.db"
+    journal = RequestJournal(path, flush_interval=0.01)
+    disp = AsyncDispatcher(stepping="per-engine", journal=journal, max_pending=1000)
+    disp.register_model("phi4-mini", spec.build(0), spec=spec)
+    disp.start()
+    for p, n in work:
+        disp.submit("phi4-mini", p, max_new_tokens=n)
+    time.sleep(0.05)
+    disp.stop(drain=False)                 # the crash: work left in flight
+    journal.sync(timeout=10.0)
+    journal.close()
+    del disp
+    release()
+
+    tracer = obs.get_tracer()
+    tracer.clear()
+    tracer.enable()
+    flash.launches = 0                      # the recovery path's run starts here
+    t0 = time.perf_counter()
+    journal = RequestJournal(path, flush_interval=0.01)
+    disp = AsyncDispatcher(stepping="per-engine", journal=journal, max_pending=1000)
+    report = disp.recover(journal)
+    rebuilt_s = time.perf_counter() - t0
+    with disp:
+        got = {rid: f.result(timeout=600) for rid, f in report["futures"].items()}
+        recover_s = time.perf_counter() - t0
+        registry = obs.MetricsRegistry()
+        obs.register_dispatch(registry, disp)
+        obs.register_cache(registry, disp.engine("phi4-mini").schedule_cache)
+        obs.register_worker_plane(registry, workers["plane"])
+        obs.register_tracer(registry, tracer)
+        prom = registry.to_prometheus()
+    tracer.disable()
+    launches = flash.launches               # ... and ends here
+    journal.close()
+    say(f"recovered lanes {report['lanes']}: {report['requeued']} requests requeued "
+        f"({report['interrupted']} interrupted mid-step, {report['preempted']} un-granted); "
+        f"lane rebuilt from its spec and sealed in {rebuilt_s:.2f}s, all replayed in "
+        f"{recover_s:.2f}s")
+    if report["lanes"] != ["phi4-mini"] or report["requeued"] < 1:
+        fail("recovery found no lane or no unfinished request")
+    for rid, r in got.items():
+        w = want_by_prompt[tuple(int(t) for t in r.prompt)]
+        if list(r.generated) != w:
+            fail(f"recovered request {rid}: {list(r.generated)} differ from {w}")
+    say(f"{len(got)} recovered requests token-identical to the in-process engine's")
+    trace = obs.to_chrome_trace(tracer.drain())
+    errors = obs.validate_trace(trace)
+    say(f"trace of the recovered run: {len(trace['traceEvents'])} events, validate_trace "
+        f"{errors}")
+    if errors:
+        fail(f"the recovered run's trace does not validate: {errors[:5]}")
+    families = ("repro_dispatcher_", "repro_schedule_cache_", "repro_workers_", "repro_tracer_")
+    missing = [f for f in families if f not in prom]
+    say(f"Prometheus exposition: {len(prom.splitlines())} lines; families "
+        f"{', '.join(f.rstrip('_') for f in families)} "
+        + ("present" if not missing else f"MISSING {missing}"))
+    if missing:
+        fail(f"the metrics registry lacks {missing}")
+    if not launches:
+        fail("the recovered lane's seal never launched the flash kernel")
+    return {"launches": launches, "recover_s": recover_s}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     try:
@@ -1779,6 +2286,9 @@ def main() -> None:
         phase_recurrent("xlstm-125m", 14)
     check_family_launches(seen)
     phase_families_cpu_parity(15)
+    dispatch = phase_dispatch(16)
+    workers = phase_workers(17)
+    journal = phase_journal(18, workers)
     # launches: the wrappers' counts over the paths' runs (each path's
     # counts set to 0 just before it), by path under launches_by_path;
     # launches_in_replays: the kernels the profiler saw in the paths'
@@ -1788,10 +2298,15 @@ def main() -> None:
                      "serve llava-next-34b": vlm["served_launches"],
                      "llava-next-34b forward": vlm["forward_launches"],
                      "seamless-m4t-medium encode, forward, decode": audio["launches"],
-                     "zamba2-2.7b forward, decode": hybrid["launches"]}
+                     "zamba2-2.7b forward, decode": hybrid["launches"],
+                     "dispatch phi4-mini + deepseek-v2 + smoke lane": dispatch["flash_launches"],
+                     "worker plane phi4-mini (in the worker)":
+                         workers["launches"].get("flash_attention", 0),
+                     "journal recovery phi4-mini": journal["launches"]}
     pack_by_path = {"nimble branchy cells": pack_launches,
                     "serve arctic-480b": arctic["b2_launches"],
-                    "serve deepseek-v2-236b": deepseek["b2_launches"]}
+                    "serve deepseek-v2-236b": deepseek["b2_launches"],
+                    "dispatch phi4-mini + deepseek-v2 + smoke lane": dispatch["b2_launches"]}
     kernels = [dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -1800,6 +2315,7 @@ def main() -> None:
         launches_in_replays=(in_replays or 0) + arctic["flash_in_replays"]
         + vlm["flash_in_replays"] + audio["decode"]["flash_in_replay"],
         profiled_replays=(0 if in_replays is None else 1) + 1 + vlm["profiled_replays"] + 1,
+        dispatched_in_replays=dispatch["flash_in_replays"],
         **record,
     ), dict(
         name="stream_pack_matmul", route="cuda",
@@ -1808,6 +2324,7 @@ def main() -> None:
         launches=sum(pack_by_path.values()), launches_by_path=pack_by_path,
         launches_in_replays=pack_in_replays + arctic["b2_in_replays"] + deepseek["b2_in_replays"],
         profiled_replays=pack_profiled + arctic["profiled_replays"] + deepseek["profiled_replays"],
+        dispatched_in_replays=dispatch["b2_in_replays"],
         **pack_record,
     )]
     say(f"all phases passed in {time.perf_counter() - t_start:.1f}s")

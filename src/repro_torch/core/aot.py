@@ -39,6 +39,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from . import capture as _capture
 from .memory import MemoryPlan, buffers_from_traced, plan_memory
 from .streams import StreamAssignment, assign_streams
 from .trace import TracedGraph, trace_to_taskgraph
@@ -218,7 +219,12 @@ class _CapturedGraph:
     plan, the weights a packed plan stacked at schedule time (which the
     graph reads, and which would otherwise go back to the allocator).
     ``refresh`` runs before each launch, after the arguments are copied in:
-    a packed plan's ``refresh_baked``.
+    a packed plan's ``refresh_baked``.  The capture holds the process's
+    capture lock exclusively (:mod:`repro_torch.core.capture`), so it never
+    overlaps a serving replay.  A launch takes no lock: it is the per-call
+    path whose host time Nimble measures, and the dispatcher never drives
+    it; a capture elsewhere runs in ``thread_local`` mode on its own
+    stream, which a launch from this thread does not disturb.
     """
 
     def __init__(self, run: Callable, static_in: list, device: torch.device,
@@ -226,6 +232,12 @@ class _CapturedGraph:
         self._run = run
         self._refresh = refresh
         self.static_in = static_in
+        # exclusive against every replay of the process, with the plan's
+        # device current (core/capture.py)
+        with _capture.CAPTURE_LOCK.capturing(), torch.cuda.device(device):
+            self._capture(run, static_in, device)
+
+    def _capture(self, run: Callable, static_in: list, device: torch.device) -> None:
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(current)
@@ -235,7 +247,9 @@ class _CapturedGraph:
         torch.cuda.synchronize(device)      # the warm-up's tensors may go now
         del warm
         self.graph = torch.cuda.CUDAGraph()
-        with torch.no_grad(), torch.cuda.graph(self.graph):
+        with torch.no_grad(), torch.cuda.graph(
+            self.graph, capture_error_mode=_capture.CAPTURE_ERROR_MODE
+        ):
             self.static_out, self._keep = run(static_in)
 
     def __call__(self, flat_args: list) -> list:

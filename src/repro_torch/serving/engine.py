@@ -17,10 +17,19 @@ sealed graph only if they share those buffers.  On the CPU a step is sealed
 to its eager callable, which takes weights and cache as arguments and is
 shared across engines as in JAX.  A capture that fails raises; nothing
 falls back to eager on the card.
+
+Many threads may drive many engines (the ``AsyncDispatcher``): every seal
+holds :data:`repro_torch.core.capture.CAPTURE_LOCK` exclusively and every
+step's device sections hold it shared, so a lane that registers (or
+re-seals after an eviction) never captures while another lane replays.
+Each seal and each step runs with the engine's device current on the
+calling thread (CUDA's current device belongs to the thread, and a
+dispatcher's stepper steps engines it did not build).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import threading
@@ -31,6 +40,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import capture as _capture
 from repro_torch.core.aot import ScheduleKey
 from repro_torch.dispatch.bucketing import BucketingPolicy, make_policy
 from repro_torch.dispatch.cache import ScheduleCache
@@ -50,8 +60,14 @@ class Request:
     the signal saying why.  ``error`` is set (with ``done``) when the
     request was failed rather than served — an unservable prompt reaching
     admission, or a retire racing a direct submit — so no request ever
-    silently vanishes.  ``tenant``, ``model``, ``deadline`` and ``state``
-    are stamped by a dispatcher (not ported yet) and left alone here."""
+    silently vanishes.  ``deadline`` (0.0 — none) is stamped by the
+    dispatcher's SLO plane at admission when the lane carries a latency
+    target: submit time plus target, on the SLO policy's clock — the value
+    overload shedding compares against.  ``state`` is the explicit
+    lifecycle state (:class:`repro_torch.dispatch.lifecycle.RequestState`)
+    stamped by the dispatcher's lifecycle tracker; requests submitted
+    straight to an engine keep the empty string and are exempt from
+    lifecycle enforcement (and from journaling)."""
 
     rid: int
     prompt: np.ndarray                 # (P,) int
@@ -307,7 +323,20 @@ class ServingEngine:
 
         CPU: the eager callable.  CUDA: one warm-up on a side stream, over a
         scratch KV cache so no live slot is touched, then one capture over
-        static input buffers and the engine's own cache."""
+        static input buffers and the engine's own cache.  Either way the
+        seal holds the capture lock exclusively, with the engine's device
+        current (module docstring)."""
+        with _capture.CAPTURE_LOCK.capturing(), self.device_scope():
+            return self._seal_now(fn, *example)
+
+    def device_scope(self):
+        """``torch.cuda.device`` of the engine's device on CUDA, else a
+        no-op: the context every seal and step of this engine runs in."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
+    def _seal_now(self, fn, *example):
         dev = self.device
         if not self._graphs:
             def run_eager(params, cache, *args):
@@ -326,7 +355,9 @@ class ServingEngine:
         torch.cuda.synchronize(dev)
         del scratch
         graph = torch.cuda.CUDAGraph()
-        with torch.no_grad(), torch.cuda.graph(graph):
+        with torch.no_grad(), torch.cuda.graph(
+            graph, capture_error_mode=_capture.CAPTURE_ERROR_MODE
+        ):
             out = fn(bound_params, bound_cache, *static)
 
         def run_graph(params, cache, *args):
@@ -416,7 +447,8 @@ class ServingEngine:
         req.t_done = time.perf_counter()
         self.slots[slot] = None
         # reset the slot's write offset for the next occupant
-        self.kv_cache["pos"][slot] = 0
+        with _capture.CAPTURE_LOCK.replaying():
+            self.kv_cache["pos"][slot] = 0
 
     def _admit(self) -> list[Request]:
         finished: list[Request] = []
@@ -439,7 +471,8 @@ class ServingEngine:
             padded = np.zeros((1, b), np.int64)
             padded[0, :plen] = req.prompt
             t0 = time.perf_counter()
-            nxt = int(exe(self.params, self.kv_cache, torch.from_numpy(padded), slot, plen))
+            with _capture.CAPTURE_LOCK.replaying():
+                nxt = int(exe(self.params, self.kv_cache, torch.from_numpy(padded), slot, plen))
             dt = time.perf_counter() - t0
             if self._graphs:
                 self.stats.prefill_replays += 1
@@ -470,7 +503,8 @@ class ServingEngine:
                 "single-stepper; drive it from one thread"
             )
         try:
-            return self._step_locked()
+            with self.device_scope():
+                return self._step_locked()
         finally:
             self._step_mu.release()
 
@@ -480,8 +514,9 @@ class ServingEngine:
         if not live:
             return finished
         t0 = time.perf_counter()
-        nxt = self._decode(self.params, self.kv_cache, torch.from_numpy(self._next_tok))
-        nxt_np = nxt.cpu().numpy()
+        with _capture.CAPTURE_LOCK.replaying():
+            nxt = self._decode(self.params, self.kv_cache, torch.from_numpy(self._next_tok))
+            nxt_np = nxt.cpu().numpy()
         dt = time.perf_counter() - t0
         if self._graphs:
             self.stats.decode_replays += 1

@@ -18,7 +18,7 @@ import torch  # noqa: E402,F401
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
-    ROOT / "examples" / "branchy_inference_torch.py"]
+    ROOT / "examples" / "branchy_inference_torch.py", ROOT / "examples" / "serve_llm_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -51,7 +51,16 @@ def test_port_file_list_is_complete():
                  "src/repro_torch/configs/seamless_m4t_medium.py",
                  "src/repro_torch/configs/zamba2_2_7b.py",
                  "src/repro_torch/configs/xlstm_125m.py",
-                 "examples/quickstart_torch.py", "examples/branchy_inference_torch.py"):
+                 "examples/quickstart_torch.py", "examples/branchy_inference_torch.py",
+                 "src/repro_torch/dispatch/errors.py", "src/repro_torch/dispatch/lifecycle.py",
+                 "src/repro_torch/dispatch/metrics.py", "src/repro_torch/dispatch/fairness.py",
+                 "src/repro_torch/dispatch/slo.py", "src/repro_torch/dispatch/batching.py",
+                 "src/repro_torch/dispatch/dispatcher.py", "src/repro_torch/dispatch/journal.py",
+                 "src/repro_torch/dispatch/workers.py",
+                 "src/repro_torch/dispatch/async_dispatcher.py",
+                 "src/repro_torch/obs/export.py", "src/repro_torch/obs/registry.py",
+                 "src/repro_torch/serving/spec.py", "src/repro_torch/core/capture.py",
+                 "examples/serve_llm_torch.py"):
         assert must in names
 
 
@@ -61,6 +70,7 @@ def test_importing_the_serving_stack_loads_no_jax():
         "import repro_torch.serving, repro_torch.launch.serve, repro_torch.bridge\n"
         "import repro_torch.core, repro_torch.models.branchy, repro_torch.kernels.stream_pack\n"
         "import repro_torch.models.ssm, repro_torch.models.xlstm\n"
+        "import repro_torch.dispatch, repro_torch.obs, repro_torch.serving.spec\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )
