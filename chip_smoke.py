@@ -7,9 +7,9 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
 
 1. device: name, count, power limit; TF32 off for float32 matmuls and
    convolutions;
-2. build: compile both kernels (flash attention B1, stream_pack B2) for
-   sm_90a, one nvcc for each source, both started together; print their
-   ptxas register / shared-memory / spill reports;
+2. build: compile the kernels (flash attention B1, its backward, stream_pack
+   B2) for sm_90a, one nvcc for each source, all started together; print
+   their ptxas register / shared-memory / spill reports;
 3. kernel against its plain PyTorch version on the card over a sweep of
    dtypes, head dims (zamba2's 80 among them), GQA groups, lengths (ragged
    ones included), windows, soft-caps (with scores large enough for the cap
@@ -116,7 +116,28 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
     from its journaled spec) and the unfinished requests replay
     token-identically; the recovered run's Chrome trace must validate, and
     a ``MetricsRegistry``'s Prometheus text must hold the dispatch, cache,
-    worker-plane and tracer families.
+    worker-plane and tracer families;
+19. training on the card: (a) B1's backward kernel (``flash_attention_bwd``)
+    and the forward's log-sum-exp against their plain versions over both
+    dtypes, every head dim, GQA 1/3/7, causal, windows, soft-caps, ragged
+    and Sq != Skv lengths and fully masked rows (their dq must be 0),
+    launching every kernel set of the library, then timed at phi4-mini's
+    training shape beside the plain version, the bound and
+    ``F.scaled_dot_product_attention``'s forward + backward (a yardstick
+    only); (b) B2's two backward products through its autograd Function
+    at the smoke experts' shapes, a shared x and one full deepseek-v2
+    expert shape (160 lanes, K 5120, N 1536, M 64), timed there beside two
+    ``torch.bmm``; (c) phi4-mini-3.8b at full width and depth, bf16, AdamW
+    with the cosine schedule, batch 2 x 512 from ``SyntheticLM``: 3 eager
+    steps against 3 replays of the step sealed as one CUDA graph from the
+    same state, 30 replays in all (the loss must fall), ms per step eager
+    and replayed (Fig. 8's quantity), the profiler's count of B1's forward
+    and backward kernels in one replay (32 of each), and a checkpoint
+    restored into a fresh model giving the next replay's loss bit for bit;
+    (d) the phi4-mini, arctic and deepseek-v2 smoke configs at float32: one
+    sealed step on the card against the CPU's; (e) Nimble over the
+    gradients of the four branchy cells at full size, eager torch.func
+    against single-stream, multi-stream and packed replays, µs per call.
 
 Each phase prints its times (CUDA events, graph replays), the kernels of
 one profiled call, and the wrappers' counts; each forward and each decode
@@ -249,11 +270,12 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import backward as flash_bwd
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.stream_pack import kernel as pack
 
     say("== phase 2: build")
-    sources = [flash.SOURCE, pack.SOURCE]
+    sources = [flash.SOURCE, flash_bwd.SOURCE, pack.SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:      # one nvcc per source
         list(pool.map(build.build, sources))
@@ -2257,6 +2279,600 @@ def phase_journal(number: int, workers: dict) -> dict:
     return {"launches": launches, "recover_s": recover_s}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: training on the card
+# ---------------------------------------------------------------------------
+
+# B1's backward (atol, rtol): float32 differs from its plain version by
+# summation order (sums over up to 1024 scores of products); bf16 by the
+# bf16 rounding of the three gradients (one ulp is 2**-8 relative)
+BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-2)}
+# the (group, window, softcap, causal, Sq, Skv) cases of the backward sweep,
+# run at both dtypes and every head dim; the last has fully masked rows
+# (window 16 over 64 keys for 128 queries: rows 79 on see no key)
+BWD_COMBOS = [(1, 0, 0.0, True, 64, 64), (3, 0, 0.0, True, 200, 200),
+              (7, 0, 0.0, True, 128, 128), (3, 16, 0.0, True, 200, 200),
+              (1, 0, 50.0, True, 130, 130), (3, 100, 50.0, False, 200, 200),
+              (1, 0, 0.0, False, 77, 300), (3, 0, 0.0, False, 512, 128),
+              (1, 16, 0.0, False, 128, 64)]
+# phi4-mini-3.8b's training step on the card: batch x sequence, eager steps
+# held against as many replays from the same state, replays in all, and
+# the AdamW schedule
+TRAIN_BATCH, TRAIN_SEQ = 2, 512
+TRAIN_EAGER, TRAIN_REPLAYS = 3, 30
+TRAIN_LR, TRAIN_WARMUP = 5e-4, 5
+# the card against the CPU at float32: a step's loss and grad norm within
+# TRAIN_RTOL; each parameter within TRAIN_PARAM_ATOL_LR x lr (Adam's first
+# step is lr x sign(g) for most elements, and a gradient element within
+# rounding of 0 may take any step in [-lr, lr])
+TRAIN_RTOL, TRAIN_PARAM_ATOL_LR = 1e-4, 0.2
+SMOKE_TRAIN_ARCHS = ("phi4-mini-3.8b", "arctic-480b", "deepseek-v2-236b")
+# Nimble over the branchy cells' gradients: replays against eager
+# torch.func element by element (as tests/test_aot_engine.py holds JAX's);
+# the packed schedule's B2 sums the weight gradients' batch in another
+# order than cuBLAS, where the products cancel: it is held against the
+# scale of each gradient, |err| <= atol + rtol * max|ref|
+GRAD_TOL = {"single_stream": (1e-5, 1e-4), "multi_stream": (1e-5, 1e-4),
+            "packed": (1e-4, 1e-4)}
+
+
+def _bwd_inputs(B, kv_heads, group, Sq, Skv, hd, dtype, seed, cap):
+    """Model-layout q, k, v and dO on the card (q scaled up under a cap)."""
+    import torch
+
+    q, k, v = _bshd_qkv(B, kv_heads, group, Sq, Skv, hd, dtype, seed)
+    if cap:
+        q = q * CAP_Q_SCALE
+    g = torch.Generator(device="cuda").manual_seed(seed + 7)
+    do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+    return q, k, v, do
+
+
+def _flat(t):
+    return t.transpose(1, 2).reshape(t.shape[0] * t.shape[2], t.shape[1], t.shape[3])
+
+
+def _bwd_ref(q, k, v, o, lse, do, **kw):
+    """flash_attention_bwd_ref on model-layout tensors."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_ref
+
+    grads = flash_attention_bwd_ref(_flat(q), _flat(k), _flat(v), _flat(o),
+                                    lse.reshape(-1, q.shape[1]), _flat(do), **kw)
+    return [g.reshape(t.shape[0], t.shape[2], t.shape[1], t.shape[3]).transpose(1, 2)
+            for g, t in zip(grads, (q, k, v))]
+
+
+def train_kernel_sweep() -> None:
+    """19a: the forward's LSE and the backward kernel against their plain
+    versions over the sweep; every kernel set of the library launched."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import backward, flash_attention_lse_ref, kernel
+
+    say(f"-- 19a: B1's backward kernel and the forward's LSE vs plain (dq, dk, dv within "
+        f"atol + rtol*|ref|: {BWD_TOL}; LSE within 1e-4 + 1e-5*|ref|, +inf on the same rows; "
+        "the plain backward gets the kernel's o and LSE)")
+    reached, worst, n = {}, 0.0, 0
+    for dname in ("float32", "bfloat16"):
+        for hd in kernel.HEAD_DIMS:
+            for group, window, cap, causal, Sq, Skv in BWD_COMBOS:
+                B = 2 if Sq <= 200 else 1
+                dtype = getattr(torch, dname)
+                q, k, v, do = _bwd_inputs(B, 2, group, Sq, Skv, hd, dtype, seed=n, cap=cap)
+                kw = dict(group=group, softcap=cap, causal=causal, window=window)
+                o, lse = kernel.attend(q, k, v, with_lse=True, **kw)
+                ref_o, ref_lse = flash_attention_lse_ref(_flat(q), _flat(k), _flat(v), **kw)
+                ref_lse = ref_lse.reshape(lse.shape)
+                inf = torch.isinf(ref_lse)
+                if not torch.equal(inf, torch.isinf(lse)):
+                    fail(f"LSE: +inf rows differ from the plain version's ({dname} hd {hd} "
+                         f"{(group, window, cap, causal, Sq, Skv)})")
+                lse_r = ratio(lse[~inf], ref_lse[~inf], 1e-4, 1e-5) if (~inf).any() else 0.0
+                launch = backward.launch_for(q, k)
+                got = backward.attention_bwd(q, k, v, o, lse, do, **kw)
+                want = _bwd_ref(q, k, v, o, lse, do, **kw)
+                torch.cuda.synchronize()
+                reached[launch.instance] = reached.get(launch.instance, 0) + 1
+                rs = [ratio(g, w, *BWD_TOL[dname]) for g, w in zip(got, want)]
+                errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
+                ok = all(math.isfinite(e) for e in errs) and max(rs) <= 1.0 and lse_r <= 1.0
+                note = ""
+                if inf.any():
+                    zero = float(got[0][:, inf[0, 0].nonzero()[:, 0]].abs().max()) == 0.0
+                    note = f" | {int(inf.sum())} fully masked rows, their dq 0: {zero}"
+                    ok = ok and zero
+                say(f"  {dname:8s} hd={hd:3d} B={B} heads={2 * group}/2 Sq={Sq:3d} Skv={Skv:3d} "
+                    f"window={window:3d} cap={cap:3.0f} causal={int(causal)}: max_abs_err dq "
+                    f"{errs[0]:.2e} dk {errs[1]:.2e} dv {errs[2]:.2e} ({max(rs):.2f} of tolerance) "
+                    f"LSE {lse_r:.2f} of tolerance {'ok' if ok else 'FAIL'}{note}")
+                if not ok:
+                    fail("B1's backward kernel or the forward's LSE disagrees with the plain "
+                         "version")
+                worst, n = max(worst, *rs), n + 1
+    missing = set(backward.INSTANCES) - set(reached)
+    if missing:
+        fail(f"phase 19 never launched the backward kernels {sorted(missing)}")
+    say(f"  {n} cases within tolerance (worst at {worst:.2f}); cases by kernel set "
+        f"(dtype, hd): {dict(sorted(reached.items()))}")
+
+
+def train_kernel_timing() -> dict:
+    """19a: the backward kernel at phi4-mini's training shape (q (2, 512,
+    24, 128), k/v (2, 512, 8, 128), bf16, causal) in a CUDA graph and from
+    Python, beside its plain version, its bound and the library's forward
+    + backward (a yardstick only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import backward, kernel
+
+    B, NH, NKV, S, hd = TRAIN_BATCH, 24, 8, TRAIN_SEQ, 128
+    q, k, v, do = _bwd_inputs(B, NKV, NH // NKV, S, S, hd, torch.bfloat16, seed=900, cap=0.0)
+    kw = dict(group=NH // NKV, causal=True)
+    o, lse = kernel.attend(q, k, v, with_lse=True, **kw)
+    got = backward.attention_bwd(q, k, v, o, lse, do, **kw)
+    want = _bwd_ref(q, k, v, o, lse, do, **kw)
+    r = max(ratio(g, w, *BWD_TOL["bfloat16"]) for g, w in zip(got, want))
+    err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+    if not r <= 1.0:
+        fail(f"the backward kernel disagrees at phi4-mini's training shape: {r:.3f} of tolerance")
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    dos = do.transpose(1, 2)
+
+    def library():
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+        return torch.autograd.grad(out, (qs, ks, vs), dos)
+
+    calls = {"kernel": lambda: backward.attention_bwd(q, k, v, o, lse, do, **kw),
+             "plain": lambda: _bwd_ref(q, k, v, o, lse, do, **kw),
+             "library": library}
+    graphed = {name: graph_ms(fn, reps=5 if name == "plain" else 10,
+                              iters=5 if name == "plain" else 20) for name, fn in calls.items()}
+    eager = {name: time_ms(fn, 5 if name == "plain" else 20) for name, fn in calls.items()}
+    # five products over the visible (query, key) pairs: S and dP
+    # recomputed, dV, dK, dQ; 2 operations per multiply-add
+    flops = 2 * 5 * hd * NH * B * sum(min(i + 1, S) for i in range(S))
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + o.numel() + do.numel()
+                  + q.numel() + k.numel() + v.numel()) + 4 * 2 * lse.numel()
+    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
+    bound_ms, bound_by = max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    launch = backward.launch_for(q, k)
+    say(f"-- 19a timing, q ({B},{S},{NH},{hd}) kv ({B},{S},{NKV},{hd}) bf16 causal: graph "
+        f"kernel_ms {graphed['kernel']:.5f} plain_ms {graphed['plain']:.5f} library_ms (SDPA "
+        f"forward + backward) {graphed['library']:.5f} | eager kernel_ms {eager['kernel']:.5f} "
+        f"plain_ms {eager['plain']:.5f} library_ms {eager['library']:.5f} | bound_ms "
+        f"{bound_ms:.5f} ({bound_by}; operations {t_ops * 1e3:.5f}: {flops / 1e9:.3f} GFLOP at "
+        f"the bf16 peak, 2.5x the forward's; bytes {t_bytes * 1e3:.5f}) | kernel at "
+        f"{bound_ms / graphed['kernel']:.1%} of bound | grids dot "
+        f"{launch.dot_grid} dkdv {launch.dkdv_grid} dq {launch.dq_grid}, smem dkdv "
+        f"{launch.dkdv_smem} dq {launch.dq_smem} B | max_abs_err {err:.3e}")
+    return dict(max_abs_err=err, ms=graphed["kernel"], plain_ms=graphed["plain"],
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=graphed["library"],
+                library_is="F.scaled_dot_product_attention forward + backward",
+                eager_ms=eager["kernel"], eager_library_ms=eager["library"])
+
+
+def train_b2_backward() -> dict:
+    """19b: B2's two backward products (through ``StreamPack``) against
+    the plain version at the smoke experts' shapes (the capacities of the
+    19d step), a shared x, and one full deepseek-v2 expert shape, timed
+    there beside two ``torch.bmm`` (a yardstick only)."""
+    import torch
+
+    import repro_torch.configs as C
+    from repro_torch.kernels.stream_pack import kernel as pack, stream_pack
+    from repro_torch.models.moe import capacity, moe_shapes
+
+    say(f"-- 19b: B2's backward products dx = dy w^T and dw = x^T dy vs plain (within "
+        f"{PACK_TOL}), by the StreamPack autograd Function")
+    cases = []
+    for arch in SMOKE_TRAIN_ARCHS[1:]:
+        cfg = C.get(arch, smoke=True)
+        E, D, Fx = moe_shapes(cfg)["w_gate"]
+        M = capacity(TRAIN_BATCH * 64, cfg)
+        cases += [(f"{arch} smoke gate/up", "float32", E, M, D, Fx, False),
+                  (f"{arch} smoke down", "float32", E, M, Fx, D, False)]
+    cases += [("branchy shared x", "float32", 7, 64, 64, 64, True),
+              ("deepseek-v2 full expert", "bfloat16", 160, 64, 5120, 1536, False)]
+    record = {}
+    for label, dname, lanes, M, K, N, shared in cases:
+        dtype = getattr(torch, dname)
+        g = torch.Generator(device="cuda").manual_seed(lanes + M + K)
+        x = torch.randn((M, K) if shared else (lanes, M, K), generator=g, device="cuda").to(dtype)
+        w = (torch.randn((lanes, K, N), generator=g, device="cuda") / math.sqrt(K)).to(dtype)
+        dy = torch.randn((lanes, M, N), generator=g, device="cuda").to(dtype)
+        xg, wg = x.requires_grad_(True), w.requires_grad_(True)
+        before = pack.launches
+        y = stream_pack(xg, wg)
+        dx, dw = torch.autograd.grad(y, (xg, wg), dy)
+        torch.cuda.synchronize()
+        if pack.launches - before != 3:
+            fail(f"{label}: forward and backward made {pack.launches - before} B2 launches, not 3")
+        rx = rw = 0.0
+        for lo in range(0, lanes, REF_LANES):        # the plain version a few lanes at a time
+            hi = min(lanes, lo + REF_LANES)
+            dyf, wf = dy[lo:hi].float(), w[lo:hi].detach().float()
+            xf = x.detach().float() if shared else x[lo:hi].detach().float()
+            rw = max(rw, ratio(dw[lo:hi], xf.transpose(-2, -1) @ dyf, *PACK_TOL[dname]))
+            if not shared:
+                rx = max(rx, ratio(dx[lo:hi], dyf @ wf.transpose(1, 2), *PACK_TOL[dname]))
+        if shared:
+            rx = ratio(dx, (dy.float() @ w.detach().float().transpose(1, 2)).sum(0),
+                       *PACK_TOL[dname])
+        say(f"  {label}: lanes {lanes} M {M} K {K} N {N} {dname}: dx {rx:.2f} and dw {rw:.2f} "
+            "of tolerance")
+        if not max(rx, rw) <= 1.0:
+            fail(f"{label}: B2's backward disagrees with the plain version")
+        if label.startswith("deepseek"):
+            from repro_torch.kernels.stream_pack.ops import _stream_pack
+
+            xd, wd = x.detach(), w.detach()
+
+            def kern():
+                return (_stream_pack(dy, wd.transpose(1, 2).contiguous()),
+                        _stream_pack(xd.transpose(1, 2).contiguous(), dy))
+
+            def lib():
+                return torch.bmm(dy, wd.transpose(1, 2)), torch.bmm(xd.transpose(1, 2), dy)
+
+            ms, lib_ms, eager_ms = graph_ms(kern, reps=5, iters=10), graph_ms(lib, 5, 10), \
+                time_ms(kern, 10)
+            copy_ms = graph_ms(lambda: wd.transpose(1, 2).contiguous(), 5, 10)
+            nbytes = 2 * (x.numel() + 2 * w.numel() + dy.numel() + x.numel())
+            flops = 2 * 2 * lanes * M * K * N
+            bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES) * 1e3
+            say(f"    timed (graph): both products with the w^T and x^T copies {ms:.4f} ms "
+                f"(eager {eager_ms:.4f}), of which the w^T copy {copy_ms:.4f} ms; two "
+                f"torch.bmm {lib_ms:.4f} ms; bound {bound:.4f} ms (bytes)")
+            record = dict(backward_ms=ms, backward_eager_ms=eager_ms, wT_copy_ms=copy_ms,
+                          backward_library_ms=lib_ms, backward_bound_ms=bound,
+                          backward_shape=[lanes, M, K, N])
+        del x, w, dy, y, dx, dw, xg, wg
+    return record
+
+
+# substrings of the names of cuBLAS's matrix-product kernels (on Hopper,
+# CUDA 12's cuBLAS names most of them nvjet_*)
+GEMM_NAMES = ("nvjet", "gemm", "xmma", "cutlass", "cublas")
+
+
+def kernels_in_replay(run, attempts: int = 4) -> list:
+    """The device kernels of one call of ``run``, a training replay: it
+    moves the state, so its outputs differ from call to call.  The outputs
+    of the call before are poisoned before each profiled call, which must
+    give finite outputs again; a reading is taken once two sessions in a
+    row record the same kernels (up to ``attempts``; else the fullest)."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils import _pytree as pytree
+
+    readings = []
+    last = run()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        _poison(last)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            last = run()
+            torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(t).all()) for t in pytree.tree_leaves(last)
+                   if isinstance(t, torch.Tensor)):
+            fail("a profiled training replay left its poisoned outputs: it ran nothing")
+        events = [e for e in prof.events()
+                  if "cuda" in str(getattr(e, "device_type", "")).lower()]
+        counts = collections.Counter(e.name for e in events)
+        if events and readings and readings[-1][0] == counts:
+            return events
+        if readings:
+            say(f"    (two profiler sessions of a replay recorded {len(readings[-1][1])} and "
+                f"{len(events)} device events: profiling again)")
+        readings.append((counts, events))
+    return max((ev for _, ev in readings), key=len)
+
+
+def _b1_kernels(events) -> dict:
+    """B1's forward and backward kernels among ``events``, by kind."""
+    kinds = {"flash_fwd": 0, "bwd_dot": 0, "bwd_dkdv": 0, "bwd_dq": 0}
+    for e in events:
+        for kind in kinds:
+            if kind in e.name:
+                kinds[kind] += 1
+    return kinds
+
+
+def train_phi4() -> dict:
+    """19c: phi4-mini-3.8b at full width and depth, bf16, AdamW with the
+    cosine schedule, data from the port's ``SyntheticLM``: eager steps
+    against as many replays of the sealed step from the same state, then
+    replays to ``TRAIN_REPLAYS`` (the loss must fall), the kernels of one
+    replay, and a checkpoint restored into a fresh model giving the same
+    loss."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import repro_torch.configs as C
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.data import SyntheticLM, data_config_for
+    from repro_torch.kernels.flash_attention import backward, kernel
+    from repro_torch.launch import serve
+    from repro_torch.models import Transformer
+    from repro_torch.optim import adamw_init, cosine_schedule
+    from repro_torch.training import make_train_step, seal_train_step
+    from repro_torch.training.train_lib import batch_to_device
+
+    release()
+    cfg = dataclasses.replace(C.get("phi4-mini-3.8b"), dtype="bfloat16")
+    data = SyntheticLM(data_config_for(cfg, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ))
+    batches = [data.batch(i) for i in range(TRAIN_REPLAYS + 1)]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def lr(step):
+        return cosine_schedule(step, peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                               total_steps=TRAIN_REPLAYS)
+
+    def fresh():
+        model = serve.init_params(cfg, seed=0, device="cuda")
+        return model, adamw_init(dict(model.named_parameters()))
+
+    step_fn = make_train_step(cfg, lr=lr)
+    t0 = time.perf_counter()
+    model, state = fresh()
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    say(f"-- 19c: {cfg.name} full width, {cfg.n_layers} layers, bf16, {n / 1e9:.3f} B "
+        f"parameters, AdamW (float32 moments) with the cosine schedule (peak {TRAIN_LR}, "
+        f"warm-up {TRAIN_WARMUP}), batch {TRAIN_BATCH} x {TRAIN_SEQ} from SyntheticLM; "
+        f"initialised in {time.perf_counter() - t0:.1f}s")
+
+    # eager steps (run-time scheduled: PyTorch's own loop)
+    kernel.launches = backward.launches = 0          # the path's run starts here
+    eager_loss, eager_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_EAGER):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step_fn(model, state, batch_to_device(batches[i], "cuda"))[2]
+        eager_loss.append(float(m["loss"]))
+        eager_ms.append((time.perf_counter() - t) * 1e3)
+        del m
+    eager_peak = torch.cuda.max_memory_allocated()
+    eager_params = [p.detach().cpu() for p in model.parameters()]
+    eager_counts = (kernel.launches, backward.launches)
+    say(f"  eager steps: loss {eager_loss}, ms {[round(x, 3) for x in eager_ms]}, peak "
+        f"memory {eager_peak / 2**30:.2f} GiB; B1 forward launches {eager_counts[0]}, "
+        f"backward launches {eager_counts[1]}")
+    if eager_counts != (TRAIN_EAGER * cfg.n_layers,) * 2:
+        fail(f"eager steps launched B1 {eager_counts} times, not {TRAIN_EAGER} x "
+             f"{cfg.n_layers} forward and backward")
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same steps sealed as one CUDA graph, from the same state
+    model, state = fresh()
+    torch.cuda.reset_peak_memory_stats()
+    sealed = seal_train_step(step_fn, model, state, batches[0])
+    seal_peak, seal_s = torch.cuda.max_memory_allocated(), sealed.seal_s
+    say(f"  sealed fwd + bwd + clip + AdamW as one CUDA graph in {seal_s:.2f}s (warm-up "
+        f"of loss and grads, empty_cache, capture); peak memory {seal_peak / 2**30:.2f} GiB, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated after")
+    seal_counts = (kernel.launches - eager_counts[0], backward.launches - eager_counts[1])
+    losses, replay_ms = [], []
+    for i in range(TRAIN_REPLAYS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = sealed(batches[i])
+        losses.append(float(m["loss"]))
+        replay_ms.append((time.perf_counter() - t) * 1e3)
+        if i == TRAIN_EAGER - 1:
+            diffs, same = 0.0, 0
+            for p, e in zip(model.parameters(), eager_params):
+                e = e.cuda()
+                diffs = max(diffs, (p.detach().float() - e.float()).abs().max().item())
+                same += int((p.detach() == e).sum())
+                del e
+            say(f"  {TRAIN_EAGER} replays against the {TRAIN_EAGER} eager steps: losses "
+                f"{losses} vs {eager_loss}; parameters: {same / n:.6%} bit-identical, max "
+                f"|diff| {diffs:.3e}")
+            loss_r = max(abs(a - b) / abs(b) for a, b in zip(losses, eager_loss))
+            if not (loss_r <= 2e-3 and diffs <= 2 * TRAIN_LR * TRAIN_EAGER):
+                fail(f"replays differ from eager steps: losses {loss_r:.3e} relative (limit "
+                     f"2e-3), parameters {diffs:.3e} (limit {2 * TRAIN_LR * TRAIN_EAGER:.1e}, "
+                     f"{TRAIN_EAGER} Adam steps of at most lr apart)")
+            del eager_params
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    steady = replay_ms[TRAIN_EAGER:]
+    replay_med, eager_med = float(np.median(steady)), float(np.median(eager_ms[1:]))
+    say(f"  {TRAIN_REPLAYS} replays: loss {losses[0]:.4f} -> {losses[-1]:.4f} (first 5 mean "
+        f"{first:.4f}, last 5 mean {last:.4f}); all finite: "
+        f"{all(math.isfinite(x) for x in losses)}")
+    if not (all(math.isfinite(x) for x in losses) and last < first):
+        fail("the sealed step's loss did not fall over the replays")
+    say(f"  Fig. 8's quantity (host clock, batch copied in, synchronised per step): eager "
+        f"{eager_med:.3f} ms/step ({tokens / eager_med * 1e3:,.0f} tok/s), sealed replay "
+        f"{replay_med:.3f} ms/step ({tokens / replay_med * 1e3:,.0f} tok/s): "
+        f"{eager_med / replay_med:.3f}x")
+    dev_ms = time_ms(sealed.graph.replay, 5, warmup=1)
+    say(f"  one replay on CUDA events (no batch copy): {dev_ms:.3f} ms")
+
+    events = kernels_in_replay(lambda: sealed())
+    kinds = _b1_kernels(events)
+    rows = sorted(by_kernel(events), reverse=True)
+    total = sum(us for us, _, _ in rows)
+    b1 = {kind: sum(us for us, _, key in rows if kind in key) for kind in kinds}
+    gemm = sum(us for us, _, key in rows if any(w in key.lower() for w in GEMM_NAMES))
+    say(f"  one profiled replay: {sum(c for _, c, _ in rows)} device kernels, "
+        f"{total / 1e3:.3f} ms of kernel time: cuBLAS products {gemm / 1e3:.3f} ms "
+        f"({gemm / total:.1%}), B1 {sum(b1.values()) / 1e3:.3f} ms "
+        f"({sum(b1.values()) / total:.1%}), the rest (element-wise: AdamW's float32 passes, "
+        f"casts, norms, the loss) {(total - gemm - sum(b1.values())) / 1e3:.3f} ms; B1 {kinds} ("
+        + ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in b1.items()) + "); top:")
+    for us, count, key in rows[:6]:
+        say(f"      {us / 1e3:9.3f} ms x{count:4d}  {key[:90]}")
+    if kinds != {kind: cfg.n_layers for kind in kinds}:
+        fail(f"a replay ran B1's kernels {kinds}, not {cfg.n_layers} of each")
+
+    # checkpoint: the parameters now, one replay, then the same parameters
+    # restored into a fresh model and copied into the graph's: same loss
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t = time.perf_counter()
+    save_checkpoint(ckpt, {"params": model}, step=TRAIN_REPLAYS)
+    save_s = time.perf_counter() - t
+    loss_a = float(sealed(batches[-1])["loss"])
+    t = time.perf_counter()
+    restored = Transformer(cfg, device="cpu")
+    _, manifest = restore_checkpoint(ckpt, {"params": restored})
+    load_s = time.perf_counter() - t
+    with torch.no_grad():
+        for p, r in zip(model.parameters(), restored.parameters()):
+            p.copy_(r)
+    loss_b = float(sealed(batches[-1])["loss"])
+    size = sum(f.stat().st_size for f in ckpt.iterdir())
+    shutil.rmtree(ckpt, ignore_errors=True)
+    say(f"  checkpoint of {size / 2**30:.2f} GiB saved in {save_s:.1f}s, restored into a "
+        f"fresh model in {load_s:.1f}s (step {manifest['step']}); the next replay's loss "
+        f"{loss_a!r} before, {loss_b!r} from the restored parameters")
+    if loss_a != loss_b:
+        fail("the restored checkpoint gives another loss")
+    del restored, sealed, model, state
+    return dict(eager_ms=eager_med, replay_ms=replay_med, replay_device_ms=dev_ms,
+                tokens_per_step=tokens, seal_s=seal_s, seal_peak_gib=seal_peak / 2**30,
+                eager_peak_gib=eager_peak / 2**30, losses=losses,
+                fwd_launches=kernel.launches, bwd_launches=backward.launches,
+                seal_launches=seal_counts, in_replay=kinds, b1_replay_ms=b1)
+
+
+def train_card_vs_cpu() -> dict:
+    """19d: one sealed training step of the phi4-mini, arctic and
+    deepseek-v2 smoke configs at float32 on the card against the same step
+    on the CPU, one set of weights: loss and grad norm within
+    ``TRAIN_RTOL``, every parameter within ``TRAIN_PARAM_ATOL_LR`` x lr.
+    B1's and B2's gradients run inside a real step here."""
+    import torch
+
+    import repro_torch.configs as C
+    from repro_torch.data import SyntheticLM, data_config_for
+    from repro_torch.kernels.flash_attention import backward, kernel
+    from repro_torch.kernels.stream_pack import kernel as pack
+    from repro_torch.launch import serve
+    from repro_torch.models import Transformer
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import make_train_step, seal_train_step
+
+    lr = 1e-3
+    say(f"-- 19d: card against CPU, one sealed step at float32 (lr {lr}): loss and grad norm "
+        f"within {TRAIN_RTOL} relative, parameters within {TRAIN_PARAM_ATOL_LR} x lr")
+    counts = {}
+    for arch in SMOKE_TRAIN_ARCHS:
+        cfg = dataclasses.replace(C.get(arch, smoke=True), dtype="float32")
+        batch = SyntheticLM(data_config_for(cfg, batch_size=TRAIN_BATCH, seq_len=64)).batch(0)
+        on_card = serve.init_params(cfg, seed=5, device="cuda")
+        on_cpu = Transformer(cfg, device="cpu")
+        on_cpu.load_state_dict(on_card.state_dict())
+        step = make_train_step(cfg, lr=lr)
+        before = (kernel.launches, backward.launches, pack.launches)
+        got = {}
+        for dev, model in (("cuda", on_card), ("cpu", on_cpu)):
+            sealed = seal_train_step(step, model, adamw_init(dict(model.named_parameters())),
+                                     batch)
+            m = sealed(batch)
+            got[dev] = {k: float(v) for k, v in m.items()}
+            if dev == "cuda" and sealed.graph is None:
+                fail(f"{arch}: the step on the card was not sealed as a CUDA graph")
+        counts[arch] = tuple(c1 - c0 for c1, c0 in zip(
+            (kernel.launches, backward.launches, pack.launches), before))
+        perr = max((a.detach().cpu() - b.detach()).abs().max().item()
+                   for a, b in zip(on_card.parameters(), on_cpu.parameters()))
+        rel = max(abs(got["cuda"][k] - got["cpu"][k]) / max(abs(got["cpu"][k]), 1e-12)
+                  for k in ("loss", "grad_norm"))
+        say(f"  {cfg.name}: card {got['cuda']} | cpu {got['cpu']} | loss/grad norm "
+            f"{rel:.2e} relative, parameters max |diff| {perr:.3e} | wrapper calls on the card "
+            f"(B1 forward, B1 backward, B2) {counts[arch]}")
+        if not (rel <= TRAIN_RTOL and perr <= TRAIN_PARAM_ATOL_LR * lr):
+            fail(f"{cfg.name}: the step on the card differs from the CPU's")
+        if arch != "deepseek-v2-236b" and min(counts[arch][:2]) == 0:
+            fail(f"{cfg.name}: the step on the card never launched B1 or its backward")
+        if cfg.moe is not None and counts[arch][2] == 0:
+            fail(f"{cfg.name}: the step on the card never launched B2")
+    return counts
+
+
+def train_nimble_grads() -> dict:
+    """19e: Nimble over ``torch.func.grad`` of the four branchy cells'
+    squared-output loss at full size, float32: single-stream, multi-stream
+    and packed replays against eager torch.func, µs per call."""
+    import torch
+
+    from repro_torch.configs import branchy_cell
+    from repro_torch.core import Nimble
+    from repro_torch.kernels.stream_pack import kernel as pack
+    from repro_torch.models.branchy import branchy_forward, example_input, init_branchy
+
+    say(f"-- 19e: Nimble on the branchy cells' gradients (torch.func.grad of sum(out**2)), "
+        f"full size, float32, against eager torch.func within {GRAD_TOL}")
+    pack.launches = 0
+    record = {}
+    for cfg in (branchy_cell.darts_like(), branchy_cell.nasnet_mobile_like(),
+                branchy_cell.amoebanet_like(), branchy_cell.inception_like()):
+        params = init_branchy(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+        x = example_input(cfg, 0, device="cuda")
+
+        def loss(p, x, _cfg=cfg):
+            return (branchy_forward(p, x, _cfg) ** 2).sum()
+
+        grad = torch.func.grad(loss)
+        ref = {k: v.clone() for k, v in grad(params, x).items()}
+        engines = {"eager": lambda: grad(params, x)}
+        groups, checks = None, []
+        for name, kw in (("single_stream", dict(multi_stream=False)), ("multi_stream", {}),
+                         ("packed", dict(pack_streams=True))):
+            nimble = Nimble(grad, params, x, **kw)
+            engines[name] = lambda n=nimble: n(params, x)
+            got = engines[name]()
+            torch.cuda.synchronize()
+            elementwise = max(ratio(got[k], ref[k], *GRAD_TOL[name]) for k in ref)
+            atol, rtol = GRAD_TOL[name]
+            scaled = max((got[k] - ref[k]).abs().max().item()
+                         / (atol + rtol * ref[k].abs().max().item()) for k in ref)
+            r = scaled if name == "packed" else elementwise
+            checks.append(f"{name} {elementwise:.3f} element-wise, {scaled:.3f} scaled")
+            if not r <= 1.0:
+                fail(f"{cfg.name} gradient {name} differs from eager: {r:.3f} of tolerance")
+            if name == "packed":
+                groups = nimble.schedule.pack_report.groups
+        st = nimble.stats
+        us = {name: time_ms(run, 100, warmup=5) * 1e3 for name, run in engines.items()}
+        say(f"  {cfg.name}: {st.num_tasks} tasks, {st.num_streams} streams, degree "
+            f"{st.degree_of_concurrency}, pack groups {groups}; us per call: "
+            + " | ".join(f"{k} {v:.2f}" for k, v in us.items())
+            + f" | eager/multi {us['eager'] / us['multi_stream']:.3f}x | of tolerance: "
+            + ", ".join(checks))
+        record[cfg.name] = us
+    record["b2_launches"] = pack.launches
+    say(f"  stream_pack wrapper calls on the packed gradient schedules: {pack.launches}")
+    return record
+
+
+def phase_train(number: int) -> dict:
+    """Phase 19: training on the card (19a-19e)."""
+    from repro_torch.kernels.flash_attention import backward
+
+    say(f"== phase {number}: training on the card")
+    train_kernel_sweep()
+    bwd_record = train_kernel_timing()
+    pack_record = train_b2_backward()
+    phi4 = train_phi4()
+    backward.launches = 0
+    smoke = train_card_vs_cpu()
+    nimble = train_nimble_grads()
+    return dict(bwd=bwd_record, pack=pack_record, phi4=phi4, smoke=smoke, nimble=nimble)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     try:
@@ -2289,6 +2905,8 @@ def main() -> None:
     dispatch = phase_dispatch(16)
     workers = phase_workers(17)
     journal = phase_journal(18, workers)
+    train = phase_train(19)
+    phi4, smoke = train["phi4"], train["smoke"]
     # launches: the wrappers' counts over the paths' runs (each path's
     # counts set to 0 just before it), by path under launches_by_path;
     # launches_in_replays: the kernels the profiler saw in the paths'
@@ -2302,11 +2920,17 @@ def main() -> None:
                      "dispatch phi4-mini + deepseek-v2 + smoke lane": dispatch["flash_launches"],
                      "worker plane phi4-mini (in the worker)":
                          workers["launches"].get("flash_attention", 0),
-                     "journal recovery phi4-mini": journal["launches"]}
+                     "journal recovery phi4-mini": journal["launches"],
+                     "train phi4-mini-3.8b (eager steps, seal)": phi4["fwd_launches"],
+                     "train smoke configs on the card": sum(c[0] for c in smoke.values())}
+    bwd_by_path = {"train phi4-mini-3.8b (eager steps, seal)": phi4["bwd_launches"],
+                   "train smoke configs on the card": sum(c[1] for c in smoke.values())}
     pack_by_path = {"nimble branchy cells": pack_launches,
                     "serve arctic-480b": arctic["b2_launches"],
                     "serve deepseek-v2-236b": deepseek["b2_launches"],
-                    "dispatch phi4-mini + deepseek-v2 + smoke lane": dispatch["b2_launches"]}
+                    "dispatch phi4-mini + deepseek-v2 + smoke lane": dispatch["b2_launches"],
+                    "train smoke configs on the card": sum(c[2] for c in smoke.values()),
+                    "train nimble branchy gradients": train["nimble"]["b2_launches"]}
     kernels = [dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -2316,7 +2940,16 @@ def main() -> None:
         + vlm["flash_in_replays"] + audio["decode"]["flash_in_replay"],
         profiled_replays=(0 if in_replays is None else 1) + 1 + vlm["profiled_replays"] + 1,
         dispatched_in_replays=dispatch["flash_in_replays"],
+        train_in_replay=phi4["in_replay"]["flash_fwd"],
         **record,
+    ), dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:94",
+        note="the gradient of B1: not a TPU kernel (the JAX package has no backward kernel)",
+        launches=sum(bwd_by_path.values()), launches_by_path=bwd_by_path,
+        launches_in_replays=phi4["in_replay"]["bwd_dkdv"], profiled_replays=1,
+        kernels_per_launch=3, **train["bwd"],
     ), dict(
         name="stream_pack_matmul", route="cuda",
         source="src/repro_torch/kernels/stream_pack/csrc/stream_pack.cu",
@@ -2325,7 +2958,7 @@ def main() -> None:
         launches_in_replays=pack_in_replays + arctic["b2_in_replays"] + deepseek["b2_in_replays"],
         profiled_replays=pack_profiled + arctic["profiled_replays"] + deepseek["profiled_replays"],
         dispatched_in_replays=dispatch["b2_in_replays"],
-        **pack_record,
+        **pack_record, **train["pack"],
     )]
     say(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     say(json.dumps({"kernels": kernels}))

@@ -6,6 +6,7 @@ import sys
 #: the kernel modules, by kernel name
 KERNEL_MODULES = {
     "flash_attention": f"{__name__}.flash_attention.kernel",
+    "flash_attention_bwd": f"{__name__}.flash_attention.backward",
     "stream_pack": f"{__name__}.stream_pack.kernel",
 }
 

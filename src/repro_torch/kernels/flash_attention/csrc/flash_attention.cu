@@ -62,6 +62,14 @@
 // float32 on the FMA units (no TF32): 256 threads, each owning a 4x4 block
 // of the 64x64 score tile and 4 output rows, Q/K/V/P staged in shared
 // memory as float32, row statistics combined over half-warps.
+//
+// Training.  Given an `lse` pointer, both kernels also write each row's
+// log-sum-exp of its unmasked scores (after the scale and the cap) as
+// float32 in natural-log units, (B, NH, Sq) contiguous, +inf for a row
+// whose every key is masked: what the backward kernel
+// (flash_attention_bwd.cu) recomputes P = exp(S - LSE) from.  The bf16
+// kernel keeps m in base-2 units, so it writes (m + log2 l) * ln 2.  A
+// null `lse` (serving) skips the store.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from dlsym
 #include <cuda_bf16.h>
@@ -76,6 +84,7 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Strides {
   long long b, s, h;  // elements
@@ -86,6 +95,7 @@ struct Shape {
   int NH, group, Sq, Skv;
   float scale, softcap;
   int causal, window;
+  float* lse;  // (B, NH, Sq) float32, or null: no LSE written
 };
 
 // ---------------------------------------------------------------------------
@@ -575,6 +585,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
         a0[r] = ex2(m_i[r] - m);  // both -1e30: 1 and 1, over zero sums
         a1[r] = ex2(m1 - m);
         l_i[r] = l_i[r] * a0[r] + xch[(HDP / 2 + 2 + r) * 128 + tid] * a1[r];
+        m_i[r] = m;
       }
 #pragma unroll
       for (int k = 0; k < HDP / 2; ++k)
@@ -589,6 +600,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       const int row = r0 + 8 * r;
       if (row >= d.Sq) continue;
       const float inv = 1.f / fmaxf(l_i[r], 1e-30f);
+      if (d.lse != nullptr && t4 == 0)  // m_i and l_i in base-2 units
+        d.lse[((long long)b * d.NH + h) * d.Sq + row] =
+            l_i[r] > 0.f ? (m_i[r] + log2f(l_i[r])) * LN2 : __int_as_float(0x7f800000);
       __nv_bfloat16* orow = ob + (long long)row * d.o.s;
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j)
@@ -747,6 +761,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int qp = q0 + tr + 16 * i;
     if (qp >= d.Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (d.lse != nullptr && tc == 0)
+      d.lse[((long long)b * d.NH + h) * d.Sq + qp] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : __int_as_float(0x7f800000);
 #pragma unroll
     for (int c = 0; c < KPT; ++c) ob[(long long)qp * d.o.s + tc + 16 * c] = acc[i][c] / denom;
   }
@@ -868,16 +885,19 @@ int launch_bf16_tile(const Ptrs& p, const Shape& d, int nwg, int bkv, cudaStream
 // contiguous.  float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1); the bf16
 // kernel runs the tile of `nwg` consumer warpgroups and `bkv` keys per K/V
 // tile (kernel.py's TILES), and needs 16-byte aligned base pointers and
-// strides (its tensor maps).  Launches on `stream` and returns
+// strides (its tensor maps).  `lse`, if not null, receives each row's
+// log-sum-exp, (B, NH, Sq) float32.  Launches on `stream` and returns
 // cudaGetLastError() after the launch (0 on success), or ERR_* above.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int is_bf16, int B, int NH, int group, int Sq, int Skv,
+                                   float* lse, int is_bf16, int B, int NH, int group, int Sq,
+                                   int Skv,
                                    int hd, const long long* strides, float scale, float softcap,
                                    int causal, int window, int nwg, int bkv, void* stream) {
   if (B <= 0 || NH <= 0 || Sq <= 0 || Skv <= 0 || group <= 0 || NH % group)
     return (int)cudaErrorInvalidValue;
   const Strides* st = reinterpret_cast<const Strides*>(strides);
-  const Shape d{st[0], st[1], st[2], st[3], NH, group, Sq, Skv, scale, softcap, causal, window};
+  const Shape d{st[0], st[1], st[2], st[3], NH, group, Sq, Skv,
+                scale, softcap, causal, window, lse};
   const Ptrs p{q, k, v, o, B};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {

@@ -19,6 +19,13 @@ warpgroup per 64-row query tile, or two that split its K/V tiles) and
 reports the grid, shared memory and TMA boxes; the library sizes its
 shared memory from the same formula (:func:`smem_bytes`).
 
+Gradients.  :func:`attention` and :func:`flash_attention` on inputs that
+need a gradient, with grad enabled, go through
+:class:`.ops.FlashAttention`, whose forward is this kernel writing each
+row's log-sum-exp too (:func:`attend` with ``with_lse=True``) and whose
+backward is the backward kernel (:mod:`.backward`); otherwise they launch
+the forward alone, as serving does.
+
 ``launches`` counts the calls that launched the kernel from Python, or
 recorded it into a CUDA graph under capture (which does not run it).  A
 CUDA-graph replay runs it again without passing through here.
@@ -208,8 +215,8 @@ def _kernel():
         fn = build.load(SOURCE).flash_attention_fwd
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
             ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
@@ -245,8 +252,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, group: int, dims: 
             raise ValueError(f"q, k and v must share one device; {name} is on {t.device}")
 
 
-def _launch(q, k, v, o, group, scale, softcap, causal, window) -> None:
-    """Launch on q, k, v, o, all 4-d (model layout) or all 3-d."""
+def _launch(q, k, v, o, lse, group, scale, softcap, causal, window) -> None:
+    """Launch on q, k, v, o, all 4-d (model layout) or all 3-d, writing
+    the LSE into ``lse`` unless it is None."""
     global launches
     q, k, v = prepare(q, k, v)
     (B, Sq, NH), q_strides = _bsh(q)
@@ -256,13 +264,42 @@ def _launch(q, k, v, o, group, scale, softcap, causal, window) -> None:
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     err = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        int(q.dtype == torch.bfloat16), B, NH, group, Sq, k.shape[1], hd, strides,
+        None if lse is None else lse.data_ptr(), int(q.dtype == torch.bfloat16),
+        B, NH, group, Sq, k.shape[1], hd, strides,
         float(scale), float(softcap), int(bool(causal)), int(window or 0),
         launch.warpgroups, launch.keys, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: error {err} ({launch})")
     launches += 1
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Grad is enabled and one of ``tensors`` requires it."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def attend(q, k, v, *, group=1, scale=None, softcap=0.0, causal=True, window=0,
+           with_lse=False):
+    """The forward kernel on q, k, v, all 4-d (model layout) or all 3-d,
+    with no gradient: a fresh contiguous output of q's shape and, with
+    ``with_lse``, the rows' float32 log-sum-exp ``(B, NH, Sq)`` (3-d:
+    ``(BH, Sq)``), else None."""
+    _check(q, k, v, group, q.dim())
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = None
+    if with_lse:
+        rows = (q.shape[0], q.shape[2], q.shape[1]) if q.dim() == 4 else q.shape[:2]
+        lse = torch.empty(rows, dtype=torch.float32, device=q.device)
+    _launch(q, k, v, o, lse, group, scale, softcap, causal, window)
+    return o, lse
+
+
+def _differentiable(q, k, v, **kw) -> torch.Tensor:
+    from .ops import FlashAttention
+
+    return FlashAttention.apply(q, k, v, kw["group"], kw["scale"], kw["softcap"],
+                                kw["causal"], kw["window"])[0]
 
 
 def attention(
@@ -277,12 +314,13 @@ def attention(
     window: int = 0,
 ) -> torch.Tensor:
     """The kernel on model-layout CUDA tensors, read through their strides;
-    returns a fresh contiguous ``(B, Sq, NH, hd)``.  Raises on anything
-    else."""
+    returns a fresh contiguous ``(B, Sq, NH, hd)``, differentiable when
+    an input needs a gradient.  Raises on anything else."""
     _check(q, k, v, group, 4)
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(q, k, v, o, group, scale, softcap, causal, window)
-    return o
+    kw = dict(group=group, scale=scale, softcap=softcap, causal=causal, window=window)
+    if needs_grad(q, k, v):
+        return _differentiable(q, k, v, **kw)
+    return attend(q, k, v, **kw)[0]
 
 
 def flash_attention(
@@ -296,8 +334,10 @@ def flash_attention(
     causal: bool = True,
     window: int = 0,
 ) -> torch.Tensor:
-    """Launch the Hopper kernel on CUDA tensors; raises on anything else."""
+    """Launch the Hopper kernel on CUDA tensors, differentiable when an
+    input needs a gradient; raises on anything else."""
     _check(q, k, v, group, 3)
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(q, k, v, o, group, scale, softcap, causal, window)
-    return o
+    kw = dict(group=group, scale=scale, softcap=softcap, causal=causal, window=window)
+    if needs_grad(q, k, v):
+        return _differentiable(q, k, v, **kw)
+    return attend(q, k, v, **kw)[0]

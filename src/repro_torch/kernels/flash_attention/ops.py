@@ -1,4 +1,4 @@
-"""Model-layout flash attention.
+"""Model-layout flash attention, and its gradient.
 
 Takes model-layout tensors ``(B, S, heads, head_dim)`` and picks by the
 tensors' device: CUDA tensors go to the Hopper kernel, which reads them
@@ -8,14 +8,73 @@ model makes; see :func:`.kernel.prepare`) and writes a contiguous
 heads * head_dim)`` is a view; it raises on what it cannot run.  CPU
 tensors go to the plain PyTorch version in its ``(B·heads, S, head_dim)``
 layout.
+
+With grad enabled and an input that requires it, the call goes through
+:class:`FlashAttention`: its forward also keeps each row's log-sum-exp,
+its backward is the backward kernel (:mod:`.backward`) on CUDA tensors and
+:func:`.ref.flash_attention_bwd_ref` on CPU tensors.  Otherwise (serving)
+the forward runs alone.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import kernel
-from .ref import flash_attention_ref
+from . import backward, kernel
+from .ref import flash_attention_bwd_ref, flash_attention_lse_ref, flash_attention_ref
+
+
+def _flat(t: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) → (B·H, S, hd); a 3-d tensor as it is."""
+    if t.dim() == 3:
+        return t
+    B, S, H, hd = t.shape
+    return t.transpose(1, 2).reshape(B * H, S, hd)
+
+
+def _model(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`_flat` for a tensor shaped like ``like``."""
+    if like.dim() == 3:
+        return t
+    B, S, H, hd = like.shape
+    return t.reshape(B, H, S, hd).transpose(1, 2)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``(o, lse)`` of q, k, v, all 4-d (model layout) or all 3-d, with the
+    gradient of o; the LSE (float32, ``(B, NH, Sq)`` or ``(BH, Sq)``) is
+    not differentiable.  Arguments after v: group, scale, softcap, causal,
+    window."""
+
+    @staticmethod
+    def forward(q, k, v, group, scale, softcap, causal, window):
+        kw = dict(group=group, scale=scale, softcap=softcap, causal=causal, window=window)
+        if q.device.type != "cpu":
+            return kernel.attend(q, k, v, with_lse=True, **kw)
+        o, lse = flash_attention_lse_ref(_flat(q), _flat(k), _flat(v), **kw)
+        if q.dim() == 4:
+            lse = lse.reshape(q.shape[0], q.shape[2], q.shape[1])
+        return _model(o, q), lse
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, group, scale, softcap, causal, window = inputs
+        o, lse = output
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = dict(group=group, scale=scale, softcap=softcap, causal=causal, window=window)
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if q.device.type != "cpu":
+            dq, dk, dv = backward.attention_bwd(q, k, v, o, lse, do, **ctx.kw)
+        else:
+            dq, dk, dv = flash_attention_bwd_ref(
+                _flat(q), _flat(k), _flat(v), _flat(o), lse.reshape(-1, q.shape[1]),
+                _flat(do), **ctx.kw)
+            dq, dk, dv = _model(dq, q), _model(dk, k), _model(dv, v)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def mha_flash(
@@ -29,12 +88,10 @@ def mha_flash(
     window: int = 0,
 ) -> torch.Tensor:
     B, Sq, NH, hd = q.shape
-    NKV = k.shape[2]
-    kw = dict(group=NH // NKV, scale=scale, softcap=softcap, causal=causal, window=window)
+    group = NH // k.shape[2]
+    kw = dict(group=group, scale=scale, softcap=softcap, causal=causal, window=window)
     if q.device.type != "cpu":
         return kernel.attention(q, k, v, **kw)
-    out = flash_attention_ref(
-        q.transpose(1, 2).reshape(B * NH, Sq, hd),
-        k.transpose(1, 2).reshape(B * NKV, k.shape[1], hd),
-        v.transpose(1, 2).reshape(B * NKV, v.shape[1], hd), **kw)
-    return out.reshape(B, NH, Sq, hd).transpose(1, 2)
+    if kernel.needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, group, scale, softcap, causal, window)[0]
+    return _model(flash_attention_ref(_flat(q), _flat(k), _flat(v), **kw), q)

@@ -172,8 +172,13 @@ def stream_pack_matmul(
     block_n: int = 128,
     block_k: int = 128,
 ) -> torch.Tensor:
-    """Launch the Hopper kernel on CUDA tensors; raises on anything else."""
+    """Launch the Hopper kernel on CUDA tensors; raises on anything else,
+    and on operands that need a gradient with grad enabled (the kernel's
+    gradient is :class:`.ops.StreamPack`'s)."""
     global launches
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise ValueError("stream_pack_matmul has no gradient: differentiate through "
+                         "ops.stream_pack")
     if x.dim() != 3 or w.dim() != 3:
         raise ValueError(f"x and w must be 3-d; got {tuple(x.shape)} and {tuple(w.shape)}")
     lanes, M, K = x.shape

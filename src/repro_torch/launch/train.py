@@ -1,0 +1,110 @@
+"""Training launcher of the port.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch phi4-mini-3.8b \\
+        --steps 100 --batch 2 --seq 512 --dtype bfloat16
+    PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \\
+        --smoke --device cpu --steps 20 --ckpt /tmp/ckpt
+
+The counterpart of the JAX package's ``launch/train.py``, with the same
+flags plus ``--device`` (default ``cuda``).  It seals ONE training step
+ahead of time (``training.seal_train_step``: forward, backward, clipping
+and AdamW as one CUDA graph on the card, the eager step on the CPU), then
+the loop only copies each batch from the synthetic pipeline in and
+replays, logging loss, ce, grad norm and tokens per second and writing
+checkpoints.  The weights are random, drawn on the device from ``--seed``.
+One device only: ``--model-axis`` above 1 (a mesh) is refused.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+import repro_torch.configs as C
+from repro_torch.checkpoint import save_checkpoint
+from repro_torch.data import Prefetcher, SyntheticLM, data_config_for
+from repro_torch.launch.serve import init_params
+from repro_torch.optim import adamw_init, cosine_schedule
+from repro_torch.training import make_train_step, seal_train_step
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true", help="reduced config")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--ckpt", default="", help="checkpoint dir (optional)")
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--model-axis", type=int, default=1)
+    ap.add_argument("--dtype", default="")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--seed", type=int, default=0)
+    return ap
+
+
+def main(argv=None) -> list[float]:
+    args = parser().parse_args(argv)
+    if args.model_axis > 1:
+        raise NotImplementedError(
+            "--model-axis > 1 needs the sharded mesh, ROADMAP Queue 1 item 8; "
+            "the port trains on one device")
+    cfg = C.get(args.arch, smoke=args.smoke)
+    if args.dtype:
+        cfg = dataclasses.replace(cfg, dtype=args.dtype)
+    device = torch.device(args.device)
+
+    model = init_params(cfg, seed=args.seed, device=device)
+    opt_state = adamw_init(dict(model.named_parameters()))
+
+    def lr(step):
+        return cosine_schedule(step, peak_lr=args.lr, warmup_steps=args.warmup,
+                               total_steps=args.steps)
+
+    step_fn = make_train_step(cfg, lr=lr)
+    data = Prefetcher(SyntheticLM(data_config_for(cfg, batch_size=args.batch,
+                                                  seq_len=args.seq, seed=args.seed)))
+
+    # --- AoT scheduling: seal the step once --------------------------------
+    example = next(data)
+    sealed = seal_train_step(step_fn, model, opt_state, example)
+    print(f"sealed train step in {sealed.seal_s:.1f}s on {device} "
+          f"({cfg.name}: {cfg.param_count / 1e6:.1f}M params"
+          f"{', one CUDA graph' if sealed.graph is not None else ', eager'})")
+
+    losses = []
+    t_start = time.perf_counter()
+    try:
+        for step in range(args.steps):
+            metrics = sealed(example if step == 0 else next(data))
+            losses.append(float(metrics["loss"]))
+            if step % args.log_every == 0 or step == args.steps - 1:
+                dt = time.perf_counter() - t_start
+                tok_s = (step + 1) * args.batch * args.seq / dt
+                print(f"step {step:5d} loss {losses[-1]:.4f} "
+                      f"ce {float(metrics['ce']):.4f} gnorm {float(metrics['grad_norm']):.3f} "
+                      f"tok/s {tok_s:,.0f}")
+            if args.ckpt and args.ckpt_every and (step + 1) % args.ckpt_every == 0:
+                save_checkpoint(args.ckpt, {"params": model}, step=step + 1)
+    finally:
+        data.close()
+
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    print(f"loss: first10={first:.4f} last10={last:.4f} "
+          f"({'improved' if last < first else 'NOT improved'})")
+    if args.ckpt:
+        save_checkpoint(args.ckpt, {"params": model}, step=args.steps)
+        print(f"checkpoint -> {args.ckpt}")
+    return losses
+
+
+if __name__ == "__main__":
+    main()

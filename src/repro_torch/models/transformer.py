@@ -27,11 +27,13 @@ updated in place, where JAX returns a new cache.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as ckpt
 from torch import nn
 
 from . import layers as L
@@ -259,6 +261,33 @@ def init_model(generator: torch.Generator, cfg, *, device="cuda") -> Transformer
 # layer block
 # ---------------------------------------------------------------------------
 
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``dots`` remat policy (JAX's ``dots_with_no_batch_dims_saveable``):
+    keep the outputs of matrix products with no batch dimension, recompute
+    the rest."""
+    if op in _MATMULS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg):
+    """``fn`` (a layer body) under activation checkpointing when
+    ``cfg.remat`` is set and grad is enabled, as JAX wraps its scan bodies
+    in ``jax.checkpoint``: its activations are recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant), all of them under the
+    ``full`` policy, all but the matrix products' outputs under ``dots``."""
+    if not cfg.remat or not torch.is_grad_enabled():
+        return fn
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                             _save_dots)
+    return functools.partial(ckpt.checkpoint, fn, **kw)
+
+
 def _window_schedule(cfg) -> Optional[list[int]]:
     """Per-layer attention window: gemma2 alternates local / global."""
     if not cfg.local_global_pattern or not cfg.sliding_window:
@@ -318,13 +347,14 @@ def _run_layers(p, x, cfg, positions, cache=None, prompt=False, keep_new=True):
     news: tuple[list, list] = ([], [])
     auxs = []
     windows = _window_schedule(cfg) or [None] * cfg.n_layers
+    block = _remat(_attn_ffn_block, cfg) if cache is None else _attn_ffn_block
     for i, (lp, w) in enumerate(zip(p.layers, windows)):
         lcache = None
         if cache is not None:
             lcache = {name: cache[name][i] for name in cache_names(cfg)}
             lcache["pos"] = cache["pos"]
-        x, new_kv, aux = _attn_ffn_block(lp, x, cfg, positions=positions, window=w,
-                                         cache=lcache, prompt=prompt)
+        x, new_kv, aux = block(lp, x, cfg, positions=positions, window=w,
+                               cache=lcache, prompt=prompt)
         if keep_new:
             for acc, t in zip(news, new_kv):
                 acc.append(t)
@@ -355,15 +385,28 @@ def _is_attn_layer(cfg, i: int) -> bool:
     return i % every == every - 1
 
 
+def _hybrid_layer(lp, shared, x, cfg, positions, with_attn: bool):
+    out, _ = SSM.mamba2_block(lp["mamba"], L.apply_norm(lp["ln"], x, cfg), cfg)
+    x = x + out
+    if with_attn:
+        x, _, _ = _attn_ffn_block(shared, x, cfg, positions=positions, window=None)
+    return x
+
+
 def _forward_hybrid(p, x, cfg, positions):
     """Zamba2: the Mamba2 layers (chunked SSD), the shared attention block
     (flash attention) after every ``hybrid_attn_every``-th."""
+    layer = _remat(_hybrid_layer, cfg)
     for i, lp in enumerate(p.layers):
-        out, _ = SSM.mamba2_block(lp["mamba"], L.apply_norm(lp["ln"], x, cfg), cfg)
-        x = x + out
-        if _is_attn_layer(cfg, i):
-            x, _, _ = _attn_ffn_block(p.shared_attn, x, cfg, positions=positions, window=None)
+        x = layer(lp, p.shared_attn, x, cfg, positions, _is_attn_layer(cfg, i))
     return x
+
+
+def _encoder_layer(lp, x, cfg, positions):
+    o, _ = L.attention(lp["attn"], L.apply_norm(lp["ln1"], x, cfg), cfg,
+                       positions=positions, causal=False)
+    x = x + o
+    return x + L.apply_ffn(lp["ffn"], L.apply_norm(lp["ln2"], x, cfg), cfg)
 
 
 def encode_memory(p: Transformer, frames: torch.Tensor, cfg) -> torch.Tensor:
@@ -372,11 +415,9 @@ def encode_memory(p: Transformer, frames: torch.Tensor, cfg) -> torch.Tensor:
     flash attention) and ``enc_final_norm``; returns the memory (B, T, D)."""
     x = frames.to(p.frontend_proj["w"].dtype) @ p.frontend_proj["w"]
     positions = _positions(*x.shape[:2], x.device)
+    layer = _remat(_encoder_layer, cfg)
     for lp in p.encoder:
-        o, _ = L.attention(lp["attn"], L.apply_norm(lp["ln1"], x, cfg), cfg,
-                           positions=positions, causal=False)
-        x = x + o
-        x = x + L.apply_ffn(lp["ffn"], L.apply_norm(lp["ln2"], x, cfg), cfg)
+        x = layer(lp, x, cfg, positions)
     return L.apply_norm(p.enc_final_norm, x, cfg)
 
 
@@ -425,8 +466,9 @@ def forward(p: Transformer, batch: dict, cfg):
         memory = encode_memory(p, batch["frames"], cfg)
         x = L.embed_tokens(p.embed, tokens, cfg)
         positions = _positions(*tokens.shape, tokens.device)
+        layer = _remat(_decoder_layer, cfg)
         for lp in p.decoder:
-            x = _decoder_layer(lp, x, memory, cfg, positions=positions)
+            x = layer(lp, x, memory, cfg, positions=positions)
     else:
         x = _embed_input(p, batch, cfg)
         positions = _positions(*x.shape[:2], x.device)

@@ -1,0 +1,190 @@
+"""Training step: loss, gradients, AdamW, sealed as one CUDA graph.
+
+The counterpart of the JAX package's ``training/train_lib.py``.  The whole
+step (forward, backward, clipping and the AdamW update) is one function
+over the model's parameters, so :func:`seal_train_step` captures it as one
+``torch.cuda.CUDAGraph`` and the loop only copies a batch in and replays
+(paper §5.3: Nimble supports training by capturing the whole iteration).
+
+Differences from JAX, each for the capture or for memory at full width:
+
+* gradients come from ``torch.autograd.grad(loss, params)``, functional
+  like ``jax.value_and_grad``: no ``.grad`` fields accumulate across
+  replays;
+* the step updates the parameters, the moments and the step counter **in
+  place** and returns them (JAX returns new trees); ``lr`` may be a
+  function of the step counter, a device tensor, so a replay reads it
+  afresh;
+* the metrics are device tensors; reading one (``float(m["loss"])``)
+  waits for the step.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import torch
+import torch.utils.checkpoint as ckpt
+
+from repro_torch.core.capture import CAPTURE_ERROR_MODE, CAPTURE_LOCK
+from repro_torch.models import forward
+from repro_torch.optim import adamw_update
+from repro_torch.optim.adamw import AdamWState
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy; label < 0 positions are masked out."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    nll = logz - gold
+    mask = (labels >= 0).float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def make_loss_fn(cfg) -> Callable:
+    """``loss_fn(model, batch) -> (loss, {"ce", "aux"})``."""
+
+    def loss_fn(model, batch):
+        logits, aux = forward(model, batch, cfg)
+        labels = batch["labels"]
+        if cfg.family == "vlm":
+            # image positions carry no next-token loss
+            pad = -torch.ones((labels.shape[0], cfg.vision_tokens), dtype=labels.dtype,
+                              device=labels.device)
+            labels = torch.cat([pad, labels], dim=1)
+        loss = cross_entropy(logits, labels) + aux["aux_loss"]
+        return loss, {"ce": loss - aux["aux_loss"], "aux": aux["aux_loss"]}
+
+    return loss_fn
+
+
+def trainable(model) -> dict[str, torch.nn.Parameter]:
+    """The model's parameters by name, each set to require grad (the port
+    builds models for serving, with ``requires_grad`` off)."""
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    return params
+
+
+def make_train_step(
+    cfg,
+    *,
+    lr: float | Callable = 3e-4,
+    weight_decay: float = 0.1,
+    max_grad_norm: float = 1.0,
+    remat: bool = False,
+) -> Callable:
+    """Returns ``step(model, opt_state, batch) -> (model, opt_state,
+    metrics)``, updating the model's parameters and ``opt_state`` in place.
+    ``step.loss_and_grads(model, batch)`` is its first half alone, which
+    moves no state (a capture's warm-up).  ``remat`` recomputes the whole
+    forward in the backward (``torch.utils.checkpoint``, JAX's
+    ``jax.checkpoint`` of the loss)."""
+    loss_fn = make_loss_fn(cfg)
+
+    def loss_and_grads(model, batch):
+        params = trainable(model)
+        with torch.enable_grad():
+            if remat:
+                loss, parts = ckpt.checkpoint(loss_fn, model, batch, use_reentrant=False,
+                                              preserve_rng_state=False)
+            else:
+                loss, parts = loss_fn(model, batch)
+            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        grads = {name: torch.zeros_like(p) if g is None else g
+                 for (name, p), g in zip(params.items(), grads)}
+        return loss.detach(), {k: v.detach() for k, v in parts.items()}, grads, params
+
+    def step(model, opt_state: AdamWState, batch):
+        loss, parts, grads, params = loss_and_grads(model, batch)
+        lr_val = lr(opt_state.step) if callable(lr) else lr
+        _, opt_state, gnorm = adamw_update(
+            grads, opt_state, params,
+            lr=lr_val, weight_decay=weight_decay, max_grad_norm=max_grad_norm,
+        )
+        metrics = {
+            "loss": loss,
+            "ce": parts["ce"],
+            "aux": parts["aux"],
+            "grad_norm": gnorm,
+            # a fill, not a host-to-device copy: capturable
+            "lr": lr_val.float() if isinstance(lr_val, torch.Tensor)
+            else torch.full((), float(lr_val), device=loss.device),
+        }
+        return model, opt_state, metrics
+
+    step.loss_and_grads = loss_and_grads
+    return step
+
+
+def batch_to_device(batch: dict, device) -> dict:
+    """A numpy batch (``data.SyntheticLM``) as tensors on ``device``: token
+    ids and labels as int64, the rest as float32."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        out[k] = t.to(device, torch.long if not t.is_floating_point() else torch.float32)
+    return out
+
+
+class SealedTrainStep:
+    """A training step over fixed model, optimizer state and batch buffers.
+
+    ``sealed(batch)`` copies ``batch`` (numpy or tensors) into the static
+    batch buffers (``sealed()`` reuses what they hold) and runs the step: a
+    replay of the captured CUDA graph on the card, the eager step on the
+    CPU.  Returns the metrics, the graph's own output tensors on the card
+    (overwritten by the next replay)."""
+
+    def __init__(self, step, model, opt_state, batch: dict):
+        self.step, self.model, self.opt_state = step, model, opt_state
+        device = next(model.parameters()).device
+        self.static = batch_to_device(batch, device)
+        self.graph = None
+        self.metrics = None
+        self.seal_s = 0.0
+        if device.type == "cuda":
+            self._capture()
+
+    def _capture(self) -> None:
+        t0 = time.perf_counter()
+        with torch.cuda.device(self.static["tokens"].device), CAPTURE_LOCK.capturing():
+            # warm up loss and grads on a side stream: it builds the kernels,
+            # opts them into their shared memory and runs every lazy
+            # initialisation, and moves neither parameters nor moments
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self.step.loss_and_grads(self.model, self.static)
+            torch.cuda.current_stream().wait_stream(side)
+            torch.cuda.synchronize()
+            # the eager warm-up's blocks go back to the card, so that they
+            # and the graph's pool do not both hold the step's memory
+            torch.cuda.empty_cache()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode=CAPTURE_ERROR_MODE):
+                _, _, metrics = self.step(self.model, self.opt_state, self.static)
+            torch.cuda.synchronize()
+        self.graph, self.metrics = graph, metrics
+        self.seal_s = time.perf_counter() - t0
+
+    def __call__(self, batch: dict | None = None) -> dict:
+        if batch is not None:
+            for k, buf in self.static.items():
+                buf.copy_(torch.as_tensor(batch[k]))
+        if self.graph is None:
+            return self.step(self.model, self.opt_state, self.static)[2]
+        self.graph.replay()
+        return self.metrics
+
+
+def seal_train_step(step, model, opt_state, batch: dict) -> SealedTrainStep:
+    """Seal ``step`` (from :func:`make_train_step`) over ``model``,
+    ``opt_state`` and buffers shaped like ``batch``: on CUDA, the forward,
+    backward, clipping and AdamW update captured as one
+    ``torch.cuda.CUDAGraph`` (holding ``CAPTURE_LOCK`` exclusively; the
+    warm-up runs loss and grads only, so the state is as it was); on the
+    CPU, the eager step over the same buffers."""
+    return SealedTrainStep(step, model, opt_state, batch)

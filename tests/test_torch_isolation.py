@@ -18,7 +18,8 @@ import torch  # noqa: E402,F401
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
-    ROOT / "examples" / "branchy_inference_torch.py", ROOT / "examples" / "serve_llm_torch.py"]
+    ROOT / "examples" / "branchy_inference_torch.py", ROOT / "examples" / "serve_llm_torch.py",
+    ROOT / "examples" / "train_lm_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -60,7 +61,12 @@ def test_port_file_list_is_complete():
                  "src/repro_torch/dispatch/async_dispatcher.py",
                  "src/repro_torch/obs/export.py", "src/repro_torch/obs/registry.py",
                  "src/repro_torch/serving/spec.py", "src/repro_torch/core/capture.py",
-                 "examples/serve_llm_torch.py"):
+                 "examples/serve_llm_torch.py",
+                 "src/repro_torch/optim/adamw.py", "src/repro_torch/optim/schedules.py",
+                 "src/repro_torch/training/train_lib.py", "src/repro_torch/data/pipeline.py",
+                 "src/repro_torch/checkpoint/store.py", "src/repro_torch/launch/train.py",
+                 "src/repro_torch/kernels/flash_attention/backward.py",
+                 "examples/train_lm_torch.py"):
         assert must in names
 
 
@@ -71,6 +77,8 @@ def test_importing_the_serving_stack_loads_no_jax():
         "import repro_torch.core, repro_torch.models.branchy, repro_torch.kernels.stream_pack\n"
         "import repro_torch.models.ssm, repro_torch.models.xlstm\n"
         "import repro_torch.dispatch, repro_torch.obs, repro_torch.serving.spec\n"
+        "import repro_torch.training, repro_torch.optim, repro_torch.data\n"
+        "import repro_torch.checkpoint, repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )
