@@ -121,18 +121,22 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
     and the forward's log-sum-exp against their plain versions over both
     dtypes, every head dim, GQA 1/3/7, causal, windows, soft-caps, ragged
     and Sq != Skv lengths and fully masked rows (their dq must be 0),
-    launching every kernel set of the library, then timed at phi4-mini's
-    training shape beside the plain version, the bound and
+    launching every kernel set of the library, then at phi4-mini's
+    training shape: two calls bit-identical, no layout copy, the time in a
+    CUDA graph and from Python beside the plain version, the bound and
     ``F.scaled_dot_product_attention``'s forward + backward (a yardstick
-    only); (b) B2's two backward products through its autograd Function
+    only), each of its three kernels' device time (profiler), the dK/dV
+    kernel with one CTA per (q head, key tile) instead, and each kernel's
+    registers and spills from ptxas; (b) B2's two backward products through its autograd Function
     at the smoke experts' shapes, a shared x and one full deepseek-v2
     expert shape (160 lanes, K 5120, N 1536, M 64), timed there beside two
     ``torch.bmm``; (c) phi4-mini-3.8b at full width and depth, bf16, AdamW
     with the cosine schedule, batch 2 x 512 from ``SyntheticLM``: 3 eager
     steps against 3 replays of the step sealed as one CUDA graph from the
     same state, 30 replays in all (the loss must fall), ms per step eager
-    and replayed (Fig. 8's quantity), the profiler's count of B1's forward
-    and backward kernels in one replay (32 of each), and a checkpoint
+    and replayed (Fig. 8's quantity), B1's layout copies (must be 0), the
+    profiler's count of B1's forward and backward kernels in one replay
+    (32 of each), and a checkpoint
     restored into a fresh model giving the next replay's loss bit for bit;
     (d) the phi4-mini, arctic and deepseek-v2 smoke configs at float32: one
     sealed step on the card against the CPU's; (e) Nimble over the
@@ -744,6 +748,28 @@ def _same_outputs(got, want) -> bool:
         and ratio(g, w, 1e-5, 1e-5) <= 1.0 for g, w in zip(got, want))
 
 
+# GPU cycles (about 20 ms) that open each profiling session: on the card a
+# session has come back without the kernels of its first milliseconds (the
+# first 7 of 15 backward kernels, the first 108 of a prefill replay's 274),
+# so a spin kernel takes that time and its own event is left out
+PROFILE_SPIN_CYCLES = 40_000_000
+
+
+def spin() -> None:
+    """Open a profiling session: the spin kernel, then a synchronise, so
+    that the work profiled starts after it."""
+    import torch
+
+    torch.cuda._sleep(PROFILE_SPIN_CYCLES)
+    torch.cuda.synchronize()
+
+
+def device_events(prof) -> list:
+    """The device events of a profiler session but :func:`spin`'s."""
+    return [e for e in prof.events() if "cuda" in str(getattr(e, "device_type", "")).lower()
+            and "spin_kernel" not in e.name]
+
+
 def kernels_in_one(run, check: bool = True, attempts: int = 4) -> list:
     """The device kernels (torch.profiler events) of one call of ``run``,
     after one unprofiled call.
@@ -755,10 +781,12 @@ def kernels_in_one(run, check: bool = True, attempts: int = 4) -> list:
     again: one that ran nothing fails the run.  Only then is a reading
     taken, and only when two sessions in a row record the same kernels:
     an H100 run has returned an empty activity buffer for a replay, and
-    another a buffer of 25 of a replay's 300-odd kernels.  Up to
-    ``attempts`` sessions; if no two in a row agree, the reading with the
-    most device events.  Without ``check`` (a call that moves state, as an
-    eager decode step does) one session is taken."""
+    another a buffer of 25 of a replay's 300-odd kernels, and two sessions
+    in a row have come back cut at the same place, so two that agree count
+    only when no earlier session recorded more.  Up to ``attempts``
+    sessions; else the reading with the most device events.  Without
+    ``check`` (a call that moves state, as an eager decode step does) one
+    session is taken."""
     import collections
 
     import torch
@@ -775,13 +803,13 @@ def kernels_in_one(run, check: bool = True, attempts: int = 4) -> list:
             if check:
                 _poison(last)
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                spin()
                 last = run()
                 torch.cuda.synchronize()
             if check and not _same_outputs(last, want):
                 fail("a profiled call did not give the outputs of the call before it: "
                      "it ran nothing, or not all of its work")
-            events = [e for e in prof.events()
-                      if "cuda" in str(getattr(e, "device_type", "")).lower()]
+            events = device_events(prof)
             if not check:
                 break
             if not events:
@@ -789,7 +817,8 @@ def kernels_in_one(run, check: bool = True, attempts: int = 4) -> list:
                     "were right: profiling again)")
                 continue
             counts = collections.Counter(e.name for e in events)
-            if readings and readings[-1][0] == counts:
+            if (readings and readings[-1][0] == counts
+                    and all(len(ev) <= len(events) for _, ev in readings)):
                 break
             if readings:
                 say(f"    (two profiler sessions of one call recorded {len(readings[-1][1])} "
@@ -1888,6 +1917,8 @@ def dispatched_burst(disp, work: dict, *, profile_it: bool = False) -> dict:
                 order.append((lane, w[i]))
     ctx = profile(activities=[ProfilerActivity.CUDA]) if profile_it else _cl.nullcontext()
     with ctx as prof:
+        if profile_it:
+            spin()
         t0 = time.perf_counter()
         futs = [(lane, disp.submit(lane, p, max_new_tokens=n)) for lane, (p, n) in order]
         done: dict = {lane: [] for lane in work}
@@ -1895,10 +1926,7 @@ def dispatched_burst(disp, work: dict, *, profile_it: bool = False) -> dict:
             done[lane].append(f.result(timeout=600))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = []
-    if profile_it:
-        events = [e for e in prof.events()
-                  if "cuda" in str(getattr(e, "device_type", "")).lower()]
+    events = device_events(prof) if profile_it else []
     return {"done": done, "wall_s": wall, "events": events}
 
 
@@ -2288,13 +2316,18 @@ def phase_journal(number: int, workers: dict) -> dict:
 # bf16 rounding of the three gradients (one ulp is 2**-8 relative)
 BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-2)}
 # the (group, window, softcap, causal, Sq, Skv) cases of the backward sweep,
-# run at both dtypes and every head dim; the last has fully masked rows
-# (window 16 over 64 keys for 128 queries: rows 79 on see no key)
+# run at both dtypes and every head dim; (1, 16, ..., 128, 64) has fully
+# masked rows (window 16 over 64 keys for 128 queries: rows 79 on see no
+# key); the last three cross the 64-row and 64-key tiles' edges where the
+# bf16 kernels' fragments do: GQA 7 under a window with Sq and Skv off the
+# tile, a capped bidirectional Sq < Skv, and causal Sq < Skv, whose key
+# tiles past Sq see no query
 BWD_COMBOS = [(1, 0, 0.0, True, 64, 64), (3, 0, 0.0, True, 200, 200),
               (7, 0, 0.0, True, 128, 128), (3, 16, 0.0, True, 200, 200),
               (1, 0, 50.0, True, 130, 130), (3, 100, 50.0, False, 200, 200),
               (1, 0, 0.0, False, 77, 300), (3, 0, 0.0, False, 512, 128),
-              (1, 16, 0.0, False, 128, 64)]
+              (1, 16, 0.0, False, 128, 64), (7, 40, 0.0, True, 190, 190),
+              (3, 0, 50.0, False, 100, 260), (1, 0, 0.0, True, 96, 160)]
 # phi4-mini-3.8b's training step on the card: batch x sequence, eager steps
 # held against as many replays from the same state, replays in all, and
 # the AdamW schedule
@@ -2383,7 +2416,8 @@ def train_kernel_sweep() -> None:
                     ok = ok and zero
                 say(f"  {dname:8s} hd={hd:3d} B={B} heads={2 * group}/2 Sq={Sq:3d} Skv={Skv:3d} "
                     f"window={window:3d} cap={cap:3.0f} causal={int(causal)}: max_abs_err dq "
-                    f"{errs[0]:.2e} dk {errs[1]:.2e} dv {errs[2]:.2e} ({max(rs):.2f} of tolerance) "
+                    f"{errs[0]:.2e} dk {errs[1]:.2e} dv {errs[2]:.2e} (of tolerance: dq {rs[0]:.2f} dk "
+                    f"{rs[1]:.2f} dv {rs[2]:.2f}) "
                     f"LSE {lse_r:.2f} of tolerance {'ok' if ok else 'FAIL'}{note}")
                 if not ok:
                     fail("B1's backward kernel or the forward's LSE disagrees with the plain "
@@ -2396,11 +2430,67 @@ def train_kernel_sweep() -> None:
         f"(dtype, hd): {dict(sorted(reached.items()))}")
 
 
+# the backward's three kernels, by the name each has in a profile
+BWD_KERNELS = ("bwd_dot", "bwd_dkdv", "bwd_dq")
+
+
+def bwd_registers() -> dict:
+    """Registers and spill bytes (stores, loads) of each backward kernel
+    from ptxas's report in the build log, by (kernel, dtype, hd)."""
+    import re
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import backward
+
+    out, entry = {}, None
+    for line in build.build_log(backward.SOURCE).splitlines():
+        if "Compiling entry" in line:
+            found = re.search(r"(bwd_dot|bwd_dkdv_bf16|bwd_dkdv_f32|bwd_dq_bf16|bwd_dq_f32)"
+                              r"I?(\w*?)Li(\d+)E", line)
+            entry = None
+            if found:
+                kind, dot_type, hd = found.groups()
+                dtype = ("bf16" if "bfloat16" in dot_type else "f32") if kind == "bwd_dot" \
+                    else kind.rsplit("_", 1)[1]
+                entry = (kind.replace("_bf16", "").replace("_f32", ""), dtype, int(hd))
+                out[entry] = {}
+        elif entry is not None and "spill stores" in line:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
+            out[entry]["spills"] = (int(st), int(ld))
+        elif entry is not None and "Used" in line and "registers" in line:
+            out[entry]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
+
+
+def bwd_kernel_ms(call, reps: int = 5, attempts: int = 4) -> tuple[dict, int]:
+    """Each backward kernel's device time in ms under the profiler over
+    ``reps`` calls of ``call`` (one backward each), and the number of
+    calls it is the mean of: the calls the profiler recorded whole, a
+    ``bwd_dot``, ``bwd_dkdv``, ``bwd_dq`` run in launch order (sessions on
+    the card come back without their first kernels).  Up to ``attempts``
+    readings until one holds a whole call."""
+    for _ in range(attempts):
+        events = kernels_in_one(lambda: [call() for _ in range(reps)])
+        mine = sorted((e for e in events if any(n in e.name for n in BWD_KERNELS)),
+                      key=lambda e: e.time_range.start)
+        kinds = [next(n for n in BWD_KERNELS if n in e.name) for e in mine]
+        whole = [mine[i:i + 3] for i in range(len(mine) - 2)
+                 if tuple(kinds[i:i + 3]) == BWD_KERNELS]
+        if whole:
+            return {name: sum(run[j].time_range.elapsed_us() for run in whole) / len(whole) / 1e3
+                    for j, name in enumerate(BWD_KERNELS)}, len(whole)
+        say(f"    (the profiler recorded no whole backward call of {reps}: {len(mine)} of its "
+            "kernels; profiling again)")
+    fail(f"no profiler reading held a whole backward call in {attempts} attempts")
+
+
 def train_kernel_timing() -> dict:
     """19a: the backward kernel at phi4-mini's training shape (q (2, 512,
-    24, 128), k/v (2, 512, 8, 128), bf16, causal) in a CUDA graph and from
-    Python, beside its plain version, its bound and the library's forward
-    + backward (a yardstick only)."""
+    24, 128), k/v (2, 512, 8, 128), bf16, causal): two calls on the same
+    inputs must give the same bits; then its time in a CUDA graph and from
+    Python, each of its three kernels' device time from the profiler, its
+    registers and spills, beside its plain version, its bound and the
+    library's forward + backward (a yardstick only)."""
     import torch
     import torch.nn.functional as F
 
@@ -2410,12 +2500,22 @@ def train_kernel_timing() -> dict:
     q, k, v, do = _bwd_inputs(B, NKV, NH // NKV, S, S, hd, torch.bfloat16, seed=900, cap=0.0)
     kw = dict(group=NH // NKV, causal=True)
     o, lse = kernel.attend(q, k, v, with_lse=True, **kw)
+    copies = kernel.layout_copies
     got = backward.attention_bwd(q, k, v, o, lse, do, **kw)
+    again = backward.attention_bwd(q, k, v, o, lse, do, **kw)
+    copies = kernel.layout_copies - copies
     want = _bwd_ref(q, k, v, o, lse, do, **kw)
     r = max(ratio(g, w, *BWD_TOL["bfloat16"]) for g, w in zip(got, want))
     err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    say(f"-- 19a at phi4-mini's training shape: {r:.3f} of tolerance, max_abs_err {err:.3e}; two "
+        f"calls on the same inputs bit-identical (dq, dk, dv): {same}; layout copies {copies}")
     if not r <= 1.0:
         fail(f"the backward kernel disagrees at phi4-mini's training shape: {r:.3f} of tolerance")
+    if not same:
+        fail("two calls of the backward kernel on the same inputs differ: it is not deterministic")
+    if copies:
+        fail(f"the backward copied {copies} of phi4-mini's contiguous inputs")
     qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
     dos = do.transpose(1, 2)
 
@@ -2437,6 +2537,7 @@ def train_kernel_timing() -> dict:
     t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
     bound_ms, bound_by = max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
     launch = backward.launch_for(q, k)
+    regs = bwd_registers()
     say(f"-- 19a timing, q ({B},{S},{NH},{hd}) kv ({B},{S},{NKV},{hd}) bf16 causal: graph "
         f"kernel_ms {graphed['kernel']:.5f} plain_ms {graphed['plain']:.5f} library_ms (SDPA "
         f"forward + backward) {graphed['library']:.5f} | eager kernel_ms {eager['kernel']:.5f} "
@@ -2444,12 +2545,40 @@ def train_kernel_timing() -> dict:
         f"{bound_ms:.5f} ({bound_by}; operations {t_ops * 1e3:.5f}: {flops / 1e9:.3f} GFLOP at "
         f"the bf16 peak, 2.5x the forward's; bytes {t_bytes * 1e3:.5f}) | kernel at "
         f"{bound_ms / graphed['kernel']:.1%} of bound | grids dot "
-        f"{launch.dot_grid} dkdv {launch.dkdv_grid} dq {launch.dq_grid}, smem dkdv "
-        f"{launch.dkdv_smem} dq {launch.dq_smem} B | max_abs_err {err:.3e}")
+        f"{launch.dot_grid} dkdv {launch.dkdv_grid} dq {launch.dq_grid}, {launch.threads} "
+        f"threads, smem dkdv {launch.dkdv_smem} dq {launch.dq_smem} B | max_abs_err {err:.3e}")
+    say("  registers and spill bytes (stores, loads) from ptxas, by (kernel, dtype, hd): "
+        + "; ".join(f"{k[0]} {k[1]} hd {k[2]}: {v.get('registers')} regs, spills "
+                    f"{v.get('spills')}" for k, v in sorted(regs.items())))
+    if any(regs.get((name, "bf16", hd), {}).get("registers") is None
+           for name in BWD_KERNELS for hd in kernel.HEAD_DIMS):
+        fail("the build log has no ptxas register report for every bf16 backward kernel")
+    reps = 5
+    per_kernel, seen = bwd_kernel_ms(
+        lambda: backward.attention_bwd(q, k, v, o, lse, do, **kw), reps)
+    # would more dK/dV CTAs help?  One CTA per (q head, key tile) is the
+    # dK/dV kernel at 24 kv heads of group 1: three times the CTAs, a third
+    # of the query tiles each (the partial sums over the group it would
+    # need are not run)
+    q1, k1, v1, do1 = _bwd_inputs(B, NH, 1, S, S, hd, torch.bfloat16, seed=901, cap=0.0)
+    o1, lse1 = kernel.attend(q1, k1, v1, with_lse=True, causal=True)
+    per_q_head = bwd_kernel_ms(
+        lambda: backward.attention_bwd(q1, k1, v1, o1, lse1, do1, causal=True),
+        reps)[0]["bwd_dkdv"]
+    del q1, k1, v1, do1, o1, lse1
+    say(f"  each kernel's device time (profiler, mean of the {seen} of {reps} eager calls "
+        "it recorded whole): "
+        + ", ".join(f"{name} {ms:.5f} ms" for name, ms in per_kernel.items())
+        + f"; bwd_dkdv with one CTA per (q head, key tile) instead (24 kv heads of group 1, "
+        f"grid ({B * NH}, {S // 64}), no partial sums): {per_q_head:.5f} ms")
     return dict(max_abs_err=err, ms=graphed["kernel"], plain_ms=graphed["plain"],
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=graphed["library"],
                 library_is="F.scaled_dot_product_attention forward + backward",
-                eager_ms=eager["kernel"], eager_library_ms=eager["library"])
+                eager_ms=eager["kernel"], eager_library_ms=eager["library"],
+                kernel_ms_by_kernel=per_kernel, dkdv_ms_per_q_head_ctas=per_q_head,
+                deterministic=same, layout_copies=copies,
+                registers={f"{k[0]} {k[1]} hd{k[2]}": v.get("registers")
+                           for k, v in sorted(regs.items())})
 
 
 def train_b2_backward() -> dict:
@@ -2541,7 +2670,8 @@ def kernels_in_replay(run, attempts: int = 4) -> list:
     moves the state, so its outputs differ from call to call.  The outputs
     of the call before are poisoned before each profiled call, which must
     give finite outputs again; a reading is taken once two sessions in a
-    row record the same kernels (up to ``attempts``; else the fullest)."""
+    row record the same kernels and no earlier one recorded more (up to
+    ``attempts``; else the fullest)."""
     import collections
 
     import torch
@@ -2554,15 +2684,16 @@ def kernels_in_replay(run, attempts: int = 4) -> list:
     for _ in range(attempts):
         _poison(last)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            spin()
             last = run()
             torch.cuda.synchronize()
         if not all(bool(torch.isfinite(t).all()) for t in pytree.tree_leaves(last)
                    if isinstance(t, torch.Tensor)):
             fail("a profiled training replay left its poisoned outputs: it ran nothing")
-        events = [e for e in prof.events()
-                  if "cuda" in str(getattr(e, "device_type", "")).lower()]
+        events = device_events(prof)
         counts = collections.Counter(e.name for e in events)
-        if events and readings and readings[-1][0] == counts:
+        if (events and readings and readings[-1][0] == counts
+                and all(len(ev) <= len(events) for _, ev in readings)):
             return events
         if readings:
             say(f"    (two profiler sessions of a replay recorded {len(readings[-1][1])} and "
@@ -2630,6 +2761,7 @@ def train_phi4() -> dict:
 
     # eager steps (run-time scheduled: PyTorch's own loop)
     kernel.launches = backward.launches = 0          # the path's run starts here
+    copies = kernel.layout_copies
     eager_loss, eager_ms = [], []
     torch.cuda.reset_peak_memory_stats()
     for i in range(TRAIN_EAGER):
@@ -2661,6 +2793,11 @@ def train_phi4() -> dict:
         f"of loss and grads, empty_cache, capture); peak memory {seal_peak / 2**30:.2f} GiB, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated after")
     seal_counts = (kernel.launches - eager_counts[0], backward.launches - eager_counts[1])
+    copies = kernel.layout_copies - copies
+    say(f"  layout copies by B1's forward and backward over the eager steps and the seal: "
+        f"{copies}")
+    if copies:
+        fail(f"the training path copied {copies} inputs of B1 that the kernels should read in place")
     losses, replay_ms = [], []
     for i in range(TRAIN_REPLAYS):
         torch.cuda.synchronize()
@@ -2744,7 +2881,8 @@ def train_phi4() -> dict:
                 tokens_per_step=tokens, seal_s=seal_s, seal_peak_gib=seal_peak / 2**30,
                 eager_peak_gib=eager_peak / 2**30, losses=losses,
                 fwd_launches=kernel.launches, bwd_launches=backward.launches,
-                seal_launches=seal_counts, in_replay=kinds, b1_replay_ms=b1)
+                seal_launches=seal_counts, in_replay=kinds, b1_replay_ms=b1,
+                layout_copies=copies)
 
 
 def train_card_vs_cpu() -> dict:

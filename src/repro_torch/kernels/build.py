@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them through ctypes.
 
-Each kernel is one ``.cu`` file with a plain C interface.  It is compiled
-for Hopper (``sm_90a``) at first use into ``build/repro_torch/`` at the root
-of the checkout (listed in ``.gitignore``), as a shared library whose name
-carries a hash of the source, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  A missing ``nvcc`` or a failed build
-raises: nothing falls back to a kernel's plain version.
+Each kernel is one ``.cu`` file with a plain C interface, which may include
+headers beside it (``#include "name.cuh"``).  It is compiled for Hopper
+(``sm_90a``) at first use into ``build/repro_torch/`` at the root of the
+checkout (listed in ``.gitignore``), as a shared library whose name carries
+a hash of the source and of the local headers it includes, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is.  A
+missing ``nvcc`` or a failed build raises: nothing falls back to a kernel's
+plain version.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -21,6 +24,7 @@ from pathlib import Path
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
 _mu = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -41,11 +45,27 @@ def find_nvcc() -> str:
     )
 
 
+def source_files(source: Path) -> list[Path]:
+    """``source`` and the local headers it includes with ``#include
+    "..."``, each resolved beside the file that includes it, recursively
+    (angle-bracket includes are the toolkit's and are not followed)."""
+    files: list[Path] = []
+    todo = [Path(source)]
+    while todo:
+        path = todo.pop(0)
+        if path in files or not path.is_file():
+            continue
+        files.append(path)
+        todo += [path.parent / name for name in _INCLUDE.findall(path.read_text())]
+    return files
+
+
 def library_path(source: Path) -> Path:
     """Where the library built from ``source`` goes: its stem plus the
-    first 12 hex digits of the source's SHA-256."""
-    digest = hashlib.sha256(Path(source).read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{Path(source).stem}_{digest}.so"
+    first 12 hex digits of the SHA-256 of :func:`source_files` (the
+    source's own bytes alone when it includes no local header)."""
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in source_files(source)))
+    return BUILD_DIR / f"lib{Path(source).stem}_{digest.hexdigest()[:12]}.so"
 
 
 def nvcc_argv(nvcc: str, source: Path, out: Path) -> list[str]:

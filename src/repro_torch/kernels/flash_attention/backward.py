@@ -13,9 +13,16 @@ PyTorch's current stream, so a CUDA graph captures them; ``launches``
 counts the calls, as the forward's wrapper does.  Its plain version is
 :func:`..ref.flash_attention_bwd_ref`.
 
-:func:`choose_launch`, plain Python, gives the three grids and the two
-main kernels' dynamic shared memory; the library sizes its shared memory
-from the same formulas.
+The bf16 kernels run their products on the tensor cores (``wgmma``) and
+load q, k, v and dO by TMA, whose tensor maps need 16-byte aligned base
+pointers and strides: like the forward, the wrapper passes its inputs
+through :func:`.kernel.prepare`, which copies a tensor the kernels cannot
+read in place (counted in ``kernel.layout_copies``).  The float32 kernels
+run on the FMA units and read element-wise.
+
+:func:`choose_launch`, plain Python, gives the three grids, the main
+kernels' threads and their dynamic shared memory; the library sizes its
+shared memory from the same formulas.
 """
 
 from __future__ import annotations
@@ -31,8 +38,11 @@ import torch
 from . import kernel
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_bwd.cu"
-ROWS, KEYS, THREADS = 64, 64, 256
-DOT_ROWS = THREADS // 32          # the pre-pass: one warp per row
+ROWS, KEYS, THREADS = 64, 64, 256   # tiles; threads of the pre-pass and the float32 kernels
+DOT_ROWS = THREADS // 32          # the float32 pre-pass: one warp per row
+BF16_DOT_ROWS = THREADS // 8      # the bf16 pre-pass: 8 lanes per row, 16-byte loads
+BF16_THREADS = 160                # bf16: one consumer warpgroup and one producer warp
+DKDV_STAGES, DQ_STAGES = 3, 2     # bf16 rings: (Q, dO) stages of dK/dV, (K, V) stages of dQ
 MAX_SMEM = 232448                 # bytes a CTA may opt into on an H100 (both fit)
 # every kernel set of the library as (dtype, head_dim); each is three
 # kernels (bwd_dot, bwd_dkdv, bwd_dq), and phase 19 of chip_smoke.py
@@ -47,9 +57,10 @@ _STRIDES = ctypes.c_longlong * 24     # (batch, sequence, head) of q, k, v, o, d
 @dataclass(frozen=True)
 class BwdLaunch:
     """One call of the library: the grids of its three kernels (the
-    pre-pass over ``DOT_ROWS`` rows per CTA; dK/dV per (batch * kv head,
-    key tile); dQ per (batch * q head, query tile)), ``threads`` per CTA
-    and the dynamic shared memory of the two main kernels."""
+    pre-pass over ``DOT_ROWS`` float32 or ``BF16_DOT_ROWS`` bf16 rows per
+    CTA; dK/dV per (batch * kv head, key tile); dQ per (batch * q head,
+    query tile)), ``threads`` per CTA of the two main kernels and their
+    dynamic shared memory."""
 
     dtype: str
     head_dim: int
@@ -65,14 +76,27 @@ class BwdLaunch:
         return self.dtype, self.head_dim
 
 
-def dkdv_smem_bytes(head_dim: int) -> int:
-    """csrc ``dkdv_smem_bytes``: K, V, Q and dO tiles, P and dS tiles, LSE
-    and D, float32, one padding column per tile row."""
+def dkdv_smem_bytes(head_dim: int, dtype: str) -> int:
+    """Dynamic shared memory of a dK/dV CTA.  bf16 (csrc
+    ``dkdv_bf16_smem``): the K and V tiles and ``DKDV_STAGES`` stages of Q
+    and dO tiles at the padded width, each stage's 64 LSE and 64 D values,
+    and 1 + 2 * stages mbarriers.  float32 (``dkdv_f32_smem``): K, V, Q and
+    dO tiles, P and dS tiles, LSE and D, one padding column per tile row."""
+    if dtype == "bfloat16":
+        tile = 2 * ROWS * kernel.padded_head_dim(head_dim)
+        return (tile * (2 + 2 * DKDV_STAGES) + 4 * 2 * ROWS * DKDV_STAGES
+                + 8 * (1 + 2 * DKDV_STAGES))
     return 4 * (4 * 64 * (head_dim + 1) + 2 * ROWS * (KEYS + 1) + 2 * ROWS)
 
 
-def dq_smem_bytes(head_dim: int) -> int:
-    """csrc ``dq_smem_bytes``: Q, dO, K and V tiles, the dS tile, LSE and D."""
+def dq_smem_bytes(head_dim: int, dtype: str) -> int:
+    """Dynamic shared memory of a dQ CTA.  bf16 (csrc ``dq_bf16_smem``):
+    the Q and dO tiles, ``DQ_STAGES`` stages of K and V tiles and 1 + 2 *
+    stages mbarriers.  float32 (``dq_f32_smem``): Q, dO, K and V tiles, the
+    dS tile, LSE and D."""
+    if dtype == "bfloat16":
+        tile = 2 * ROWS * kernel.padded_head_dim(head_dim)
+        return tile * (2 + 2 * DQ_STAGES) + 8 * (1 + 2 * DQ_STAGES)
     return 4 * (4 * 64 * (head_dim + 1) + ROWS * (KEYS + 1) + 2 * ROWS)
 
 
@@ -87,13 +111,14 @@ def choose_launch(B: int, NH: int, NKV: int, Sq: int, Skv: int, head_dim: int,
         raise ValueError(f"head_dim {head_dim} not in {kernel.HEAD_DIMS}")
     if dtype not in ("float32", "bfloat16"):
         raise ValueError(f"flash attention's backward takes float32 or bfloat16, not {dtype}")
-    dot = -(-B * NH * Sq // DOT_ROWS)
+    dot = -(-B * NH * Sq // (BF16_DOT_ROWS if dtype == "bfloat16" else DOT_ROWS))
     dkdv, dq = (B * NKV, -(-Skv // KEYS)), (B * NH, -(-Sq // ROWS))
     if (max(dot, dkdv[0], dq[0]) > kernel.MAX_GRID_X
             or max(dkdv[1], dq[1]) > kernel.MAX_GRID_Y):
         raise ValueError(f"B {B}, heads {NH}, Sq {Sq} or Skv {Skv} exceeds the launch grid")
-    return BwdLaunch(dtype, head_dim, dot, dkdv, dq, THREADS, dkdv_smem_bytes(head_dim),
-                     dq_smem_bytes(head_dim))
+    threads = BF16_THREADS if dtype == "bfloat16" else THREADS
+    return BwdLaunch(dtype, head_dim, dot, dkdv, dq, threads, dkdv_smem_bytes(head_dim, dtype),
+                     dq_smem_bytes(head_dim, dtype))
 
 
 def launch_for(q: torch.Tensor, k: torch.Tensor) -> BwdLaunch:
@@ -123,10 +148,6 @@ def _kernel():
     return _fn
 
 
-def _last_dim_contiguous(t: torch.Tensor) -> torch.Tensor:
-    return t if t.shape[-1] == 1 or t.stride(-1) == 1 else t.contiguous()
-
-
 def attention_bwd(
     q: torch.Tensor,           # (B, Sq, NH, hd) or (BH, Sq, hd)
     k: torch.Tensor,           # (B, Skv, NKV, hd) or (BH_kv, Skv, hd)
@@ -142,8 +163,9 @@ def attention_bwd(
     window: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)``, fresh contiguous tensors of the inputs' shapes and
-    dtype, from the backward kernels on CUDA tensors.  Raises on anything
-    else."""
+    dtype, from the backward kernels on CUDA tensors; an input the kernels
+    cannot read in place is copied once (:func:`.kernel.prepare`).  Raises
+    on anything else."""
     global launches
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -155,7 +177,7 @@ def attention_bwd(
         raise ValueError(f"lse must be contiguous float32 of {B * NH * Sq} rows on q's device; "
                          f"got {tuple(lse.shape)} {lse.dtype} on {lse.device}")
     kernel._check(q, k, v, group, q.dim())     # the device last
-    q, k, v, o, do = (_last_dim_contiguous(t) for t in (q, k, v, o, do))
+    q, k, v, o, do = kernel.prepare(q, k, v, o, do)
     hd, Skv = q.shape[-1], k.shape[1]
     launch = choose_launch(B, NH, NH // group, Sq, Skv, hd, str(q.dtype)[6:])
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))

@@ -18,6 +18,7 @@ against ``jax.grad`` of the JAX package's plain stream_pack.
 """
 
 import os
+import types
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
@@ -192,13 +193,32 @@ def _family_shapes():
     return out
 
 
+# bytes of one CTA's shared memory as the csrc lays it out, by (dtype, hd):
+# bf16 dK/dV: K and V tiles, 3 stages of Q and dO tiles (64 rows at the
+# padded width, 2 bytes), the stages' 64 LSE and 64 D floats, 7 mbarriers;
+# bf16 dQ: Q and dO tiles, 2 stages of K and V tiles, 5 mbarriers; float32:
+# four 64 x (hd + 1) tiles, the P/dS tiles (64 x 65) and LSE and D
+def _tile(hd):
+    return 2 * 64 * (128 if hd == 80 else hd)
+
+
+SMEM_TABLE = {("bfloat16", hd): (8 * _tile(hd) + 3 * 2 * 64 * 4 + 8 * 7,
+                                 6 * _tile(hd) + 8 * 5) for hd in kernel.HEAD_DIMS}
+SMEM_TABLE.update({("float32", hd): (4 * (4 * 64 * (hd + 1) + 2 * 64 * 65 + 2 * 64),
+                                     4 * (4 * 64 * (hd + 1) + 64 * 65 + 2 * 64))
+                   for hd in kernel.HEAD_DIMS})
+
+
 def test_backward_chooser_at_phi4_training_shape():
     launch = backward.choose_launch(2, 24, 8, 512, 512, 128, "bfloat16")
-    assert launch.dot_grid == 2 * 24 * 512 // backward.DOT_ROWS
+    assert launch.dot_grid == 2 * 24 * 512 // 32     # 32 rows per CTA, 8 lanes each
     assert launch.dkdv_grid == (16, 8) and launch.dq_grid == (48, 8)
-    assert launch.threads == 256
-    assert (launch.dkdv_smem, launch.dq_smem) == (165888, 149248)
+    assert launch.threads == 160                    # one consumer warpgroup + a producer warp
+    assert (launch.dkdv_smem, launch.dq_smem) == (132664, 98344)
     assert launch.instance == ("bfloat16", 128)
+    f32 = backward.choose_launch(2, 24, 8, 512, 512, 128, "float32")
+    assert f32.threads == 256 and (f32.dkdv_smem, f32.dq_smem) == (165888, 149248)
+    assert f32.dot_grid == 2 * 24 * 512 // 8         # a warp per row
 
 
 @pytest.mark.parametrize("shape", _family_shapes(), ids=lambda s: s[0])
@@ -207,9 +227,19 @@ def test_backward_chooser_at_each_family_shape(shape):
     for dtype in ("bfloat16", "float32"):
         launch = backward.choose_launch(B, NH, NKV, Sq, Skv, hd, dtype)
         assert max(launch.dkdv_smem, launch.dq_smem) <= backward.MAX_SMEM
+        assert (launch.dkdv_smem, launch.dq_smem) == SMEM_TABLE[dtype, hd]
+        assert launch.threads == (160 if dtype == "bfloat16" else 256)
         assert launch.dkdv_grid == (B * NKV, -(-Skv // 64))
         assert launch.dq_grid == (B * NH, -(-Sq // 64))
         assert launch.instance in backward.INSTANCES
+
+
+def test_bf16_dq_ctas_fit_twice_on_an_sm():
+    """The bf16 dQ kernel is built for two CTAs to an SM: its shared memory
+    (plus the 1 KB an SM reserves per CTA) fits twice in an H100 SM's
+    228 KB at every head dim."""
+    for hd in kernel.HEAD_DIMS:
+        assert 2 * (backward.dq_smem_bytes(hd, "bfloat16") + 1024) <= 233472
 
 
 def test_backward_covers_every_forward_head_dim():
@@ -240,6 +270,121 @@ def test_backward_wrapper_refuses(case, match):
         o = o.bfloat16()
     with pytest.raises(ValueError, match=match):
         backward.attention_bwd(q, k, v, o, lse, do)
+
+
+class _FakeLibrary:
+    """Stands in for the built library: records each call's arguments and
+    returns ``rc``, as ``flash_attention_bwd`` returns a CUDA error."""
+
+    def __init__(self, rc=0):
+        self.rc, self.calls = rc, []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.rc
+
+
+@pytest.fixture
+def fake_launch(monkeypatch):
+    """attention_bwd on CPU tensors up to the library call: the device
+    check and the stream are stubbed, the library is a _FakeLibrary."""
+    lib = _FakeLibrary()
+    monkeypatch.setattr(kernel, "_check", lambda *a: None)
+    monkeypatch.setattr(backward, "_kernel", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    return lib
+
+
+def _bwd_args(dtype, misaligned=False):
+    """Model-layout q, k, v, o, lse, do (B 2, S 16, 6 q heads over 2, hd
+    64); with ``misaligned``, q's sequence stride 4 elements (8 bytes) past
+    packed, which no tensor map takes."""
+    B, S, NH, NKV, hd = 2, 16, 6, 2, 64
+    q, k, v, do = (torch.from_numpy(a).to(dtype) for a in _inputs(7, B, S, S, NH, NKV, hd))
+    if misaligned:
+        row = NH * hd + 4
+        store = torch.zeros(B * S * row, dtype=dtype)
+        view = store.as_strided(q.shape, (S * row, row, hd, 1))
+        view.copy_(q)
+        q = view
+    o = torch.zeros_like(do)
+    return q, k, v, o, torch.zeros(B, NH, S), do
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_backward_routes_bf16_views_through_prepare(fake_launch, misaligned):
+    """The bf16 kernels read q, k, v and dO by TMA: attention_bwd passes
+    its inputs through ``kernel.prepare``, so a bf16 view whose sequence
+    stride is 8 bytes off 16 takes exactly one counted copy, and the
+    library gets 16-byte aligned pointers and strides; aligned model-layout
+    inputs go as they are."""
+    q, k, v, o, lse, do = _bwd_args(torch.bfloat16, misaligned)
+    assert kernel.readable(q) is not misaligned
+    before = kernel.layout_copies
+    dq, dk, dv = backward.attention_bwd(q, k, v, o, lse, do, group=3)
+    assert kernel.layout_copies - before == int(misaligned)
+    (args,) = fake_launch.calls
+    q_ptr, strides = args[0], list(args[17][:24])
+    assert (q_ptr == q.data_ptr()) is not misaligned and q_ptr % kernel.TMA_ALIGN == 0
+    assert all(2 * st % kernel.TMA_ALIGN == 0 for st in strides)
+    assert strides[:3] == [16 * 6 * 64, 6 * 64, 64]      # q as a contiguous copy would be
+    assert args[1:5] == (k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr())
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
+    assert dq.dtype == torch.bfloat16 and args[10] == 1
+
+
+def test_backward_float32_views_take_no_copy(fake_launch):
+    """float32 runs the FMA kernels, which read element-wise: the same
+    misaligned view goes in place."""
+    q, k, v, o, lse, do = _bwd_args(torch.float32, misaligned=True)
+    before = kernel.layout_copies
+    backward.attention_bwd(q, k, v, o, lse, do, group=3)
+    assert kernel.layout_copies == before
+    assert fake_launch.calls[0][0] == q.data_ptr() and fake_launch.calls[0][10] == 0
+
+
+def test_backward_launch_failure_raises_and_never_falls_back(fake_launch, monkeypatch):
+    """A launch the library refuses raises, counts no launch, and never
+    reaches the plain version."""
+    import repro_torch.kernels.flash_attention as package
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    def plain(*a, **kw):
+        raise AssertionError("the plain backward was called for a kernel launch")
+
+    for module in (package, ops, ref):
+        monkeypatch.setattr(module, "flash_attention_bwd_ref", plain)
+    fake_launch.rc = 700                                 # cudaErrorIllegalAddress
+    before = backward.launches
+    with pytest.raises(RuntimeError, match="flash_attention_bwd launch failed: CUDA error 700"):
+        backward.attention_bwd(*_bwd_args(torch.bfloat16), group=3)
+    assert backward.launches == before and len(fake_launch.calls) == 1
+
+
+def test_library_path_hashes_the_shared_header(tmp_path, monkeypatch):
+    """Both B1 sources include csrc/hopper.cuh: editing the header (and
+    only a header the source includes) gives another library name, so a
+    stale library is never loaded."""
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    csrc = backward.SOURCE.parent
+    for source in (backward.SOURCE, kernel.SOURCE):
+        assert (csrc / "hopper.cuh") in build.source_files(source)
+        copy, header = tmp_path / source.name, tmp_path / "hopper.cuh"
+        copy.write_text(source.read_text())
+        header.write_text((csrc / "hopper.cuh").read_text())
+        (tmp_path / "unrelated.cuh").write_text("// not included\n")
+        first = build.library_path(copy)
+        assert first == build.library_path(copy)
+        (tmp_path / "unrelated.cuh").write_text("// edited\n")
+        assert build.library_path(copy) == first
+        header.write_text(header.read_text() + "\n// edited\n")
+        assert build.library_path(copy) != first
+        assert build.library_path(copy).name.startswith(f"lib{source.stem}_")
+    # a source with no local include keeps the hash of its own bytes
+    assert build.source_files(pack.SOURCE) == [pack.SOURCE]
 
 
 @pytest.mark.parametrize("shared", [False, True])

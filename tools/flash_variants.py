@@ -77,14 +77,17 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref, kernel
 
     c.phase_device()
+    # each copy is built beside the shared header it includes
+    variants = build.BUILD_DIR / "variants"
+    variants.mkdir(parents=True, exist_ok=True)
+    header = kernel.SOURCE.parent / "hopper.cuh"
+    (variants / header.name).write_text(header.read_text())
     sources = []
     for src in args.sources:
-        if args.trace:
-            traced = build.BUILD_DIR / f"{src.stem}_trace.cu"
-            traced.parent.mkdir(parents=True, exist_ok=True)
-            traced.write_text(instrument(src.read_text()))
-            src = traced
-        sources.append(src)
+        text = src.read_text()
+        copy = variants / (f"{src.stem}_trace.cu" if args.trace else src.name)
+        copy.write_text(instrument(text) if args.trace else text)
+        sources.append(copy)
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.build, sources))
     for src in sources:
