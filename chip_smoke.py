@@ -27,7 +27,9 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    the four families' shapes, in a CUDA graph and launched from Python,
    beside the plain version,
    ``F.scaled_dot_product_attention`` (a yardstick only: the port never
-   calls it) and the card's bound;
+   calls it) and the card's bound; then at phase 20's prefill_32k shape, q
+   (1, 32768, 24, 128) over 8 kv heads, causal, the longest prompt B1 runs:
+   every head against the plain version, 3 q heads at a time, and timed;
 4. serve: phi4-mini-3.8b at full width and depth, bf16, random weights made
    on the card from a seed, 8 requests through ``ServingEngine`` with
    CUDA-graph-sealed steps; checks the tokens and that prefill went
@@ -141,7 +143,21 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
     (d) the phi4-mini, arctic and deepseek-v2 smoke configs at float32: one
     sealed step on the card against the CPU's; (e) Nimble over the
     gradients of the four branchy cells at full size, eager torch.func
-    against single-stream, multi-stream and packed replays, µs per call.
+    against single-stream, multi-stream and packed replays, µs per call;
+20. the launch layer: (a) the dry run (``repro_torch.launch.dryrun``) of
+    every arch x applicable input shape x production mesh (16x16 and
+    2x16x16) on the meta device, in subprocesses on the host's CPU while
+    the card draws (b)'s and (c)'s model, all ended before (b) and (c) time
+    anything: one line a case, any failure fails the run;
+    (b) decode_32k at one device's share: phi4-mini-3.8b at full width and
+    depth, bf16, 8 sequences over a synchronized (``per_slot=False``)
+    cache of 32768 positions filled from a seed: its logits equal the
+    per-slot step's on the same state, then 8 greedy steps eagerly and as
+    replays of one captured step give the same tokens; ms per replay, the
+    top device ops of one replay, the peak memory; (c) prefill_32k at B = 1
+    (a cut of the per-device share of 2): ``forward`` of 32768 tokens, B1
+    launched once a layer at the shape phase 3 checked, finite logits, the
+    time and the peak memory.
 
 Each phase prints its times (CUDA events, graph replays), the kernels of
 one profiled call, and the wrappers' counts; each forward and each decode
@@ -169,10 +185,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core rate, float32
-# without tensor cores, and HBM3 bandwidth
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-PEAK_BYTES = 3.35e12
 # (atol, rtol): the kernel passes where |got - ref| <= atol + rtol * |ref|.
 # float32 differs from its plain version only by summation order; bf16 also
 # by the rounding of p and of the output (one bf16 ulp is 2**-8 relative)
@@ -196,6 +208,16 @@ def ratio(got, ref, atol: float, rtol: float) -> float:
 def tol_ratio(got, ref, dname: str) -> float:
     """:func:`ratio` at flash attention's tolerance for ``dname``."""
     return ratio(got, ref, *TOL[dname])
+
+
+def bound(flops: float, nbytes: float, dname: str) -> tuple[float, str]:
+    """The least time the card could take for ``flops`` operations in
+    ``dname`` and ``nbytes`` moved, in ms, and which of the two bounds it,
+    at the H100's peaks (``repro_torch.launch.mesh``: NVIDIA's data sheet)."""
+    from repro_torch.launch.mesh import PEAK_BYTES, PEAK_FLOPS
+
+    t_ops, t_bytes = flops / PEAK_FLOPS[dname], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def fail(msg: str) -> None:
@@ -354,7 +376,9 @@ def path_attention_shapes(cfg, batch: int, length: int, prompt: int,
     and cross attention in a forward of ``batch`` x ``length`` tokens, and
     the cross attention of a decode step (one query row); zamba2's shared
     block in a forward of ``batch`` x ``length`` tokens (its decode
-    attention is plain); none for xLSTM."""
+    attention is plain); a dense model's layers in a forward of ``batch``
+    x ``length`` tokens (phase 20's prefill_32k; its decode attention is
+    plain); none for xLSTM."""
     H, KV, hd, name = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.name
     if cfg.family == "vlm":
         S = cfg.vision_tokens + prompt
@@ -368,6 +392,8 @@ def path_attention_shapes(cfg, batch: int, length: int, prompt: int,
                 (f"{name} cross attention, decode", batch, H, KV, 1, T, hd, False)]
     if cfg.family == "hybrid":
         return [(f"{name} shared block", batch, H, KV, length, length, hd, True)]
+    if cfg.family == "dense":
+        return [(f"{name} prompt", batch, H, KV, length, length, hd, True)]
     return []
 
 
@@ -386,6 +412,25 @@ def family_cases() -> list[tuple[str, int, int, int, int, int, int, bool]]:
     return [(dname, B, hd, kv, q // kv, Sq, Skv, causal)
             for dname in ("bfloat16", "float32")
             for _, B, q, kv, Sq, Skv, hd, causal in family_shapes()]
+
+
+# phase 20: the decode_32k and prefill_32k shapes' length, on phi4-mini
+LONG_ARCH, LONG_PROMPT = "phi4-mini-3.8b", 32768
+
+
+def long_prompt_shapes() -> list[tuple[str, int, int, int, int, int, int, bool]]:
+    """B1's calls in phase 20's prefill_32k forward (phi4-mini at B = 1,
+    32768 tokens), as :func:`path_attention_shapes` gives them."""
+    import repro_torch.configs as C
+
+    return path_attention_shapes(C.get(LONG_ARCH), 1, LONG_PROMPT, 0, ())
+
+
+def long_prompt_cases() -> list[tuple[str, int, int, int, int, int, int, bool]]:
+    """Phase 3's case at :func:`long_prompt_shapes`, in bf16 (the path's
+    dtype), with :func:`family_cases`' fields."""
+    return [("bfloat16", B, hd, kv, q // kv, Sq, Skv, causal)
+            for _, B, q, kv, Sq, Skv, hd, causal in long_prompt_shapes()]
 
 
 def _flash_tile(q, k, v) -> str:
@@ -482,7 +527,86 @@ def phase_kernel() -> dict:
     record["family_shapes"] = {
         label: flash_time(B * q, B * kv, Sq, Skv, hd, causal, label, describe=_flash_tile)
         for label, B, q, kv, Sq, Skv, hd, causal in family_shapes()}
+    record["long_prompt"] = flash_long_prompt()
     return record
+
+
+def flash_long_prompt() -> dict:
+    """B1 at phase 20's prefill_32k shape, the longest prompt it runs: q
+    (1, 32768, 24, 128), kv 8 heads, bf16, causal, on the model layout.
+    Held against the plain version one kv head's 3 q heads at a time (its
+    float32 scores are 4.3 GB a head), every row; then timed in a CUDA graph
+    beside ``F.scaled_dot_product_attention`` (a yardstick: the port never
+    calls it) and the bound; the plain version's time is that of its eight
+    calls, launched from Python after one untimed call."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel
+
+    (label, B, H, KV, Sq, Skv, hd, causal), = long_prompt_shapes()
+    G = H // KV
+    say(f"-- {label}: q ({B},{Sq},{H},{hd}) kv {KV} heads, bf16, causal; the plain version "
+        f"{G} q heads (one kv head) at a time")
+    q, k, v = _bshd_qkv(B, KV, G, Sq, Skv, hd, torch.bfloat16, seed=2024)
+    kw = dict(group=G, causal=causal)
+    before = kernel.layout_copies
+    got = kernel.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    worst, err, plain_ms = 0.0, 0.0, 0.0
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def plain(j):
+        heads = slice(j * G, (j + 1) * G)
+        start.record()
+        ref = _ref_bshd(q[:, :, heads], k[:, :, j:j + 1], v[:, :, j:j + 1], G, causal=causal)
+        stop.record()
+        stop.synchronize()
+        return ref, start.elapsed_time(stop)
+
+    # an untimed first call, as the other plain versions get warm-up calls:
+    # the first one also pays for growing the allocator's pool
+    warmup_ms = plain(0)[1]
+    for j in range(KV):
+        heads = slice(j * G, (j + 1) * G)
+        ref, chunk_ms = plain(j)
+        plain_ms += chunk_ms
+        part = got[:, :, heads]
+        worst = max(worst, tol_ratio(part, ref, "bfloat16"))
+        err = max(err, (part.float() - ref.float()).abs().max().item())
+        del ref
+    if not (math.isfinite(err) and worst <= 1.0):
+        fail(f"B1 disagrees at {label}: {worst:.3f} of tolerance, max_abs_err {err}")
+    if kernel.layout_copies != before:
+        fail(f"B1 took {kernel.layout_copies - before} layout copies at {label}")
+    # the library on (B, H, S, hd) with each kv head repeated for its q
+    # heads, on its flash or memory-efficient kernel: the math one would
+    # hold 103 GB of scores
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q4 = q.transpose(1, 2).contiguous()
+    k4, v4 = (t.transpose(1, 2).repeat_interleave(G, dim=1).contiguous() for t in (k, v))
+
+    def library():
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
+            return F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+
+    ms = graph_ms(lambda: kernel.attention(q, k, v, **kw), reps=2, iters=3)
+    library_ms = graph_ms(library, reps=2, iters=3)
+    eager_ms = time_ms(lambda: kernel.attention(q, k, v, **kw), 3, warmup=1)
+    pairs = Sq * (Sq + 1) // 2                       # causal, Sq == Skv
+    bound_ms, bound_by = bound(4.0 * hd * H * B * pairs,
+                               (2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
+                               "bfloat16")
+    say(f"  {H} heads within tolerance (worst {worst:.2f} of it), max_abs_err {err:.3e}, "
+        f"0 layout copies | graph kernel_ms {ms:.5f} library_ms {library_ms:.5f} | eager "
+        f"kernel_ms {eager_ms:.5f} | plain_ms {plain_ms:.5f} ({KV} calls of {G} heads; the "
+        f"untimed first call {warmup_ms:.5f}) | "
+        f"bound_ms {bound_ms:.5f} ({bound_by}) | kernel at {bound_ms / ms:.1%} of bound, "
+        f"{library_ms / ms:.3f}x the library's speed | {_flash_tile(q, k, v)}")
+    return dict(shape=[B, Sq, H, KV, hd], max_abs_err=err, ms=ms, eager_ms=eager_ms,
+                plain_ms=plain_ms, plain_first_call_ms=warmup_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
 
 
 def flash_layouts() -> None:
@@ -627,9 +751,7 @@ def flash_time(q_heads: int, kv_heads: int, Sq: int, Skv: int, hd: int, causal: 
     pairs = sum(min(i + 1, Skv) for i in range(Sq)) if causal else Sq * Skv
     flops = 4.0 * hd * q_heads * pairs
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
-    bound_ms = max(t_ops, t_bytes) * 1e3
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    bound_ms, bound_by = bound(flops, nbytes, "bfloat16")
     launch = f" | {describe(q, k, v)}" if describe else ""
     say(f"  {label} (q ({q_heads},{Sq},{hd}) kv ({kv_heads},{Skv},{hd}) causal {int(causal)}): "
         f"graph kernel_ms {graphed['kernel']:.5f} plain_ms "
@@ -1051,9 +1173,7 @@ def phase_stream_pack() -> dict:
         # output written once
         nbytes = ((1 if shared else lanes) * M * K + lanes * K * N + lanes * M * N) * itemsize
         flops = 2.0 * lanes * M * N * K
-        t_ops, t_bytes = flops / PEAK_FLOPS[dname], nbytes / PEAK_BYTES
-        bound_ms = max(t_ops, t_bytes) * 1e3
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        bound_ms, bound_by = bound(flops, nbytes, dname)
         say(f"  {name} (lanes {lanes}, M {M}, K {K}, N {N}, {dname}, shared x {shared}; "
             f"{_tile(launch)}): in a CUDA graph kernel_ms {kernel_ms:.5f} plain_ms "
             f"{plain_ms:.5f} library_ms {library_ms:.5f} | launched from Python kernel_ms {eager['kernel']:.5f} "
@@ -1133,9 +1253,7 @@ def expert_gemms() -> list[dict]:
                 plain_ms = time_ms(lambda: stream_pack_matmul_ref(x, w), 3, warmup=1)
                 nbytes = (lanes * M * K + lanes * K * N + lanes * M * N) * 2
                 flops = 2.0 * lanes * M * N * K
-                t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
-                bound_ms = max(t_ops, t_bytes) * 1e3
-                bound_by = "operations" if t_ops >= t_bytes else "bytes"
+                bound_ms, bound_by = bound(flops, nbytes, "bfloat16")
                 say(f"  {arch} {gemm} lanes {lanes} M {M} K {K} N {N} ({_tile(launch)}): "
                     f"{worst:.2f} of tolerance, max_abs_err {err:.3e} | in a CUDA graph "
                     f"kernel_ms {graphed['kernel']:.5f} library_ms (torch.bmm) "
@@ -1422,7 +1540,7 @@ def phase_moe_cpu_parity(number: int) -> None:
 DECODE_BATCH, DECODE_STEPS, FORWARD_LEN = 4, 16, 512
 
 
-def _load(arch: str, number: int):
+def _load(arch: str, number: int | str):
     """``arch`` at full width and depth, bf16, random weights drawn on the
     card from seed 0, after the memory of the phases before is collected."""
     import torch
@@ -1727,17 +1845,19 @@ def b1_calls(seen: set):
         kernel.attention = inner
 
 
-def check_family_launches(seen: set) -> None:
-    """Fails unless every B1 call of phases 11-14 (:func:`b1_calls`) was at
+def check_family_launches(seen: set, phases: str = "phases 11-14") -> None:
+    """Fails unless every B1 call of ``phases`` (:func:`b1_calls`) was at
     a shape that phase 3 held against the plain version
-    (:func:`family_cases`: the same dtype, batch, heads, lengths, head dim
-    and mask, default scale, no cap, no window)."""
+    (:func:`family_cases` and :func:`long_prompt_cases`: the same dtype,
+    batch, heads, lengths, head dim and mask, default scale, no cap, no
+    window)."""
     checked = {(dname, B, kv * group, kv, Sq, Skv, hd, causal, 1.0 / math.sqrt(hd), 0.0, 0)
-               for dname, B, hd, kv, group, Sq, Skv, causal in family_cases()}
+               for dname, B, hd, kv, group, Sq, Skv, causal
+               in family_cases() + long_prompt_cases()}
     unchecked = sorted(seen - checked)
     if unchecked:
-        fail(f"phases 11-14 launched B1 at shapes phase 3 never checked: {unchecked}")
-    say(f"phases 11-14 called B1 at {len(seen)} shapes (dtype, B, heads, kv heads, Sq, Skv, "
+        fail(f"{phases} launched B1 at shapes phase 3 never checked: {unchecked}")
+    say(f"{phases} called B1 at {len(seen)} shapes (dtype, B, heads, kv heads, Sq, Skv, "
         f"hd, causal), each held against the plain version in phase 3: "
         + "; ".join(" ".join(map(str, key[:8])) for key in sorted(seen)))
 
@@ -2534,16 +2654,16 @@ def train_kernel_timing() -> dict:
     flops = 2 * 5 * hd * NH * B * sum(min(i + 1, S) for i in range(S))
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + o.numel() + do.numel()
                   + q.numel() + k.numel() + v.numel()) + 4 * 2 * lse.numel()
-    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
-    bound_ms, bound_by = max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    bound_ms, bound_by = bound(flops, nbytes, "bfloat16")
+    ops_ms, bytes_ms = bound(flops, 0, "bfloat16")[0], bound(0, nbytes, "bfloat16")[0]
     launch = backward.launch_for(q, k)
     regs = bwd_registers()
     say(f"-- 19a timing, q ({B},{S},{NH},{hd}) kv ({B},{S},{NKV},{hd}) bf16 causal: graph "
         f"kernel_ms {graphed['kernel']:.5f} plain_ms {graphed['plain']:.5f} library_ms (SDPA "
         f"forward + backward) {graphed['library']:.5f} | eager kernel_ms {eager['kernel']:.5f} "
         f"plain_ms {eager['plain']:.5f} library_ms {eager['library']:.5f} | bound_ms "
-        f"{bound_ms:.5f} ({bound_by}; operations {t_ops * 1e3:.5f}: {flops / 1e9:.3f} GFLOP at "
-        f"the bf16 peak, 2.5x the forward's; bytes {t_bytes * 1e3:.5f}) | kernel at "
+        f"{bound_ms:.5f} ({bound_by}; operations {ops_ms:.5f}: {flops / 1e9:.3f} GFLOP at "
+        f"the bf16 peak, 2.5x the forward's; bytes {bytes_ms:.5f}) | kernel at "
         f"{bound_ms / graphed['kernel']:.1%} of bound | grids dot "
         f"{launch.dot_grid} dkdv {launch.dkdv_grid} dq {launch.dq_grid}, {launch.threads} "
         f"threads, smem dkdv {launch.dkdv_smem} dq {launch.dq_smem} B | max_abs_err {err:.3e}")
@@ -2649,12 +2769,12 @@ def train_b2_backward() -> dict:
             copy_ms = graph_ms(lambda: wd.transpose(1, 2).contiguous(), 5, 10)
             nbytes = 2 * (x.numel() + 2 * w.numel() + dy.numel() + x.numel())
             flops = 2 * 2 * lanes * M * K * N
-            bound = max(flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES) * 1e3
+            bound_ms, _ = bound(flops, nbytes, "bfloat16")
             say(f"    timed (graph): both products with the w^T and x^T copies {ms:.4f} ms "
                 f"(eager {eager_ms:.4f}), of which the w^T copy {copy_ms:.4f} ms; two "
-                f"torch.bmm {lib_ms:.4f} ms; bound {bound:.4f} ms (bytes)")
+                f"torch.bmm {lib_ms:.4f} ms; bound {bound_ms:.4f} ms (bytes)")
             record = dict(backward_ms=ms, backward_eager_ms=eager_ms, wT_copy_ms=copy_ms,
-                          backward_library_ms=lib_ms, backward_bound_ms=bound,
+                          backward_library_ms=lib_ms, backward_bound_ms=bound_ms,
                           backward_shape=[lanes, M, K, N])
         del x, w, dy, y, dx, dw, xg, wg
     return record
@@ -3011,6 +3131,294 @@ def phase_train(number: int) -> dict:
     return dict(bwd=bwd_record, pack=pack_record, phi4=phi4, smoke=smoke, nimble=nimble)
 
 
+# phase 20: decode_32k's per-device share (128 sequences over the 16-way data
+# axis), and the synchronized steps run eagerly and as graph replays
+SYNC_BATCH, SYNC_STEPS = 8, 8
+# the dry run's subprocesses at a time, on the host's CPU (8 cores beside
+# the card), while phase 20 draws its model's weights
+DRYRUN_PROCS = 6
+
+
+class DryRun:
+    """``python -m repro_torch.launch.dryrun --both-meshes`` over every arch
+    and applicable shape, in subprocesses (CPU only: meta tensors) started
+    by a thread, at most :data:`DRYRUN_PROCS` at a time: one per arch, and
+    one per shape for xlstm-125m, whose sLSTM steps through every position
+    of train_4k and prefill_32k.  Their output goes to
+    ``build/dryrun_torch/*.log``, their records to
+    ``experiments/dryrun_torch/``.  :meth:`stop` kills what still runs."""
+
+    def __init__(self) -> None:
+        import threading
+
+        import repro_torch.configs as C
+        from repro_torch.configs.shapes import INPUT_SHAPES
+
+        base = [sys.executable, "-m", "repro_torch.launch.dryrun", "--both-meshes"]
+        self.cmds = [base + ["--arch", "xlstm-125m", "--shape", s] for s in INPUT_SHAPES] + [
+            base + ["--arch", a] for a in C.all_archs() if a != "xlstm-125m"]
+        self.logs = ROOT / "build" / "dryrun_torch"
+        self.logs.mkdir(parents=True, exist_ok=True)
+        self.procs: list = []
+        self.stopped = False
+        self.t0 = time.perf_counter()
+        self.thread = threading.Thread(target=self._start_all, name="dryrun", daemon=True)
+        self.thread.start()
+
+    def _start_all(self) -> None:
+        import os
+
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+        for i, cmd in enumerate(self.cmds):
+            while (not self.stopped
+                   and sum(p.poll() is None for _, p, _ in self.procs) >= DRYRUN_PROCS):
+                time.sleep(0.2)
+            if self.stopped:
+                return
+            log = self.logs / f"{i:02d}.log"
+            with open(log, "w") as out:
+                proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT, cwd=ROOT,
+                                        env=env)
+            self.procs.append((cmd, proc, log))
+
+    def wait(self, timeout: float) -> list[tuple[list, int, str]]:
+        """``(command, exit code, output)`` of every process, once all have
+        ended; a process still running at ``timeout`` fails the run."""
+        deadline = time.perf_counter() + timeout
+        self.thread.join(max(0.0, deadline - time.perf_counter()))
+        out = []
+        for cmd, proc, log in self.procs:
+            try:
+                rc = proc.wait(max(0.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                fail(f"the dry run {' '.join(cmd[2:])} is still running after {timeout:.0f}s")
+            out.append((cmd, rc, log.read_text()))
+        if len(out) != len(self.cmds):
+            fail(f"only {len(out)} of the dry run's {len(self.cmds)} processes started")
+        return out
+
+    def stop(self) -> None:
+        self.stopped = True
+        self.thread.join(timeout=10.0)
+        for _, proc, _ in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def dryrun_report(dry: DryRun) -> dict:
+    """20a: every dry-run case's line; fails on a failed process, a FAIL
+    line or a case missing (each applicable arch x shape on both meshes)."""
+    import repro_torch.configs as C
+    from repro_torch.configs.shapes import INPUT_SHAPES, applicable
+
+    say("-- 20a: the dry run on the meta device, every arch x applicable shape x production "
+        "mesh (16x16, 2x16x16): bytes per device of params, AdamW moments, cache and batch, "
+        "whether they fit the card's 80 GB, the step's FLOPs (FlopCounterMode)")
+    results = dry.wait(timeout=600.0)
+    ok = []
+    for cmd, rc, text in results:
+        for line in text.splitlines():
+            if line.startswith(("OK", "FAIL", "SKIP")):
+                say(f"  {line}")
+                if line.startswith("OK"):
+                    ok.append(line.split()[1].rstrip(":"))
+        if rc != 0:
+            fail(f"the dry run {' '.join(cmd[2:])} exited {rc}: {text[-2000:]}")
+    want = {f"{a}_{s}_{m}" for a in C.all_archs() for s in INPUT_SHAPES
+            if applicable(C.get(a), s) for m in ("16x16", "2x16x16")}
+    if set(ok) != want or len(ok) != len(want):
+        fail(f"the dry run's cases differ from every applicable one: missing "
+             f"{sorted(want - set(ok))}, unexpected {sorted(set(ok) - want)}")
+    wall = time.perf_counter() - dry.t0
+    say(f"  {len(ok)} cases passed in {len(results)} processes, {wall:.1f}s from their start")
+    return dict(cases=len(ok), wall_s=wall)
+
+
+def synced_decode(cfg, model) -> dict:
+    """20b: decode_32k at one device's share: B = 8 sequences over a
+    ``per_slot=False`` cache of 32768 positions, filled from a seeded
+    generator, ``pos`` near its end.  The synchronized step's logits must
+    equal the per-slot step's on the same state with ``pos`` broadcast;
+    then SYNC_STEPS greedy steps eagerly and as replays of one captured
+    step, the same tokens.  Between runs only the positions the steps
+    write, and ``pos``, are restored: there is no room for a second cache."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.models import decode_step, init_cache
+
+    B, T = SYNC_BATCH, LONG_PROMPT
+    torch.cuda.reset_peak_memory_stats()
+    cache = init_cache(cfg, B, T, per_slot=False, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(20)
+    for name in ("k", "v"):
+        for layer in cache[name]:              # a layer at a time: no 34 GB temporary
+            layer.copy_(torch.randn(layer.shape, generator=g, device="cuda", dtype=layer.dtype))
+    cache_gb = sum(cache[n].numel() * cache[n].element_size() for n in ("k", "v")) / 1e9
+    p0 = T - 2 * SYNC_STEPS
+    written = slice(p0, p0 + SYNC_STEPS)
+    saved = {n: cache[n][:, :, written].clone() for n in ("k", "v")}
+
+    def restore():
+        for n in ("k", "v"):
+            cache[n][:, :, written].copy_(saved[n])
+        cache["pos"].fill_(p0)
+
+    def step(tok):
+        logits, _ = decode_step(model, cache, tok, cfg)
+        return torch.argmax(logits[:, -1, : cfg.vocab], dim=-1)
+
+    first = _tokens(cfg, B, 1, seed=21)
+    before = flash.launches
+    say(f"-- 20b: synchronized decode, phi4-mini-3.8b full, bf16: B = {B} (decode_32k's 128 "
+        f"over the 16-way data axis; its 8 kv heads do not divide the 16-way model axis, so "
+        f"the cache is whole), cache of {T} positions, {cache_gb:.1f} GB, pos 0-d at {p0}")
+    with torch.no_grad():
+        restore()
+        synced, _ = decode_step(model, cache, first, cfg)
+        restore()
+        per_slot = {"k": cache["k"], "v": cache["v"],
+                    "pos": torch.full((B,), p0, dtype=torch.long, device="cuda")}
+        slotted, _ = decode_step(model, per_slot, first, cfg)
+        torch.cuda.synchronize()
+        diff = (synced - slotted).abs().max().item()
+        same = torch.equal(synced, slotted)
+        del synced, slotted, per_slot
+        say(f"  synchronized logits against the per-slot step's on the same state: max |diff| "
+            f"{diff:.3e}, {'equal' if same else 'NOT equal'}")
+        if not same:
+            fail("the synchronized step's logits differ from the per-slot step's")
+
+        restore()
+        tok, eager = first.clone(), []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SYNC_STEPS):
+            nxt = step(tok)
+            eager.append(nxt)
+            tok = nxt[:, None]
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) / SYNC_STEPS * 1e3
+        eager = torch.stack(eager, 1).cpu()
+        if int(cache["pos"]) != p0 + SYNC_STEPS:
+            fail(f"pos is {int(cache['pos'])} after {SYNC_STEPS} steps from {p0}")
+
+        restore()
+        tok_in = first.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step(tok_in)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        restore()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = step(tok_in)
+        got = []
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(SYNC_STEPS):
+            graph.replay()
+            got.append(out.clone())
+            tok_in.copy_(out[:, None])
+        stop.record()
+        stop.synchronize()
+        replay_ms = start.elapsed_time(stop) / SYNC_STEPS
+        got = torch.stack(got, 1).cpu()
+    say(f"  {SYNC_STEPS} greedy steps: eager {eager_ms:.3f} ms a step (host clock), graph "
+        f"replay {replay_ms:.3f} ms a step (CUDA events, with the token feed)")
+    say(f"  tokens eager {eager.tolist()}")
+    say(f"  tokens graph {got.tolist()}")
+    if not torch.equal(eager, got):
+        fail("the captured synchronized step gives other tokens than the eager one")
+    if eager.min() < 0 or eager.max() >= cfg.vocab:
+        fail(f"a token outside [0, {cfg.vocab})")
+
+    def replay():
+        restore()
+        tok_in.copy_(first)
+        graph.replay()
+        return out
+
+    rows = by_kernel(kernels_in_one(replay))
+    if not rows:
+        fail("the profiler saw no device time in a synchronized decode replay")
+    total = sum(us for us, _, _ in rows)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"  one replay (after the copies that restore its state): {sum(c for _, c, _ in rows)} "
+        f"device ops, {total / 1e3:.3f} ms of kernels; peak memory {peak:.2f} GiB; top:")
+    for us, count, key in sorted(rows, reverse=True)[:8]:
+        say(f"  {us / total:6.1%} {us / 1e3:8.3f} ms x{count:<4d} {key[:90]}")
+    launches = flash.launches - before
+    if launches:
+        fail(f"the synchronized decode launched B1 {launches} times: its attention is plain")
+    del graph, cache, saved
+    return dict(batch=B, cache_positions=T, cache_gb=cache_gb, eager_step_ms=eager_ms,
+                replay_ms=replay_ms, replay_kernels_ms=total / 1e3, peak_gib=peak,
+                logits_equal_per_slot=same)
+
+
+def prefill_32k(cfg, model) -> dict:
+    """20c: ``forward`` of one 32768-token prompt (prefill_32k's share is 2
+    of its 32 sequences a device: B = 1 is a cut): every layer's attention
+    on B1 at q (1, 32768, 24, 128), kv 8 heads, causal, at a shape phase 3
+    checked; finite logits; the time (CUDA events) and the peak memory."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.models import forward
+
+    say(f"-- 20c: prefill_32k, phi4-mini-3.8b full, bf16, B = 1 (a cut: the per-device share "
+        f"is 2), {LONG_PROMPT} tokens")
+    batch = {"tokens": _tokens(cfg, 1, LONG_PROMPT, seed=22)}
+    seen: set = set()
+    before = flash.launches
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), b1_calls(seen):
+        logits, _ = forward(model, batch, cfg)
+        torch.cuda.synchronize()
+    made = flash.launches - before
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    finite = bool(torch.isfinite(logits).all())
+    shape = tuple(logits.shape)
+    del logits
+    say(f"  logits {shape} float32 ({shape[1] * shape[2] * 4 / 1e9:.1f} GB), "
+        f"{'finite' if finite else 'NOT finite'}; {made} B1 launches; peak {peak:.2f} GiB")
+    if shape != (1, LONG_PROMPT, cfg.padded_vocab) or not finite:
+        fail(f"prefill_32k: logits {shape} not finite or not (1, {LONG_PROMPT}, vocab)")
+    if made != cfg.n_layers:
+        fail(f"prefill_32k: B1 launched {made} times, want {cfg.n_layers}")
+    check_family_launches(seen, "phase 20c")
+    with torch.no_grad():
+        ms = time_ms(lambda: forward(model, batch, cfg)[0], 2, warmup=1)
+    launches = flash.launches - before
+    say(f"  {ms:.3f} ms a forward (CUDA events, mean of 2 after 1), "
+        f"{LONG_PROMPT / ms * 1e3:,.0f} tokens/s; B1 launched {launches} times in 20c")
+    return dict(ms=ms, peak_gib=peak, launches=launches)
+
+
+def phase_launch(number: int) -> dict:
+    """Phase 20: the launch layer (the dry run, the synchronized decode and
+    prefill_32k); see the module docstring.  The dry run's processes load
+    the host's cores, so they run while the model is drawn and have ended
+    before 20b and 20c time anything."""
+    say(f"== phase {number}: the launch layer")
+    dry = DryRun()
+    try:
+        cfg, model = _load(LONG_ARCH, f"{number}b, {number}c")
+        report = dryrun_report(dry)
+    finally:
+        dry.stop()
+    decode = synced_decode(cfg, model)
+    release()
+    prefill = prefill_32k(cfg, model)
+    del model
+    release()
+    return dict(dryrun=report, decode=decode, prefill=prefill)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     try:
@@ -3045,6 +3453,7 @@ def main() -> None:
     journal = phase_journal(18, workers)
     train = phase_train(19)
     phi4, smoke = train["phi4"], train["smoke"]
+    launch = phase_launch(20)
     # launches: the wrappers' counts over the paths' runs (each path's
     # counts set to 0 just before it), by path under launches_by_path;
     # launches_in_replays: the kernels the profiler saw in the paths'
@@ -3060,7 +3469,8 @@ def main() -> None:
                          workers["launches"].get("flash_attention", 0),
                      "journal recovery phi4-mini": journal["launches"],
                      "train phi4-mini-3.8b (eager steps, seal)": phi4["fwd_launches"],
-                     "train smoke configs on the card": sum(c[0] for c in smoke.values())}
+                     "train smoke configs on the card": sum(c[0] for c in smoke.values()),
+                     "launch prefill_32k phi4-mini-3.8b (B = 1)": launch["prefill"]["launches"]}
     bwd_by_path = {"train phi4-mini-3.8b (eager steps, seal)": phi4["bwd_launches"],
                    "train smoke configs on the card": sum(c[1] for c in smoke.values())}
     pack_by_path = {"nimble branchy cells": pack_launches,

@@ -44,6 +44,13 @@ Failure matrix (each result is a typed error on the affected lanes only):
 * **timeout** — the process is alive but wedged (no heartbeat inside
   ``hb_timeout``, or a step RPC exceeding ``step_timeout``): the worker
   is killed and treated as a crash, with ``WorkerTimeout`` attached.
+  While a worker unpickles a command (a spawned child imports the
+  spec's module there) or builds a lane's engine, a side thread keeps
+  heartbeating, so a slow build is bounded by ``setup_timeout`` and not
+  by ``hb_timeout``; a step gets no such thread, and a wedged step goes
+  silent.  The workers of a CPU plane split the parent's torch threads
+  among them, so that a step under load is not held up by an
+  oversubscribed CPU.
 * **shutdown** — parent-initiated: workers drain their trace rings into
   a final ``bye`` message and exit; the plane joins then force-kills
   stragglers so no orphan processes outlive the parent.
@@ -67,6 +74,7 @@ faked through ``XLA_FLAGS``) has no torch counterpart and is gone.
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import multiprocessing as mp
 import os
@@ -316,6 +324,50 @@ def _drain_spans(tracer: Any, offset: float) -> list:
     return out
 
 
+class _Beater:
+    """A worker's heartbeats from a side thread while its main thread is
+    busy with a command that may run long and is not a step: unpickling a
+    message and registering a lane.  Every send of the worker goes through
+    :meth:`send`, one at a time on the pipe.  Its ``("beat",)`` messages
+    carry no stats: the parent takes any message as a sign of life and
+    reads stats only from ``hb`` messages and replies, so a beat never
+    puts older stats over a step reply's."""
+
+    def __init__(self, conn: Any, hb_interval: float) -> None:
+        self.conn = conn
+        self.hb_interval = hb_interval
+        self._lock = threading.Lock()
+        self._busy = threading.Event()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="repro-worker-beat",
+                                        daemon=True)
+        self._thread.start()
+
+    def send(self, msg: tuple) -> None:
+        with self._lock:
+            self.conn.send(msg)
+
+    @contextlib.contextmanager
+    def busy(self):
+        self._busy.set()
+        try:
+            yield
+        finally:
+            self._busy.clear()
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.hb_interval):
+            if self._busy.is_set():
+                try:
+                    self.send(("beat",))
+                except (OSError, ValueError):
+                    return              # the pipe is closed: the worker is exiting
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=max(1.0, 4 * self.hb_interval))
+
+
 def _worker_main(
     conn: Any,
     worker_cls: type,
@@ -325,6 +377,7 @@ def _worker_main(
     trace: bool,
     clock_origin: float,
     setup_kwargs: dict,
+    threads: int,
     parent_end: Any = None,
 ) -> None:
     """Child-process entry: setup handshake, then the command loop.
@@ -333,7 +386,8 @@ def _worker_main(
     worker heartbeats (shipping its stats) while a busy one serves
     commands back-to-back.  Every command gets exactly one reply (plus
     any interleaved heartbeats), which is what lets the parent's RPC
-    loop stay a simple match-and-absorb."""
+    loop stay a simple match-and-absorb.  ``threads``, when not 0, is
+    the number of threads torch's CPU ops run on here."""
     if parent_end is not None:
         # fork-started children inherit the PARENT side of their own
         # pipe; holding it open means a SIGKILLed parent never produces
@@ -346,6 +400,8 @@ def _worker_main(
         # on in the parent: its first parallel region would wait forever
         # for threads fork did not copy.  One thread runs none.
         torch.set_num_threads(1)
+    elif threads:
+        torch.set_num_threads(threads)
     # clock-offset handshake: the parent stamped its perf_counter at
     # spawn; spans recorded here ship back shifted onto the parent clock
     offset = clock_origin - time.perf_counter()
@@ -367,36 +423,40 @@ def _worker_main(
         finally:
             conn.close()
         return
+    beat = _Beater(conn, hb_interval)
     try:
-        conn.send(("ready", {"pid": os.getpid(), "device": device_index}))
+        beat.send(("ready", {"pid": os.getpid(), "device": device_index}))
         while True:
             if not conn.poll(hb_interval):
-                conn.send(("hb", worker.stats()))
+                beat.send(("hb", worker.stats()))
                 continue
-            msg = conn.recv()
+            with beat.busy():
+                msg = conn.recv()
             cmd = msg[0]
             if cmd == "shutdown":
-                conn.send(("bye", _drain_spans(tracer, offset), worker.stats()))
+                beat.send(("bye", _drain_spans(tracer, offset), worker.stats()))
                 return
             if cmd == "flush":
-                conn.send(("spans", _drain_spans(tracer, offset)))
+                beat.send(("spans", _drain_spans(tracer, offset)))
                 tracer.clear()
                 continue
             if cmd == "ping":
-                conn.send(("hb", worker.stats()))
+                beat.send(("hb", worker.stats()))
                 continue
             try:
-                reply = worker.process(cmd, tuple(msg[1:]))
+                with beat.busy() if cmd == "register" else contextlib.nullcontext():
+                    reply = worker.process(cmd, tuple(msg[1:]))
             except SystemExit:
                 raise
             except BaseException as exc:  # noqa: BLE001 - per-command reply
                 lane = msg[1] if len(msg) > 1 else ""
-                conn.send((f"{cmd}_failed", lane, repr(exc)))
+                beat.send((f"{cmd}_failed", lane, repr(exc)))
                 continue
-            conn.send(reply)
+            beat.send(reply)
     except (EOFError, BrokenPipeError, OSError):
         return                      # parent went away: exit quietly
     finally:
+        beat.close()
         try:
             worker.cleanup()
         except Exception:  # noqa: BLE001 - teardown is best-effort
@@ -784,12 +844,16 @@ class WorkerPlane:
         ctx = mp.get_context(self.start_method)
         parent_conn, child_conn = ctx.Pipe()
         trace = self.tracer.enabled if self.trace is None else self.trace
+        # a CPU plane's workers share the CPU: each runs torch on its part
+        # of this process's threads, where a spawned child would take every
+        # core and n_workers of them oversubscribe it
+        threads = max(1, torch.get_num_threads() // self.n_workers) if self.device == "cpu" else 0
         proc = ctx.Process(
             target=_worker_main,
             args=(
                 child_conn, self.worker_cls, handle.index, handle.device,
                 self.hb_interval, trace, time.perf_counter(),
-                self.setup_kwargs,
+                self.setup_kwargs, threads,
                 # fork children inherit every open fd, including this
                 # pipe's parent end — hand it over so the child closes it
                 # and a dead parent reads as EOF (spawn children inherit
@@ -958,7 +1022,10 @@ class WorkerPlane:
         handle.backoff = nxt
         jitter = 1.0 + self.backoff_jitter * (2.0 * random.random() - 1.0)
         handle.next_spawn_at = now + nxt * jitter
-        handle.error = None
+        # under the lock: an RPC that saw the condemned worker's pipe
+        # close reads the error (a WorkerTimeout, say) there first
+        with handle.lock:
+            handle.error = None
         self._spawn(handle)
 
     # -- RPC ---------------------------------------------------------------
@@ -976,7 +1043,7 @@ class WorkerPlane:
         lane: Optional[str] = None,
     ) -> Optional[tuple]:
         """Receive until the matching reply arrives (absorbing interleaved
-        heartbeats/spans); ``None`` on timeout.  Caller holds the handle
+        heartbeats, beats and spans); ``None`` on timeout.  Caller holds the handle
         lock.  Raises :class:`WorkerError` for a ``*_failed`` reply and
         lets pipe errors propagate to the caller."""
         deadline = time.monotonic() + timeout
@@ -989,6 +1056,8 @@ class WorkerPlane:
             kind = msg[0]
             if kind == "hb":
                 handle.stats = msg[1]
+                continue
+            if kind == "beat":
                 continue
             if kind == "spans":
                 self._absorb_spans(handle, msg[1])

@@ -1,7 +1,20 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
-version.  ``build`` compiles the CUDA sources at first use."""
+version.  ``build`` compiles the CUDA sources at first use.
+
+A wrapper takes its kernel's plain version only for a tensor on one of
+:data:`PLAIN_DEVICES`: the CPU computes it, the meta device only
+propagates its shapes (the dry run, ``launch/dryrun.py``), and neither
+counts a launch.  On a CUDA tensor it launches the kernel or raises."""
 
 import sys
+
+#: the devices whose tensors take a kernel's plain version
+PLAIN_DEVICES = ("cpu", "meta")
+
+
+def takes_plain(t) -> bool:
+    """``t`` lies on one of :data:`PLAIN_DEVICES`."""
+    return t.device.type in PLAIN_DEVICES
 
 #: the kernel modules, by kernel name
 KERNEL_MODULES = {

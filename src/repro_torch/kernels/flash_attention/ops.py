@@ -7,7 +7,8 @@ model makes; see :func:`.kernel.prepare`) and writes a contiguous
 ``(B, Sq, heads, head_dim)`` output, so the model's ``reshape(B, S,
 heads * head_dim)`` is a view; it raises on what it cannot run.  CPU
 tensors go to the plain PyTorch version in its ``(B·heads, S, head_dim)``
-layout.
+layout; so do meta tensors, whose plain version only propagates shapes
+(:func:`repro_torch.kernels.takes_plain`).
 
 With grad enabled and an input that requires it, the call goes through
 :class:`FlashAttention`: its forward also keeps each row's log-sum-exp,
@@ -19,6 +20,8 @@ the forward runs alone.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import takes_plain
 
 from . import backward, kernel
 from .ref import flash_attention_bwd_ref, flash_attention_lse_ref, flash_attention_ref
@@ -49,7 +52,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(q, k, v, group, scale, softcap, causal, window):
         kw = dict(group=group, scale=scale, softcap=softcap, causal=causal, window=window)
-        if q.device.type != "cpu":
+        if not takes_plain(q):
             return kernel.attend(q, k, v, with_lse=True, **kw)
         o, lse = flash_attention_lse_ref(_flat(q), _flat(k), _flat(v), **kw)
         if q.dim() == 4:
@@ -67,7 +70,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, o, lse = ctx.saved_tensors
-        if q.device.type != "cpu":
+        if not takes_plain(q):
             dq, dk, dv = backward.attention_bwd(q, k, v, o, lse, do, **ctx.kw)
         else:
             dq, dk, dv = flash_attention_bwd_ref(
@@ -90,7 +93,7 @@ def mha_flash(
     B, Sq, NH, hd = q.shape
     group = NH // k.shape[2]
     kw = dict(group=group, scale=scale, softcap=softcap, causal=causal, window=window)
-    if q.device.type != "cpu":
+    if not takes_plain(q):
         return kernel.attention(q, k, v, **kw)
     if kernel.needs_grad(q, k, v):
         return FlashAttention.apply(q, k, v, group, scale, softcap, causal, window)[0]

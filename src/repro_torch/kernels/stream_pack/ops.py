@@ -1,8 +1,8 @@
 """Public wrappers for stream_pack.
 
-``stream_pack(x, w)`` picks by the tensors' device: CPU tensors go to the
-plain PyTorch version, CUDA tensors to the Hopper kernel (which raises on
-what it cannot run).  The kernel masks its ragged edge, so these wrappers
+``stream_pack(x, w)`` picks by the tensors' device: CPU and meta tensors
+go to the plain PyTorch version (:func:`repro_torch.kernels.takes_plain`),
+CUDA tensors to the Hopper kernel (which raises on what it cannot run).  The kernel masks its ragged edge, so these wrappers
 pass one block per dimension and take any M, N and K; the TPU's block
 contract is :func:`kernel.stream_pack_matmul`'s, for callers that name
 blocks.  ``packed_branches(xs, ws)`` is the drop-in for "run these k
@@ -13,6 +13,8 @@ flow through :class:`StreamPack`, whose backward is the same kernel.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import takes_plain
 
 from . import kernel
 from .ref import stream_pack_matmul_ref
@@ -63,7 +65,7 @@ def stream_pack(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _stream_pack(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dim() == 2:
         x = x.contiguous().expand(w.shape[0], *x.shape)
-    if x.device.type == "cpu":
+    if takes_plain(x):
         return stream_pack_matmul_ref(x, w)
     _, M, K = x.shape
     if x.stride(0) != 0 or not x[0].is_contiguous():

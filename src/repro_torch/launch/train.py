@@ -12,7 +12,11 @@ and AdamW as one CUDA graph on the card, the eager step on the CPU), then
 the loop only copies each batch from the synthetic pipeline in and
 replays, logging loss, ce, grad norm and tokens per second and writing
 checkpoints.  The weights are random, drawn on the device from ``--seed``.
-One device only: ``--model-axis`` above 1 (a mesh) is refused.
+One device only: ``--model-axis`` above 1 (a mesh) is refused until
+sharded execution (parameters as DTensors placed by
+``repro_torch.distributed.tree_shardings``, a process per card under
+``torchrun``) is in; the rules, the meshes and the dry run are
+(``repro_torch.distributed``, ``launch/mesh.py``, ``launch/dryrun.py``).
 """
 
 from __future__ import annotations
@@ -55,8 +59,9 @@ def main(argv=None) -> list[float]:
     args = parser().parse_args(argv)
     if args.model_axis > 1:
         raise NotImplementedError(
-            "--model-axis > 1 needs the sharded mesh, ROADMAP Queue 1 item 8; "
-            "the port trains on one device")
+            "--model-axis > 1 needs sharded execution (DTensor parameters over a "
+            "multi-process mesh, ROADMAP Queue 1 item 8's next slice); the port "
+            "trains on one device")
     cfg = C.get(args.arch, smoke=args.smoke)
     if args.dtype:
         cfg = dataclasses.replace(cfg, dtype=args.dtype)

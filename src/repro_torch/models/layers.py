@@ -24,6 +24,24 @@ Params = Mapping[str, torch.Tensor]
 NEG_INF = -1e30
 
 
+class Shape(tuple):
+    """A parameter's shape with its logical axes: ``axes`` names one axis,
+    or ``_`` for none, per dimension (see
+    :func:`repro_torch.distributed.parse_axes`), as the JAX package's
+    ``init_*`` functions pair each leaf with its axes string.  The shape
+    helpers of the model families return these, so each leaf's shape and
+    axes stand in one place."""
+
+    axes: str
+
+    def __new__(cls, dims, axes: str):
+        self = super().__new__(cls, dims)
+        if len(axes.split()) != len(self):
+            raise ValueError(f"axes {axes!r} do not match the shape {tuple(self)}")
+        self.axes = axes
+        return self
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
@@ -315,6 +333,19 @@ def append_kv(cache_k, cache_v, new_k, new_v, pos):
     for c, u in ((cache_k, new_k), (cache_v, new_v)):
         c.view((L, B * T) + rest).index_copy_(
             1, rows, u.to(c.dtype).reshape((L, B * S_new) + rest))
+    return cache_k, cache_v
+
+
+def append_kv_synced(cache_k, cache_v, new_k, new_v, pos):
+    """The synchronized batch decode's cache append, **in place**: all
+    layers and slots written at the one offset ``pos`` (0-d), as JAX's
+    single ``dynamic_update_slice`` at ``(0, 0, pos, 0, 0)``, start clamped
+    as there.  cache_k/v: (L,B,T,nkv,hd); new_k/v: (L,B,S_new,nkv,hd).
+    One ``index_copy_`` each, at an offset read on the device."""
+    T, S_new = cache_k.shape[2], new_k.shape[2]
+    rows = pos.clamp(0, T - S_new) + torch.arange(S_new, device=pos.device)
+    for c, u in ((cache_k, new_k), (cache_v, new_v)):
+        c.index_copy_(2, rows, u.to(c.dtype))
     return cache_k, cache_v
 
 

@@ -25,25 +25,26 @@ from typing import Mapping, Optional
 
 import torch
 
-from .layers import NEG_INF, _rms, apply_rope
+from .layers import NEG_INF, Shape, _rms, apply_rope
 
 
-def mla_shapes(cfg) -> dict[str, tuple[int, ...]]:
-    """Leaf name → shape of one layer's MLA parameters, as ``init_mla``
-    makes them in JAX (``kv_norm_scale`` is float32, the rest the model's
-    dtype)."""
+def mla_shapes(cfg) -> dict[str, Shape]:
+    """Leaf name → shape and logical axes of one layer's MLA parameters, as
+    ``init_mla`` makes them in JAX (``kv_norm_scale`` is float32, the rest
+    the model's dtype)."""
     m, d, nh = cfg.mla, cfg.d_model, cfg.n_heads
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
     if m.q_lora_rank:
-        shapes = {"w_dq": (d, m.q_lora_rank), "w_uq": (m.q_lora_rank, nh, qk)}
+        shapes = {"w_dq": Shape((d, m.q_lora_rank), "fsdp lora"),
+                  "w_uq": Shape((m.q_lora_rank, nh, qk), "lora heads head_dim")}
     else:
-        shapes = {"w_q": (d, nh, qk)}
+        shapes = {"w_q": Shape((d, nh, qk), "fsdp heads head_dim")}
     shapes.update({
-        "w_dkv": (d, m.kv_lora_rank + m.qk_rope_head_dim),
-        "w_uk": (m.kv_lora_rank, nh, m.qk_nope_head_dim),
-        "w_uv": (m.kv_lora_rank, nh, m.v_head_dim),
-        "w_o": (nh, m.v_head_dim, d),
-        "kv_norm_scale": (m.kv_lora_rank,),
+        "w_dkv": Shape((d, m.kv_lora_rank + m.qk_rope_head_dim), "fsdp lora"),
+        "w_uk": Shape((m.kv_lora_rank, nh, m.qk_nope_head_dim), "lora heads head_dim"),
+        "w_uv": Shape((m.kv_lora_rank, nh, m.v_head_dim), "lora heads head_dim"),
+        "w_o": Shape((nh, m.v_head_dim, d), "heads head_dim fsdp"),
+        "kv_norm_scale": Shape((m.kv_lora_rank,), "_"),
     })
     return shapes
 

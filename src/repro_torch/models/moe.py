@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.kernels.stream_pack import stream_pack
 
-from .layers import _act
+from .layers import Shape, _act
 
 
 def capacity(n_tokens: int, cfg) -> int:
@@ -45,21 +45,23 @@ def capacity(n_tokens: int, cfg) -> int:
     return int(max(m.top_k, round(n_tokens * m.top_k / m.num_experts * m.capacity_factor)))
 
 
-def moe_shapes(cfg) -> dict[str, tuple[int, ...]]:
-    """Leaf name → shape of one layer's MoE parameters, as ``init_moe``
-    makes them in JAX: ``router`` (D, E), ``w_gate``/``w_up`` (E, D, F),
-    ``w_down`` (E, F, D) and, with shared experts, ``shared.*``."""
+def moe_shapes(cfg) -> dict[str, Shape]:
+    """Leaf name → shape and logical axes of one layer's MoE parameters, as
+    ``init_moe`` makes them in JAX: ``router`` (D, E), ``w_gate``/``w_up``
+    (E, D, F), ``w_down`` (E, F, D) and, with shared experts, ``shared.*``."""
     m, d = cfg.moe, cfg.d_model
+    E, F_ = m.num_experts, m.d_ff_expert
     shapes = {
-        "router": (d, m.num_experts),
-        "w_gate": (m.num_experts, d, m.d_ff_expert),
-        "w_up": (m.num_experts, d, m.d_ff_expert),
-        "w_down": (m.num_experts, m.d_ff_expert, d),
+        "router": Shape((d, E), "fsdp _"),
+        "w_gate": Shape((E, d, F_), "expert fsdp mlp"),
+        "w_up": Shape((E, d, F_), "expert fsdp mlp"),
+        "w_down": Shape((E, F_, d), "expert mlp fsdp"),
     }
     if m.num_shared_experts:
         f_sh = m.d_ff_shared * m.num_shared_experts
-        shapes.update({"shared.w_gate": (d, f_sh), "shared.w_up": (d, f_sh),
-                       "shared.w_down": (f_sh, d)})
+        shapes.update({"shared.w_gate": Shape((d, f_sh), "fsdp mlp"),
+                       "shared.w_up": Shape((d, f_sh), "fsdp mlp"),
+                       "shared.w_down": Shape((f_sh, d), "mlp fsdp")})
     return shapes
 
 

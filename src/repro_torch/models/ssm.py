@@ -25,6 +25,8 @@ from typing import Mapping, Optional
 import torch
 import torch.nn.functional as F
 
+from .layers import Shape
+
 Params = Mapping[str, torch.Tensor]
 # the float32 leaves of a Mamba2 layer; the rest is the model's dtype
 F32_LEAVES = ("conv_b", "A_log", "D", "dt_bias")
@@ -39,19 +41,20 @@ def ssm_dims(cfg) -> tuple[int, int, int]:
     return d_inner, n_heads, conv_ch
 
 
-def mamba2_shapes(cfg) -> dict[str, tuple[int, ...]]:
-    """Leaf name → shape of one layer's Mamba2 parameters, as
-    ``init_mamba2`` makes them in JAX (``w_in`` is ordered ``[z | xBC | dt]``)."""
+def mamba2_shapes(cfg) -> dict[str, Shape]:
+    """Leaf name → shape and logical axes of one layer's Mamba2 parameters,
+    as ``init_mamba2`` makes them in JAX (``w_in`` is ordered ``[z | xBC |
+    dt]``)."""
     s, d = cfg.ssm, cfg.d_model
     d_inner, H, conv_ch = ssm_dims(cfg)
     return {
-        "w_in": (d, 2 * d_inner + 2 * s.state_dim + H),
-        "conv_w": (s.conv_width, conv_ch),
-        "conv_b": (conv_ch,),
-        "A_log": (H,),
-        "D": (H,),
-        "dt_bias": (H,),
-        "w_out": (d_inner, d),
+        "w_in": Shape((d, 2 * d_inner + 2 * s.state_dim + H), "fsdp mlp"),
+        "conv_w": Shape((s.conv_width, conv_ch), "_ mlp"),
+        "conv_b": Shape((conv_ch,), "_"),
+        "A_log": Shape((H,), "_"),
+        "D": Shape((H,), "_"),
+        "dt_bias": Shape((H,), "_"),
+        "w_out": Shape((d_inner, d), "mlp fsdp"),
     }
 
 

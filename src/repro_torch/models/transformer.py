@@ -10,6 +10,7 @@ API shape::
     memory        = encode_memory(model, frames, cfg)   # audio: the encoder, once
     cache         = init_cache(cfg, batch_size, max_len, device="cuda")
     logits, cache = decode_step(model, cache, tokens, cfg)   # in place
+    model, axes   = abstract_model(cfg)                 # on "meta": the dry run
 
 ``batch`` holds ``tokens`` and, per family, ``vision_embeds`` (vlm) or
 ``frames`` (audio).  The JAX package stacks the layers and runs them under
@@ -23,6 +24,14 @@ of ``ffn`` (Arctic keeps its parallel dense ``ffn`` too); an MLA layer
 caches latents (``ckv``/``krope``) instead of keys and values.  Every
 decode state (KV cache, latents, SSD and conv state, xLSTM cells) is
 updated in place, where JAX returns a new cache.
+
+Every parameter carries its logical axes (``param.axes``, JAX's axes
+string; a leaf JAX stacks over layers, ``"layers " + s``, is a per-layer
+parameter here and carries ``s``): :func:`param_axes` returns them by
+name, :func:`cache_axes` gives the cache's, and
+:mod:`repro_torch.distributed` maps both onto a mesh.  ``init_cache(...,
+per_slot=False)`` gives the synchronized batch decode its one scalar
+offset.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from torch import nn
 from . import layers as L
 from . import ssm as SSM
 from . import xlstm as XL
+from .layers import Shape
 from .mla import mla_attention, mla_prefill, mla_shapes
 from .moe import apply_moe, moe_shapes
 
@@ -48,9 +58,12 @@ ATTENTION_FAMILIES = ("dense", "moe", "vlm")
 INIT_CHUNK = 2**28
 
 
-def _param(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+def _param(shape: Shape, dtype, device) -> nn.Parameter:
+    """An uninitialised parameter of ``shape``, carrying its logical axes
+    as ``axes``."""
+    param = nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
+    param.axes = shape.axes
+    return param
 
 
 class Group(nn.Module):
@@ -74,7 +87,7 @@ class Group(nn.Module):
 
 
 def _nest(shapes: dict, dtype_of, device) -> dict:
-    """``{"a": shape, "b.c": shape}`` → parameters, with dotted names
+    """``{"a": Shape, "b.c": Shape}`` → parameters, with dotted names
     nested one level into :class:`Group`s."""
     out: dict = {}
     for name, shape in shapes.items():
@@ -89,9 +102,9 @@ def _nest(shapes: dict, dtype_of, device) -> dict:
 
 def _norm(cfg, device) -> Group:
     d = cfg.d_model
-    p = {"scale": _param((d,), torch.float32, device)}
+    p = {"scale": _param(Shape((d,), "_"), torch.float32, device)}
     if cfg.norm == "layernorm":
-        p["bias"] = _param((d,), torch.float32, device)
+        p["bias"] = _param(Shape((d,), "_"), torch.float32, device)
     return Group(p)
 
 
@@ -111,15 +124,19 @@ def _attn_params(cfg, dt, device) -> Group:
     """``init_attention``'s leaves: ``wq``, ``wk``, ``wv``, ``wo`` (and the
     qk-norm scales)."""
     d, h, nh, nkv = cfg.d_model, cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-    shapes = {"wq": (d, nh, h), "wk": (d, nkv, h), "wv": (d, nkv, h), "wo": (nh, h, d)}
+    shapes = {"wq": Shape((d, nh, h), "fsdp heads head_dim"),
+              "wk": Shape((d, nkv, h), "fsdp kv_heads head_dim"),
+              "wv": Shape((d, nkv, h), "fsdp kv_heads head_dim"),
+              "wo": Shape((nh, h, d), "heads head_dim fsdp")}
     if cfg.qk_norm:
-        shapes.update({"q_norm": (h,), "k_norm": (h,)})
+        shapes.update({"q_norm": Shape((h,), "_"), "k_norm": Shape((h,), "_")})
     return Group(_leaves(shapes, dt, device))
 
 
 def _ffn_params(cfg, dt, device) -> Group:
     d, f = cfg.d_model, cfg.d_ff
-    return Group(_leaves({"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}, dt, device))
+    return Group(_leaves({"w_gate": Shape((d, f), "fsdp mlp"), "w_up": Shape((d, f), "fsdp mlp"),
+                          "w_down": Shape((f, d), "mlp fsdp")}, dt, device))
 
 
 def _attn_block(cfg, dt, device) -> Group:
@@ -163,17 +180,19 @@ class Transformer(nn.Module):
 
     The leaves of :data:`F32_LEAVES` (norms, router, gate biases, the SSD's
     scalars) are float32 and the rest is ``dtype`` (default ``cfg.dtype``),
-    as in JAX.  The tensors are allocated uninitialised; :func:`init_model`
-    or :func:`repro_torch.bridge.params_from_jax` fills them."""
+    as in JAX.  Each parameter carries its logical axes as ``axes``.  The
+    tensors are allocated uninitialised; :func:`init_model` or
+    :func:`repro_torch.bridge.params_from_jax` fills them.  On
+    ``device="meta"`` nothing is allocated (:func:`abstract_model`)."""
 
     def __init__(self, cfg, *, device="cuda", dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = cfg
         dt = dtype or getattr(torch, cfg.dtype)
         d, fam = cfg.d_model, cfg.family
-        embed = {"tok": _param((cfg.padded_vocab, d), dt, device)}
+        embed = {"tok": _param(Shape((cfg.padded_vocab, d), "vocab fsdp"), dt, device)}
         if not cfg.tie_embeddings:
-            embed["unembed"] = _param((d, cfg.padded_vocab), dt, device)
+            embed["unembed"] = _param(Shape((d, cfg.padded_vocab), "fsdp vocab"), dt, device)
         self.embed = Group(embed)
         self.final_norm = _norm(cfg, device)
         if fam in ATTENTION_FAMILIES:
@@ -181,7 +200,8 @@ class Transformer(nn.Module):
                                         for _ in range(cfg.n_layers))
             if fam == "vlm":
                 self.projector = Group(_leaves(
-                    {"w1": (cfg.vision_dim, d), "w2": (d, d)}, dt, device))
+                    {"w1": Shape((cfg.vision_dim, d), "_ fsdp"), "w2": Shape((d, d), "fsdp fsdp")},
+                    dt, device))
         elif fam == "hybrid":
             self.layers = nn.ModuleList(
                 Group({"mamba": Group(_leaves(SSM.mamba2_shapes(cfg), dt, device)),
@@ -206,7 +226,8 @@ class Transformer(nn.Module):
                        **{n: _norm(cfg, device) for n in ("ln1", "ln2", "ln3")}})
                 for _ in range(cfg.n_layers))
             self.enc_final_norm = _norm(cfg, device)
-            self.frontend_proj = Group(_leaves({"w": (cfg.audio_dim, d)}, dt, device))
+            self.frontend_proj = Group(_leaves({"w": Shape((cfg.audio_dim, d), "_ fsdp")}, dt,
+                                               device))
         else:
             raise ValueError(f"unknown family {fam}")
 
@@ -214,6 +235,22 @@ class Transformer(nn.Module):
         """Full-sequence logits ``(B, S, padded_vocab)`` of a text-only
         batch (``vision_embeds`` or ``frames`` go through :func:`forward`)."""
         return forward(self, {"tokens": tokens}, self.cfg)[0]
+
+
+def abstract_model(cfg) -> tuple[Transformer, dict[str, str]]:
+    """``(Transformer on the meta device, param_axes(cfg))``: every
+    parameter's shape and dtype and its axes, with nothing allocated (JAX's
+    ``abstract_model``, for the dry run)."""
+    model = Transformer(cfg, device="meta")
+    return model, {name: p.axes for name, p in model.named_parameters()}
+
+
+def param_axes(cfg) -> dict[str, str]:
+    """Each parameter's logical axes string, by its name in
+    :class:`Transformer` (the names :mod:`repro_torch.bridge` gives the
+    JAX leaves: ``layers.3.attn.wq``); a per-layer leaf carries JAX's
+    axes without the stacked ``layers`` axis."""
+    return abstract_model(cfg)[1]
 
 
 # ---------------------------------------------------------------------------
@@ -339,11 +376,11 @@ def cache_names(cfg) -> tuple[str, str]:
     return ("ckv", "krope") if cfg.mla is not None else ("k", "v")
 
 
-def _run_layers(p, x, cfg, positions, cache=None, prompt=False, keep_new=True):
+def _run_layers(p, x, cfg, positions, cache=None, pos=None, prompt=False, keep_new=True):
     """Walk the layer stack; returns ``(x, new_kv, aux)`` with the layers'
     router losses summed (None without MoE) and, with ``keep_new``, each
     layer's new keys/values (or latents) stacked on a leading layer axis
-    (else None)."""
+    (else None).  With ``cache``, ``pos`` is the slots' offsets ``(B,)``."""
     news: tuple[list, list] = ([], [])
     auxs = []
     windows = _window_schedule(cfg) or [None] * cfg.n_layers
@@ -352,7 +389,7 @@ def _run_layers(p, x, cfg, positions, cache=None, prompt=False, keep_new=True):
         lcache = None
         if cache is not None:
             lcache = {name: cache[name][i] for name in cache_names(cfg)}
-            lcache["pos"] = cache["pos"]
+            lcache["pos"] = pos
         x, new_kv, aux = block(lp, x, cfg, positions=positions, window=w,
                                cache=lcache, prompt=prompt)
         if keep_new:
@@ -515,9 +552,12 @@ def prefill(p: Transformer, tokens: torch.Tensor, cfg):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch_size: int, max_len: int, *, memory_len: int = 0,
-               device="cuda") -> dict:
-    """Per-slot decode state, ``pos`` ``(B,)`` (every batch slot at its own
-    write offset), as JAX's ``init_cache(per_slot=True)`` lays it out:
+               per_slot: bool = True, device="cuda") -> dict:
+    """Decode state as JAX's ``init_cache`` lays it out.  ``pos`` is
+    ``(B,)`` with ``per_slot`` (every batch slot at its own write offset:
+    continuous batching) and 0-d without (one offset for the whole batch:
+    the synchronized batch decode of :func:`decode_step`); int64, the
+    port's index type, where JAX's is int32.  Besides ``pos``:
 
     * dense / vlm / moe: ``k``/``v`` ``(n_layers, B, max_len, n_kv_heads,
       head_dim)`` in ``cfg.dtype``, or MLA's latents ``ckv`` ``(n_layers, B,
@@ -569,16 +609,45 @@ def init_cache(cfg, batch_size: int, max_len: int, *, memory_len: int = 0,
                  "memory": zeros((B, memory_len, cfg.d_model))}
     else:
         raise ValueError(f"unknown family {fam}")
-    cache["pos"] = torch.zeros((batch_size,), dtype=torch.long, device=device)
+    cache["pos"] = torch.zeros((batch_size,) if per_slot else (), dtype=torch.long,
+                               device=device)
     return cache
+
+
+def cache_axes(cfg, per_slot: bool = True) -> dict:
+    """Logical-axes strings in the structure of :func:`init_cache`'s cache
+    (JAX's ``cache_axes``, for the dry run's placements)."""
+    fam = cfg.family
+    pos = "batch" if per_slot else ""
+    kv = "layers batch kv_seq kv_heads _"
+    if fam in ATTENTION_FAMILIES:
+        if cfg.mla is not None:
+            return {"ckv": "layers batch kv_seq _", "krope": "layers batch kv_seq _", "pos": pos}
+        return {"k": kv, "v": kv, "pos": pos}
+    if fam == "hybrid":
+        return {"ssm_h": "layers batch heads _ _", "conv": "layers batch _ mlp",
+                "attn_k": "_ batch kv_seq kv_heads _", "attn_v": "_ batch kv_seq kv_heads _",
+                "pos": pos}
+    if fam == "ssm":
+        slstm = {"c": "batch _", "n": "batch _", "m": "batch _", "h": "batch _"}
+        mlstm = {"C": "batch heads _ _", "n": "batch heads _", "m": "batch heads"}
+        return {"layers": [dict(slstm if _xlstm_kind(cfg, i) == "slstm" else mlstm)
+                           for i in range(cfg.n_layers)], "pos": pos}
+    if fam == "audio":
+        return {"k": kv, "v": kv, "memory": "batch _ _", "pos": pos}
+    raise ValueError(f"unknown family {fam}")
 
 
 def decode_step(p: Transformer, cache: dict, tokens: torch.Tensor, cfg):
     """One decode step: tokens ``(B, S_new)`` → ``(logits, cache)``.
 
-    Every slot decodes at its own offset ``cache["pos"]``.  Dense attention
+    Every slot decodes at its own offset ``cache["pos"]`` ``(B,)``, or,
+    with a 0-d ``pos`` (``init_cache(per_slot=False)``), all at that one
+    offset: the synchronized batch decode.  Dense attention
     reads the cache read-only, and after the layer loop the new keys/values
-    of all layers are appended at once; MLA writes each layer's new latents
+    of all layers are appended at once (synchronized: one write of all
+    layers and slots at ``pos``, an ``index_copy_`` at a device-side
+    offset, so a CUDA graph captures it); MLA writes each layer's new latents
     into the cache inside the layer, then attends (as JAX does).  The
     hybrid's SSD and conv state, its shared block's keys/values (written
     inside the layer), the xLSTM cells and the audio decoder's keys/values
@@ -588,15 +657,19 @@ def decode_step(p: Transformer, cache: dict, tokens: torch.Tensor, cfg):
     hybrid, ssm and audio, as in JAX.  Unlike the JAX version, which
     returns a new cache, this updates ``cache`` **in place** (and returns
     it): a captured CUDA graph needs fixed addresses."""
-    pos = cache["pos"]
-    S_new = tokens.shape[1]
+    B, S_new = tokens.shape
+    synced = cache["pos"].dim() == 0
+    pos = cache["pos"].expand(B)             # a scalar offset broadcast, as in JAX
     fam = cfg.family
     x = L.embed_tokens(p.embed, tokens, cfg)
     positions = pos[:, None] + torch.arange(S_new, device=pos.device)[None, :]
     if fam in ATTENTION_FAMILIES:
         # MLA has written its latents into the cache inside each layer
-        x, new, _ = _run_layers(p, x, cfg, positions, cache=cache, keep_new=cfg.mla is None)
-        if new is not None:
+        x, new, _ = _run_layers(p, x, cfg, positions, cache=cache, pos=pos,
+                                keep_new=cfg.mla is None)
+        if new is not None and synced:
+            L.append_kv_synced(cache["k"], cache["v"], *new, cache["pos"])
+        elif new is not None:
             L.append_kv(cache["k"], cache["v"], *new, pos)
         step = S_new
     elif fam == "hybrid":
@@ -620,6 +693,6 @@ def decode_step(p: Transformer, cache: dict, tokens: torch.Tensor, cfg):
             x = _decoder_layer(lp, x, cache["memory"], cfg, positions=positions,
                                cache={"k": cache["k"][i], "v": cache["v"][i], "pos": pos})
         step = 1
-    pos += step                                            # in place
+    cache["pos"] += step                                   # in place
     x = L.apply_norm(p.final_norm, x, cfg)
     return L.unembed(p.embed, x, cfg), cache

@@ -22,6 +22,8 @@ from typing import Mapping, Optional
 import torch
 import torch.nn.functional as F
 
+from .layers import Shape
+
 Params = Mapping[str, torch.Tensor]
 # the float32 leaves of the two cells; the rest is the model's dtype
 F32_LEAVES = ("w_if", "b_if", "b_gates")
@@ -31,20 +33,23 @@ def _heads(cfg) -> tuple[int, int]:
     return cfg.n_heads, cfg.d_model // cfg.n_heads
 
 
-def mlstm_shapes(cfg) -> dict[str, tuple[int, ...]]:
-    """Leaf name → shape of an mLSTM cell, as ``init_mlstm`` makes them."""
+def mlstm_shapes(cfg) -> dict[str, Shape]:
+    """Leaf name → shape and logical axes of an mLSTM cell, as
+    ``init_mlstm`` makes them."""
     d = cfg.d_model
     H, _ = _heads(cfg)
     d_up = int(d * cfg.xlstm.proj_factor)
-    return {"w_up": (d, 2 * d_up), "w_qkv": (d_up, 3 * d_up), "w_if": (d_up, 2 * H),
-            "b_if": (2 * H,), "w_down": (d_up, d)}
+    return {"w_up": Shape((d, 2 * d_up), "fsdp mlp"), "w_qkv": Shape((d_up, 3 * d_up), "mlp _"),
+            "w_if": Shape((d_up, 2 * H), "mlp _"), "b_if": Shape((2 * H,), "_"),
+            "w_down": Shape((d_up, d), "mlp fsdp")}
 
 
-def slstm_shapes(cfg) -> dict[str, tuple[int, ...]]:
-    """Leaf name → shape of an sLSTM cell, as ``init_slstm`` makes them."""
+def slstm_shapes(cfg) -> dict[str, Shape]:
+    """Leaf name → shape and logical axes of an sLSTM cell, as
+    ``init_slstm`` makes them."""
     d = cfg.d_model
-    return {"w_gates": (d, 4 * d), "r_gates": (d, 4 * d), "b_gates": (4 * d,),
-            "w_out": (d, d)}
+    return {"w_gates": Shape((d, 4 * d), "fsdp mlp"), "r_gates": Shape((d, 4 * d), "fsdp mlp"),
+            "b_gates": Shape((4 * d,), "_"), "w_out": Shape((d, d), "fsdp fsdp")}
 
 
 def gate_bias(name: str, n: int) -> torch.Tensor:

@@ -1,0 +1,276 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) against the JAX
+package, on the CPU, with nothing allocated.
+
+* ``abstract_model`` builds every parameter on the meta device; its names
+  (the ``repro_torch.bridge`` names of JAX's leaves), shapes, dtypes and
+  logical axes equal JAX's ``abstract_model``'s for all ten archs.
+* Full-size cases, one of each step kind (and the long-context overrides
+  at ``long_500k``), on both production meshes: every group's bytes per
+  device (params, AdamW's moments, the cache, the batch) equal a sum over
+  JAX's leaves of the elements their JAX ``PartitionSpec`` leaves one
+  device, times the port's element size (the port's ids are int64 where
+  JAX's are int32; every other dtype is JAX's).
+* The FLOPs the dry run counts for phi4-mini-3.8b at full size are within
+  1% of the analytic count of the step's matrix products (the formula is
+  in :func:`_phi4_flops`), and the shape cache under the counter changes
+  no count and hands back no meta tensor for an op that made a CPU one.
+* A meta tensor goes through each kernel wrapper (B1 forward and
+  backward, B2) to its plain version and counts no launch.
+"""
+
+import dataclasses
+import math
+import os
+
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
+
+import repro.configs as JC  # noqa: E402
+import repro.distributed.sharding as JS  # noqa: E402
+from repro.configs.shapes import input_specs as j_input_specs  # noqa: E402
+from repro.models.transformer import abstract_model as j_abstract_model  # noqa: E402
+from repro.models.transformer import cache_axes as j_cache_axes  # noqa: E402
+import repro_torch.configs as TC  # noqa: E402
+from repro_torch.kernels import launch_counts  # noqa: E402
+from repro_torch.kernels.flash_attention import mha_flash  # noqa: E402
+from repro_torch.kernels.stream_pack import stream_pack  # noqa: E402
+from repro_torch.configs.shapes import INPUT_SHAPES  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
+from repro_torch.models import abstract_model, forward  # noqa: E402
+
+ARCHS = JC.all_archs()
+MESHES = (False, True)
+# one case of each step kind; zamba2 at long_500k takes the overrides
+BYTE_CASES = [("phi4-mini-3.8b", "train_4k"), ("llava-next-34b", "prefill_32k"),
+              ("deepseek-v2-236b", "decode_32k"), ("zamba2-2.7b", "long_500k")]
+
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _leaves(tree, axes, prefix=""):
+    """(name, leaf, axes) of a tree of dicts and lists and its axes tree."""
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            yield from _leaves(sub, axes[key], f"{prefix}{key}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, sub in enumerate(tree):
+            yield from _leaves(sub, axes[i], f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree, axes
+
+
+def _bridge_names(sds, axes):
+    """JAX's abstract params by the bridge's per-layer names: (name, shape,
+    dtype, axes), a stacked leaf's ``layers`` axis dropped."""
+    for name, leaf, ax in _leaves(sds, axes):
+        head, _, rest = name.partition(".")
+        if ax.startswith("layers ") and head in ("layers", "encoder", "decoder"):
+            for i in range(leaf.shape[0]):
+                yield f"{head}.{i}.{rest}", tuple(leaf.shape[1:]), leaf.dtype, ax[7:]
+        else:
+            yield name, tuple(leaf.shape), leaf.dtype, ax
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_abstract_model_equals_jax(arch):
+    model, axes = abstract_model(TC.get(arch))
+    params = dict(model.named_parameters())
+    assert all(p.is_meta for p in params.values())              # nothing allocated
+    want = list(_bridge_names(*j_abstract_model(JC.get(arch))))
+    assert sorted(params) == sorted(name for name, *_ in want)
+    for name, shape, dtype, ax in want:
+        p = params[name]
+        assert tuple(p.shape) == shape, name
+        assert p.dtype == getattr(torch, jnp.dtype(dtype).name), name
+        assert axes[name] == ax == p.axes, name
+
+
+class JaxFakeMesh:
+    def __init__(self, mesh):
+        self.axis_names = mesh.mesh_dim_names
+        self.devices = np.empty(mesh.shape, object)
+
+
+def _jax_local_elements(shape, axes, mesh, rules):
+    """Elements of one device's share of a leaf under JAX's pspec."""
+    r = {**JS.DEFAULT_RULES, **(rules or {})}
+    spec = JS.logical_to_pspec(JS.parse_axes(axes), shape, JaxFakeMesh(mesh), r)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    n = 1
+    for dim, entry in zip(shape, tuple(spec) + (None,) * len(shape)):
+        names = () if entry is None else entry if isinstance(entry, tuple) else (entry,)
+        n *= dim // math.prod(sizes[a] for a in names)
+    return n
+
+
+_RECORDS: dict = {}
+
+
+def _records(arch, shape):
+    if (arch, shape) not in _RECORDS:
+        _RECORDS[(arch, shape)] = dryrun.run_case(arch, shape, meshes=MESHES)
+    return _RECORDS[(arch, shape)]
+
+
+def _jax_groups(arch, shape):
+    """JAX's leaves by dry-run group as (name, shape, axes), with the
+    port's element size of each."""
+    jcfg = JC.get(arch)
+    kind, specs = j_input_specs(jcfg, shape)
+    sds, axes = j_abstract_model(jcfg)
+    params = list(_leaves(sds, axes))
+    tparams = dict(abstract_model(TC.get(arch))[0].named_parameters())
+    by_name = {}
+    for name, leaf, ax in _leaves(sds, axes):
+        head, _, rest = name.partition(".")
+        port = f"{head}.0.{rest}" if ax.startswith("layers ") else name
+        by_name[name] = tparams[port].element_size()
+    groups = {"params": [(n, leaf.shape, ax, by_name[n]) for n, leaf, ax in params],
+              "optimizer": [], "cache": [], "batch": []}
+    if kind == "train":
+        groups["optimizer"] = [("step", (), "", 4)] + [
+            (n, leaf.shape, ax, 4) for _ in range(2) for n, leaf, ax in params]
+    if kind == "decode":
+        groups["cache"] = [(n, leaf.shape, ax, 8 if leaf.dtype == jnp.int32 else
+                            jnp.dtype(leaf.dtype).itemsize)
+                           for n, leaf, ax in _leaves(specs["cache"],
+                                                      j_cache_axes(jcfg, per_slot=False))]
+        groups["batch"] = [("tokens", specs["tokens"].shape, "batch seq", 8)]
+    else:
+        batch = specs["batch"]
+        groups["batch"] = [(n, leaf.shape, dryrun._batch_axes(batch)[n],
+                            8 if leaf.dtype == jnp.int32 else jnp.dtype(leaf.dtype).itemsize)
+                           for n, leaf in batch.items()]
+    return groups
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("arch,shape", BYTE_CASES)
+def test_device_bytes_equal_jax_pspecs(arch, shape):
+    rules = dict(dryrun.LONG_CONTEXT_OVERRIDES) if shape == "long_500k" else None
+    groups = _jax_groups(arch, shape)
+    for multi_pod, record in zip(MESHES, _records(arch, shape)):
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        assert record["mesh"] == ("2x16x16" if multi_pod else "16x16")
+        assert record["devices"] == mesh.size
+        memory = record["memory"]
+        for group, leaves in groups.items():
+            want = sum(_jax_local_elements(s, ax, mesh, rules) * size
+                       for _, s, ax, size in leaves)
+            assert memory[f"{group}_bytes"] == want, group
+        assert memory["argument_bytes"] == sum(memory[f"{g}_bytes"] for g in dryrun.GROUPS)
+        assert memory["fits"] == (memory["argument_bytes"] <= 80e9)
+        assert record["params"] == JC.get(arch).param_count
+        assert record["active_params"] == JC.get(arch).active_param_count
+
+
+def _phi4_flops(kind: str, B: int, S: int) -> int:
+    """phi4-mini's matrix-product FLOPs (2 per multiply-add) for one step
+    at batch B and length S (the cache's length for decode):
+
+    per layer, over N tokens: projections 2·N·D·(2·H + 2·KV)·hd, FFN
+    6·N·D·F; attention A: the plain version's two products over every
+    (query, key) pair, 4·B·H·Sq·Skv·hd (the masked half included; decode
+    against the cache, 4·B·H·(S + 1)·hd with its new token); unembed
+    U = 2·N·D·V over the padded vocab.  prefill and decode: L·(P + A) + U.
+    train (``cfg.remat``: each layer recomputed in the backward, up to the
+    last product whose output the backward needs, so the FFN's down
+    projection, 2·N·F·D, is not recomputed): forward L·(P + A), recompute
+    L·(P - 2·N·F·D + A), backward 2·P and the plain backward's five
+    products (2.5·A) a layer, and 2·U: L·(4·P - 2·N·F·D + 4.5·A) + 3·U."""
+    cfg = TC.get("phi4-mini-3.8b")
+    D, H, KV, hd, F, L, V = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                             cfg.d_ff, cfg.n_layers, cfg.padded_vocab)
+    N = B * (1 if kind == "decode" else S)
+    P = 2 * N * D * (2 * H + 2 * KV) * hd + 6 * N * D * F
+    A = 4 * B * H * (S + 1) * hd if kind == "decode" else 4 * B * H * S * S * hd
+    U = 2 * N * D * V
+    if kind == "train":
+        return L * (4 * P - 2 * N * F * D + 9 * A // 2) + 3 * U
+    return L * (P + A) + U
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_phi4_flops_match_the_products(shape):
+    sh = INPUT_SHAPES[shape]
+    got = _records("phi4-mini-3.8b", shape)[0]["flops"]
+    want = _phi4_flops(sh.kind, sh.global_batch, sh.seq_len)
+    assert abs(got - want) <= 0.01 * want, (got, want)
+
+
+def test_shape_cache_changes_no_count():
+    cfg = dataclasses.replace(TC.get("phi4-mini-3.8b", smoke=True), dtype="bfloat16")
+    model, _ = abstract_model(cfg)
+    tokens = torch.empty((2, 64), dtype=torch.int64, device="meta")
+
+    def run():
+        with torch.no_grad():
+            return forward(model, {"tokens": tokens}, cfg)[0]
+
+    with FlopCounterMode(display=False) as plain:
+        a = run()
+    with dryrun.MetaShapeCache(), FlopCounterMode(display=False) as cached:
+        b = run()
+        b = run()                                  # every op a cache hit
+    assert plain.get_total_flops() * 2 == cached.get_total_flops() > 0
+    assert a.shape == b.shape and a.dtype == b.dtype and b.is_meta
+
+
+def test_shape_cache_runs_ops_that_make_cpu_tensors():
+    # a factory op with no tensor input makes a CPU tensor: repeated under
+    # the cache, it must run again and give CPU data, never a meta stand-in
+    with dryrun.MetaShapeCache():
+        made = [torch.arange(5, dtype=torch.float32) for _ in range(2)]
+        meta = [torch.ones(3, device="meta") for _ in range(2)]
+    for t in made:
+        assert t.device.type == "cpu" and torch.equal(t, torch.arange(5.0))
+    assert all(t.is_meta and t.shape == (3,) for t in meta)
+
+
+def test_main_writes_records_and_fails_on_a_failure(tmp_path, monkeypatch, capsys):
+    failures = dryrun.run(["phi4-mini-3.8b"], ["decode_32k", "long_500k"], (False,),
+                          out_dir=tmp_path)
+    assert failures == []
+    assert [p.name for p in tmp_path.iterdir()] == ["phi4-mini-3.8b_decode_32k_16x16.json"]
+    assert "SKIP  phi4-mini-3.8b x long_500k" in capsys.readouterr().out
+
+    def broken(*a, **k):
+        raise RuntimeError("injected")
+
+    monkeypatch.setattr(dryrun, "run_case", broken)
+    monkeypatch.setattr(dryrun, "OUT_DIR", tmp_path)
+    with pytest.raises(SystemExit) as exc:
+        dryrun.main(["--arch", "phi4-mini-3.8b", "--shape", "decode_32k"])
+    assert exc.value.code == 1
+
+
+def test_meta_tensors_take_the_plain_versions_and_count_no_launch():
+    before = launch_counts()
+    q = torch.empty((2, 4096, 24, 128), dtype=torch.bfloat16, device="meta", requires_grad=True)
+    k = torch.empty((2, 4096, 8, 128), dtype=torch.bfloat16, device="meta", requires_grad=True)
+    v = torch.empty_like(k, requires_grad=True)
+    out = mha_flash(q, k, v)                           # through FlashAttention
+    assert out.shape == q.shape and out.is_meta
+    dq, dk, dv = torch.autograd.grad(out.sum(), (q, k, v))
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
+    with torch.no_grad():
+        assert mha_flash(q, k, v, causal=False).shape == q.shape
+    x = torch.empty((160, 64, 5120), dtype=torch.bfloat16, device="meta")
+    w = torch.empty((160, 5120, 1536), dtype=torch.bfloat16, device="meta")
+    assert stream_pack(x, w).shape == (160, 64, 1536)
+    assert stream_pack(x[0], w).shape == (160, 64, 1536)          # a shared x
+    assert launch_counts() == before

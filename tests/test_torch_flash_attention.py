@@ -250,13 +250,14 @@ def test_phase3_launches_every_kernel():
     assert len(SMOKE.flash_cases()) == 180          # 172 of 2 kv heads, eight of 24 heads
 
 
-@pytest.mark.parametrize("case", SMOKE.family_cases(), ids=str)
+@pytest.mark.parametrize("case", SMOKE.family_cases() + SMOKE.long_prompt_cases(), ids=str)
 def test_phase3_covers_the_families_shapes(case):
     """Phase 3 also holds B1 at the shapes of the family paths (phases
     11-14), at their own batch: llava's prefill buckets and S = 2944 at GQA
     7, seamless's bidirectional encoder, cross attention with Sq != Skv and
-    Sq = 1, zamba2's hd 80; each takes a kernel of the library within the
-    card's limits."""
+    Sq = 1, zamba2's hd 80; and at phase 20's prefill_32k (phi4, S =
+    32768, bf16); each takes a kernel of the library within the card's
+    limits."""
     dname, B, hd, kv_heads, group, Sq, Skv, causal = case
     launch = kernel.choose_launch(B, kv_heads * group, Sq, Skv, hd, dname)
     _check_launch(launch, B, kv_heads * group, Sq)
@@ -319,13 +320,14 @@ def _drive_family_path(arch, B, S, prompt, buckets):
     return cfg
 
 
-@pytest.mark.parametrize("arch", SMOKE.FAMILY_ARCHS + ("xlstm-125m",))
+@pytest.mark.parametrize("arch", SMOKE.FAMILY_ARCHS + ("xlstm-125m", SMOKE.LONG_ARCH))
 def test_path_attention_shapes_are_the_paths(arch, monkeypatch):
     """chip_smoke.path_attention_shapes, from which phase 3 takes the
-    family cases, lists exactly the flash attention calls the path makes:
-    each call of ``mha_flash`` is recorded while the smoke config runs the
-    phase's entry points on the CPU (phases 11-14 check the same on the
-    card, with the full configs, against phase 3's cases)."""
+    family cases and the long prompt, lists exactly the flash attention
+    calls the path makes: each call of ``mha_flash`` is recorded while the
+    smoke config runs the phase's entry points on the CPU (phases 11-14
+    and 20 check the same on the card, with the full configs, against
+    phase 3's cases)."""
     from repro_torch.models import layers
 
     seen, inner = set(), layers.mha_flash

@@ -66,7 +66,10 @@ def test_port_file_list_is_complete():
                  "src/repro_torch/training/train_lib.py", "src/repro_torch/data/pipeline.py",
                  "src/repro_torch/checkpoint/store.py", "src/repro_torch/launch/train.py",
                  "src/repro_torch/kernels/flash_attention/backward.py",
-                 "examples/train_lm_torch.py"):
+                 "examples/train_lm_torch.py",
+                 "src/repro_torch/configs/shapes.py", "src/repro_torch/distributed/sharding.py",
+                 "src/repro_torch/distributed/__init__.py", "src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/launch/dryrun.py"):
         assert must in names
 
 
@@ -79,6 +82,8 @@ def test_importing_the_serving_stack_loads_no_jax():
         "import repro_torch.dispatch, repro_torch.obs, repro_torch.serving.spec\n"
         "import repro_torch.training, repro_torch.optim, repro_torch.data\n"
         "import repro_torch.checkpoint, repro_torch.launch.train\n"
+        "import repro_torch.distributed, repro_torch.configs.shapes\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.dryrun\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

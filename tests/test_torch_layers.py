@@ -245,7 +245,9 @@ def test_attention_with_cache_is_deferred():
 
 
 def test_mha_flash_hands_the_kernel_contiguous_rows(monkeypatch):
-    """A non-CPU tensor goes to the kernel's wrapper as it comes, in the
+    """A tensor that takes no plain version (a CUDA tensor; here a meta
+    tensor, with the device test patched, since a meta tensor itself takes
+    the plain version) goes to the kernel's wrapper as it comes, in the
     model layout: the kernel reads the strides, and each row of head_dim is
     contiguous, so no layout copy is made (``kernel.prepare`` copies only
     what its tensor maps cannot describe)."""
@@ -256,6 +258,7 @@ def test_mha_flash_hands_the_kernel_contiguous_rows(monkeypatch):
         return torch.empty_like(q)
 
     monkeypatch.setattr(ops.kernel, "attention", fake_kernel)
+    monkeypatch.setattr(ops, "takes_plain", lambda t: False)
     q = torch.empty(1, 40, 24, 128, device="meta")
     kv = torch.empty(1, 40, 8, 128, device="meta")
     out = ops.mha_flash(q, kv, kv)

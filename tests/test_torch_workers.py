@@ -114,6 +114,18 @@ class TickSpec:
         return TickEngine(self.max_slots, self.crash_rids, self.hang_rids, self.hang_s)
 
 
+class SlowSpec(TickSpec):
+    """A :class:`TickSpec` whose engine takes ``build_s`` seconds to build."""
+
+    def __init__(self, build_s, **kwargs):
+        super().__init__(**kwargs)
+        self.build_s = build_s
+
+    def build(self, device_index, schedule_cache=None):
+        time.sleep(self.build_s)
+        return super().build(device_index, schedule_cache)
+
+
 class SetupFailWorker(EngineWorker):
     """An ``EngineWorker`` whose setup raises on worker ``fail_index``."""
 
@@ -121,6 +133,14 @@ class SetupFailWorker(EngineWorker):
         if self.index == fail_index:
             raise RuntimeError(f"injected setup failure (worker {self.index})")
         super().setup(device_index, **kwargs)
+
+
+class ThreadsWorker(EngineWorker):
+    """An ``EngineWorker`` whose heartbeats report the number of threads
+    torch's CPU ops run on in its process."""
+
+    def stats(self):
+        return {**super().stats(), "threads": torch.get_num_threads()}
 
 
 def _req(rid, max_new=4):
@@ -192,6 +212,49 @@ def test_setup_failure_condemns_only_injected_worker(start_method):
         snap = plane.snapshot()
         assert snap["workers"][0]["status"] == "abandoned"
         assert snap["workers"][0]["restarts"] == 0
+    finally:
+        plane.shutdown()
+    assert plane.leaked() == []
+    _assert_no_orphans()
+
+
+@pytest.mark.timeout(120)
+@pytest.mark.parametrize("start_method", START_METHODS)
+def test_a_build_longer_than_hb_timeout_keeps_its_worker(start_method):
+    """A lane whose build outlasts ``hb_timeout`` registers on a live worker
+    (a side thread beats while it builds), and the beats carry no stats:
+    the worker's stats stay those of the steps served just before."""
+    plane = WorkerPlane(1, start_method=start_method, **CPU, **HB)
+    try:
+        plane.start()
+        lane = plane.assign("a", TickSpec())
+        lane.submit(_req(1))
+        assert [list(r.generated) for r in _drive(lane)] == [_expected(1, 4)]
+        plane.assign("slow", SlowSpec(2.5 * plane.hb_timeout))
+        snap = plane.snapshot()["workers"][0]
+        assert snap["status"] == "serving" and snap["restarts"] == 0
+        assert snap["stats"]["steps"] == lane.stats.steps > 0
+    finally:
+        plane.shutdown()
+    assert plane.leaked() == []
+    _assert_no_orphans()
+
+
+@pytest.mark.timeout(120)
+@pytest.mark.parametrize("start_method,n_workers,want", [
+    ("spawn", 1, 2), ("spawn", 2, 1), ("fork", 1, 1)])
+def test_cpu_workers_share_the_parents_threads(start_method, n_workers, want):
+    """A CPU plane's spawned workers run torch on their share of the
+    parent's threads (2 here), not on every core; a forked one on one."""
+    plane = WorkerPlane(n_workers, start_method=start_method, worker_cls=ThreadsWorker,
+                        **CPU, **HB)
+    try:
+        plane.start()
+        deadline = time.monotonic() + 30.0
+        while not all("threads" in w["stats"] for w in plane.snapshot()["workers"]):
+            assert time.monotonic() < deadline, "no heartbeat with stats arrived"
+            time.sleep(plane.hb_interval)
+        assert [w["stats"]["threads"] for w in plane.snapshot()["workers"]] == [want] * n_workers
     finally:
         plane.shutdown()
     assert plane.leaked() == []
