@@ -148,7 +148,9 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
     every arch x applicable input shape x production mesh (16x16 and
     2x16x16) on the meta device, in subprocesses on the host's CPU while
     the card draws (b)'s and (c)'s model, all ended before (b) and (c) time
-    anything: one line a case, any failure fails the run;
+    anything: one line a case with its bytes per device, its global FLOPs
+    and its partitioned step's FLOPs and collective bytes per device (a
+    fake process group of the mesh's size), any failure fails the run;
     (b) decode_32k at one device's share: phi4-mini-3.8b at full width and
     depth, bf16, 8 sequences over a synchronized (``per_slot=False``)
     cache of 32768 positions filled from a seed: its logits equal the
@@ -157,7 +159,22 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
     top device ops of one replay, the peak memory; (c) prefill_32k at B = 1
     (a cut of the per-device share of 2): ``forward`` of 32768 tokens, B1
     launched once a layer at the shape phase 3 checked, finite logits, the
-    time and the peak memory.
+    time and the peak memory;
+21. sharded execution on one card: a process group of one (NCCL, rank 0 of
+    1) and ``make_host_mesh(model_axis=1)``, a (1, 1) mesh where every
+    placement is Replicate: (a) phase 19c's phi4-mini-3.8b step with the
+    parameters and AdamW state as DTensors (``shard_model``), 3 eager
+    steps (losses and grad norms bit-identical to 19c's eager steps, B1
+    forward and backward launched through ``local_map`` as often, 0
+    collectives under ``CommDebugMode``), then the step sealed as one CUDA
+    graph and replayed from the same state: losses, grad norms and the
+    parameters after 3 replays bit-identical to 19c's replays; ms per step
+    eager (DTensor's dispatch on the host) and replayed, each beside 19c's;
+    (b) deepseek-v2-236b at full width and 2 layers, bf16: a sharded
+    ``forward`` of a 2 x 256 prompt, logits bit-identical to the unsharded
+    forward's, B2 launched through ``local_map`` 3 times a layer.
+    Collectives across cards are checked on the CPU only (gloo, tier-1):
+    NCCL refuses two ranks on one card.
 
 Each phase prints its times (CUDA events, graph replays), the kernels of
 one profiled call, and the wrappers' counts; each forward and each decode
@@ -2453,6 +2470,8 @@ BWD_COMBOS = [(1, 0, 0.0, True, 64, 64), (3, 0, 0.0, True, 200, 200),
 # the AdamW schedule
 TRAIN_BATCH, TRAIN_SEQ = 2, 512
 TRAIN_EAGER, TRAIN_REPLAYS = 3, 30
+# phase 21a: replays timed after the TRAIN_EAGER checked against 19c's
+SHARDED_TIMED = 7
 TRAIN_LR, TRAIN_WARMUP = 5e-4, 5
 # the card against the CPU at float32: a step's loss and grad norm within
 # TRAIN_RTOL; each parameter within TRAIN_PARAM_ATOL_LR x lr (Adam's first
@@ -2691,14 +2710,63 @@ def train_kernel_timing() -> dict:
         + ", ".join(f"{name} {ms:.5f} ms" for name, ms in per_kernel.items())
         + f"; bwd_dkdv with one CTA per (q head, key tile) instead (24 kv heads of group 1, "
         f"grid ({B * NH}, {S // 64}), no partial sums): {per_q_head:.5f} ms")
+    forward = train_forward_timing(q, k, v, o, lse, kw)
     return dict(max_abs_err=err, ms=graphed["kernel"], plain_ms=graphed["plain"],
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=graphed["library"],
                 library_is="F.scaled_dot_product_attention forward + backward",
+                forward_with_lse=forward,
                 eager_ms=eager["kernel"], eager_library_ms=eager["library"],
                 kernel_ms_by_kernel=per_kernel, dkdv_ms_per_q_head_ctas=per_q_head,
                 deterministic=same, layout_copies=copies,
                 registers={f"{k[0]} {k[1]} hd{k[2]}": v.get("registers")
                            for k, v in sorted(regs.items())})
+
+
+def train_forward_timing(q, k, v, o, lse, kw) -> dict:
+    """19a: B1's forward with the rows' LSE at phi4-mini's training shape,
+    the call a training step makes: against its plain version, its time in
+    a CUDA graph and from Python beside the plain version, the library's
+    forward (a yardstick only) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.flash_attention.ref import flash_attention_lse_ref
+
+    B, S, NH, hd = q.shape
+    flat = [_flat(t) for t in (q, k, v)]
+    want_o, want_lse = flash_attention_lse_ref(*flat, **kw)
+    err = (_flat(o).float() - want_o.float()).abs().max().item()
+    lse_err = (lse.reshape(-1, S) - want_lse).abs().max().item()
+    r = ratio(_flat(o), want_o, *TOL["bfloat16"])
+    # the LSE under the tolerance 19a's sweep holds it to
+    lse_r = ratio(lse.reshape(-1, S), want_lse, 1e-4, 1e-5)
+    if not (r <= 1.0 and lse_r <= 1.0):
+        fail(f"B1's forward with LSE disagrees at phi4-mini's training shape: {r:.3f} of "
+             f"tolerance, LSE {lse_r:.3f} of tolerance")
+    qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+    calls = {"kernel": lambda: kernel.attend(q, k, v, with_lse=True, **kw),
+             "plain": lambda: flash_attention_lse_ref(*flat, **kw),
+             "library": lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                               enable_gqa=True)}
+    graphed = {name: graph_ms(fn, reps=5 if name == "plain" else 10,
+                              iters=5 if name == "plain" else 20) for name, fn in calls.items()}
+    eager = {name: time_ms(fn, 5 if name == "plain" else 20) for name, fn in calls.items()}
+    # two products over the visible (query, key) pairs; q, k, v read once,
+    # o and the float32 LSE written once
+    flops = 2 * 2 * hd * NH * B * sum(min(i + 1, S) for i in range(S))
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + o.numel()) + 4 * lse.numel()
+    bound_ms, bound_by = bound(flops, nbytes, "bfloat16")
+    say(f"-- 19a B1's forward with LSE, q ({B},{S},{NH},{hd}) kv {tuple(k.shape)} bf16 causal: "
+        f"{r:.3f} of tolerance, max_abs_err {err:.3e}, LSE {lse_err:.3e} | graph kernel_ms "
+        f"{graphed['kernel']:.5f} plain_ms {graphed['plain']:.5f} library_ms (SDPA forward, "
+        f"no LSE) {graphed['library']:.5f} | eager kernel_ms {eager['kernel']:.5f} plain_ms "
+        f"{eager['plain']:.5f} library_ms {eager['library']:.5f} | bound_ms {bound_ms:.5f} "
+        f"({bound_by}, {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB) | kernel at "
+        f"{bound_ms / graphed['kernel']:.1%} of bound")
+    return dict(max_abs_err=err, ms=graphed["kernel"], plain_ms=graphed["plain"],
+                library_ms=graphed["library"], bound_ms=bound_ms, bound_by=bound_by,
+                eager_ms=eager["kernel"])
 
 
 def train_b2_backward() -> dict:
@@ -2882,7 +2950,7 @@ def train_phi4() -> dict:
     # eager steps (run-time scheduled: PyTorch's own loop)
     kernel.launches = backward.launches = 0          # the path's run starts here
     copies = kernel.layout_copies
-    eager_loss, eager_ms = [], []
+    eager_loss, eager_gnorm, eager_ms = [], [], []
     torch.cuda.reset_peak_memory_stats()
     for i in range(TRAIN_EAGER):
         torch.cuda.synchronize()
@@ -2890,6 +2958,7 @@ def train_phi4() -> dict:
         m = step_fn(model, state, batch_to_device(batches[i], "cuda"))[2]
         eager_loss.append(float(m["loss"]))
         eager_ms.append((time.perf_counter() - t) * 1e3)
+        eager_gnorm.append(float(m["grad_norm"]))
         del m
     eager_peak = torch.cuda.max_memory_allocated()
     eager_params = [p.detach().cpu() for p in model.parameters()]
@@ -2918,14 +2987,17 @@ def train_phi4() -> dict:
         f"{copies}")
     if copies:
         fail(f"the training path copied {copies} inputs of B1 that the kernels should read in place")
-    losses, replay_ms = [], []
+    losses, replay_ms, gnorms = [], [], []
     for i in range(TRAIN_REPLAYS):
         torch.cuda.synchronize()
         t = time.perf_counter()
         m = sealed(batches[i])
         losses.append(float(m["loss"]))
         replay_ms.append((time.perf_counter() - t) * 1e3)
+        gnorms.append(float(m["grad_norm"]))
         if i == TRAIN_EAGER - 1:
+            # phase 21 holds the sharded step against these
+            replay_params = [p.detach().cpu() for p in model.parameters()]
             diffs, same = 0.0, 0
             for p, e in zip(model.parameters(), eager_params):
                 e = e.cuda()
@@ -2997,7 +3069,12 @@ def train_phi4() -> dict:
     if loss_a != loss_b:
         fail("the restored checkpoint gives another loss")
     del restored, sealed, model, state
+    reference = dict(eager_loss=eager_loss, eager_gnorm=eager_gnorm,
+                     replay_loss=losses[:TRAIN_EAGER], replay_gnorm=gnorms[:TRAIN_EAGER],
+                     params=replay_params, eager_counts=eager_counts, seal_counts=seal_counts,
+                     eager_ms=eager_med, replay_ms=replay_med, replay_device_ms=dev_ms)
     return dict(eager_ms=eager_med, replay_ms=replay_med, replay_device_ms=dev_ms,
+                reference=reference,
                 tokens_per_step=tokens, seal_s=seal_s, seal_peak_gib=seal_peak / 2**30,
                 eager_peak_gib=eager_peak / 2**30, losses=losses,
                 fwd_launches=kernel.launches, bwd_launches=backward.launches,
@@ -3143,8 +3220,9 @@ class DryRun:
     """``python -m repro_torch.launch.dryrun --both-meshes`` over every arch
     and applicable shape, in subprocesses (CPU only: meta tensors) started
     by a thread, at most :data:`DRYRUN_PROCS` at a time: one per arch, and
-    one per shape for xlstm-125m, whose sLSTM steps through every position
-    of train_4k and prefill_32k.  Their output goes to
+    one per shape and mesh for xlstm-125m, whose sLSTM steps through every
+    position of train_4k and prefill_32k (in the partitioned pass too,
+    three times a mesh).  Their output goes to
     ``build/dryrun_torch/*.log``, their records to
     ``experiments/dryrun_torch/``.  :meth:`stop` kills what still runs."""
 
@@ -3154,9 +3232,10 @@ class DryRun:
         import repro_torch.configs as C
         from repro_torch.configs.shapes import INPUT_SHAPES
 
-        base = [sys.executable, "-m", "repro_torch.launch.dryrun", "--both-meshes"]
-        self.cmds = [base + ["--arch", "xlstm-125m", "--shape", s] for s in INPUT_SHAPES] + [
-            base + ["--arch", a] for a in C.all_archs() if a != "xlstm-125m"]
+        base = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+        self.cmds = [base + ["--arch", "xlstm-125m", "--shape", s] + pod
+                     for s in INPUT_SHAPES for pod in ([], ["--multi-pod"])] + [
+            base + ["--both-meshes", "--arch", a] for a in C.all_archs() if a != "xlstm-125m"]
         self.logs = ROOT / "build" / "dryrun_torch"
         self.logs.mkdir(parents=True, exist_ok=True)
         self.procs: list = []
@@ -3214,7 +3293,9 @@ def dryrun_report(dry: DryRun) -> dict:
 
     say("-- 20a: the dry run on the meta device, every arch x applicable shape x production "
         "mesh (16x16, 2x16x16): bytes per device of params, AdamW moments, cache and batch, "
-        "whether they fit the card's 80 GB, the step's FLOPs (FlopCounterMode)")
+        "whether they fit the card's 80 GB, the step's FLOPs (FlopCounterMode); the "
+        "partitioned step's FLOPs and collective bytes per device (CommCounter over a fake "
+        "process group)")
     results = dry.wait(timeout=600.0)
     ok = []
     for cmd, rc, text in results:
@@ -3419,6 +3500,192 @@ def phase_launch(number: int) -> dict:
     return dict(dryrun=report, decode=decode, prefill=prefill)
 
 
+# phase 21: sharded execution on one card, a (1, 1) mesh: deepseek-v2's
+# prompt batch for the serving-path forward
+SHARDED_PROMPT = (2, 256)
+
+
+def sharded_train(mesh, ref: dict) -> dict:
+    """21a: phase 19c's phi4-mini-3.8b step with the parameters and AdamW
+    state as DTensors on ``mesh``: eager steps against 19c's, then the step
+    sealed as one CUDA graph and replayed against 19c's replays from the
+    same state and batches: losses, grad norms and parameters bit for bit.
+    B1 forward and backward run through ``local_map``; no collective runs
+    and B1 copies no input."""
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    import repro_torch.configs as C
+    from repro_torch.data import SyntheticLM, data_config_for, shard_batch
+    from repro_torch.distributed import shard_model
+    from repro_torch.kernels.flash_attention import backward, kernel, ops
+    from repro_torch.launch import serve
+    from repro_torch.models import param_axes
+    from repro_torch.optim import adamw_init, cosine_schedule
+    from repro_torch.training import make_train_step, seal_train_step
+
+    release()
+    cfg = dataclasses.replace(C.get("phi4-mini-3.8b"), dtype="bfloat16")
+    data = SyntheticLM(data_config_for(cfg, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ))
+    n_steps = TRAIN_EAGER + SHARDED_TIMED
+    batches = [data.batch(i) for i in range(n_steps)]
+
+    def lr(step):
+        return cosine_schedule(step, peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                               total_steps=TRAIN_REPLAYS)
+
+    def fresh():
+        model = serve.init_params(cfg, seed=0, device="cuda")
+        shard_model(model, param_axes(cfg), mesh)
+        return model, adamw_init(dict(model.named_parameters()))
+
+    step_fn = make_train_step(cfg, lr=lr, mesh=mesh)
+    model, state = fresh()
+    first = next(model.parameters())
+    say(f"-- 21a: phase 19c's step with the {sum(1 for _ in model.parameters())} parameters "
+        f"as DTensors ({type(first).__name__}, placements {first.placements}) and AdamW's "
+        f"moments on their placements, step counter {type(state.step).__name__} "
+        f"{state.step.placements}")
+
+    # eager steps: DTensor's dispatch on the host around the same kernels
+    kernel.launches = backward.launches = ops.on_shards = 0     # the path's run starts here
+    copies = kernel.layout_copies
+    eager_loss, eager_gnorm, eager_ms = [], [], []
+    with CommDebugMode() as comm:
+        for i in range(TRAIN_EAGER):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = step_fn(model, state, shard_batch(batches[i], mesh, "cuda"))[2]
+            eager_loss.append(float(m["loss"]))
+            eager_ms.append((time.perf_counter() - t) * 1e3)
+            eager_gnorm.append(float(m["grad_norm"]))
+            del m
+    eager_counts = (kernel.launches, backward.launches)
+    say(f"  eager steps: loss {eager_loss} (19c {ref['eager_loss']}), grad norm {eager_gnorm} "
+        f"(19c {ref['eager_gnorm']}), ms {[round(x, 3) for x in eager_ms]}; B1 forward, "
+        f"backward launches {eager_counts} (19c {ref['eager_counts']}), through local_map "
+        f"{ops.on_shards}; collectives {comm.get_total_counts()}")
+    if (eager_loss, eager_gnorm) != (ref["eager_loss"], ref["eager_gnorm"]):
+        fail("the sharded eager steps differ from 19c's bit for bit")
+    if eager_counts != ref["eager_counts"] or ops.on_shards != eager_counts[0]:
+        fail(f"the sharded eager steps launched B1 {eager_counts}, {ops.on_shards} through "
+             f"local_map; 19c {ref['eager_counts']}")
+    if comm.get_total_counts():
+        fail(f"a (1, 1) mesh ran collectives: {dict(comm.get_comm_counts())}")
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # sealed, from the same state: 19c's replays bit for bit
+    model, state = fresh()
+    sealed = seal_train_step(step_fn, model, state, batches[0])
+    seal_counts = (kernel.launches - eager_counts[0], backward.launches - eager_counts[1])
+    copies = kernel.layout_copies - copies
+    say(f"  sealed as one CUDA graph in {sealed.seal_s:.2f}s; B1 launches by the seal "
+        f"{seal_counts} (19c {ref['seal_counts']}); layout copies over the phase {copies}")
+    if seal_counts != ref["seal_counts"] or copies:
+        fail(f"the sharded seal launched B1 {seal_counts} (19c {ref['seal_counts']}), "
+             f"layout copies {copies}")
+    losses, gnorms, replay_ms = [], [], []
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = sealed(batches[i])
+        losses.append(float(m["loss"]))
+        replay_ms.append((time.perf_counter() - t) * 1e3)
+        gnorms.append(float(m["grad_norm"]))
+        if i == TRAIN_EAGER - 1:
+            same = total = 0
+            for p, want in zip(model.parameters(), ref["params"]):
+                same += int((p.to_local().cpu() == want).sum())
+                total += want.numel()
+            say(f"  {TRAIN_EAGER} replays: loss {losses} (19c {ref['replay_loss']}), grad norm "
+                f"{gnorms} (19c {ref['replay_gnorm']}); parameters {same} of {total} "
+                f"bit-identical to 19c's after as many replays")
+            if (losses, gnorms) != (ref["replay_loss"], ref["replay_gnorm"]) or same != total:
+                fail("the sharded replays differ from 19c's bit for bit")
+    eager_med = float(np.median(eager_ms[1:]))
+    replay_med = float(np.median(replay_ms[TRAIN_EAGER:]))
+    dev_ms = time_ms(sealed.graph.replay, 5, warmup=1)
+    say(f"  ms per step (host clock, batch copied in): eager {eager_med:.3f} (19c "
+        f"{ref['eager_ms']:.3f}: DTensor's host dispatch adds {eager_med - ref['eager_ms']:.3f}), "
+        f"sealed replay {replay_med:.3f} (19c {ref['replay_ms']:.3f}); one replay on CUDA "
+        f"events {dev_ms:.3f} (19c {ref['replay_device_ms']:.3f})")
+    del sealed, model, state
+    return dict(fwd_launches=kernel.launches, bwd_launches=backward.launches,
+                on_shards=ops.on_shards, eager_ms=eager_med, replay_ms=replay_med,
+                replay_device_ms=dev_ms, dtensor_host_ms=eager_med - ref["eager_ms"])
+
+
+def sharded_forward(mesh) -> dict:
+    """21b: deepseek-v2-236b at full width and 2 layers, bf16: one forward of
+    a prompt batch, then the same with the parameters and the batch as
+    DTensors on ``mesh``: logits bit for bit, the three expert GEMMs of each
+    layer on B2 through ``local_map``."""
+    import torch
+
+    import repro_torch.configs as C
+    from repro_torch.distributed import batch_axes, shard_model, shard_tree, use_sharding_ctx
+    from repro_torch.kernels.stream_pack import kernel as pack_kernel
+    from repro_torch.kernels.stream_pack import ops as pack_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import forward, param_axes
+
+    release()
+    cfg = dataclasses.replace(C.get("deepseek-v2-236b"), n_layers=2, dtype="bfloat16")
+    model = serve.init_params(cfg, seed=0, device="cuda")
+    batch = {"tokens": _tokens(cfg, *SHARDED_PROMPT, seed=21)}
+    with torch.no_grad():
+        want = forward(model, batch, cfg)[0]
+        torch.cuda.synchronize()
+        shard_model(model, param_axes(cfg), mesh)
+        placed = shard_tree(batch, batch_axes(batch), mesh)
+        pack_kernel.launches = pack_ops.on_shards = 0    # the path's run starts here
+        with use_sharding_ctx(mesh):
+            t = time.perf_counter()
+            got = forward(model, placed, cfg)[0]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+    launches, on_shards = pack_kernel.launches, pack_ops.on_shards
+    same = bool(torch.equal(got.to_local(), want))
+    say(f"-- 21b: {cfg.name}, full width, {cfg.n_layers} layers, bf16, a forward of "
+        f"{SHARDED_PROMPT[0]} x {SHARDED_PROMPT[1]} tokens with DTensor parameters: logits "
+        f"{tuple(got.shape)} bit-identical to the unsharded forward's: {same}; B2 launches "
+        f"{launches}, through local_map {on_shards} (want 3 x {cfg.n_layers}); {ms:.3f} ms "
+        f"(host clock, first call)")
+    if not same or launches != 3 * cfg.n_layers or on_shards != launches:
+        fail("the sharded forward differs from the unsharded one or missed B2")
+    del model, want, got
+    return dict(b2_launches=launches, on_shards=on_shards, forward_ms=ms)
+
+
+def phase_sharded(number: int, reference: dict) -> dict:
+    """Phase 21: sharded execution on the card over a process group of one
+    (NCCL, rank 0 of 1) and a (1, 1) mesh, where every placement is
+    Replicate: the DTensor path, ``local_map`` and the sealed step run the
+    kernels on the card.  Collectives across cards are checked on the CPU
+    (gloo) only: NCCL refuses two ranks on one card."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    say(f"== phase {number}: sharded execution on one card (NCCL, world 1, a (1, 1) mesh)")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_host_mesh(model_axis=1, device="cuda")
+        train = sharded_train(mesh, reference)
+        fwd = sharded_forward(mesh)
+    finally:
+        dist.destroy_process_group()
+    release()
+    return dict(train=train, forward=fwd)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     try:
@@ -3454,6 +3721,7 @@ def main() -> None:
     train = phase_train(19)
     phi4, smoke = train["phi4"], train["smoke"]
     launch = phase_launch(20)
+    sharded = phase_sharded(21, phi4.pop("reference"))
     # launches: the wrappers' counts over the paths' runs (each path's
     # counts set to 0 just before it), by path under launches_by_path;
     # launches_in_replays: the kernels the profiler saw in the paths'
@@ -3470,15 +3738,21 @@ def main() -> None:
                      "journal recovery phi4-mini": journal["launches"],
                      "train phi4-mini-3.8b (eager steps, seal)": phi4["fwd_launches"],
                      "train smoke configs on the card": sum(c[0] for c in smoke.values()),
-                     "launch prefill_32k phi4-mini-3.8b (B = 1)": launch["prefill"]["launches"]}
+                     "launch prefill_32k phi4-mini-3.8b (B = 1)": launch["prefill"]["launches"],
+                     "sharded train phi4-mini-3.8b on a (1, 1) mesh (eager steps, seal)":
+                         sharded["train"]["fwd_launches"]}
     bwd_by_path = {"train phi4-mini-3.8b (eager steps, seal)": phi4["bwd_launches"],
-                   "train smoke configs on the card": sum(c[1] for c in smoke.values())}
+                   "train smoke configs on the card": sum(c[1] for c in smoke.values()),
+                   "sharded train phi4-mini-3.8b on a (1, 1) mesh (eager steps, seal)":
+                       sharded["train"]["bwd_launches"]}
     pack_by_path = {"nimble branchy cells": pack_launches,
                     "serve arctic-480b": arctic["b2_launches"],
                     "serve deepseek-v2-236b": deepseek["b2_launches"],
                     "dispatch phi4-mini + deepseek-v2 + smoke lane": dispatch["b2_launches"],
                     "train smoke configs on the card": sum(c[2] for c in smoke.values()),
-                    "train nimble branchy gradients": train["nimble"]["b2_launches"]}
+                    "train nimble branchy gradients": train["nimble"]["b2_launches"],
+                    "sharded forward deepseek-v2-236b on a (1, 1) mesh":
+                        sharded["forward"]["b2_launches"]}
     kernels = [dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",

@@ -8,6 +8,12 @@ as the JAX package stores it, so either package restores the other's
 checkpoints.  A module in a tree stands for the dict of its named
 parameters (JAX's stacked layer axis is not rebuilt; carry a JAX tree into
 a model with :mod:`repro_torch.bridge`).
+
+Sharded leaves (DTensors) are saved whole: every process gathers each
+one (call :func:`save_checkpoint` on all of them) and process 0 writes, so
+the files are those a single-process run writes and restore into a
+single-process model; restored into sharded parameters, each process
+keeps its own shard.
 """
 
 from __future__ import annotations
@@ -18,8 +24,12 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils import _pytree as pytree
+
+from repro_torch.distributed import local_part
 
 # numpy dtypes by name, and bfloat16, which numpy lacks
 _TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -56,6 +66,8 @@ def _flatten(tree: Any) -> tuple[list[tuple[str, Any]], Any]:
 def _to_numpy(leaf) -> tuple[np.ndarray, str]:
     """The array to store and the dtype name for the manifest."""
     if isinstance(leaf, torch.Tensor):
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
             raw = t.contiguous().view(torch.uint8).numpy()
@@ -69,7 +81,6 @@ def _to_numpy(leaf) -> tuple[np.ndarray, str]:
 def save_checkpoint(path: str | pathlib.Path, tree: Any, *, step: int = 0,
                     metadata: Optional[dict] = None) -> None:
     path = pathlib.Path(path)
-    path.mkdir(parents=True, exist_ok=True)
     arrays = {}
     manifest = {"step": step, "metadata": metadata or {}, "arrays": {}}
     for k, v in _flatten(tree)[0]:
@@ -77,6 +88,9 @@ def save_checkpoint(path: str | pathlib.Path, tree: Any, *, step: int = 0,
         arrays[k] = arr
         shape = list(arr.shape[:-1]) if dtype == "bfloat16" else list(arr.shape)
         manifest["arrays"][k] = {"shape": shape, "dtype": dtype}
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return                          # process 0 writes what every process gathered
+    path.mkdir(parents=True, exist_ok=True)
     np.savez(path / "arrays.npz", **arrays)
     (path / "manifest.json").write_text(json.dumps(manifest, indent=1))
 
@@ -114,7 +128,10 @@ def restore_checkpoint(path: str | pathlib.Path, like: Any,
                 raise ValueError(f"{k}: shape {tuple(t.shape)} != {tuple(np.shape(ref))}")
             if isinstance(ref, nn.Parameter):
                 with torch.no_grad():
-                    ref.copy_(t)
+                    if isinstance(ref, DTensor):
+                        ref.to_local().copy_(local_part(t, ref.device_mesh, ref.placements))
+                    else:
+                        ref.copy_(t)
                 out.append(ref)
             else:
                 own = ref.device if isinstance(ref, torch.Tensor) else "cpu"

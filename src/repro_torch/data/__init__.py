@@ -1,3 +1,3 @@
-from .pipeline import DataConfig, Prefetcher, SyntheticLM, data_config_for
+from .pipeline import DataConfig, Prefetcher, SyntheticLM, data_config_for, shard_batch
 
-__all__ = ["DataConfig", "Prefetcher", "SyntheticLM", "data_config_for"]
+__all__ = ["DataConfig", "Prefetcher", "SyntheticLM", "data_config_for", "shard_batch"]

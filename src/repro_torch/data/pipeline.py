@@ -1,8 +1,11 @@
 """Synthetic LM data pipeline: deterministic, sharded, prefetching.
 
-A verbatim copy of the JAX package's ``data/pipeline.py`` (numpy only):
-its batches equal the JAX package's bit for bit, step by step and shard by
-shard.  The trainer copies each batch into its device buffers.
+A copy of the JAX package's ``data/pipeline.py`` (numpy): its batches equal
+the JAX package's bit for bit, step by step and shard by shard.  The
+trainer copies each batch into its device buffers.  Sharded execution adds
+:func:`shard_batch`: every process draws the same global batch from the
+seed and keeps its slice on the data axis, so a sharded step sees exactly
+the single-process batch.
 
 Generates reproducible token streams with a power-law unigram distribution
 plus a deterministic n-gram-ish structure (so a model can actually reduce
@@ -18,6 +21,9 @@ import threading
 from typing import Iterator, Optional
 
 import numpy as np
+import torch
+
+from repro_torch.distributed import batch_axes, shard_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,3 +133,16 @@ def data_config_for(model_cfg, *, batch_size: int, seq_len: int, seed: int = 0) 
         audio_frames_ratio=model_cfg.audio_frames_ratio,
         audio_dim=model_cfg.audio_dim,
     )
+
+
+def shard_batch(batch: dict, mesh, device, rules=None) -> dict:
+    """A global batch (numpy or tensors, the same on every process) as
+    DTensors on ``mesh``, laid out by their logical axes
+    (``repro_torch.distributed.batch_axes``: token ids and labels ``Shard(0)``
+    on the data axis): each process holds its slice on ``device``, token
+    ids and labels as int64, the rest as float32."""
+    full = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        full[k] = t.to(device, torch.long if not t.is_floating_point() else torch.float32)
+    return shard_tree(full, batch_axes(full), mesh, rules)

@@ -171,6 +171,8 @@ class EngineWorker(DeviceWorker):
         self.budget: Any = None
         self.steps = 0
         self.tokens = 0
+        # a forked worker starts with its parent's counts: report its own
+        self.launches_before = launch_counts()
 
     def setup(self, device_index: int, **kwargs: Any) -> None:
         """Make ``device_index`` this process's current CUDA device (for a
@@ -201,9 +203,11 @@ class EngineWorker(DeviceWorker):
             out["cache_bytes"] = self.cache.snapshot()["arena_bytes_total"]
         if self.budget is not None:
             out["budget"] = self.budget.snapshot()
-        # the wrappers' counts in this process: which kernels the lanes'
-        # seals launched, read in the parent from heartbeats and replies
-        out["kernel_launches"] = launch_counts()
+        # the wrappers' counts in this process since it became a worker:
+        # which kernels the lanes' seals launched, read in the parent from
+        # heartbeats and replies
+        out["kernel_launches"] = {name: n - self.launches_before.get(name, 0)
+                                  for name, n in launch_counts().items()}
         return out
 
     def process(self, command: str, payload: tuple) -> tuple:

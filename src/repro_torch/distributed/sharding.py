@@ -19,8 +19,19 @@ into DTensor placements, one per mesh dimension.
 model code can call ``constrain(x, "batch", "seq", "embed")`` without
 threading the mesh through every function.  Outside a context, and on a
 plain tensor, ``constrain`` and ``gather_fsdp`` return their input; on a
-``DTensor`` they redistribute it.  The models call neither yet: the call
-sites come with sharded execution.
+``DTensor`` they redistribute it.  The models call them where the JAX
+models do.
+
+Sharded execution places tensors on a ``DeviceMesh`` as DTensors:
+:func:`shard_model` replaces every parameter of a model by one placed by
+its axes (JAX's ``jax.device_put(params, tree_shardings(...))``),
+:func:`shard_tree` places a batch or a cache by an axes tree, and
+:func:`replicate_like` lifts a plain tensor made inside the model (RoPE's
+table, a mask, positions) to a replicated DTensor beside a DTensor
+partner, since DTensor refuses to mix the two.  :func:`place` never
+communicates: every process holds the same full tensor (drawn from one
+seed) and keeps its own shard; a meta tensor becomes a DTensor over an
+empty meta shard, which the dry run partitions with no devices.
 """
 
 from __future__ import annotations
@@ -32,7 +43,9 @@ import threading
 from typing import Any, Iterator, Mapping, Optional, Sequence
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor.experimental import local_map
 
 # logical axis -> mesh axis (or tuple of mesh axes)
 DEFAULT_RULES: dict[str, Any] = {
@@ -165,6 +178,33 @@ def constrain(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
     return x.redistribute(ctx.mesh, placements_for(spec, ctx.mesh))
 
 
+def constrain_split(x: torch.Tensor, shape: Sequence[int],
+                    *logical_axes: Optional[str]) -> torch.Tensor:
+    """Lay ``x`` out as ``constrain(x.reshape(shape), *logical_axes)``
+    would, before the reshape, so that the reshape never cuts a shard:
+    ``x``'s last dimension is ``shape``'s dimensions from there on merged,
+    of which only the first may be sharded (``(B, S, heads·hd)`` split
+    into ``(B, S, heads, hd)``).  A no-op where :func:`constrain` is."""
+    ctx = current_ctx()
+    if ctx is None or not isinstance(x, DTensor):
+        return x
+    spec = logical_to_pspec(logical_axes, shape, ctx.mesh, ctx.rules)
+    last = x.dim() - 1
+    if any(entry is not None for entry in spec[last + 1:]):
+        raise ValueError(f"only the outer part of a split may be sharded: {spec} of {shape}")
+    return x.redistribute(ctx.mesh, placements_for(spec[:last + 1], ctx.mesh))
+
+
+def hold_layout(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it is, whose gradient is laid out as ``x`` before it flows
+    on: DTensor may lay a gradient out otherwise (a product's gradient
+    sharded on columns that a view back to heads cannot cut, 8 kv heads
+    over 16 devices).  A plain tensor comes back as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, x.placements)
+
+
 def gather_fsdp(x: torch.Tensor, *logical_axes: Optional[str],
                 group: str = "all") -> torch.Tensor:
     """FSDP weight-gather at use: re-constrain a parameter with its ``fsdp``
@@ -209,3 +249,149 @@ def pspec(shape: Sequence[int], axes: str, mesh: Any,
     if len(parsed) != len(shape):
         raise ValueError(f"axes {axes!r} rank {len(parsed)} != shape {tuple(shape)}")
     return logical_to_pspec(parsed, shape, mesh, with_defaults(rules))
+
+
+def replicate_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t``, a plain tensor made inside the model, as a DTensor replicated
+    over ``like``'s mesh when ``like`` is a DTensor; else ``t`` itself."""
+    if not isinstance(like, DTensor) or isinstance(t, DTensor):
+        return t
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def place(t: torch.Tensor, mesh: Any, placements: Sequence) -> DTensor:
+    """``t``, the full tensor every process holds, as a DTensor with
+    ``placements`` on ``mesh``: each process keeps its own shard and nothing
+    is sent.  A meta tensor gets an empty meta shard (the dry run)."""
+    if t.is_meta:
+        local = torch.empty(local_part(t, mesh, placements).shape, dtype=t.dtype,
+                            device="meta")
+        return DTensor.from_local(local, mesh, placements, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+    return distribute_tensor(t, mesh, placements, src_data_rank=None)
+
+
+def local_part(full: torch.Tensor, mesh: Any, placements: Sequence) -> torch.Tensor:
+    """This process's shard of ``full`` under ``placements`` (a view: a
+    ``torch.chunk`` per sharded mesh dimension, as DTensor cuts)."""
+    coord = mesh.get_coordinate()
+    for i, placement in enumerate(placements):
+        if isinstance(placement, Shard):
+            full = full.chunk(mesh.size(i), dim=placement.dim)[coord[i]]
+    return full
+
+
+def shard_model(model: nn.Module, axes: Mapping[str, str], mesh: Any,
+                rules: Optional[Mapping[str, Any]] = None) -> nn.Module:
+    """Replace, in place, every parameter of ``model`` by an ``nn.Parameter``
+    holding a DTensor placed on ``mesh`` by its axes (``axes``: parameter
+    name → axes string, :func:`repro_torch.models.param_axes`) under
+    ``DEFAULT_RULES + rules``; each keeps its ``axes`` and ``requires_grad``.
+    Returns ``model``."""
+    placements = tree_shardings({name: (p.shape, axes[name])
+                                 for name, p in model.named_parameters()}, mesh, rules)
+    for name, p in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        module = model.get_submodule(owner) if owner else model
+        new = nn.Parameter(place(p.detach(), mesh, placements[name]),
+                           requires_grad=p.requires_grad)
+        new.axes = axes[name]
+        module._parameters[leaf] = new
+    return model
+
+
+def shard_tree(tree: Any, axes: Any, mesh: Any,
+               rules: Optional[Mapping[str, Any]] = None) -> Any:
+    """A tree of dicts and lists of full tensors (a batch, a cache) placed
+    on ``mesh`` by the matching tree of axes strings; the data axis takes
+    each process's slice of the batch."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, axes[k], mesh, rules) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(shard_tree(v, a, mesh, rules) for v, a in zip(tree, axes))
+    return place(tree, mesh, placements_for(pspec(tree.shape, axes, mesh, rules), mesh))
+
+
+def batch_axes(batch: Mapping[str, torch.Tensor]) -> dict[str, str]:
+    """The logical axes of a training or prefill batch's leaves, as JAX's
+    input shardings give them: token ids and labels ``batch seq``, vision
+    embeddings and audio frames ``batch _ _``, anything else replicated."""
+    axes = {}
+    for k, v in batch.items():
+        if k in ("tokens", "labels"):
+            axes[k] = "batch seq"
+        elif k in ("vision_embeds", "frames"):
+            axes[k] = "batch _ _"
+        else:
+            axes[k] = " ".join(["_"] * v.dim())
+    return axes
+
+
+def _mesh_axes(like: DTensor, axes: Mapping[str, int]) -> list[Optional[str]]:
+    """Per mesh dimension, the name in ``axes`` (axis name → dimension of
+    ``like``) of the dimension ``like`` is sharded on there, or None where
+    it is replicated; raises where it is sharded on a dimension ``axes``
+    does not name, or partial."""
+    by_dim = {d: name for name, d in axes.items()}
+    names = []
+    for p in like.placements:
+        if p.is_replicate():
+            names.append(None)
+        elif isinstance(p, Shard) and p.dim in by_dim:
+            names.append(by_dim[p.dim])
+        else:
+            raise ValueError(f"{tuple(like.shape)} {like.placements} is sharded on another axis "
+                             f"than {sorted(axes)}")
+    return names
+
+
+def on_local_shards(fn, like: DTensor, axes: Mapping[str, int], args: Sequence,
+                    out_axes: Sequence[Mapping[str, int]]):
+    """``fn`` on each device's local shards, through ``local_map``, where
+    ``like`` sets the layout: on each mesh dimension it shards one named
+    axis (``axes``: name → its dimension of ``like``)
+    or none.  ``args`` are ``(value, {name: dimension})`` pairs: a tensor
+    is laid out sharded on its own dimension of each axis ``like`` shards
+    (replicated where it has no such dimension: its gradient there is a
+    partial sum), anything else is passed as it is.  ``out_axes`` names
+    each output's dimensions the same way; one output unless several are
+    given.  Attention cores run this way on their local batch rows and
+    heads, where DTensor would flatten two sharded dimensions."""
+    mesh = like.device_mesh
+    names = _mesh_axes(like, axes)
+
+    def layout(dims):
+        return [Shard(dims[n]) if n in dims else Replicate() for n in names]
+
+    def grads(dims):
+        return [Replicate() if n is None else Shard(dims[n]) if n in dims else Partial()
+                for n in names]
+
+    placed, in_p, in_g = [], [], []
+    for value, dims in args:
+        if isinstance(value, torch.Tensor):
+            value = replicate_like(value, like)
+            if list(value.placements) != layout(dims):    # else in place: a cache written
+                value = value.redistribute(mesh, layout(dims))
+            in_p.append(layout(dims))
+            in_g.append(grads(dims))
+        else:
+            in_p.append(None)
+            in_g.append(None)
+        placed.append(value)
+    outs = [layout(dims) for dims in out_axes]
+    return local_map(fn, out_placements=tuple(outs) if len(outs) > 1 else outs[0],
+                     in_placements=tuple(in_p), in_grad_placements=tuple(in_g),
+                     device_mesh=mesh)(*placed)
+
+
+def shard_offset(like: DTensor, dim: int) -> int:
+    """Where this process's shard of ``like`` starts along ``dim``: a
+    ``torch.chunk`` per mesh dimension sharding it, major to minor."""
+    start, size, coord = 0, like.shape[dim], like.device_mesh.get_coordinate()
+    for i, p in enumerate(like.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            size = -(-size // like.device_mesh.size(i))
+            start += coord[i] * size
+    return start

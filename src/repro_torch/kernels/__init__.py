@@ -4,16 +4,25 @@ version.  ``build`` compiles the CUDA sources at first use.
 A wrapper takes its kernel's plain version only for a tensor on one of
 :data:`PLAIN_DEVICES`: the CPU computes it, the meta device only
 propagates its shapes (the dry run, ``launch/dryrun.py``), and neither
-counts a launch.  On a CUDA tensor it launches the kernel or raises."""
+counts a launch.  On a CUDA tensor it launches the kernel or raises.  A
+``DTensor`` never reaches either: each wrapper runs its kernel through
+``local_map`` on the local shards (no shard is gathered first), and
+:func:`takes_plain` refuses one."""
 
 import sys
+
+from torch.distributed.tensor import DTensor
 
 #: the devices whose tensors take a kernel's plain version
 PLAIN_DEVICES = ("cpu", "meta")
 
 
 def takes_plain(t) -> bool:
-    """``t`` lies on one of :data:`PLAIN_DEVICES`."""
+    """``t`` lies on one of :data:`PLAIN_DEVICES`.  Raises ``TypeError`` on
+    a ``DTensor``, whose device is its mesh's: neither the kernel nor the
+    plain version takes one whole."""
+    if isinstance(t, DTensor):
+        raise TypeError("a DTensor reaches a kernel only as its local shard, through local_map")
     return t.device.type in PLAIN_DEVICES
 
 #: the kernel modules, by kernel name

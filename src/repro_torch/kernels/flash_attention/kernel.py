@@ -40,6 +40,7 @@ from dataclasses import dataclass
 from pathlib import Path
 
 import torch
+from torch.distributed.tensor import DTensor
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (32, 64, 80, 128)
@@ -246,6 +247,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, group: int, dims: 
     if dims == 4 and k.shape[0] != q.shape[0]:
         raise ValueError(f"batch of q {q.shape[0]} and k {k.shape[0]} differ")
     for name, t in (("q", q), ("k", k), ("v", v)):
+        if isinstance(t, DTensor):
+            raise TypeError(f"{name} is a DTensor: the kernel takes its local shard "
+                            "(ops.mha_flash runs it through local_map)")
         if t.device.type != "cuda":
             raise ValueError(f"flash_attention kernel needs CUDA tensors; {name} is on {t.device}")
         if t.device != q.device:

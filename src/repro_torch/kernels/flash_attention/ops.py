@@ -15,11 +15,21 @@ With grad enabled and an input that requires it, the call goes through
 its backward is the backward kernel (:mod:`.backward`) on CUDA tensors and
 :func:`.ref.flash_attention_bwd_ref` on CPU tensors.  Otherwise (serving)
 the forward runs alone.
+
+DTensors (sharded execution) run through ``local_map``: each device
+attends over its own batch rows and heads, forward and backward, with no
+collective.  q, k and v must be placed alike, sharded on batch or heads
+only, so that the local q heads keep their GQA grouping over the local kv
+heads; anything else raises with the shapes and placements.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import takes_plain
 
@@ -80,6 +90,28 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
+#: calls that ran on DTensors' local shards through ``local_map``
+on_shards = 0
+
+
+def _on_shards(q, k, v, **kw) -> torch.Tensor:
+    """:func:`mha_flash` of DTensors, on each device's local shards."""
+    global on_shards
+    if not (isinstance(k, DTensor) and isinstance(v, DTensor)):
+        raise TypeError("q is a DTensor: k and v must be DTensors on its mesh")
+    places = q.placements, k.placements, v.placements
+    if len(set(places)) != 1 or any(p.is_partial() or (isinstance(p, Shard) and p.dim not in (0, 2))
+                                    for p in places[0]):
+        raise ValueError(
+            f"flash attention on shards needs q, k and v placed alike, sharded on batch or "
+            f"heads only, so that the local q heads keep their GQA groups: q {tuple(q.shape)} "
+            f"{places[0]}, k {tuple(k.shape)} {places[1]}, v {tuple(v.shape)} {places[2]}")
+    on_shards += 1
+    local = local_map(functools.partial(mha_flash, **kw), out_placements=list(places[0]),
+                      in_placements=places, device_mesh=q.device_mesh)
+    return local(q, k, v)
+
+
 def mha_flash(
     q: torch.Tensor,           # (B, Sq, NH, hd)
     k: torch.Tensor,           # (B, Skv, NKV, hd)
@@ -90,6 +122,8 @@ def mha_flash(
     causal: bool = True,
     window: int = 0,
 ) -> torch.Tensor:
+    if isinstance(q, DTensor):
+        return _on_shards(q, k, v, scale=scale, softcap=softcap, causal=causal, window=window)
     B, Sq, NH, hd = q.shape
     group = NH // k.shape[2]
     kw = dict(group=group, scale=scale, softcap=softcap, causal=causal, window=window)

@@ -27,6 +27,7 @@ from dataclasses import dataclass
 from pathlib import Path
 
 import torch
+from torch.distributed.tensor import DTensor
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "stream_pack.cu"
 MAX_GRID_X = 2**31 - 1
@@ -187,6 +188,9 @@ def stream_pack_matmul(
     N = w.shape[2]
     check_blocks(M, N, K, block_m, block_n, block_k)
     for name, t in (("x", x), ("w", w)):
+        if isinstance(t, DTensor):
+            raise TypeError(f"{name} is a DTensor: the kernel takes its local shard "
+                            "(ops.stream_pack runs it through local_map)")
         if t.device.type != "cuda":
             raise ValueError(f"stream_pack kernel needs CUDA tensors; {name} is on {t.device}")
         if t.dtype not in (torch.float32, torch.bfloat16) or t.dtype != x.dtype:

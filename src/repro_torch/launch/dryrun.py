@@ -9,7 +9,7 @@ For each case it builds the model (:func:`repro_torch.models.abstract_model`)
 and the step's inputs (:func:`repro_torch.configs.shapes.input_specs`) on
 the meta device, and for train shapes AdamW's float32 moments; gives each
 leaf its logical axes (the parameters', the moments' the same,
-``cache_axes(per_slot=False)`` for the decode cache, :func:`_batch_axes`
+``cache_axes(per_slot=False)`` for the decode cache, ``distributed.batch_axes``
 for the batch, ``LONG_CONTEXT_OVERRIDES`` at ``long_500k``) and from them
 its placement on the mesh (16x16 ``("data", "model")`` or 2x16x16 with
 ``"pod"``); then records
@@ -24,20 +24,34 @@ its placement on the mesh (16x16 ``("data", "model")`` or 2x16x16 with
   ``torch.utils.flop_counter.FlopCounterMode``, which counts matrix
   products and attention (not element-wise work), for the whole global
   batch;
-* ``param_count`` and ``active_param_count``.
+* ``param_count`` and ``active_param_count``;
+* the partitioned step, per mesh: in the case's process a fake process
+  group of the mesh's size (no devices, no data moved) under a
+  ``DeviceMesh``, the meta parameters, AdamW state, batch and cache
+  placed on it as DTensors by their axes, and the step run once under
+  ``launch.comm_analysis.CommCounter``: ``collectives``, one device's
+  collective operand bytes and counts per kind (JAX records
+  ``hlo_analysis.collective_bytes`` of the compiled HLO), and
+  ``flops_per_device``, the products' FLOPs on one device's local shards.
+  DTensor's dispatch costs the host about a millisecond an op, so the
+  program is run at the depths P and 2P (``partitioned_layers``; P, from
+  ``models.layer_period``, is 1 but for xLSTM, the hybrid and gemma2) and
+  its numbers extrapolated to ``n_layers``: n(P) + (L/P - 1)(n(2P) - n(P)),
+  exact while every period of the stack partitions alike (a test holds a
+  4-layer run against it).
+  ``partitioned`` says whether that ran: the dense, vlm and MoE families
+  must partition (a failure there fails the case); for the audio, hybrid
+  and ssm families a step DTensor cannot partition records
+  ``"partitioned": false`` and the op or the error that stopped it.
 
 Results go to ``experiments/dryrun_torch/*.json``; any failure exits 1.
 The kernel wrappers take their plain versions on meta tensors
-(:func:`repro_torch.kernels.takes_plain`), which only propagate shapes.
+(:func:`repro_torch.kernels.takes_plain`), and their local shards under a
+mesh, which only propagate shapes.
 
-What has no torch analogue yet, and is not recorded: XLA's temp bytes
-(the activations' peak; a meta run allocates nothing to measure), the
-per-device FLOPs of the partitioned program (the port partitions nothing
-yet: the FLOPs are the global step's), and collective bytes (JAX's
-``hlo_analysis`` reads them from HLO text, which the port never produces;
-they come with sharded execution, which counts a sharded DTensor step's
-collectives).  JAX's ``--unroll`` has no counterpart: the port's layers
-are a Python loop, every layer counted.
+Not recorded: XLA's temp bytes (the activations' peak; a meta run
+allocates nothing to measure).  JAX's ``--unroll`` has no counterpart:
+the port's layers are a Python loop, every layer counted.
 """
 
 from __future__ import annotations
@@ -48,35 +62,32 @@ import dataclasses
 import json
 import math
 import pathlib
+import re
 import time
 from typing import Any, Iterator
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 import repro_torch.configs as C
 from repro_torch.configs.shapes import INPUT_SHAPES, applicable, input_specs
-from repro_torch.distributed import LONG_CONTEXT_OVERRIDES, local_shape, pspec
+from repro_torch.distributed import (LONG_CONTEXT_OVERRIDES, batch_axes, local_shape, pspec,
+                                     shard_model, shard_tree, use_sharding_ctx, with_defaults)
+from repro_torch.launch.comm_analysis import CommCounter, collective_bytes
 from repro_torch.launch.mesh import DEVICE_MEMORY_BYTES, make_production_mesh
-from repro_torch.models import abstract_model, cache_axes, decode_step, forward
+from repro_torch.models import abstract_model, cache_axes, decode_step, forward, layer_period
 from repro_torch.optim import adamw_init
 from repro_torch.training import make_train_step
 
 OUT_DIR = pathlib.Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 GROUPS = ("params", "optimizer", "cache", "batch")
-
-
-def _batch_axes(batch: dict) -> dict:
-    axes = {}
-    for k, v in batch.items():
-        if k in ("tokens", "labels"):
-            axes[k] = "batch seq"
-        elif k in ("vision_embeds", "frames"):
-            axes[k] = "batch _ _"
-        else:
-            axes[k] = " ".join(["_"] * v.dim())
-    return axes
+# the families whose step must partition (their models carry JAX's
+# constrain / gather_fsdp call sites)
+MUST_PARTITION = ("dense", "vlm", "moe")
 
 
 def _flatten(tree: Any, axes: Any, prefix: str = "") -> Iterator[tuple[str, torch.Tensor, str]]:
@@ -103,40 +114,52 @@ class Case:
     build_s: float
 
 
-def build_case(arch: str, shape_name: str) -> Case:
+def build_case(arch: str | Any, shape_name: str, mesh=None, rules=None) -> Case:
+    """The case of ``arch`` (a name, or a config) at ``shape_name``; with a
+    ``mesh``, its parameters, AdamW state, batch and cache placed on it as
+    DTensors by their axes under ``DEFAULT_RULES + rules``, and its step run
+    under that sharding context."""
     t0 = time.perf_counter()
-    cfg = C.get(arch)
+    cfg = C.get(arch) if isinstance(arch, str) else arch
     kind, specs = input_specs(cfg, shape_name)
     model, axes = abstract_model(cfg)
+    if mesh is not None:
+        shard_model(model, axes, mesh, rules)
+
+    def place(tree, tree_axes):
+        return tree if mesh is None else shard_tree(tree, tree_axes, mesh, rules)
+
     params = [(name, p, axes[name]) for name, p in model.named_parameters()]
     leaves = {group: [] for group in GROUPS}
     leaves["params"] = params
     if kind == "train":
         cfg = dataclasses.replace(cfg, remat=True)
-        train_step = make_train_step(cfg, lr=1e-4)
+        train_step = make_train_step(cfg, lr=1e-4, mesh=mesh, rules=rules)
         opt = adamw_init({name: p for name, p, _ in params})
         leaves["optimizer"] = [("step", opt.step, "")] + [
             (f"{moment}.{name}", getattr(opt, moment)[name], ax)
             for moment in ("mu", "nu") for name, _, ax in params]
-        batch = specs["batch"]
-        leaves["batch"] = list(_flatten(batch, _batch_axes(batch)))
+        batch = place(specs["batch"], batch_axes(specs["batch"]))
+        leaves["batch"] = list(_flatten(batch, batch_axes(batch)))
 
         def step():
             train_step(model, opt, batch)
     elif kind == "prefill":
-        batch = specs["batch"]
-        leaves["batch"] = list(_flatten(batch, _batch_axes(batch)))
+        batch = place(specs["batch"], batch_axes(specs["batch"]))
+        leaves["batch"] = list(_flatten(batch, batch_axes(batch)))
 
         def step():
-            with torch.no_grad():
+            with torch.no_grad(), use_sharding_ctx(mesh, rules):
                 forward(model, batch, cfg)
     else:
-        cache, tokens = specs["cache"], specs["tokens"]
-        leaves["cache"] = list(_flatten(cache, cache_axes(cfg, per_slot=False)))
+        c_axes = cache_axes(cfg, per_slot=False)
+        cache = place(specs["cache"], c_axes)
+        tokens = place(specs["tokens"], "batch seq")
+        leaves["cache"] = list(_flatten(cache, c_axes))
         leaves["batch"] = [("tokens", tokens, "batch seq")]
 
         def step():
-            with torch.no_grad():
+            with torch.no_grad(), use_sharding_ctx(mesh, rules):
                 decode_step(model, cache, tokens, cfg)
     return Case(kind, leaves, step, time.perf_counter() - t0)
 
@@ -183,6 +206,8 @@ class MetaShapeCache(TorchDispatchMode):
         self._seen: dict = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented          # its local ops come back here
         kwargs = kwargs or {}
         fresh = self._fresh.get(func)
         if fresh is None:
@@ -230,9 +255,107 @@ def step_flops(case: Case) -> int:
     return int(counter.get_total_flops())
 
 
+@contextlib.contextmanager
+def fake_mesh(shape: tuple[int, ...], names: tuple[str, ...]) -> Iterator[Any]:
+    """A ``DeviceMesh`` of ``shape`` over a fake process group of as many
+    ranks, this process rank 0: DTensor partitions on it and its
+    collectives move nothing.  The group is destroyed on exit."""
+    dist.init_process_group("fake", store=dist.HashStore(), rank=0,
+                            world_size=math.prod(shape))
+    try:
+        yield init_device_mesh("cpu", shape, mesh_dim_names=names)
+    finally:
+        dist.destroy_process_group()
+
+
+def _op_of(error: BaseException) -> str:
+    """The aten op an error names (DTensor's missing sharding rule), else
+    the op DTensor was dispatching when it raised (the innermost
+    ``op_call`` of its frames) with the error, else the error alone."""
+    found = re.search(r"aten\.[\w.]+", str(error))
+    if found:
+        return found.group(0)
+    op, tb = None, error.__traceback__
+    while tb is not None:
+        op = tb.tb_frame.f_locals.get("op_call", op)
+        tb = tb.tb_next
+    what = f"{type(error).__name__}: {str(error)[:300]}"
+    return f"{op} ({what})" if isinstance(op, torch._ops.OpOverload) else what
+
+
+def _at_depth(cfg, layers: int):
+    """``cfg`` cut to ``layers`` layers (an audio encoder in proportion)."""
+    enc = cfg.n_enc_layers * layers // cfg.n_layers
+    if enc * cfg.n_layers != cfg.n_enc_layers * layers:
+        raise ValueError(f"{cfg.n_enc_layers} encoder layers do not scale with {layers} "
+                         f"of {cfg.n_layers}")
+    return dataclasses.replace(cfg, n_layers=layers, n_enc_layers=enc)
+
+
+def _extrapolate(a, b, periods: int):
+    """``a + periods * (b - a)`` through nested dicts of numbers."""
+    if isinstance(a, dict):
+        return {k: _extrapolate(a[k], b[k], periods) for k in a}
+    return a + periods * (b - a)
+
+
+def _partition_once(cfg, shape_name, mesh, rules) -> dict:
+    case = build_case(cfg, shape_name, mesh, rules)
+    with MetaShapeCache(), CommCounter() as counter:
+        case.step()
+    return {"collectives": collective_bytes(counter.records), "flops_per_device": counter.flops}
+
+
+def as_run(shape: tuple[int, ...], names: tuple[str, ...], rules=None):
+    """The mesh the partitioned pass runs on: ``("pod", "data")`` as one
+    ``data`` axis of their product when every rule that names ``pod``
+    names exactly ``("pod", "data")`` (the default rules and the
+    long-context overrides do).  A dimension sharded over both is cut pod
+    by pod, then data by data, as one axis of the product cuts it, and
+    each reduction over both is one collective, as in JAX; DTensor plans
+    three-dimensional meshes far more slowly (minutes a case)."""
+    if "pod" not in names:
+        return shape, names
+    entries = [e for e in with_defaults(rules).values()
+               if isinstance(e, (tuple, str)) and "pod" in (e if isinstance(e, tuple) else (e,))]
+    pod, data = names.index("pod"), names.index("data")
+    if data != pod + 1 or any(e != ("pod", "data") for e in entries):
+        return shape, names
+    merged = shape[:pod] + (shape[pod] * shape[data],) + shape[data + 1:]
+    return merged, names[:pod] + names[data:]
+
+
+def partitioned(cfg, shape_name: str, shape: tuple[int, ...], names: tuple[str, ...],
+                rules=None) -> dict:
+    """One device's share of the case's step on a fake mesh of ``shape``
+    (axis ``names``): ``{"partitioned": True, "collectives":
+    collective_bytes(...), "flops_per_device": ..., "partitioned_layers":
+    depths run, "partition_s": ...}``, run at depths P and 2P and
+    extrapolated to ``cfg.n_layers`` (or at full depth when that is at most
+    2P).  A step that cannot partition raises for the families of
+    :data:`MUST_PARTITION` and records ``{"partitioned": False, "op": ...}``
+    for the others."""
+    t0 = time.perf_counter()
+    period, layers = layer_period(cfg), cfg.n_layers
+    depths = (layers,) if layers <= 2 * period else (period, 2 * period)
+    shape, names = as_run(shape, names, rules)
+    try:
+        with fake_mesh(shape, names) as mesh:
+            runs = [_partition_once(_at_depth(cfg, d), shape_name, mesh, rules) for d in depths]
+    except Exception as e:
+        if cfg.family in MUST_PARTITION:
+            raise
+        return {"partitioned": False, "op": _op_of(e)}
+    record = runs[0] if len(runs) == 1 else _extrapolate(*runs, layers // period - 1)
+    return {"partitioned": True, **record, "partitioned_layers": list(depths),
+            "partitioned_mesh": "x".join(map(str, shape)),
+            "partition_s": round(time.perf_counter() - t0, 3)}
+
+
 def run_case(arch: str, shape_name: str, *, meshes=(False,)) -> list[dict]:
     """The records of one arch x shape, one per mesh (``multi_pod`` flags):
-    the case is built and its step counted once, the bytes per mesh."""
+    the case is built and its step counted once, the bytes and the
+    partitioned step per mesh."""
     case = build_case(arch, shape_name)
     t0 = time.perf_counter()
     flops = step_flops(case)
@@ -260,7 +383,19 @@ def run_case(arch: str, shape_name: str, *, meshes=(False,)) -> list[dict]:
             "params": cfg.param_count,
             "active_params": cfg.active_param_count,
         })
+        records[-1].update(partitioned(cfg, shape_name, mesh.shape, mesh.mesh_dim_names, rules))
     return records
+
+
+def partition_line(r: dict) -> str:
+    """The partitioned pass of a record, for its line."""
+    if not r["partitioned"]:
+        return f"partitioned=false ({r['op']})"
+    c = r["collectives"]
+    kinds = " ".join(f"{k}={c['counts'][k]}/{c['bytes_per_kind'][k] / 2**20:.1f}MiB"
+                     for k in c["counts"] if c["counts"][k])
+    return (f"per device: flops={r['flops_per_device']:.3e} collectives "
+            f"{c['total_bytes'] / 2**30:.3f} GiB [{kinds}] ({r['partition_s']}s)")
 
 
 def run(archs, shapes, meshes, out_dir: pathlib.Path | None = None) -> list[tuple[str, str]]:
@@ -291,7 +426,8 @@ def run(archs, shapes, meshes, out_dir: pathlib.Path | None = None) -> list[tupl
                       f"(params {m['params_bytes'] / 2**30:.3f}, optimizer "
                       f"{m['optimizer_bytes'] / 2**30:.3f}, cache {m['cache_bytes'] / 2**30:.3f}, "
                       f"batch {m['batch_bytes'] / 2**30:.4f}) fits={m['fits']} "
-                      f"flops={r['flops']:.3e} ({r['flops_s']}s)", flush=True)
+                      f"flops={r['flops']:.3e} ({r['flops_s']}s) {partition_line(r)}",
+                      flush=True)
     return failures
 
 

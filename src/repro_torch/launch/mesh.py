@@ -4,14 +4,16 @@ The JAX package's ``launch/mesh.py`` for DTensor.  The production mesh is
 a description (:class:`MeshSpec`: axis names and sizes), which the dry run
 maps every model onto with no process group; :func:`make_host_mesh` is a
 real ``DeviceMesh`` over the processes of one host, which needs
-``torch.distributed.init_process_group`` first.  Functions, not module
-constants, so importing touches no device.
+``torch.distributed.init_process_group`` first (:func:`init_distributed`
+under ``torchrun``).  Functions, not module constants, so importing
+touches no device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import torch
 
@@ -46,6 +48,28 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshSpec:
     if multi_pod:
         return MeshSpec((2, 16, 16), ("pod", "data", "model"))
     return MeshSpec((16, 16), ("data", "model"))
+
+
+def init_distributed(device: str = "cuda") -> torch.device:
+    """Join the process group ``torchrun`` describes (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``): NCCL
+    with one card a process, ``cuda:LOCAL_RANK``, for ``device="cuda"``;
+    gloo for ``"cpu"``.  The backend follows the device asked for.  Returns
+    this process's device."""
+    import torch.distributed as dist
+
+    rank, world = int(os.environ.get("RANK", 0)), int(os.environ.get("WORLD_SIZE", 1))
+    local = int(os.environ.get("LOCAL_RANK", 0))
+    if device == "cuda":
+        here = torch.device("cuda", local)
+        torch.cuda.set_device(here)
+        dist.init_process_group("nccl", rank=rank, world_size=world, device_id=here)
+    elif device == "cpu":
+        here = torch.device("cpu")
+        dist.init_process_group("gloo", rank=rank, world_size=world)
+    else:
+        raise ValueError(f"device must be cuda or cpu, not {device!r}")
+    return here
 
 
 def make_host_mesh(*, model_axis: int = 1, device: str = "cuda"):

@@ -7,6 +7,7 @@ from .transformer import (
     forward,
     init_cache,
     init_model,
+    layer_period,
     param_axes,
     prefill,
 )
@@ -20,6 +21,7 @@ __all__ = [
     "forward",
     "init_cache",
     "init_model",
+    "layer_period",
     "param_axes",
     "prefill",
 ]

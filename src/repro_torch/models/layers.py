@@ -6,22 +6,40 @@ LayerNorm uses the population variance, norms compute in float32, RoPE
 rotates split halves over the full head_dim, gemma2 scales embeddings by
 sqrt(d).  Parameters arrive as mappings of tensors (the ``Group``s
 of :class:`repro_torch.models.transformer.Transformer`).  The sharding
-hints of the JAX version (``constrain``, ``gather_fsdp``) do nothing on one
-GPU and are dropped.
+hints stand where the JAX version has them (``constrain``,
+``gather_fsdp``): no-ops on plain tensors and outside a sharding context,
+they lay DTensors out by their logical axes in sharded execution, where
+the tables and masks made here are lifted beside their DTensor partners
+(:func:`repro_torch.distributed.replicate_like`).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.distributed import (constrain, constrain_split, gather_fsdp, hold_layout,
+                                     on_local_shards, replicate_like, shard_offset)
 from repro_torch.kernels.flash_attention import mha_flash
 
 Params = Mapping[str, torch.Tensor]
 NEG_INF = -1e30
+# the named dimensions of a (B, S, heads, head_dim) tensor, and of one with
+# rows only, for attention cores run on each device's shards
+HEADS = {"batch": 0, "heads": 2}
+ROWS = {"batch": 0}
+
+
+def _keys_whole(k: torch.Tensor) -> bool:
+    """``k`` (B, T, ...) is a DTensor whose key positions every device
+    holds whole: its attention can run on each device's rows and heads."""
+    return isinstance(k, DTensor) and Shard(1) not in k.placements
 
 
 class Shape(tuple):
@@ -70,7 +88,7 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x: (..., seq, heads, head_dim); positions: (..., seq)."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    freqs = replicate_like(rope_freqs(x.shape[-1], theta, x.device), positions)
     angles = positions[..., :, None].float() * freqs      # (..., seq, hd/2)
     cos = torch.cos(angles)[..., None, :]                 # (..., seq, 1, hd/2)
     sin = torch.sin(angles)[..., None, :]
@@ -100,16 +118,52 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def apply_ffn(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
-    h = _act(x @ p["w_gate"], cfg.activation) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    w_gate = gather_fsdp(p["w_gate"], "fsdp", "mlp", group="ffn")
+    w_up = gather_fsdp(p["w_up"], "fsdp", "mlp", group="ffn")
+    w_down = gather_fsdp(p["w_down"], "mlp", "fsdp", group="ffn")
+    h = _act(x @ w_gate, cfg.activation) * (x @ w_up)
+    h = constrain(h, "batch", "seq", "mlp")
+    return h @ w_down
 
 
 # ---------------------------------------------------------------------------
 # embeddings / unembedding
 # ---------------------------------------------------------------------------
 
+def _lookup(ids: torch.Tensor, rows: torch.Tensor, start: int) -> torch.Tensor:
+    """The rows ``start..start + len(rows)`` of a table hold for ``ids``;
+    zeros for an id outside them."""
+    local = ids - start
+    hit = (local >= 0) & (local < rows.shape[0])
+    return F.embedding(local.clamp(0, rows.shape[0] - 1), rows) * hit[..., None].to(rows.dtype)
+
+
+def _embed_on_shards(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The embedding of a vocab-sharded DTensor table: every device looks
+    up every id (gathered: they are small) in the rows it holds, a partial
+    sum over the vocab axes; a table sharded on d_model gives its columns.
+    (DTensor's own masked partial sum has no gradient back through a
+    redistribution.)"""
+    mesh = table.device_mesh
+    ids = tokens.redistribute(mesh, [Replicate()] * mesh.ndim)
+    out = [Partial() if p == Shard(0) else Shard(2) if isinstance(p, Shard) else Replicate()
+           for p in table.placements]
+    start = shard_offset(table, 0)
+    lookup = local_map(functools.partial(_lookup, start=start), out_placements=out,
+                       in_placements=(ids.placements, table.placements), device_mesh=mesh)
+    return lookup(ids, table)
+
+
 def embed_tokens(p: Params, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    x = F.embedding(tokens, p["tok"])
+    table = p["tok"]
+    if isinstance(table, DTensor) and any(isinstance(q, Shard) and q.dim == 0
+                                          for q in table.placements):
+        x = _embed_on_shards(tokens, table)
+    else:
+        x = F.embedding(tokens, table)
+    # the partial sum of a vocab-sharded table is reduced here, where JAX
+    # leaves the layout to the partitioner
+    x = constrain(x, "batch", "seq", "embed")
     if cfg.name.startswith("gemma2"):
         # the factor is rounded to the activation dtype first, as in JAX
         # (jnp.asarray(sqrt(d), x.dtype)); computed on the host, so a CUDA
@@ -141,8 +195,8 @@ def _attn_mask(
     if causal:
         m = kp <= qp
     else:
-        m = torch.ones(qp.shape[:-1] + (kv_pos.shape[0],), dtype=torch.bool,
-                       device=kv_pos.device)
+        m = replicate_like(torch.ones(qp.shape[:-1] + (kv_pos.shape[0],), dtype=torch.bool,
+                                      device=kv_pos.device), kv_pos)
     if window is not None:
         m = m & (kp > qp - window)
     if kv_len_valid is not None:
@@ -177,19 +231,28 @@ def attention(
     ``cache["v"]`` at its own ``pos`` **in place** (JAX returns a new
     cache), then the tokens attend over the updated cache with
     ``kv_valid = pos + S``; ``cache["pos"]`` is left to the caller."""
-    B, S, D = x.shape
+    S = x.shape[1]
     h = cfg.resolved_head_dim
     nh, nkv = cfg.n_heads, cfg.n_kv_heads
     scale = cfg.attn_logit_scale or (1.0 / math.sqrt(h))
 
-    q = (x @ p["wq"].reshape(D, nh * h)).reshape(B, S, nh, h)
-    k = (x @ p["wk"].reshape(D, nkv * h)).reshape(B, S, nkv, h)
-    v = (x @ p["wv"].reshape(D, nkv * h)).reshape(B, S, nkv, h)
+    wq = gather_fsdp(p["wq"], "fsdp", "heads", "_", group="attn")
+    wk = gather_fsdp(p["wk"], "fsdp", "kv_heads", "_", group="attn")
+    wv = gather_fsdp(p["wv"], "fsdp", "kv_heads", "_", group="attn")
+    wo = gather_fsdp(p["wo"], "heads", "_", "fsdp", group="attn")
+    q = _split_heads(x @ _merge(wq), nh, h, "heads")
+    k = _split_heads(x @ _merge(wk), nkv, h, "kv_heads")
+    v = _split_heads(x @ _merge(wv), nkv, h, "kv_heads")
     if cfg.qk_norm:
         q = (_rms(q) * p["q_norm"]).to(x.dtype)
         k = (_rms(k) * p["k_norm"]).to(x.dtype)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = constrain(q, "batch", "seq", "heads", "_")
+    k = constrain(k, "batch", "seq", "kv_heads", "_")
+    # JAX leaves v to the partitioner; B1's shards need it placed as k
+    v = constrain(v, "batch", "seq", "kv_heads", "_")
+    q = _grouped(q, k)
 
     if cache is None:
         out = mha_flash(
@@ -213,13 +276,39 @@ def attention(
             scale=scale,
             softcap_val=cfg.attn_softcap,
             q_pos=positions,
-            kv_pos=torch.arange(cache["k"].shape[1], device=x.device),
+            kv_pos=replicate_like(torch.arange(cache["k"].shape[1], device=x.device), q),
             window=layer_window,
             kv_valid=pos + S,
             causal=causal,
         )
-    y = out.reshape(B, S, nh * h) @ p["wo"].reshape(nh * h, D)
+    y = _merge(out) @ _merge(wo, first=True)
     return y, (k, v)
+
+
+def _merge(t: torch.Tensor, first: bool = False) -> torch.Tensor:
+    """``(..., heads, head_dim)`` → ``(..., heads·head_dim)`` (``first``:
+    the two leading dimensions of ``(heads, head_dim, D)``), a view that
+    keeps a heads-sharded tensor sharded, its gradient laid out as it is
+    (:func:`repro_torch.distributed.hold_layout`) before the view back."""
+    shape = (t.shape[0] * t.shape[1], *t.shape[2:]) if first else (*t.shape[:-2], -1)
+    return hold_layout(t.reshape(shape))
+
+
+def _grouped(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q laid out as k: each device keeps whole GQA groups, its q heads over
+    its kv heads, so where the kv heads do not shard (4 over 16 devices)
+    the q heads are gathered too.  Plain tensors pass through."""
+    if isinstance(q, DTensor) and q.placements != k.placements:
+        return q.redistribute(k.device_mesh, k.placements)
+    return q
+
+
+def _split_heads(t: torch.Tensor, n: int, h: int, axis: str) -> torch.Tensor:
+    """(B, S, n·h) → (B, S, n, h), laid out by ``(batch, seq, axis, _)``
+    first, so that the split never cuts a shard (24 heads do not split
+    over 16 devices)."""
+    shape = (*t.shape[:-1], n, h)
+    return constrain_split(t, shape, "batch", "seq", axis, "_").reshape(shape)
 
 
 def _rms(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -229,7 +318,16 @@ def _rms(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 def _sdpa(q, k, v, *, scale, softcap_val, q_pos, kv_pos, window, kv_valid,
           causal=True):
-    """Grouped-query scaled dot-product attention, reference path."""
+    """Grouped-query scaled dot-product attention, reference path (on each
+    device's rows and heads for DTensors holding every key position)."""
+    if _keys_whole(k):
+        def local(q, k, v, q_pos, kv_pos, kv_valid):
+            return _sdpa(q, k, v, scale=scale, softcap_val=softcap_val, q_pos=q_pos,
+                         kv_pos=kv_pos, window=window, kv_valid=kv_valid, causal=causal)
+
+        return on_local_shards(local, q, HEADS, [(q, HEADS), (k, HEADS), (v, HEADS),
+                                                 (q_pos, ROWS if q_pos.dim() > 1 else {}),
+                                                 (kv_pos, {}), (kv_valid, ROWS)], [HEADS])
     B, S, NH, H = q.shape
     NKV = k.shape[2]
     G = NH // NKV
@@ -261,8 +359,19 @@ def _sdpa_deferred(q, k_cache, v_cache, k_new, v_new, *, scale, softcap_val,
     The JAX version multiplies bf16 operands into float32 scores
     (``preferred_element_type``); ``torch.matmul`` on bf16 returns bf16, so
     both score operands are upcast to float32 here.  That reads the cache
-    at twice its size; a hand-written decode kernel is later work.
+    at twice its size; a hand-written decode kernel is later work.  On
+    DTensors holding every key position it runs on each device's rows and
+    heads (DTensor would flatten the sharded batch and heads together).
     """
+    if _keys_whole(k_cache):
+        def local(q, k_cache, v_cache, k_new, v_new, positions, kv_valid):
+            return _sdpa_deferred(q, k_cache, v_cache, k_new, v_new, scale=scale,
+                                  softcap_val=softcap_val, positions=positions, window=window,
+                                  kv_valid=kv_valid)
+
+        return on_local_shards(local, q, HEADS, [(q, HEADS), (k_cache, HEADS), (v_cache, HEADS),
+                                                 (k_new, HEADS), (v_new, HEADS),
+                                                 (positions, ROWS), (kv_valid, ROWS)], [HEADS])
     B, S, NH, H = q.shape
     T = k_cache.shape[1]
     NKV = k_cache.shape[2]
@@ -273,7 +382,7 @@ def _sdpa_deferred(q, k_cache, v_cache, k_new, v_new, *, scale, softcap_val,
     # part 1: existing cache
     s1 = torch.einsum("bsngh,btnh->bngst", qg, k_cache.float()) * scale
     s1 = softcap(s1, softcap_val)
-    t = torch.arange(T, device=dev)
+    t = replicate_like(torch.arange(T, device=dev), q)
     m1 = t[None, None, :] < kv_valid[:, None, None]              # (B,1,T)
     m1 = m1 & (t[None, None, :] <= positions[..., None])
     if window is not None:
@@ -283,7 +392,7 @@ def _sdpa_deferred(q, k_cache, v_cache, k_new, v_new, *, scale, softcap_val,
     # part 2: the new tokens (causal among themselves)
     s2 = torch.einsum("bsngh,btnh->bngst", qg, k_new.float()) * scale
     s2 = softcap(s2, softcap_val)
-    new_pos = kv_valid[:, None] + torch.arange(S, device=dev)[None, :]   # (B,S)
+    new_pos = kv_valid[:, None] + replicate_like(torch.arange(S, device=dev), q)[None, :]
     m2 = new_pos[:, None, :] <= positions[..., None]             # (B,S,S)
     if window is not None:
         m2 = m2 & (new_pos[:, None, :] > positions[..., None] - window)
@@ -306,10 +415,42 @@ def _slot_rows(B: int, T: int, S_new: int, pos: torch.Tensor) -> torch.Tensor:
             + torch.arange(S_new, device=pos.device)[None, :]).reshape(-1)
 
 
+def _masked_write(c, u, start, t_start: int, b_dim: int, t_dim: int):
+    """``c``'s positions ``start[b] + s`` along ``t_dim`` take ``u``'s
+    ``s``-th rows (``start``: (B,), or 0-d for every slot), in place, where
+    ``c`` holds the positions from ``t_start`` on (a shard of them)."""
+    cm, um = c.movedim((b_dim, t_dim), (0, 1)), u.movedim((b_dim, t_dim), (0, 1))
+    t = torch.arange(cm.shape[1], device=c.device) + t_start
+    j = t[None, :] - start.reshape(-1, 1)                       # (B or 1, T_local)
+    hit = (j >= 0) & (j < um.shape[1])
+    picked = um[torch.arange(um.shape[0], device=c.device)[:, None], j.clamp(0, um.shape[1] - 1)]
+    cm.copy_(torch.where(hit.reshape(hit.shape + (1,) * (cm.dim() - 2)), picked.to(c.dtype), cm))
+    return c
+
+
+def write_rows(c, u, start, b_dim: int, t_dim: int) -> None:
+    """A cache write on DTensors, in place: each device writes the rows of
+    its shard, its batch rows and (under the long-context rules) its key
+    positions, at the clamped starts ``start`` (DTensor has no rule for
+    ``index_copy_``)."""
+    axes = {"batch": b_dim, "seq": t_dim}
+    if c.dim() > t_dim + 1:
+        axes["heads"] = t_dim + 1
+    rows = {k: v for k, v in axes.items() if k != "seq"}
+    write = functools.partial(_masked_write, t_start=shard_offset(c, t_dim), b_dim=b_dim,
+                              t_dim=t_dim)
+    on_local_shards(write, c, axes, [(c, axes), (u, rows), (start, ROWS if start.dim() else {})],
+                    [axes])
+
+
 def write_kv(cache_k, cache_v, new_k, new_v, pos):
     """One layer's cache update, **in place**: cache_k/v (B,T,nkv,hd),
     new_k/v (B,S_new,nkv,hd), each slot written at its own ``pos`` (B,),
     clamped as JAX's ``dynamic_update_slice`` is."""
+    if isinstance(cache_k, DTensor):
+        for c, u in ((cache_k, new_k), (cache_v, new_v)):
+            write_rows(c, u, pos.clamp(0, c.shape[1] - u.shape[1]), 0, 1)
+        return
     B, T = cache_k.shape[:2]
     S_new = new_k.shape[1]
     rest = tuple(cache_k.shape[2:])
@@ -326,6 +467,10 @@ def append_kv(cache_k, cache_v, new_k, new_v, pos):
     because a captured CUDA graph replays against fixed addresses.  Starts
     are clamped as in :func:`write_kv`.
     """
+    if isinstance(cache_k, DTensor):
+        for c, u in ((cache_k, new_k), (cache_v, new_v)):
+            write_rows(c, u, pos.clamp(0, c.shape[2] - u.shape[2]), 1, 2)
+        return cache_k, cache_v
     L, B, T = cache_k.shape[:3]
     S_new = new_k.shape[2]
     rest = tuple(cache_k.shape[3:])
@@ -343,6 +488,10 @@ def append_kv_synced(cache_k, cache_v, new_k, new_v, pos):
     as there.  cache_k/v: (L,B,T,nkv,hd); new_k/v: (L,B,S_new,nkv,hd).
     One ``index_copy_`` each, at an offset read on the device."""
     T, S_new = cache_k.shape[2], new_k.shape[2]
+    if isinstance(cache_k, DTensor):
+        for c, u in ((cache_k, new_k), (cache_v, new_v)):
+            write_rows(c, u, pos.clamp(0, T - S_new), 1, 2)
+        return cache_k, cache_v
     rows = pos.clamp(0, T - S_new) + torch.arange(S_new, device=pos.device)
     for c, u in ((cache_k, new_k), (cache_v, new_v)):
         c.index_copy_(2, rows, u.to(c.dtype))
@@ -354,13 +503,15 @@ def cross_attention(p: Params, x: torch.Tensor, memory: torch.Tensor, cfg) -> to
     values from memory (B, T, D), no RoPE on the cross keys, every query
     over every key (not causal).  On the flash kernel with Sq = S and
     Skv = T (one query row in decode); its plain version on the CPU."""
-    B, S, D = x.shape
-    T = memory.shape[1]
     h = cfg.resolved_head_dim
     nh, nkv = cfg.n_heads, cfg.n_kv_heads
     scale = cfg.attn_logit_scale or (1.0 / math.sqrt(h))
-    q = (x @ p["wq"].reshape(D, nh * h)).reshape(B, S, nh, h)
-    k = (memory @ p["wk"].reshape(D, nkv * h)).reshape(B, T, nkv, h)
-    v = (memory @ p["wv"].reshape(D, nkv * h)).reshape(B, T, nkv, h)
-    out = mha_flash(q, k, v, scale=scale, causal=False)
-    return out.reshape(B, S, nh * h) @ p["wo"].reshape(nh * h, D)
+    wq = gather_fsdp(p["wq"], "fsdp", "heads", "_", group="attn")
+    wk = gather_fsdp(p["wk"], "fsdp", "kv_heads", "_", group="attn")
+    wv = gather_fsdp(p["wv"], "fsdp", "kv_heads", "_", group="attn")
+    wo = gather_fsdp(p["wo"], "heads", "_", "fsdp", group="attn")
+    q = _split_heads(x @ _merge(wq), nh, h, "heads")
+    k = _split_heads(memory @ _merge(wk), nkv, h, "kv_heads")
+    v = _split_heads(memory @ _merge(wv), nkv, h, "kv_heads")
+    out = mha_flash(_grouped(q, k), k, v, scale=scale, causal=False)
+    return _merge(out) @ _merge(wo, first=True)

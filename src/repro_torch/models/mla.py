@@ -11,21 +11,26 @@ are cached.  Two forms, as in JAX:
   on the latents and W_uv expands the context after.
 
 Both take the logits in float32 and cast the probabilities back to the
-activation dtype.  JAX computes MLA in jnp outside any Pallas kernel, and
-its head dims (qk 192, v 128) are outside B1's contract, so it stays plain
-PyTorch here.  Unlike JAX, which returns a new cache, :func:`mla_attention`
+activation dtype.  The sharding hints stand where JAX has them.  JAX
+computes MLA in jnp outside any Pallas kernel, and its head dims (qk 192,
+v 128) are outside B1's contract, so it stays plain PyTorch here.  Unlike JAX, which returns a new cache, :func:`mla_attention`
 writes the new latents into the cache **in place** (a captured CUDA graph
 replays against fixed addresses).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Mapping, Optional
 
 import torch
 
-from .layers import NEG_INF, Shape, _rms, apply_rope
+from torch.distributed.tensor import DTensor, Shard
+
+from repro_torch.distributed import constrain, gather_fsdp, on_local_shards, replicate_like
+
+from .layers import HEADS, NEG_INF, ROWS, Shape, _merge, _rms, apply_rope, write_rows
 
 
 def mla_shapes(cfg) -> dict[str, Shape]:
@@ -53,13 +58,16 @@ def _project_latents(p: Mapping, x: torch.Tensor, cfg, positions: torch.Tensor):
     """Common front: query heads and (latent, shared rope key)."""
     m = cfg.mla
     if "w_dq" in p:
-        q = torch.einsum("bsr,rnh->bsnh", x @ p["w_dq"], p["w_uq"])
+        cq = x @ gather_fsdp(p["w_dq"], "fsdp", "lora", group="attn")
+        q = torch.einsum("bsr,rnh->bsnh", cq, p["w_uq"])
     else:
-        q = torch.einsum("bsd,dnh->bsnh", x, p["w_q"])
+        q = torch.einsum("bsd,dnh->bsnh", x,
+                         gather_fsdp(p["w_q"], "fsdp", "heads", "_", group="attn"))
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
-    c_kv, k_rope = (x @ p["w_dkv"]).split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    ckv_full = x @ gather_fsdp(p["w_dkv"], "fsdp", "lora", group="attn")
+    c_kv, k_rope = ckv_full.split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
     c_kv = (_rms(c_kv) * p["kv_norm_scale"]).to(x.dtype)
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
     return q_nope, q_rope, c_kv, k_rope
@@ -75,20 +83,55 @@ def absorbed_attention(p: Mapping, q_nope, q_rope, ckv, krope, cfg, *,
     """Attention of the queries against latents ``ckv`` (B,T,lora) and
     ``krope`` (B,T,rope): key t of slot b is visible to the query at
     ``positions[b, s]`` when ``t <= positions[b, s]`` and ``t < kv_len[b]``.
-    Returns ``(B, S, D)``."""
-    q_lat = torch.einsum("bsnh,rnh->bsnr", q_nope, p["w_uk"])
+    Returns ``(B, S, D)``; on DTensors the attention runs on each device's
+    rows and heads."""
+    args = (q_nope, q_rope, ckv, krope, p["w_uk"], p["w_uv"], positions, kv_len)
+    core = functools.partial(_absorbed_core, scale=_scale(cfg), dtype=dtype)
+    if isinstance(q_nope, DTensor):
+        lora_heads = {"heads": 1}
+        out = on_local_shards(core, q_nope, HEADS, list(zip(args, (
+            HEADS, HEADS, ROWS, ROWS, lora_heads, lora_heads, ROWS, ROWS))), [HEADS])
+    else:
+        out = core(*args)
+    return _project_out(p, out)
+
+
+def _project_out(p: Mapping, out: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsnh,nhd->bsd", out, w_o)``; with the heads sharded, one
+    product over the merged (heads, v_head_dim), heads outer, as dense
+    attention's output projection, since DTensor (torch 2.11) cannot
+    flatten the heads after another sharded dimension as the einsum does."""
+    w_o = gather_fsdp(p["w_o"], "heads", "_", "fsdp", group="attn")
+    if isinstance(out, DTensor) and Shard(2) in out.placements:
+        return _merge(out) @ _merge(w_o, first=True)
+    return torch.einsum("bsnh,nhd->bsd", out, w_o)
+
+
+def _absorbed_core(q_nope, q_rope, ckv, krope, w_uk, w_uv, positions, kv_len, *, scale, dtype):
+    """The absorbed form's attention: (B, S, heads, v_head_dim)."""
+    q_lat = torch.einsum("bsnh,rnh->bsnr", q_nope, w_uk)
     logits = (
         torch.einsum("bsnr,btr->bnst", q_lat.float(), ckv.float())
         + torch.einsum("bsnh,bth->bnst", q_rope.float(), krope.float())
-    ) * _scale(cfg)
+    ) * scale
     t = torch.arange(ckv.shape[1], device=ckv.device)
     mask = ((t[None, None, :] <= positions[..., None])
             & (t[None, None, :] < kv_len[:, None, None]))[:, None]     # (B,1,S,T)
     probs = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1).to(dtype)
     # attend in latent space, then expand through W_uv
     ctx_lat = torch.einsum("bnst,btr->bsnr", probs, ckv)
-    out = torch.einsum("bsnr,rnh->bsnh", ctx_lat, p["w_uv"])
-    return torch.einsum("bsnh,nhd->bsd", out, p["w_o"])
+    return torch.einsum("bsnr,rnh->bsnh", ctx_lat, w_uv)
+
+
+def _expanded_core(q_nope, q_rope, k_nope, k_rope, v, q_pos, *, scale):
+    """The expanded form's causal attention: (B, S, heads, v_head_dim)."""
+    logits = (
+        torch.einsum("bsnh,btnh->bnst", q_nope.float(), k_nope.float())
+        + torch.einsum("bsnh,bth->bnst", q_rope.float(), k_rope.float())
+    ) * scale
+    mask = q_pos[:, None] >= torch.arange(q_nope.shape[1], device=q_pos.device)[None, :]
+    probs = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1)
+    return torch.einsum("bnst,btnh->bsnh", probs.to(v.dtype), v)
 
 
 def mla_prefill(p: Mapping, x: torch.Tensor, cfg, *, positions: torch.Tensor):
@@ -99,7 +142,8 @@ def mla_prefill(p: Mapping, x: torch.Tensor, cfg, *, positions: torch.Tensor):
     write into the cache."""
     q_nope, q_rope, c_kv, k_rope = _project_latents(p, x, cfg, positions)
     B, S = x.shape[:2]
-    kv_len = torch.full((B,), S, dtype=positions.dtype, device=x.device)
+    kv_len = replicate_like(torch.full((B,), S, dtype=positions.dtype, device=x.device),
+                            positions)
     y = absorbed_attention(p, q_nope, q_rope, c_kv, k_rope, cfg, positions=positions,
                            kv_len=kv_len, dtype=x.dtype)
     return y, (c_kv, k_rope)
@@ -120,29 +164,34 @@ def mla_attention(
     cache in the absorbed form."""
     B, S, _ = x.shape
     q_nope, q_rope, c_kv, k_rope = _project_latents(p, x, cfg, positions)
+    q_nope = constrain(q_nope, "batch", "seq", "heads", "_")
 
     if cache is None:
-        # standard (expanded) form
+        # standard (expanded) form; on DTensors on each device's rows and heads
         k_nope = torch.einsum("btr,rnh->btnh", c_kv, p["w_uk"])
         v = torch.einsum("btr,rnh->btnh", c_kv, p["w_uv"])
-        logits = (
-            torch.einsum("bsnh,btnh->bnst", q_nope.float(), k_nope.float())
-            + torch.einsum("bsnh,bth->bnst", q_rope.float(), k_rope.float())
-        ) * _scale(cfg)
-        q_pos = positions[0]
-        mask = q_pos[:, None] >= torch.arange(S, device=x.device)[None, :]
-        probs = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1)
-        out = torch.einsum("bnst,btnh->bsnh", probs.to(v.dtype), v)
-        return torch.einsum("bsnh,nhd->bsd", out, p["w_o"]), (c_kv, k_rope)
+        args = (q_nope, q_rope, k_nope, k_rope, v, positions[0])
+        core = functools.partial(_expanded_core, scale=_scale(cfg))
+        if isinstance(q_nope, DTensor):
+            out = on_local_shards(core, q_nope, HEADS, list(zip(args, (
+                HEADS, HEADS, HEADS, ROWS, HEADS, {}))), [HEADS])
+        else:
+            out = core(*args)
+        y = _project_out(p, out)
+        return y, (c_kv, k_rope)
 
     pos = cache["pos"]
     T = cache["ckv"].shape[1]
     start = pos.clamp(0, T - S)
-    rows = (torch.arange(B, device=pos.device)[:, None] * T + start[:, None]
-            + torch.arange(S, device=pos.device)[None, :]).reshape(-1)
-    for name, new in (("ckv", c_kv), ("krope", k_rope)):
-        c = cache[name]
-        c.view(B * T, -1).index_copy_(0, rows, new.to(c.dtype).reshape(B * S, -1))
+    if isinstance(start, DTensor):
+        for name, new in (("ckv", c_kv), ("krope", k_rope)):
+            write_rows(cache[name], new, start, 0, 1)
+    else:
+        rows = (torch.arange(B, device=pos.device)[:, None] * T + start[:, None]
+                + torch.arange(S, device=pos.device)[None, :]).reshape(-1)
+        for name, new in (("ckv", c_kv), ("krope", k_rope)):
+            c = cache[name]
+            c.view(B * T, -1).index_copy_(0, rows, new.to(c.dtype).reshape(B * S, -1))
     y = absorbed_attention(p, q_nope, q_rope, cache["ckv"], cache["krope"], cfg,
                            positions=positions, kv_len=pos + S, dtype=x.dtype)
     return y, (c_kv, k_rope)

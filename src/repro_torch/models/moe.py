@@ -19,8 +19,12 @@ Where the port differs from JAX in form, not in value:
 * the combine adds each token's K contributions in order over a
   ``(N, K, D)`` view, as JAX's scatter-add into zeros does, with no atomics.
 
-The sharding hints (``constrain``, ``gather_fsdp``) do nothing on one GPU
-and are dropped.
+The sharding hints stand where JAX has them.  Under a mesh (DTensors) the
+routing, the capacity dispatch and the combine see the global tokens, as
+JAX's do, on replicated local tensors (:func:`_whole`: the tokens are
+gathered over the data axis first), so capacity and drops are the
+single-process step's; the capacity buffer is constrained on ``expert``
+and the three B2 GEMMs run on each device's local experts.
 """
 
 from __future__ import annotations
@@ -28,7 +32,9 @@ from __future__ import annotations
 from typing import Mapping
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
+from repro_torch.distributed import constrain, gather_fsdp, replicate_like
 from repro_torch.kernels.stream_pack import stream_pack
 
 from .layers import Shape, _act
@@ -65,17 +71,26 @@ def moe_shapes(cfg) -> dict[str, Shape]:
     return shapes
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value as a plain tensor, the same on every device
+    (gathered where it is sharded); a plain tensor as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim).to_local()
+
+
 def apply_moe(p: Mapping, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) → (out (B, S, D), aux_loss ())."""
     m = cfg.moe
     B, S, D = x.shape
     N = B * S
     E, K = m.num_experts, m.top_k
-    xf = x.reshape(N, D)
+    xd = x.reshape(N, D)
+    xf = _whole(xd)                                              # every token
     dev = x.device
 
     # ---- router --------------------------------------------------------
-    logits = xf.float() @ p["router"]                            # (N, E)
+    logits = xf.float() @ _whole(p["router"])                   # (N, E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_ids = torch.topk(probs, K, dim=-1)         # (N, K)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
@@ -105,12 +120,19 @@ def apply_moe(p: Mapping, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Ten
     xk = xf.unsqueeze(1).expand(N, K, D).reshape(N * K, D)
     buf = torch.zeros((trash + 1, D), dtype=x.dtype, device=dev)
     buf.index_put_((rows,), torch.where(keep[:, None], xk, 0))
-    h = buf[:trash].view(E, cap, D)
+    h = constrain(replicate_like(buf, x)[:trash].view(E, cap, D), "expert", "_", "_")
 
     # ---- grouped expert FFN: one B2 launch per GEMM ----------------------
-    g = _act(stream_pack(h, p["w_gate"]), cfg.activation)
-    u = stream_pack(h, p["w_up"])
-    eo = stream_pack(g * u, p["w_down"]).view(trash, D)          # (E*cap, D)
+    w_gate = gather_fsdp(p["w_gate"], "expert", "fsdp", "mlp", group="moe")
+    w_up = gather_fsdp(p["w_up"], "expert", "fsdp", "mlp", group="moe")
+    w_down = gather_fsdp(p["w_down"], "expert", "mlp", "fsdp", group="moe")
+    g = _act(stream_pack(h, w_gate), cfg.activation)
+    u = stream_pack(h, w_up)
+    # B2 multiplies local shards only: its left operand is laid out first
+    # (a partial sum reduced, an M-sharded one gathered)
+    eo = constrain(stream_pack(constrain(g * u, "expert", "_", "mlp"), w_down),
+                   "expert", "_", "_")
+    eo = _whole(eo).view(trash, D)                               # (E*cap, D)
 
     # ---- combine back ----------------------------------------------------
     gathered = eo[flat_e * cap + slot.clamp(max=cap - 1)]        # (N*K, D)
@@ -120,10 +142,16 @@ def apply_moe(p: Mapping, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Ten
     for k in range(1, K):
         out = out + contrib[:, k]
 
+    out = replicate_like(out, x)
+    aux = replicate_like(aux, x)
+
     # ---- shared experts (DeepSeek) ---------------------------------------
     if "shared" in p:
         sh = p["shared"]
-        hs = _act(xf @ sh["w_gate"], cfg.activation) * (xf @ sh["w_up"])
-        out = out + hs @ sh["w_down"]
+        sg = gather_fsdp(sh["w_gate"], "fsdp", "mlp", group="moe")
+        su = gather_fsdp(sh["w_up"], "fsdp", "mlp", group="moe")
+        sd = gather_fsdp(sh["w_down"], "mlp", "fsdp", group="moe")
+        hs = _act(xd @ sg, cfg.activation) * (xd @ su)
+        out = out + hs @ sd
 
     return out.reshape(B, S, D), aux

@@ -25,6 +25,8 @@ from typing import Mapping, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import replicate_like
+
 from .layers import Shape
 
 Params = Mapping[str, torch.Tensor]
@@ -107,7 +109,8 @@ def _ssd_chunked(x, dtv, ldec, Bm, Cm, h0, chunk: int):
     # intra-chunk (attention-like, lower-triangular)
     cb = torch.einsum("bntk,bnsk->bnts", Cc, Bc)              # (B,nc,L,L)
     decay = torch.exp(torch.clamp(lcum[:, :, :, None] - lcum[:, :, None, :], -60.0, 0.0))
-    mask = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    mask = replicate_like(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril(),
+                          cb)
     m = cb[..., None] * decay * dtc[:, :, None]               # (B,nc,t,s,H)
     m = torch.where(mask[None, None, :, :, None], m, 0.0)
     y_intra = torch.einsum("bntsh,bnshd->bnthd", m, xc)
@@ -162,12 +165,12 @@ def mamba2_block(p: Params, x: torch.Tensor, cfg, *, cache: Optional[dict] = Non
         chunk = min(s.chunk, S)
         while S % chunk:
             chunk //= 2
-        h0 = torch.zeros((B_, H, s.head_dim, s.state_dim), dtype=torch.float32,
-                         device=x.device)
+        h0 = replicate_like(torch.zeros((B_, H, s.head_dim, s.state_dim), dtype=torch.float32,
+                                        device=x.device), x)
         y, _ = _ssd_chunked(x_ssm.float(), dtv, ldec, Bm, Cm, h0, chunk)
     else:
-        h0 = cache["h"] if cache is not None else torch.zeros(
-            (B_, H, s.head_dim, s.state_dim), dtype=torch.float32, device=x.device)
+        h0 = cache["h"] if cache is not None else replicate_like(torch.zeros(
+            (B_, H, s.head_dim, s.state_dim), dtype=torch.float32, device=x.device), x)
         xs = x_ssm.float()[:, 0]                              # (B,H,hd)
         h_out = (h0 * torch.exp(ldec[:, 0])[:, :, None, None]
                  + torch.einsum("bh,bhd,bk->bhdk", dtv[:, 0], xs, Bm[:, 0]))

@@ -31,7 +31,11 @@ parameter here and carries ``s``): :func:`param_axes` returns them by
 name, :func:`cache_axes` gives the cache's, and
 :mod:`repro_torch.distributed` maps both onto a mesh.  ``init_cache(...,
 per_slot=False)`` gives the synchronized batch decode its one scalar
-offset.
+offset.  Under a sharding context (DTensor parameters and inputs) the
+layers carry JAX's ``constrain`` call sites: the residual stream laid out
+as ``(batch, seq, embed)`` after each block, the logits as ``(batch, seq,
+vocab)``; :func:`layer_period` gives the dry run the depth at which the
+stack's pattern repeats.
 """
 
 from __future__ import annotations
@@ -44,6 +48,8 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint as ckpt
 from torch import nn
+
+from repro_torch.distributed import constrain, replicate_like
 
 from . import layers as L
 from . import ssm as SSM
@@ -356,7 +362,7 @@ def _attn_ffn_block(lp, x, cfg, *, positions, window, cache=None, prompt=False,
                                          cache=cache)
     if cfg.post_attn_norm:
         attn_out = L.apply_norm(lp["ln_post_attn"], attn_out, cfg)
-    x = x + attn_out
+    x = constrain(x + attn_out, "batch", "seq", "embed")
     h = L.apply_norm(lp["ln2"], x, cfg)
     aux = None
     if cfg.moe is not None:
@@ -367,7 +373,7 @@ def _attn_ffn_block(lp, x, cfg, *, positions, window, cache=None, prompt=False,
         ffn_out = L.apply_ffn(lp["ffn"], h, cfg)
     if cfg.post_attn_norm:
         ffn_out = L.apply_norm(lp["ln_post_ffn"], ffn_out, cfg)
-    return x + ffn_out, new_kv, aux
+    return constrain(x + ffn_out, "batch", "seq", "embed"), new_kv, aux
 
 
 def cache_names(cfg) -> tuple[str, str]:
@@ -415,6 +421,19 @@ def _xlstm_layer(lp, x, cfg, *, kind: str, cache=None):
     return x + out, state
 
 
+def layer_period(cfg) -> int:
+    """The fewest layers whose pattern repeats through the stack (xLSTM's
+    sLSTM positions, the hybrid's shared attention, gemma2's windows): the
+    smallest divisor P of ``n_layers`` with layer i alike layer i mod P."""
+    windows = _window_schedule(cfg) or [None] * cfg.n_layers
+    kinds = [(windows[i],
+              _xlstm_kind(cfg, i) if cfg.family == "ssm" else None,
+              _is_attn_layer(cfg, i) if cfg.family == "hybrid" else None)
+             for i in range(cfg.n_layers)]
+    return next(p for p in range(1, cfg.n_layers + 1)
+                if cfg.n_layers % p == 0 and all(k == kinds[i % p] for i, k in enumerate(kinds)))
+
+
 def _is_attn_layer(cfg, i: int) -> bool:
     """Zamba2 applies its shared attention block after every
     ``hybrid_attn_every``-th Mamba2 layer."""
@@ -443,7 +462,8 @@ def _encoder_layer(lp, x, cfg, positions):
     o, _ = L.attention(lp["attn"], L.apply_norm(lp["ln1"], x, cfg), cfg,
                        positions=positions, causal=False)
     x = x + o
-    return x + L.apply_ffn(lp["ffn"], L.apply_norm(lp["ln2"], x, cfg), cfg)
+    x = x + L.apply_ffn(lp["ffn"], L.apply_norm(lp["ln2"], x, cfg), cfg)
+    return constrain(x, "batch", "seq", "embed")
 
 
 def encode_memory(p: Transformer, frames: torch.Tensor, cfg) -> torch.Tensor:
@@ -451,7 +471,7 @@ def encode_memory(p: Transformer, frames: torch.Tensor, cfg) -> torch.Tensor:
     audio_dim) through ``frontend_proj``, the encoder layers (bidirectional
     flash attention) and ``enc_final_norm``; returns the memory (B, T, D)."""
     x = frames.to(p.frontend_proj["w"].dtype) @ p.frontend_proj["w"]
-    positions = _positions(*x.shape[:2], x.device)
+    positions = _positions(x)
     layer = _remat(_encoder_layer, cfg)
     for lp in p.encoder:
         x = layer(lp, x, cfg, positions)
@@ -466,15 +486,20 @@ def _decoder_layer(lp, x, memory, cfg, *, positions, cache=None):
                        positions=positions, cache=cache)
     x = x + o
     x = x + L.cross_attention(lp["cross_attn"], L.apply_norm(lp["ln2"], x, cfg), memory, cfg)
-    return x + L.apply_ffn(lp["ffn"], L.apply_norm(lp["ln3"], x, cfg), cfg)
+    x = x + L.apply_ffn(lp["ffn"], L.apply_norm(lp["ln3"], x, cfg), cfg)
+    return constrain(x, "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
 # forward (full sequence) and prefill into an empty cache
 # ---------------------------------------------------------------------------
 
-def _positions(B: int, S: int, device) -> torch.Tensor:
-    return torch.arange(S, device=device).expand(B, S)
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    """``(B, S)`` positions 0..S-1 of ``x`` ``(B, S, ...)``, laid out as
+    its batch under a sharding context."""
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    return constrain(replicate_like(positions, x), "batch", "seq")
 
 
 def _embed_input(p, batch, cfg) -> torch.Tensor:
@@ -502,13 +527,13 @@ def forward(p: Transformer, batch: dict, cfg):
     if fam == "audio":
         memory = encode_memory(p, batch["frames"], cfg)
         x = L.embed_tokens(p.embed, tokens, cfg)
-        positions = _positions(*tokens.shape, tokens.device)
+        positions = _positions(tokens)
         layer = _remat(_decoder_layer, cfg)
         for lp in p.decoder:
             x = layer(lp, x, memory, cfg, positions=positions)
     else:
         x = _embed_input(p, batch, cfg)
-        positions = _positions(*x.shape[:2], x.device)
+        positions = _positions(x)
         if fam in ATTENTION_FAMILIES:
             x, _, aux = _run_layers(p, x, cfg, positions, keep_new=False)
         elif fam == "hybrid":
@@ -517,9 +542,9 @@ def forward(p: Transformer, batch: dict, cfg):
             for i, lp in enumerate(p.layers):
                 x, _ = _xlstm_layer(lp, x, cfg, kind=_xlstm_kind(cfg, i))
     x = L.apply_norm(p.final_norm, x, cfg)
-    logits = L.unembed(p.embed, x, cfg)
+    logits = constrain(L.unembed(p.embed, x, cfg), "batch", "seq", "vocab")
     if aux is None:
-        aux = torch.zeros((), device=tokens.device)
+        aux = replicate_like(torch.zeros((), device=tokens.device), logits)
     return logits, {"aux_loss": aux}
 
 
@@ -541,7 +566,7 @@ def prefill(p: Transformer, tokens: torch.Tensor, cfg):
     if cfg.family not in ATTENTION_FAMILIES:
         raise ValueError(f"prefill serves the {ATTENTION_FAMILIES} families, not {cfg.family}")
     x = L.embed_tokens(p.embed, tokens, cfg)
-    x, new, _ = _run_layers(p, x, cfg, _positions(*tokens.shape, tokens.device),
+    x, new, _ = _run_layers(p, x, cfg, _positions(tokens),
                             prompt=True)
     x = L.apply_norm(p.final_norm, x, cfg)
     return L.unembed(p.embed, x, cfg), new
@@ -662,7 +687,7 @@ def decode_step(p: Transformer, cache: dict, tokens: torch.Tensor, cfg):
     pos = cache["pos"].expand(B)             # a scalar offset broadcast, as in JAX
     fam = cfg.family
     x = L.embed_tokens(p.embed, tokens, cfg)
-    positions = pos[:, None] + torch.arange(S_new, device=pos.device)[None, :]
+    positions = pos[:, None] + replicate_like(torch.arange(S_new, device=pos.device), pos)[None, :]
     if fam in ATTENTION_FAMILIES:
         # MLA has written its latents into the cache inside each layer
         x, new, _ = _run_layers(p, x, cfg, positions, cache=cache, pos=pos,

@@ -21,8 +21,11 @@ from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from .layers import Shape
+from repro_torch.distributed import on_local_shards, replicate_like
+
+from .layers import ROWS, Shape
 
 Params = Mapping[str, torch.Tensor]
 # the float32 leaves of the two cells; the rest is the model's dtype
@@ -98,7 +101,8 @@ def _mlstm_chunked(q, k, v, log_i, log_f, C0, n0, m0, chunk: int):
     w_intra = torch.exp(torch.clamp(
         Fc[:, :, :, None] - Fc[:, :, None, :] + lic[:, :, None, :] - mc[:, :, :, None],
         -60.0, 30.0))
-    mask = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device).tril()
+    mask = replicate_like(torch.ones((chunk, chunk), dtype=torch.bool, device=q.device).tril(),
+                          qk)
     scores = torch.where(mask[None, None, :, :, None], qk * w_intra, 0.0)
     num_intra = torch.einsum("bntsh,bnshd->bnthd", scores, vc)
     den_intra = scores.sum(dim=3)                             # (B,nc,t,H)
@@ -165,9 +169,10 @@ def mlstm_block(p: Params, x: torch.Tensor, cfg, *, cache: Optional[dict] = None
     log_i, log_f = gates[..., :H], F.logsigmoid(gates[..., H:])
 
     if cache is None:
-        C0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
-        n0 = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
-        m0 = torch.full((B, H), -1e30, dtype=torch.float32, device=x.device)
+        C0, n0, m0 = (replicate_like(t, x) for t in (
+            torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device),
+            torch.zeros((B, H, hd), dtype=torch.float32, device=x.device),
+            torch.full((B, H), -1e30, dtype=torch.float32, device=x.device)))
     else:
         C0, n0, m0 = cache["C"], cache["n"], cache["m"]
 
@@ -203,15 +208,34 @@ def slstm_block(p: Params, x: torch.Tensor, cfg, *, cache: Optional[dict] = None
     B, S, D = x.shape
     gx = x @ p["w_gates"]                                     # (B,S,4D)
     if cache is None:
-        c = torch.zeros((B, D), dtype=torch.float32, device=x.device)
-        n = torch.ones((B, D), dtype=torch.float32, device=x.device)
-        m = torch.zeros((B, D), dtype=torch.float32, device=x.device)
-        h = torch.zeros((B, D), dtype=x.dtype, device=x.device)
+        c, n, m, h = (replicate_like(t, x) for t in (
+            torch.zeros((B, D), dtype=torch.float32, device=x.device),
+            torch.ones((B, D), dtype=torch.float32, device=x.device),
+            torch.zeros((B, D), dtype=torch.float32, device=x.device),
+            torch.zeros((B, D), dtype=x.dtype, device=x.device)))
     else:
         c, n, m, h = cache["c"], cache["n"], cache["m"], cache["h"]
-    r_w, b = p["r_gates"], p["b_gates"]
+    args = (gx, p["r_gates"], p["b_gates"], c, n, m, h)
+    if isinstance(gx, DTensor):
+        # each device steps its own batch rows on plain tensors (a step of
+        # DTensor ops costs the host far more than the step), the gate
+        # inputs whole on their last axis, the recurrent weights and bias
+        # gathered once rather than at every step
+        gx = gx.redistribute(gx.device_mesh, [p if p == Shard(0) else Replicate()
+                                              for p in gx.placements])
+        hs, c, n, m, h = on_local_shards(_slstm_scan, gx, ROWS, list(zip(
+            (gx,) + args[1:], (ROWS, {}, {}) + (ROWS,) * 4)), [ROWS] * 5)
+    else:
+        hs, c, n, m, h = _slstm_scan(*args)
+    out = hs @ p["w_out"]
+    return out, _store(cache, {"c": c, "n": n, "m": m, "h": h})
+
+
+def _slstm_scan(gx, r_w, b, c, n, m, h):
+    """The sLSTM recurrence over gx's S positions from state (c, n, m, h):
+    returns the hidden states (B,S,D) and the last state."""
     hs = []
-    for t in range(S):
+    for t in range(gx.shape[1]):
         gxt = gx[:, t]
         g = (gxt + h @ r_w).float() + b                       # (B,4D)
         li, lf, zt, ot = g.chunk(4, dim=-1)
@@ -224,5 +248,4 @@ def slstm_block(p: Params, x: torch.Tensor, cfg, *, cache: Optional[dict] = None
         h = (torch.sigmoid(ot) * c / torch.clamp(n, min=1.0)).to(gxt.dtype)
         m = m_new
         hs.append(h)
-    out = torch.stack(hs, dim=1) @ p["w_out"]
-    return out, _store(cache, {"c": c, "n": n, "m": m, "h": h})
+    return torch.stack(hs, dim=1), c, n, m, h

@@ -13,6 +13,11 @@ walks the leaves one by one, so the float32 temporaries of the update are
 those of one leaf at a time.  The casts are JAX's: the gradients are
 clipped in their own dtype, the update is computed in float32 and rounded
 to the parameter's dtype.
+
+Sharded parameters (DTensors) keep their moments on the same placements,
+and the step counter is replicated over their mesh, as JAX's
+``adamw_init_shardings`` places them; the update then runs on each
+device's shards in place, and the global norm sums every shard.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils import _pytree as pytree
 
 
@@ -30,12 +36,17 @@ class AdamWState(NamedTuple):
 
 
 def adamw_init(params: Any) -> AdamWState:
+    """Zero float32 moments shaped and placed as the parameters, and the
+    step counter 0 on their device (replicated over their mesh)."""
     leaves = pytree.tree_leaves(params)
     device = leaves[0].device if leaves else "cpu"
     zeros = pytree.tree_map(
-        lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
-    return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device), mu=zeros,
-                      nu=pytree.tree_map(torch.clone, zeros))
+        lambda p: torch.zeros_like(p, dtype=torch.float32, requires_grad=False), params)
+    step = torch.zeros((), dtype=torch.int32, device=device)
+    if leaves and isinstance(leaves[0], DTensor):
+        mesh = leaves[0].device_mesh
+        step = DTensor.from_local(step, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return AdamWState(step=step, mu=zeros, nu=pytree.tree_map(torch.clone, zeros))
 
 
 def global_norm(tree: Any) -> torch.Tensor:

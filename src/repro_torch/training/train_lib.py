@@ -17,6 +17,14 @@ Differences from JAX, each for the capture or for memory at full width:
   afresh;
 * the metrics are device tensors; reading one (``float(m["loss"])``)
   waits for the step.
+
+Under a mesh (``make_train_step(..., mesh=)``, the parameters DTensors
+placed by ``repro_torch.distributed.shard_model``) the step runs under
+that sharding context: each gradient is laid out as its parameter (the
+data-parallel reduction), the global norm and the clip sum every shard,
+AdamW updates each device's shards in place, and the metrics come back
+replicated.  :func:`seal_train_step` captures that step as one CUDA graph
+too (its collectives with it).
 """
 
 from __future__ import annotations
@@ -26,8 +34,11 @@ from typing import Callable
 
 import torch
 import torch.utils.checkpoint as ckpt
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.core.capture import CAPTURE_ERROR_MODE, CAPTURE_LOCK
+from repro_torch.data import shard_batch
+from repro_torch.distributed import constrain, local_part, replicate_like, use_sharding_ctx
 from repro_torch.models import forward
 from repro_torch.optim import adamw_update
 from repro_torch.optim.adamw import AdamWState
@@ -35,6 +46,9 @@ from repro_torch.optim.adamw import AdamWState
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean token cross-entropy; label < 0 positions are masked out."""
+    # vocab-sharded logits are gathered whole over the vocabulary first
+    # (XLA reduces a sharded softmax instead)
+    logits = constrain(logits, "batch", "seq", None)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
     nll = logz - gold
@@ -52,7 +66,7 @@ def make_loss_fn(cfg) -> Callable:
             # image positions carry no next-token loss
             pad = -torch.ones((labels.shape[0], cfg.vision_tokens), dtype=labels.dtype,
                               device=labels.device)
-            labels = torch.cat([pad, labels], dim=1)
+            labels = torch.cat([replicate_like(pad, labels), labels], dim=1)
         loss = cross_entropy(logits, labels) + aux["aux_loss"]
         return loss, {"ce": loss - aux["aux_loss"], "aux": aux["aux_loss"]}
 
@@ -68,6 +82,23 @@ def trainable(model) -> dict[str, torch.nn.Parameter]:
     return params
 
 
+def _as_param(g: torch.Tensor | None, p: torch.Tensor) -> torch.Tensor:
+    """A parameter's gradient laid out as the parameter (zeros if it has
+    none): a DTensor gradient may come back partial (summed over the data
+    axis) or otherwise placed."""
+    if g is None:
+        return torch.zeros_like(p)
+    if isinstance(g, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _replicated(t: torch.Tensor) -> torch.Tensor:
+    if isinstance(t, DTensor):
+        return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+    return t
+
+
 def make_train_step(
     cfg,
     *,
@@ -75,35 +106,39 @@ def make_train_step(
     weight_decay: float = 0.1,
     max_grad_norm: float = 1.0,
     remat: bool = False,
+    mesh=None,
+    rules=None,
 ) -> Callable:
     """Returns ``step(model, opt_state, batch) -> (model, opt_state,
     metrics)``, updating the model's parameters and ``opt_state`` in place.
     ``step.loss_and_grads(model, batch)`` is its first half alone, which
     moves no state (a capture's warm-up).  ``remat`` recomputes the whole
     forward in the backward (``torch.utils.checkpoint``, JAX's
-    ``jax.checkpoint`` of the loss)."""
+    ``jax.checkpoint`` of the loss).  With ``mesh`` both run under
+    ``use_sharding_ctx(mesh, rules)``, over a model and a batch placed on
+    it."""
     loss_fn = make_loss_fn(cfg)
 
     def loss_and_grads(model, batch):
         params = trainable(model)
-        with torch.enable_grad():
+        with use_sharding_ctx(mesh, rules), torch.enable_grad():
             if remat:
                 loss, parts = ckpt.checkpoint(loss_fn, model, batch, use_reentrant=False,
                                               preserve_rng_state=False)
             else:
                 loss, parts = loss_fn(model, batch)
             grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-        grads = {name: torch.zeros_like(p) if g is None else g
-                 for (name, p), g in zip(params.items(), grads)}
+            grads = {name: _as_param(g, p) for (name, p), g in zip(params.items(), grads)}
         return loss.detach(), {k: v.detach() for k, v in parts.items()}, grads, params
 
     def step(model, opt_state: AdamWState, batch):
         loss, parts, grads, params = loss_and_grads(model, batch)
         lr_val = lr(opt_state.step) if callable(lr) else lr
-        _, opt_state, gnorm = adamw_update(
-            grads, opt_state, params,
-            lr=lr_val, weight_decay=weight_decay, max_grad_norm=max_grad_norm,
-        )
+        with use_sharding_ctx(mesh, rules):
+            _, opt_state, gnorm = adamw_update(
+                grads, opt_state, params,
+                lr=lr_val, weight_decay=weight_decay, max_grad_norm=max_grad_norm,
+            )
         metrics = {
             "loss": loss,
             "ce": parts["ce"],
@@ -111,9 +146,9 @@ def make_train_step(
             "grad_norm": gnorm,
             # a fill, not a host-to-device copy: capturable
             "lr": lr_val.float() if isinstance(lr_val, torch.Tensor)
-            else torch.full((), float(lr_val), device=loss.device),
+            else replicate_like(torch.full((), float(lr_val), device=loss.device), loss),
         }
-        return model, opt_state, metrics
+        return model, opt_state, {k: _replicated(v) for k, v in metrics.items()}
 
     step.loss_and_grads = loss_and_grads
     return step
@@ -140,8 +175,12 @@ class SealedTrainStep:
 
     def __init__(self, step, model, opt_state, batch: dict):
         self.step, self.model, self.opt_state = step, model, opt_state
-        device = next(model.parameters()).device
-        self.static = batch_to_device(batch, device)
+        first = next(model.parameters())
+        device = first.device
+        if isinstance(first, DTensor):      # the batch laid out on the parameters' mesh
+            self.static = shard_batch(batch, first.device_mesh, device)
+        else:
+            self.static = batch_to_device(batch, device)
         self.graph = None
         self.metrics = None
         self.seal_s = 0.0
@@ -173,7 +212,10 @@ class SealedTrainStep:
     def __call__(self, batch: dict | None = None) -> dict:
         if batch is not None:
             for k, buf in self.static.items():
-                buf.copy_(torch.as_tensor(batch[k]))
+                new = torch.as_tensor(batch[k])
+                if isinstance(buf, DTensor):        # this process's slice of the batch
+                    buf, new = buf.to_local(), local_part(new, buf.device_mesh, buf.placements)
+                buf.copy_(new)
         if self.graph is None:
             return self.step(self.model, self.opt_state, self.static)[2]
         self.graph.replay()

@@ -16,6 +16,13 @@ package, on the CPU, with nothing allocated.
   no count and hands back no meta tensor for an op that made a CPU one.
 * A meta tensor goes through each kernel wrapper (B1 forward and
   backward, B2) to its plain version and counts no launch.
+* The partitioned pass, at smoke size on small fake meshes: the dense
+  prefill's collectives are the ones the rules imply (derived in
+  :func:`test_partitioned_collectives_are_the_rules`), one device's FLOPs
+  times the devices are the global count where every product is sharded,
+  and a column-then-row MLP's are its global FLOPs over the model axis;
+  the depth extrapolation equals a run at full depth; every case of the
+  dense, vlm and MoE families partitions.
 """
 
 import dataclasses
@@ -40,7 +47,8 @@ import repro_torch.configs as TC  # noqa: E402
 from repro_torch.kernels import launch_counts  # noqa: E402
 from repro_torch.kernels.flash_attention import mha_flash  # noqa: E402
 from repro_torch.kernels.stream_pack import stream_pack  # noqa: E402
-from repro_torch.configs.shapes import INPUT_SHAPES  # noqa: E402
+from repro_torch.configs.shapes import INPUT_SHAPES, applicable  # noqa: E402
+from repro_torch.distributed import batch_axes  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
 from repro_torch.models import abstract_model, forward  # noqa: E402
@@ -151,7 +159,7 @@ def _jax_groups(arch, shape):
         groups["batch"] = [("tokens", specs["tokens"].shape, "batch seq", 8)]
     else:
         batch = specs["batch"]
-        groups["batch"] = [(n, leaf.shape, dryrun._batch_axes(batch)[n],
+        groups["batch"] = [(n, leaf.shape, batch_axes(batch)[n],
                             8 if leaf.dtype == jnp.int32 else jnp.dtype(leaf.dtype).itemsize)
                            for n, leaf in batch.items()]
     return groups
@@ -274,3 +282,95 @@ def test_meta_tensors_take_the_plain_versions_and_count_no_launch():
     assert stream_pack(x, w).shape == (160, 64, 1536)
     assert stream_pack(x[0], w).shape == (160, 64, 1536)          # a shared x
     assert launch_counts() == before
+
+
+# the partitioned pass, at smoke size on fake meshes of 2 and 4 ranks
+MESH_1x2 = ((1, 2), ("data", "model"))
+MUST_PARTITION = [a for a in ARCHS if TC.get(a).family in dryrun.MUST_PARTITION]
+
+
+@pytest.mark.timeout(300)
+def test_partitioned_collectives_are_the_rules():
+    """phi4-mini smoke (D = 192, L = 2, bf16) at prefill_32k (B 32 x S
+    32768) on (1, 2): the data axis is one device, the model axis shards
+    heads (6 and 2 kv over 2), mlp and vocab.  Per device: the embedding's
+    vocab-sharded partial sum is reduced once, each layer's out-projection
+    and FFN down-projection give a partial sum reduced at the residual, and
+    the logits stay vocab-sharded: 1 + 2 L all-reduces of B·S·D·2 bytes."""
+    cfg = TC.get("phi4-mini-3.8b", smoke=True)
+    r = dryrun.partitioned(cfg, "prefill_32k", *MESH_1x2)
+    sh = INPUT_SHAPES["prefill_32k"]
+    per, n = sh.global_batch * sh.seq_len * cfg.d_model * 2, 1 + 2 * cfg.n_layers
+    assert r["partitioned"] and r["partitioned_layers"] == [cfg.n_layers]
+    assert r["collectives"]["counts"] == {"all-gather": 0, "all-reduce": n, "reduce-scatter": 0,
+                                          "all-to-all": 0, "collective-permute": 0}
+    assert r["collectives"]["bytes_per_kind"]["all-reduce"] == r["collectives"]["total_bytes"] \
+        == n * per
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_flops_per_device_times_devices_is_the_global_count(shape):
+    # on (1, 2) every product of the dense forward and decode is sharded
+    cfg = TC.get("phi4-mini-3.8b", smoke=True)
+    whole = dryrun.step_flops(dryrun.build_case(cfg, shape))
+    r = dryrun.partitioned(cfg, shape, *MESH_1x2)
+    assert abs(2 * r["flops_per_device"] - whole) <= 0.01 * whole, (r["flops_per_device"], whole)
+
+
+def test_column_then_row_mlp_flops_are_split_by_the_model_axis():
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed import place
+    from repro_torch.launch.comm_analysis import CommCounter, collective_bytes
+
+    B, D, F, axis = 8, 64, 256, 4
+    with dryrun.fake_mesh((1, axis), ("data", "model")) as mesh:
+        x = place(torch.empty(B, D, device="meta"), mesh, [Replicate(), Replicate()])
+        w1 = place(torch.empty(D, F, device="meta"), mesh, [Replicate(), Shard(1)])
+        w2 = place(torch.empty(F, D, device="meta"), mesh, [Replicate(), Shard(0)])
+        with CommCounter() as counter:
+            y = ((x @ w1) @ w2).redistribute(mesh, [Replicate(), Replicate()])
+    assert y.shape == (B, D)
+    assert counter.flops == 2 * (2 * B * D * F) // axis
+    assert collective_bytes(counter.records)["counts"]["all-reduce"] == 1
+
+
+@pytest.mark.timeout(300)
+def test_depth_extrapolation_equals_the_full_depth():
+    cfg = dataclasses.replace(TC.get("phi4-mini-3.8b", smoke=True), n_layers=4)
+    got = dryrun.partitioned(cfg, "train_4k", (2, 2), ("data", "model"))
+    assert got["partitioned_layers"] == [1, 2]
+    with dryrun.fake_mesh((2, 2), ("data", "model")) as mesh:
+        full = dryrun._partition_once(cfg, "train_4k", mesh, None)
+    assert got["collectives"] == full["collectives"]
+    assert got["flops_per_device"] == full["flops_per_device"]
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("arch", MUST_PARTITION)
+def test_attention_families_partition(arch):
+    cfg = TC.get(arch, smoke=True)
+    for shape in INPUT_SHAPES:
+        if not applicable(TC.get(arch), shape):
+            continue
+        rules = dict(dryrun.LONG_CONTEXT_OVERRIDES) if shape == "long_500k" else None
+        r = dryrun.partitioned(cfg, shape, (2, 2), ("data", "model"), rules)
+        assert r["partitioned"] is True, (shape, r)
+        assert r["flops_per_device"] > 0 and r["collectives"]["total_bytes"] > 0, shape
+
+
+def test_a_failed_partition_names_its_op():
+    # DTensor names a missing rule in its message; else the op it was
+    # dispatching is the innermost ``op_call`` of its frames
+    def dispatch(op_call):
+        raise IndexError("list index out of range")
+
+    try:
+        dispatch(torch.ops.aten.constant_pad_nd.default)
+    except IndexError as e:
+        assert dryrun._op_of(e) == ("aten.constant_pad_nd.default "
+                                    "(IndexError: list index out of range)")
+    missing = NotImplementedError("Operator aten.cummax.default does not have a sharding "
+                                  "strategy registered.")
+    assert dryrun._op_of(missing) == "aten.cummax.default"

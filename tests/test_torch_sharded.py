@@ -1,0 +1,478 @@
+"""Sharded execution of the port on the CPU: DTensor parameters, AdamW
+state and batches over a ``DeviceMesh`` of spawned gloo processes, held
+against the port's single-process step from the same weights and batch
+(that step is held against JAX in ``test_torch_train_{dense,moe}.py``).
+
+One spawn per mesh, every case inside it: (1, 2) and (2, 1) ``("data",
+"model")`` over 2 processes, a sharded ``forward``, decode steps and one
+sharded train step each; (2, 2) over 4 processes, the train step.  Each process takes its
+share of the parent's threads and rendezvouses on a ``FileStore`` in
+``tmp_path`` (no port, so xdist workers never collide); each join has a
+time limit and a failure shows the child's traceback.  Configs at smoke
+size, float32: phi4-mini (dense, GQA 6 over 2 heads), arctic (MoE on B2's
+plain version, beside a dense FFN) and deepseek-v2 (MoE with MLA and
+shared experts), a ``SyntheticLM`` batch of 2 x 16 (the train tests').
+
+* **forward:** logits within atol 1e-5, rtol 1e-5;
+* **train step:** loss, ce, aux and grad norm within rtol 1e-5; every
+  gradient, divided by its leaf's largest magnitude, within rtol 1e-4 and
+  atol 1e-5; the parameters after the step within 0.2 x lr
+  (``test_torch_train_dense.py``'s rule: Adam's first step is about lr x
+  sign(g)); the step counter replicated.
+* **decode:** synchronized decode steps of phi4-mini, deepseek-v2 (MLA),
+  zamba2 (the in-layer cache write) and xlstm (the sLSTM on each device's
+  rows) with the cache placed by its axes, and phi4-mini under the
+  long-context rules (the cache's positions sharded on the data axis):
+  logits and the cache within 1e-5;
+* **the hand-checked collectives,** the dense forward on (1, 2):
+  ``test_dense_forward_collectives_are_the_rules``.
+* **no hidden all-gather:** B1 and B2 on DTensors run inside ``local_map``
+  with no collective, on their local shards.
+* **the trainer under torchrun:** ``launch/train.py --model-axis 2`` on 2
+  gloo ranks gives the one-process launcher's losses, and its checkpoint
+  restores into a single-process model.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+from torch.utils import _pytree as pytree
+
+import repro_torch.configs as C
+from repro_torch.checkpoint import restore_checkpoint
+from repro_torch.data import SyntheticLM, data_config_for
+from repro_torch.launch.serve import init_params
+from repro_torch.models import Transformer, forward
+from repro_torch.optim import adamw_init, cosine_schedule
+from repro_torch.training import make_train_step, seal_train_step
+from repro_torch.training.train_lib import batch_to_device
+
+ROOT = Path(__file__).resolve().parents[1]
+ARCHS = ["phi4-mini-3.8b", "arctic-480b", "deepseek-v2-236b"]
+# mesh -> the step kinds run on it
+MESHES = {(1, 2): ("forward", "train"), (2, 1): ("forward", "train"), (2, 2): ("train",)}
+LR = 1e-3
+LOGIT_TOL = 1e-5
+METRIC_TOL = 1e-5
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
+PARAM_ATOL = 0.2 * LR
+JOIN_S = 240.0
+
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def config(arch):
+    return dataclasses.replace(C.get(arch, smoke=True), dtype="float32")
+
+
+def batch_of(cfg):
+    return SyntheticLM(data_config_for(cfg, batch_size=2, seq_len=16)).batch(0)
+
+
+def local_step(cfg, batch, mesh=None):
+    """``(logits, grads, metrics, params, step counter)`` of the forward and
+    one AdamW step from seed 0's weights, on ``mesh`` when given (every
+    result gathered whole, as numpy)."""
+    from repro_torch.data import shard_batch
+    from repro_torch.distributed import shard_model, use_sharding_ctx
+    from repro_torch.models import param_axes
+
+    def whole(t):
+        t = t.detach()
+        return (t.full_tensor() if mesh is not None else t).numpy()
+
+    def model_on_mesh():
+        model = init_params(cfg, seed=0, device="cpu")
+        return model if mesh is None else shard_model(model, param_axes(cfg), mesh)
+
+    placed = (batch_to_device(batch, "cpu") if mesh is None
+              else shard_batch(batch, mesh, "cpu"))
+    model = model_on_mesh()
+    with torch.no_grad(), use_sharding_ctx(mesh):
+        logits = whole(forward(model, {"tokens": placed["tokens"]}, cfg)[0])
+    model = model_on_mesh()
+    state = adamw_init(dict(model.named_parameters()))
+    step = make_train_step(cfg, lr=LR, mesh=mesh)
+    grads = {n: whole(g) for n, g in step.loss_and_grads(model, placed)[2].items()}
+    metrics = seal_train_step(step, model, state, batch)(batch)
+    return dict(logits=logits, grads=grads,
+                metrics={k: float(v) for k, v in metrics.items()},
+                params={n: whole(p) for n, p in model.named_parameters()},
+                counter=(int(state.step), type(state.step).__name__))
+
+
+DECODE_ARCHS = ["phi4-mini-3.8b", "deepseek-v2-236b", "zamba2-2.7b", "xlstm-125m"]
+DECODE_STEPS, DECODE_LEN = 3, 8
+
+
+def decode_run(cfg, mesh=None, rules=None):
+    """``DECODE_STEPS`` synchronized decode steps (``init_cache(per_slot=
+    False)``, batch 2) from seed 0's weights: each step's logits and the
+    cache after them, whole, as numpy."""
+    from repro_torch.distributed import shard_model, shard_tree, use_sharding_ctx
+    from repro_torch.models import cache_axes, decode_step, init_cache, param_axes
+
+    model = init_params(cfg, seed=0, device="cpu")
+    cache = init_cache(cfg, 2, DECODE_LEN, per_slot=False, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab, (DECODE_STEPS, 2, 1)))
+    if mesh is not None:
+        shard_model(model, param_axes(cfg), mesh, rules)
+        cache = shard_tree(cache, cache_axes(cfg, per_slot=False), mesh, rules)
+    logits = []
+    with torch.no_grad(), use_sharding_ctx(mesh, rules):
+        for step in tokens:
+            if mesh is not None:
+                step = shard_tree(step, "batch seq", mesh, rules)
+            out = decode_step(model, cache, step, cfg)[0]
+            logits.append((out.full_tensor() if mesh is not None else out).numpy())
+    whole = {pytree.keystr(path): (t.full_tensor() if mesh is not None else t).numpy()
+             for path, t in pytree.tree_flatten_with_path(cache)[0]}
+    return dict(logits=np.stack(logits), cache=whole)
+
+
+def dense_collectives(mesh):
+    """The records of the dense smoke forward on ``mesh`` (the hand case)."""
+    from repro_torch.data import shard_batch
+    from repro_torch.distributed import shard_model, use_sharding_ctx
+    from repro_torch.launch.comm_analysis import CommCounter, collective_bytes
+    from repro_torch.models import param_axes
+
+    cfg = config("phi4-mini-3.8b")
+    model = shard_model(init_params(cfg, seed=0, device="cpu"), param_axes(cfg), mesh)
+    tokens = shard_batch(batch_of(cfg), mesh, "cpu")["tokens"]
+    with torch.no_grad(), use_sharding_ctx(mesh), CommCounter() as counter:
+        logits = forward(model, {"tokens": tokens}, cfg)[0]
+    return dict(collectives=collective_bytes(counter.records),
+                logits_placements=[str(p) for p in logits.placements])
+
+
+def kernel_regions(mesh):
+    """B1 and B2 on DTensors sharded on the model axis, forward and
+    backward, under a counter: their collectives, one device's FLOPs
+    against the global ones and the shapes their plain versions saw."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.distributed import place
+    from repro_torch.kernels.flash_attention import mha_flash, ops
+    from repro_torch.kernels.stream_pack import stream_pack
+    from repro_torch.launch.comm_analysis import CommCounter, collective_bytes
+
+    gen = torch.Generator().manual_seed(0)
+    heads = [Replicate(), Shard(2)]
+    q, k, v = (torch.randn(2, 16, n, 32, generator=gen) for n in (6, 2, 2))
+    x, w = torch.randn(4, 8, 16, generator=gen), torch.randn(4, 16, 12, generator=gen)
+    out = {}
+    for name, args, placements, fn in (
+            ("flash", (q, k, v), [heads] * 3, mha_flash),
+            ("stream_pack", (x, w), [[Replicate(), Shard(0)]] * 2, stream_pack)):
+        with FlopCounterMode(display=False) as flops:
+            fn(*[a.clone().requires_grad_() for a in args]).sum().backward()
+        placed = [place(a, mesh, p).requires_grad_() for a, p in zip(args, placements)]
+        seen = []
+        inner = ops.flash_attention_lse_ref
+
+        def lse_ref(*a, **kw):                   # what B1's plain version is given
+            seen.append(tuple(a[0].shape))
+            return inner(*a, **kw)
+
+        ops.flash_attention_lse_ref = lse_ref
+        try:
+            with CommCounter() as counter:
+                y = fn(*placed)
+                y.to_local().sum().backward()
+        finally:
+            ops.flash_attention_lse_ref = inner
+        out[name] = dict(collectives=collective_bytes(counter.records)["counts"],
+                         flops=counter.flops, global_flops=flops.get_total_flops(),
+                         out=[str(p) for p in y.placements], seen=seen,
+                         grads=[[str(g) for g in p.grad.placements] for p in placed])
+    return out
+
+
+def _child(rank, world, shape, kinds, store, threads, out):
+    torch.set_num_threads(threads)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        from torch.distributed.device_mesh import init_device_mesh
+
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+        results = {}
+        for arch in ARCHS:
+            cfg = config(arch)
+            results[arch] = local_step(cfg, batch_of(cfg), mesh)
+            if "forward" not in kinds:
+                results[arch].pop("logits")
+        if "forward" in kinds:
+            from repro_torch.distributed import LONG_CONTEXT_OVERRIDES
+
+            for arch in DECODE_ARCHS:
+                results[f"decode {arch}"] = decode_run(config(arch), mesh)
+            # the long-context rules shard the cache's positions on the data axis
+            results["decode long"] = decode_run(config("phi4-mini-3.8b"), mesh,
+                                                dict(LONG_CONTEXT_OVERRIDES))
+        if shape == (1, 2):
+            results["dense_collectives"] = dense_collectives(mesh)
+            results["kernel_regions"] = kernel_regions(mesh)
+        if rank == 0:
+            torch.save(results, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_mesh(shape, kinds, tmp: Path) -> dict:
+    """Spawn ``prod(shape)`` gloo processes that run every case of
+    ``shape``; returns rank 0's results."""
+    world = int(np.prod(shape))
+    threads = max(1, torch.get_num_threads() // world)
+    out = tmp / "results.pt"
+    ctx = mp.start_processes(_child, args=(world, shape, kinds, str(tmp / "store"), threads,
+                                           str(out)),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + JOIN_S
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                pytest.fail(f"mesh {shape}: processes still running after {JOIN_S:.0f}s")
+    except mp.ProcessRaisedException as e:    # carries the child's traceback
+        pytest.fail(f"mesh {shape}: a process failed:\n{e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return torch.load(out, weights_only=False)
+
+
+_RUNS: dict = {}
+
+
+@pytest.fixture(scope="module")
+def reference():
+    return {arch: local_step(config(arch), batch_of(config(arch))) for arch in ARCHS}
+
+
+@pytest.fixture(scope="module", params=list(MESHES), ids=lambda s: f"{s[0]}x{s[1]}")
+def sharded(request, tmp_path_factory):
+    shape = request.param
+    if shape not in _RUNS:
+        try:
+            _RUNS[shape] = run_mesh(shape, MESHES[shape], tmp_path_factory.mktemp("mesh"))
+        except BaseException:
+            print(traceback.format_exc())
+            raise
+    return shape, _RUNS[shape]
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sharded_forward_equals_single_process(sharded, reference, arch):
+    shape, runs = sharded
+    if "forward" not in MESHES[shape]:
+        assert "logits" not in runs[arch]     # (2, 2) runs the train step only
+        return
+    np.testing.assert_allclose(runs[arch]["logits"], reference[arch]["logits"],
+                               atol=LOGIT_TOL, rtol=LOGIT_TOL)
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sharded_train_step_equals_single_process(sharded, reference, arch):
+    _, runs = sharded
+    got, want = runs[arch], reference[arch]
+    for key in ("loss", "ce", "aux", "grad_norm", "lr"):
+        np.testing.assert_allclose(got["metrics"][key], want["metrics"][key],
+                                   rtol=METRIC_TOL, atol=1e-7, err_msg=key)
+    assert set(got["grads"]) == set(want["grads"])
+    for name, g in want["grads"].items():
+        scale = max(float(np.abs(g).max()), 1e-30)
+        np.testing.assert_allclose(got["grads"][name] / scale, g / scale,
+                                   rtol=GRAD_RTOL, atol=GRAD_ATOL, err_msg=name)
+    for name, p in want["params"].items():
+        np.testing.assert_allclose(got["params"][name], p, rtol=0, atol=PARAM_ATOL,
+                                   err_msg=name)
+    assert got["counter"] == (1, "DTensor") and want["counter"] == (1, "Tensor")
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("arch", DECODE_ARCHS + ["long"])
+def test_sharded_decode_equals_single_process(sharded, arch):
+    """Synchronized decode steps with the cache placed by its axes (the
+    cache written on each device's shard, attention on its rows and heads;
+    under the long-context rules the cache's positions sharded on the data
+    axis): each step's logits within 1e-5 and the cache equal."""
+    shape, runs = sharded
+    if "forward" not in MESHES[shape]:
+        return
+    got = runs[f"decode {arch}"]
+    want = decode_run(config("phi4-mini-3.8b" if arch == "long" else arch))
+    np.testing.assert_allclose(got["logits"], want["logits"], atol=LOGIT_TOL, rtol=LOGIT_TOL)
+    assert set(got["cache"]) == set(want["cache"])
+    for name, c in want["cache"].items():
+        np.testing.assert_allclose(got["cache"][name], c, atol=LOGIT_TOL, rtol=LOGIT_TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.timeout(300)
+def test_dense_forward_collectives_are_the_rules(sharded):
+    """The dense smoke forward (phi4-mini: D = 192, L = 2 layers, GQA 6
+    over 2 heads, d_ff 384, vocab 512; tokens B x S = 2 x 16, float32) on
+    the (1, 2) mesh: the data axis has one device, so the batch, the
+    ``fsdp`` dims and the token ids are whole, and the model axis shards
+    heads (6 and 2 over 2), ``mlp`` (384) and ``vocab`` (512).  What the
+    rules imply, per device:
+
+    * the embedding: the table is vocab-sharded, each device looks up its
+      rows, a partial sum reduced by ``constrain(x, batch, seq, embed)``:
+      one all-reduce of (B, S, D) float32;
+    * each layer: q, k, v are column products (heads sharded, no
+      collective), B1 runs on the local heads, the out-projection ``wo``
+      (heads sharded on its rows) gives a partial sum that the residual's
+      ``constrain(..., embed)`` reduces: one all-reduce of (B, S, D); the
+      FFN is column (w_gate, w_up) then row (w_down): one more;
+    * the logits: ``unembed`` is vocab-sharded on its columns and the
+      logits stay ``constrain``-ed vocab-sharded: no collective.
+
+    So 1 + 2 L = 5 all-reduces of B·S·D·4 = 24576 bytes, and nothing else."""
+    shape, runs = sharded
+    if shape != (1, 2):
+        return
+    record = runs["dense_collectives"]
+    cfg = config("phi4-mini-3.8b")
+    per = 2 * 16 * cfg.d_model * 4
+    n = 1 + 2 * cfg.n_layers
+    assert per == 24576 and n == 5
+    assert record["collectives"]["counts"] == {
+        "all-gather": 0, "all-reduce": n, "reduce-scatter": 0, "all-to-all": 0,
+        "collective-permute": 0}
+    assert record["collectives"]["bytes_per_kind"]["all-reduce"] == n * per
+    assert record["collectives"]["total_bytes"] == n * per
+    assert record["logits_placements"] == ["R", "S(2)"]
+
+
+@pytest.mark.timeout(300)
+def test_kernels_run_on_local_shards_with_no_collective(sharded):
+    """B1 (q 6 heads over k, v 2, sharded on heads) and B2 (4 lanes over
+    lanes), forward and backward through ``local_map`` on (1, 2): no
+    collective at all, one device's FLOPs half the global ones, B1's plain
+    version given 3 q heads, the outputs and gradients sharded as the
+    inputs: no q, k, v or expert weight is gathered."""
+    shape, runs = sharded
+    if shape != (1, 2):
+        return
+    regions = runs["kernel_regions"]
+    for name, r in regions.items():
+        assert sum(r["collectives"].values()) == 0, (name, r["collectives"])
+        assert r["flops"] * 2 == r["global_flops"] > 0, name
+    flash, pack = regions["flash"], regions["stream_pack"]
+    assert flash["seen"] == [(2 * 3, 16, 32)]          # batch x local q heads
+    assert flash["out"] == ["R", "S(2)"] and flash["grads"] == [["R", "S(2)"]] * 3
+    assert pack["out"] == ["R", "S(0)"] and pack["grads"] == [["R", "S(0)"]] * 2
+
+
+@pytest.fixture
+def fake_mesh():
+    from repro_torch.launch.dryrun import fake_mesh
+
+    with fake_mesh((1, 3), ("data", "model")) as mesh:
+        yield mesh
+
+
+def test_flash_refuses_shards_that_break_gqa_groups(fake_mesh):
+    """6 q heads over 2 kv heads on a 3-way axis: q shards (2 a device), k
+    and v cannot; B1 raises with the shapes rather than gather."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed import place
+    from repro_torch.kernels.flash_attention import mha_flash
+
+    q = place(torch.randn(2, 16, 6, 32), fake_mesh, [Replicate(), Shard(2)])
+    k, v = (place(torch.randn(2, 16, 2, 32), fake_mesh, [Replicate(), Replicate()])
+            for _ in range(2))
+    with pytest.raises(ValueError, match=r"q \(2, 16, 6, 32\).*k \(2, 16, 2, 32\)"):
+        mha_flash(q, k, v)
+
+
+def test_kernels_never_take_a_dtensor_whole(fake_mesh):
+    """A DTensor reaches neither a kernel launch nor a plain version whole:
+    ``takes_plain`` and the kernels' checks refuse it; B2 refuses operands
+    it would have to gather."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed import place
+    from repro_torch.kernels import takes_plain
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.stream_pack import kernel as pack_kernel
+    from repro_torch.kernels.stream_pack import stream_pack
+
+    t = place(torch.randn(2, 16, 3, 32), fake_mesh, [Replicate(), Replicate()])
+    with pytest.raises(TypeError, match="local shard"):
+        takes_plain(t)
+    with pytest.raises(TypeError, match="local shard"):
+        kernel.attention(t, t, t, group=1)
+    w = place(torch.randn(3, 16, 12), fake_mesh, [Replicate(), Replicate()])
+    with pytest.raises(TypeError, match="local shard"):
+        pack_kernel.stream_pack_matmul(place(torch.randn(3, 8, 16), fake_mesh,
+                                             [Replicate(), Replicate()]), w)
+    x_rows = place(torch.randn(3, 9, 16), fake_mesh, [Replicate(), Shard(1)])
+    w_cols = place(torch.randn(3, 16, 12), fake_mesh, [Replicate(), Shard(2)])
+    with pytest.raises(ValueError, match="would gather an operand"):
+        stream_pack(x_rows, w_cols)
+
+
+def _launch(args, env, tmp_path, tag):
+    proc = subprocess.run(args, env=env, capture_output=True, text=True, timeout=240,
+                          cwd=tmp_path)
+    assert proc.returncode == 0, f"{tag}:\n{proc.stdout[-3000:]}\n{proc.stderr[-5000:]}"
+    return [float(line.split()[3]) for line in proc.stdout.splitlines()
+            if line.startswith("step ")]
+
+
+@pytest.mark.timeout(300)
+def test_trainer_under_torchrun_gives_the_single_process_losses(tmp_path):
+    """``launch/train.py --model-axis 2`` on 2 gloo ranks (``torchrun
+    --standalone``, CPU) takes the steps the one-process launcher takes:
+    the same losses, and a checkpoint that restores into a single-process
+    model within 0.2 x the steps' summed lr of the one-process one."""
+    steps, lr, warmup = 3, 1e-3, 1
+    flags = ["--arch", "stablelm-1.6b", "--smoke", "--device", "cpu", "--steps", str(steps),
+             "--batch", "2", "--seq", "16", "--log-every", "1", "--lr", str(lr),
+             "--warmup", str(warmup), "--dtype", "float32"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    alone = _launch([sys.executable, "-m", "repro_torch.launch.train", *flags,
+                     "--ckpt", str(tmp_path / "alone")], env, tmp_path, "one process")
+    ranks = _launch([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                     "--nproc-per-node", "2", "-m", "repro_torch.launch.train", *flags,
+                     "--model-axis", "2", "--ckpt", str(tmp_path / "sharded")],
+                    env, tmp_path, "torchrun")
+    assert len(alone) == len(ranks) == steps
+    np.testing.assert_allclose(ranks, alone, rtol=METRIC_TOL)
+    cfg = config("stablelm-1.6b")
+    models = []
+    for name in ("alone", "sharded"):
+        model = Transformer(cfg, device="cpu")
+        _, manifest = restore_checkpoint(tmp_path / name, {"params": model})
+        assert manifest["step"] == steps
+        models.append(dict(model.named_parameters()))
+    summed = sum(float(cosine_schedule(torch.tensor(s), peak_lr=lr, warmup_steps=warmup,
+                                       total_steps=steps)) for s in range(steps))
+    for name, p in models[0].items():
+        np.testing.assert_allclose(models[1][name].detach().numpy(), p.detach().numpy(),
+                                   rtol=0, atol=0.2 * summed, err_msg=name)

@@ -162,10 +162,12 @@ def test_trainer_runs_and_writes_a_checkpoint(tmp_path):
     assert (ckpt / "arrays.npz").is_file()
 
 
-def test_trainer_refuses_a_mesh():
+def test_trainer_refuses_a_mesh(monkeypatch):
+    # run alone (not under torchrun), a model axis has no processes to shard over
     from repro_torch.launch import train
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
         train.main(["--arch", "stablelm-1.6b", "--smoke", "--device", "cpu",
                     "--model-axis", "2"])
 

@@ -542,3 +542,16 @@ def test_engine_worker_makes_its_cuda_device_current(monkeypatch):
     w.setup(2)                                 # the plane's default: cuda
     assert calls == [3, 2]
     assert w.stats()["device"] == 2
+
+
+def test_worker_reports_only_its_own_launches(monkeypatch):
+    """A forked worker inherits its parent's kernel counts (a test that ran
+    a fake library before, say): its stats count only what the worker
+    launched itself."""
+    from repro_torch.kernels.flash_attention import backward
+
+    monkeypatch.setattr(backward, "launches", backward.launches + 3)
+    worker = W.EngineWorker()
+    assert set(worker.stats()["kernel_launches"].values()) == {0}
+    monkeypatch.setattr(backward, "launches", backward.launches + 1)
+    assert worker.stats()["kernel_launches"]["flash_attention_bwd"] == 1
