@@ -148,9 +148,11 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
     every arch x applicable input shape x production mesh (16x16 and
     2x16x16) on the meta device, in subprocesses on the host's CPU while
     the card draws (b)'s and (c)'s model, all ended before (b) and (c) time
-    anything: one line a case with its bytes per device, its global FLOPs
-    and its partitioned step's FLOPs and collective bytes per device (a
-    fake process group of the mesh's size), any failure fails the run;
+    anything: one line a case with its argument bytes per device, its
+    global FLOPs and its partitioned step per device (a fake process group
+    of the mesh's size): FLOPs, bytes accessed, temp and output bytes
+    (``fits``: argument + temp + output within 80 GB) and collective bytes;
+    any failure, and any case that did not partition, fails the run;
     (b) decode_32k at one device's share: phi4-mini-3.8b at full width and
     depth, bf16, 8 sequences over a synchronized (``per_slot=False``)
     cache of 32768 positions filled from a seed: its logits equal the
@@ -172,7 +174,18 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
     eager (DTensor's dispatch on the host) and replayed, each beside 19c's;
     (b) deepseek-v2-236b at full width and 2 layers, bf16: a sharded
     ``forward`` of a 2 x 256 prompt, logits bit-identical to the unsharded
-    forward's, B2 launched through ``local_map`` 3 times a layer.
+    forward's, B2 launched through ``local_map`` 3 times a layer; (c) the
+    dry run's memory count (a fake (1, 1) mesh, meta tensors) at 19c's
+    step: its predicted peak (argument + temp + output bytes) against
+    19c's measured eager peak less what earlier phases left allocated,
+    the ratio within ``MEMORY_BAND``; (d) xlstm-125m at full width and
+    depth, bf16, 3 eager train steps and 3 replays of the sealed step with
+    DTensor parameters (the mLSTM and sLSTM on local shards): losses, grad
+    norms and parameters bit-identical to the same steps unsharded; (e)
+    zamba2-2.7b at full width and depth: a sharded ``forward`` of 4 x 512
+    tokens (Mamba2's conv and scan on local shards), logits bit-identical
+    to the unsharded forward's, B1 launched through ``local_map`` once per
+    shared attention block (9).
     Collectives across cards are checked on the CPU only (gloo, tier-1):
     NCCL refuses two ranks on one card.
 
@@ -2939,6 +2952,7 @@ def train_phi4() -> dict:
 
     step_fn = make_train_step(cfg, lr=lr)
     t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated()          # the earlier phases' leftovers
     model, state = fresh()
     torch.cuda.synchronize()
     n = sum(p.numel() for p in model.parameters())
@@ -3072,7 +3086,8 @@ def train_phi4() -> dict:
     reference = dict(eager_loss=eager_loss, eager_gnorm=eager_gnorm,
                      replay_loss=losses[:TRAIN_EAGER], replay_gnorm=gnorms[:TRAIN_EAGER],
                      params=replay_params, eager_counts=eager_counts, seal_counts=seal_counts,
-                     eager_ms=eager_med, replay_ms=replay_med, replay_device_ms=dev_ms)
+                     eager_ms=eager_med, replay_ms=replay_med, replay_device_ms=dev_ms,
+                     eager_peak=eager_peak, base=base)
     return dict(eager_ms=eager_med, replay_ms=replay_med, replay_device_ms=dev_ms,
                 reference=reference,
                 tokens_per_step=tokens, seal_s=seal_s, seal_peak_gib=seal_peak / 2**30,
@@ -3287,23 +3302,28 @@ class DryRun:
 
 def dryrun_report(dry: DryRun) -> dict:
     """20a: every dry-run case's line; fails on a failed process, a FAIL
-    line or a case missing (each applicable arch x shape on both meshes)."""
+    line, a case missing (each applicable arch x shape on both meshes) or a
+    case whose step did not partition (every case has its per-device
+    FLOPs, bytes accessed, temp, output and collective bytes)."""
     import repro_torch.configs as C
     from repro_torch.configs.shapes import INPUT_SHAPES, applicable
 
     say("-- 20a: the dry run on the meta device, every arch x applicable shape x production "
         "mesh (16x16, 2x16x16): bytes per device of params, AdamW moments, cache and batch, "
-        "whether they fit the card's 80 GB, the step's FLOPs (FlopCounterMode); the "
-        "partitioned step's FLOPs and collective bytes per device (CommCounter over a fake "
-        "process group)")
+        "the step's FLOPs (FlopCounterMode); the partitioned step per device (CommCounter "
+        "over a fake process group): FLOPs, bytes accessed, temp and output bytes (fits: "
+        "argument + temp + output within the card's 80 GB), collective bytes")
     results = dry.wait(timeout=600.0)
-    ok = []
+    ok, unpartitioned = [], []
     for cmd, rc, text in results:
         for line in text.splitlines():
             if line.startswith(("OK", "FAIL", "SKIP")):
                 say(f"  {line}")
                 if line.startswith("OK"):
                     ok.append(line.split()[1].rstrip(":"))
+                    if "partitioned=false" in line or not all(
+                            f" {key}=" in line for key in ("accessed", "temp", "output")):
+                        unpartitioned.append(ok[-1])
         if rc != 0:
             fail(f"the dry run {' '.join(cmd[2:])} exited {rc}: {text[-2000:]}")
     want = {f"{a}_{s}_{m}" for a in C.all_archs() for s in INPUT_SHAPES
@@ -3311,8 +3331,11 @@ def dryrun_report(dry: DryRun) -> dict:
     if set(ok) != want or len(ok) != len(want):
         fail(f"the dry run's cases differ from every applicable one: missing "
              f"{sorted(want - set(ok))}, unexpected {sorted(set(ok) - want)}")
+    if unpartitioned:
+        fail(f"the dry run did not partition {unpartitioned}")
     wall = time.perf_counter() - dry.t0
-    say(f"  {len(ok)} cases passed in {len(results)} processes, {wall:.1f}s from their start")
+    say(f"  {len(ok)} cases passed and partitioned in {len(results)} processes, {wall:.1f}s "
+        f"from their start")
     return dict(cases=len(ok), wall_s=wall)
 
 
@@ -3662,28 +3685,228 @@ def sharded_forward(mesh) -> dict:
     return dict(b2_launches=launches, on_shards=on_shards, forward_ms=ms)
 
 
-def phase_sharded(number: int, reference: dict) -> dict:
-    """Phase 21: sharded execution on the card over a process group of one
-    (NCCL, rank 0 of 1) and a (1, 1) mesh, where every placement is
-    Replicate: the DTensor path, ``local_map`` and the sealed step run the
-    kernels on the card.  Collectives across cards are checked on the CPU
-    (gloo) only: NCCL refuses two ranks on one card."""
+# 21c: the band the dry run's predicted peak of 19c's step must fall in, as
+# a share of the peak 19c measured (PERF.md gives what lies in the gap)
+MEMORY_BAND = (0.90, 1.10)
+
+
+def memory_count(ref: dict) -> dict:
+    """21c: the dry run's counter (``launch.dryrun.partitioned`` on a fake
+    (1, 1) mesh, meta tensors, nothing on the card) at phase 19c's step:
+    phi4-mini-3.8b at full width and depth, bf16, AdamW, batch
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ``, the config's own ``remat``.  Its
+    predicted peak (argument + temp + output bytes) against 19c's measured
+    eager ``max_memory_allocated``, less what the earlier phases left
+    allocated: the ratio must lie in :data:`MEMORY_BAND`."""
+    import repro_torch.configs as C
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun
+
+    cfg = dataclasses.replace(C.get("phi4-mini-3.8b"), dtype="bfloat16")
+    shape = InputShape(f"train_{TRAIN_BATCH}x{TRAIN_SEQ}", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    r = dryrun.partitioned(cfg, shape, (1, 1), ("data", "model"), remat=False)
+    case = dryrun.build_case(cfg, shape, remat=False)
+    args = sum(t.numel() * t.element_size() for leaves in case.leaves.values()
+               for _, t, _ in leaves)
+    predicted = args + r["temp_bytes"] + r["output_bytes"]
+    measured = ref["eager_peak"] - ref["base"]
+    ratio = predicted / measured
+    say(f"-- 21c: the dry run's memory count at 19c's step ({cfg.name}, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, remat {cfg.remat}, a fake (1, 1) mesh, depths "
+        f"{r['partitioned_layers']} extrapolated to {cfg.n_layers}, "
+        f"{time.perf_counter() - t0:.1f}s on the host): argument {args / 2**30:.3f} GiB + temp "
+        f"{r['temp_bytes'] / 2**30:.3f} GiB + output {r['output_bytes']} B = predicted peak "
+        f"{predicted / 2**30:.3f} GiB; 19c measured an eager peak of "
+        f"{ref['eager_peak'] / 2**30:.3f} GiB less {ref['base'] / 2**30:.3f} GiB left by the "
+        f"phases before = {measured / 2**30:.3f} GiB; predicted / measured {ratio:.4f} (band "
+        f"{MEMORY_BAND[0]}-{MEMORY_BAND[1]}); bytes accessed per step "
+        f"{r['bytes_accessed'] / 2**30:.3f} GiB; {nvidia_smi()}")
+    if not MEMORY_BAND[0] <= ratio <= MEMORY_BAND[1]:
+        fail(f"the dry run's predicted peak {predicted} B is {ratio:.4f} of 19c's {measured} B, "
+             f"outside {MEMORY_BAND}")
+    return dict(predicted=predicted, measured=measured, ratio=ratio, args=args,
+                temp=r["temp_bytes"], output=r["output_bytes"], accessed=r["bytes_accessed"])
+
+
+def _local_cpu(model) -> list:
+    return [(p.to_local() if hasattr(p, "to_local") else p).detach().cpu()
+            for p in model.parameters()]
+
+
+def sharded_recurrent_train(mesh) -> dict:
+    """21d: xlstm-125m at full width and depth, bf16, AdamW at a fixed lr
+    on ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens: ``TRAIN_EAGER`` eager steps
+    and as many replays of the sealed step, unsharded and then with the
+    parameters, AdamW state and batch as DTensors on ``mesh`` (the mLSTM's
+    chunked form and the sLSTM on local shards): losses, grad norms and
+    parameters bit for bit."""
+    import gc
+
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    import repro_torch.configs as C
+    from repro_torch.data import SyntheticLM, data_config_for, shard_batch
+    from repro_torch.distributed import shard_model
+    from repro_torch.launch import serve
+    from repro_torch.models import param_axes
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import make_train_step, seal_train_step
+    from repro_torch.training.train_lib import batch_to_device
+
+    release()
+    cfg = dataclasses.replace(C.get("xlstm-125m"), dtype="bfloat16")
+    data = SyntheticLM(data_config_for(cfg, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ))
+    batches = [data.batch(i) for i in range(TRAIN_EAGER)]
+
+    def run(on):
+        def fresh():
+            model = serve.init_params(cfg, seed=0, device="cuda")
+            if on is not None:
+                shard_model(model, param_axes(cfg), on)
+            return model, adamw_init(dict(model.named_parameters()))
+
+        step_fn = make_train_step(cfg, lr=TRAIN_LR, mesh=on)
+        model, state = fresh()
+        eager, ms = [], []
+        with CommDebugMode() as comm:
+            for b in batches:
+                placed = batch_to_device(b, "cuda") if on is None else shard_batch(b, on, "cuda")
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                m = step_fn(model, state, placed)[2]
+                eager.append((float(m["loss"]), float(m["grad_norm"])))
+                ms.append((time.perf_counter() - t) * 1e3)
+        eager_params = _local_cpu(model)
+        del model, state, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, state = fresh()
+        sealed = seal_train_step(step_fn, model, state, batches[0])
+        replays = []
+        for b in batches:
+            m = sealed(b)
+            replays.append((float(m["loss"]), float(m["grad_norm"])))
+        replay_params = _local_cpu(model)        # before the timed replays move them
+        out = dict(eager=eager, eager_params=eager_params, replays=replays,
+                   replay_params=replay_params, eager_ms=ms, seal_s=sealed.seal_s,
+                   replay_ms=time_ms(sealed.graph.replay, 3, warmup=1),
+                   collectives=comm.get_total_counts(),
+                   placement=str(next(model.parameters()).placements) if on is not None else "")
+        del sealed, model, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    want, got = run(None), run(mesh)
+
+    def same(a, b):
+        return sum(int(torch.equal(x, y)) for x, y in zip(a, b))
+
+    n = len(want["eager_params"])
+    eq_eager, eq_replay = same(got["eager_params"], want["eager_params"]), same(
+        got["replay_params"], want["replay_params"])
+    say(f"-- 21d: {cfg.name}, full width, {cfg.n_layers} layers (sLSTM at "
+        f"{cfg.xlstm.slstm_at}), bf16, batch {TRAIN_BATCH} x {TRAIN_SEQ}, AdamW lr {TRAIN_LR}: "
+        f"{TRAIN_EAGER} eager steps and {TRAIN_EAGER} sealed replays, unsharded and with DTensor "
+        f"parameters ({got['placement']})")
+    say(f"  eager (loss, grad norm): sharded {got['eager']}, unsharded {want['eager']}; "
+        f"parameters {eq_eager} of {n} leaves bit-identical; ms sharded "
+        f"{[round(x, 1) for x in got['eager_ms']]}, unsharded "
+        f"{[round(x, 1) for x in want['eager_ms']]}; collectives {got['collectives']}")
+    say(f"  replays: sharded {got['replays']}, unsharded {want['replays']} (the same as the "
+        f"unsharded eager steps: {want['replays'] == want['eager']}); parameters "
+        f"{eq_replay} of {n} leaves bit-identical; sealed in {got['seal_s']:.2f}s "
+        f"(unsharded {want['seal_s']:.2f}s); one replay {got['replay_ms']:.3f} ms on CUDA events "
+        f"(unsharded {want['replay_ms']:.3f})")
+    if (got["eager"], got["replays"]) != (want["eager"], want["replays"]) or (
+            eq_eager, eq_replay) != (n, n):
+        fail("xlstm-125m's sharded train steps differ from the unsharded ones bit for bit")
+    if got["collectives"]:
+        fail(f"a (1, 1) mesh ran collectives: {got['collectives']}")
+    return dict(losses=[x[0] for x in got["eager"]], eager_ms=got["eager_ms"],
+                replay_ms=got["replay_ms"], unsharded_replay_ms=want["replay_ms"])
+
+
+def sharded_hybrid_forward(mesh) -> dict:
+    """21e: zamba2-2.7b at full width and depth, bf16: one forward of
+    ``DECODE_BATCH`` x ``FORWARD_LEN`` tokens, then the same with the
+    parameters and batch as DTensors on ``mesh`` (Mamba2's conv and SSD
+    scan on local shards): logits bit for bit, B1 launched once per shared
+    attention block, every call through ``local_map``."""
+    import torch
+
+    import repro_torch.configs as C
+    from repro_torch.distributed import batch_axes, shard_model, shard_tree, use_sharding_ctx
+    from repro_torch.kernels.flash_attention import kernel, ops
+    from repro_torch.launch import serve
+    from repro_torch.models import forward, param_axes
+
+    release()
+    cfg = dataclasses.replace(C.get("zamba2-2.7b"), dtype="bfloat16")
+    model = serve.init_params(cfg, seed=0, device="cuda")
+    batch = {"tokens": _tokens(cfg, DECODE_BATCH, FORWARD_LEN, seed=22)}
+    apps = cfg.n_layers // cfg.hybrid_attn_every
+    with torch.no_grad():
+        want = forward(model, batch, cfg)[0]
+        torch.cuda.synchronize()
+        shard_model(model, param_axes(cfg), mesh)
+        placed = shard_tree(batch, batch_axes(batch), mesh)
+        kernel.launches = ops.on_shards = 0             # the path's run starts here
+        with use_sharding_ctx(mesh):
+            t = time.perf_counter()
+            got = forward(model, placed, cfg)[0]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+    launches, on_shards = kernel.launches, ops.on_shards
+    same = bool(torch.equal(got.to_local(), want))
+    say(f"-- 21e: {cfg.name}, full width, {cfg.n_layers} layers, bf16, a forward of "
+        f"{DECODE_BATCH} x {FORWARD_LEN} tokens with DTensor parameters: logits "
+        f"{tuple(got.shape)} bit-identical to the unsharded forward's: {same}; B1 launches "
+        f"{launches}, through local_map {on_shards} (want {apps}); {ms:.3f} ms (host clock, "
+        f"first call)")
+    if not same or launches != apps or on_shards != launches:
+        fail("zamba2-2.7b's sharded forward differs from the unsharded one or missed B1")
+    del model, want, got
+    return dict(launches=launches, on_shards=on_shards, forward_ms=ms)
+
+
+@contextlib.contextmanager
+def one_card_mesh():
+    """A (1, 1) ``("data", "model")`` mesh over a process group of one
+    (NCCL, rank 0 of 1), destroyed on exit."""
     import torch
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_host_mesh
 
-    say(f"== phase {number}: sharded execution on one card (NCCL, world 1, a (1, 1) mesh)")
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
                             device_id=torch.device("cuda", 0))
     try:
-        mesh = make_host_mesh(model_axis=1, device="cuda")
-        train = sharded_train(mesh, reference)
-        fwd = sharded_forward(mesh)
+        yield make_host_mesh(model_axis=1, device="cuda")
     finally:
         dist.destroy_process_group()
+
+
+def phase_sharded(number: int, reference: dict) -> dict:
+    """Phase 21: sharded execution on the card over a process group of one
+    (NCCL, rank 0 of 1) and a (1, 1) mesh, where every placement is
+    Replicate: the DTensor path, ``local_map`` and the sealed step run the
+    kernels on the card (21a, 21b, 21d, 21e); between them, 21c holds the
+    dry run's memory count (a fake process group of its own) against 19c's
+    measured peak.  Collectives across cards are checked on the CPU (gloo)
+    only: NCCL refuses two ranks on one card."""
+    say(f"== phase {number}: sharded execution on one card (NCCL, world 1, a (1, 1) mesh)")
+    with one_card_mesh() as mesh:
+        train = sharded_train(mesh, reference)
+        fwd = sharded_forward(mesh)
+    memory = memory_count(reference)
+    with one_card_mesh() as mesh:
+        recurrent = sharded_recurrent_train(mesh)
+        hybrid = sharded_hybrid_forward(mesh)
     release()
-    return dict(train=train, forward=fwd)
+    return dict(train=train, forward=fwd, memory=memory, recurrent=recurrent, hybrid=hybrid)
 
 
 def main() -> None:
@@ -3740,7 +3963,9 @@ def main() -> None:
                      "train smoke configs on the card": sum(c[0] for c in smoke.values()),
                      "launch prefill_32k phi4-mini-3.8b (B = 1)": launch["prefill"]["launches"],
                      "sharded train phi4-mini-3.8b on a (1, 1) mesh (eager steps, seal)":
-                         sharded["train"]["fwd_launches"]}
+                         sharded["train"]["fwd_launches"],
+                     "sharded forward zamba2-2.7b on a (1, 1) mesh":
+                         sharded["hybrid"]["launches"]}
     bwd_by_path = {"train phi4-mini-3.8b (eager steps, seal)": phi4["bwd_launches"],
                    "train smoke configs on the card": sum(c[1] for c in smoke.values()),
                    "sharded train phi4-mini-3.8b on a (1, 1) mesh (eager steps, seal)":

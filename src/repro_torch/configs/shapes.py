@@ -52,11 +52,11 @@ def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(tuple(shape), dtype=dtype, device="meta")
 
 
-def input_specs(cfg: ModelConfig, shape_name: str) -> tuple[str, dict]:
+def input_specs(cfg: ModelConfig, shape_name: str | InputShape) -> tuple[str, dict]:
     """Meta-device stand-ins for the step function's data arguments:
     ``{"batch": {...}}`` for train and prefill, ``{"cache": ..., "tokens":
-    ...}`` for decode."""
-    sh = INPUT_SHAPES[shape_name]
+    ...}`` for decode; ``shape_name`` names an assigned shape, or is one."""
+    sh = shape_name if isinstance(shape_name, InputShape) else INPUT_SHAPES[shape_name]
     B, S = sh.global_batch, sh.seq_len
 
     if sh.kind in ("train", "prefill"):

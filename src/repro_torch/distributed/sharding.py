@@ -346,6 +346,17 @@ def _mesh_axes(like: DTensor, axes: Mapping[str, int]) -> list[Optional[str]]:
     return names
 
 
+def keep_shards(t: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:
+    """``t`` laid out to run on local shards over ``dims``: on each mesh
+    dimension its shard kept where it cuts one of ``dims``, else made whole
+    (a partial sum reduced, another dimension's shard gathered).  A plain
+    tensor comes back as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    keep = [p if isinstance(p, Shard) and p.dim in dims else Replicate() for p in t.placements]
+    return t if list(t.placements) == keep else t.redistribute(t.device_mesh, keep)
+
+
 def on_local_shards(fn, like: DTensor, axes: Mapping[str, int], args: Sequence,
                     out_axes: Sequence[Mapping[str, int]]):
     """``fn`` on each device's local shards, through ``local_map``, where

@@ -17,6 +17,21 @@ from torch.distributed.tensor import DTensor
 PLAIN_DEVICES = ("cpu", "meta")
 
 
+#: who watches the plain versions run in their kernels' places (the dry
+#: run's counter, ``launch.comm_analysis.CommCounter``): the innermost is
+#: called as ``watcher(fn, args)`` and returns ``fn(*args)``
+plain_watchers: list = []
+
+
+def run_plain(fn, *args):
+    """``fn(*args)``, a kernel's plain version run in the kernel's place:
+    a watcher counts it as the one launch it stands for (its inputs read,
+    its outputs written, no intermediate in memory)."""
+    if plain_watchers:
+        return plain_watchers[-1](fn, args)
+    return fn(*args)
+
+
 def takes_plain(t) -> bool:
     """``t`` lies on one of :data:`PLAIN_DEVICES`.  Raises ``TypeError`` on
     a ``DTensor``, whose device is its mesh's: neither the kernel nor the

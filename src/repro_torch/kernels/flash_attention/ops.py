@@ -31,7 +31,7 @@ import torch
 from torch.distributed.tensor import DTensor, Shard
 from torch.distributed.tensor.experimental import local_map
 
-from repro_torch.kernels import takes_plain
+from repro_torch.kernels import run_plain, takes_plain
 
 from . import backward, kernel
 from .ref import flash_attention_bwd_ref, flash_attention_lse_ref, flash_attention_ref
@@ -64,10 +64,7 @@ class FlashAttention(torch.autograd.Function):
         kw = dict(group=group, scale=scale, softcap=softcap, causal=causal, window=window)
         if not takes_plain(q):
             return kernel.attend(q, k, v, with_lse=True, **kw)
-        o, lse = flash_attention_lse_ref(_flat(q), _flat(k), _flat(v), **kw)
-        if q.dim() == 4:
-            lse = lse.reshape(q.shape[0], q.shape[2], q.shape[1])
-        return _model(o, q), lse
+        return run_plain(functools.partial(_plain_lse, **kw), q, k, v)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -83,11 +80,28 @@ class FlashAttention(torch.autograd.Function):
         if not takes_plain(q):
             dq, dk, dv = backward.attention_bwd(q, k, v, o, lse, do, **ctx.kw)
         else:
-            dq, dk, dv = flash_attention_bwd_ref(
-                _flat(q), _flat(k), _flat(v), _flat(o), lse.reshape(-1, q.shape[1]),
-                _flat(do), **ctx.kw)
-            dq, dk, dv = _model(dq, q), _model(dk, k), _model(dv, v)
+            dq, dk, dv = run_plain(functools.partial(_plain_bwd, **ctx.kw), q, k, v, o, lse, do)
         return dq, dk, dv, None, None, None, None, None
+
+
+def _plain_lse(q, k, v, **kw):
+    """The plain version of the forward with its LSE, in q's layout."""
+    o, lse = flash_attention_lse_ref(_flat(q), _flat(k), _flat(v), **kw)
+    if q.dim() == 4:
+        lse = lse.reshape(q.shape[0], q.shape[2], q.shape[1])
+    return _model(o, q), lse
+
+
+def _plain_bwd(q, k, v, o, lse, do, **kw):
+    """The plain version of the backward: ``(dq, dk, dv)`` in the inputs'
+    layouts."""
+    dq, dk, dv = flash_attention_bwd_ref(_flat(q), _flat(k), _flat(v), _flat(o),
+                                         lse.reshape(-1, q.shape[1]), _flat(do), **kw)
+    return _model(dq, q), _model(dk, k), _model(dv, v)
+
+
+def _plain(q, k, v, **kw):
+    return _model(flash_attention_ref(_flat(q), _flat(k), _flat(v), **kw), q)
 
 
 #: calls that ran on DTensors' local shards through ``local_map``
@@ -131,4 +145,4 @@ def mha_flash(
         return kernel.attention(q, k, v, **kw)
     if kernel.needs_grad(q, k, v):
         return FlashAttention.apply(q, k, v, group, scale, softcap, causal, window)[0]
-    return _model(flash_attention_ref(_flat(q), _flat(k), _flat(v), **kw), q)
+    return run_plain(functools.partial(_plain, **kw), q, k, v)

@@ -23,7 +23,7 @@ import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
-from repro_torch.kernels import takes_plain
+from repro_torch.kernels import run_plain, takes_plain
 
 from . import kernel
 from .ref import stream_pack_matmul_ref
@@ -137,7 +137,7 @@ def _stream_pack(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dim() == 2:
         x = x.contiguous().expand(w.shape[0], *x.shape)
     if takes_plain(x):
-        return stream_pack_matmul_ref(x, w)
+        return run_plain(stream_pack_matmul_ref, x, w)
     _, M, K = x.shape
     if x.stride(0) != 0 or not x[0].is_contiguous():
         x = x.contiguous()

@@ -17,7 +17,7 @@ its placement on the mesh (16x16 ``("data", "model")`` or 2x16x16 with
 * the bytes of one device's share of the step's arguments, split as
   params, optimizer, cache and batch (the counterpart of XLA's
   ``memory_analysis().argument_size_in_bytes``: every sharded dimension
-  divided by its mesh axes' size), and whether they fit one H100's memory;
+  divided by its mesh axes' size);
 * the step's FLOPs: the train step (``make_train_step`` with
   ``cfg.remat``, as JAX lowers it), ``forward`` (prefill) or
   ``decode_step`` (decode) run once on the meta tensors under
@@ -29,29 +29,38 @@ its placement on the mesh (16x16 ``("data", "model")`` or 2x16x16 with
   group of the mesh's size (no devices, no data moved) under a
   ``DeviceMesh``, the meta parameters, AdamW state, batch and cache
   placed on it as DTensors by their axes, and the step run once under
-  ``launch.comm_analysis.CommCounter``: ``collectives``, one device's
-  collective operand bytes and counts per kind (JAX records
-  ``hlo_analysis.collective_bytes`` of the compiled HLO), and
-  ``flops_per_device``, the products' FLOPs on one device's local shards.
-  DTensor's dispatch costs the host about a millisecond an op, so the
-  program is run at the depths P and 2P (``partitioned_layers``; P, from
-  ``models.layer_period``, is 1 but for xLSTM, the hybrid and gemma2) and
-  its numbers extrapolated to ``n_layers``: n(P) + (L/P - 1)(n(2P) - n(P)),
-  exact while every period of the stack partitions alike (a test holds a
-  4-layer run against it).
-  ``partitioned`` says whether that ran: the dense, vlm and MoE families
-  must partition (a failure there fails the case); for the audio, hybrid
-  and ssm families a step DTensor cannot partition records
-  ``"partitioned": false`` and the op or the error that stopped it.
+  ``launch.comm_analysis.CommCounter`` (:func:`count_step`), which gives
+  one device's
+
+  - ``collectives``: collective operand bytes and counts per kind (JAX
+    records ``hlo_analysis.collective_bytes`` of the compiled HLO);
+  - ``flops_per_device``: the products' FLOPs on its local shards;
+  - ``bytes_accessed``: the bytes every op that is not a view reads and
+    writes (JAX's ``cost_analysis()["bytes accessed"]``, but unfused: the
+    port runs, and its CUDA graphs replay, one kernel an op);
+  - ``memory.output_bytes``: the storages of the returned tensors the step
+    made (an in-place AdamW update and cache write return their
+    arguments, where JAX returns new trees);
+  - ``memory.temp_bytes``: the peak of the bytes the step made while it
+    ran, less the outputs', so that argument + temp + output bytes is its
+    peak (XLA's ``temp_size_in_bytes``); ``memory.fits`` says whether that
+    sum fits one H100's 80 GB.
+
+  A kernel's plain version, which the meta tensors take
+  (:func:`repro_torch.kernels.takes_plain`), counts as the one launch it
+  stands for.  DTensor's dispatch costs the host about a millisecond an
+  op, so the program is run at the depths 2P and 3P
+  (``partitioned_layers``; P, from ``models.layer_period``, is 1 but for
+  xLSTM, the hybrid and gemma2) and its numbers extrapolated to
+  ``n_layers``: n(2P) + (L/P - 2)(n(3P) - n(2P)).  That is exact while
+  every period of the stack partitions alike from the second on (the first
+  can differ: its peak holds no earlier period's output; a test holds a
+  4-layer run against it).  Every family must partition: a step that
+  cannot fails its case, naming the op that stopped it.
 
 Results go to ``experiments/dryrun_torch/*.json``; any failure exits 1.
-The kernel wrappers take their plain versions on meta tensors
-(:func:`repro_torch.kernels.takes_plain`), and their local shards under a
-mesh, which only propagate shapes.
-
-Not recorded: XLA's temp bytes (the activations' peak; a meta run
-allocates nothing to measure).  JAX's ``--unroll`` has no counterpart:
-the port's layers are a Python loop, every layer counted.
+JAX's ``--unroll`` has no counterpart: the port's layers are a Python
+loop, every layer counted.
 """
 
 from __future__ import annotations
@@ -70,11 +79,12 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import DTensor
+from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 import repro_torch.configs as C
-from repro_torch.configs.shapes import INPUT_SHAPES, applicable, input_specs
+from repro_torch.configs.shapes import INPUT_SHAPES, InputShape, applicable, input_specs
 from repro_torch.distributed import (LONG_CONTEXT_OVERRIDES, batch_axes, local_shape, pspec,
                                      shard_model, shard_tree, use_sharding_ctx, with_defaults)
 from repro_torch.launch.comm_analysis import CommCounter, collective_bytes
@@ -85,9 +95,8 @@ from repro_torch.training import make_train_step
 
 OUT_DIR = pathlib.Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 GROUPS = ("params", "optimizer", "cache", "batch")
-# the families whose step must partition (their models carry JAX's
-# constrain / gather_fsdp call sites)
-MUST_PARTITION = ("dense", "vlm", "moe")
+# the families whose step must partition: every one
+MUST_PARTITION = ("dense", "vlm", "moe", "audio", "hybrid", "ssm")
 
 
 def _flatten(tree: Any, axes: Any, prefix: str = "") -> Iterator[tuple[str, torch.Tensor, str]]:
@@ -114,11 +123,14 @@ class Case:
     build_s: float
 
 
-def build_case(arch: str | Any, shape_name: str, mesh=None, rules=None) -> Case:
-    """The case of ``arch`` (a name, or a config) at ``shape_name``; with a
-    ``mesh``, its parameters, AdamW state, batch and cache placed on it as
-    DTensors by their axes under ``DEFAULT_RULES + rules``, and its step run
-    under that sharding context."""
+def build_case(arch: str | Any, shape_name: str | InputShape, mesh=None, rules=None, *,
+               remat: bool = True) -> Case:
+    """The case of ``arch`` (a name, or a config) at ``shape_name`` (a name,
+    or a shape); with a ``mesh``, its parameters, AdamW state, batch and
+    cache placed on it as DTensors by their axes under ``DEFAULT_RULES +
+    rules``, and its step run under that sharding context.  A train step
+    recomputes each layer in its backward (``cfg.remat``, as JAX's dry run
+    lowers it) unless ``remat`` is False, which keeps the config's."""
     t0 = time.perf_counter()
     cfg = C.get(arch) if isinstance(arch, str) else arch
     kind, specs = input_specs(cfg, shape_name)
@@ -133,7 +145,7 @@ def build_case(arch: str | Any, shape_name: str, mesh=None, rules=None) -> Case:
     leaves = {group: [] for group in GROUPS}
     leaves["params"] = params
     if kind == "train":
-        cfg = dataclasses.replace(cfg, remat=True)
+        cfg = dataclasses.replace(cfg, remat=cfg.remat or remat)
         train_step = make_train_step(cfg, lr=1e-4, mesh=mesh, rules=rules)
         opt = adamw_init({name: p for name, p, _ in params})
         leaves["optimizer"] = [("step", opt.step, "")] + [
@@ -143,14 +155,14 @@ def build_case(arch: str | Any, shape_name: str, mesh=None, rules=None) -> Case:
         leaves["batch"] = list(_flatten(batch, batch_axes(batch)))
 
         def step():
-            train_step(model, opt, batch)
+            return train_step(model, opt, batch)
     elif kind == "prefill":
         batch = place(specs["batch"], batch_axes(specs["batch"]))
         leaves["batch"] = list(_flatten(batch, batch_axes(batch)))
 
         def step():
             with torch.no_grad(), use_sharding_ctx(mesh, rules):
-                forward(model, batch, cfg)
+                return forward(model, batch, cfg)
     else:
         c_axes = cache_axes(cfg, per_slot=False)
         cache = place(specs["cache"], c_axes)
@@ -160,7 +172,7 @@ def build_case(arch: str | Any, shape_name: str, mesh=None, rules=None) -> Case:
 
         def step():
             with torch.no_grad(), use_sharding_ctx(mesh, rules):
-                decode_step(model, cache, tokens, cfg)
+                return decode_step(model, cache, tokens, cfg)
     return Case(kind, leaves, step, time.perf_counter() - t0)
 
 
@@ -196,8 +208,9 @@ class MetaShapeCache(TorchDispatchMode):
     empty meta tensors of the recorded layout instead of running torch's
     meta kernel again (many are Python decompositions, 0.1-0.7 ms each;
     the sLSTM steps through 32768 positions with ~20 of them a step).
-    Mutating and aliasing ops (in-place writes, views) always run, and so
-    does an op whose output is not on the meta device (a factory op making
+    Mutating and aliasing ops (in-place writes, views, and an op found to
+    return its input's storage though its schema says nothing of it) always
+    run, and so does an op whose output is not on the meta device (a factory op making
     a CPU tensor has data, and no recorded layout stands for it)."""
 
     def __init__(self) -> None:
@@ -223,10 +236,21 @@ class MetaShapeCache(TorchDispatchMode):
         rec = self._seen.get(key)
         if rec is None:
             out = func(*args, **kwargs)
+            if _shares_storage(out, (args, kwargs)):
+                self._fresh[func] = False      # a view by another name (_unsafe_view)
+                return out
             with contextlib.suppress(_Uncached):
                 self._seen[key] = _layouts(out)
             return out
         return _empties(rec)
+
+
+def _shares_storage(out, inputs) -> bool:
+    """Some tensor of ``out`` shares a storage with one of ``inputs``."""
+    ins = {id(t.untyped_storage()) for t in pytree.tree_leaves(inputs)
+           if isinstance(t, torch.Tensor)}
+    return any(id(t.untyped_storage()) in ins for t in pytree.tree_leaves(out)
+               if isinstance(t, torch.Tensor))
 
 
 def _layouts(out):
@@ -299,11 +323,32 @@ def _extrapolate(a, b, periods: int):
     return a + periods * (b - a)
 
 
-def _partition_once(cfg, shape_name, mesh, rules) -> dict:
-    case = build_case(cfg, shape_name, mesh, rules)
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
+def count_step(step) -> dict:
+    """One device's share of ``step()`` (meta tensors, DTensors on a fake
+    mesh) under :class:`CommCounter` and :class:`MetaShapeCache`:
+    ``collectives``, ``flops_per_device``, ``bytes_accessed``,
+    ``output_bytes`` (the storages of the returned tensors that the step
+    made: none of an argument, which the port's in-place AdamW and cache
+    writes return) and ``temp_bytes`` (the peak of the bytes the step made,
+    less the outputs': argument + temp + output bytes is the step's peak)."""
     with MetaShapeCache(), CommCounter() as counter:
-        case.step()
-    return {"collectives": collective_bytes(counter.records), "flops_per_device": counter.flops}
+        out = step()
+    storages = {id(st): st.nbytes() for st in (
+        _local(t).untyped_storage() for t in pytree.tree_leaves(out)
+        if isinstance(t, torch.Tensor) and counter.made(_local(t)))}
+    output = sum(storages.values())
+    del out
+    return {"collectives": collective_bytes(counter.records), "flops_per_device": counter.flops,
+            "bytes_accessed": counter.bytes_accessed, "temp_bytes": counter.peak_bytes - output,
+            "output_bytes": output}
+
+
+def _partition_once(cfg, shape_name, mesh, rules) -> dict:
+    return count_step(build_case(cfg, shape_name, mesh, rules).step)
 
 
 def as_run(shape: tuple[int, ...], names: tuple[str, ...], rules=None):
@@ -325,28 +370,26 @@ def as_run(shape: tuple[int, ...], names: tuple[str, ...], rules=None):
     return merged, names[:pod] + names[data:]
 
 
-def partitioned(cfg, shape_name: str, shape: tuple[int, ...], names: tuple[str, ...],
-                rules=None) -> dict:
+def partitioned(cfg, shape_name, shape: tuple[int, ...], names: tuple[str, ...],
+                rules=None, **build) -> dict:
     """One device's share of the case's step on a fake mesh of ``shape``
-    (axis ``names``): ``{"partitioned": True, "collectives":
-    collective_bytes(...), "flops_per_device": ..., "partitioned_layers":
-    depths run, "partition_s": ...}``, run at depths P and 2P and
-    extrapolated to ``cfg.n_layers`` (or at full depth when that is at most
-    2P).  A step that cannot partition raises for the families of
-    :data:`MUST_PARTITION` and records ``{"partitioned": False, "op": ...}``
-    for the others."""
+    (axis ``names``): ``{"partitioned": True, **count_step(...),
+    "partitioned_layers": depths run, "partition_s": ...}``, run at depths
+    2P and 3P and extrapolated to ``cfg.n_layers`` (or at full depth when
+    that is at most 3P).  ``build`` goes to :func:`build_case`.  A step
+    that cannot partition raises, naming the op that stopped it."""
     t0 = time.perf_counter()
     period, layers = layer_period(cfg), cfg.n_layers
-    depths = (layers,) if layers <= 2 * period else (period, 2 * period)
+    depths = (layers,) if layers <= 3 * period else (2 * period, 3 * period)
     shape, names = as_run(shape, names, rules)
     try:
         with fake_mesh(shape, names) as mesh:
-            runs = [_partition_once(_at_depth(cfg, d), shape_name, mesh, rules) for d in depths]
+            runs = [count_step(build_case(_at_depth(cfg, d), shape_name, mesh, rules,
+                                          **build).step) for d in depths]
     except Exception as e:
-        if cfg.family in MUST_PARTITION:
-            raise
-        return {"partitioned": False, "op": _op_of(e)}
-    record = runs[0] if len(runs) == 1 else _extrapolate(*runs, layers // period - 1)
+        raise RuntimeError(f"{cfg.name} x {getattr(shape_name, 'name', shape_name)} does not "
+                           f"partition on {'x'.join(map(str, shape))}: {_op_of(e)}") from e
+    record = runs[0] if len(runs) == 1 else _extrapolate(*runs, layers // period - 2)
     return {"partitioned": True, **record, "partitioned_layers": list(depths),
             "partitioned_mesh": "x".join(map(str, shape)),
             "partition_s": round(time.perf_counter() - t0, 3)}
@@ -365,11 +408,15 @@ def run_case(arch: str, shape_name: str, *, meshes=(False,)) -> list[dict]:
     records = []
     for multi_pod in meshes:
         mesh = make_production_mesh(multi_pod=multi_pod)
+        part = partitioned(cfg, shape_name, mesh.shape, mesh.mesh_dim_names, rules)
         memory = {f"{group}_bytes": device_bytes(case.leaves[group], mesh, rules)
                   for group in GROUPS}
         memory["argument_bytes"] = sum(memory.values())
+        memory["temp_bytes"] = part.pop("temp_bytes")
+        memory["output_bytes"] = part.pop("output_bytes")
         memory["device_memory_bytes"] = DEVICE_MEMORY_BYTES
-        memory["fits"] = memory["argument_bytes"] <= DEVICE_MEMORY_BYTES
+        memory["fits"] = (memory["argument_bytes"] + memory["temp_bytes"]
+                          + memory["output_bytes"]) <= DEVICE_MEMORY_BYTES
         records.append({
             "arch": arch,
             "shape": shape_name,
@@ -382,19 +429,19 @@ def run_case(arch: str, shape_name: str, *, meshes=(False,)) -> list[dict]:
             "memory": memory,
             "params": cfg.param_count,
             "active_params": cfg.active_param_count,
+            **part,
         })
-        records[-1].update(partitioned(cfg, shape_name, mesh.shape, mesh.mesh_dim_names, rules))
     return records
 
 
 def partition_line(r: dict) -> str:
     """The partitioned pass of a record, for its line."""
-    if not r["partitioned"]:
-        return f"partitioned=false ({r['op']})"
-    c = r["collectives"]
+    c, m = r["collectives"], r["memory"]
     kinds = " ".join(f"{k}={c['counts'][k]}/{c['bytes_per_kind'][k] / 2**20:.1f}MiB"
                      for k in c["counts"] if c["counts"][k])
-    return (f"per device: flops={r['flops_per_device']:.3e} collectives "
+    return (f"per device: flops={r['flops_per_device']:.3e} accessed="
+            f"{r['bytes_accessed'] / 2**30:.3f} GiB temp={m['temp_bytes'] / 2**30:.3f} GiB "
+            f"output={m['output_bytes'] / 2**30:.3f} GiB collectives "
             f"{c['total_bytes'] / 2**30:.3f} GiB [{kinds}] ({r['partition_s']}s)")
 
 

@@ -24,14 +24,19 @@ from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from repro_torch.distributed import replicate_like
+from repro_torch.distributed import keep_shards, on_local_shards, replicate_like
 
-from .layers import Shape
+from .layers import HEADS, ROWS, Shape
 
 Params = Mapping[str, torch.Tensor]
 # the float32 leaves of a Mamba2 layer; the rest is the model's dtype
 F32_LEAVES = ("conv_b", "A_log", "D", "dt_bias")
+# the named dimensions of the conv's input and state (B, ·, C), and of the
+# SSD state (B, H, hd, ds), for the block's cores run on each device's shards
+CHANNELS = {"batch": 0, "channels": 2}
+STATE = {"batch": 0, "heads": 1}
 
 
 def ssm_dims(cfg) -> tuple[int, int, int]:
@@ -71,7 +76,14 @@ def _split_in(z_xbc_dt: torch.Tensor, cfg):
 def _causal_conv(xbc: torch.Tensor, p: Params, conv_state: Optional[torch.Tensor] = None):
     """Depthwise causal conv of width ``conv_width`` over xbc (B, S, C),
     after the ``W - 1`` inputs of ``conv_state`` (zeros without one).
-    Returns ``(silu(conv + bias), the last W - 1 inputs)``."""
+    Returns ``(silu(conv + bias), the last W - 1 inputs)``.  A DTensor
+    runs on each device's rows, and channels where its layout shards them
+    (the conv is depthwise)."""
+    if isinstance(xbc, DTensor):
+        xbc = keep_shards(xbc, (0, 2))
+        return on_local_shards(_conv_local, xbc, CHANNELS, [
+            (xbc, CHANNELS), (p["conv_w"], {"channels": 1}), (p["conv_b"], {"channels": 0}),
+            (conv_state, CHANNELS)], [CHANNELS, CHANNELS])
     w = p["conv_w"].to(xbc.dtype)                             # (W, C)
     W = w.shape[0]
     if conv_state is not None:
@@ -85,6 +97,11 @@ def _causal_conv(xbc: torch.Tensor, p: Params, conv_state: Optional[torch.Tensor
         out = out + ctx[:, i:i + S] * w[i]
     out = out + p["conv_b"].to(xbc.dtype)
     return F.silu(out), new_state
+
+
+def _conv_local(xbc, conv_w, conv_b, conv_state):
+    """:func:`_causal_conv` of one device's shards."""
+    return _causal_conv(xbc, {"conv_w": conv_w, "conv_b": conv_b}, conv_state)
 
 
 def _ssd_chunked(x, dtv, ldec, Bm, Cm, h0, chunk: int):
@@ -131,6 +148,14 @@ def _ssd_chunked(x, dtv, ldec, Bm, Cm, h0, chunk: int):
     return (y_intra + y_inter).reshape(Bsz, S, H, hd), h
 
 
+def _ssd_scan(x, dt_raw, Bm, Cm, dt_bias, A_log, h0, chunk: int):
+    """The chunked SSD of a sequence from its raw ``dt`` (B,S,H): y
+    (B,S,H,hd)."""
+    dtv = F.softplus(dt_raw.float() + dt_bias)                # (B,S,H)
+    ldec = dtv * -torch.exp(A_log)
+    return _ssd_chunked(x, dtv, ldec, Bm, Cm, h0, chunk)[0]
+
+
 def mamba2_block(p: Params, x: torch.Tensor, cfg, *, cache: Optional[dict] = None):
     """x (B, S, D) → ``(out, new_cache)``.
 
@@ -156,10 +181,6 @@ def mamba2_block(p: Params, x: torch.Tensor, cfg, *, cache: Optional[dict] = Non
     Bm = xbc[..., d_inner:d_inner + s.state_dim].float()
     Cm = xbc[..., d_inner + s.state_dim:].float()
 
-    dtv = F.softplus(dt_raw.float() + p["dt_bias"])           # (B,S,H)
-    A = -torch.exp(p["A_log"])                                # (H,)
-    ldec = dtv * A
-
     new_cache = None
     if cache is None and S > 1:
         chunk = min(s.chunk, S)
@@ -167,8 +188,19 @@ def mamba2_block(p: Params, x: torch.Tensor, cfg, *, cache: Optional[dict] = Non
             chunk //= 2
         h0 = replicate_like(torch.zeros((B_, H, s.head_dim, s.state_dim), dtype=torch.float32,
                                         device=x.device), x)
-        y, _ = _ssd_chunked(x_ssm.float(), dtv, ldec, Bm, Cm, h0, chunk)
+        args = (x_ssm.float(), dt_raw, Bm, Cm, p["dt_bias"], p["A_log"], h0, chunk)
+        if isinstance(x, DTensor):
+            # each device scans its own rows, and heads where the layout
+            # shards them: the scan is independent per row and head
+            like = keep_shards(args[0], (0, 2))
+            y = on_local_shards(_ssd_scan, like, HEADS, list(zip(
+                (like,) + args[1:],
+                (HEADS, HEADS, ROWS, ROWS, {"heads": 0}, {"heads": 0}, STATE, {}))), [HEADS])
+        else:
+            y = _ssd_scan(*args)
     else:
+        dtv = F.softplus(dt_raw.float() + p["dt_bias"])       # (B,S,H)
+        ldec = dtv * -torch.exp(p["A_log"])
         h0 = cache["h"] if cache is not None else replicate_like(torch.zeros(
             (B_, H, s.head_dim, s.state_dim), dtype=torch.float32, device=x.device), x)
         xs = x_ssm.float()[:, 0]                              # (B,H,hd)

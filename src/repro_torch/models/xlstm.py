@@ -16,6 +16,7 @@ State per head (cache layout):
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Mapping, Optional
 
@@ -23,13 +24,15 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.distributed import on_local_shards, replicate_like
+from repro_torch.distributed import keep_shards, on_local_shards, replicate_like
 
-from .layers import ROWS, Shape
+from .layers import HEADS, ROWS, Shape
 
 Params = Mapping[str, torch.Tensor]
 # the float32 leaves of the two cells; the rest is the model's dtype
 F32_LEAVES = ("w_if", "b_if", "b_gates")
+# the named dimensions of the mLSTM state C (B,H,hd,hd), n (B,H,hd), m (B,H)
+STATE = {"batch": 0, "heads": 1}
 
 
 def _heads(cfg) -> tuple[int, int]:
@@ -71,6 +74,39 @@ def gate_bias(name: str, n: int) -> torch.Tensor:
 # mLSTM
 # ---------------------------------------------------------------------------
 
+class _RunningMax(torch.autograd.Function):
+    """``torch.cummax(g, dim=1).values`` with a deterministic gradient.
+
+    The gradient of each position t goes to the position its running max
+    came from, ``idx[t]``.  cummax's own backward adds them with
+    ``scatter_add``, whose atomics on CUDA sum a long run in another order
+    each time, so two runs of a training step differ.  Here: ``idx`` is
+    constant on runs that start where the running max is new (``idx[s] ==
+    s``), so a start gets the sum of the gradient over its run, a
+    difference of reverse cumulative sums in float64 (along dim 1, which
+    CUDA scans one sequence to a thread, in one order)."""
+
+    @staticmethod
+    def forward(ctx, g):
+        values, idx = torch.cummax(g, dim=1)
+        ctx.save_for_backward(idx)
+        return values
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        S = grad.shape[1]
+        pos = torch.arange(S, device=grad.device).view(1, S, *([1] * (grad.dim() - 2)))
+        start = idx == pos
+        after = grad.double().flip(1).cumsum(1).flip(1)        # sum over u >= t
+        after = torch.cat([after, torch.zeros_like(after[:, :1])], dim=1)
+        # the start of the run after t's: the first start past t (S at the end)
+        nxt = torch.where(start, pos, S).flip(1).cummin(1).values.flip(1)
+        nxt = torch.cat([nxt[:, 1:], torch.full_like(nxt[:, :1], S)], dim=1)
+        run = after[:, :S] - after.gather(1, nxt)
+        return torch.where(start, run, 0.0).to(grad.dtype)
+
+
 def _mlstm_chunked(q, k, v, log_i, log_f, C0, n0, m0, chunk: int):
     """Chunked parallel mLSTM: the gates depend only on the input, so the
     matrix-memory recurrence unrolls to a decay-weighted attention form
@@ -86,7 +122,7 @@ def _mlstm_chunked(q, k, v, log_i, log_f, C0, n0, m0, chunk: int):
     # global running log-decay and stabilizer (a running max: a prefix op)
     Fg = torch.cumsum(log_f, dim=1)                           # (B,S,H)
     g = log_i - Fg
-    a = torch.maximum(torch.cummax(g, dim=1).values, m0[:, None])
+    a = torch.maximum(_RunningMax.apply(g), m0[:, None])
     m = Fg + a                                                # (B,S,H)
 
     qc = qf.reshape(B, nc, chunk, H, hd)
@@ -139,6 +175,46 @@ def _mlstm_chunked(q, k, v, log_i, log_f, C0, n0, m0, chunk: int):
     return h.reshape(B, S, H, hd), (C, n, m[:, -1])
 
 
+def _gate_logs(gates: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The input and forget gates' logs from the gate pre-activations
+    (..., 2H): the input gates as they are, the forget gates' logsigmoid."""
+    H = gates.shape[-1] // 2
+    return gates[..., :H], F.logsigmoid(gates[..., H:])
+
+
+def _mlstm_local(q, k, v, gates, C0, n0, m0, chunk: int):
+    """:func:`_mlstm_chunked` from the gate pre-activations (B,S,2,H), its
+    outputs flat: ``(h, C, n, m)``."""
+    h, state = _mlstm_chunked(q, k, v, *_gate_logs(gates.flatten(2)), C0, n0, m0, chunk)
+    return (h, *state)
+
+
+def _mlstm_step(q, k, v, gates, C0, n0, m0):
+    """The recurrence for one token from the gate pre-activations
+    (B,1,2,H): ``(h, C, n, m)``."""
+    log_i, log_f = _gate_logs(gates.flatten(2))
+    li, lf = log_i[:, 0], log_f[:, 0]                         # (B,H)
+    m = torch.maximum(lf + m0, li)
+    fp = torch.exp(lf + m0 - m)[:, :, None]
+    ip = torch.exp(li - m)[:, :, None]
+    kt, qt = k[:, 0].float(), q[:, 0].float()
+    C = fp[..., None] * C0 + (ip * kt)[..., None] * v[:, 0].float()[:, :, None, :]
+    n = fp * n0 + ip * kt
+    num = torch.einsum("bhk,bhkv->bhv", qt, C)
+    den = torch.clamp(torch.einsum("bhk,bhk->bh", qt, n).abs(), min=1.0)
+    return (num / den[..., None])[:, None], C, n, m
+
+
+def _laid_out_as(q, state):
+    """q (B,S,H,hd) laid out to run the cell on local shards: on each mesh
+    dimension sharded on the state's rows or heads where a DTensor state
+    (a cache) is, else on q's own rows."""
+    if not (isinstance(state, DTensor) and any(p.is_shard() for p in state.placements)):
+        return keep_shards(q, (0, 2))
+    return q.redistribute(q.device_mesh, [Shard(2 * p.dim) if p.is_shard() else Replicate()
+                                          for p in state.placements])
+
+
 def _store(cache: Optional[dict], new: dict) -> dict:
     """``new`` written into ``cache`` in place (and ``cache`` returned), or
     ``new`` itself without a cache."""
@@ -166,7 +242,6 @@ def mlstm_block(p: Params, x: torch.Tensor, cfg, *, cache: Optional[dict] = None
     k = k.reshape(B, S, H, hd) / root
     v = v.reshape(B, S, H, hd)
     gates = u.float() @ p["w_if"] + p["b_if"]                 # (B,S,2H)
-    log_i, log_f = gates[..., :H], F.logsigmoid(gates[..., H:])
 
     if cache is None:
         C0, n0, m0 = (replicate_like(t, x) for t in (
@@ -180,18 +255,23 @@ def mlstm_block(p: Params, x: torch.Tensor, cfg, *, cache: Optional[dict] = None
         chunk = cfg.xlstm.mlstm_chunk
         while S % chunk:
             chunk //= 2
-        hs, (C, n, m) = _mlstm_chunked(q, k, v, log_i, log_f, C0, n0, m0, chunk)
+        core = functools.partial(_mlstm_local, chunk=chunk)
     else:                                                     # one recurrent step
-        li, lf = log_i[:, 0], log_f[:, 0]                     # (B,H)
-        m = torch.maximum(lf + m0, li)
-        fp = torch.exp(lf + m0 - m)[:, :, None]
-        ip = torch.exp(li - m)[:, :, None]
-        kt, qt = k[:, 0].float(), q[:, 0].float()
-        C = fp[..., None] * C0 + (ip * kt)[..., None] * v[:, 0].float()[:, :, None, :]
-        n = fp * n0 + ip * kt
-        num = torch.einsum("bhk,bhkv->bhv", qt, C)
-        den = torch.clamp(torch.einsum("bhk,bhk->bh", qt, n).abs(), min=1.0)
-        hs = num / den[..., None]
+        core = _mlstm_step
+    gates = gates.reshape(B, S, 2, H)
+    if isinstance(q, DTensor):
+        # each device runs the cell on its own batch rows, and heads where
+        # the state shards them: it is independent per row and head, and
+        # DTensor has no rule for cummax (nor its backward's scatter_add)
+        # and cannot always flatten the step's heads
+        q = _laid_out_as(q, C0)
+        hs, C, n, m = on_local_shards(
+            core, q, HEADS, [(q, HEADS), (k, HEADS), (v, HEADS),
+                             (gates, {"batch": 0, "heads": 3}),
+                             (C0, STATE), (n0, STATE), (m0, STATE)],
+            [HEADS, STATE, STATE, STATE])
+    else:
+        hs, C, n, m = core(q, k, v, gates, C0, n0, m0)
     h = hs.reshape(B, S, d_up).to(x.dtype)
     out = (h * F.silu(z)) @ p["w_down"]
     return out, _store(cache, {"C": C, "n": n, "m": m})
@@ -221,8 +301,7 @@ def slstm_block(p: Params, x: torch.Tensor, cfg, *, cache: Optional[dict] = None
         # DTensor ops costs the host far more than the step), the gate
         # inputs whole on their last axis, the recurrent weights and bias
         # gathered once rather than at every step
-        gx = gx.redistribute(gx.device_mesh, [p if p == Shard(0) else Replicate()
-                                              for p in gx.placements])
+        gx = keep_shards(gx, (0,))
         hs, c, n, m, h = on_local_shards(_slstm_scan, gx, ROWS, list(zip(
             (gx,) + args[1:], (ROWS, {}, {}) + (ROWS,) * 4)), [ROWS] * 5)
     else:

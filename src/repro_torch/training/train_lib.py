@@ -38,22 +38,38 @@ from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.core.capture import CAPTURE_ERROR_MODE, CAPTURE_LOCK
 from repro_torch.data import shard_batch
-from repro_torch.distributed import constrain, local_part, replicate_like, use_sharding_ctx
+from repro_torch.distributed import (constrain, local_part, on_local_shards, replicate_like,
+                                     use_sharding_ctx)
 from repro_torch.models import forward
 from repro_torch.optim import adamw_update
 from repro_torch.optim.adamw import AdamWState
+
+# the batch rows of a (B, S, ...) tensor, for the loss on each device's rows
+_ROWS = {"batch": 0}
+
+
+def _row_nll(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each row's summed token cross-entropy and its count of labelled
+    tokens (label < 0 is masked out): two (B,) float32 tensors."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return ((logz - gold) * mask).sum(dim=-1), mask.sum(dim=-1)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean token cross-entropy; label < 0 positions are masked out."""
     # vocab-sharded logits are gathered whole over the vocabulary first
-    # (XLA reduces a sharded softmax instead)
+    # (XLA reduces a sharded softmax instead); each device then takes its
+    # own rows, since DTensor runs gather's backward on a zero tensor of
+    # the global logits' shape on every device
     logits = constrain(logits, "batch", "seq", None)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
-    nll = logz - gold
-    mask = (labels >= 0).float()
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    if isinstance(logits, DTensor):
+        nll, count = on_local_shards(_row_nll, logits, _ROWS,
+                                     [(logits, _ROWS), (labels, _ROWS)], [_ROWS, _ROWS])
+    else:
+        nll, count = _row_nll(logits, labels)
+    return torch.sum(nll) / torch.clamp(torch.sum(count), min=1.0)
 
 
 def make_loss_fn(cfg) -> Callable:

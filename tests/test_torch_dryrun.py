@@ -21,8 +21,14 @@ package, on the CPU, with nothing allocated.
   :func:`test_partitioned_collectives_are_the_rules`), one device's FLOPs
   times the devices are the global count where every product is sharded,
   and a column-then-row MLP's are its global FLOPs over the model axis;
-  the depth extrapolation equals a run at full depth; every case of the
-  dense, vlm and MoE families partitions.
+  the depth extrapolation equals a run at full depth, the peak too; every
+  arch x applicable shape partitions, and a case that cannot fails naming
+  its op.
+* The counts of one device's memory: a column-then-row MLP's bytes
+  accessed, output and temp bytes equal the hand counts
+  (:func:`test_partitioned_memory_and_traffic_are_the_hand_counts`), a
+  kernel's plain version counts as one launch, and the prediction for a
+  train step on meta tensors equals the count of the real step on the CPU.
 """
 
 import dataclasses
@@ -180,7 +186,8 @@ def test_device_bytes_equal_jax_pspecs(arch, shape):
                        for _, s, ax, size in leaves)
             assert memory[f"{group}_bytes"] == want, group
         assert memory["argument_bytes"] == sum(memory[f"{g}_bytes"] for g in dryrun.GROUPS)
-        assert memory["fits"] == (memory["argument_bytes"] <= 80e9)
+        assert memory["fits"] == (memory["argument_bytes"] + memory["temp_bytes"]
+                                  + memory["output_bytes"] <= 80e9)
         assert record["params"] == JC.get(arch).param_count
         assert record["active_params"] == JC.get(arch).active_param_count
 
@@ -287,6 +294,17 @@ def test_meta_tensors_take_the_plain_versions_and_count_no_launch():
 # the partitioned pass, at smoke size on fake meshes of 2 and 4 ranks
 MESH_1x2 = ((1, 2), ("data", "model"))
 MUST_PARTITION = [a for a in ARCHS if TC.get(a).family in dryrun.MUST_PARTITION]
+CASES = [(a, s) for a in ARCHS for s in INPUT_SHAPES if applicable(TC.get(a), s)]
+_PARTITIONED: dict = {}
+
+
+def _partitioned(arch, shape):
+    """The smoke config's partitioned pass on (2, 2), once per case."""
+    if (arch, shape) not in _PARTITIONED:
+        rules = dict(dryrun.LONG_CONTEXT_OVERRIDES) if shape == "long_500k" else None
+        _PARTITIONED[(arch, shape)] = dryrun.partitioned(
+            TC.get(arch, smoke=True), shape, (2, 2), ("data", "model"), rules)
+    return _PARTITIONED[(arch, shape)]
 
 
 @pytest.mark.timeout(300)
@@ -336,28 +354,178 @@ def test_column_then_row_mlp_flops_are_split_by_the_model_axis():
     assert collective_bytes(counter.records)["counts"]["all-reduce"] == 1
 
 
+COUNTS = ("collectives", "flops_per_device", "bytes_accessed", "temp_bytes", "output_bytes")
+
+
 @pytest.mark.timeout(300)
 def test_depth_extrapolation_equals_the_full_depth():
+    # 4 layers, period 1: run at 2 and 3 layers, extrapolated by one period
     cfg = dataclasses.replace(TC.get("phi4-mini-3.8b", smoke=True), n_layers=4)
     got = dryrun.partitioned(cfg, "train_4k", (2, 2), ("data", "model"))
-    assert got["partitioned_layers"] == [1, 2]
+    assert got["partitioned_layers"] == [2, 3]
     with dryrun.fake_mesh((2, 2), ("data", "model")) as mesh:
         full = dryrun._partition_once(cfg, "train_4k", mesh, None)
     assert got["collectives"] == full["collectives"]
     assert got["flops_per_device"] == full["flops_per_device"]
+    for key in ("bytes_accessed", "temp_bytes", "output_bytes"):
+        assert got[key] == full[key] > 0, key
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_depth_extrapolation_of_the_peak_holds_without_autograd(shape):
+    """Without autograd the first layer's peak holds no earlier layer's
+    output, so the peak grows from 1 to 2 layers by another amount than
+    from 2 on (prefill: not at all after that; decode: by each layer's new
+    keys and values): the pass runs at 2P and 3P and equals a 5-layer run
+    in every count."""
+    cfg = dataclasses.replace(TC.get("phi4-mini-3.8b", smoke=True), n_layers=5)
+    got = dryrun.partitioned(cfg, shape, (2, 2), ("data", "model"))
+    assert got["partitioned_layers"] == [2, 3]
+    with dryrun.fake_mesh((2, 2), ("data", "model")) as mesh:
+        full = dryrun._partition_once(cfg, shape, mesh, None)
+        one, two = (dryrun._partition_once(dataclasses.replace(cfg, n_layers=n), shape, mesh,
+                                           None) for n in (1, 2))
+    for key in COUNTS:
+        assert got[key] == full[key], key
+    # extrapolating from 1 and 2 layers would miss the peak
+    assert dryrun._extrapolate(one, two, 4)["temp_bytes"] != full["temp_bytes"]
 
 
 @pytest.mark.timeout(300)
 @pytest.mark.parametrize("arch", MUST_PARTITION)
 def test_attention_families_partition(arch):
-    cfg = TC.get(arch, smoke=True)
     for shape in INPUT_SHAPES:
         if not applicable(TC.get(arch), shape):
             continue
-        rules = dict(dryrun.LONG_CONTEXT_OVERRIDES) if shape == "long_500k" else None
-        r = dryrun.partitioned(cfg, shape, (2, 2), ("data", "model"), rules)
+        r = _partitioned(arch, shape)
         assert r["partitioned"] is True, (shape, r)
         assert r["flops_per_device"] > 0 and r["collectives"]["total_bytes"] > 0, shape
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("arch,shape", CASES)
+def test_every_case_partitions(arch, shape):
+    """Every family partitions at every applicable shape (the mLSTM, the
+    sLSTM, Mamba2's conv and scan on each device's shards), with one
+    device's FLOPs, collectives, bytes accessed and peak."""
+    assert set(dryrun.MUST_PARTITION) == {TC.get(a).family for a in ARCHS}
+    r = _partitioned(arch, shape)
+    assert r["partitioned"] is True
+    assert r["flops_per_device"] > 0 and r["collectives"]["total_bytes"] > 0
+    assert r["bytes_accessed"] > 0 and r["temp_bytes"] > 0 and r["output_bytes"] > 0
+
+
+def test_a_case_that_cannot_partition_fails(monkeypatch):
+    def refuse(step):
+        raise NotImplementedError("Operator aten.cummax.default does not have a sharding "
+                                  "strategy registered.")
+
+    monkeypatch.setattr(dryrun, "count_step", refuse)
+    with pytest.raises(RuntimeError, match=r"xlstm-smoke x train_4k does not partition on "
+                                           r"2x2: aten\.cummax\.default"):
+        dryrun.partitioned(TC.get("xlstm-125m", smoke=True), "train_4k", (2, 2),
+                           ("data", "model"))
+
+
+def test_partitioned_memory_and_traffic_are_the_hand_counts():
+    """A column-then-row MLP, y = (x @ w1) @ w2, forward and backward
+    (``autograd.grad`` of y against a given gy into w1 and w2) on a fake
+    (1, 2) mesh: x (B, D) and gy replicated, w1 (D, F) sharded on its
+    columns, w2 (F, D) on its rows, float32, so one device holds F/2 = f
+    of the hidden units and no collective runs.  Its five products on
+    local shards, in the order they run:
+
+    1. h = x @ w1 (B, f);          2. y = h @ w2 (B, D), a partial sum;
+    3. dw2 = hᵀ @ gy (f, D);       4. dh = gy @ w2ᵀ (B, f), after which the
+       second product's backward frees h, its saved input;
+    5. dw1 = xᵀ @ dh (D, f).
+
+    Each reads its operands and writes its output: every product touches
+    one (B, D), one (D, f) and one (B, f) tensor, so the bytes accessed
+    are 5·4·(B·D + D·f + B·f).  The storages the pass makes are h, y, dw2,
+    dh and dw1; the peak is at the last product, y + dw2 + dh + dw1 (h
+    freed).  The outputs, y, dw1 and dw2, are made by the pass: output
+    bytes 4·(B·D + 2·D·f), temp bytes the peak less those, 4·B·f (dh).
+    Run twice, the second pass on the shape cache's memoised products
+    counts the same."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed import place
+
+    B, D, F = 8, 64, 256
+    f = F // 2
+    with dryrun.fake_mesh(*MESH_1x2) as mesh:
+        x = place(torch.empty(B, D, device="meta"), mesh, [Replicate(), Replicate()])
+        gy = place(torch.empty(B, D, device="meta"), mesh, [Replicate(), Replicate()])
+        w1 = place(torch.empty(D, F, device="meta"), mesh, [Replicate(), Shard(1)])
+        w2 = place(torch.empty(F, D, device="meta"), mesh, [Replicate(), Shard(0)])
+        w1.requires_grad_()
+        w2.requires_grad_()
+
+        def mlp():
+            y = (x @ w1) @ w2
+            return (y, *torch.autograd.grad(y, (w1, w2), gy))
+
+        def twice():
+            mlp()
+            return mlp()
+
+        once, again = dryrun.count_step(mlp), dryrun.count_step(twice)
+    assert once["collectives"]["total_bytes"] == 0
+    assert once["flops_per_device"] == 5 * 2 * B * D * f
+    assert once["bytes_accessed"] == 5 * 4 * (B * D + D * f + B * f)
+    assert once["output_bytes"] == 4 * (B * D + 2 * D * f)
+    assert once["temp_bytes"] == 4 * B * f
+    assert again["bytes_accessed"] == 2 * once["bytes_accessed"]
+    assert again["flops_per_device"] == 2 * once["flops_per_device"]
+    assert (again["temp_bytes"], again["output_bytes"]) == (once["temp_bytes"],
+                                                            once["output_bytes"])
+
+
+def test_a_plain_version_counts_as_one_launch():
+    """B1's plain version on meta tensors holds every score of a head, but
+    on the card B1 reads q, k, v and writes o: the counter sees that one
+    launch (and still the plain version's FLOPs)."""
+    q = torch.empty((2, 1024, 6, 64), device="meta")
+    k, v = (torch.empty((2, 1024, 2, 64), device="meta") for _ in range(2))
+    with torch.no_grad():
+        got = dryrun.count_step(lambda: mha_flash(q, k, v))
+    size = 4 * (q.numel() + k.numel() + v.numel())
+    assert got["bytes_accessed"] == size + 4 * q.numel()
+    assert got["output_bytes"] == 4 * q.numel() and got["temp_bytes"] == 0
+    assert got["flops_per_device"] == 4 * 2 * 6 * 1024 * 1024 * 64
+
+
+@pytest.mark.timeout(300)
+def test_the_meta_prediction_equals_the_counted_cpu_step():
+    """The counter's prediction for a train step on meta DTensors over a
+    fake (1, 1) mesh (chip_smoke's check of phase 19c's step, at smoke
+    size) equals what the same counter sees on the real step on the CPU,
+    from real weights: the bytes made and accessed do not depend on the
+    data, the mesh of one device or the shape cache."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.data import SyntheticLM, data_config_for
+    from repro_torch.launch.comm_analysis import CommCounter
+    from repro_torch.launch.serve import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import make_train_step
+    from repro_torch.training.train_lib import batch_to_device
+
+    cfg = TC.get("phi4-mini-3.8b", smoke=True)
+    shape = InputShape("train_2x16", 16, 2, "train")
+    meta = dryrun.partitioned(cfg, shape, (1, 1), ("data", "model"), remat=False)
+    model = init_params(cfg, seed=0, device="cpu")
+    state = adamw_init(dict(model.named_parameters()))
+    batch = batch_to_device(SyntheticLM(data_config_for(cfg, batch_size=2, seq_len=16)).batch(0),
+                            "cpu")
+    step = make_train_step(cfg, lr=1e-4)
+    with CommCounter() as counter:
+        metrics = step(model, state, batch)[2]
+    output = sum(t.untyped_storage().nbytes() for t in metrics.values())
+    assert meta["output_bytes"] == output
+    assert meta["temp_bytes"] == counter.peak_bytes - output > 0
+    assert meta["bytes_accessed"] == counter.bytes_accessed
 
 
 def test_a_failed_partition_names_its_op():

@@ -3,22 +3,17 @@ state and batches over a ``DeviceMesh`` of spawned gloo processes, held
 against the port's single-process step from the same weights and batch
 (that step is held against JAX in ``test_torch_train_{dense,moe}.py``).
 
-One spawn per mesh, every case inside it: (1, 2) and (2, 1) ``("data",
-"model")`` over 2 processes, a sharded ``forward``, decode steps and one
-sharded train step each; (2, 2) over 4 processes, the train step.  Each process takes its
-share of the parent's threads and rendezvouses on a ``FileStore`` in
-``tmp_path`` (no port, so xdist workers never collide); each join has a
-time limit and a failure shows the child's traceback.  Configs at smoke
-size, float32: phi4-mini (dense, GQA 6 over 2 heads), arctic (MoE on B2's
-plain version, beside a dense FFN) and deepseek-v2 (MoE with MLA and
-shared experts), a ``SyntheticLM`` batch of 2 x 16 (the train tests').
+One spawn per mesh, every case inside it (``_sharded_harness.run_mesh``,
+which this file shares with ``test_torch_sharded_families.py``): (1, 2)
+and (2, 1) ``("data", "model")`` over 2 processes, a sharded ``forward``,
+decode steps and one sharded train step each; (2, 2) over 4 processes,
+the train step.  Configs at smoke size, float32: phi4-mini (dense, GQA 6
+over 2 heads), arctic (MoE on B2's plain version, beside a dense FFN) and
+deepseek-v2 (MoE with MLA and shared experts), a ``SyntheticLM`` batch of
+2 x 16 (the train tests').  The forward and train step are held at the
+harness's tolerances (logits 1e-5; metrics rtol 1e-5; gradients over
+their leaf's largest magnitude rtol 1e-4, atol 1e-5; parameters 0.2 x lr).
 
-* **forward:** logits within atol 1e-5, rtol 1e-5;
-* **train step:** loss, ce, aux and grad norm within rtol 1e-5; every
-  gradient, divided by its leaf's largest magnitude, within rtol 1e-4 and
-  atol 1e-5; the parameters after the step within 0.2 x lr
-  (``test_torch_train_dense.py``'s rule: Adam's first step is about lr x
-  sign(g)); the step counter replicated.
 * **decode:** synchronized decode steps of phi4-mini, deepseek-v2 (MLA),
   zamba2 (the in-layer cache write) and xlstm (the sLSTM on each device's
   rows) with the cache placed by its axes, and phi4-mini under the
@@ -33,40 +28,28 @@ shared experts), a ``SyntheticLM`` batch of 2 x 16 (the train tests').
   restores into a single-process model.
 """
 
-import dataclasses
 import os
 import subprocess
 import sys
-import time
 import traceback
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
-import torch.distributed as dist
-import torch.multiprocessing as mp
 from torch.utils import _pytree as pytree
 
-import repro_torch.configs as C
+from _sharded_harness import (LOGIT_TOL, METRIC_TOL, assert_logits_equal, assert_step_equal,
+                              batch_of, config, local_step, run_mesh)
 from repro_torch.checkpoint import restore_checkpoint
-from repro_torch.data import SyntheticLM, data_config_for
 from repro_torch.launch.serve import init_params
 from repro_torch.models import Transformer, forward
-from repro_torch.optim import adamw_init, cosine_schedule
-from repro_torch.training import make_train_step, seal_train_step
-from repro_torch.training.train_lib import batch_to_device
+from repro_torch.optim import cosine_schedule
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["phi4-mini-3.8b", "arctic-480b", "deepseek-v2-236b"]
 # mesh -> the step kinds run on it
 MESHES = {(1, 2): ("forward", "train"), (2, 1): ("forward", "train"), (2, 2): ("train",)}
-LR = 1e-3
-LOGIT_TOL = 1e-5
-METRIC_TOL = 1e-5
-GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
-PARAM_ATOL = 0.2 * LR
-JOIN_S = 240.0
 
 
 @pytest.fixture(autouse=True)
@@ -75,46 +58,6 @@ def _few_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(prev)
-
-
-def config(arch):
-    return dataclasses.replace(C.get(arch, smoke=True), dtype="float32")
-
-
-def batch_of(cfg):
-    return SyntheticLM(data_config_for(cfg, batch_size=2, seq_len=16)).batch(0)
-
-
-def local_step(cfg, batch, mesh=None):
-    """``(logits, grads, metrics, params, step counter)`` of the forward and
-    one AdamW step from seed 0's weights, on ``mesh`` when given (every
-    result gathered whole, as numpy)."""
-    from repro_torch.data import shard_batch
-    from repro_torch.distributed import shard_model, use_sharding_ctx
-    from repro_torch.models import param_axes
-
-    def whole(t):
-        t = t.detach()
-        return (t.full_tensor() if mesh is not None else t).numpy()
-
-    def model_on_mesh():
-        model = init_params(cfg, seed=0, device="cpu")
-        return model if mesh is None else shard_model(model, param_axes(cfg), mesh)
-
-    placed = (batch_to_device(batch, "cpu") if mesh is None
-              else shard_batch(batch, mesh, "cpu"))
-    model = model_on_mesh()
-    with torch.no_grad(), use_sharding_ctx(mesh):
-        logits = whole(forward(model, {"tokens": placed["tokens"]}, cfg)[0])
-    model = model_on_mesh()
-    state = adamw_init(dict(model.named_parameters()))
-    step = make_train_step(cfg, lr=LR, mesh=mesh)
-    grads = {n: whole(g) for n, g in step.loss_and_grads(model, placed)[2].items()}
-    metrics = seal_train_step(step, model, state, batch)(batch)
-    return dict(logits=logits, grads=grads,
-                metrics={k: float(v) for k, v in metrics.items()},
-                params={n: whole(p) for n, p in model.named_parameters()},
-                counter=(int(state.step), type(state.step).__name__))
 
 
 DECODE_ARCHS = ["phi4-mini-3.8b", "deepseek-v2-236b", "zamba2-2.7b", "xlstm-125m"]
@@ -206,59 +149,26 @@ def kernel_regions(mesh):
     return out
 
 
-def _child(rank, world, shape, kinds, store, threads, out):
-    torch.set_num_threads(threads)
-    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
-                            world_size=world)
-    try:
-        from torch.distributed.device_mesh import init_device_mesh
+def cases(mesh, shape, kinds):
+    """Every case of ``shape``, on one rank of its mesh."""
+    results = {}
+    for arch in ARCHS:
+        cfg = config(arch)
+        results[arch] = local_step(cfg, batch_of(cfg), mesh)
+        if "forward" not in kinds:
+            results[arch].pop("logits")
+    if "forward" in kinds:
+        from repro_torch.distributed import LONG_CONTEXT_OVERRIDES
 
-        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
-        results = {}
-        for arch in ARCHS:
-            cfg = config(arch)
-            results[arch] = local_step(cfg, batch_of(cfg), mesh)
-            if "forward" not in kinds:
-                results[arch].pop("logits")
-        if "forward" in kinds:
-            from repro_torch.distributed import LONG_CONTEXT_OVERRIDES
-
-            for arch in DECODE_ARCHS:
-                results[f"decode {arch}"] = decode_run(config(arch), mesh)
-            # the long-context rules shard the cache's positions on the data axis
-            results["decode long"] = decode_run(config("phi4-mini-3.8b"), mesh,
-                                                dict(LONG_CONTEXT_OVERRIDES))
-        if shape == (1, 2):
-            results["dense_collectives"] = dense_collectives(mesh)
-            results["kernel_regions"] = kernel_regions(mesh)
-        if rank == 0:
-            torch.save(results, out)
-    finally:
-        dist.destroy_process_group()
-
-
-def run_mesh(shape, kinds, tmp: Path) -> dict:
-    """Spawn ``prod(shape)`` gloo processes that run every case of
-    ``shape``; returns rank 0's results."""
-    world = int(np.prod(shape))
-    threads = max(1, torch.get_num_threads() // world)
-    out = tmp / "results.pt"
-    ctx = mp.start_processes(_child, args=(world, shape, kinds, str(tmp / "store"), threads,
-                                           str(out)),
-                             nprocs=world, join=False, start_method="spawn")
-    deadline = time.monotonic() + JOIN_S
-    try:
-        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
-            if time.monotonic() > deadline:
-                pytest.fail(f"mesh {shape}: processes still running after {JOIN_S:.0f}s")
-    except mp.ProcessRaisedException as e:    # carries the child's traceback
-        pytest.fail(f"mesh {shape}: a process failed:\n{e}")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-                p.join()
-    return torch.load(out, weights_only=False)
+        for arch in DECODE_ARCHS:
+            results[f"decode {arch}"] = decode_run(config(arch), mesh)
+        # the long-context rules shard the cache's positions on the data axis
+        results["decode long"] = decode_run(config("phi4-mini-3.8b"), mesh,
+                                            dict(LONG_CONTEXT_OVERRIDES))
+    if shape == (1, 2):
+        results["dense_collectives"] = dense_collectives(mesh)
+        results["kernel_regions"] = kernel_regions(mesh)
+    return results
 
 
 _RUNS: dict = {}
@@ -274,7 +184,8 @@ def sharded(request, tmp_path_factory):
     shape = request.param
     if shape not in _RUNS:
         try:
-            _RUNS[shape] = run_mesh(shape, MESHES[shape], tmp_path_factory.mktemp("mesh"))
+            _RUNS[shape] = run_mesh(shape, cases, (MESHES[shape],),
+                                    tmp_path_factory.mktemp("mesh"))
         except BaseException:
             print(traceback.format_exc())
             raise
@@ -288,27 +199,14 @@ def test_sharded_forward_equals_single_process(sharded, reference, arch):
     if "forward" not in MESHES[shape]:
         assert "logits" not in runs[arch]     # (2, 2) runs the train step only
         return
-    np.testing.assert_allclose(runs[arch]["logits"], reference[arch]["logits"],
-                               atol=LOGIT_TOL, rtol=LOGIT_TOL)
+    assert_logits_equal(runs[arch], reference[arch])
 
 
 @pytest.mark.timeout(300)
 @pytest.mark.parametrize("arch", ARCHS)
 def test_sharded_train_step_equals_single_process(sharded, reference, arch):
     _, runs = sharded
-    got, want = runs[arch], reference[arch]
-    for key in ("loss", "ce", "aux", "grad_norm", "lr"):
-        np.testing.assert_allclose(got["metrics"][key], want["metrics"][key],
-                                   rtol=METRIC_TOL, atol=1e-7, err_msg=key)
-    assert set(got["grads"]) == set(want["grads"])
-    for name, g in want["grads"].items():
-        scale = max(float(np.abs(g).max()), 1e-30)
-        np.testing.assert_allclose(got["grads"][name] / scale, g / scale,
-                                   rtol=GRAD_RTOL, atol=GRAD_ATOL, err_msg=name)
-    for name, p in want["params"].items():
-        np.testing.assert_allclose(got["params"][name], p, rtol=0, atol=PARAM_ATOL,
-                                   err_msg=name)
-    assert got["counter"] == (1, "DTensor") and want["counter"] == (1, "Tensor")
+    assert_step_equal(runs[arch], reference[arch])
 
 
 @pytest.mark.timeout(300)

@@ -7,7 +7,8 @@ state), each within 1e-5 and writing a given state in place; ``forward``
 logits within 1e-4; teacher-forced ``decode_step`` equal to ``forward``
 within 1e-4; ``decode_step`` against JAX's over several steps, with every
 leaf of the per-layer list cache; the cache's layout; bf16 logits within
-``BF16_LOGITS_TOL``.  Weights come from JAX through
+``BF16_LOGITS_TOL``; the mLSTM's running max (``_RunningMax``, whose
+gradient is summed per run, deterministically) against ``torch.cummax``.  Weights come from JAX through
 ``bridge.params_from_jax`` (xLSTM's layers are a Python list there) and
 inputs from a numpy seed.  Tolerances are float32 summation order.
 """
@@ -221,3 +222,27 @@ def test_init_model_gate_biases():
     assert torch.equal(m, torch.cat([torch.zeros(H), torch.full((H,), 3.0)]))
     s = model.layers[1]["cell"]["b_gates"]
     assert torch.equal(s, torch.cat([torch.zeros(d), torch.full((d,), 3.0), torch.zeros(2 * d)]))
+
+
+@pytest.mark.parametrize("S", [37, 4096])
+def test_running_max_gradient_is_cummaxs(S):
+    """The mLSTM's running max (``_RunningMax``) gives ``torch.cummax``'s
+    values and its gradient, summed per run in float64 where cummax's
+    backward adds float32 atomics (``scatter_add``): within float32's
+    rounding of cummax's gradient taken in float64; runs of equal values
+    (ties) included.  Each call gives the same bits."""
+    rng = np.random.default_rng(3)
+    g = torch.from_numpy(rng.standard_normal((2, S, 3)).astype(np.float32))
+    g[:, 5:9] = g[:, 4:5]                                  # a tie of five
+    w = torch.from_numpy(rng.standard_normal((2, S, 3)).astype(np.float32))
+    want_g, got_g = g.double().requires_grad_(), g.clone().requires_grad_()
+    want = torch.cummax(want_g, dim=1).values
+    got = TX._RunningMax.apply(got_g)
+    assert torch.equal(got, want.float())
+    (want * w.double()).sum().backward()
+    (got * w).sum().backward()
+    np.testing.assert_allclose(got_g.grad.numpy(), want_g.grad.numpy(), rtol=1e-6,
+                               atol=1e-6 * float(want_g.grad.abs().max()))
+    again = g.clone().requires_grad_()
+    (TX._RunningMax.apply(again) * w).sum().backward()
+    assert torch.equal(again.grad, got_g.grad)
