@@ -8,8 +8,9 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
 1. device: name, count, power limit; TF32 off for float32 matmuls and
    convolutions;
 2. build: compile the kernels (flash attention B1, its backward, stream_pack
-   B2) for sm_90a, one nvcc for each source, all started together; print
-   their ptxas register / shared-memory / spill reports;
+   B2, decode attention B3) for sm_90a, one nvcc for each source, all
+   started together; print their ptxas register / shared-memory / spill
+   reports;
 3. kernel against its plain PyTorch version on the card over a sweep of
    dtypes, head dims (zamba2's 80 among them), GQA groups, lengths (ragged
    ones included), windows, soft-caps (with scores large enough for the cap
@@ -30,11 +31,26 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    calls it) and the card's bound; then at phase 20's prefill_32k shape, q
    (1, 32768, 24, 128) over 8 kv heads, causal, the longest prompt B1 runs:
    every head against the plain version, 3 q heads at a time, and timed;
+3b. decode attention (B3) against its plain version on the card at every
+   shape a decode path gives it, at both dtypes (``DECODE_CASES``: the
+   served slots over 1024 positions, phase 5's float32 cache, decode_32k's
+   share with a 0-d offset, which must give the bits of the same offset
+   per row, seamless's and zamba2's cache form, the float32 smoke lanes,
+   gemma2's window and soft-cap, starcoder2's GQA 12, three new tokens in
+   two row tiles), each within atol + rtol*|ref| (bf16's atol scaled by
+   each output row's rms, ``DECODE_TOL``); a fully masked row
+   (the kernel writes 0); then times at phi4-mini's served decode shape
+   and at decode_32k's, in a CUDA graph and launched from Python, beside
+   the plain version, ``F.scaled_dot_product_attention`` over the cache
+   with a boolean mask (a yardstick only: the port never calls it) and
+   the bound;
 4. serve: phi4-mini-3.8b at full width and depth, bf16, random weights made
    on the card from a seed, 8 requests through ``ServingEngine`` with
    CUDA-graph-sealed steps; checks the tokens and that prefill went
    through the kernel (the wrapper's count, and the profiler's count of
-   flash kernels inside one prefill replay) with no layout copy;
+   flash kernels inside one prefill replay) with no layout copy, and that
+   one profiled decode replay ran B3 (partial pass and combine) once a
+   layer;
 5. the same code on the card and on the CPU (2 layers, float32, one set of
    weights): prefill logits within 1e-3 and identical greedy tokens;
 6. stream_pack kernel against its plain PyTorch version on the card over
@@ -68,10 +84,12 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    new ones through ``ServingEngine`` with CUDA-graph-sealed steps; checks
    the tokens, the replays, the wrappers' counts, and that one decode
    replay and one prefill replay each ran 3 x n_layers B2 kernels (the
-   expert GEMMs) and the prefill n_layers ``flash_fwd``; prints seal time,
+   expert GEMMs), the decode n_layers B3 and the prefill n_layers
+   ``flash_fwd``; prints seal time,
    TTFT p50, decode tok/s, peak memory and the top device ops of each
    profiled replay with B2's share;
-9. the same for deepseek-v2-236b (2 of 60 layers, MLA: no flash kernel);
+9. the same for deepseek-v2-236b (2 of 60 layers, MLA: no flash kernel and
+   no B3);
 10. arctic-smoke and deepseek-v2-smoke on the card and on the CPU at
     float32, one set of weights: identical greedy tokens;
 11. llava-next-34b at full width and 4 of its 60 layers, bf16: served as
@@ -81,10 +99,13 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
     of 4 x 128 frames (B1 bidirectional), the teacher-forced ``forward``
     of 4 x 512 tokens, then 16 greedy steps of batch ``decode_step`` for 4
     sequences with the memory in the cache (cross attention on B1 with one
-    query row), eagerly and as a captured CUDA graph: the same tokens;
+    query row, self attention on B3's cache form), eagerly and as a
+    captured CUDA graph: the same tokens; a profiled decode replay runs B3
+    once a decoder layer;
 13. zamba2-2.7b at full width and depth, bf16: ``forward`` of 4 x 512
     tokens (the chunked SSD; the shared block's attention on B1 at hd 80,
-    9 times), then the batch decode of phase 12 from an empty state;
+    9 times), then the batch decode of phase 12 from an empty state (the
+    shared block on B3 at hd 80, 9 times a replay);
 14. xlstm-125m at full width and depth, bf16: the same as phase 13 (the
     chunked mLSTM, sLSTM at layers 3, 7 and 11; no attention);
 15. the smoke configs of llava-next, seamless, zamba2 and xlstm on the card
@@ -158,7 +179,8 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
     cache of 32768 positions filled from a seed: its logits equal the
     per-slot step's on the same state, then 8 greedy steps eagerly and as
     replays of one captured step give the same tokens; ms per replay, the
-    top device ops of one replay, the peak memory; (c) prefill_32k at B = 1
+    top device ops of one replay (B3 once a layer), the peak memory; (c)
+    prefill_32k at B = 1
     (a cut of the per-device share of 2): ``forward`` of 32768 tokens, B1
     launched once a layer at the shape phase 3 checked, finite logits, the
     time and the peak memory;
@@ -198,6 +220,12 @@ Each profiled graph replay has its outputs poisoned before it and must
 give them back right, so a replay that ran nothing cannot pass as a
 profiler that saw nothing.
 
+B3's launches are counted over each decode path (``B3_BY_PATH``: phases
+4, 5, 8, 10-13, 15-18 and 20b, each of which must launch it), every B3
+kernel (dtype, head dim, rows) the paths ran must be one phase 3b checked,
+and no phase after 3b may make a layout copy for it; the profiled decode
+replays held and B3's kernels in them are counted (``B3_REPLAYS``).
+
 The line before the last is the per-kernel JSON record; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -211,6 +239,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -255,8 +284,21 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+# (phase, host clock) at each phase's header, for the time each phase took
+PHASE_STARTS: list[tuple[str, float]] = []
+
+
 def say(msg: str) -> None:
+    if msg.startswith("== phase "):
+        PHASE_STARTS.append((msg[len("== phase "):].split(":")[0], time.perf_counter()))
     print(msg, flush=True)
+
+
+def phase_seconds(end: float) -> str:
+    """Each phase's seconds, from its header to the next one's (the last's
+    to ``end``)."""
+    marks = PHASE_STARTS + [("", end)]
+    return ", ".join(f"{name} {t1 - t0:.1f}" for (name, t0), (_, t1) in zip(marks, marks[1:]))
 
 
 def nvidia_smi() -> str:
@@ -326,12 +368,13 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import kernel as decode
     from repro_torch.kernels.flash_attention import backward as flash_bwd
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.stream_pack import kernel as pack
 
     say("== phase 2: build")
-    sources = [flash.SOURCE, flash_bwd.SOURCE, pack.SOURCE]
+    sources = [flash.SOURCE, flash_bwd.SOURCE, pack.SOURCE, decode.SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:      # one nvcc per source
         list(pool.map(build.build, sources))
@@ -796,6 +839,271 @@ def flash_time(q_heads: int, kv_heads: int, Sq: int, Skv: int, hd: int, causal: 
                 eager_ms=eager["kernel"], eager_library_ms=eager["library"])
 
 
+# phase 3b: B3 (decode attention) against its plain version at every shape
+# the decode paths give it, at both dtypes: (label, arch, smoke, B, T, S,
+# the deferred form with the step's own keys, one 0-d offset for every row)
+DECODE_CASES = [
+    ("phi4-mini served (phases 4, 16-18)", "phi4-mini-3.8b", False, SERVE_SLOTS, 1024, 1,
+     True, False),
+    ("phi4-mini 2 layers (phase 5)", "phi4-mini-3.8b", False, 4, 128, 1, True, False),
+    ("decode_32k share (phase 20b)", "phi4-mini-3.8b", False, 8, 32768, 1, True, True),
+    ("arctic-480b served (phase 8)", "arctic-480b", False, SERVE_SLOTS, 1024, 1, True, False),
+    ("llava-next-34b served (phase 11)", "llava-next-34b", False, SERVE_SLOTS, 1024, 1,
+     True, False),
+    ("seamless-m4t-medium decoder (phase 12)", "seamless-m4t-medium", False, 4, 64, 1,
+     False, False),
+    ("zamba2-2.7b shared block (phase 13)", "zamba2-2.7b", False, 4, 64, 1, False, False),
+    ("phi4-mini smoke lane (phase 16)", "phi4-mini-3.8b", True, SERVE_SLOTS, 1024, 1, True,
+     False),
+    ("arctic smoke (phase 10)", "arctic-480b", True, 4, 256, 1, True, False),
+    ("llava-next smoke (phase 15)", "llava-next-34b", True, 4, 128, 1, True, False),
+    ("seamless smoke (phase 15)", "seamless-m4t-medium", True, 4, 16, 1, False, False),
+    ("zamba2 smoke (phase 15)", "zamba2-2.7b", True, 4, 16, 1, False, False),
+    ("gemma2-27b local layer: window 4096, cap 50", "gemma2-27b", False, 4, 8192, 1, True,
+     False),
+    ("starcoder2-15b: GQA 12", "starcoder2-15b", False, 4, 1024, 1, True, False),
+    ("GQA 7, 3 new tokens (two row tiles)", "arctic-480b", False, 2, 512, 3, True, False),
+    ("GQA 7, 3 tokens, the cache form", "llava-next-34b", False, 2, 512, 3, False, False),
+]
+# the shapes B3 is timed at: phi4-mini's served decode and decode_32k's share
+DECODE_TIMED = (0, 2)
+# B3's tolerance, |got - ref| <= atol + rtol * |ref| elementwise.  float32
+# as B1's (summation order).  bf16: rtol covers the two outputs' roundings
+# (half a bf16 ulp each, 2**-8 of |ref| together); the plain version also
+# rounds every probability to bf16 before the product with v, an error that
+# scales with the row's values, so atol is DECODE_BF16_RMS x the rms of the
+# reference row (over hd), about 4x the largest |err| / rms a row showed in
+# phase 3b on an H100 (PERF.md).  A fixed atol would be looser than a long
+# cache's outputs themselves: at decode_32k they are about 0.01.
+DECODE_BF16_RMS = 0.125
+DECODE_TOL = {"float32": (1e-4, 0.0), "bfloat16": (DECODE_BF16_RMS, 1e-2)}
+
+
+def decode_ratio(got, ref, dname: str) -> float:
+    """Largest ``|got - ref| / (atol + rtol * |ref|)`` at B3's tolerance for
+    ``dname``, bf16's atol scaled by each row's rms: within it at <= 1."""
+    ref = ref.float()
+    atol, rtol = DECODE_TOL[dname]
+    if dname == "bfloat16":
+        atol = atol * ref.pow(2).mean(-1, keepdim=True).sqrt()
+    return ((got.float() - ref).abs() / (atol + rtol * ref.abs())).max().item()
+
+
+def rms_err(got, ref) -> float:
+    """The largest ``|got - ref|`` of a row over that row's rms in ``ref``."""
+    ref = ref.float()
+    return ((got.float() - ref).abs() / ref.pow(2).mean(-1, keepdim=True).sqrt()).max().item()
+
+
+def _decode_inputs(arch, smoke, B, T, S, new, kvv0d, dtype, seed, full=False):
+    """q, one layer's cache as a strided view of a 2-layer cache (layer 1),
+    the step's keys (the deferred form), positions and kv_valid, and the
+    call's keywords, for ``arch``'s heads, on the card.  Offsets are spread
+    over [0, T] (the cache form: pos over [0, T - S], kv_valid = pos + S),
+    or near the end with ``full``."""
+    import torch
+
+    import repro_torch.configs as C
+
+    cfg = C.get(arch, smoke=smoke)
+    NH, NKV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    q = randn(B, S, NH, hd)
+    if cfg.attn_softcap:
+        q = q * CAP_Q_SCALE                       # a power of 2: exact in bf16
+    k_cache, v_cache = randn(2, B, T, NKV, hd)[1], randn(2, B, T, NKV, hd)[1]
+    k_new = v_new = None
+    if new:
+        k_new, v_new = randn(B, S, NKV, hd), randn(B, S, NKV, hd)
+    top = T if new else T - S
+    if kvv0d:
+        start = torch.tensor(top - 16 if full else top // 2 + 5, device="cuda")
+        kv_valid = start
+        positions = start + torch.arange(S, device="cuda")
+    else:
+        start = torch.randint(0, top + 1, (B,), generator=g, device="cuda")
+        if full:
+            start = top - 1 - torch.arange(B, device="cuda") % top
+        elif B > 1:
+            start[0], start[1] = 0, top
+        positions = start[:, None] + torch.arange(S, device="cuda")[None, :]
+        kv_valid = start if new else start + S
+    window = cfg.sliding_window if cfg.local_global_pattern else None
+    kw = dict(positions=positions, kv_valid=kv_valid,
+              scale=cfg.attn_logit_scale or 1.0 / math.sqrt(hd),
+              softcap=cfg.attn_softcap, window=window)
+    return q, k_cache, v_cache, k_new, v_new, kw
+
+
+def phase_decode_kernel() -> dict:
+    import torch
+
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+    from repro_torch.kernels.decode_attention import kernel as decode
+
+    say("== phase 3b: decode_attention (B3) vs plain version at every decode path's shape, "
+        "both dtypes (tolerance |err| <= atol + rtol*|ref|: f32 1e-4 + 0 for summation "
+        f"order; bf16 {DECODE_BF16_RMS:g} x the row's rms(ref) + 1e-2*|ref| for the plain "
+        "version's bf16 probabilities and the outputs' rounding; err/rms is a row's largest "
+        f"|err| over its rms(ref); soft-cap cases scale q by {CAP_Q_SCALE:g})")
+    worst, worst_rms, reached, failed = 0.0, 0.0, {}, []
+    for i, (label, arch, smoke, B, T, S, new, kvv0d) in enumerate(DECODE_CASES):
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            q, kc, vc, kn, vn, kw = _decode_inputs(arch, smoke, B, T, S, new, kvv0d, dtype,
+                                                   seed=300 + i)
+            launch = decode.launch_for(q, kc, new)
+            got = decode_attention(q, kc, vc, kn, vn, **kw)
+            ref = decode_attention_ref(q, kc, vc, kn, vn, **kw)
+            torch.cuda.synchronize()
+            key = (dname, q.shape[-1], launch.rows)
+            reached[key] = reached.get(key, 0) + 1
+            err = (got.float() - ref.float()).abs().max().item()
+            r, er = decode_ratio(got, ref, dname), rms_err(got, ref)
+            ok = math.isfinite(err) and r <= 1.0
+            note = ""
+            if kw["softcap"]:
+                uncapped = decode_attention_ref(q, kc, vc, kn, vn, **{**kw, "softcap": 0.0})
+                moved = (uncapped.float() - ref.float()).abs().max().item()
+                note = (f" | cap moves the output by {moved:.3e}, "
+                        f"{decode_ratio(uncapped, ref, dname):.1f}x the tolerance")
+                if not moved >= 10 * TOL[dname][0]:
+                    fail(f"soft-cap moves the output by only {moved}: the case is blind to it")
+            if kvv0d:
+                # the synchronized step's 0-d offset against the same offset per row
+                per_row = decode_attention(q, kc, vc, kn, vn, **{
+                    **kw, "kv_valid": kw["kv_valid"].expand(B).clone(),
+                    "positions": kw["positions"].expand(B, S).clone()})
+                same = torch.equal(got, per_row)
+                note += f" | 0-d offset == per-row offsets: {same}"
+                if not same:
+                    fail(f"{label}: B3 with a 0-d kv_valid differs from the same per row")
+            say(f"  {dname:8s} {label}: B={B} T={T} S={S} heads {q.shape[2]}/{kc.shape[2]} "
+                f"hd={q.shape[-1]} {'deferred' if new else 'cache form'} | rows {launch.rows} "
+                f"x{launch.row_tiles}, chunk {launch.chunk} x{launch.chunks}, grid "
+                f"{launch.grid}, smem {launch.smem_bytes} | max_abs_err {err:.3e}, err/rms "
+                f"{er:.3e} ({r:.2f} of tolerance) {'ok' if ok else 'FAIL'}{note}")
+            if not ok:
+                failed.append(f"{label} {dname} ({r:.3f} of tolerance)")
+            worst = max(worst, r)
+            if dname == "bfloat16":
+                worst_rms = max(worst_rms, er)
+            del q, kc, vc, kn, vn, got, ref
+    if failed:
+        fail(f"B3 disagrees with its plain version at {failed}")
+    say(f"  {2 * len(DECODE_CASES)} cases within tolerance (worst at {worst:.2f} of its "
+        f"tolerance; bf16's largest err/rms {worst_rms:.3e}, its atol {DECODE_BF16_RMS:g} x "
+        "rms); cases by kernel (dtype, hd, rows): "
+        + ", ".join(f"{d} {hd} {r} x{n}" for (d, hd, r), n in sorted(reached.items())))
+    decode_masked_row()
+    record = decode_time(*DECODE_CASES[DECODE_TIMED[0]])
+    record["decode_32k"] = decode_time(*DECODE_CASES[DECODE_TIMED[1]])
+    record["checked_instances"] = sorted(reached)
+    return record
+
+
+def decode_masked_row() -> None:
+    """A row whose every key is masked (no decode path makes one: a step's
+    token sees itself): the kernel writes 0, the plain version the mean of
+    v over every position, as the JAX package's softmax does."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+
+    q, kc, vc, _, _, kw = _decode_inputs("phi4-mini-3.8b", True, 2, 128, 1, False, False,
+                                         torch.float32, seed=299)
+    kw["positions"] = kw["positions"].clone()
+    kw["positions"][0] = -1                      # row 0 sees no key
+    got = decode_attention(q, kc, vc, **kw)
+    ref = decode_attention_ref(q, kc, vc, **kw)
+    zero = bool((got[0] == 0).all())
+    rest = ratio(got[1:], ref[1:], *TOL["float32"])
+    say(f"  a fully masked row: kernel {'0' if zero else 'NOT 0'}, plain version the mean of "
+        f"v (max |ref| {ref[0].abs().max().item():.3e}); the other row within "
+        f"{rest:.2f} of tolerance")
+    if not zero or rest > 1.0:
+        fail("B3's fully masked row is not 0, or the other row disagrees")
+
+
+def decode_time(label, arch, smoke, B, T, S, new, kvv0d) -> dict:
+    """B3 at one of the paths' shapes, bf16, offsets near the end of the
+    cache: in a CUDA graph and launched from Python, beside the plain
+    version, the library (one ``F.scaled_dot_product_attention`` over the
+    cache with a boolean mask and ``enable_gqa=True``, without the step's
+    own keys: a yardstick only, the port never calls it) and the bound: the
+    visible positions' K and V, q, the new keys and values and the output,
+    once each, against float32 operations on the CUDA cores."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+    from repro_torch.kernels.decode_attention import kernel as decode
+
+    q, kc, vc, kn, vn, kw = _decode_inputs(arch, smoke, B, T, S, new, kvv0d, torch.bfloat16,
+                                           seed=400 + T, full=True)
+    NH, NKV, hd = q.shape[2], kc.shape[2], q.shape[3]
+    kvv = kw["kv_valid"].expand(B).clamp(max=T)
+    visible = int(kvv.sum())
+    got = decode_attention(q, kc, vc, kn, vn, **kw)
+    ref = decode_attention_ref(q, kc, vc, kn, vn, **kw)
+    err = (got.float() - ref.float()).abs().max().item()
+    if not decode_ratio(got, ref, "bfloat16") <= 1.0:
+        fail(f"B3 disagrees at {label} (timing inputs): max_abs_err {err}, err/rms "
+             f"{rms_err(got, ref):.3e}")
+    q4, k4, v4 = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+    mask = (torch.arange(T, device="cuda")[None, :] < kvv[:, None])[:, None, None, :]
+    backend = None
+    for b in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([b]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")     # each refusal warns of its reasons
+                F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, enable_gqa=True,
+                                               scale=kw["scale"])
+            backend = b
+            break
+        except RuntimeError:
+            continue
+    if backend is None:
+        fail("no F.scaled_dot_product_attention backend takes the decode shape")
+
+    def library():
+        with sdpa_kernel([backend]):
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, enable_gqa=True,
+                                                  scale=kw["scale"])
+
+    before = decode.launches
+    calls = {"kernel": lambda: decode_attention(q, kc, vc, kn, vn, **kw),
+             "plain": lambda: decode_attention_ref(q, kc, vc, kn, vn, **kw),
+             "library": library}
+    big = T * B > 65536
+    graphed = {name: graph_ms(fn, reps=2 if big else 10, iters=5 if big else 20)
+               for name, fn in calls.items()}
+    eager_ms = time_ms(calls["kernel"], 5 if big else 20)
+    decode.launches = before                   # timing launches are not a path's
+    esize = q.element_size()
+    nbytes = (2 * visible * NKV * hd + 2 * q.numel()
+              + (2 * kn.numel() if new else 0)) * esize + 8 * (B + B * S)
+    keys = visible + (B * S if new else 0)
+    bound_ms, bound_by = bound(4.0 * hd * (NH // NKV) * S * NKV * keys, nbytes, "float32")
+    launch = decode.launch_for(q, kc, new)
+    say(f"-- B3 timing at {label}: q ({B},{S},{NH},{hd}) over a bf16 cache of {T} positions, "
+        f"{NKV} kv heads, {visible} visible positions | graph kernel_ms {graphed['kernel']:.5f} "
+        f"plain_ms {graphed['plain']:.5f} library_ms {graphed['library']:.5f} "
+        f"({backend.name}) | eager kernel_ms {eager_ms:.5f} | bound_ms {bound_ms:.5f} "
+        f"({bound_by}, {nbytes / 1e6:.3f} MB) | kernel at {bound_ms / graphed['kernel']:.1%} "
+        f"of bound | chunk {launch.chunk} x{launch.chunks}, grid {launch.grid} | "
+        f"max_abs_err {err:.3e}")
+    return dict(shape=[B, T, S, NH, NKV, hd], max_abs_err=err, ms=graphed["kernel"],
+                eager_ms=eager_ms, plain_ms=graphed["plain"], library_ms=graphed["library"],
+                library_backend=backend.name, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes)
+
+
 def serve_on_card(cfg) -> tuple:
     """Serve ``cfg`` on the card: random weights drawn there from seed 0,
     then 8 requests of 20-500 prompt tokens and 16 new ones through a
@@ -803,10 +1111,12 @@ def serve_on_card(cfg) -> tuple:
     steps sealed as CUDA graphs.  Fails unless every request finished with
     tokens in range and the graph replays equal the requests and the
     steps.  Returns the drained engine and the wrappers' counts over the
-    served run: stream_pack launches, flash launches, layout copies."""
+    served run: stream_pack launches, flash launches, flash layout copies,
+    decode_attention launches and its layout copies."""
     import numpy as np
     import torch
 
+    from repro_torch.kernels.decode_attention import kernel as decode
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.stream_pack import kernel as pack
     from repro_torch.launch import serve
@@ -821,6 +1131,8 @@ def serve_on_card(cfg) -> tuple:
     torch.cuda.reset_peak_memory_stats()
 
     pack.launches = flash.launches = flash.layout_copies = 0   # the path's run starts here
+    # B3's counts run on over every decode path (main reads them): a difference here
+    b3_launches, b3_copies = decode.launches, decode.layout_copies
     t0 = time.perf_counter()
     engine = ServingEngine(cfg, params, max_slots=SERVE_SLOTS, max_len=1024,
                            bucketing=f"pow2:{min(PREFILL_BUCKETS)}:{max(PREFILL_BUCKETS)}",
@@ -829,7 +1141,8 @@ def serve_on_card(cfg) -> tuple:
     reqs = serve.make_requests(cfg, 8, max_new=16, seed=0, min_len=20, max_len=501)
     res = serve.serve(engine, reqs)
     torch.cuda.synchronize()
-    counts = (pack.launches, flash.launches, flash.layout_copies)   # ... and ends here
+    counts = (pack.launches, flash.launches, flash.layout_copies,   # ... and ends here
+              decode.launches - b3_launches, decode.layout_copies - b3_copies)
     st = engine.stats
     captures = st.prefill_compiles + st.decode_compiles
     say(f"seal {seal_s:.2f}s ({st.prefill_compiles} prefill buckets + "
@@ -842,7 +1155,8 @@ def serve_on_card(cfg) -> tuple:
     say(f"CUDA graphs: {captures} captures, {st.prefill_replays} prefill + "
         f"{st.decode_replays} decode replays | wrapper calls (eager warm-up runs, plus "
         f"graph captures that record the kernel without running it): stream_pack "
-        f"{counts[0]}, flash {counts[1]}; layout copies {counts[2]}")
+        f"{counts[0]}, flash {counts[1]}, decode_attention {counts[3]}; layout copies "
+        f"{counts[2]} (flash), {counts[4]} (decode_attention)")
 
     if len(res["done"]) != len(reqs):
         fail(f"{len(res['done'])} of {len(reqs)} requests finished")
@@ -855,18 +1169,24 @@ def serve_on_card(cfg) -> tuple:
     if st.prefill_replays != len(reqs) or st.decode_replays != st.steps:
         fail(f"graph replays: prefill {st.prefill_replays}, decode "
              f"{st.decode_replays} over {st.steps} steps")
+    # the decode step's attention, each layer's, on B3 in the warm-up run and
+    # the capture of every sealed decode step (MLA attends in plain PyTorch)
+    want = 0 if cfg.mla else 2 * cfg.n_layers * st.decode_compiles
+    if counts[3] != want or counts[4]:
+        fail(f"decode_attention launched {counts[3]} times for {st.decode_compiles} captured "
+             f"decode steps (want {want}), {counts[4]} layout copies")
     return engine, counts
 
 
-def phase_serve() -> tuple[int, int | None]:
-    """Returns the flash wrapper's calls over the served run, and the flash
+def phase_serve() -> tuple[int, int | None, int]:
+    """Returns the flash wrapper's calls over the served run, the flash
     kernels the profiler saw in one profiled prefill replay (None if it saw
-    no device time there)."""
+    no device time there), and the B3 kernels it saw in one decode replay."""
     import repro_torch.configs as C
 
     say("== phase 4: serve phi4-mini-3.8b, full width and depth, bf16, on the card")
     cfg = dataclasses.replace(C.get("phi4-mini-3.8b"), dtype="bfloat16")
-    engine, (_, launches, copies) = serve_on_card(cfg)
+    engine, (_, launches, copies, _, _) = serve_on_card(cfg)
     st = engine.stats
     if launches < cfg.n_layers * st.prefill_compiles or st.prefill_compiles < 1:
         fail(f"flash kernel launched {launches} times for {st.prefill_compiles} "
@@ -874,8 +1194,8 @@ def phase_serve() -> tuple[int, int | None]:
     if copies != 0:
         fail(f"the served run made {copies} layout copies for the flash kernel: "
              "the model's layouts must be read in place")
-    in_replays = step_breakdown(engine)
-    return launches, in_replays
+    in_replays, b3_in_replay = step_breakdown(engine)
+    return launches, in_replays, b3_in_replay
 
 
 def _poison(out) -> None:
@@ -1006,13 +1326,15 @@ def replay_times(engine):
     return toks
 
 
-def step_breakdown(engine) -> int | None:
+def step_breakdown(engine) -> tuple[int | None, int]:
     """Where a served step's time goes: graph-replay times of the decode
-    step and of each prefill bucket (CUDA events), then the device time
-    of one eager decode step and one eager bucket-512 prefill by kernel
-    (torch.profiler).  Returns the flash kernels the profiler saw run
-    inside one prefill graph replay (None if it saw no device time there).
-    Runs on the drained engine; only its idle cache is overwritten."""
+    step and of each prefill bucket (CUDA events), the kernels of one
+    decode graph replay (which must run B3 once a layer), then the device
+    time of one eager decode step and one eager bucket-512 prefill by
+    kernel (torch.profiler).  Returns the flash kernels the profiler saw
+    run inside one prefill graph replay (None if it saw no device time
+    there) and the B3 kernels of the decode replay.  Runs on the drained
+    engine; only its idle cache is overwritten."""
     import torch
 
     params, cache = engine.params, engine.kv_cache
@@ -1033,6 +1355,7 @@ def step_breakdown(engine) -> int | None:
                  f"{engine.cfg.n_layers} layers")
     else:
         say(f"one prefill {b} graph replay: the profiler saw no device time")
+    b3 = decode_replay_b3(engine, toks)
 
     dev = engine.device
     eager = {
@@ -1053,7 +1376,59 @@ def step_breakdown(engine) -> int | None:
             "top kernels:")
         for us, count, key in sorted(rows, reverse=True)[:8]:
             say(f"  {us / total:6.1%} {us / 1e3:8.3f} ms x{count:<4d} {key[:90]}")
-    return per_replay
+    return per_replay, b3
+
+
+def b3_kernels(rows) -> tuple[int, int]:
+    """B3's partial-pass and combine kernels among :func:`by_kernel` rows."""
+    return (sum(c for _, c, key in rows if "decode_partial" in key),
+            sum(c for _, c, key in rows if "decode_combine" in key))
+
+
+# the profiled decode replays check_b3_replay held, and B3's kernels the
+# profiler saw in them
+B3_REPLAYS = {"replays": 0, "decode_partial": 0, "decode_combine": 0}
+
+
+def check_b3_replay(rows, want: int, label: str) -> int:
+    """Fails unless a profiled decode replay's kernels (``rows``) hold
+    ``want`` B3 partial passes and as many combines; adds them to
+    ``B3_REPLAYS``, returns the count and prints B3's share of the replay's
+    kernel time."""
+    partial, combine = b3_kernels(rows)
+    B3_REPLAYS["replays"] += 1
+    B3_REPLAYS["decode_partial"] += partial
+    B3_REPLAYS["decode_combine"] += combine
+    total = sum(us for us, _, _ in rows)
+    b3_us = sum(us for us, _, key in rows if "decode_partial" in key or "decode_combine" in key)
+    say(f"  {label}: {partial} decode_partial + {combine} decode_combine kernels, "
+        f"{b3_us / 1e3:.3f} ms ({b3_us / total:.1%} of the replay's kernel time)")
+    if partial != want or combine != want:
+        fail(f"{label}: a decode replay ran {partial} B3 partial passes and {combine} "
+             f"combines, want {want} of each (one per attention layer)")
+    return partial
+
+
+def decode_replay_b3(engine, toks) -> int:
+    """The kernels of one decode graph replay of a served engine from the
+    offsets of the call before it (torch.profiler), its top ops; B3 must run
+    once per attention layer."""
+    params, cache, cfg = engine.params, engine.kv_cache, engine.cfg
+    pos0 = cache["pos"].clone()
+
+    def decode_replay():
+        cache["pos"].copy_(pos0)
+        return engine._decode(params, cache, toks)
+
+    rows = by_kernel(kernels_in_one(decode_replay))
+    if not rows:
+        fail("one decode graph replay: the profiler saw no device time")
+    total = sum(us for us, _, _ in rows)
+    say(f"one decode graph replay: {sum(c for _, c, _ in rows)} device ops, "
+        f"{total / 1e3:.3f} ms of kernels (torch.profiler); top:")
+    for us, count, key in sorted(rows, reverse=True)[:8]:
+        say(f"  {us / total:6.1%} {us / 1e3:8.3f} ms x{count:<4d} {key[:90]}")
+    return check_b3_replay(rows, 0 if cfg.mla else cfg.n_layers, "decode replay")
 
 
 def phase_cpu_parity() -> None:
@@ -1472,7 +1847,7 @@ def phase_serve_moe(arch: str, number: int, n_layers: int = 2) -> dict:
         + (f", {cfg.moe.num_shared_experts} shared" if cfg.moe.num_shared_experts else "")
         + f", d_model {cfg.d_model}, "
         + ("MLA" if cfg.mla else f"GQA {cfg.n_heads} over {cfg.n_kv_heads} heads"))
-    engine, (b2, fl, copies) = serve_on_card(cfg)
+    engine, (b2, fl, copies, _, _) = serve_on_card(cfg)
     st = engine.stats
     captures = st.prefill_compiles + st.decode_compiles
     # three expert GEMMs per layer in every sealed step, each launched once
@@ -1506,7 +1881,8 @@ def moe_replays(engine) -> dict:
 
     b = engine.prompt_buckets[-1]
     exe, padded = engine._get_prefill_exec(b), torch.zeros((1, b), dtype=torch.long)
-    seen = {"b2_in_replays": 0, "flash_in_replays": 0, "profiled_replays": 0}
+    seen = {"b2_in_replays": 0, "flash_in_replays": 0, "profiled_replays": 0,
+            "b3_in_replays": 0}
     for name, run in (("decode", decode_replay),
                       (f"prefill {b}", lambda: exe(params, cache, padded, 0, b))):
         rows = by_kernel(kernels_in_one(run))
@@ -1525,6 +1901,8 @@ def moe_replays(engine) -> dict:
         if b2 != 3 * L or fl != want_fl:
             fail(f"a {name} replay ran {b2} stream_pack and {fl} flash kernels for {L} "
                  f"layers (want {3 * L} and {want_fl})")
+        if name == "decode":
+            seen["b3_in_replays"] = check_b3_replay(rows, 0 if cfg.mla else L, "decode replay")
         seen["b2_in_replays"] += b2
         seen["flash_in_replays"] += fl
         seen["profiled_replays"] += 1
@@ -1652,13 +2030,15 @@ def timed_forward(model, cfg, batch, label: str, want_flash: int) -> dict:
     return dict(ms=ms, flash=made, flash_ms=fl_us / 1e3, kernels_ms=total / 1e3, peak_gib=peak)
 
 
-def batch_decode(model, cfg, make_cache, first, label: str, want_flash_per_step: int) -> dict:
+def batch_decode(model, cfg, make_cache, first, label: str, want_flash_per_step: int,
+                 want_b3_per_step: int) -> dict:
     """``DECODE_STEPS`` greedy steps of ``decode_step`` over a batch, run
     eagerly and then as one captured CUDA graph of a step replayed (its
     token input fed from its own output), each from the state
     ``make_cache()`` gives: both must give the same tokens, in range.
     Then one replay's kernels (torch.profiler), which must hold
-    ``want_flash_per_step`` flash kernels.  Returns the times and counts."""
+    ``want_flash_per_step`` flash kernels and ``want_b3_per_step`` B3
+    kernels (the decoder's self attention).  Returns the times and counts."""
     import torch
 
     from repro_torch.kernels.flash_attention import kernel as flash
@@ -1742,8 +2122,9 @@ def batch_decode(model, cfg, make_cache, first, label: str, want_flash_per_step:
         say(f"  {us / total:6.1%} {us / 1e3:8.3f} ms x{count:<4d} {key[:90]}")
     if fl != want_flash_per_step:
         fail(f"{label}: a decode replay ran {fl} flash kernels, want {want_flash_per_step}")
+    b3 = check_b3_replay(rows, want_b3_per_step, "decode replay")
     return dict(eager_step_ms=eager_ms, replay_ms=replay_ms, flash_launches=launches,
-                flash_in_replay=fl, replay_kernels_ms=total / 1e3)
+                flash_in_replay=fl, b3_in_replay=b3, replay_kernels_ms=total / 1e3)
 
 
 def phase_vlm(number: int) -> dict:
@@ -1760,12 +2141,12 @@ def phase_vlm(number: int) -> dict:
     say(f"== phase {number}: serve llava-next-34b, full width, 4 layers, bf16, on the card")
     release()
     cfg = dataclasses.replace(C.get("llava-next-34b"), n_layers=4, dtype="bfloat16")
-    engine, (_, served, copies) = serve_on_card(cfg)
+    engine, (_, served, copies, _, _) = serve_on_card(cfg)
     st = engine.stats
     if served != 2 * cfg.n_layers * st.prefill_compiles or copies:
         fail(f"flash launched {served} times for {st.prefill_compiles} captured prefill "
              f"buckets (want {2 * cfg.n_layers * st.prefill_compiles}), {copies} layout copies")
-    in_replay = step_breakdown(engine)
+    in_replay, b3_in_replay = step_breakdown(engine)
     g = torch.Generator(device="cuda").manual_seed(5)
     batch = {"tokens": _tokens(cfg, 1, 64, seed=5),
              "vision_embeds": torch.randn((1, cfg.vision_tokens, cfg.vision_dim), generator=g,
@@ -1776,7 +2157,7 @@ def phase_vlm(number: int) -> dict:
                         cfg.n_layers)
     return dict(served_launches=served, forward_launches=fwd["flash"],
                 flash_in_replays=in_replay or 0, profiled_replays=0 if in_replay is None else 1,
-                forward=fwd)
+                b3_in_replays=b3_in_replay, forward=fwd)
 
 
 def phase_audio(number: int) -> dict:
@@ -1819,7 +2200,7 @@ def phase_audio(number: int) -> dict:
 
     flash.launches = 0
     dec = batch_decode(model, cfg, make_cache, _tokens(cfg, B, 1, seed=7),
-                       "batch decode with the memory in the cache", cfg.n_layers)
+                       "batch decode with the memory in the cache", cfg.n_layers, cfg.n_layers)
     return dict(launches=enc + fwd["flash"] + dec["flash_launches"], encode_ms=enc_ms,
                 forward=fwd, decode=dec)
 
@@ -1847,7 +2228,7 @@ def phase_recurrent(arch: str, number: int) -> dict:
     fwd = timed_forward(model, cfg, {"tokens": _tokens(cfg, B, S, seed=8)},
                         f"forward ({B} x {S} tokens)", apps)
     dec = batch_decode(model, cfg, lambda: init_cache(cfg, B, 64, device="cuda"),
-                       _tokens(cfg, B, 1, seed=9), "batch decode from an empty state", 0)
+                       _tokens(cfg, B, 1, seed=9), "batch decode from an empty state", 0, apps)
     return dict(launches=fwd["flash"] + dec["flash_launches"], forward=fwd, decode=dec)
 
 
@@ -3455,13 +3836,14 @@ def synced_decode(cfg, model) -> dict:
         f"device ops, {total / 1e3:.3f} ms of kernels; peak memory {peak:.2f} GiB; top:")
     for us, count, key in sorted(rows, reverse=True)[:8]:
         say(f"  {us / total:6.1%} {us / 1e3:8.3f} ms x{count:<4d} {key[:90]}")
+    b3 = check_b3_replay(rows, cfg.n_layers, "synchronized decode replay")
     launches = flash.launches - before
     if launches:
-        fail(f"the synchronized decode launched B1 {launches} times: its attention is plain")
+        fail(f"the synchronized decode launched B1 {launches} times: its attention is B3's")
     del graph, cache, saved
     return dict(batch=B, cache_positions=T, cache_gb=cache_gb, eager_step_ms=eager_ms,
                 replay_ms=replay_ms, replay_kernels_ms=total / 1e3, peak_gib=peak,
-                logits_equal_per_slot=same)
+                logits_equal_per_slot=same, b3_in_replay=b3)
 
 
 def prefill_32k(cfg, model) -> dict:
@@ -3909,6 +4291,47 @@ def phase_sharded(number: int, reference: dict) -> dict:
     return dict(train=train, forward=fwd, memory=memory, recurrent=recurrent, hybrid=hybrid)
 
 
+# B3's launches on each path (the count set to 0 just before the path and
+# read just after it), and the kernels (dtype, head dim, query rows a CTA)
+# the paths ran it with
+B3_BY_PATH: dict[str, int] = {}
+
+
+@contextlib.contextmanager
+def b3_path(name: str):
+    """Count B3's launches over one path into ``B3_BY_PATH[name]``."""
+    from repro_torch.kernels.decode_attention import kernel as decode
+
+    decode.launches = 0
+    try:
+        yield
+    finally:
+        B3_BY_PATH[name] = B3_BY_PATH.get(name, 0) + decode.launches
+
+
+@contextlib.contextmanager
+def b3_instances(seen: set):
+    """Add to ``seen`` the kernel (dtype, head dim, rows) of every call of
+    B3 on CUDA tensors from the model layers; the calls and the wrapper's
+    count are otherwise unchanged."""
+    from repro_torch.kernels.decode_attention import kernel as decode
+    from repro_torch.models import layers
+
+    inner = layers.decode_attention
+
+    def recording(q, k_cache, v_cache, k_new=None, v_new=None, **kw):
+        if q.is_cuda:
+            launch = decode.launch_for(q, k_cache, k_new is not None)
+            seen.add((launch.dtype, launch.head_dim, launch.rows))
+        return inner(q, k_cache, v_cache, k_new, v_new, **kw)
+
+    layers.decode_attention = recording
+    try:
+        yield seen
+    finally:
+        layers.decode_attention = inner
+
+
 def main() -> None:
     t_start = time.perf_counter()
     try:
@@ -3923,28 +4346,58 @@ def main() -> None:
         fail(f"repro_torch not found under {ROOT / 'src'}: run from a checkout of the repo")
     phase_build()
     record = phase_kernel()
-    launches, in_replays = phase_serve()
-    phase_cpu_parity()
-    pack_record = phase_stream_pack()
-    pack_launches, pack_in_replays, pack_profiled = phase_nimble()
-    arctic = phase_serve_moe("arctic-480b", 8)
-    deepseek = phase_serve_moe("deepseek-v2-236b", 9)
-    phase_moe_cpu_parity(10)
-    seen: set = set()
-    with b1_calls(seen):
-        vlm = phase_vlm(11)
-        audio = phase_audio(12)
-        hybrid = phase_recurrent("zamba2-2.7b", 13)
-        phase_recurrent("xlstm-125m", 14)
-    check_family_launches(seen)
-    phase_families_cpu_parity(15)
-    dispatch = phase_dispatch(16)
-    workers = phase_workers(17)
-    journal = phase_journal(18, workers)
-    train = phase_train(19)
-    phi4, smoke = train["phi4"], train["smoke"]
-    launch = phase_launch(20)
-    sharded = phase_sharded(21, phi4.pop("reference"))
+    b3_record = phase_decode_kernel()
+    from repro_torch.kernels.decode_attention import kernel as decode
+
+    decode.layout_copies = 0
+    b3_seen: set = set()
+    with b3_instances(b3_seen):
+        with b3_path("serve phi4-mini-3.8b"):
+            launches, in_replays, _ = phase_serve()
+        with b3_path("phi4-mini-3.8b 2 layers f32 on the card (phase 5)"):
+            phase_cpu_parity()
+        pack_record = phase_stream_pack()
+        pack_launches, pack_in_replays, pack_profiled = phase_nimble()
+        with b3_path("serve arctic-480b"):
+            arctic = phase_serve_moe("arctic-480b", 8)
+        deepseek = phase_serve_moe("deepseek-v2-236b", 9)
+        with b3_path("arctic-smoke f32 on the card (phase 10)"):
+            phase_moe_cpu_parity(10)
+        seen: set = set()
+        with b1_calls(seen):
+            with b3_path("serve llava-next-34b"):
+                vlm = phase_vlm(11)
+            with b3_path("seamless-m4t-medium decode"):
+                audio = phase_audio(12)
+            with b3_path("zamba2-2.7b decode"):
+                hybrid = phase_recurrent("zamba2-2.7b", 13)
+            phase_recurrent("xlstm-125m", 14)
+        check_family_launches(seen)
+        with b3_path("llava, seamless, zamba2 smoke f32 on the card (phase 15)"):
+            phase_families_cpu_parity(15)
+        with b3_path("dispatch phi4-mini + deepseek-v2 + smoke lane"):
+            dispatch = phase_dispatch(16)
+        with b3_path("worker plane phi4-mini (in process)"):
+            workers = phase_workers(17)
+        B3_BY_PATH["worker plane phi4-mini (in the worker)"] = \
+            workers["launches"].get("decode_attention", 0)
+        with b3_path("journal recovery phi4-mini"):
+            journal = phase_journal(18, workers)
+        train = phase_train(19)
+        phi4, smoke = train["phi4"], train["smoke"]
+        with b3_path("synchronized decode_32k phi4-mini-3.8b"):
+            launch = phase_launch(20)
+        sharded = phase_sharded(21, phi4.pop("reference"))
+    idle = sorted(name for name, n in B3_BY_PATH.items() if n == 0)
+    if idle:
+        fail(f"B3 was launched no time on the paths {idle}")
+    unchecked = sorted(b3_seen - set(b3_record.pop("checked_instances")))
+    if unchecked:
+        fail(f"the paths ran B3 kernels (dtype, hd, rows) phase 3b never checked: {unchecked}")
+    if decode.layout_copies:
+        fail(f"the paths made {decode.layout_copies} layout copies for B3")
+    say(f"B3 launches by path: {B3_BY_PATH}; kernels (dtype, hd, rows) the paths ran, each "
+        f"checked in phase 3b: {sorted(b3_seen)}; 0 layout copies")
     # launches: the wrappers' counts over the paths' runs (each path's
     # counts set to 0 just before it), by path under launches_by_path;
     # launches_in_replays: the kernels the profiler saw in the paths'
@@ -4006,8 +4459,23 @@ def main() -> None:
         profiled_replays=pack_profiled + arctic["profiled_replays"] + deepseek["profiled_replays"],
         dispatched_in_replays=dispatch["b2_in_replays"],
         **pack_record, **train["pack"],
+    ), dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+        replaces="src/repro/models/layers.py:328",
+        note="not a TPU kernel: the native-dtype dots XLA emits for the JAX package's "
+             "_sdpa_deferred (and _sdpa's cache form), which the port's plain version "
+             "upcasts to float32",
+        launches=sum(B3_BY_PATH.values()), launches_by_path=dict(B3_BY_PATH),
+        launches_in_replays=B3_REPLAYS["decode_partial"],
+        profiled_replays=B3_REPLAYS["replays"],
+        kernels_per_launch=(B3_REPLAYS["decode_partial"] + B3_REPLAYS["decode_combine"])
+        / max(B3_REPLAYS["decode_partial"], 1),
+        layout_copies=decode.layout_copies,
+        **b3_record,
     )]
-    say(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
+    say(f"all phases passed in {time.perf_counter() - t_start:.1f}s; seconds by phase: "
+        f"{phase_seconds(time.perf_counter())}")
     say(json.dumps({"kernels": kernels}))
     say(f"nvidia-smi: {nvidia_smi()}")
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

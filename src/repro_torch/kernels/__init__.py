@@ -45,6 +45,7 @@ KERNEL_MODULES = {
     "flash_attention": f"{__name__}.flash_attention.kernel",
     "flash_attention_bwd": f"{__name__}.flash_attention.backward",
     "stream_pack": f"{__name__}.stream_pack.kernel",
+    "decode_attention": f"{__name__}.decode_attention.kernel",
 }
 
 

@@ -1,0 +1,354 @@
+"""Hopper decode attention (B3): ctypes wrapper over ``csrc/decode_attention.cu``.
+
+One decode step's grouped-query attention over a KV cache, the cache read
+in its stored dtype with float32 scores, softmax and sums: the port's
+counterpart of the native-dtype dots XLA emits for the JAX package's
+``_sdpa_deferred`` (and the cache form of ``_sdpa``).  It replaces no TPU
+kernel.  :func:`decode_attention` takes the model layout as the layers make
+it: q ``(B, S, NH, hd)``, one layer's cache ``(B, T, NKV, hd)`` (a strided
+view of the ``(L, B, T, NKV, hd)`` cache, read through its strides) and,
+for the deferred form, the step's own keys and values ``(B, S, NKV, hd)``.
+Its plain version is :func:`.ref.decode_attention_ref`.
+
+Routing.  CPU and meta tensors take the plain version through
+:func:`repro_torch.kernels.run_plain` (the dry run counts it as one
+launch); CUDA tensors launch the kernel or raise; a ``DTensor`` raises
+``TypeError`` (:func:`repro_torch.kernels.takes_plain`); an input that
+needs a gradient is refused (the kernel has no backward: decoding runs
+under ``no_grad``).  The checks of the inputs are plain Python and run
+before the routing, so they refuse on CPU tensors too; the kernel's own
+limits (head dims 32, 64, 80 and 128, float32 or bf16) are
+:func:`choose_launch`'s, which the CPU tests call directly.
+
+The plan (:func:`choose_launch`, plain Python) depends on shapes only,
+never on ``kv_valid`` or the positions, which the kernel reads on the
+device: a captured CUDA graph stays valid as the offsets advance, and a
+synchronized step runs the same plan as the per-slot step.  The kernel
+loads K/V rows 16 bytes at a time: a cache or new part whose rows are off
+16 bytes, or whose last dimension is not contiguous, is copied once here
+and counted in ``layout_copies`` (0 on the served paths).
+
+``launches`` counts the calls that launched the kernel from Python, or
+recorded it into a CUDA graph under capture; a graph replay runs it again
+without passing through here.  Each launch is two kernels: the partial
+pass over the cache and the combine of its parts.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from dataclasses import dataclass
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import run_plain, takes_plain
+
+from .ref import decode_attention_ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
+HEAD_DIMS = (32, 64, 80, 128)
+ROWS = (2, 4, 8, 16)          # query rows per CTA (csrc launch_rows)
+THREADS = 128                 # csrc THREADS
+TILE = 64                     # key positions per K/V tile (csrc TK)
+COLS = 8                      # columns per thread in the product with v (csrc COLS)
+SMS = 132                     # an H100 SXM's streaming multiprocessors
+SMEM_PER_SM = 233472          # an SM's shared memory (228 KB) ...
+SMEM_RESERVED = 1024          # ... of which each resident CTA takes 1 KB more
+COMBINE_SMEM = 48 * 1024      # the combine's shared memory: rows x (parts + 1) floats
+MAX_GRID_YZ = 65535
+VEC = 16                      # bytes per cp.async copy
+
+launches = 0
+layout_copies = 0
+_lib = None
+_ready_devices: set[int] = set()
+_STRIDES = ctypes.c_longlong * 18     # (batch, row, head) of q, k/v cache, k/v new, out
+
+
+@dataclass(frozen=True)
+class Launch:
+    """One launch: ``rows`` query rows per CTA in ``row_tiles`` tiles,
+    ``chunk`` cache positions per CTA in ``chunks`` chunks, ``parts`` the
+    chunks plus one for the step's own keys (the deferred form), the
+    partial pass's ``grid`` (parts, B·NKV, row tiles) of ``THREADS``
+    threads and dynamic ``smem_bytes`` (the combine's grid is (B·NKV, row
+    tiles)), and the float32 ``scratch`` shape (B·NKV, row tiles, parts,
+    rows, hd + 2) of the parts' sums, maxima and sums of exponentials."""
+
+    dtype: str
+    head_dim: int
+    rows: int
+    row_tiles: int
+    chunk: int
+    chunks: int
+    parts: int
+    grid: tuple[int, int, int]
+    smem_bytes: int
+    scratch: tuple[int, int, int, int, int]
+
+
+def row_elems(head_dim: int, esize: int) -> int:
+    """Elements of one K tile row in shared memory (csrc ``row_elems``):
+    the head dim, padded to 32 bytes past a multiple of 128 (V tile rows
+    are not padded)."""
+    nbytes = head_dim * esize
+    return (nbytes + (32 - nbytes) % 128) // esize
+
+
+def smem_bytes(rows: int, head_dim: int, esize: int) -> int:
+    """Dynamic shared memory of a partial-pass CTA (csrc ``smem_bytes``):
+    the query positions, rows and scores, the rescale factors, and the
+    larger of the two-stage K/V ring and the slices' sums."""
+    head = 8 * rows + 4 * rows * head_dim + 4 * rows * TILE + 16 * -(-4 * rows // 16)
+    ring = 2 * TILE * (row_elems(head_dim, esize) + head_dim) * esize
+    return head + max(ring, THREADS * rows * COLS * 4)
+
+
+@functools.lru_cache(maxsize=256)
+def choose_launch(B: int, T: int, NKV: int, GS: int, head_dim: int, dtype: str,
+                  new: bool) -> Launch:
+    """The launch for ``B`` rows over a cache of ``T`` positions and
+    ``NKV`` kv heads, ``GS`` = G·S query rows per kv head, ``head_dim``,
+    ``dtype`` ("float32" or "bfloat16"), with or without the step's own
+    keys (``new``).  Plain Python, a function of these shapes alone.  The
+    cache chunks are whole 64-position tiles, as many (from one CTA per
+    resident slot of the card, by shared memory, to four times that) as
+    fill the last wave of CTAs best, the fewest of equals; one tile a CTA
+    when T is too short for a wave.  Raises ``ValueError`` on a head dim or
+    dtype the library lacks, an empty shape, or a grid past the launch
+    limits."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"decode_attention: head_dim {head_dim} not in {HEAD_DIMS}")
+    if dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"decode_attention takes float32 or bfloat16, not {dtype}")
+    if min(B, T, NKV, GS) < 1:
+        raise ValueError(f"decode_attention: empty shape B {B} T {T} NKV {NKV} G·S {GS}")
+    rows = next((r for r in ROWS if r >= GS), ROWS[-1])
+    row_tiles = -(-GS // rows)
+    esize = 2 if dtype == "bfloat16" else 4
+    smem = smem_bytes(rows, head_dim, esize)
+    slots = SMS * max(1, SMEM_PER_SM // (smem + SMEM_RESERVED))
+    pairs = B * NKV * row_tiles
+    tiles = -(-T // TILE)
+
+    def chunks_of(split: int) -> int:
+        return -(-T // (TILE * -(-tiles // split)))
+
+    def fill(split: int) -> float:
+        ctas = pairs * chunks_of(split)
+        return ctas / (-(-ctas // slots) * slots)
+
+    low = -(-slots // pairs)
+    split = tiles if low >= tiles else max(range(low, min(tiles, 4 * low) + 1),
+                                           key=lambda n: (fill(n), -n))
+    chunk = TILE * -(-tiles // split)
+    chunks = -(-T // chunk)
+    parts = chunks + int(new)
+    grid = (parts, B * NKV, row_tiles)
+    if grid[1] > MAX_GRID_YZ or grid[2] > MAX_GRID_YZ:
+        raise ValueError(f"decode_attention: B·NKV {grid[1]} or row tiles {grid[2]} exceeds "
+                         f"the launch grid's {MAX_GRID_YZ}")
+    if 4 * rows * (parts + 1) > COMBINE_SMEM:
+        raise ValueError(f"decode_attention: {parts} parts of {rows} rows exceed the "
+                         "combine's shared memory")
+    return Launch(dtype, head_dim, rows, row_tiles, chunk, chunks, parts, grid, smem,
+                  (B * NKV, row_tiles, parts, rows, head_dim + 2))
+
+
+def launch_for(q: torch.Tensor, k_cache: torch.Tensor, new: bool) -> Launch:
+    """The launch :func:`decode_attention` makes for these tensors."""
+    B, S, NH, hd = q.shape
+    T, NKV = k_cache.shape[1], k_cache.shape[2]
+    return choose_launch(B, T, NKV, NH // NKV * S, hd, str(q.dtype)[6:], new)
+
+
+def readable(t: torch.Tensor) -> bool:
+    """The kernel copies ``t``'s rows (4-d) 16 bytes at a time in place: its
+    last dimension is contiguous, its base pointer and the strides of its
+    other dimensions longer than 1 are multiples of 16 bytes."""
+    if t.shape[-1] > 1 and t.stride(-1) != 1:
+        return False
+    if t.data_ptr() % VEC:
+        return False
+    return all(n == 1 or st * t.element_size() % VEC == 0
+               for n, st in zip(t.shape[:-1], t.stride()[:-1]))
+
+
+def prepare(*tensors: torch.Tensor) -> list[torch.Tensor]:
+    """Each tensor as it is if the kernel reads it in place, else one fresh
+    contiguous copy, counted in ``layout_copies``."""
+    global layout_copies
+    out = []
+    for t in tensors:
+        if not readable(t):
+            t = t.clone(memory_format=torch.contiguous_format)
+            layout_copies += 1
+        out.append(t)
+    return out
+
+
+def _kernel(device: torch.device):
+    global _lib
+    if _lib is None:
+        from repro_torch.kernels import build
+
+        lib = build.load(SOURCE)
+        lib.decode_attention_init.argtypes = []
+        lib.decode_attention_init.restype = ctypes.c_int
+        lib.decode_attention.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.POINTER(ctypes.c_longlong)]
+            + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 10 + [ctypes.c_float] * 2
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        lib.decode_attention.restype = ctypes.c_int
+        _lib = lib
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _ready_devices:
+        with torch.cuda.device(index):
+            err = _lib.decode_attention_init()
+        if err != 0:
+            raise RuntimeError(f"decode_attention_init failed: CUDA error {err}")
+        _ready_devices.add(index)
+    return _lib
+
+
+def _check(q, k_cache, v_cache, k_new, v_new, positions, kv_valid, scale, softcap,
+           window, causal) -> None:
+    """Raises ``ValueError`` on inputs neither version takes, whatever the
+    device (``TypeError`` on a DTensor).  The kernel's own limits (head
+    dim, dtype, grid) are :func:`choose_launch`'s, on the card's route."""
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("k_new", k_new), ("v_new", v_new)):
+        if t is None:
+            continue
+        takes_plain(t)
+        if t.dim() != 4 or t.shape[-1] != q.shape[-1]:
+            raise ValueError(f"decode_attention: {name} must be 4-d with head_dim "
+                             f"{q.shape[-1]}; got {tuple(t.shape)}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"decode_attention: q, the cache and the new part must share "
+                             f"one dtype; {name} is {t.dtype}, q {q.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"decode_attention: {name} is on {t.device}, q on {q.device}")
+    B, S, NH, hd = q.shape
+    if v_cache.shape != k_cache.shape or k_cache.shape[0] != B:
+        raise ValueError(f"decode_attention: k_cache {tuple(k_cache.shape)} and v_cache "
+                         f"{tuple(v_cache.shape)} must both be (B={B}, T, NKV, hd)")
+    NKV = k_cache.shape[2]
+    if min(S, k_cache.shape[1], NKV) < 1 or NH % NKV:
+        raise ValueError(f"decode_attention: q {tuple(q.shape)} over a cache "
+                         f"{tuple(k_cache.shape)}: need S, T >= 1 and NKV dividing NH")
+    if (k_new is None) != (v_new is None):
+        raise ValueError("decode_attention: give both k_new and v_new, or neither")
+    if k_new is not None:
+        if k_new.shape != (B, S, NKV, hd) or v_new.shape != k_new.shape:
+            raise ValueError(f"decode_attention: k_new {tuple(k_new.shape)} and v_new "
+                             f"{tuple(v_new.shape)} must be {(B, S, NKV, hd)}")
+        if not causal:
+            raise ValueError("decode_attention: the deferred form (k_new, v_new) is causal")
+    if kv_valid.shape not in ((), (B,)) or kv_valid.is_floating_point():
+        raise ValueError(f"decode_attention: kv_valid must be integer, (B,) or 0-d; got "
+                         f"{kv_valid.dtype} {tuple(kv_valid.shape)}")
+    if positions.shape not in ((B, S), (S,)) or positions.is_floating_point():
+        raise ValueError(f"decode_attention: positions must be integer, ({B}, {S}) or "
+                         f"({S},); got {positions.dtype} {tuple(positions.shape)}")
+    for name, t in (("kv_valid", kv_valid), ("positions", positions)):
+        takes_plain(t)
+        if t.device != q.device:
+            raise ValueError(f"decode_attention: {name} is on {t.device}, q on {q.device}")
+    if not (math.isfinite(scale) and scale > 0):
+        raise ValueError(f"decode_attention: scale {scale} must be finite and positive")
+    if not (math.isfinite(softcap) and softcap >= 0):
+        raise ValueError(f"decode_attention: softcap {softcap} must be finite and >= 0")
+    if window is not None and not (isinstance(window, int) and 0 < window < 2**62):
+        raise ValueError(f"decode_attention: window {window!r} must be None or a "
+                         "positive int")
+
+
+def needs_grad(*tensors) -> bool:
+    """Grad is enabled and one of ``tensors`` requires it."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def _plain(q, k_cache, v_cache, k_new, v_new, positions, kv_valid, **kw):
+    return decode_attention_ref(q, k_cache, v_cache, k_new, v_new, positions=positions,
+                                kv_valid=kv_valid, **kw)
+
+
+def _index(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as int64, the kernel's index type (a counted copy otherwise)."""
+    global layout_copies
+    if t.dtype == torch.int64:
+        return t
+    layout_copies += 1
+    return t.to(torch.int64)
+
+
+def _launch(q, k_cache, v_cache, k_new, v_new, positions, kv_valid, scale, softcap,
+            window, causal) -> torch.Tensor:
+    global launches, layout_copies
+    B, S, NH, hd = q.shape
+    new = k_new is not None
+    if q.stride(-1) != 1:                 # q is read element by element
+        q = q.contiguous()
+        layout_copies += 1
+    k_cache, v_cache = prepare(k_cache, v_cache)
+    if new:
+        k_new, v_new = prepare(k_new, v_new)
+    positions, kv_valid = _index(positions), _index(kv_valid)
+    launch = launch_for(q, k_cache, new)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    scratch = torch.empty(launch.scratch, dtype=torch.float32, device=q.device)
+    parts = (q, k_cache, v_cache, k_new if new else k_cache, v_new if new else v_cache, out)
+    strides = _STRIDES(*(st for t in parts for st in t.stride()[:3]))
+    err = _kernel(q.device).decode_attention(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        k_new.data_ptr() if new else None, v_new.data_ptr() if new else None,
+        out.data_ptr(), scratch.data_ptr(), positions.data_ptr(), kv_valid.data_ptr(), strides,
+        positions.stride(0) if positions.dim() == 2 else 0, positions.stride(-1),
+        kv_valid.stride(0) if kv_valid.dim() == 1 else 0,
+        int(q.dtype == torch.bfloat16), B, S, k_cache.shape[2], NH // k_cache.shape[2],
+        k_cache.shape[1], hd, launch.rows, launch.chunk, launch.chunks,
+        float(scale), float(softcap), int(window or 0), int(bool(causal)), launch.smem_bytes,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"decode_attention launch failed: error {err} ({launch})")
+    launches += 1
+    return out
+
+
+def decode_attention(
+    q: torch.Tensor,                  # (B, S, NH, hd)
+    k_cache: torch.Tensor,            # (B, T, NKV, hd), any strides
+    v_cache: torch.Tensor,            # (B, T, NKV, hd)
+    k_new: torch.Tensor | None = None,   # (B, S, NKV, hd): the deferred form
+    v_new: torch.Tensor | None = None,
+    *,
+    positions: torch.Tensor,          # (B, S) or (S,)
+    kv_valid: torch.Tensor,           # (B,) or 0-d
+    scale: float | None = None,
+    softcap: float = 0.0,
+    window: int | None = None,
+    causal: bool = True,
+) -> torch.Tensor:
+    """One decode step's attention, ``(B, S, NH, hd)`` in q's dtype (a
+    fresh contiguous tensor on the card): with ``k_new``/``v_new`` over the
+    cache's first ``kv_valid[b]`` positions and the step's own keys at
+    ``kv_valid[b] + j``, softmaxed together; without them over the cache's
+    first ``kv_valid[b]`` positions, which already hold the step's keys.
+    Masks by causality on ``positions``, by ``window`` and soft-caps the
+    scores at ``softcap``, as :func:`.ref.decode_attention_ref` does."""
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    _check(q, k_cache, v_cache, k_new, v_new, positions, kv_valid, scale, softcap, window,
+           causal)
+    if needs_grad(q, k_cache, v_cache, k_new, v_new):
+        raise ValueError("decode_attention has no gradient: call it under torch.no_grad() "
+                         "or on tensors that do not require one")
+    kw = dict(scale=scale, softcap=softcap, window=window, causal=causal)
+    if takes_plain(q):
+        return run_plain(functools.partial(_plain, **kw), q, k_cache, v_cache, k_new, v_new,
+                         positions, kv_valid)
+    return _launch(q, k_cache, v_cache, k_new, v_new, positions, kv_valid, **kw)

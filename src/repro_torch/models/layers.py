@@ -26,6 +26,8 @@ from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.distributed import (constrain, constrain_split, gather_fsdp, hold_layout,
                                      on_local_shards, replicate_like, shard_offset)
+from repro_torch.kernels import PLAIN_DEVICES
+from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
 from repro_torch.kernels.flash_attention import mha_flash
 
 Params = Mapping[str, torch.Tensor]
@@ -182,31 +184,6 @@ def unembed(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
 # attention (GQA, sliding window, softcap) with optional KV cache
 # ---------------------------------------------------------------------------
 
-def _attn_mask(
-    q_pos: torch.Tensor,         # (S,) or (B, S)
-    kv_pos: torch.Tensor,        # (T,)
-    window: Optional[int],
-    kv_len_valid: Optional[torch.Tensor],   # (B,)
-    causal: bool = True,
-) -> torch.Tensor:
-    """(..., q, kv) boolean mask: causal, sliding window, cache length."""
-    qp = q_pos[..., :, None]
-    kp = kv_pos[None, :] if q_pos.dim() == 1 else kv_pos[None, None, :]
-    if causal:
-        m = kp <= qp
-    else:
-        m = replicate_like(torch.ones(qp.shape[:-1] + (kv_pos.shape[0],), dtype=torch.bool,
-                                      device=kv_pos.device), kv_pos)
-    if window is not None:
-        m = m & (kp > qp - window)
-    if kv_len_valid is not None:
-        if kv_len_valid.dim() == 1 and q_pos.dim() > 1:
-            m = m & (kp < kv_len_valid[:, None, None])
-        else:
-            m = m & (kp < kv_len_valid)
-    return m
-
-
 def attention(
     p: Params,
     x: torch.Tensor,                  # (B, S, D)
@@ -224,13 +201,15 @@ def attention(
     the attention is the flash kernel: on the same tokens from position 0
     it computes what the JAX package's ``_sdpa`` (and ``_sdpa_deferred``
     against an empty cache) computes; ``causal=False`` is the encoder's
-    bidirectional attention.  With a cache and ``update_cache=False`` it is
-    the deferred two-part attention; the caller appends the new keys/values
-    for all layers at once.  With ``update_cache=True`` (hybrid and audio
-    decode) each slot's new keys/values are written into ``cache["k"]`` /
+    bidirectional attention.  With a cache it is decode attention (B3,
+    :func:`_decode_attention`): with ``update_cache=False`` the deferred
+    two-part attention, and the caller appends the new keys/values for all
+    layers at once; with ``update_cache=True`` (hybrid and audio decode)
+    each slot's new keys/values are written into ``cache["k"]`` /
     ``cache["v"]`` at its own ``pos`` **in place** (JAX returns a new
     cache), then the tokens attend over the updated cache with
-    ``kv_valid = pos + S``; ``cache["pos"]`` is left to the caller."""
+    ``kv_valid = pos + S`` (the cache form of JAX's ``_sdpa``);
+    ``cache["pos"]`` is left to the caller."""
     S = x.shape[1]
     h = cfg.resolved_head_dim
     nh, nkv = cfg.n_heads, cfg.n_kv_heads
@@ -260,7 +239,7 @@ def attention(
             window=layer_window or 0,
         )
     elif not update_cache:
-        out = _sdpa_deferred(
+        out = _decode_attention(
             q, cache["k"], cache["v"], k, v,
             scale=scale,
             softcap_val=cfg.attn_softcap,
@@ -271,12 +250,11 @@ def attention(
     else:
         pos = cache["pos"]
         write_kv(cache["k"], cache["v"], k, v, pos)
-        out = _sdpa(
-            q, cache["k"], cache["v"],
+        out = _decode_attention(
+            q, cache["k"], cache["v"], None, None,
             scale=scale,
             softcap_val=cfg.attn_softcap,
-            q_pos=positions,
-            kv_pos=replicate_like(torch.arange(cache["k"].shape[1], device=x.device), q),
+            positions=positions,
             window=layer_window,
             kv_valid=pos + S,
             causal=causal,
@@ -316,93 +294,44 @@ def _rms(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
 
 
-def _sdpa(q, k, v, *, scale, softcap_val, q_pos, kv_pos, window, kv_valid,
-          causal=True):
-    """Grouped-query scaled dot-product attention, reference path (on each
-    device's rows and heads for DTensors holding every key position)."""
-    if _keys_whole(k):
-        def local(q, k, v, q_pos, kv_pos, kv_valid):
-            return _sdpa(q, k, v, scale=scale, softcap_val=softcap_val, q_pos=q_pos,
-                         kv_pos=kv_pos, window=window, kv_valid=kv_valid, causal=causal)
-
-        return on_local_shards(local, q, HEADS, [(q, HEADS), (k, HEADS), (v, HEADS),
-                                                 (q_pos, ROWS if q_pos.dim() > 1 else {}),
-                                                 (kv_pos, {}), (kv_valid, ROWS)], [HEADS])
-    B, S, NH, H = q.shape
-    NKV = k.shape[2]
-    G = NH // NKV
-    qg = q.reshape(B, S, NKV, G, H)
-    logits = torch.einsum("bsngh,btnh->bngst", qg.float(), k.float())
-    logits = logits * scale
-    logits = softcap(logits, softcap_val)
-    mask = _attn_mask(q_pos, kv_pos, window, kv_valid, causal)  # (S,T) or (B,S,T)
-    if mask.dim() == 2:
-        mask = mask[None, None, None]
-    else:
-        mask = mask[:, None, None]
-    logits = torch.where(mask, logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bngst,btnh->bsngh", probs.to(v.dtype), v)
-    return out.reshape(B, S, NH, H)
-
-
-def _sdpa_deferred(q, k_cache, v_cache, k_new, v_new, *, scale, softcap_val,
-                   positions, window, kv_valid):
-    """Two-part attention for deferred cache append.
-
-    Scores against the (read-only) cache and against the new tokens are
-    computed separately and softmaxed jointly — equivalent to attending over
-    the updated cache, without writing it.
-    q: (B,S,NH,H); k_cache/v_cache: (B,T,NKV,H); k_new/v_new: (B,S,NKV,H);
-    kv_valid: (B,) number of valid cache entries (== write offset).
-
-    The JAX version multiplies bf16 operands into float32 scores
-    (``preferred_element_type``); ``torch.matmul`` on bf16 returns bf16, so
-    both score operands are upcast to float32 here.  That reads the cache
-    at twice its size; a hand-written decode kernel is later work.  On
-    DTensors holding every key position it runs on each device's rows and
-    heads (DTensor would flatten the sharded batch and heads together).
-    """
+def _decode_attention(q, k_cache, v_cache, k_new, v_new, *, scale, softcap_val, positions,
+                      window, kv_valid, causal=True):
+    """One decode step's attention over a cache, B3
+    (:mod:`repro_torch.kernels.decode_attention`): with ``k_new``/``v_new``
+    the JAX package's ``_sdpa_deferred`` (the read-only cache and the new
+    tokens softmaxed together), else the cache form of its ``_sdpa`` (the
+    cache already written, ``kv_valid = pos + S``).  q ``(B, S, NH, H)``,
+    the cache ``(B, T, NKV, H)``, the new keys ``(B, S, NKV, H)``,
+    ``kv_valid`` ``(B,)`` or 0-d.  Plain tensors go to B3's wrapper: on the
+    card the kernel reads the cache in its own dtype into float32 scores,
+    as JAX's ``preferred_element_type`` dots do; on the CPU and the meta
+    device its plain version.  DTensors
+    holding every key position run it on each device's rows and heads
+    (DTensor would flatten the sharded batch and heads together).  DTensors
+    sharded over positions take the plain version on the DTensors, on the
+    CPU and the meta device (the dry run, the gloo tests); on the card they
+    raise: the kernel's parts would need combining across devices."""
+    kw = dict(scale=scale, softcap=softcap_val, window=window, causal=causal)
     if _keys_whole(k_cache):
         def local(q, k_cache, v_cache, k_new, v_new, positions, kv_valid):
-            return _sdpa_deferred(q, k_cache, v_cache, k_new, v_new, scale=scale,
-                                  softcap_val=softcap_val, positions=positions, window=window,
-                                  kv_valid=kv_valid)
+            return _decode_attention(q, k_cache, v_cache, k_new, v_new, scale=scale,
+                                     softcap_val=softcap_val, positions=positions,
+                                     window=window, kv_valid=kv_valid, causal=causal)
 
-        return on_local_shards(local, q, HEADS, [(q, HEADS), (k_cache, HEADS), (v_cache, HEADS),
-                                                 (k_new, HEADS), (v_new, HEADS),
-                                                 (positions, ROWS), (kv_valid, ROWS)], [HEADS])
-    B, S, NH, H = q.shape
-    T = k_cache.shape[1]
-    NKV = k_cache.shape[2]
-    G = NH // NKV
-    qg = q.reshape(B, S, NKV, G, H).float()
-    dev = q.device
-
-    # part 1: existing cache
-    s1 = torch.einsum("bsngh,btnh->bngst", qg, k_cache.float()) * scale
-    s1 = softcap(s1, softcap_val)
-    t = replicate_like(torch.arange(T, device=dev), q)
-    m1 = t[None, None, :] < kv_valid[:, None, None]              # (B,1,T)
-    m1 = m1 & (t[None, None, :] <= positions[..., None])
-    if window is not None:
-        m1 = m1 & (t[None, None, :] > positions[..., None] - window)
-    s1 = torch.where(m1[:, None, None], s1, NEG_INF)
-
-    # part 2: the new tokens (causal among themselves)
-    s2 = torch.einsum("bsngh,btnh->bngst", qg, k_new.float()) * scale
-    s2 = softcap(s2, softcap_val)
-    new_pos = kv_valid[:, None] + replicate_like(torch.arange(S, device=dev), q)[None, :]
-    m2 = new_pos[:, None, :] <= positions[..., None]             # (B,S,S)
-    if window is not None:
-        m2 = m2 & (new_pos[:, None, :] > positions[..., None] - window)
-    s2 = torch.where(m2[:, None, None], s2, NEG_INF)
-
-    probs = torch.softmax(torch.cat([s1, s2], dim=-1), dim=-1)
-    p1, p2 = probs[..., :T], probs[..., T:]
-    out = torch.einsum("bngst,btnh->bsngh", p1.to(v_cache.dtype), v_cache)
-    out = out + torch.einsum("bngst,btnh->bsngh", p2.to(v_new.dtype), v_new)
-    return out.reshape(B, S, NH, H)
+        return on_local_shards(local, q, HEADS, [
+            (q, HEADS), (k_cache, HEADS), (v_cache, HEADS), (k_new, HEADS), (v_new, HEADS),
+            (positions, ROWS if positions.dim() > 1 else {}),
+            (kv_valid, ROWS if kv_valid.dim() else {})], [HEADS])
+    if isinstance(k_cache, DTensor):
+        if k_cache.to_local().device.type not in PLAIN_DEVICES:
+            raise NotImplementedError(
+                f"decode attention over a cache sharded over positions "
+                f"({k_cache.placements}) on {k_cache.to_local().device.type}: B3's parts "
+                "would need combining across devices")
+        return decode_attention_ref(q, k_cache, v_cache, k_new, v_new, positions=positions,
+                                    kv_valid=kv_valid, **kw)
+    return decode_attention(q, k_cache, v_cache, k_new, v_new, positions=positions,
+                            kv_valid=kv_valid, **kw)
 
 
 def _slot_rows(B: int, T: int, S_new: int, pos: torch.Tensor) -> torch.Tensor:

@@ -124,17 +124,20 @@ def test_fully_masked_row_is_zero_like_the_kernel():
 
 
 def test_mha_flash_matches_model_attention():
-    """The model-layout wrapper against the port's and JAX's ``_sdpa``."""
+    """The model-layout wrapper against the port's plain attention in the
+    model layout (decode attention's cache form over the S tokens, all
+    valid) and JAX's ``_sdpa``."""
     from repro.models.layers import _sdpa as jax_sdpa
-    from repro_torch.models.layers import _sdpa
+    from repro_torch.kernels.decode_attention import decode_attention_ref
 
     B, S, NH, NKV, hd = 2, 64, 4, 2, 32
     (jq, jk, jv), (tq, tk, tv) = _pair(
         _data(8, (B, S, NH, hd), (B, S, NKV, hd), (B, S, NKV, hd)), "float32")
     kw = dict(scale=1.0 / np.sqrt(hd), softcap_val=50.0, window=16, kv_valid=None)
     got = mha_flash(tq, tk, tv, softcap=50.0, window=16)
-    pos = torch.arange(S)
-    _close(got, _sdpa(tq, tk, tv, q_pos=pos, kv_pos=pos, **kw), 3e-5)
+    plain = decode_attention_ref(tq, tk, tv, positions=torch.arange(S), kv_valid=torch.tensor(S),
+                                 scale=kw["scale"], softcap=50.0, window=16)
+    _close(got, plain, 3e-5)
     _close(got, jax_sdpa(jq, jk, jv, q_pos=jnp.arange(S), kv_pos=jnp.arange(S), **kw), 3e-5)
 
 

@@ -69,7 +69,9 @@ def test_port_file_list_is_complete():
                  "examples/train_lm_torch.py",
                  "src/repro_torch/configs/shapes.py", "src/repro_torch/distributed/sharding.py",
                  "src/repro_torch/distributed/__init__.py", "src/repro_torch/launch/mesh.py",
-                 "src/repro_torch/launch/dryrun.py", "src/repro_torch/launch/comm_analysis.py"):
+                 "src/repro_torch/launch/dryrun.py", "src/repro_torch/launch/comm_analysis.py",
+                 "src/repro_torch/kernels/decode_attention/kernel.py",
+                 "src/repro_torch/kernels/decode_attention/ref.py"):
         assert must in names
 
 

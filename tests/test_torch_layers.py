@@ -131,28 +131,32 @@ def test_softcap_and_rms():
 @pytest.mark.parametrize("window", [None, 5])
 @pytest.mark.parametrize("causal", [True, False])
 def test_sdpa(window, causal):
+    """The cache form of decode attention over a cache whose S positions
+    are all valid (0-d ``kv_valid``) is JAX's ``_sdpa`` over those tokens."""
     rng = np.random.default_rng(6)
     B, S, NH, NKV, H = 2, 12, 6, 2, 16
     q, k, v = _rand(rng, B, S, NH, H), _rand(rng, B, S, NKV, H), _rand(rng, B, S, NKV, H)
     kw = dict(scale=0.25, softcap_val=20.0, window=window, causal=causal)
     pos = np.arange(S)
-    got = TL._sdpa(*map(torch.from_numpy, (q, k, v)), q_pos=torch.from_numpy(pos),
-                   kv_pos=torch.from_numpy(pos), kv_valid=None, **kw)
+    got = TL._decode_attention(*map(torch.from_numpy, (q, k, v)), None, None,
+                               positions=torch.from_numpy(pos), kv_valid=torch.tensor(S), **kw)
     want = JL._sdpa(*map(jnp.asarray, (q, k, v)), q_pos=jnp.asarray(pos),
                     kv_pos=jnp.asarray(pos), kv_valid=None, **kw)
     _close(got, want)
 
 
 def test_sdpa_per_slot_cache_mask():
-    """Per-slot query positions against a cache with per-slot valid lengths."""
+    """Per-slot query positions against a cache with per-slot valid lengths
+    (decode attention's cache form against JAX's ``_sdpa``)."""
     rng = np.random.default_rng(7)
     B, S, T, NH, NKV, H = 3, 1, 20, 4, 2, 16
     q, k, v = _rand(rng, B, S, NH, H), _rand(rng, B, T, NKV, H), _rand(rng, B, T, NKV, H)
     qpos = np.array([[4], [11], [19]])
     valid = np.array([5, 12, 20])
     kw = dict(scale=0.25, softcap_val=0.0, window=None)
-    got = TL._sdpa(*map(torch.from_numpy, (q, k, v)), q_pos=torch.from_numpy(qpos),
-                   kv_pos=torch.arange(T), kv_valid=torch.from_numpy(valid), **kw)
+    got = TL._decode_attention(*map(torch.from_numpy, (q, k, v)), None, None,
+                               positions=torch.from_numpy(qpos),
+                               kv_valid=torch.from_numpy(valid), **kw)
     want = JL._sdpa(*map(jnp.asarray, (q, k, v)), q_pos=jnp.asarray(qpos),
                     kv_pos=jnp.arange(T), kv_valid=jnp.asarray(valid), **kw)
     _close(got, want)
@@ -170,8 +174,9 @@ def test_sdpa_deferred_mixed_slots(window, S):
     arrs = (_rand(rng, B, S, NH, H), _rand(rng, B, T, NKV, H), _rand(rng, B, T, NKV, H),
             _rand(rng, B, S, NKV, H), _rand(rng, B, S, NKV, H))
     kw = dict(scale=0.3, softcap_val=50.0, window=window)
-    got = TL._sdpa_deferred(*map(torch.from_numpy, arrs), positions=torch.from_numpy(positions),
-                            kv_valid=torch.from_numpy(kv_valid), **kw)
+    got = TL._decode_attention(*map(torch.from_numpy, arrs),
+                               positions=torch.from_numpy(positions),
+                               kv_valid=torch.from_numpy(kv_valid), **kw)
     want = JL._sdpa_deferred(*map(jnp.asarray, arrs), positions=jnp.asarray(positions, jnp.int32),
                              kv_valid=jnp.asarray(kv_valid, jnp.int32), **kw)
     _close(got, want)

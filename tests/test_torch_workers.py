@@ -436,7 +436,7 @@ def test_worker_engines_serve_the_in_process_tokens(start_method):
             assert list(fb.result(timeout=120).generated) == w
         snap = disp.snapshot()["async"]["workers"]
     assert all(w["stats"]["kernel_launches"] == {"flash_attention": 0, "flash_attention_bwd": 0,
-                                                 "stream_pack": 0}
+                                                 "stream_pack": 0, "decode_attention": 0}
                for w in snap["workers"])      # the CPU takes the plain versions
     assert plane.leaked() == []
     _assert_no_orphans()
