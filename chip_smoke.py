@@ -39,18 +39,21 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    gemma2's window and soft-cap, starcoder2's GQA 12, three new tokens in
    two row tiles), each within atol + rtol*|ref| (bf16's atol scaled by
    each output row's rms, ``DECODE_TOL``); a fully masked row
-   (the kernel writes 0); then times at phi4-mini's served decode shape
-   and at decode_32k's, in a CUDA graph and launched from Python, beside
-   the plain version, ``F.scaled_dot_product_attention`` over the cache
-   with a boolean mask (a yardstick only: the port never calls it) and
-   the bound;
+   (the kernel writes 0); each case prints its plan (cluster, stages,
+   chunk, rows, grid, shared memory) and how many of its clusters the card
+   holds at once (``cudaOccupancyMaxActiveClusters``); then times at every
+   served decode shape (``DECODE_TIMED``: phi4-mini's, decode_32k's,
+   arctic's and llava's GQA 7, starcoder2's GQA 12, gemma2's windowed
+   layer, seamless's and zamba2's cache forms), in a CUDA graph and
+   launched from Python, beside the plain version,
+   ``F.scaled_dot_product_attention`` over the cache with a boolean mask
+   (a yardstick only: the port never calls it) and the bound;
 4. serve: phi4-mini-3.8b at full width and depth, bf16, random weights made
    on the card from a seed, 8 requests through ``ServingEngine`` with
    CUDA-graph-sealed steps; checks the tokens and that prefill went
    through the kernel (the wrapper's count, and the profiler's count of
    flash kernels inside one prefill replay) with no layout copy, and that
-   one profiled decode replay ran B3 (partial pass and combine) once a
-   layer;
+   one profiled decode replay ran B3 (one kernel a call) once a layer;
 5. the same code on the card and on the CPU (2 layers, float32, one set of
    weights): prefill logits within 1e-3 and identical greedy tokens;
 6. stream_pack kernel against its plain PyTorch version on the card over
@@ -865,8 +868,11 @@ DECODE_CASES = [
     ("GQA 7, 3 new tokens (two row tiles)", "arctic-480b", False, 2, 512, 3, True, False),
     ("GQA 7, 3 tokens, the cache form", "llava-next-34b", False, 2, 512, 3, False, False),
 ]
-# the shapes B3 is timed at: phi4-mini's served decode and decode_32k's share
-DECODE_TIMED = (0, 2)
+# the shapes B3 is timed at, every served decode shape: phi4-mini's served
+# decode (the record's top level), decode_32k's share, arctic and llava
+# served (GQA 7), starcoder2 (GQA 12), gemma2's windowed layer, seamless's
+# and zamba2's cache forms (T 64, hd 64 and 80)
+DECODE_TIMED = (0, 2, 3, 4, 13, 12, 5, 6)
 # B3's tolerance, |got - ref| <= atol + rtol * |ref| elementwise.  float32
 # as B1's (summation order).  bf16: rtol covers the two outputs' roundings
 # (half a bf16 ulp each, 2**-8 of |ref| together); the plain version also
@@ -956,7 +962,7 @@ def phase_decode_kernel() -> dict:
             dtype = getattr(torch, dname)
             q, kc, vc, kn, vn, kw = _decode_inputs(arch, smoke, B, T, S, new, kvv0d, dtype,
                                                    seed=300 + i)
-            launch = decode.launch_for(q, kc, new)
+            launch = decode.launch_for(q, kc, new, kw["window"])
             got = decode_attention(q, kc, vc, kn, vn, **kw)
             ref = decode_attention_ref(q, kc, vc, kn, vn, **kw)
             torch.cuda.synchronize()
@@ -983,10 +989,9 @@ def phase_decode_kernel() -> dict:
                 if not same:
                     fail(f"{label}: B3 with a 0-d kv_valid differs from the same per row")
             say(f"  {dname:8s} {label}: B={B} T={T} S={S} heads {q.shape[2]}/{kc.shape[2]} "
-                f"hd={q.shape[-1]} {'deferred' if new else 'cache form'} | rows {launch.rows} "
-                f"x{launch.row_tiles}, chunk {launch.chunk} x{launch.chunks}, grid "
-                f"{launch.grid}, smem {launch.smem_bytes} | max_abs_err {err:.3e}, err/rms "
-                f"{er:.3e} ({r:.2f} of tolerance) {'ok' if ok else 'FAIL'}{note}")
+                f"hd={q.shape[-1]} {'deferred' if new else 'cache form'} | {plan_text(launch)} "
+                f"| max_abs_err {err:.3e}, err/rms {er:.3e} ({r:.2f} of tolerance) "
+                f"{'ok' if ok else 'FAIL'}{note}")
             if not ok:
                 failed.append(f"{label} {dname} ({r:.3f} of tolerance)")
             worst = max(worst, r)
@@ -1002,8 +1007,23 @@ def phase_decode_kernel() -> dict:
     decode_masked_row()
     record = decode_time(*DECODE_CASES[DECODE_TIMED[0]])
     record["decode_32k"] = decode_time(*DECODE_CASES[DECODE_TIMED[1]])
+    record["served_shapes"] = {DECODE_CASES[i][0]: decode_time(*DECODE_CASES[i])
+                               for i in DECODE_TIMED[2:]}
     record["checked_instances"] = sorted(reached)
     return record
+
+
+def plan_text(launch) -> str:
+    """B3's plan as 3b prints it, with how many of its clusters the card
+    holds at once; a plan without clusters (an older kernel's, timed
+    beside this one) prints its fields."""
+    from repro_torch.kernels.decode_attention import kernel as decode
+
+    if not hasattr(launch, "cluster"):
+        return str(launch)
+    return (f"cluster {launch.cluster}, stages {launch.stages}, chunk {launch.chunk}, rows "
+            f"{launch.rows} x{launch.row_tiles}, grid {launch.grid}, smem {launch.smem_bytes}, "
+            f"{decode.max_active_clusters(launch)} clusters resident at most")
 
 
 def decode_masked_row() -> None:
@@ -1034,9 +1054,11 @@ def decode_time(label, arch, smoke, B, T, S, new, kvv0d) -> dict:
     cache: in a CUDA graph and launched from Python, beside the plain
     version, the library (one ``F.scaled_dot_product_attention`` over the
     cache with a boolean mask and ``enable_gqa=True``, without the step's
-    own keys: a yardstick only, the port never calls it) and the bound: the
-    visible positions' K and V, q, the new keys and values and the output,
-    once each, against float32 operations on the CUDA cores."""
+    own keys, with the window, without the soft-cap: a yardstick only, the
+    port never calls it) and the bound: the K and V of the cache positions
+    some query row sees (valid, causal, in the window), q, the new keys and
+    values and the output, once each, against the products' operations at
+    the card's peak for the cache's dtype (bf16: the tensor cores)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -1048,7 +1070,12 @@ def decode_time(label, arch, smoke, B, T, S, new, kvv0d) -> dict:
                                            seed=400 + T, full=True)
     NH, NKV, hd = q.shape[2], kc.shape[2], q.shape[3]
     kvv = kw["kv_valid"].expand(B).clamp(max=T)
-    visible = int(kvv.sum())
+    pos = kw["positions"].expand(B, S)
+    t = torch.arange(T, device="cuda")
+    seen = (t[None, None, :] < kvv[:, None, None]) & (t[None, None, :] <= pos[..., None])
+    if kw["window"]:
+        seen &= t[None, None, :] > pos[..., None] - kw["window"]
+    visible = int(seen.any(1).sum())
     got = decode_attention(q, kc, vc, kn, vn, **kw)
     ref = decode_attention_ref(q, kc, vc, kn, vn, **kw)
     err = (got.float() - ref.float()).abs().max().item()
@@ -1056,7 +1083,7 @@ def decode_time(label, arch, smoke, B, T, S, new, kvv0d) -> dict:
         fail(f"B3 disagrees at {label} (timing inputs): max_abs_err {err}, err/rms "
              f"{rms_err(got, ref):.3e}")
     q4, k4, v4 = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
-    mask = (torch.arange(T, device="cuda")[None, :] < kvv[:, None])[:, None, None, :]
+    mask = seen[:, None]
     backend = None
     for b in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
         try:
@@ -1089,15 +1116,15 @@ def decode_time(label, arch, smoke, B, T, S, new, kvv0d) -> dict:
     nbytes = (2 * visible * NKV * hd + 2 * q.numel()
               + (2 * kn.numel() if new else 0)) * esize + 8 * (B + B * S)
     keys = visible + (B * S if new else 0)
-    bound_ms, bound_by = bound(4.0 * hd * (NH // NKV) * S * NKV * keys, nbytes, "float32")
-    launch = decode.launch_for(q, kc, new)
+    bound_ms, bound_by = bound(4.0 * hd * (NH // NKV) * S * NKV * keys, nbytes, "bfloat16")
+    launch = decode.launch_for(q, kc, new, kw["window"])
     say(f"-- B3 timing at {label}: q ({B},{S},{NH},{hd}) over a bf16 cache of {T} positions, "
         f"{NKV} kv heads, {visible} visible positions | graph kernel_ms {graphed['kernel']:.5f} "
         f"plain_ms {graphed['plain']:.5f} library_ms {graphed['library']:.5f} "
         f"({backend.name}) | eager kernel_ms {eager_ms:.5f} | bound_ms {bound_ms:.5f} "
         f"({bound_by}, {nbytes / 1e6:.3f} MB) | kernel at {bound_ms / graphed['kernel']:.1%} "
-        f"of bound | chunk {launch.chunk} x{launch.chunks}, grid {launch.grid} | "
-        f"max_abs_err {err:.3e}")
+        f"of bound, {graphed['library'] / graphed['kernel']:.3f}x the library's speed | "
+        f"{plan_text(launch)} | max_abs_err {err:.3e}")
     return dict(shape=[B, T, S, NH, NKV, hd], max_abs_err=err, ms=graphed["kernel"],
                 eager_ms=eager_ms, plain_ms=graphed["plain"], library_ms=graphed["library"],
                 library_backend=backend.name, bound_ms=bound_ms, bound_by=bound_by,
@@ -1379,34 +1406,41 @@ def step_breakdown(engine) -> tuple[int | None, int]:
     return per_replay, b3
 
 
+# B3's kernel, and the names of the two kernels of its first design (a
+# partial pass and a combine), which no replay may run
+B3_KERNEL = "decode_attention_kernel"
+B3_OLD_KERNELS = ("decode_partial", "decode_combine")
+
+
 def b3_kernels(rows) -> tuple[int, int]:
-    """B3's partial-pass and combine kernels among :func:`by_kernel` rows."""
-    return (sum(c for _, c, key in rows if "decode_partial" in key),
-            sum(c for _, c, key in rows if "decode_combine" in key))
+    """B3's kernels among :func:`by_kernel` rows, and its first design's."""
+    return (sum(c for _, c, key in rows if B3_KERNEL in key),
+            sum(c for _, c, key in rows if any(k in key for k in B3_OLD_KERNELS)))
 
 
-# the profiled decode replays check_b3_replay held, and B3's kernels the
-# profiler saw in them
-B3_REPLAYS = {"replays": 0, "decode_partial": 0, "decode_combine": 0}
+# the profiled decode replays check_b3_replay held, B3's kernels the
+# profiler saw in them, and the B3 calls they replay (one per attention
+# layer)
+B3_REPLAYS = {"replays": 0, "kernels": 0, "calls": 0}
 
 
 def check_b3_replay(rows, want: int, label: str) -> int:
     """Fails unless a profiled decode replay's kernels (``rows``) hold
-    ``want`` B3 partial passes and as many combines; adds them to
-    ``B3_REPLAYS``, returns the count and prints B3's share of the replay's
-    kernel time."""
-    partial, combine = b3_kernels(rows)
+    ``want`` B3 kernels, one per call, and none of the first design's;
+    adds them to ``B3_REPLAYS``, returns the count and prints B3's share of
+    the replay's kernel time."""
+    n, old = b3_kernels(rows)
     B3_REPLAYS["replays"] += 1
-    B3_REPLAYS["decode_partial"] += partial
-    B3_REPLAYS["decode_combine"] += combine
+    B3_REPLAYS["kernels"] += n
+    B3_REPLAYS["calls"] += want
     total = sum(us for us, _, _ in rows)
-    b3_us = sum(us for us, _, key in rows if "decode_partial" in key or "decode_combine" in key)
-    say(f"  {label}: {partial} decode_partial + {combine} decode_combine kernels, "
-        f"{b3_us / 1e3:.3f} ms ({b3_us / total:.1%} of the replay's kernel time)")
-    if partial != want or combine != want:
-        fail(f"{label}: a decode replay ran {partial} B3 partial passes and {combine} "
-             f"combines, want {want} of each (one per attention layer)")
-    return partial
+    b3_us = sum(us for us, _, key in rows if B3_KERNEL in key)
+    say(f"  {label}: {n} {B3_KERNEL} kernels, {b3_us / 1e3:.3f} ms ({b3_us / total:.1%} of "
+        "the replay's kernel time)")
+    if n != want or old:
+        fail(f"{label}: a decode replay ran {n} B3 kernels and {old} of its first design's "
+             f"partial passes and combines, want {want} and none (one per attention layer)")
+    return n
 
 
 def decode_replay_b3(engine, toks) -> int:
@@ -4467,10 +4501,9 @@ def main() -> None:
              "_sdpa_deferred (and _sdpa's cache form), which the port's plain version "
              "upcasts to float32",
         launches=sum(B3_BY_PATH.values()), launches_by_path=dict(B3_BY_PATH),
-        launches_in_replays=B3_REPLAYS["decode_partial"],
+        launches_in_replays=B3_REPLAYS["kernels"],
         profiled_replays=B3_REPLAYS["replays"],
-        kernels_per_launch=(B3_REPLAYS["decode_partial"] + B3_REPLAYS["decode_combine"])
-        / max(B3_REPLAYS["decode_partial"], 1),
+        kernels_per_launch=B3_REPLAYS["kernels"] / max(B3_REPLAYS["calls"], 1),
         layout_copies=decode.layout_copies,
         **b3_record,
     )]

@@ -17,21 +17,24 @@ launch); CUDA tensors launch the kernel or raise; a ``DTensor`` raises
 needs a gradient is refused (the kernel has no backward: decoding runs
 under ``no_grad``).  The checks of the inputs are plain Python and run
 before the routing, so they refuse on CPU tensors too; the kernel's own
-limits (head dims 32, 64, 80 and 128, float32 or bf16) are
-:func:`choose_launch`'s, which the CPU tests call directly.
+limits (head dims 32, 64, 80 and 128, float32 or bf16, the grid, the
+cluster, the stages and shared memory) are :func:`choose_launch`'s and
+:func:`check_launch`'s, which the CPU tests call directly.
 
 The plan (:func:`choose_launch`, plain Python) depends on shapes only,
 never on ``kv_valid`` or the positions, which the kernel reads on the
 device: a captured CUDA graph stays valid as the offsets advance, and a
 synchronized step runs the same plan as the per-slot step.  The kernel
-loads K/V rows 16 bytes at a time: a cache or new part whose rows are off
-16 bytes, or whose last dimension is not contiguous, is copied once here
-and counted in ``layout_copies`` (0 on the served paths).
+reads K/V through their strides (bf16 by TMA boxes over tensor maps,
+float32 one bulk copy a row): a cache or new part whose rows are off 16
+bytes, or whose last dimension is not contiguous, is copied once here and
+counted in ``layout_copies`` (0 on the served paths).
 
 ``launches`` counts the calls that launched the kernel from Python, or
 recorded it into a CUDA graph under capture; a graph replay runs it again
-without passing through here.  Each launch is two kernels: the partial
-pass over the cache and the combine of its parts.
+without passing through here.  Each launch is one kernel: a cluster of
+CTAs per (batch row, kv head, row tile) over the positions, combined in
+the cluster's distributed shared memory.
 """
 
 from __future__ import annotations
@@ -50,16 +53,25 @@ from .ref import decode_attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 HEAD_DIMS = (32, 64, 80, 128)
-ROWS = (2, 4, 8, 16)          # query rows per CTA (csrc launch_rows)
-THREADS = 128                 # csrc THREADS
+ROWS = (2, 4, 8, 16)          # float32: query rows per CTA (csrc kInstances)
+MMA_ROWS = 16                 # bf16: query rows per CTA, the products' M (csrc MMA_ROWS)
+CONSUMERS = 128               # consumer threads (csrc CONSUMERS) ...
+THREADS = CONSUMERS + 32      # ... and one producer warp
+WARPS = CONSUMERS // 32
 TILE = 64                     # key positions per K/V tile (csrc TK)
-COLS = 8                      # columns per thread in the product with v (csrc COLS)
-SMS = 132                     # an H100 SXM's streaming multiprocessors
+COLS = 8                      # float32: columns per thread in the product with v (csrc COLS)
+STAGES = (3, 4)               # the K/V ring's depths (csrc MIN_STAGES, MAX_STAGES)
+MAX_CLUSTER = 8               # CTAs of a cluster (the portable most)
+LONG_TILES = 16               # tiles a rank streams from which bytes, not latency, set its time
+BARS = 128                    # bytes of the ring's mbarriers (csrc BARS)
+SMS = 132                     # an H100 SXM's streaming multiprocessors ...
+GPC_SMS = (17,) * 6 + (15,) * 2   # ... by GPC, as the cluster scheduler fills them
 SMEM_PER_SM = 233472          # an SM's shared memory (228 KB) ...
 SMEM_RESERVED = 1024          # ... of which each resident CTA takes 1 KB more
-COMBINE_SMEM = 48 * 1024      # the combine's shared memory: rows x (parts + 1) floats
+MAX_SMEM = 232448             # a CTA's largest dynamic shared memory (227 KB)
+MAX_THREADS_PER_SM = 2048
 MAX_GRID_YZ = 65535
-VEC = 16                      # bytes per cp.async copy
+VEC = 16                      # bytes: alignment of a TMA or bulk copy's rows
 
 launches = 0
 layout_copies = 0
@@ -70,105 +82,180 @@ _STRIDES = ctypes.c_longlong * 18     # (batch, row, head) of q, k/v cache, k/v 
 
 @dataclass(frozen=True)
 class Launch:
-    """One launch: ``rows`` query rows per CTA in ``row_tiles`` tiles,
-    ``chunk`` cache positions per CTA in ``chunks`` chunks, ``parts`` the
-    chunks plus one for the step's own keys (the deferred form), the
-    partial pass's ``grid`` (parts, B·NKV, row tiles) of ``THREADS``
-    threads and dynamic ``smem_bytes`` (the combine's grid is (B·NKV, row
-    tiles)), and the float32 ``scratch`` shape (B·NKV, row tiles, parts,
-    rows, hd + 2) of the parts' sums, maxima and sums of exponentials."""
+    """One launch: ``rows`` query rows per CTA in ``row_tiles`` tiles; a
+    cluster of ``cluster`` CTAs per (batch row, kv head, row tile) splits
+    the ``span`` cache positions a row tile can see (T, or under a window
+    its reach, counted from the earliest row's window start), rank r taking
+    ``[r·chunk, (r+1)·chunk)`` of them and, when ``new_rank`` is r, the
+    step's own keys after them; a ring of ``stages`` K/V tiles; the
+    ``grid`` (cluster, B·NKV, row tiles) of ``THREADS`` threads and dynamic
+    ``smem_bytes``."""
 
     dtype: str
     head_dim: int
     rows: int
     row_tiles: int
+    cluster: int
+    span: int
     chunk: int
-    chunks: int
-    parts: int
+    stages: int
+    new_rank: int | None
     grid: tuple[int, int, int]
     smem_bytes: int
-    scratch: tuple[int, int, int, int, int]
 
 
-def row_elems(head_dim: int, esize: int) -> int:
-    """Elements of one K tile row in shared memory (csrc ``row_elems``):
-    the head dim, padded to 32 bytes past a multiple of 128 (V tile rows
-    are not padded)."""
-    nbytes = head_dim * esize
-    return (nbytes + (32 - nbytes) % 128) // esize
+def _align(x: int, a: int) -> int:
+    return -(-x // a) * a
 
 
-def smem_bytes(rows: int, head_dim: int, esize: int) -> int:
-    """Dynamic shared memory of a partial-pass CTA (csrc ``smem_bytes``):
-    the query positions, rows and scores, the rescale factors, and the
-    larger of the two-stage K/V ring and the slices' sums."""
-    head = 8 * rows + 4 * rows * head_dim + 4 * rows * TILE + 16 * -(-4 * rows // 16)
-    ring = 2 * TILE * (row_elems(head_dim, esize) + head_dim) * esize
-    return head + max(ring, THREADS * rows * COLS * 4)
+def k_pitch(head_dim: int) -> int:
+    """float32: elements of one K tile row in shared memory (csrc
+    ``k_pitch``), the head dim padded to 32 bytes past a multiple of 128."""
+    nbytes = head_dim * 4
+    return (nbytes + (32 - nbytes) % 128) // 4
+
+
+def stage_bytes(head_dim: int, esize: int) -> int:
+    """One stage of the ring, a K and a V tile of ``TILE`` rows.  bf16:
+    TMA boxes of one swizzle row (64 columns, 32 at hd 32; hd 80 padded to
+    128); float32: rows of ``k_pitch`` and ``head_dim`` elements."""
+    if esize == 2:
+        cols = min(head_dim, 64)
+        hdp = 128 if head_dim == 80 else head_dim
+        return 2 * (hdp // cols) * TILE * 2 * cols
+    return TILE * (k_pitch(head_dim) + head_dim) * 4
+
+
+def smem_bytes(rows: int, head_dim: int, esize: int, stages: int) -> int:
+    """Dynamic shared memory of a CTA (csrc ``layout``): the larger of the
+    ring of ``stages`` K/V tiles and what the end of a chunk keeps in its
+    place (the scratch of the warps' states (bf16) or of the threads'
+    slices (float32), the part the other ranks read and the combine's
+    weights), then the mbarriers and, for float32, the query positions,
+    rows and scores and the rescale factors."""
+    scratch = (WARPS * MMA_ROWS * (head_dim + 2) * 4 + MMA_ROWS * WARPS * 4 if esize == 2
+               else CONSUMERS * rows * COLS * 4)
+    part = _align(scratch, 16)
+    weights = _align(part + rows * (head_dim + 2) * 4, 16)
+    end = weights + rows * (MAX_CLUSTER + 1) * 4
+    total = _align(max(stages * stage_bytes(head_dim, esize), end), 128) + BARS
+    if esize == 4:
+        total += 8 * rows + 4 * rows * head_dim + 4 * rows * TILE + 16 * -(-4 * rows // 16)
+    return total
+
+
+def per_sm(smem: int) -> int:
+    """CTAs of ``smem`` bytes an SM holds, by shared memory and threads."""
+    return min(SMEM_PER_SM // (smem + SMEM_RESERVED), MAX_THREADS_PER_SM // THREADS)
+
+
+def resident_clusters(cluster: int, ctas_per_sm: int) -> int:
+    """Clusters of ``cluster`` CTAs the card holds at once, ``ctas_per_sm``
+    to an SM: a cluster lies in one GPC (``GPC_SMS``).  This model gives the
+    132, 62, 30 and 14 clusters of 2, 4, 8 and 16 CTAs at two CTAs an SM
+    that ``cudaOccupancyMaxActiveClusters`` gave on an H100 SXM (phase 3b
+    of ``chip_smoke.py`` prints the card's for every plan)."""
+    return sum(n * ctas_per_sm // cluster for n in GPC_SMS)
+
+
+def check_launch(launch: Launch, B: int, T: int, NKV: int, new: bool) -> Launch:
+    """``launch`` if the kernel can run it for these shapes, else
+    ``ValueError``: the grid within the launch limits and one whole
+    cluster along x, a cluster of at most ``MAX_CLUSTER`` CTAs whose ranks
+    each cover part of the span (at most ``T``) and together all of it, a
+    ring depth of
+    ``STAGES``, shared memory as :func:`smem_bytes` sizes it and within
+    ``MAX_SMEM``, and the step's own keys, if any, on the last rank."""
+    grid, c = launch.grid, launch.cluster
+    if not 1 <= c <= MAX_CLUSTER:
+        raise ValueError(f"decode_attention: a cluster of {c} CTAs is outside 1..{MAX_CLUSTER}")
+    if grid[0] != c:
+        raise ValueError(f"decode_attention: grid x {grid[0]} is not one cluster of {c}")
+    if grid[1:] != (B * NKV, launch.row_tiles):
+        raise ValueError(f"decode_attention: grid {grid} does not cover B·NKV {B * NKV} and "
+                         f"{launch.row_tiles} row tiles")
+    if grid[1] > MAX_GRID_YZ or grid[2] > MAX_GRID_YZ:
+        raise ValueError(f"decode_attention: B·NKV {grid[1]} or row tiles {grid[2]} exceeds "
+                         f"the launch grid's {MAX_GRID_YZ}")
+    if (launch.chunk < 1 or launch.span > T
+            or not launch.chunk * (c - 1) < launch.span <= launch.chunk * c):
+        raise ValueError(f"decode_attention: {c} ranks of {launch.chunk} positions do not "
+                         f"each cover part of the span {launch.span} (T {T})")
+    if launch.stages not in STAGES:
+        raise ValueError(f"decode_attention: {launch.stages} stages, not one of {STAGES}")
+    esize = 2 if launch.dtype == "bfloat16" else 4
+    want = smem_bytes(launch.rows, launch.head_dim, esize, launch.stages)
+    if launch.smem_bytes != want or want > MAX_SMEM:
+        raise ValueError(f"decode_attention: shared memory {launch.smem_bytes} (the layout "
+                         f"takes {want}; a CTA has {MAX_SMEM})")
+    if launch.new_rank != (c - 1 if new else None):
+        raise ValueError(f"decode_attention: the step's own keys on rank {launch.new_rank}, "
+                         f"want {c - 1 if new else None}")
+    return launch
 
 
 @functools.lru_cache(maxsize=256)
 def choose_launch(B: int, T: int, NKV: int, GS: int, head_dim: int, dtype: str,
-                  new: bool) -> Launch:
+                  new: bool, window: int | None = None) -> Launch:
     """The launch for ``B`` rows over a cache of ``T`` positions and
     ``NKV`` kv heads, ``GS`` = G·S query rows per kv head, ``head_dim``,
     ``dtype`` ("float32" or "bfloat16"), with or without the step's own
-    keys (``new``).  Plain Python, a function of these shapes alone.  The
-    cache chunks are whole 64-position tiles, as many (from one CTA per
-    resident slot of the card, by shared memory, to four times that) as
-    fill the last wave of CTAs best, the fewest of equals; one tile a CTA
-    when T is too short for a wave.  Raises ``ValueError`` on a head dim or
-    dtype the library lacks, an empty shape, or a grid past the launch
-    limits."""
+    keys (``new``), under a sliding ``window`` or none.  Plain Python, a
+    function of these shapes alone.  The ring takes 3 or 4 stages, the
+    depth that keeps more stages in flight on an SM by shared memory (4 of
+    equals).  The ranks split the span a row tile sees (``T``; under a
+    window at most ``window + GS`` positions) into chunks of whole
+    64-position tiles, as many ranks (1 to ``MAX_CLUSTER``) as keep every
+    (row, kv head, row tile) pair's cluster resident at once
+    (:func:`resident_clusters`) and, when a rank would stream
+    ``LONG_TILES`` or more (the bytes bound it), give the card at most one
+    CTA an SM: a second only takes issue slots from the first.  Shorter
+    chunks are bound by latency and take as many ranks as fit.  The step's
+    own keys go to the last rank.  Raises
+    ``ValueError`` on a head dim or dtype the library lacks, an empty
+    shape, or a launch :func:`check_launch` refuses."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"decode_attention: head_dim {head_dim} not in {HEAD_DIMS}")
     if dtype not in ("float32", "bfloat16"):
         raise ValueError(f"decode_attention takes float32 or bfloat16, not {dtype}")
     if min(B, T, NKV, GS) < 1:
         raise ValueError(f"decode_attention: empty shape B {B} T {T} NKV {NKV} G·S {GS}")
-    rows = next((r for r in ROWS if r >= GS), ROWS[-1])
-    row_tiles = -(-GS // rows)
     esize = 2 if dtype == "bfloat16" else 4
-    smem = smem_bytes(rows, head_dim, esize)
-    slots = SMS * max(1, SMEM_PER_SM // (smem + SMEM_RESERVED))
+    rows = MMA_ROWS if esize == 2 else next((r for r in ROWS if r >= GS), ROWS[-1])
+    row_tiles = -(-GS // rows)
+    sizes = [(s, smem_bytes(rows, head_dim, esize, s)) for s in STAGES]
+    stages, smem = max(sizes, key=lambda o: (o[1] <= MAX_SMEM, o[0] * per_sm(o[1]), o[0]))
+    fit = max(1, per_sm(smem))
     pairs = B * NKV * row_tiles
-    tiles = -(-T // TILE)
+    span = T if window is None else min(T, window + GS)
+    tiles = -(-span // TILE)
 
-    def chunks_of(split: int) -> int:
-        return -(-T // (TILE * -(-tiles // split)))
+    def ranks(split: int) -> int:
+        return -(-tiles // -(-tiles // split))
 
-    def fill(split: int) -> float:
-        ctas = pairs * chunks_of(split)
-        return ctas / (-(-ctas // slots) * slots)
-
-    low = -(-slots // pairs)
-    split = tiles if low >= tiles else max(range(low, min(tiles, 4 * low) + 1),
-                                           key=lambda n: (fill(n), -n))
-    chunk = TILE * -(-tiles // split)
-    chunks = -(-T // chunk)
-    parts = chunks + int(new)
-    grid = (parts, B * NKV, row_tiles)
-    if grid[1] > MAX_GRID_YZ or grid[2] > MAX_GRID_YZ:
-        raise ValueError(f"decode_attention: B·NKV {grid[1]} or row tiles {grid[2]} exceeds "
-                         f"the launch grid's {MAX_GRID_YZ}")
-    if 4 * rows * (parts + 1) > COMBINE_SMEM:
-        raise ValueError(f"decode_attention: {parts} parts of {rows} rows exceed the "
-                         "combine's shared memory")
-    return Launch(dtype, head_dim, rows, row_tiles, chunk, chunks, parts, grid, smem,
-                  (B * NKV, row_tiles, parts, rows, head_dim + 2))
+    splits = [n for n in range(1, min(tiles, MAX_CLUSTER) + 1)
+              if pairs <= resident_clusters(ranks(n), fit)] or [1]
+    split = max([n for n in splits if pairs * ranks(n) <= SMS] or [1])
+    if -(-tiles // split) < LONG_TILES:
+        split = max(splits)
+    cluster, chunk = ranks(split), TILE * -(-tiles // split)
+    launch = Launch(dtype, head_dim, rows, row_tiles, cluster, span, chunk, stages,
+                    cluster - 1 if new else None, (cluster, B * NKV, row_tiles), smem)
+    return check_launch(launch, B, T, NKV, new)
 
 
-def launch_for(q: torch.Tensor, k_cache: torch.Tensor, new: bool) -> Launch:
+def launch_for(q: torch.Tensor, k_cache: torch.Tensor, new: bool,
+               window: int | None = None) -> Launch:
     """The launch :func:`decode_attention` makes for these tensors."""
     B, S, NH, hd = q.shape
     T, NKV = k_cache.shape[1], k_cache.shape[2]
-    return choose_launch(B, T, NKV, NH // NKV * S, hd, str(q.dtype)[6:], new)
+    return choose_launch(B, T, NKV, NH // NKV * S, hd, str(q.dtype)[6:], new, window)
 
 
 def readable(t: torch.Tensor) -> bool:
-    """The kernel copies ``t``'s rows (4-d) 16 bytes at a time in place: its
-    last dimension is contiguous, its base pointer and the strides of its
-    other dimensions longer than 1 are multiples of 16 bytes."""
+    """The kernel reads ``t`` (4-d) in place, by TMA or one bulk copy a
+    row: its last dimension is contiguous, its base pointer and the strides
+    of its other dimensions longer than 1 are multiples of 16 bytes."""
     if t.shape[-1] > 1 and t.stride(-1) != 1:
         return False
     if t.data_ptr() % VEC:
@@ -199,10 +286,12 @@ def _kernel(device: torch.device):
         lib.decode_attention_init.argtypes = []
         lib.decode_attention_init.restype = ctypes.c_int
         lib.decode_attention.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.POINTER(ctypes.c_longlong)]
-            + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 10 + [ctypes.c_float] * 2
+            [ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+            + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 12 + [ctypes.c_float] * 2
             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         lib.decode_attention.restype = ctypes.c_int
+        lib.decode_attention_max_clusters.argtypes = [ctypes.c_int] * 5
+        lib.decode_attention_max_clusters.restype = ctypes.c_int
         _lib = lib
     index = device.index if device.index is not None else torch.cuda.current_device()
     if index not in _ready_devices:
@@ -214,11 +303,20 @@ def _kernel(device: torch.device):
     return _lib
 
 
+def max_active_clusters(launch: Launch, device: torch.device | None = None) -> int:
+    """``cudaOccupancyMaxActiveClusters`` for ``launch``'s kernel, cluster
+    and shared memory: the clusters the card holds at once (on the card)."""
+    lib = _kernel(device or torch.device("cuda"))
+    return lib.decode_attention_max_clusters(int(launch.dtype == "bfloat16"), launch.rows,
+                                             launch.head_dim, launch.cluster, launch.smem_bytes)
+
+
 def _check(q, k_cache, v_cache, k_new, v_new, positions, kv_valid, scale, softcap,
            window, causal) -> None:
     """Raises ``ValueError`` on inputs neither version takes, whatever the
     device (``TypeError`` on a DTensor).  The kernel's own limits (head
-    dim, dtype, grid) are :func:`choose_launch`'s, on the card's route."""
+    dim, dtype, grid, cluster, shared memory) are :func:`choose_launch`'s,
+    on the card's route."""
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
                     ("k_new", k_new), ("v_new", v_new)):
         if t is None:
@@ -298,19 +396,19 @@ def _launch(q, k_cache, v_cache, k_new, v_new, positions, kv_valid, scale, softc
     if new:
         k_new, v_new = prepare(k_new, v_new)
     positions, kv_valid = _index(positions), _index(kv_valid)
-    launch = launch_for(q, k_cache, new)
+    launch = launch_for(q, k_cache, new, window)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    scratch = torch.empty(launch.scratch, dtype=torch.float32, device=q.device)
     parts = (q, k_cache, v_cache, k_new if new else k_cache, v_new if new else v_cache, out)
     strides = _STRIDES(*(st for t in parts for st in t.stride()[:3]))
     err = _kernel(q.device).decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_new.data_ptr() if new else None, v_new.data_ptr() if new else None,
-        out.data_ptr(), scratch.data_ptr(), positions.data_ptr(), kv_valid.data_ptr(), strides,
+        out.data_ptr(), positions.data_ptr(), kv_valid.data_ptr(), strides,
         positions.stride(0) if positions.dim() == 2 else 0, positions.stride(-1),
         kv_valid.stride(0) if kv_valid.dim() == 1 else 0,
         int(q.dtype == torch.bfloat16), B, S, k_cache.shape[2], NH // k_cache.shape[2],
-        k_cache.shape[1], hd, launch.rows, launch.chunk, launch.chunks,
+        k_cache.shape[1], hd, launch.rows, launch.cluster, launch.chunk, launch.stages,
+        -1 if launch.new_rank is None else launch.new_rank,
         float(scale), float(softcap), int(window or 0), int(bool(causal)), launch.smem_bytes,
         torch.cuda.current_stream(q.device).cuda_stream,
     )

@@ -273,25 +273,64 @@ PLANS = [(4, 1024, 8, 3, 128, "bfloat16", True), (8, 32768, 8, 3, 128, "bfloat16
 
 @pytest.mark.parametrize("plan", PLANS)
 def test_choose_launch_covers_the_cache_and_sizes_the_scratch(plan):
+    """One cluster per (batch row, kv head, row tile) whose ranks cover
+    ``[0, T)`` once, in order, each with some of it; the step's own keys on
+    exactly one rank, the last; a cluster of at most 8 CTAs, a ring of 3 or
+    4 stages, shared memory within a CTA's 232448 bytes; and no scratch in
+    device memory (the parts are combined in the cluster's shared memory)."""
     B_, T_, NKV_, GS, hd, dtype, new = plan
     launch = kernel.choose_launch(*plan)
-    assert launch.rows in kernel.ROWS and launch.rows * launch.row_tiles >= GS
-    assert (launch.rows >= GS) or launch.rows == kernel.ROWS[-1]
+    if dtype == "bfloat16":
+        assert launch.rows == kernel.MMA_ROWS == 16
+    else:
+        assert launch.rows in kernel.ROWS and ((launch.rows >= GS) or launch.rows == 16)
+    assert launch.rows * launch.row_tiles >= GS > launch.rows * (launch.row_tiles - 1)
     assert launch.chunk % kernel.TILE == 0
-    assert (launch.chunks - 1) * launch.chunk < T_ <= launch.chunks * launch.chunk
-    assert launch.parts == launch.chunks + int(new)
-    assert launch.grid == (launch.parts, B_ * NKV_, launch.row_tiles)
-    assert launch.scratch == (B_ * NKV_, launch.row_tiles, launch.parts, launch.rows, hd + 2)
+    ranges = [(min(r * launch.chunk, T_), min((r + 1) * launch.chunk, T_))
+              for r in range(launch.cluster)]
+    assert launch.span == T_ and ranges[0][0] == 0 and ranges[-1][1] == T_
+    assert all(a < b for a, b in ranges)
+    assert all(b == a2 for (_, b), (a2, _) in zip(ranges, ranges[1:]))
+    holders = [r for r in range(launch.cluster) if r == launch.new_rank]
+    assert holders == ([launch.cluster - 1] if new else [])
+    assert 1 <= launch.cluster <= kernel.MAX_CLUSTER == 8
+    assert launch.stages in (3, 4)
+    assert launch.grid == (launch.cluster, B_ * NKV_, launch.row_tiles)
     esize = 2 if dtype == "bfloat16" else 4
-    assert launch.smem_bytes == kernel.smem_bytes(launch.rows, hd, esize) <= 232448
-    assert 4 * launch.rows * (launch.parts + 1) <= kernel.COMBINE_SMEM
+    assert launch.smem_bytes == kernel.smem_bytes(launch.rows, hd, esize, launch.stages) <= 232448
+    assert not hasattr(launch, "scratch") and not hasattr(kernel, "COMBINE_SMEM")
+    assert kernel.check_launch(launch, B_, T_, NKV_, new) is launch
 
 
 def test_decode_32k_fills_its_waves():
-    """decode_32k's share: 64 (row, kv head) pairs over 12 chunks, 768 CTAs
-    of 72752 bytes, three to an SM: 1.94 waves of 396."""
+    """decode_32k's share: 64 (row, kv head) pairs, CTAs of 98432 bytes (a
+    3-stage ring of 32768-byte K/V stages, the mbarriers), two to an SM.
+    Clusters of 2 ranks of 16384 positions: 128 CTAs, one wave (the card's
+    GPCs hold 132 such clusters), at most one CTA an SM, since a rank
+    streams 256 tiles and the bytes bound it.  Three ranks would also fit
+    one wave (86 clusters) but put two CTAs on some SMs; four would not fit
+    (62 resident of 64).  phi4-mini's served slots over 1024 positions
+    stream short chunks, bound by latency: as many ranks as one wave holds,
+    6 of 3 tiles (8 would need 32 clusters, 30 resident)."""
     launch = kernel.choose_launch(8, 32768, 8, 3, 128, "bfloat16", True)
-    assert (launch.smem_bytes, launch.chunk, launch.chunks) == (72752, 2752, 12)
+    assert (launch.smem_bytes, launch.stages, launch.cluster, launch.chunk) == (98432, 3, 2,
+                                                                                16384)
+    assert kernel.stage_bytes(128, 2) == 32768 and kernel.per_sm(launch.smem_bytes) == 2
+    assert [kernel.resident_clusters(c, 2) for c in (2, 3, 4, 6, 8)] == [132, 86, 62, 40, 30]
+    assert launch.grid == (2, 64, 1) and launch.new_rank == 1
+    served = kernel.choose_launch(4, 1024, 8, 3, 128, "bfloat16", True)
+    assert (served.cluster, served.chunk, served.grid) == (6, 192, (6, 32, 1))
+
+
+def test_a_window_splits_its_reach():
+    """gemma2's local layer (window 4096) over 8192 positions: the ranks
+    split the window's reach from its start, 4096 + G·S positions, not the
+    cache; without the window the same shapes split all 8192."""
+    local = kernel.choose_launch(4, 8192, 16, 2, 128, "bfloat16", True, 4096)
+    whole = kernel.choose_launch(4, 8192, 16, 2, 128, "bfloat16", True)
+    assert (local.span, local.cluster, local.chunk) == (4098, 2, 2112)
+    assert (whole.span, whole.cluster, whole.chunk) == (8192, 2, 4096)
+    assert kernel.choose_launch(4, 1024, 16, 2, 128, "bfloat16", True, 4096).span == 1024
 
 
 @pytest.mark.parametrize("hd,dtype", [(16, "float32"), (96, "bfloat16"), (256, "bfloat16"),
@@ -299,6 +338,44 @@ def test_decode_32k_fills_its_waves():
 def test_choose_launch_refuses_what_the_library_lacks(hd, dtype):
     with pytest.raises(ValueError, match="decode_attention"):
         kernel.choose_launch(2, 64, 2, 3, hd, dtype, True)
+
+
+def _phi4_launch():
+    return kernel.choose_launch(4, 1024, 8, 3, 128, "bfloat16", True)
+
+
+@pytest.mark.parametrize("change,match", [
+    (lambda l: dict(cluster=9, grid=(9, 32, 1)), "cluster of 9"),
+    (lambda l: dict(cluster=0, grid=(0, 32, 1)), "cluster of 0"),
+    (lambda l: dict(grid=(2 * l.cluster, 32, 1)), "not one cluster"),
+    (lambda l: dict(grid=(l.cluster, 31, 1)), "does not cover"),
+    (lambda l: dict(chunk=l.chunk // 2), "do not each cover"),
+    (lambda l: dict(chunk=2 * l.chunk), "do not each cover"),
+    (lambda l: dict(stages=2), "stages"),
+    (lambda l: dict(stages=5), "stages"),
+    (lambda l: dict(smem_bytes=l.smem_bytes + 1), "shared memory"),
+    (lambda l: dict(new_rank=0), "own keys"),
+])
+def test_check_launch_refuses_past_the_limits(change, match):
+    """The launch limits are checked in plain Python before any launch:
+    cluster size, one whole cluster along the grid's x, the grid's cover,
+    ranks that each hold part of the cache, the ring's depth, shared memory
+    as laid out, and the step's own keys on the last rank."""
+    launch = _phi4_launch()
+    with pytest.raises(ValueError, match=match):
+        kernel.check_launch(dataclasses.replace(launch, **change(launch)), 4, 1024, 8, True)
+
+
+def test_choose_launch_refuses_a_grid_or_shared_memory_past_the_card(monkeypatch):
+    with pytest.raises(ValueError, match="exceeds the launch grid"):
+        kernel.choose_launch(70000, 64, 1, 1, 64, "bfloat16", False)
+    kernel.choose_launch.cache_clear()
+    monkeypatch.setattr(kernel, "MAX_SMEM", 90000)
+    try:
+        with pytest.raises(ValueError, match="shared memory"):
+            kernel.choose_launch(4, 1024, 8, 3, 128, "bfloat16", True)
+    finally:
+        kernel.choose_launch.cache_clear()
 
 
 class _FakeLibrary:
@@ -326,7 +403,7 @@ def fake_launch(monkeypatch):
 
 
 # argument positions of the library call (csrc decode_attention)
-ARG_STRIDES, ARG_KVV_B, ARG_PLAN = 9, 12, slice(20, 23)
+ARG_STRIDES, ARG_KVV_B, ARG_PLAN = 8, 11, slice(19, 24)
 
 
 def test_the_plan_is_a_function_of_shapes_alone(fake_launch):

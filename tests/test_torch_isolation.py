@@ -19,7 +19,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
     ROOT / "examples" / "branchy_inference_torch.py", ROOT / "examples" / "serve_llm_torch.py",
-    ROOT / "examples" / "train_lm_torch.py"]
+    ROOT / "examples" / "train_lm_torch.py", ROOT / "tools" / "decode_variants.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
