@@ -156,16 +156,25 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
     registers and spills from ptxas; (b) B2's two backward products through its autograd Function
     at the smoke experts' shapes, a shared x and one full deepseek-v2
     expert shape (160 lanes, K 5120, N 1536, M 64), timed there beside two
-    ``torch.bmm``; (c) phi4-mini-3.8b at full width and depth, bf16, AdamW
-    with the cosine schedule, batch 2 x 512 from ``SyntheticLM``: 3 eager
-    steps against 3 replays of the step sealed as one CUDA graph from the
-    same state, 30 replays in all (the loss must fall), ms per step eager
-    and replayed (Fig. 8's quantity), B1's layout copies (must be 0), the
-    profiler's count of B1's forward and backward kernels in one replay
-    (32 of each), and a checkpoint
+    ``torch.bmm``; (f) B4, the AdamW update (a sum of squares a leaf, a
+    finish, an update a leaf), against its plain version at odd leaf sizes
+    and phi4-mini's largest two, both dtypes, every clip mode, lr a float
+    and a device tensor, a base off 16 bytes, three steps a case
+    (``ADAMW_CASES``, the tolerances beside them), then timed over
+    phi4-mini's 291 leaves in a CUDA graph beside the plain version, the
+    bound and ``torch._foreach_norm`` + ``torch._fused_adamw_`` (a
+    yardstick only); (c) phi4-mini-3.8b at full width and depth, bf16,
+    AdamW on B4 with the cosine schedule, batch 2 x 512 from
+    ``SyntheticLM``: 3 eager steps against 3 replays of the step sealed as
+    one CUDA graph from the same state, 30 replays in all (the loss must
+    fall), ms per step eager and replayed (Fig. 8's quantity), B1's layout
+    copies (must be 0), B4's kernels eager and by the seal, the profiler's
+    count of B1's forward and backward kernels (32 of each) and of B4's
+    (291 sums, a finish, 291 updates) in one replay with B4's share of its
+    time, and a checkpoint
     restored into a fresh model giving the next replay's loss bit for bit;
     (d) the phi4-mini, arctic and deepseek-v2 smoke configs at float32: one
-    sealed step on the card against the CPU's; (e) Nimble over the
+    sealed step on the card (B4's kernels counted) against the CPU's; (e) Nimble over the
     gradients of the four branchy cells at full size, eager torch.func
     against single-stream, multi-stream and packed replays, µs per call;
 20. the launch layer: (a) the dry run (``repro_torch.launch.dryrun``) of
@@ -371,13 +380,14 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import build
+    from repro_torch.kernels.adamw import kernel as adamw
     from repro_torch.kernels.decode_attention import kernel as decode
     from repro_torch.kernels.flash_attention import backward as flash_bwd
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.stream_pack import kernel as pack
 
     say("== phase 2: build")
-    sources = [flash.SOURCE, flash_bwd.SOURCE, pack.SOURCE, decode.SOURCE]
+    sources = [flash.SOURCE, flash_bwd.SOURCE, pack.SOURCE, decode.SOURCE, adamw.SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:      # one nvcc per source
         list(pool.map(build.build, sources))
@@ -3276,9 +3286,324 @@ def train_b2_backward() -> dict:
     return record
 
 
+# 19f: B4 (AdamW) against its plain version on the card, three steps a
+# case from one state: (label, leaf sizes, dtype, max_grad_norm, lr form,
+# base offset in elements).  The sizes: odd ones (a lone element, a tail
+# shorter than a vector, phi4-mini's norm scale 3072, a tail past a whole
+# vector, a tail past 2^20) and phi4-mini's MLP matrix and embedding; the
+# clip active (1.0), off (0.0) and not reached (1e3); lr a float and a
+# device tensor; a base one element past 16 bytes (every tree a view)
+ADAMW_ODD = (1, 5, 3072, 4097, 2**20 + 3)
+ADAMW_PHI4 = (25_165_824, 614_989_824)
+ADAMW_CLIPS = (1.0, 0.0, 1e3)
+ADAMW_CASES = [(f"{dt} clip {clip:g} lr {lr}", ADAMW_ODD, dt, clip, lr, 0)
+               for dt in ("bfloat16", "float32") for clip in ADAMW_CLIPS
+               for lr in ("float", "tensor")] + [
+    ("bfloat16 off 16 bytes", ADAMW_ODD[1:], "bfloat16", 1.0, "tensor", 1),
+    ("float32 off 16 bytes", ADAMW_ODD[1:], "float32", 1e3, "float", 1),
+    ("bfloat16 phi4-mini's MLP matrix and embedding", ADAMW_PHI4, "bfloat16", 1.0, "tensor", 0),
+    ("float32 phi4-mini's MLP matrix", ADAMW_PHI4[:1], "float32", 0.0, "float", 0),
+]
+ADAMW_STEPS = 3
+# Tolerances of 19f, from the kernel's rounding (csrc/adamw.cu: every
+# operation of the update rounds once, no FMA contraction; the plain
+# version's add_(alpha) and addcmul_ may fuse a product into an FMA on the
+# card):
+# * each moment within ADAMW_MOMENT_RTOL (about four float32 ulps) of its
+#   terms' magnitude, |b·m| + |(1 - b)·g| (|b·v| + |(1 - b)·g·g|);
+# * a float32 parameter within ADAMW_F32_PARAM_RTOL of |p| + |p - p'|,
+#   plus the first moment's tolerance carried through the update,
+#   lr·(ADAMW_MOMENT_RTOL·|terms| / bc1) / (sqrt(v'/bc2) + eps), which
+#   sets the bound where the first moment cancels (|m'| far below its
+#   terms);
+# * a bf16 parameter equal, or one bf16 ulp of |p'| apart where the plain
+#   version's float32 p2 lies within the float32 tolerance above of the
+#   rounding midpoint of its bf16 interval (the share that is bit-identical
+#   is printed; a store that truncates, say, fails far from any midpoint);
+# * each leaf's sum of squares and the norm within ADAMW_SUM_RTOL (two
+#   summation trees over up to 615 M squares, 4.45 B in the timed tree);
+# * the clip scale and the bias corrections within ADAMW_SCALAR_RTOL (one
+#   division; the kernel's powf against torch.pow).
+# The step is held on the kernel's own scalars, the norm and the scale on
+# their own.
+ADAMW_MOMENT_RTOL, ADAMW_F32_PARAM_RTOL = 5e-7, 1e-6
+ADAMW_SUM_RTOL, ADAMW_SCALAR_RTOL = 1e-5, 1e-6
+ADAMW_HYPER = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+ADAMW_LR = 1e-3
+# the largest |parameter - plain| of each adamw_check run (the kernels line)
+ADAMW_ERR: list = []
+
+
+def _adamw_leaf(numel, dtype, offset, gen, scale):
+    """A 1-d tensor of ``numel`` normal values times ``scale`` in
+    ``dtype``, its base ``offset`` elements into its storage."""
+    import torch
+
+    store = torch.empty(numel + offset, dtype=dtype, device="cuda")
+    out = store[offset:]
+    out.copy_(torch.randn(numel, generator=gen, device="cuda").mul_(scale))
+    return out
+
+
+def _rel(got, want) -> float:
+    return abs(float(got) - float(want)) / max(abs(float(want)), 1e-30)
+
+
+def adamw_check(cases=ADAMW_CASES) -> list[str]:
+    """19f's check: each case's trees through B4 (``adamw_sumsq``,
+    ``adamw_finish``, ``adamw_step``) and through the plain versions from
+    the same state, ``ADAMW_STEPS`` steps, the plain state set to the
+    kernel's after each.  Prints each case's share of every tolerance;
+    returns the labels of the cases that failed."""
+    import torch
+
+    from repro_torch.kernels.adamw import kernel as b4
+    from repro_torch.kernels.adamw.ref import (adamw_step_ref, bias_corrections_ref,
+                                               norm_scale_ref, sumsq_ref)
+
+    failed = []
+    worst_abs = 0.0
+    for c, (label, sizes, dname, clip, lr_form, offset) in enumerate(cases):
+        dtype = getattr(torch, dname)
+        gen = torch.Generator(device="cuda").manual_seed(100 + c)
+        params = [_adamw_leaf(n, dtype, offset, gen, 1.0) for n in sizes]
+        mus = [_adamw_leaf(n, torch.float32, offset, gen, 1e-2) for n in sizes]
+        nus = [_adamw_leaf(n, torch.float32, offset, gen, 1e-2).abs_() for n in sizes]
+        step = torch.zeros((), dtype=torch.int32, device="cuda")
+        worst = dict(sums=0.0, norm=0.0, scale=0.0, bc=0.0, m=0.0, v=0.0, p=0.0, mid=0.0)
+        same = total = 0
+        for s in range(ADAMW_STEPS):
+            grads = [_adamw_leaf(n, dtype, offset, gen, 0.5) for n in sizes]
+            lr = (ADAMW_LR * (s + 1) if lr_form == "float"
+                  else torch.full((), ADAMW_LR * (s + 1), device="cuda"))
+            plain = [t.clone() for t in params], [t.clone() for t in mus], \
+                [t.clone() for t in nus]
+            pstep = step.clone()
+            buf = b4.adamw_sumsq(grads)
+            sums = buf[:len(sizes)]
+            scalars = b4.adamw_finish(buf, step, max_norm=clip, b1=ADAMW_HYPER["b1"],
+                                      b2=ADAMW_HYPER["b2"])
+            ref_sums = sumsq_ref(grads)
+            norm, scale = norm_scale_ref(ref_sums, clip)
+            bc1, bc2 = bias_corrections_ref(pstep, ADAMW_HYPER["b1"], ADAMW_HYPER["b2"])
+            worst["sums"] = max(worst["sums"], max(_rel(a, b) for a, b in zip(sums, ref_sums))
+                                / ADAMW_SUM_RTOL)
+            worst["norm"] = max(worst["norm"], _rel(scalars[0], norm) / ADAMW_SUM_RTOL)
+            worst["scale"] = max(worst["scale"], _rel(scalars[1], scale) / ADAMW_SCALAR_RTOL)
+            worst["bc"] = max(worst["bc"], _rel(scalars[2], bc1) / ADAMW_SCALAR_RTOL,
+                              _rel(scalars[3], bc2) / ADAMW_SCALAR_RTOL)
+            if int(step) != int(pstep) or int(step) != s + 1:
+                worst["bc"] = math.inf
+            b4.adamw_step(grads, mus, nus, params, scalars, lr, clip=bool(clip), **ADAMW_HYPER)
+            for g, m, v, p, pp, pm, pv in zip(grads, mus, nus, params, *plain):
+                gc = (g * scalars[1].to(dtype) if clip else g).float()
+                m_mag = pm.abs().mul_(ADAMW_HYPER["b1"]).add_(gc.abs(),
+                                                              alpha=1 - ADAMW_HYPER["b1"])
+                p_old = pp.to(torch.float32, copy=True)
+                # the plain version on a float32 copy of a bf16 parameter
+                # gives its float32 p2 unrounded; it rounds to bf16 just as
+                # adamw_step_ref's own copy_ does (to nearest, ties to even)
+                p2 = p_old.clone() if dname == "bfloat16" else pp
+                adamw_step_ref(g, pm, pv, p2, scale=scalars[1] if clip else None, lr=lr,
+                               bc1=scalars[2], bc2=scalars[3], **ADAMW_HYPER)
+                if dname == "bfloat16":
+                    pp.copy_(p2)
+                m_tol = m_mag.mul_(ADAMW_MOMENT_RTOL)
+                worst["m"] = max(worst["m"], ((m - pm).abs() / (m_tol + 1e-30)).max().item())
+                # the first moment's tolerance carried into the parameter
+                carried = m_tol.div_(scalars[2]).div_(
+                    (pv / scalars[3]).sqrt_().add_(ADAMW_HYPER["eps"])).mul_(lr)
+                del m_mag, gc
+                worst["v"] = max(worst["v"], ((v - pv).abs() / pv.abs().mul_(ADAMW_MOMENT_RTOL)
+                                              .add_(1e-30)).max().item())
+                diff = (p.float() - pp.float()).abs()
+                worst_abs = max(worst_abs, diff.max().item())
+                # float32's tolerance of p2
+                lim = p_old.abs().add_((p_old - p2).abs()).mul_(ADAMW_F32_PARAM_RTOL) \
+                    .add_(carried).add_(1e-30)
+                if dname == "bfloat16":
+                    exp = torch.frexp(pp.float())[1]
+                    ulp = torch.ldexp(torch.ones_like(diff), exp - 8)
+                    worst["p"] = max(worst["p"], (diff / ulp).max().item())
+                    # a bf16 parameter may differ only where p2 lies within
+                    # float32's tolerance of the rounding midpoint of its
+                    # bf16 interval (bits: the low 16 of p2 = 0x8000)
+                    mid = (p2.view(torch.int32) & -65536 | 0x8000).view(torch.float32)
+                    off = (p2 - mid).abs_().div_(lim)
+                    worst["mid"] = max(worst["mid"], torch.where(diff > 0, off, 0.0).max().item())
+                    same += int((p == pp).sum())
+                    total += p.numel()
+                    del exp, ulp, mid, off
+                else:
+                    worst["p"] = max(worst["p"], (diff / lim).max().item())
+                del diff, p_old, p2, lim, carried, m_tol
+                pm.copy_(m)
+                pv.copy_(v)
+                pp.copy_(p)
+            del grads, plain
+        torch.cuda.synchronize()
+        bits = (f"; bf16 parameters bit-identical {same / total:.6%}, the others' distance "
+                f"to a rounding midpoint {worst['mid']:.3f} of tolerance" if total else "")
+        ok = max(worst.values()) <= 1.0
+        say(f"  {label}: {len(sizes)} leaves of {', '.join(map(str, sizes))}, base +{offset}, "
+            f"{ADAMW_STEPS} steps: of tolerance sums {worst['sums']:.3f}, norm "
+            f"{worst['norm']:.3f}, scale {worst['scale']:.3f}, bias corrections "
+            f"{worst['bc']:.3f}, m {worst['m']:.3f}, v {worst['v']:.3f}, p "
+            f"{worst['p']:.3f}{bits}{'' if ok else '  <-- FAILS'}")
+        if not ok:
+            failed.append(label)
+        del params, mus, nus
+    say(f"  largest |parameter - plain| over the cases: {worst_abs:.3e}")
+    ADAMW_ERR.append(worst_abs)
+    return failed
+
+
+def phi4_leaves():
+    """(shape, dtype) of phi4-mini-3.8b's 291 parameters at bf16 (the norm
+    scales float32), in the model's order, from a model on the meta
+    device."""
+    import repro_torch.configs as C
+    from repro_torch.models import Transformer
+
+    cfg = dataclasses.replace(C.get("phi4-mini-3.8b"), dtype="bfloat16")
+    return [(tuple(p.shape), p.dtype) for p in Transformer(cfg, device="meta").parameters()]
+
+
+def adamw_timing() -> dict:
+    """19f's timing: B4 over phi4-mini's 291 leaves (4.45 B parameters)
+    in a CUDA graph, the sum of squares with the finish and the update
+    apart and together, beside the plain version, the bound and the
+    library (``torch._foreach_norm`` and ``torch._fused_adamw_``, a
+    yardstick only)."""
+    import torch
+
+    from repro_torch.kernels.adamw import kernel as b4
+    from repro_torch.kernels.adamw.ref import (adamw_step_ref, bias_corrections_ref,
+                                               norm_scale_ref, sumsq_ref)
+
+    leaves = phi4_leaves()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    params = [torch.randn(s, generator=gen, device="cuda").to(d) for s, d in leaves]
+    grads = [torch.randn(s, generator=gen, device="cuda").mul_(1e-3).to(d) for s, d in leaves]
+    mus = [torch.randn(s, generator=gen, device="cuda").mul_(1e-3) for s, _ in leaves]
+    nus = [torch.randn(s, generator=gen, device="cuda").mul_(1e-3).square_() for s, _ in leaves]
+    step = torch.zeros((), dtype=torch.int32, device="cuda")
+    lr = torch.full((), ADAMW_LR, device="cuda")
+    n = sum(p.numel() for p in params)
+
+    def norm():
+        return b4.adamw_finish(b4.adamw_sumsq(grads), step, max_norm=1.0)
+
+    def kern():
+        b4.adamw_step(grads, mus, nus, params, norm(), lr, clip=True, **ADAMW_HYPER)
+
+    scalars = norm()
+    ref = norm_scale_ref(sumsq_ref(grads), 1.0)[0]
+    norm_r = _rel(scalars[0], ref) / ADAMW_SUM_RTOL
+    say(f"  phi4-mini's {len(leaves)} leaves, {n:,} parameters: the norm {float(scalars[0])!r} "
+        f"against the plain version's {float(ref)!r}: {norm_r:.3f} of tolerance")
+    if not norm_r <= 1.0:
+        fail("B4's norm over phi4-mini's leaves disagrees with the plain version")
+    fixed = scalars.clone()
+
+    def update():
+        b4.adamw_step(grads, mus, nus, params, fixed, lr, clip=True, **ADAMW_HYPER)
+
+    def plain():
+        out = norm_scale_ref(sumsq_ref(grads), 1.0)
+        pstep = step.clone()
+        bc1, bc2 = bias_corrections_ref(pstep, ADAMW_HYPER["b1"], ADAMW_HYPER["b2"])
+        for g, m, v, p in zip(grads, mus, nus, params):
+            adamw_step_ref(g, m, v, p, scale=out[1], lr=lr, bc1=bc1, bc2=bc2, **ADAMW_HYPER)
+
+    before = b4.launches
+    kern()
+    per_call = b4.launches - before
+    if per_call != 2 * len(leaves) + 1:
+        fail(f"B4 launched {per_call} kernels over {len(leaves)} leaves, not {2 * len(leaves) + 1}")
+    ms = {"sumsq and finish": graph_ms(norm, reps=2, iters=5),
+          "update": graph_ms(update, reps=2, iters=5),
+          "B4 (all three)": graph_ms(kern, reps=2, iters=5)}
+    eager_ms = time_ms(kern, 3, warmup=1)
+    plain_ms = graph_ms(plain, reps=1, iters=3)
+    nbytes = sum(p.numel() * (4 * p.element_size() + 16) for p in params)
+    bound_ms, bound_by = bound(19 * n, nbytes, "float32")
+    say(f"  B4 in a CUDA graph: " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+        + f" ({per_call} kernels a call: {len(leaves)} sums, the finish, {len(leaves)} "
+        f"updates); launched from Python {eager_ms:.3f} ms; plain version (graph) "
+        f"{plain_ms:.3f} ms; bound {bound_ms:.3f} ms ({bound_by}: {nbytes / 1e9:.3f} GB, "
+        f"{nbytes / n:.2f} B a parameter), B4 at {bound_ms / ms['B4 (all three)']:.1%} of it")
+
+    # the library: one fused AdamW call per dtype group, after the norms
+    groups: dict = {}
+    for i, p in enumerate(params):
+        groups.setdefault(p.dtype, []).append(i)
+    lib_note, lib_layout = "", "bf16 parameters and gradients, float32 moments (the port's)"
+    lib_mus, lib_nus = mus, nus
+    steps = [torch.zeros((), device="cuda") for _ in params]
+
+    def library():
+        torch._foreach_norm(grads)
+        for idx in groups.values():
+            torch._fused_adamw_([params[i] for i in idx], [grads[i] for i in idx],
+                                [lib_mus[i] for i in idx], [lib_nus[i] for i in idx], [],
+                                [steps[i] for i in idx], lr=ADAMW_LR, beta1=0.9, beta2=0.95,
+                                weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False)
+
+    try:
+        library()
+        torch.cuda.synchronize()
+    except RuntimeError as err:
+        lib_note = f"refused the port's layout ({str(err).splitlines()[0][:120]}); "
+        lib_layout = (f"moments in the parameters' dtype (bf16 for "
+                      f"{sum(p.dtype == torch.bfloat16 for p in params)} leaves)")
+        del mus[:], nus[:]
+        torch.cuda.empty_cache()
+        lib_mus = [torch.zeros_like(p) for p in params]
+        lib_nus = [torch.zeros_like(p) for p in params]
+    # the gradient read twice (the norm, the update), the parameter and
+    # both moments read and written once
+    lib_bytes = sum(p.numel() * 4 * p.element_size() + m.numel() * 4 * m.element_size()
+                    for p, m in zip(params, lib_mus))
+    lib_ms = graph_ms(library, reps=1, iters=3)
+    say(f"  library (torch._foreach_norm + torch._fused_adamw_ per dtype group, no clip, a "
+        f"yardstick only): {lib_note}{lib_layout}: {lib_ms:.3f} ms in a CUDA graph, moving "
+        f"{lib_bytes / 1e9:.3f} GB ({lib_bytes / 1e9 / 3.35:.3f} ms at 3.35 TB/s); "
+        f"{nvidia_smi()}")
+    del params, grads, mus, nus, lib_mus, lib_nus
+    return dict(ms=ms["B4 (all three)"], sumsq_finish_ms=ms["sumsq and finish"],
+                update_ms=ms["update"], eager_ms=eager_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, library_ms=lib_ms,
+                library_layout=lib_layout, kernels_per_call=per_call,
+                max_abs_err=max(ADAMW_ERR))
+
+
+def train_adamw() -> dict:
+    """19f: B4 against its plain version (:data:`ADAMW_CASES`), then timed
+    over phi4-mini's leaves."""
+    release()
+    say(f"-- 19f: B4 (AdamW: sum of squares, finish, update) against its plain version, "
+        f"{len(ADAMW_CASES)} cases x {ADAMW_STEPS} steps (moments rtol {ADAMW_MOMENT_RTOL} of "
+        f"their terms, float32 p rtol {ADAMW_F32_PARAM_RTOL}, bf16 p 1 ulp, sums and norm rtol "
+        f"{ADAMW_SUM_RTOL}, scale and bias corrections rtol {ADAMW_SCALAR_RTOL})")
+    failed = adamw_check()
+    if failed:
+        fail(f"B4 disagrees with its plain version in {failed}")
+    release()
+    record = adamw_timing()
+    release()
+    return record
+
+
 # substrings of the names of cuBLAS's matrix-product kernels (on Hopper,
 # CUDA 12's cuBLAS names most of them nvjet_*)
 GEMM_NAMES = ("nvjet", "gemm", "xmma", "cutlass", "cublas")
+# B4's three kernels, by a substring of their names
+B4_KERNELS = ("adamw_sumsq", "adamw_finish", "adamw_step")
+# B4 in the profiled training replays: replays read, the B4 kernels the
+# profiler saw in them, and the kernels the wrapper counted when the step
+# was captured (the kernels line's kernels_per_launch is their ratio)
+B4_REPLAYS = {"replays": 0, "kernels": 0, "calls": 0}
 
 
 def kernels_in_replay(run, attempts: int = 4) -> list:
@@ -3344,6 +3669,7 @@ def train_phi4() -> dict:
     import repro_torch.configs as C
     from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
     from repro_torch.data import SyntheticLM, data_config_for
+    from repro_torch.kernels.adamw import kernel as b4
     from repro_torch.kernels.flash_attention import backward, kernel
     from repro_torch.launch import serve
     from repro_torch.models import Transformer
@@ -3355,6 +3681,8 @@ def train_phi4() -> dict:
     cfg = dataclasses.replace(C.get("phi4-mini-3.8b"), dtype="bfloat16")
     data = SyntheticLM(data_config_for(cfg, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ))
     batches = [data.batch(i) for i in range(TRAIN_REPLAYS + 1)]
+    leaves = len(phi4_leaves())
+    b4_step = 2 * leaves + 1        # B4's kernels a step: the sums, the finish, the updates
     tokens = TRAIN_BATCH * TRAIN_SEQ
 
     def lr(step):
@@ -3377,8 +3705,8 @@ def train_phi4() -> dict:
         f"initialised in {time.perf_counter() - t0:.1f}s")
 
     # eager steps (run-time scheduled: PyTorch's own loop)
-    kernel.launches = backward.launches = 0          # the path's run starts here
-    copies = kernel.layout_copies
+    kernel.launches = backward.launches = b4.launches = 0     # the path's run starts here
+    copies, b4_copies = kernel.layout_copies, b4.layout_copies
     eager_loss, eager_gnorm, eager_ms = [], [], []
     torch.cuda.reset_peak_memory_stats()
     for i in range(TRAIN_EAGER):
@@ -3392,12 +3720,16 @@ def train_phi4() -> dict:
     eager_peak = torch.cuda.max_memory_allocated()
     eager_params = [p.detach().cpu() for p in model.parameters()]
     eager_counts = (kernel.launches, backward.launches)
+    eager_b4 = b4.launches
     say(f"  eager steps: loss {eager_loss}, ms {[round(x, 3) for x in eager_ms]}, peak "
         f"memory {eager_peak / 2**30:.2f} GiB; B1 forward launches {eager_counts[0]}, "
-        f"backward launches {eager_counts[1]}")
+        f"backward launches {eager_counts[1]}; B4 kernels {eager_b4} ({TRAIN_EAGER} x "
+        f"{b4_step}: {leaves} sums, the finish, {leaves} updates a step)")
     if eager_counts != (TRAIN_EAGER * cfg.n_layers,) * 2:
         fail(f"eager steps launched B1 {eager_counts} times, not {TRAIN_EAGER} x "
              f"{cfg.n_layers} forward and backward")
+    if eager_b4 != TRAIN_EAGER * b4_step:
+        fail(f"eager steps launched {eager_b4} B4 kernels, not {TRAIN_EAGER} x {b4_step}")
     del model, state
     gc.collect()
     torch.cuda.empty_cache()
@@ -3411,11 +3743,15 @@ def train_phi4() -> dict:
         f"of loss and grads, empty_cache, capture); peak memory {seal_peak / 2**30:.2f} GiB, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated after")
     seal_counts = (kernel.launches - eager_counts[0], backward.launches - eager_counts[1])
-    copies = kernel.layout_copies - copies
+    seal_b4 = b4.launches - eager_b4
+    copies, b4_copies = kernel.layout_copies - copies, b4.layout_copies - b4_copies
     say(f"  layout copies by B1's forward and backward over the eager steps and the seal: "
-        f"{copies}")
+        f"{copies}; gradients B4 copied to be contiguous: {b4_copies}; B4 kernels by the seal "
+        f"{seal_b4} (the capture's: {leaves} sums, the finish, {leaves} updates)")
     if copies:
         fail(f"the training path copied {copies} inputs of B1 that the kernels should read in place")
+    if seal_b4 != b4_step:
+        fail(f"the seal launched {seal_b4} B4 kernels, not {b4_step}")
     losses, replay_ms, gnorms = [], [], []
     for i in range(TRAIN_REPLAYS):
         torch.cuda.synchronize()
@@ -3459,20 +3795,34 @@ def train_phi4() -> dict:
 
     events = kernels_in_replay(lambda: sealed())
     kinds = _b1_kernels(events)
+    b4_kinds = {kind: sum(1 for e in events if kind in e.name) for kind in B4_KERNELS}
     rows = sorted(by_kernel(events), reverse=True)
     total = sum(us for us, _, _ in rows)
     b1 = {kind: sum(us for us, _, key in rows if kind in key) for kind in kinds}
+    b4_us = {kind: sum(us for us, _, key in rows if kind in key) for kind in B4_KERNELS}
     gemm = sum(us for us, _, key in rows if any(w in key.lower() for w in GEMM_NAMES))
+    rest = total - gemm - sum(b1.values()) - sum(b4_us.values())
     say(f"  one profiled replay: {sum(c for _, c, _ in rows)} device kernels, "
-        f"{total / 1e3:.3f} ms of kernel time: cuBLAS products {gemm / 1e3:.3f} ms "
-        f"({gemm / total:.1%}), B1 {sum(b1.values()) / 1e3:.3f} ms "
-        f"({sum(b1.values()) / total:.1%}), the rest (element-wise: AdamW's float32 passes, "
-        f"casts, norms, the loss) {(total - gemm - sum(b1.values())) / 1e3:.3f} ms; B1 {kinds} ("
+        f"{total / 1e3:.3f} ms of kernel time: B4 {sum(b4_us.values()) / 1e3:.3f} ms "
+        f"({sum(b4_us.values()) / total:.1%}: "
+        + ", ".join(f"{k} x{b4_kinds[k]} {v / 1e3:.3f} ms" for k, v in b4_us.items())
+        + f"), cuBLAS products {gemm / 1e3:.3f} ms ({gemm / total:.1%}), B1 "
+        f"{sum(b1.values()) / 1e3:.3f} ms ({sum(b1.values()) / total:.1%}), the rest "
+        f"(element-wise: casts, norms, the loss, the gradients' sums) {rest / 1e3:.3f} ms "
+        f"({rest / total:.1%}); B1 {kinds} ("
         + ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in b1.items()) + "); top:")
     for us, count, key in rows[:6]:
         say(f"      {us / 1e3:9.3f} ms x{count:4d}  {key[:90]}")
     if kinds != {kind: cfg.n_layers for kind in kinds}:
         fail(f"a replay ran B1's kernels {kinds}, not {cfg.n_layers} of each")
+    want_b4 = {"adamw_sumsq": leaves, "adamw_finish": 1, "adamw_step": leaves}
+    B4_REPLAYS["replays"] += 1
+    B4_REPLAYS["kernels"] += sum(b4_kinds.values())
+    B4_REPLAYS["calls"] += seal_b4
+    say(f"  B4 in the profiled replay: {sum(b4_kinds.values())} kernels for the {seal_b4} the "
+        f"wrapper counted in the capture")
+    if b4_kinds != want_b4:
+        fail(f"a replay ran B4's kernels {b4_kinds}, not {want_b4}")
 
     # checkpoint: the parameters now, one replay, then the same parameters
     # restored into a fresh model and copied into the graph's: same loss
@@ -3502,14 +3852,16 @@ def train_phi4() -> dict:
                      replay_loss=losses[:TRAIN_EAGER], replay_gnorm=gnorms[:TRAIN_EAGER],
                      params=replay_params, eager_counts=eager_counts, seal_counts=seal_counts,
                      eager_ms=eager_med, replay_ms=replay_med, replay_device_ms=dev_ms,
-                     eager_peak=eager_peak, base=base)
+                     eager_peak=eager_peak, base=base, eager_b4=eager_b4, seal_b4=seal_b4)
     return dict(eager_ms=eager_med, replay_ms=replay_med, replay_device_ms=dev_ms,
                 reference=reference,
                 tokens_per_step=tokens, seal_s=seal_s, seal_peak_gib=seal_peak / 2**30,
                 eager_peak_gib=eager_peak / 2**30, losses=losses,
                 fwd_launches=kernel.launches, bwd_launches=backward.launches,
                 seal_launches=seal_counts, in_replay=kinds, b1_replay_ms=b1,
-                layout_copies=copies)
+                layout_copies=copies, b4_in_replay=b4_kinds, b4_replay_ms=b4_us,
+                replay_kernel_ms=total / 1e3, replay_kernels=sum(c for _, c, _ in rows),
+                tokens_per_s=tokens / replay_med * 1e3)
 
 
 def train_card_vs_cpu() -> dict:
@@ -3522,6 +3874,7 @@ def train_card_vs_cpu() -> dict:
 
     import repro_torch.configs as C
     from repro_torch.data import SyntheticLM, data_config_for
+    from repro_torch.kernels.adamw import kernel as b4
     from repro_torch.kernels.flash_attention import backward, kernel
     from repro_torch.kernels.stream_pack import kernel as pack
     from repro_torch.launch import serve
@@ -3540,7 +3893,7 @@ def train_card_vs_cpu() -> dict:
         on_cpu = Transformer(cfg, device="cpu")
         on_cpu.load_state_dict(on_card.state_dict())
         step = make_train_step(cfg, lr=lr)
-        before = (kernel.launches, backward.launches, pack.launches)
+        before = (kernel.launches, backward.launches, pack.launches, b4.launches)
         got = {}
         for dev, model in (("cuda", on_card), ("cpu", on_cpu)):
             sealed = seal_train_step(step, model, adamw_init(dict(model.named_parameters())),
@@ -3550,20 +3903,24 @@ def train_card_vs_cpu() -> dict:
             if dev == "cuda" and sealed.graph is None:
                 fail(f"{arch}: the step on the card was not sealed as a CUDA graph")
         counts[arch] = tuple(c1 - c0 for c1, c0 in zip(
-            (kernel.launches, backward.launches, pack.launches), before))
+            (kernel.launches, backward.launches, pack.launches, b4.launches), before))
         perr = max((a.detach().cpu() - b.detach()).abs().max().item()
                    for a, b in zip(on_card.parameters(), on_cpu.parameters()))
         rel = max(abs(got["cuda"][k] - got["cpu"][k]) / max(abs(got["cpu"][k]), 1e-12)
                   for k in ("loss", "grad_norm"))
         say(f"  {cfg.name}: card {got['cuda']} | cpu {got['cpu']} | loss/grad norm "
             f"{rel:.2e} relative, parameters max |diff| {perr:.3e} | wrapper calls on the card "
-            f"(B1 forward, B1 backward, B2) {counts[arch]}")
+            f"(B1 forward, B1 backward, B2; B4 kernels) {counts[arch]}")
         if not (rel <= TRAIN_RTOL and perr <= TRAIN_PARAM_ATOL_LR * lr):
             fail(f"{cfg.name}: the step on the card differs from the CPU's")
         if arch != "deepseek-v2-236b" and min(counts[arch][:2]) == 0:
             fail(f"{cfg.name}: the step on the card never launched B1 or its backward")
         if cfg.moe is not None and counts[arch][2] == 0:
             fail(f"{cfg.name}: the step on the card never launched B2")
+        leaves = len(list(on_card.parameters()))
+        if counts[arch][3] != 2 * leaves + 1:
+            fail(f"{cfg.name}: the sealed step launched {counts[arch][3]} B4 kernels, not the "
+                 f"capture's {2 * leaves + 1}")
     return counts
 
 
@@ -3624,18 +3981,22 @@ def train_nimble_grads() -> dict:
 
 
 def phase_train(number: int) -> dict:
-    """Phase 19: training on the card (19a-19e)."""
+    """Phase 19: training on the card (19a, 19b, 19f, 19c, 19d, 19e)."""
     from repro_torch.kernels.flash_attention import backward
 
     say(f"== phase {number}: training on the card")
     train_kernel_sweep()
     bwd_record = train_kernel_timing()
     pack_record = train_b2_backward()
-    phi4 = train_phi4()
+    adamw_record = train_adamw()
+    with b4_path("train phi4-mini-3.8b (eager steps, seal)"):
+        phi4 = train_phi4()
     backward.launches = 0
-    smoke = train_card_vs_cpu()
+    with b4_path("train smoke configs on the card"):
+        smoke = train_card_vs_cpu()
     nimble = train_nimble_grads()
-    return dict(bwd=bwd_record, pack=pack_record, phi4=phi4, smoke=smoke, nimble=nimble)
+    return dict(bwd=bwd_record, pack=pack_record, adamw=adamw_record, phi4=phi4, smoke=smoke,
+                nimble=nimble)
 
 
 # phase 20: decode_32k's per-device share (128 sequences over the 16-way data
@@ -3960,6 +4321,7 @@ def sharded_train(mesh, ref: dict) -> dict:
     import repro_torch.configs as C
     from repro_torch.data import SyntheticLM, data_config_for, shard_batch
     from repro_torch.distributed import shard_model
+    from repro_torch.kernels.adamw import kernel as b4
     from repro_torch.kernels.flash_attention import backward, kernel, ops
     from repro_torch.launch import serve
     from repro_torch.models import param_axes
@@ -3991,6 +4353,7 @@ def sharded_train(mesh, ref: dict) -> dict:
 
     # eager steps: DTensor's dispatch on the host around the same kernels
     kernel.launches = backward.launches = ops.on_shards = 0     # the path's run starts here
+    b4_start = b4.launches
     copies = kernel.layout_copies
     eager_loss, eager_gnorm, eager_ms = [], [], []
     with CommDebugMode() as comm:
@@ -4003,10 +4366,14 @@ def sharded_train(mesh, ref: dict) -> dict:
             eager_gnorm.append(float(m["grad_norm"]))
             del m
     eager_counts = (kernel.launches, backward.launches)
+    eager_b4 = b4.launches - b4_start
     say(f"  eager steps: loss {eager_loss} (19c {ref['eager_loss']}), grad norm {eager_gnorm} "
         f"(19c {ref['eager_gnorm']}), ms {[round(x, 3) for x in eager_ms]}; B1 forward, "
         f"backward launches {eager_counts} (19c {ref['eager_counts']}), through local_map "
-        f"{ops.on_shards}; collectives {comm.get_total_counts()}")
+        f"{ops.on_shards}; B4 kernels on the local shards {eager_b4} (19c {ref['eager_b4']}); "
+        f"collectives {comm.get_total_counts()}")
+    if eager_b4 != ref["eager_b4"]:
+        fail(f"the sharded eager steps launched {eager_b4} B4 kernels, 19c {ref['eager_b4']}")
     if (eager_loss, eager_gnorm) != (ref["eager_loss"], ref["eager_gnorm"]):
         fail("the sharded eager steps differ from 19c's bit for bit")
     if eager_counts != ref["eager_counts"] or ops.on_shards != eager_counts[0]:
@@ -4022,12 +4389,14 @@ def sharded_train(mesh, ref: dict) -> dict:
     model, state = fresh()
     sealed = seal_train_step(step_fn, model, state, batches[0])
     seal_counts = (kernel.launches - eager_counts[0], backward.launches - eager_counts[1])
+    seal_b4 = b4.launches - b4_start - eager_b4
     copies = kernel.layout_copies - copies
     say(f"  sealed as one CUDA graph in {sealed.seal_s:.2f}s; B1 launches by the seal "
-        f"{seal_counts} (19c {ref['seal_counts']}); layout copies over the phase {copies}")
-    if seal_counts != ref["seal_counts"] or copies:
-        fail(f"the sharded seal launched B1 {seal_counts} (19c {ref['seal_counts']}), "
-             f"layout copies {copies}")
+        f"{seal_counts} (19c {ref['seal_counts']}); B4 kernels by the seal {seal_b4} (19c "
+        f"{ref['seal_b4']}); layout copies over the phase {copies}")
+    if seal_counts != ref["seal_counts"] or copies or seal_b4 != ref["seal_b4"]:
+        fail(f"the sharded seal launched B1 {seal_counts} (19c {ref['seal_counts']}), B4 "
+             f"{seal_b4} (19c {ref['seal_b4']}), layout copies {copies}")
     losses, gnorms, replay_ms = [], [], []
     for i in range(n_steps):
         torch.cuda.synchronize()
@@ -4165,6 +4534,7 @@ def sharded_recurrent_train(mesh) -> dict:
     import repro_torch.configs as C
     from repro_torch.data import SyntheticLM, data_config_for, shard_batch
     from repro_torch.distributed import shard_model
+    from repro_torch.kernels.adamw import kernel as b4
     from repro_torch.launch import serve
     from repro_torch.models import param_axes
     from repro_torch.optim import adamw_init
@@ -4185,6 +4555,8 @@ def sharded_recurrent_train(mesh) -> dict:
 
         step_fn = make_train_step(cfg, lr=TRAIN_LR, mesh=on)
         model, state = fresh()
+        leaves = len(list(model.parameters()))
+        b4_start = b4.launches
         eager, ms = [], []
         with CommDebugMode() as comm:
             for b in batches:
@@ -4206,6 +4578,7 @@ def sharded_recurrent_train(mesh) -> dict:
             replays.append((float(m["loss"]), float(m["grad_norm"])))
         replay_params = _local_cpu(model)        # before the timed replays move them
         out = dict(eager=eager, eager_params=eager_params, replays=replays,
+                   b4=(b4.launches - b4_start, (TRAIN_EAGER + 1) * (2 * leaves + 1)),
                    replay_params=replay_params, eager_ms=ms, seal_s=sealed.seal_s,
                    replay_ms=time_ms(sealed.graph.replay, 3, warmup=1),
                    collectives=comm.get_total_counts(),
@@ -4241,6 +4614,10 @@ def sharded_recurrent_train(mesh) -> dict:
         fail("xlstm-125m's sharded train steps differ from the unsharded ones bit for bit")
     if got["collectives"]:
         fail(f"a (1, 1) mesh ran collectives: {got['collectives']}")
+    say(f"  B4 kernels (launched, want: {TRAIN_EAGER} eager steps and the seal's capture): "
+        f"sharded {got['b4']}, unsharded {want['b4']}")
+    if got["b4"][0] != got["b4"][1] or want["b4"][0] != want["b4"][1]:
+        fail("xlstm-125m's train steps did not run B4 as often as their leaves want")
     return dict(losses=[x[0] for x in got["eager"]], eager_ms=got["eager_ms"],
                 replay_ms=got["replay_ms"], unsharded_replay_ms=want["replay_ms"])
 
@@ -4315,11 +4692,13 @@ def phase_sharded(number: int, reference: dict) -> dict:
     only: NCCL refuses two ranks on one card."""
     say(f"== phase {number}: sharded execution on one card (NCCL, world 1, a (1, 1) mesh)")
     with one_card_mesh() as mesh:
-        train = sharded_train(mesh, reference)
+        with b4_path("sharded train phi4-mini-3.8b on a (1, 1) mesh (eager steps, seal)"):
+            train = sharded_train(mesh, reference)
         fwd = sharded_forward(mesh)
     memory = memory_count(reference)
     with one_card_mesh() as mesh:
-        recurrent = sharded_recurrent_train(mesh)
+        with b4_path("train xlstm-125m unsharded and on a (1, 1) mesh"):
+            recurrent = sharded_recurrent_train(mesh)
         hybrid = sharded_hybrid_forward(mesh)
     release()
     return dict(train=train, forward=fwd, memory=memory, recurrent=recurrent, hybrid=hybrid)
@@ -4364,6 +4743,23 @@ def b3_instances(seen: set):
         yield seen
     finally:
         layers.decode_attention = inner
+
+
+# B4's launches on each training path (the count set to 0 just before the
+# path and read just after it)
+B4_BY_PATH: dict[str, int] = {}
+
+
+@contextlib.contextmanager
+def b4_path(name: str):
+    """Count B4's launches over one path into ``B4_BY_PATH[name]``."""
+    from repro_torch.kernels.adamw import kernel as b4
+
+    b4.launches = 0
+    try:
+        yield
+    finally:
+        B4_BY_PATH[name] = B4_BY_PATH.get(name, 0) + b4.launches
 
 
 def main() -> None:
@@ -4432,6 +4828,10 @@ def main() -> None:
         fail(f"the paths made {decode.layout_copies} layout copies for B3")
     say(f"B3 launches by path: {B3_BY_PATH}; kernels (dtype, hd, rows) the paths ran, each "
         f"checked in phase 3b: {sorted(b3_seen)}; 0 layout copies")
+    idle = sorted(name for name, n in B4_BY_PATH.items() if n == 0)
+    if idle:
+        fail(f"B4 was launched no time on the paths {idle}")
+    say(f"B4 kernels by path: {B4_BY_PATH}")
     # launches: the wrappers' counts over the paths' runs (each path's
     # counts set to 0 just before it), by path under launches_by_path;
     # launches_in_replays: the kernels the profiler saw in the paths'
@@ -4506,6 +4906,17 @@ def main() -> None:
         kernels_per_launch=B3_REPLAYS["kernels"] / max(B3_REPLAYS["calls"], 1),
         layout_copies=decode.layout_copies,
         **b3_record,
+    ), dict(
+        name="adamw", route="cuda",
+        source="src/repro_torch/kernels/adamw/csrc/adamw.cu",
+        replaces="none: not a TPU kernel; XLA's fusion of src/repro/optim/adamw.py:29-71 "
+                 "inside the jitted step (src/repro/launch/train.py:76)",
+        note="launches count kernels: a step is one sum of squares and one update a leaf "
+             "and one finish; ms, plain_ms, bound_ms and library_ms are over phi4-mini's "
+             "291 leaves in a CUDA graph",
+        launches=sum(B4_BY_PATH.values()), launches_by_path=dict(B4_BY_PATH),
+        launches_in_replays=B4_REPLAYS["kernels"], profiled_replays=B4_REPLAYS["replays"],
+        kernels_per_launch=B4_REPLAYS["kernels"] / max(B4_REPLAYS["calls"], 1), **train["adamw"],
     )]
     say(f"all phases passed in {time.perf_counter() - t_start:.1f}s; seconds by phase: "
         f"{phase_seconds(time.perf_counter())}")

@@ -19,16 +19,19 @@ PLAIN_DEVICES = ("cpu", "meta")
 
 #: who watches the plain versions run in their kernels' places (the dry
 #: run's counter, ``launch.comm_analysis.CommCounter``): the innermost is
-#: called as ``watcher(fn, args)`` and returns ``fn(*args)``
+#: called as ``watcher(fn, args, writes)`` and returns ``fn(*args)``
 plain_watchers: list = []
 
 
-def run_plain(fn, *args):
+def run_plain(fn, *args, writes=()):
     """``fn(*args)``, a kernel's plain version run in the kernel's place:
     a watcher counts it as the one launch it stands for (its inputs read,
-    its outputs written, no intermediate in memory)."""
+    its outputs written, no intermediate in memory).  ``writes`` names the
+    tensors among the inputs that the kernel writes in place (a tree of
+    them): they count as read and written, and as made by no one.  A
+    version that writes in place returns None or only tensors it makes."""
     if plain_watchers:
-        return plain_watchers[-1](fn, args)
+        return plain_watchers[-1](fn, args, writes)
     return fn(*args)
 
 
@@ -46,6 +49,7 @@ KERNEL_MODULES = {
     "flash_attention_bwd": f"{__name__}.flash_attention.backward",
     "stream_pack": f"{__name__}.stream_pack.kernel",
     "decode_attention": f"{__name__}.decode_attention.kernel",
+    "adamw": f"{__name__}.adamw.kernel",
 }
 
 

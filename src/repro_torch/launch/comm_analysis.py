@@ -33,7 +33,9 @@ A kernel's plain version (the meta device and the CPU run it in the
 kernel's place, through ``repro_torch.kernels.run_plain``) counts as the
 one launch it stands for: its inputs read and its outputs written and
 made, none of its intermediates (B1's plain version holds every score);
-its products' FLOPs are counted as they run.
+its products' FLOPs are counted as they run.  The tensors it names as
+written in place (AdamW's parameters and moments) count as read and
+written, and as made by no one.
 """
 
 from __future__ import annotations
@@ -140,14 +142,15 @@ class CommCounter(CommDebugMode):
         plain_watchers.remove(self._plain)
         return super().__exit__(*exc)
 
-    def _plain(self, fn, args):
-        """A kernel's plain version run under the counter: one launch."""
+    def _plain(self, fn, args, writes=()):
+        """A kernel's plain version run under the counter: one launch, which
+        writes ``writes`` in place."""
         self._in_plain += 1
         try:
             out = fn(*args)
         finally:
             self._in_plain -= 1
-        self._account(_tensors(args, []), _tensors(out, []))
+        self._account(_tensors(args, []), _tensors(out, []), written=_tensors(writes, []))
         return out
 
     def made(self, t: torch.Tensor) -> bool:
@@ -195,21 +198,25 @@ class CommCounter(CommDebugMode):
                       made=not mutable, accessed=not collective)
         return out
 
-    def _account(self, ins, outs, *, made: bool = True, accessed: bool = True) -> None:
+    def _account(self, ins, outs, *, made: bool = True, accessed: bool = True,
+                 written=()) -> None:
         """Count an op's (or a plain version's) tensors: with ``made``, the
         storages of ``outs`` that no input shares as made; with
-        ``accessed``, all their bytes as read or written.  An op whose every
-        output shares an input's storage is a view by another name
-        (``_unsafe_view``) and counts for neither."""
+        ``accessed``, all their bytes as read or written, and the bytes of
+        ``written`` (inputs written in place) once more.  An op that
+        writes nothing in place and whose every output shares an input's
+        storage is a view by another name (``_unsafe_view``) and counts for
+        neither."""
         if made:
             inputs = {id(t.untyped_storage()) for t in ins}
             new = [st for st in (t.untyped_storage() for t in outs) if id(st) not in inputs]
-            if outs and not new:
+            if outs and not new and not written:
                 return
             for st in new:
                 self._track(st)
         if accessed:
-            self.bytes_accessed += sum(t.numel() * t.element_size() for t in ins + outs)
+            self.bytes_accessed += sum(t.numel() * t.element_size()
+                                       for t in ins + outs + list(written))
 
     def _track(self, storage) -> None:
         key = id(storage)

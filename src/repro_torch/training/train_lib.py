@@ -101,7 +101,10 @@ def trainable(model) -> dict[str, torch.nn.Parameter]:
 def _as_param(g: torch.Tensor | None, p: torch.Tensor) -> torch.Tensor:
     """A parameter's gradient laid out as the parameter (zeros if it has
     none): a DTensor gradient may come back partial (summed over the data
-    axis) or otherwise placed."""
+    axis) or otherwise placed.  A parameter the loss does not reach gets
+    zeros, as ``jax.grad`` gives it, and AdamW still updates it: its
+    moments decay and its weight decays.  Skipping such leaves would save
+    B4 a pass over them but change the optimizer's state."""
     if g is None:
         return torch.zeros_like(p)
     if isinstance(g, DTensor) and g.placements != p.placements:

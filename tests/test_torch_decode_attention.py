@@ -199,7 +199,7 @@ def _small(device="cpu", dtype=torch.float32, new=True):
 def test_cpu_and_meta_take_the_plain_version_through_run_plain():
     seen = []
 
-    def watcher(fn, args):
+    def watcher(fn, args, writes=()):
         seen.append(len(args))
         return fn(*args)
 

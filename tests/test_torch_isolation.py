@@ -19,7 +19,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
     ROOT / "examples" / "branchy_inference_torch.py", ROOT / "examples" / "serve_llm_torch.py",
-    ROOT / "examples" / "train_lm_torch.py", ROOT / "tools" / "decode_variants.py"]
+    ROOT / "examples" / "train_lm_torch.py", ROOT / "tools" / "decode_variants.py",
+    ROOT / "tools" / "adamw_faults.py", ROOT / "tools" / "train_phi4_step.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -71,7 +72,10 @@ def test_port_file_list_is_complete():
                  "src/repro_torch/distributed/__init__.py", "src/repro_torch/launch/mesh.py",
                  "src/repro_torch/launch/dryrun.py", "src/repro_torch/launch/comm_analysis.py",
                  "src/repro_torch/kernels/decode_attention/kernel.py",
-                 "src/repro_torch/kernels/decode_attention/ref.py"):
+                 "src/repro_torch/kernels/decode_attention/ref.py",
+                 "src/repro_torch/kernels/adamw/kernel.py",
+                 "src/repro_torch/kernels/adamw/ref.py", "tools/adamw_faults.py",
+                 "tools/train_phi4_step.py"):
         assert must in names
 
 

@@ -435,9 +435,12 @@ def test_worker_engines_serve_the_in_process_tokens(start_method):
             assert list(fa.result(timeout=120).generated) == w
             assert list(fb.result(timeout=120).generated) == w
         snap = disp.snapshot()["async"]["workers"]
-    assert all(w["stats"]["kernel_launches"] == {"flash_attention": 0, "flash_attention_bwd": 0,
-                                                 "stream_pack": 0, "decode_attention": 0}
-               for w in snap["workers"])      # the CPU takes the plain versions
+    # the CPU takes the plain versions: every kernel module the worker has
+    # imported (a forked worker inherits the parent's, B4's among them)
+    # counts 0 launches
+    serving = {"flash_attention", "flash_attention_bwd", "stream_pack", "decode_attention"}
+    assert all(serving <= set(w["stats"]["kernel_launches"])
+               and not any(w["stats"]["kernel_launches"].values()) for w in snap["workers"])
     assert plane.leaked() == []
     _assert_no_orphans()
 
