@@ -8,9 +8,9 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
 1. device: name, count, power limit; TF32 off for float32 matmuls and
    convolutions;
 2. build: compile the kernels (flash attention B1, its backward, stream_pack
-   B2, decode attention B3) for sm_90a, one nvcc for each source, all
-   started together; print their ptxas register / shared-memory / spill
-   reports;
+   B2, decode attention B3, AdamW B4, cross-entropy B5) for sm_90a, one nvcc
+   for each source, all started together; print their ptxas register /
+   shared-memory / spill reports;
 3. kernel against its plain PyTorch version on the card over a sweep of
    dtypes, head dims (zamba2's 80 among them), GQA groups, lengths (ragged
    ones included), windows, soft-caps (with scores large enough for the cap
@@ -163,15 +163,28 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
     (``ADAMW_CASES``, the tolerances beside them), then timed over
     phi4-mini's 291 leaves in a CUDA graph beside the plain version, the
     bound and ``torch._foreach_norm`` + ``torch._fused_adamw_`` (a
-    yardstick only); (c) phi4-mini-3.8b at full width and depth, bf16,
+    yardstick only); (g) B5, the loss on a vocabulary shard (a partials
+    pass and a backward), against its plain version at every shape the
+    training paths give it (19c's 2 x 512 x 200192 logits: phi4-mini's
+    vocabulary padded to 200192 columns, 21d's xlstm-125m, 19d's smoke
+    configs), one device's shard at phi4-mini's train_4k on 16x16 (65536 x
+    12512 from column 62560), a width off the 4-column
+    group, the last of an uneven split, a base off 16 bytes and -inf
+    columns that fill whole groups, each with
+    labels -1, 0, the shard's last column, outside the shard and a fully
+    masked sequence (tolerances beside ``CE_GRAD_RTOL``), then timed at
+    19c's shape, the shard and xlstm's in a CUDA graph and from Python
+    beside the plain version, the bound and ``F.cross_entropy``'s forward
+    + backward (a yardstick only); (c) phi4-mini-3.8b at full width and depth, bf16,
     AdamW on B4 with the cosine schedule, batch 2 x 512 from
     ``SyntheticLM``: 3 eager steps against 3 replays of the step sealed as
     one CUDA graph from the same state, 30 replays in all (the loss must
     fall), ms per step eager and replayed (Fig. 8's quantity), B1's layout
-    copies (must be 0), B4's kernels eager and by the seal, the profiler's
-    count of B1's forward and backward kernels (32 of each) and of B4's
-    (291 sums, a finish, 291 updates) in one replay with B4's share of its
-    time, and a checkpoint
+    copies (must be 0), B4's and B5's kernels eager and by the seal (the
+    seal's warm-up counted apart from its capture), the profiler's count of
+    B1's forward and backward kernels (32 of each), of B4's (291 sums, a
+    finish, 291 updates) and of B5's (a partials pass and a backward) in
+    one replay with each one's share of its time, and a checkpoint
     restored into a fresh model giving the next replay's loss bit for bit;
     (d) the phi4-mini, arctic and deepseek-v2 smoke configs at float32: one
     sealed step on the card (B4's kernels counted) against the CPU's; (e) Nimble over the
@@ -236,7 +249,12 @@ B3's launches are counted over each decode path (``B3_BY_PATH``: phases
 4, 5, 8, 10-13, 15-18 and 20b, each of which must launch it), every B3
 kernel (dtype, head dim, rows) the paths ran must be one phase 3b checked,
 and no phase after 3b may make a layout copy for it; the profiled decode
-replays held and B3's kernels in them are counted (``B3_REPLAYS``).
+replays held and B3's kernels in them are counted (``B3_REPLAYS``).  B4's
+and B5's launches are counted over each training path (``B4_BY_PATH``,
+``B5_BY_PATH``: 19c, 19d, 21a, 21d, each of which must launch them), and
+the profiled training replay's B1-backward, B4 and B5 kernels over the
+wrapper's counts for the capture (``B1BWD_REPLAYS``, ``B4_REPLAYS``,
+``B5_REPLAYS``): the kernels line prints these measured counts.
 
 The line before the last is the per-kernel JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -253,6 +271,7 @@ import sys
 import time
 import warnings
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 
@@ -381,13 +400,15 @@ def phase_build():
 
     from repro_torch.kernels import build
     from repro_torch.kernels.adamw import kernel as adamw
+    from repro_torch.kernels.cross_entropy import kernel as ce
     from repro_torch.kernels.decode_attention import kernel as decode
     from repro_torch.kernels.flash_attention import backward as flash_bwd
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.stream_pack import kernel as pack
 
     say("== phase 2: build")
-    sources = [flash.SOURCE, flash_bwd.SOURCE, pack.SOURCE, decode.SOURCE, adamw.SOURCE]
+    sources = [flash.SOURCE, flash_bwd.SOURCE, pack.SOURCE, decode.SOURCE, adamw.SOURCE,
+               ce.SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:      # one nvcc per source
         list(pool.map(build.build, sources))
@@ -3595,6 +3616,282 @@ def train_adamw() -> dict:
     return record
 
 
+# 19g: B5 (cross-entropy on a vocabulary shard).  Each case is a batch x seq
+# of token rows over one shard, the columns [start, start + width) of a
+# vocabulary of vocab; offset puts the logits' base that many floats into
+# their storage; neg_inf sets the shard's columns [4, 4 + neg_inf) to -inf
+# (a thread's first groups all -inf).  (A NamedTuple: the tests load this
+# file without registering it as a module, which a dataclass needs.)
+class CeCase(NamedTuple):
+    label: str
+    batch: int
+    seq: int
+    width: int
+    start: int
+    vocab: int
+    offset: int = 0
+    neg_inf: int = 0
+
+    @property
+    def rows(self) -> int:
+        return self.batch * self.seq
+
+
+def ce_label_edges(case: CeCase) -> dict:
+    """The labels every case puts on its first rows: -1 (masked), 0, the
+    shard's last column, and a label outside the shard where the shard is
+    not the whole vocabulary.  (:func:`_ce_inputs` also masks the last
+    sequence whole.)"""
+    edges = {"masked": -1, "zero": 0, "last": case.start + case.width - 1}
+    if case.width < case.vocab:
+        edges["outside"] = case.start + case.width if case.start == 0 else case.start - 1
+    return edges
+
+
+def ce_cases() -> list[CeCase]:
+    """19g's cases: every shape the training paths give B5 (19c's and 21a's
+    phi4-mini logits, 21d's xlstm-125m, 19d's smoke configs), one device's
+    shard at phi4-mini's train_4k on 16x16 (the dry run's shape), a width
+    off the 4-column group (scalar loads and a tail), the last of an uneven
+    split, a base off 16 bytes, and -inf columns (the first four groups of
+    threads 1-255 all -inf, so their running max stays -inf a while)."""
+    import repro_torch.configs as C
+
+    phi4, xlstm = C.get("phi4-mini-3.8b"), C.get("xlstm-125m")
+    shard = phi4.padded_vocab // 16
+    cases = [CeCase(f"19c phi4-mini {TRAIN_BATCH} x {TRAIN_SEQ} x {phi4.padded_vocab}",
+                    TRAIN_BATCH, TRAIN_SEQ, phi4.padded_vocab, 0, phi4.padded_vocab),
+             CeCase(f"phi4-mini train_4k on 16x16: 16 x 4096 x {shard} from column {5 * shard}",
+                    16, 4096, shard, 5 * shard, phi4.padded_vocab),
+             CeCase(f"21d xlstm-125m 2 x 512 x {xlstm.padded_vocab}", TRAIN_BATCH, TRAIN_SEQ,
+                    xlstm.padded_vocab, 0, xlstm.padded_vocab)]
+    for arch in SMOKE_TRAIN_ARCHS:
+        v = C.get(arch, smoke=True).padded_vocab
+        cases.append(CeCase(f"19d {arch} smoke {TRAIN_BATCH} x 64 x {v}", TRAIN_BATCH, 64, v, 0, v))
+    return cases + [CeCase("width 1003, off the 4-column group", 3, 11, 1003, 0, 1003),
+                    CeCase("the last of an uneven split: 4001 columns from 8000", 2, 8, 4001,
+                           8000, 12001),
+                    CeCase("base off 16 bytes, 2048 columns", 2, 16, 2048, 0, 2048, offset=1),
+                    CeCase("-inf in columns 4-4099 of 8192", 2, 16, 8192, 0, 8192,
+                           neg_inf=4096)]
+
+
+# Tolerances of 19g, from the kernel's arithmetic against the plain
+# version's on the card (u = 2**-24, a float32 half-ulp):
+# * m and the label's logit: equal (a max and a copy round nothing);
+# * s: each term exp(x - m) is within 2 ulps (CUDA's expf) on either side,
+#   and each add, each rescale of a thread's sum by a new max and each merge
+#   of the block's tree rounds once: relative to s, at most u times twice
+#   the adds on a thread's chain (4 a group it takes, its tail) plus 64 for
+#   the expf, the rescales and the tree (:func:`ce_sum_rtol`);
+# * each token's nll = lse - gold: s's relative error (log turns it into an
+#   absolute one) plus 4u x (|lse| + |gold|) for the log, the add and the
+#   subtraction;
+# * dlogits: g·(exp(x - lse) - onehot) on the same lse and g, each element
+#   held to its own size.  Each side's exp is within 2 ulps (4u) of the
+#   true value and the subtraction and the product round once each, so off
+#   the label's column |d - plain| <= 10u·|plain|; at the label's column
+#   exp's error is carried by e - 1 as an absolute 8u·|g| at most, plus
+#   4u·|plain|.  Held: CE_GRAD_RTOL·(|plain| + |g|·onehot).  A kernel that
+#   writes 0 (or anything off by more than 16u) for the small exp(x - lse)
+#   of most columns fails; a masked token (g = 0) must be exactly 0.
+CE_U = 2.0 ** -24
+CE_GRAD_RTOL = 16 * CE_U
+# the largest |dlogits - plain| of each ce_check run (the kernels line)
+CE_ERR: list = []
+
+
+def ce_sum_rtol(width: int) -> float:
+    """s's relative tolerance at ``width`` columns (the comment above):
+    a thread's chain is 4 adds for each of its groups of 4 columns (at most
+    ``ceil(groups / THREADS)``), and thread 0's also the ``width % 4``
+    tail."""
+    from repro_torch.kernels.cross_entropy.kernel import THREADS
+
+    groups, tail = divmod(width, 4)
+    chain = 4 * -(-groups // THREADS) + tail
+    return CE_U * (2 * chain + 64)
+
+
+def _ce_inputs(case: CeCase, seed: int):
+    """Logits N(0, 4) (a trained model's logits spread about as far), the
+    case's -inf columns, and labels: a quarter of the rows on the shard's
+    columns, the rest anywhere in the vocabulary (none on a -inf column),
+    then :func:`ce_label_edges` on the first rows and the last sequence
+    masked."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    store = torch.empty(case.rows * case.width + case.offset, device="cuda")
+    x = store[case.offset:].view(case.rows, case.width)
+    x.normal_(0.0, 4.0, generator=gen)
+    lab = torch.randint(0, case.vocab, (case.rows,), generator=gen, device="cuda")
+    inside = torch.randint(case.start, case.start + case.width, (case.rows,), generator=gen,
+                           device="cuda")
+    lab[::4] = inside[::4]
+    if case.neg_inf:
+        x[:, 4:4 + case.neg_inf] = float("-inf")
+        col = lab - case.start
+        lab[(col >= 4) & (col < 4 + case.neg_inf)] = case.start
+    edges = list(ce_label_edges(case).values())
+    lab[:len(edges)] = torch.tensor(edges, device="cuda")
+    lab[-case.seq:] = -1                    # a fully masked sequence
+    return x, lab
+
+
+def ce_check(cases=None) -> list[str]:
+    """19g's check: each case through B5 (``ce_partials``, ``ce_backward``)
+    and through the plain versions on the same inputs, the backward on the
+    plain ``lse`` and the train step's ``g`` (mask / count).  Prints each
+    case's share of every tolerance; returns the labels of the cases that
+    failed."""
+    import torch
+
+    from repro_torch.kernels.cross_entropy import kernel as b5
+    from repro_torch.kernels.cross_entropy.ops import combine
+    from repro_torch.kernels.cross_entropy.ref import ce_backward_ref, ce_partials_ref
+
+    failed, worst_abs = [], 0.0
+    for c, case in enumerate(cases or ce_cases()):
+        x, lab = _ce_inputs(case, 300 + c)
+        m, s, gold = b5.ce_partials(x, lab, case.start, case.vocab)
+        pm, ps, pg = ce_partials_ref(x, lab, case.start, case.vocab)
+        same = bool(torch.equal(m, pm)) and bool(torch.equal(gold, pg))
+        s_r = ((s - ps).abs() / (ps * ce_sum_rtol(case.width))).max().item()
+        lse, nll_gold = combine(m, s, gold)
+        plse, pgold = combine(pm, ps, pg)
+        nll_tol = ce_sum_rtol(case.width) + 4 * CE_U * (plse.abs() + pgold.abs())
+        nll_r = (((lse - nll_gold) - (plse - pgold)).abs() / nll_tol).max().item()
+        mask = (lab >= 0).float()
+        g = mask / mask.sum().clamp(min=1.0)
+        d = b5.ce_backward(x, lab, case.start, plse, g, case.vocab)
+        pd = ce_backward_ref(x, lab, case.start, plse, g)
+        diff = (d - pd).abs_()
+        worst_abs = max(worst_abs, diff.max().item())
+        unequal = int((diff > 0).sum().item())
+        tol = pd.abs().mul_(CE_GRAD_RTOL)
+        col = lab.clamp(min=0) - case.start
+        hit = ((col >= 0) & (col < case.width)).nonzero()[:, 0]
+        tol[hit, col[hit]] += CE_GRAD_RTOL * g.abs()[hit]
+        # an element held to 0 (g = 0, or exp(x - lse) = 0) must be 0; a NaN
+        # stays NaN and fails
+        share = (diff / tol).masked_fill_((tol == 0) & (diff == 0), 0.0)
+        d_r = share.max().item()
+        del tol, share
+        masked_zero = not bool(d[lab < 0].any())
+        torch.cuda.synchronize()
+        ok = same and all(r <= 1.0 for r in (s_r, nll_r, d_r)) and masked_zero
+        say(f"  {case.label}: {case.rows} rows x {case.width} (base +{case.offset}; labels "
+            f"{','.join(ce_label_edges(case))},masked row; -inf columns {case.neg_inf}): m and "
+            f"the label's logit bit-equal {same}; of tolerance s {s_r:.3f} (rtol "
+            f"{ce_sum_rtol(case.width):.2e}), nll {nll_r:.3f}, dlogits {d_r:.3f} (rtol "
+            f"{CE_GRAD_RTOL:.2e} of each |plain|, + |g| at the label); dlogits not bit-equal "
+            f"{unequal} of {d.numel()}; masked tokens' gradient 0: {masked_zero}"
+            f"{'' if ok else '  <-- FAILS'}")
+        if not ok:
+            failed.append(case.label)
+        del x, lab, d, pd, diff, m, s, gold, pm, ps, pg
+    CE_ERR.append(worst_abs)
+    say(f"  largest |dlogits - plain| over the cases: {worst_abs:.3e}")
+    return failed
+
+
+def ce_timing(case: CeCase) -> dict:
+    """B5 at ``case``'s shape in a CUDA graph, forward and backward apart and
+    together, and from Python, beside the plain versions, the bound and the
+    library (``F.cross_entropy(..., reduction="none")`` forward and backward
+    on the same logits, every label on the shard's columns; a yardstick
+    only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.cross_entropy import kernel as b5
+    from repro_torch.kernels.cross_entropy.ops import combine
+    from repro_torch.kernels.cross_entropy.ref import ce_backward_ref, ce_partials_ref
+
+    x, lab = _ce_inputs(case, 400)
+    R, V = case.rows, case.width
+    mask = (lab >= 0).float()
+    g = mask / mask.sum()
+    lse = combine(*ce_partials_ref(x, lab, case.start, case.vocab))[0]
+    out = {}
+
+    def fwd():
+        out["f"] = b5.ce_partials(x, lab, case.start, case.vocab)
+
+    def bwd():
+        out["b"] = b5.ce_backward(x, lab, case.start, lse, g, case.vocab)
+
+    def both():
+        fwd()
+        bwd()
+
+    def plain():
+        out["p"] = ce_partials_ref(x, lab, case.start, case.vocab)
+        out["pb"] = ce_backward_ref(x, lab, case.start, lse, g)
+
+    before = b5.launches
+    both()
+    if b5.launches - before != 2:
+        fail(f"B5 launched {b5.launches - before} kernels for a forward and a backward, not 2")
+    ms = {"forward": graph_ms(fwd), "backward": graph_ms(bwd), "both": graph_ms(both)}
+    eager_ms = time_ms(both, 20)
+    plain_ms = graph_ms(plain, reps=2, iters=10)
+    fwd_bytes, bwd_bytes = 4 * R * V + 8 * R + 12 * R, 8 * R * V + 8 * R + 8 * R
+    bound_f = bound(4 * R * V, fwd_bytes, "float32")
+    bound_b = bound(4 * R * V, bwd_bytes, "float32")
+    bound_ms, bound_by = bound(8 * R * V, fwd_bytes + bwd_bytes, "float32")
+    # the library takes a label on the shard's columns: every label at or
+    # above 0 is moved onto them (the same reads and writes; other values)
+    xr = x.detach().requires_grad_()
+    y = (lab.clamp(min=0) - case.start).remainder_(V)
+    lib_note = "in a CUDA graph"
+
+    def library():
+        out["l"] = torch.autograd.grad(F.cross_entropy(xr, y, reduction="none"), xr, g)
+
+    try:
+        lib_ms = graph_ms(library, reps=5, iters=10)
+    except RuntimeError as err:
+        lib_note = f"from Python (the graph refused it: {str(err).splitlines()[0][:100]})"
+        lib_ms = time_ms(library, 10)
+    say(f"  {case.label}: B5 in a CUDA graph: forward {ms['forward']:.5f} ms (bound "
+        f"{bound_f[0]:.5f}, {bound_f[0] / ms['forward']:.1%} of it), backward "
+        f"{ms['backward']:.5f} ms (bound {bound_b[0]:.5f}, {bound_b[0] / ms['backward']:.1%}), "
+        f"both {ms['both']:.5f} ms (bound {bound_ms:.5f}, {bound_by}: "
+        f"{(fwd_bytes + bwd_bytes) / 1e9:.3f} GB); from Python {eager_ms:.5f} ms; plain "
+        f"version {plain_ms:.5f} ms; F.cross_entropy forward + backward {lib_ms:.5f} ms "
+        f"{lib_note}; {nvidia_smi()}")
+    del x, lab, out, xr
+    return dict(ms=ms["both"], forward_ms=ms["forward"], backward_ms=ms["backward"],
+                eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                forward_bound_ms=bound_f[0], backward_bound_ms=bound_b[0],
+                bytes=fwd_bytes + bwd_bytes, library_ms=lib_ms, shape=[R, V])
+
+
+def train_ce() -> dict:
+    """19g: B5 against its plain version (:func:`ce_cases`), then timed at
+    19c's logits, at the train_4k shard and at xlstm-125m's."""
+    release()
+    cases = ce_cases()
+    say(f"-- 19g: B5 (cross-entropy on a vocabulary shard: partials, backward) against its "
+        f"plain version, {len(cases)} cases (m and the label's logit bit-equal, s rtol "
+        f"ce_sum_rtol(width), dlogits {CE_GRAD_RTOL:.2e} x (|plain| + |g| at the label))")
+    failed = ce_check(cases)
+    if failed:
+        fail(f"B5 disagrees with its plain version in {failed}")
+    release()
+    record = ce_timing(cases[0])
+    for case in cases[1:3]:
+        release()
+        other = ce_timing(case)
+        record[f"ms at {other['shape']}"] = other["ms"]
+        record[f"bound_ms at {other['shape']}"] = other["bound_ms"]
+    release()
+    record["max_abs_err"] = max(CE_ERR)
+    return record
+
+
 # substrings of the names of cuBLAS's matrix-product kernels (on Hopper,
 # CUDA 12's cuBLAS names most of them nvjet_*)
 GEMM_NAMES = ("nvjet", "gemm", "xmma", "cutlass", "cublas")
@@ -3604,6 +3901,12 @@ B4_KERNELS = ("adamw_sumsq", "adamw_finish", "adamw_step")
 # profiler saw in them, and the kernels the wrapper counted when the step
 # was captured (the kernels line's kernels_per_launch is their ratio)
 B4_REPLAYS = {"replays": 0, "kernels": 0, "calls": 0}
+# B5's two kernels, and B5 and B1's backward in the profiled training
+# replays, counted as B4's are (B1's backward: its three kernels over the
+# wrapper's calls in the capture)
+B5_KERNELS = ("ce_partials_kernel", "ce_backward_kernel")
+B5_REPLAYS = {"replays": 0, "kernels": 0, "calls": 0}
+B1BWD_REPLAYS = {"replays": 0, "kernels": 0, "calls": 0}
 
 
 def kernels_in_replay(run, attempts: int = 4) -> list:
@@ -3670,6 +3973,7 @@ def train_phi4() -> dict:
     from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
     from repro_torch.data import SyntheticLM, data_config_for
     from repro_torch.kernels.adamw import kernel as b4
+    from repro_torch.kernels.cross_entropy import kernel as b5
     from repro_torch.kernels.flash_attention import backward, kernel
     from repro_torch.launch import serve
     from repro_torch.models import Transformer
@@ -3705,8 +4009,10 @@ def train_phi4() -> dict:
         f"initialised in {time.perf_counter() - t0:.1f}s")
 
     # eager steps (run-time scheduled: PyTorch's own loop)
-    kernel.launches = backward.launches = b4.launches = 0     # the path's run starts here
+    # the path's run starts here
+    kernel.launches = backward.launches = b4.launches = b5.launches = 0
     copies, b4_copies = kernel.layout_copies, b4.layout_copies
+    b5_copies = b5.layout_copies
     eager_loss, eager_gnorm, eager_ms = [], [], []
     torch.cuda.reset_peak_memory_stats()
     for i in range(TRAIN_EAGER):
@@ -3720,16 +4026,19 @@ def train_phi4() -> dict:
     eager_peak = torch.cuda.max_memory_allocated()
     eager_params = [p.detach().cpu() for p in model.parameters()]
     eager_counts = (kernel.launches, backward.launches)
-    eager_b4 = b4.launches
+    eager_b4, eager_b5 = b4.launches, b5.launches
     say(f"  eager steps: loss {eager_loss}, ms {[round(x, 3) for x in eager_ms]}, peak "
         f"memory {eager_peak / 2**30:.2f} GiB; B1 forward launches {eager_counts[0]}, "
         f"backward launches {eager_counts[1]}; B4 kernels {eager_b4} ({TRAIN_EAGER} x "
-        f"{b4_step}: {leaves} sums, the finish, {leaves} updates a step)")
+        f"{b4_step}: {leaves} sums, the finish, {leaves} updates a step); B5 kernels "
+        f"{eager_b5} ({TRAIN_EAGER} x 2: the loss's partials and its backward)")
     if eager_counts != (TRAIN_EAGER * cfg.n_layers,) * 2:
         fail(f"eager steps launched B1 {eager_counts} times, not {TRAIN_EAGER} x "
              f"{cfg.n_layers} forward and backward")
     if eager_b4 != TRAIN_EAGER * b4_step:
         fail(f"eager steps launched {eager_b4} B4 kernels, not {TRAIN_EAGER} x {b4_step}")
+    if eager_b5 != TRAIN_EAGER * 2:
+        fail(f"eager steps launched {eager_b5} B5 kernels, not {TRAIN_EAGER} x 2")
     del model, state
     gc.collect()
     torch.cuda.empty_cache()
@@ -3737,21 +4046,42 @@ def train_phi4() -> dict:
     # the same steps sealed as one CUDA graph, from the same state
     model, state = fresh()
     torch.cuda.reset_peak_memory_stats()
+    # the seal's warm-up runs loss and grads once before the capture: its
+    # launches of B1's backward and B5 are counted apart from the capture's
+    warm = {}
+    inner = step_fn.loss_and_grads
+
+    def counted(*args):
+        start = (backward.launches, b5.launches)
+        out = inner(*args)
+        warm["bwd"], warm["b5"] = backward.launches - start[0], b5.launches - start[1]
+        return out
+
+    step_fn.loss_and_grads = counted
     sealed = seal_train_step(step_fn, model, state, batches[0])
+    step_fn.loss_and_grads = inner
     seal_peak, seal_s = torch.cuda.max_memory_allocated(), sealed.seal_s
     say(f"  sealed fwd + bwd + clip + AdamW as one CUDA graph in {seal_s:.2f}s (warm-up "
         f"of loss and grads, empty_cache, capture); peak memory {seal_peak / 2**30:.2f} GiB, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated after")
     seal_counts = (kernel.launches - eager_counts[0], backward.launches - eager_counts[1])
-    seal_b4 = b4.launches - eager_b4
+    seal_b4, seal_b5 = b4.launches - eager_b4, b5.launches - eager_b5
+    capture_bwd, capture_b5 = seal_counts[1] - warm["bwd"], seal_b5 - warm["b5"]
     copies, b4_copies = kernel.layout_copies - copies, b4.layout_copies - b4_copies
+    b5_copies = b5.layout_copies - b5_copies
     say(f"  layout copies by B1's forward and backward over the eager steps and the seal: "
-        f"{copies}; gradients B4 copied to be contiguous: {b4_copies}; B4 kernels by the seal "
-        f"{seal_b4} (the capture's: {leaves} sums, the finish, {leaves} updates)")
+        f"{copies}; gradients B4 copied to be contiguous: {b4_copies}; inputs B5 copied: "
+        f"{b5_copies}; B4 kernels by the seal {seal_b4} (the capture's: {leaves} sums, the "
+        f"finish, {leaves} updates); B1 backward calls by the seal {seal_counts[1]} (warm-up "
+        f"{warm['bwd']}, capture {capture_bwd}); B5 kernels by the seal {seal_b5} (warm-up "
+        f"{warm['b5']}, capture {capture_b5})")
     if copies:
         fail(f"the training path copied {copies} inputs of B1 that the kernels should read in place")
     if seal_b4 != b4_step:
         fail(f"the seal launched {seal_b4} B4 kernels, not {b4_step}")
+    if b5_copies or warm["b5"] != 2 or capture_b5 != 2:
+        fail(f"the seal launched B5 {warm['b5']} times in its warm-up and {capture_b5} in the "
+             f"capture (want 2 and 2), with {b5_copies} layout copies")
     losses, replay_ms, gnorms = [], [], []
     for i in range(TRAIN_REPLAYS):
         torch.cuda.synchronize()
@@ -3796,20 +4126,24 @@ def train_phi4() -> dict:
     events = kernels_in_replay(lambda: sealed())
     kinds = _b1_kernels(events)
     b4_kinds = {kind: sum(1 for e in events if kind in e.name) for kind in B4_KERNELS}
+    b5_kinds = {kind: sum(1 for e in events if kind in e.name) for kind in B5_KERNELS}
     rows = sorted(by_kernel(events), reverse=True)
     total = sum(us for us, _, _ in rows)
     b1 = {kind: sum(us for us, _, key in rows if kind in key) for kind in kinds}
     b4_us = {kind: sum(us for us, _, key in rows if kind in key) for kind in B4_KERNELS}
+    b5_us = {kind: sum(us for us, _, key in rows if kind in key) for kind in B5_KERNELS}
     gemm = sum(us for us, _, key in rows if any(w in key.lower() for w in GEMM_NAMES))
-    rest = total - gemm - sum(b1.values()) - sum(b4_us.values())
+    rest = total - gemm - sum(b1.values()) - sum(b4_us.values()) - sum(b5_us.values())
     say(f"  one profiled replay: {sum(c for _, c, _ in rows)} device kernels, "
         f"{total / 1e3:.3f} ms of kernel time: B4 {sum(b4_us.values()) / 1e3:.3f} ms "
         f"({sum(b4_us.values()) / total:.1%}: "
         + ", ".join(f"{k} x{b4_kinds[k]} {v / 1e3:.3f} ms" for k, v in b4_us.items())
         + f"), cuBLAS products {gemm / 1e3:.3f} ms ({gemm / total:.1%}), B1 "
-        f"{sum(b1.values()) / 1e3:.3f} ms ({sum(b1.values()) / total:.1%}), the rest "
-        f"(element-wise: casts, norms, the loss, the gradients' sums) {rest / 1e3:.3f} ms "
-        f"({rest / total:.1%}); B1 {kinds} ("
+        f"{sum(b1.values()) / 1e3:.3f} ms ({sum(b1.values()) / total:.1%}), B5 (the loss) "
+        f"{sum(b5_us.values()) / 1e3:.3f} ms ("
+        + ", ".join(f"{k} x{b5_kinds[k]} {v / 1e3:.3f} ms" for k, v in b5_us.items())
+        + f"), the rest (element-wise: casts, norms, activations, the gradients' sums) "
+        f"{rest / 1e3:.3f} ms ({rest / total:.1%}); B1 {kinds} ("
         + ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in b1.items()) + "); top:")
     for us, count, key in rows[:6]:
         say(f"      {us / 1e3:9.3f} ms x{count:4d}  {key[:90]}")
@@ -3823,6 +4157,18 @@ def train_phi4() -> dict:
         f"wrapper counted in the capture")
     if b4_kinds != want_b4:
         fail(f"a replay ran B4's kernels {b4_kinds}, not {want_b4}")
+    B5_REPLAYS["replays"] += 1
+    B5_REPLAYS["kernels"] += sum(b5_kinds.values())
+    B5_REPLAYS["calls"] += capture_b5
+    bwd_kernels = sum(kinds[k] for k in BWD_KERNELS)
+    B1BWD_REPLAYS["replays"] += 1
+    B1BWD_REPLAYS["kernels"] += bwd_kernels
+    B1BWD_REPLAYS["calls"] += capture_bwd
+    say(f"  B5 in the profiled replay: {sum(b5_kinds.values())} kernels for the {capture_b5} "
+        f"the wrapper counted in the capture; B1's backward: {bwd_kernels} kernels for the "
+        f"{capture_bwd} calls it counted there")
+    if b5_kinds != {kind: 1 for kind in B5_KERNELS}:
+        fail(f"a replay ran B5's kernels {b5_kinds}, not one of each")
 
     # checkpoint: the parameters now, one replay, then the same parameters
     # restored into a fresh model and copied into the graph's: same loss
@@ -3852,7 +4198,8 @@ def train_phi4() -> dict:
                      replay_loss=losses[:TRAIN_EAGER], replay_gnorm=gnorms[:TRAIN_EAGER],
                      params=replay_params, eager_counts=eager_counts, seal_counts=seal_counts,
                      eager_ms=eager_med, replay_ms=replay_med, replay_device_ms=dev_ms,
-                     eager_peak=eager_peak, base=base, eager_b4=eager_b4, seal_b4=seal_b4)
+                     eager_peak=eager_peak, base=base, eager_b4=eager_b4, seal_b4=seal_b4,
+                     eager_b5=eager_b5, seal_b5=seal_b5)
     return dict(eager_ms=eager_med, replay_ms=replay_med, replay_device_ms=dev_ms,
                 reference=reference,
                 tokens_per_step=tokens, seal_s=seal_s, seal_peak_gib=seal_peak / 2**30,
@@ -3860,6 +4207,7 @@ def train_phi4() -> dict:
                 fwd_launches=kernel.launches, bwd_launches=backward.launches,
                 seal_launches=seal_counts, in_replay=kinds, b1_replay_ms=b1,
                 layout_copies=copies, b4_in_replay=b4_kinds, b4_replay_ms=b4_us,
+                b5_in_replay=b5_kinds, b5_replay_ms=b5_us,
                 replay_kernel_ms=total / 1e3, replay_kernels=sum(c for _, c, _ in rows),
                 tokens_per_s=tokens / replay_med * 1e3)
 
@@ -3875,6 +4223,7 @@ def train_card_vs_cpu() -> dict:
     import repro_torch.configs as C
     from repro_torch.data import SyntheticLM, data_config_for
     from repro_torch.kernels.adamw import kernel as b4
+    from repro_torch.kernels.cross_entropy import kernel as b5
     from repro_torch.kernels.flash_attention import backward, kernel
     from repro_torch.kernels.stream_pack import kernel as pack
     from repro_torch.launch import serve
@@ -3893,7 +4242,7 @@ def train_card_vs_cpu() -> dict:
         on_cpu = Transformer(cfg, device="cpu")
         on_cpu.load_state_dict(on_card.state_dict())
         step = make_train_step(cfg, lr=lr)
-        before = (kernel.launches, backward.launches, pack.launches, b4.launches)
+        before = (kernel.launches, backward.launches, pack.launches, b4.launches, b5.launches)
         got = {}
         for dev, model in (("cuda", on_card), ("cpu", on_cpu)):
             sealed = seal_train_step(step, model, adamw_init(dict(model.named_parameters())),
@@ -3903,14 +4252,15 @@ def train_card_vs_cpu() -> dict:
             if dev == "cuda" and sealed.graph is None:
                 fail(f"{arch}: the step on the card was not sealed as a CUDA graph")
         counts[arch] = tuple(c1 - c0 for c1, c0 in zip(
-            (kernel.launches, backward.launches, pack.launches, b4.launches), before))
+            (kernel.launches, backward.launches, pack.launches, b4.launches, b5.launches),
+            before))
         perr = max((a.detach().cpu() - b.detach()).abs().max().item()
                    for a, b in zip(on_card.parameters(), on_cpu.parameters()))
         rel = max(abs(got["cuda"][k] - got["cpu"][k]) / max(abs(got["cpu"][k]), 1e-12)
                   for k in ("loss", "grad_norm"))
         say(f"  {cfg.name}: card {got['cuda']} | cpu {got['cpu']} | loss/grad norm "
             f"{rel:.2e} relative, parameters max |diff| {perr:.3e} | wrapper calls on the card "
-            f"(B1 forward, B1 backward, B2; B4 kernels) {counts[arch]}")
+            f"(B1 forward, B1 backward, B2; B4 kernels, B5 kernels) {counts[arch]}")
         if not (rel <= TRAIN_RTOL and perr <= TRAIN_PARAM_ATOL_LR * lr):
             fail(f"{cfg.name}: the step on the card differs from the CPU's")
         if arch != "deepseek-v2-236b" and min(counts[arch][:2]) == 0:
@@ -3921,6 +4271,9 @@ def train_card_vs_cpu() -> dict:
         if counts[arch][3] != 2 * leaves + 1:
             fail(f"{cfg.name}: the sealed step launched {counts[arch][3]} B4 kernels, not the "
                  f"capture's {2 * leaves + 1}")
+        if counts[arch][4] != 4:
+            fail(f"{cfg.name}: the seal launched {counts[arch][4]} B5 kernels, not 4 (its "
+                 f"warm-up's and its capture's partials and backward)")
     return counts
 
 
@@ -3981,7 +4334,7 @@ def train_nimble_grads() -> dict:
 
 
 def phase_train(number: int) -> dict:
-    """Phase 19: training on the card (19a, 19b, 19f, 19c, 19d, 19e)."""
+    """Phase 19: training on the card (19a, 19b, 19f, 19g, 19c, 19d, 19e)."""
     from repro_torch.kernels.flash_attention import backward
 
     say(f"== phase {number}: training on the card")
@@ -3989,14 +4342,15 @@ def phase_train(number: int) -> dict:
     bwd_record = train_kernel_timing()
     pack_record = train_b2_backward()
     adamw_record = train_adamw()
-    with b4_path("train phi4-mini-3.8b (eager steps, seal)"):
+    ce_record = train_ce()
+    with train_path("train phi4-mini-3.8b (eager steps, seal)"):
         phi4 = train_phi4()
     backward.launches = 0
-    with b4_path("train smoke configs on the card"):
+    with train_path("train smoke configs on the card"):
         smoke = train_card_vs_cpu()
     nimble = train_nimble_grads()
-    return dict(bwd=bwd_record, pack=pack_record, adamw=adamw_record, phi4=phi4, smoke=smoke,
-                nimble=nimble)
+    return dict(bwd=bwd_record, pack=pack_record, adamw=adamw_record, ce=ce_record, phi4=phi4,
+                smoke=smoke, nimble=nimble)
 
 
 # phase 20: decode_32k's per-device share (128 sequences over the 16-way data
@@ -4322,6 +4676,7 @@ def sharded_train(mesh, ref: dict) -> dict:
     from repro_torch.data import SyntheticLM, data_config_for, shard_batch
     from repro_torch.distributed import shard_model
     from repro_torch.kernels.adamw import kernel as b4
+    from repro_torch.kernels.cross_entropy import kernel as b5
     from repro_torch.kernels.flash_attention import backward, kernel, ops
     from repro_torch.launch import serve
     from repro_torch.models import param_axes
@@ -4353,7 +4708,7 @@ def sharded_train(mesh, ref: dict) -> dict:
 
     # eager steps: DTensor's dispatch on the host around the same kernels
     kernel.launches = backward.launches = ops.on_shards = 0     # the path's run starts here
-    b4_start = b4.launches
+    b4_start, b5_start = b4.launches, b5.launches
     copies = kernel.layout_copies
     eager_loss, eager_gnorm, eager_ms = [], [], []
     with CommDebugMode() as comm:
@@ -4366,14 +4721,16 @@ def sharded_train(mesh, ref: dict) -> dict:
             eager_gnorm.append(float(m["grad_norm"]))
             del m
     eager_counts = (kernel.launches, backward.launches)
-    eager_b4 = b4.launches - b4_start
+    eager_b4, eager_b5 = b4.launches - b4_start, b5.launches - b5_start
     say(f"  eager steps: loss {eager_loss} (19c {ref['eager_loss']}), grad norm {eager_gnorm} "
         f"(19c {ref['eager_gnorm']}), ms {[round(x, 3) for x in eager_ms]}; B1 forward, "
         f"backward launches {eager_counts} (19c {ref['eager_counts']}), through local_map "
         f"{ops.on_shards}; B4 kernels on the local shards {eager_b4} (19c {ref['eager_b4']}); "
-        f"collectives {comm.get_total_counts()}")
-    if eager_b4 != ref["eager_b4"]:
-        fail(f"the sharded eager steps launched {eager_b4} B4 kernels, 19c {ref['eager_b4']}")
+        f"B5 kernels on the local logits {eager_b5} (19c {ref['eager_b5']}); collectives "
+        f"{comm.get_total_counts()}")
+    if eager_b4 != ref["eager_b4"] or eager_b5 != ref["eager_b5"]:
+        fail(f"the sharded eager steps launched {eager_b4} B4 and {eager_b5} B5 kernels, 19c "
+             f"{ref['eager_b4']} and {ref['eager_b5']}")
     if (eager_loss, eager_gnorm) != (ref["eager_loss"], ref["eager_gnorm"]):
         fail("the sharded eager steps differ from 19c's bit for bit")
     if eager_counts != ref["eager_counts"] or ops.on_shards != eager_counts[0]:
@@ -4390,13 +4747,17 @@ def sharded_train(mesh, ref: dict) -> dict:
     sealed = seal_train_step(step_fn, model, state, batches[0])
     seal_counts = (kernel.launches - eager_counts[0], backward.launches - eager_counts[1])
     seal_b4 = b4.launches - b4_start - eager_b4
+    seal_b5 = b5.launches - b5_start - eager_b5
     copies = kernel.layout_copies - copies
     say(f"  sealed as one CUDA graph in {sealed.seal_s:.2f}s; B1 launches by the seal "
         f"{seal_counts} (19c {ref['seal_counts']}); B4 kernels by the seal {seal_b4} (19c "
-        f"{ref['seal_b4']}); layout copies over the phase {copies}")
-    if seal_counts != ref["seal_counts"] or copies or seal_b4 != ref["seal_b4"]:
+        f"{ref['seal_b4']}); B5 kernels by the seal {seal_b5} (19c {ref['seal_b5']}); layout "
+        f"copies over the phase {copies}")
+    if (seal_counts != ref["seal_counts"] or copies or seal_b4 != ref["seal_b4"]
+            or seal_b5 != ref["seal_b5"]):
         fail(f"the sharded seal launched B1 {seal_counts} (19c {ref['seal_counts']}), B4 "
-             f"{seal_b4} (19c {ref['seal_b4']}), layout copies {copies}")
+             f"{seal_b4} (19c {ref['seal_b4']}), B5 {seal_b5} (19c {ref['seal_b5']}), layout "
+             f"copies {copies}")
     losses, gnorms, replay_ms = [], [], []
     for i in range(n_steps):
         torch.cuda.synchronize()
@@ -4692,12 +5053,12 @@ def phase_sharded(number: int, reference: dict) -> dict:
     only: NCCL refuses two ranks on one card."""
     say(f"== phase {number}: sharded execution on one card (NCCL, world 1, a (1, 1) mesh)")
     with one_card_mesh() as mesh:
-        with b4_path("sharded train phi4-mini-3.8b on a (1, 1) mesh (eager steps, seal)"):
+        with train_path("sharded train phi4-mini-3.8b on a (1, 1) mesh (eager steps, seal)"):
             train = sharded_train(mesh, reference)
         fwd = sharded_forward(mesh)
     memory = memory_count(reference)
     with one_card_mesh() as mesh:
-        with b4_path("train xlstm-125m unsharded and on a (1, 1) mesh"):
+        with train_path("train xlstm-125m unsharded and on a (1, 1) mesh"):
             recurrent = sharded_recurrent_train(mesh)
         hybrid = sharded_hybrid_forward(mesh)
     release()
@@ -4745,21 +5106,25 @@ def b3_instances(seen: set):
         layers.decode_attention = inner
 
 
-# B4's launches on each training path (the count set to 0 just before the
-# path and read just after it)
+# B4's and B5's launches on each training path (each count set to 0 just
+# before the path and read just after it)
 B4_BY_PATH: dict[str, int] = {}
+B5_BY_PATH: dict[str, int] = {}
 
 
 @contextlib.contextmanager
-def b4_path(name: str):
-    """Count B4's launches over one path into ``B4_BY_PATH[name]``."""
+def train_path(name: str):
+    """Count B4's and B5's launches over one training path into
+    ``B4_BY_PATH[name]`` and ``B5_BY_PATH[name]``."""
     from repro_torch.kernels.adamw import kernel as b4
+    from repro_torch.kernels.cross_entropy import kernel as b5
 
-    b4.launches = 0
+    b4.launches = b5.launches = 0
     try:
         yield
     finally:
         B4_BY_PATH[name] = B4_BY_PATH.get(name, 0) + b4.launches
+        B5_BY_PATH[name] = B5_BY_PATH.get(name, 0) + b5.launches
 
 
 def main() -> None:
@@ -4832,6 +5197,10 @@ def main() -> None:
     if idle:
         fail(f"B4 was launched no time on the paths {idle}")
     say(f"B4 kernels by path: {B4_BY_PATH}")
+    idle = sorted(name for name, n in B5_BY_PATH.items() if n == 0)
+    if idle:
+        fail(f"B5 was launched no time on the paths {idle}")
+    say(f"B5 kernels by path: {B5_BY_PATH}")
     # launches: the wrappers' counts over the paths' runs (each path's
     # counts set to 0 just before it), by path under launches_by_path;
     # launches_in_replays: the kernels the profiler saw in the paths'
@@ -4882,8 +5251,9 @@ def main() -> None:
         replaces="src/repro/kernels/flash_attention/kernel.py:94",
         note="the gradient of B1: not a TPU kernel (the JAX package has no backward kernel)",
         launches=sum(bwd_by_path.values()), launches_by_path=bwd_by_path,
-        launches_in_replays=phi4["in_replay"]["bwd_dkdv"], profiled_replays=1,
-        kernels_per_launch=3, **train["bwd"],
+        launches_in_replays=B1BWD_REPLAYS["kernels"], profiled_replays=B1BWD_REPLAYS["replays"],
+        kernels_per_launch=B1BWD_REPLAYS["kernels"] / max(B1BWD_REPLAYS["calls"], 1),
+        **train["bwd"],
     ), dict(
         name="stream_pack_matmul", route="cuda",
         source="src/repro_torch/kernels/stream_pack/csrc/stream_pack.cu",
@@ -4917,6 +5287,17 @@ def main() -> None:
         launches=sum(B4_BY_PATH.values()), launches_by_path=dict(B4_BY_PATH),
         launches_in_replays=B4_REPLAYS["kernels"], profiled_replays=B4_REPLAYS["replays"],
         kernels_per_launch=B4_REPLAYS["kernels"] / max(B4_REPLAYS["calls"], 1), **train["adamw"],
+    ), dict(
+        name="cross_entropy", route="cuda",
+        source="src/repro_torch/kernels/cross_entropy/csrc/cross_entropy.cu",
+        replaces="none: not a TPU kernel; XLA's fusion of src/repro/training/train_lib.py:22-31 "
+                 "inside the jitted step (src/repro/launch/train.py:76)",
+        note="launches count kernels: a step is one ce_partials and one ce_backward on each "
+             "device's vocabulary shard; ms, plain_ms, bound_ms and library_ms are forward + "
+             "backward at 19c's logits (1024 x 200192 float32) in a CUDA graph",
+        launches=sum(B5_BY_PATH.values()), launches_by_path=dict(B5_BY_PATH),
+        launches_in_replays=B5_REPLAYS["kernels"], profiled_replays=B5_REPLAYS["replays"],
+        kernels_per_launch=B5_REPLAYS["kernels"] / max(B5_REPLAYS["calls"], 1), **train["ce"],
     )]
     say(f"all phases passed in {time.perf_counter() - t_start:.1f}s; seconds by phase: "
         f"{phase_seconds(time.perf_counter())}")

@@ -397,6 +397,15 @@ def on_local_shards(fn, like: DTensor, axes: Mapping[str, int], args: Sequence,
                      device_mesh=mesh)(*placed)
 
 
+def shard_groups(like: DTensor, dim: int) -> tuple[str, ...]:
+    """The names of the process groups of the mesh dimensions that split
+    ``like`` along ``dim`` into more than one shard, major to minor: the
+    groups a reduction over that dimension's shards runs on."""
+    mesh = like.device_mesh
+    return tuple(mesh.get_group(i).group_name for i, p in enumerate(like.placements)
+                 if isinstance(p, Shard) and p.dim == dim and mesh.size(i) > 1)
+
+
 def shard_offset(like: DTensor, dim: int) -> int:
     """Where this process's shard of ``like`` starts along ``dim``: a
     ``torch.chunk`` per mesh dimension sharding it, major to minor."""

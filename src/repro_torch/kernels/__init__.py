@@ -50,6 +50,7 @@ KERNEL_MODULES = {
     "stream_pack": f"{__name__}.stream_pack.kernel",
     "decode_attention": f"{__name__}.decode_attention.kernel",
     "adamw": f"{__name__}.adamw.kernel",
+    "cross_entropy": f"{__name__}.cross_entropy.kernel",
 }
 
 

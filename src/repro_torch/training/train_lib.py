@@ -29,6 +29,7 @@ too (its collectives with it).
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Callable
 
@@ -38,35 +39,43 @@ from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.core.capture import CAPTURE_ERROR_MODE, CAPTURE_LOCK
 from repro_torch.data import shard_batch
-from repro_torch.distributed import (constrain, local_part, on_local_shards, replicate_like,
-                                     use_sharding_ctx)
+from repro_torch.distributed import (keep_shards, local_part, on_local_shards, replicate_like,
+                                     shard_groups, shard_offset, use_sharding_ctx)
+from repro_torch.kernels.cross_entropy import token_nll
 from repro_torch.models import forward
 from repro_torch.optim import adamw_update
 from repro_torch.optim.adamw import AdamWState
 
-# the batch rows of a (B, S, ...) tensor, for the loss on each device's rows
+# the batch rows of a (B, S, ...) tensor, and its batch rows and vocabulary
+# columns (the logits), for the loss on each device's shards
 _ROWS = {"batch": 0}
+_LOGITS = {"batch": 0, "vocab": 2}
 
 
-def _row_nll(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _row_nll(logits: torch.Tensor, labels: torch.Tensor, start: int = 0,
+             vocab: int | None = None, groups: tuple = ()) -> tuple[torch.Tensor, torch.Tensor]:
     """Each row's summed token cross-entropy and its count of labelled
-    tokens (label < 0 is masked out): two (B,) float32 tensors."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    tokens (label < 0 is masked out): two (B,) float32 tensors.  ``logits``
+    may be one shard of the vocabulary, the columns from ``start`` of
+    ``vocab``, its partials reduced over the process groups ``groups``
+    (B5, ``kernels/cross_entropy``)."""
+    nll = token_nll(logits, labels, start, vocab, groups)
     mask = (labels >= 0).float()
-    return ((logz - gold) * mask).sum(dim=-1), mask.sum(dim=-1)
+    return (nll * mask).sum(dim=-1), mask.sum(dim=-1)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean token cross-entropy; label < 0 positions are masked out."""
-    # vocab-sharded logits are gathered whole over the vocabulary first
-    # (XLA reduces a sharded softmax instead); each device then takes its
-    # own rows, since DTensor runs gather's backward on a zero tensor of
-    # the global logits' shape on every device
-    logits = constrain(logits, "batch", "seq", None)
     if isinstance(logits, DTensor):
-        nll, count = on_local_shards(_row_nll, logits, _ROWS,
-                                     [(logits, _ROWS), (labels, _ROWS)], [_ROWS, _ROWS])
+        # each device's rows and vocabulary columns, as XLA reduces a
+        # sharded softmax: per-row partials all-reduced over the
+        # vocabulary's mesh axis, the logits never gathered
+        logits = keep_shards(logits, tuple(_LOGITS.values()))
+        vocab = logits.shape[-1]
+        fn = functools.partial(_row_nll, start=shard_offset(logits, 2), vocab=vocab,
+                               groups=shard_groups(logits, 2))
+        nll, count = on_local_shards(fn, logits, _LOGITS,
+                                     [(logits, _LOGITS), (labels, _ROWS)], [_ROWS, _ROWS])
     else:
         nll, count = _row_nll(logits, labels)
     return torch.sum(nll) / torch.clamp(torch.sum(count), min=1.0)

@@ -327,6 +327,34 @@ def test_partitioned_collectives_are_the_rules():
 
 
 @pytest.mark.timeout(300)
+def test_the_train_step_gathers_no_logits():
+    """phi4-mini smoke at train_4k (B 256 x S 4096, vocab 512) on a fake
+    (2, 2) mesh: one device holds 128 x 4096 rows of 256 vocabulary
+    columns, 512 MiB of float32 logits.  The loss runs B5 on that shard
+    and all-reduces its per-row partials over the model axis (a max of
+    (rows,) and a sum of (rows, 2) float32): no all-gather is as large as
+    the device's logits (the largest moves bf16 activations of (rows, D),
+    192 MiB), and both of the combine's all-reduces are there.  Before B5
+    the loss gathered the logits whole over the vocabulary: one all-gather
+    of exactly the device's 512 MiB."""
+    from repro_torch.launch.comm_analysis import KINDS, CommCounter
+
+    cfg = TC.get("phi4-mini-3.8b", smoke=True)
+    sh = INPUT_SHAPES["train_4k"]
+    rows = sh.global_batch // 2 * sh.seq_len
+    logits = rows * (cfg.padded_vocab // 2) * 4
+    with dryrun.fake_mesh((2, 2), ("data", "model")) as mesh:
+        case = dryrun.build_case(cfg, "train_4k", mesh)
+        with dryrun.MetaShapeCache(), CommCounter() as counter:
+            case.step()
+    gathers = [n for op, n in counter.records if KINDS.get(op) == "all-gather"]
+    reduces = [n for op, n in counter.records if KINDS.get(op) == "all-reduce"]
+    assert logits == 512 * 2**20
+    assert gathers and max(gathers) < logits
+    assert reduces.count(4 * rows) >= 1 and reduces.count(8 * rows) >= 1
+
+
+@pytest.mark.timeout(300)
 @pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
 def test_flops_per_device_times_devices_is_the_global_count(shape):
     # on (1, 2) every product of the dense forward and decode is sharded

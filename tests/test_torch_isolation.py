@@ -20,7 +20,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
     ROOT / "examples" / "branchy_inference_torch.py", ROOT / "examples" / "serve_llm_torch.py",
     ROOT / "examples" / "train_lm_torch.py", ROOT / "tools" / "decode_variants.py",
-    ROOT / "tools" / "adamw_faults.py", ROOT / "tools" / "train_phi4_step.py"]
+    ROOT / "tools" / "adamw_faults.py", ROOT / "tools" / "train_phi4_step.py",
+    ROOT / "tools" / "ce_faults.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -75,7 +76,10 @@ def test_port_file_list_is_complete():
                  "src/repro_torch/kernels/decode_attention/ref.py",
                  "src/repro_torch/kernels/adamw/kernel.py",
                  "src/repro_torch/kernels/adamw/ref.py", "tools/adamw_faults.py",
-                 "tools/train_phi4_step.py"):
+                 "tools/train_phi4_step.py",
+                 "src/repro_torch/kernels/cross_entropy/kernel.py",
+                 "src/repro_torch/kernels/cross_entropy/ref.py",
+                 "src/repro_torch/kernels/cross_entropy/ops.py", "tools/ce_faults.py"):
         assert must in names
 
 

@@ -20,7 +20,8 @@ their leaf's largest magnitude rtol 1e-4, atol 1e-5; parameters 0.2 x lr).
   long-context rules (the cache's positions sharded on the data axis):
   logits and the cache within 1e-5;
 * **the hand-checked collectives,** the dense forward on (1, 2):
-  ``test_dense_forward_collectives_are_the_rules``.
+  ``test_dense_forward_collectives_are_the_rules``, and its loss on the
+  vocabulary-sharded logits: ``test_loss_collectives_are_the_combine_all_reduces``.
 * **no hidden all-gather:** B1 and B2 on DTensors run inside ``local_map``
   with no collective, on their local shards.
 * **the trainer under torchrun:** ``launch/train.py --model-axis 2`` on 2
@@ -105,6 +106,36 @@ def dense_collectives(mesh):
                 logits_placements=[str(p) for p in logits.placements])
 
 
+def loss_collectives(mesh):
+    """The dense smoke forward's logits on ``mesh`` (vocabulary-sharded),
+    made a leaf, then the loss and its gradient, each under a counter: the
+    records (op, operand bytes) of each, the logits' local bytes, the loss
+    and the gradient's placements."""
+    from repro_torch.data import shard_batch
+    from repro_torch.distributed import shard_model, use_sharding_ctx
+    from repro_torch.launch.comm_analysis import CommCounter
+    from repro_torch.models import param_axes
+    from repro_torch.training.train_lib import cross_entropy
+
+    cfg = config("phi4-mini-3.8b")
+    model = shard_model(init_params(cfg, seed=0, device="cpu"), param_axes(cfg), mesh)
+    batch = shard_batch(batch_of(cfg), mesh, "cpu")
+    with torch.no_grad(), use_sharding_ctx(mesh):
+        logits = forward(model, {"tokens": batch["tokens"]}, cfg)[0]
+    logits = logits.detach().requires_grad_()
+    with use_sharding_ctx(mesh), CommCounter() as fwd:
+        loss = cross_entropy(logits, batch["labels"])
+    with CommCounter() as bwd:
+        (grad,) = torch.autograd.grad(loss, logits)
+
+    def kept(counter):
+        return [r for r in counter.records if r[0] != "wait_tensor"]
+
+    return dict(forward=kept(fwd), backward=kept(bwd),
+                logits_bytes=logits.to_local().numel() * 4, loss=float(loss.full_tensor()),
+                grad_placements=[str(p) for p in grad.placements])
+
+
 def kernel_regions(mesh):
     """B1 and B2 on DTensors sharded on the model axis, forward and
     backward, under a counter: their collectives, one device's FLOPs
@@ -168,6 +199,7 @@ def cases(mesh, shape, kinds):
     if shape == (1, 2):
         results["dense_collectives"] = dense_collectives(mesh)
         results["kernel_regions"] = kernel_regions(mesh)
+        results["loss_collectives"] = loss_collectives(mesh)
     return results
 
 
@@ -263,6 +295,38 @@ def test_dense_forward_collectives_are_the_rules(sharded):
     assert record["collectives"]["bytes_per_kind"]["all-reduce"] == n * per
     assert record["collectives"]["total_bytes"] == n * per
     assert record["logits_placements"] == ["R", "S(2)"]
+
+
+@pytest.mark.timeout(300)
+def test_loss_collectives_are_the_combine_all_reduces(sharded):
+    """The loss of the dense smoke logits on (1, 2): B x S = 2 x 16 rows,
+    the vocabulary (512) split over the model axis, 256 columns a device.
+    Each device runs B5's plain version on its own columns, and the
+    combine reduces its per-row partials: one max all-reduce of the rows'
+    maxima, (32,) float32 = 128 B, and one sum all-reduce of (32, 2)
+    float32 = 256 B.  The backward runs on the local shard with no
+    collective, and its gradient stays vocabulary-sharded.  No collective
+    carries the logits (2 x 16 x 256 x 4 = 32768 B a device).  The loss
+    equals the single-process one within the metrics' rtol."""
+    shape, runs = sharded
+    if shape != (1, 2):
+        return
+    record = runs["loss_collectives"]
+    rows = 2 * 16
+    assert record["forward"] == [("all_reduce", 4 * rows), ("all_reduce", 8 * rows)]
+    assert record["backward"] == []
+    assert record["logits_bytes"] == 2 * 16 * 256 * 4
+    assert all(nbytes < record["logits_bytes"] for _, nbytes in record["forward"])
+    assert record["grad_placements"] == ["R", "S(2)"]
+    from repro_torch.training.train_lib import cross_entropy
+
+    cfg = config("phi4-mini-3.8b")
+    batch = batch_of(cfg)
+    model = init_params(cfg, seed=0, device="cpu")
+    with torch.no_grad():
+        logits = forward(model, {"tokens": torch.as_tensor(batch["tokens"]).long()}, cfg)[0]
+        want = float(cross_entropy(logits, torch.as_tensor(batch["labels"]).long()))
+    np.testing.assert_allclose(record["loss"], want, rtol=METRIC_TOL)
 
 
 @pytest.mark.timeout(300)
