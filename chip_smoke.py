@@ -58,10 +58,12 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    weights): prefill logits within 1e-3 and identical greedy tokens;
 6. stream_pack kernel against its plain PyTorch version on the card over
    lanes, shapes (the branchy cells', ragged ones, K or N off the 16-byte
-   vector, K too deep for the float32 panel), dtypes, a shared or separate
-   x, and x 4 bytes off a 16-byte boundary, each within atol + rtol*|ref|;
-   every kernel of the library (each tile, each loader) must be launched;
-   then times at the
+   vector, K too deep for the float32 panel, the bf16 weight stream's),
+   dtypes, a shared or separate x, x 4 bytes off a 16-byte boundary, and x
+   or w (or both) transposed where they lie, each within atol +
+   rtol*|ref|; every kernel of the library (each ring tile and loader, each
+   stream row tile, column tile and layout) and every layout through each
+   ring's element-wise loads must be launched; then times at the
    four branchy cells' shapes and one bf16 shape, with the variant and tile
    each took, each call inside a CUDA graph and launched from Python,
    beside the plain version, one ``torch.matmul`` over the broadcast x (a
@@ -70,7 +72,8 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    at every capacity the served path gives them (M 2-64), against the
    plain version (computed a few lanes at a time), and at the decode
    capacity (4) and prefill bucket 64's (64) timed beside ``torch.bmm``
-   and the weights' bytes;
+   and the weights' bytes; one of them runs twice and must give the same
+   bits;
 7. Nimble on the four branchy cells at full size, float32: plain eager
    PyTorch, ``EagerInterpreter``, ``Nimble`` on one stream, on Algorithm 1's
    streams (one CUDA graph over several CUDA streams) and packed onto
@@ -155,7 +158,8 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
     kernel with one CTA per (q head, key tile) instead, and each kernel's
     registers and spills from ptxas; (b) B2's two backward products through its autograd Function
     at the smoke experts' shapes, a shared x and one full deepseek-v2
-    expert shape (160 lanes, K 5120, N 1536, M 64), timed there beside two
+    expert shape (160 lanes, K 5120, N 1536, M 64), w^T and x^T read where
+    they lie (no layout copy, here or in 19d), timed there beside two
     ``torch.bmm``; (f) B4, the AdamW update (a sum of squares a leaf, a
     finish, an update a leaf), against its plain version at odd leaf sizes
     and phi4-mini's largest two, both dtypes, every clip mode, lr a float
@@ -249,7 +253,9 @@ B3's launches are counted over each decode path (``B3_BY_PATH``: phases
 4, 5, 8, 10-13, 15-18 and 20b, each of which must launch it), every B3
 kernel (dtype, head dim, rows) the paths ran must be one phase 3b checked,
 and no phase after 3b may make a layout copy for it; the profiled decode
-replays held and B3's kernels in them are counted (``B3_REPLAYS``).  B4's
+replays held and B3's kernels in them are counted (``B3_REPLAYS``).  B2's
+launches are counted by path and variant (``B2_VARIANTS``), beside its
+layout copies over the run.  B4's
 and B5's launches are counted over each training path (``B4_BY_PATH``,
 ``B5_BY_PATH``: 19c, 19d, 21a, 21d, each of which must launch them), and
 the profiled training replay's B1-backward, B4 and B5 kernels over the
@@ -1551,35 +1557,77 @@ PACK_SHAPES = [(16, 16, 16), (64, 32, 16), (128, 128, 128), (256, 64, 128), (8, 
 # loads of every tile
 PACK_OFFSET_SHAPES = [(8, 64, 64), (33, 40, 29), (16, 16, 16), (32, 256, 256),
                       (16, 1024, 64), (64, 1024, 64)]
+# ... and with x or w (or both) transposed, read where they lie by the
+# element-wise loads of every ring: the layouts of B2's backward (dx = dy wᵀ,
+# dw = xᵀ dy) at the branchy cells', the smoke experts' and odd shapes
+PACK_LAYOUT_SHAPES = [(8, 64, 64), (33, 40, 29), (16, 16, 16), (32, 256, 256),
+                      (8, 1024, 64), (64, 1024, 64), (80, 64, 32)]
+# the bf16 weight stream's instances (lanes, M, K, N, layout): row tiles 16,
+# 32 and 64 (M 4, 24, 40, 64: rows past M zero-filled, not stored), x and w
+# row-major (nn) or w transposed (nt), x transposed (tn: 64-row tiles, M 520
+# ending inside one, K 72 a partial chunk); N 1000 and 584 end inside a
+# 256-column tile (584 inside its second 64-column box: the others are not
+# loaded); fewer items than SMs, or more
+PACK_TMA_SHAPES = [(lanes, M, K, N, layout) for layout in ("nn", "nt")
+                   for lanes, K, N, rows in ((2, 1024, 1000, (4, 24, 64)),
+                                             (33, 1024, 584, (16, 40)))
+                   for M in rows] + [(1, 520, 72, 1032, "tn"), (3, 520, 72, 1032, "tn")]
 
 
-def pack_cases() -> list[tuple[str, int, tuple[int, int, int], bool, int]]:
-    """Phase 6's (dtype, lanes, (M, K, N), shared x, x's byte offset) cases."""
-    cases = [(dname, lanes, mkn, shared, 0) for dname in ("float32", "bfloat16")
+def pack_cases() -> list[tuple[str, int, tuple[int, int, int], bool, int, str]]:
+    """Phase 6's (dtype, lanes, (M, K, N), shared x, x's byte offset, layout)
+    cases; the layout is x's and w's, n row-major, t transposed."""
+    dtypes = ("float32", "bfloat16")
+    cases = [(dname, lanes, mkn, shared, 0, "nn") for dname in dtypes
              for lanes in (1, 2, 7, 12) for mkn in PACK_SHAPES for shared in (False, True)]
-    return cases + [(dname, lanes, mkn, shared, 4) for dname in ("float32", "bfloat16")
-                    for lanes in (1, 7) for mkn in PACK_OFFSET_SHAPES
-                    for shared in (False, True)]
+    cases += [(dname, lanes, mkn, shared, 4, "nn") for dname in dtypes
+              for lanes in (1, 7) for mkn in PACK_OFFSET_SHAPES for shared in (False, True)]
+    cases += [(dname, lanes, mkn, shared, 0, layout) for dname in dtypes
+              for lanes in (1, 7) for mkn in PACK_LAYOUT_SHAPES for shared in (False, True)
+              for layout in ("tn", "nt", "tt")]
+    return cases + [("bfloat16", lanes, (M, K, N), shared, 0, layout)
+                    for lanes, M, K, N, layout in PACK_TMA_SHAPES for shared in (False, True)]
 
 
-def _pack_inputs(lanes, M, K, N, dtype, shared, seed, offset=0):
+def _pack_inputs(lanes, M, K, N, dtype, shared, seed, offset=0, layout="nn"):
     """x (lanes, M, K), a stride-0 broadcast of one (M, K) when shared, and
-    w (lanes, K, N), standard normal on the card.  ``offset`` > 0 puts x's
-    first element that many bytes past a 16-byte boundary."""
+    w (lanes, K, N), standard normal on the card; ``layout`` "t" for x
+    (w) makes it the transpose of a contiguous (lanes, K, M) ((lanes, N,
+    K)).  ``offset`` > 0 puts x's first element that many bytes past a
+    16-byte boundary."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     rows = (1 if shared else lanes) * M * K
     skip = offset // torch.empty((), dtype=dtype).element_size()
     x = torch.randn(skip + rows, generator=g, device="cuda").to(dtype)[skip:]
-    x = x.view(M, K).expand(lanes, M, K) if shared else x.view(lanes, M, K)
+    x = x.view(K, M).t() if layout[0] == "t" and shared else \
+        x.view(lanes, K, M).transpose(1, 2) if layout[0] == "t" else \
+        x.view(M, K) if shared else x.view(lanes, M, K)
+    if shared:
+        x = x.expand(lanes, M, K)
     w = torch.randn((lanes, K, N), generator=g, device="cuda").to(dtype)
+    if layout[1] == "t":
+        w = w.transpose(1, 2).contiguous().transpose(1, 2)
     return x, w
 
 
 def _tile(launch) -> str:
     return (f"{launch.variant} tile {launch.bm}x{launch.bn} kc {launch.kc} stages "
             f"{launch.stages} grid {launch.grid} smem {launch.smem_bytes} B")
+
+
+def pack_coverage(launches) -> set:
+    """What phase 6 must reach: every kernel of ``INSTANCES``, and every
+    layout of x and w through each ring's element-wise loads (the stream's
+    layouts are its instances); ``launches`` the launches made, returns
+    what they miss."""
+    from repro_torch.kernels.stream_pack import kernel as pack
+
+    want = set(pack.INSTANCES) | {(v, layout) for v, _, _ in pack.INSTANCES
+                                  if v.endswith("/elem") for layout in pack.LAYOUTS}
+    got = {ln.instance for ln in launches} | {(ln.variant, ln.layout) for ln in launches}
+    return want - got
 
 
 def phase_stream_pack() -> dict:
@@ -1592,11 +1640,13 @@ def phase_stream_pack() -> dict:
         "rtol*|ref|: f32 1e-4 + 1e-5*|ref| for summation order; bf16 1e-2 + "
         "1e-2*|ref| for the rounding of the output)")
     cases = pack_cases()
-    worst, reached = 0.0, {}
-    for n, (dname, lanes, (M, K, N), shared, offset) in enumerate(cases):
+    worst, reached, made = 0.0, {}, []
+    for n, (dname, lanes, (M, K, N), shared, offset, layout) in enumerate(cases):
         x, w = _pack_inputs(lanes, M, K, N, getattr(torch, dname), shared, seed=n,
-                            offset=offset)
+                            offset=offset, layout=layout)
         launch = pack.launch_for(x, w)
+        if launch.layout != layout:
+            fail(f"phase 6 made x and w of layout {layout}, launch_for read {launch.layout}")
         # one block per dimension passes the TPU's block check for any
         # shape; the CUDA tile still meets the ragged edge
         got = stream_pack_matmul(x, w, block_m=M, block_n=N, block_k=K)
@@ -1606,19 +1656,22 @@ def phase_stream_pack() -> dict:
         r = ratio(got, ref, *PACK_TOL[dname])
         if not (math.isfinite(err) and r <= 1.0):
             fail(f"stream_pack disagrees at {dname} lanes={lanes} M={M} K={K} N={N} "
-                 f"shared={shared} x offset {offset} B ({_tile(launch)}): max_abs_err "
-                 f"{err} ({r:.3f} of tolerance {PACK_TOL[dname]})")
+                 f"shared={shared} x offset {offset} B layout {layout} ({_tile(launch)}): "
+                 f"max_abs_err {err} ({r:.3f} of tolerance {PACK_TOL[dname]})")
         worst = max(worst, r)
         reached[launch.instance] = reached.get(launch.instance, 0) + 1
+        made.append(launch)
     say(f"  float32 and bfloat16: lanes 1/2/7/12 x {len(PACK_SHAPES)} shapes x "
-        f"shared/separate, and lanes 1/7 x {len(PACK_OFFSET_SHAPES)} shapes x "
-        f"shared/separate with x 4 bytes off 16: all within tolerance")
+        f"shared/separate; lanes 1/7 x {len(PACK_OFFSET_SHAPES)} shapes x "
+        f"shared/separate with x 4 bytes off 16; lanes 1/7 x {len(PACK_LAYOUT_SHAPES)} shapes "
+        f"x shared/separate x layouts tn/nt/tt; bf16 {len(PACK_TMA_SHAPES)} stream shapes x "
+        f"shared/separate: all within tolerance")
     say(f"  {len(cases)} cases within tolerance (worst at {worst:.2f} of its tolerance); "
         f"cases by kernel (variant, bm, bn): "
         + ", ".join(f"{v} {bm}x{bn} {n}" for (v, bm, bn), n in sorted(reached.items())))
-    missing = set(pack.INSTANCES) - set(reached)
+    missing = pack_coverage(made)
     if missing:
-        fail(f"phase 6 never launched the stream_pack kernels {sorted(missing)}")
+        fail(f"phase 6 never launched the stream_pack kernels or layouts {sorted(missing)}")
 
     say("-- timing: the branchy cells' packed mm groups (f32, shared x) and one bf16 shape")
     record = {}
@@ -1663,6 +1716,8 @@ def phase_stream_pack() -> dict:
 EXPERT_GEMMS = {"arctic-480b": (128, 7168, 4864), "deepseek-v2-236b": (160, 5120, 1536)}
 # the M that are timed: 4 decode slots, and prefill bucket 64 (dropless)
 EXPERT_TIMED_M = (4, 64)
+# the case run twice, whose two outputs must have the same bits
+EXPERT_REPEAT = ("deepseek-v2-236b", "gate/up", 64)
 # lanes per call of the plain version on the card, which upcasts w to float32
 # (17.8 GB for all of arctic's lanes)
 REF_LANES = 16
@@ -1686,7 +1741,8 @@ def expert_gemms() -> list[dict]:
     ``EXPERT_TIMED_M``, times in a CUDA graph and launched from Python beside one
     ``torch.bmm`` over the same operands (a yardstick only: the port never
     calls it), the plain version (launched from Python) and the bound,
-    which is the weights' bytes."""
+    which is the weights' bytes.  ``EXPERT_REPEAT`` runs twice and must give
+    the same bits."""
     import torch
 
     from repro_torch.kernels.stream_pack import kernel as pack
@@ -1713,6 +1769,13 @@ def expert_gemms() -> list[dict]:
                 if not (math.isfinite(err) and worst <= 1.0):
                     fail(f"stream_pack disagrees at {arch} {gemm} M={M}: max_abs_err {err} "
                          f"({worst:.3f} of tolerance {PACK_TOL['bfloat16']})")
+                if (arch, gemm, M) == EXPERT_REPEAT:
+                    again = stream_pack(x, w)
+                    if not torch.equal(again.view(torch.int16), got.view(torch.int16)):
+                        fail(f"two runs of stream_pack at {arch} {gemm} M={M} differ in "
+                             f"{(again != got).sum().item()} elements")
+                    say(f"  {arch} {gemm} M {M}: two runs bit-identical")
+                    del again
                 if M not in EXPERT_TIMED_M:
                     say(f"  {arch} {gemm} lanes {lanes} M {M} K {K} N {N} ({_tile(launch)}): "
                         f"{worst:.2f} of tolerance, max_abs_err {err:.3e}")
@@ -1733,7 +1796,8 @@ def expert_gemms() -> list[dict]:
                     f"{bound_ms / graphed['kernel']:.1%} of bound, "
                     f"{graphed['library'] / graphed['kernel']:.3f}x the library's speed")
                 entries.append(dict(model=arch, gemm=gemm, lanes=lanes, M=M, K=K, N=N,
-                                    variant=launch.variant, bm=launch.bm, max_abs_err=err,
+                                    variant=launch.variant, bm=launch.bm, bn=launch.bn,
+                                    stages=launch.stages, grid=launch.grid[0], max_abs_err=err,
                                     ms=graphed["kernel"], eager_ms=eager["kernel"],
                                     plain_ms=plain_ms, library_ms=graphed["library"],
                                     eager_library_ms=eager["library"], bound_ms=bound_ms,
@@ -3232,7 +3296,8 @@ def train_b2_backward() -> dict:
     """19b: B2's two backward products (through ``StreamPack``) against
     the plain version at the smoke experts' shapes (the capacities of the
     19d step), a shared x, and one full deepseek-v2 expert shape, timed
-    there beside two ``torch.bmm`` (a yardstick only)."""
+    there beside two ``torch.bmm`` (a yardstick only).  The products read
+    w^T and x^T where they lie: ``layout_copies`` must stay 0."""
     import torch
 
     import repro_torch.configs as C
@@ -3240,7 +3305,7 @@ def train_b2_backward() -> dict:
     from repro_torch.models.moe import capacity, moe_shapes
 
     say(f"-- 19b: B2's backward products dx = dy w^T and dw = x^T dy vs plain (within "
-        f"{PACK_TOL}), by the StreamPack autograd Function")
+        f"{PACK_TOL}), by the StreamPack autograd Function, w^T and x^T read where they lie")
     cases = []
     for arch in SMOKE_TRAIN_ARCHS[1:]:
         cfg = C.get(arch, smoke=True)
@@ -3251,6 +3316,7 @@ def train_b2_backward() -> dict:
     cases += [("branchy shared x", "float32", 7, 64, 64, 64, True),
               ("deepseek-v2 full expert", "bfloat16", 160, 64, 5120, 1536, False)]
     record = {}
+    copies = pack.layout_copies
     for label, dname, lanes, M, K, N, shared in cases:
         dtype = getattr(torch, dname)
         g = torch.Generator(device="cuda").manual_seed(lanes + M + K)
@@ -3264,6 +3330,10 @@ def train_b2_backward() -> dict:
         torch.cuda.synchronize()
         if pack.launches - before != 3:
             fail(f"{label}: forward and backward made {pack.launches - before} B2 launches, not 3")
+        xd, wd = x.detach(), w.detach()
+        xs = xd.expand(lanes, M, K) if shared else xd
+        variants = (pack.launch_for(dy, wd.transpose(1, 2)).variant,
+                    pack.launch_for(xs.transpose(1, 2), dy).variant)
         rx = rw = 0.0
         for lo in range(0, lanes, REF_LANES):        # the plain version a few lanes at a time
             hi = min(lanes, lo + REF_LANES)
@@ -3276,34 +3346,39 @@ def train_b2_backward() -> dict:
             rx = ratio(dx, (dy.float() @ w.detach().float().transpose(1, 2)).sum(0),
                        *PACK_TOL[dname])
         say(f"  {label}: lanes {lanes} M {M} K {K} N {N} {dname}: dx {rx:.2f} and dw {rw:.2f} "
-            "of tolerance")
+            f"of tolerance; dx on {variants[0]}, dw on {variants[1]}")
         if not max(rx, rw) <= 1.0:
             fail(f"{label}: B2's backward disagrees with the plain version")
-        if label.startswith("deepseek"):
+        if label == "deepseek-v2 full expert":
             from repro_torch.kernels.stream_pack.ops import _stream_pack
 
-            xd, wd = x.detach(), w.detach()
-
             def kern():
-                return (_stream_pack(dy, wd.transpose(1, 2).contiguous()),
-                        _stream_pack(xd.transpose(1, 2).contiguous(), dy))
+                return _stream_pack(dy, wd.transpose(1, 2)), _stream_pack(xd.transpose(1, 2), dy)
 
             def lib():
                 return torch.bmm(dy, wd.transpose(1, 2)), torch.bmm(xd.transpose(1, 2), dy)
 
             ms, lib_ms, eager_ms = graph_ms(kern, reps=5, iters=10), graph_ms(lib, 5, 10), \
                 time_ms(kern, 10)
-            copy_ms = graph_ms(lambda: wd.transpose(1, 2).contiguous(), 5, 10)
+            dx_ms = graph_ms(lambda: _stream_pack(dy, wd.transpose(1, 2)), 5, 10)
+            dw_ms = graph_ms(lambda: _stream_pack(xd.transpose(1, 2), dy), 5, 10)
             nbytes = 2 * (x.numel() + 2 * w.numel() + dy.numel() + x.numel())
             flops = 2 * 2 * lanes * M * K * N
             bound_ms, _ = bound(flops, nbytes, "bfloat16")
-            say(f"    timed (graph): both products with the w^T and x^T copies {ms:.4f} ms "
-                f"(eager {eager_ms:.4f}), of which the w^T copy {copy_ms:.4f} ms; two "
-                f"torch.bmm {lib_ms:.4f} ms; bound {bound_ms:.4f} ms (bytes)")
-            record = dict(backward_ms=ms, backward_eager_ms=eager_ms, wT_copy_ms=copy_ms,
-                          backward_library_ms=lib_ms, backward_bound_ms=bound_ms,
-                          backward_shape=[lanes, M, K, N])
+            say(f"    timed (graph): both products, no copy, {ms:.4f} ms (eager {eager_ms:.4f}); "
+                f"dx alone {dx_ms:.4f}, dw alone {dw_ms:.4f}; two torch.bmm {lib_ms:.4f} ms; "
+                f"bound {bound_ms:.4f} ms (bytes); kernel at {bound_ms / ms:.1%} of bound, "
+                f"{lib_ms / ms:.3f}x the library's speed")
+            record = dict(backward_ms=ms, backward_eager_ms=eager_ms, backward_dx_ms=dx_ms,
+                          backward_dw_ms=dw_ms, backward_library_ms=lib_ms,
+                          backward_bound_ms=bound_ms, backward_shape=[lanes, M, K, N],
+                          backward_variants=list(variants))
         del x, w, dy, y, dx, dw, xg, wg
+    made = pack.layout_copies - copies
+    say(f"  B2 layout copies over 19b: {made}")
+    if made:
+        fail(f"19b: B2's backward made {made} layout copies of w or x")
+    record["backward_layout_copies"] = made
     return record
 
 
@@ -4243,6 +4318,7 @@ def train_card_vs_cpu() -> dict:
         on_cpu.load_state_dict(on_card.state_dict())
         step = make_train_step(cfg, lr=lr)
         before = (kernel.launches, backward.launches, pack.launches, b4.launches, b5.launches)
+        copies = pack.layout_copies
         got = {}
         for dev, model in (("cuda", on_card), ("cpu", on_cpu)):
             sealed = seal_train_step(step, model, adamw_init(dict(model.named_parameters())),
@@ -4267,6 +4343,9 @@ def train_card_vs_cpu() -> dict:
             fail(f"{cfg.name}: the step on the card never launched B1 or its backward")
         if cfg.moe is not None and counts[arch][2] == 0:
             fail(f"{cfg.name}: the step on the card never launched B2")
+        if pack.layout_copies != copies:
+            fail(f"{cfg.name}: the step made {pack.layout_copies - copies} B2 layout copies "
+                 "(its backward reads w^T and x^T where they lie)")
         leaves = len(list(on_card.parameters()))
         if counts[arch][3] != 2 * leaves + 1:
             fail(f"{cfg.name}: the sealed step launched {counts[arch][3]} B4 kernels, not the "
@@ -5083,6 +5162,45 @@ def b3_path(name: str):
         B3_BY_PATH[name] = B3_BY_PATH.get(name, 0) + decode.launches
 
 
+# B2's launches by path and variant: {path: {variant: calls}} (b2_variants)
+B2_VARIANTS: dict = {}
+_B2_PATHS: list = []
+
+
+@contextlib.contextmanager
+def b2_variants():
+    """Count every launch of B2's wrapper under the innermost ``b2_path``
+    by the variant ``launch_for`` names; the calls and the wrapper's count
+    are otherwise unchanged."""
+    from repro_torch.kernels.stream_pack import kernel as pack
+
+    inner = pack.stream_pack_matmul
+
+    def recording(x, w, **kw):
+        out = inner(x, w, **kw)
+        if _B2_PATHS:
+            by = B2_VARIANTS.setdefault(_B2_PATHS[-1], {})
+            variant = pack.launch_for(x, w).variant
+            by[variant] = by.get(variant, 0) + 1
+        return out
+
+    pack.stream_pack_matmul = recording
+    try:
+        yield
+    finally:
+        pack.stream_pack_matmul = inner
+
+
+@contextlib.contextmanager
+def b2_path(name: str):
+    """Record B2's variants over one path under ``name``."""
+    _B2_PATHS.append(name)
+    try:
+        yield
+    finally:
+        _B2_PATHS.pop()
+
+
 @contextlib.contextmanager
 def b3_instances(seen: set):
     """Add to ``seen`` the kernel (dtype, head dim, rows) of every call of
@@ -5145,17 +5263,22 @@ def main() -> None:
     from repro_torch.kernels.decode_attention import kernel as decode
 
     decode.layout_copies = 0
+    from repro_torch.kernels.stream_pack import kernel as pack
+
+    pack.layout_copies = 0
     b3_seen: set = set()
-    with b3_instances(b3_seen):
+    with b3_instances(b3_seen), b2_variants():
         with b3_path("serve phi4-mini-3.8b"):
             launches, in_replays, _ = phase_serve()
         with b3_path("phi4-mini-3.8b 2 layers f32 on the card (phase 5)"):
             phase_cpu_parity()
         pack_record = phase_stream_pack()
-        pack_launches, pack_in_replays, pack_profiled = phase_nimble()
-        with b3_path("serve arctic-480b"):
+        with b2_path("nimble branchy cells"):
+            pack_launches, pack_in_replays, pack_profiled = phase_nimble()
+        with b3_path("serve arctic-480b"), b2_path("serve arctic-480b"):
             arctic = phase_serve_moe("arctic-480b", 8)
-        deepseek = phase_serve_moe("deepseek-v2-236b", 9)
+        with b2_path("serve deepseek-v2-236b"):
+            deepseek = phase_serve_moe("deepseek-v2-236b", 9)
         with b3_path("arctic-smoke f32 on the card (phase 10)"):
             phase_moe_cpu_parity(10)
         seen: set = set()
@@ -5170,7 +5293,8 @@ def main() -> None:
         check_family_launches(seen)
         with b3_path("llava, seamless, zamba2 smoke f32 on the card (phase 15)"):
             phase_families_cpu_parity(15)
-        with b3_path("dispatch phi4-mini + deepseek-v2 + smoke lane"):
+        with b3_path("dispatch phi4-mini + deepseek-v2 + smoke lane"), \
+                b2_path("dispatch phi4-mini + deepseek-v2 + smoke lane"):
             dispatch = phase_dispatch(16)
         with b3_path("worker plane phi4-mini (in process)"):
             workers = phase_workers(17)
@@ -5178,11 +5302,13 @@ def main() -> None:
             workers["launches"].get("decode_attention", 0)
         with b3_path("journal recovery phi4-mini"):
             journal = phase_journal(18, workers)
-        train = phase_train(19)
+        with b2_path("train (19b, 19d, 19e)"):
+            train = phase_train(19)
         phi4, smoke = train["phi4"], train["smoke"]
         with b3_path("synchronized decode_32k phi4-mini-3.8b"):
             launch = phase_launch(20)
-        sharded = phase_sharded(21, phi4.pop("reference"))
+        with b2_path("sharded (phase 21)"):
+            sharded = phase_sharded(21, phi4.pop("reference"))
     idle = sorted(name for name, n in B3_BY_PATH.items() if n == 0)
     if idle:
         fail(f"B3 was launched no time on the paths {idle}")
@@ -5262,6 +5388,7 @@ def main() -> None:
         launches_in_replays=pack_in_replays + arctic["b2_in_replays"] + deepseek["b2_in_replays"],
         profiled_replays=pack_profiled + arctic["profiled_replays"] + deepseek["profiled_replays"],
         dispatched_in_replays=dispatch["b2_in_replays"],
+        variants_by_path=B2_VARIANTS, layout_copies=pack.layout_copies,
         **pack_record, **train["pack"],
     ), dict(
         name="decode_attention", route="cuda",

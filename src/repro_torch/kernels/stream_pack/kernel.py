@@ -10,7 +10,13 @@ and does not choose the CUDA tile, which masks its ragged edge.
 :func:`choose_launch`, also plain Python, chooses the CUDA kernel and its
 tile; the library sizes the grid and the dynamic shared memory from the tile.  ``x`` may be a
 lane broadcast (lane stride 0) of one ``(M, K)`` matrix, which the kernel
-reads once per block and never copies.  The library is built with ``nvcc``
+reads once per block and never copies.  Each operand's matrices lie
+row-major or transposed (``x.transpose(1, 2)`` of a contiguous
+``(lanes, K, M)``, ``w.transpose(1, 2)`` of a contiguous ``(lanes, N, K)``):
+:func:`operand_layout` reads which from the strides and the kernel reads
+the operand where it lies, so a gradient's ``wᵀ`` and ``xᵀ`` are views.
+Any other layout is copied once by :func:`operands` and counted in
+``layout_copies``.  The library is built with ``nvcc``
 for ``sm_90a`` at first launch (see :mod:`repro_torch.kernels.build`); the
 kernel launches on PyTorch's current stream and allocates nothing, so a
 CUDA graph captures it like any other operator.
@@ -37,29 +43,58 @@ VECTOR_BYTES = 16            # one cp.async copy
 RING_STAGES, RING_KC = 4, 64
 F32_BN, BF16_BN = 16, 32     # the tiles' columns
 F32_ROWS, BF16_ROWS = (8, 16, 32), (16, 32, 64)   # the tiles' rows, fitted to M
+# The bf16 weight stream (bf16_tma): persistent blocks, one an SM of the
+# H100 SXM's 132, walk (lane, row tile, column tile) items; a producer
+# warp feeds a ring of TMA_KC-deep stages (a row tile of x and a column
+# tile of w) to four consumer warps of 64 columns each.  Two stages were
+# measured as fast as five (tools/stream_pack_variants.py, PERF.md).
+SMS = 132
+TMA_ROWS = (16, 32, 64)      # row tiles, fitted to M; 64 where x lies transposed
+TMA_BN = 256                 # column tile: 512 contiguous bytes of a weight row
+TMA_KC = 64                  # one 128-byte swizzle row of bf16
+TMA_STAGES = 2
+# the stream is chosen where one lane's weight panel (K x N), or its
+# output panel where x lies transposed (dw = xᵀ · dy), holds at least
+# this many bytes.  Measured over 64 lanes of K = N panels
+# (tools/stream_pack_variants.py --sweep, PERF.md): the stream 1.1-1.4x the
+# 32-column ring at 128 KB, 2.3-2.5x at 512 KB, 1.2-1.9x from 1.2 MB up;
+# smaller bf16 products keep the ring
+TMA_MIN_PANEL = 512 << 10
+# (x, w) layouts: n row-major, t transposed; the stream reads the first
+# three, the rings' element-wise loads all four
+LAYOUTS = ("nn", "nt", "tn", "tt")
+TMA_LAYOUTS = LAYOUTS[:3]
 # every kernel of the library as (variant, bm, bn): csrc/stream_pack.cu
-# instantiates the same tiles (kInstances), and phase 6 of chip_smoke.py
-# launches each of them
+# instantiates the same tiles (kInstances, kTma), and phase 6 of
+# chip_smoke.py launches each of them
 INSTANCES = tuple(
     (f"{kind}/{loader}", bm, bn)
     for kind, rows, bn in (("f32_panel", F32_ROWS, F32_BN), ("f32_ring", F32_ROWS, F32_BN),
                            ("bf16_ring", BF16_ROWS, BF16_BN))
-    for bm in rows for loader in ("vec", "elem"))
+    for bm in rows for loader in ("vec", "elem")) + tuple(
+    (f"bf16_tma/{lay}", rt, TMA_BN)
+    for lay in TMA_LAYOUTS for rt in (TMA_ROWS if lay[0] == "n" else TMA_ROWS[-1:]))
+_KIND = {"f32_panel": 0, "f32_ring": 0, "bf16_ring": 1, "bf16_tma": 2}
 
 launches = 0
+layout_copies = 0
 _lib = None
 _ready_devices: set[int] = set()
+_STRIDES = ctypes.c_longlong * 6      # x: lane, row, depth; w: lane, depth, column
 
 
 @dataclass(frozen=True)
 class Launch:
     """One launch of the library: ``variant`` names the kernel and its loader
     (``"f32_panel/vec"``: cp.async 16-byte copies; ``"/elem"``: masked
-    element-wise loads), ``bm x bn`` the output tile, ``kc`` the K depth of
-    one shared-memory stage and ``stages`` their number (1: the whole K
-    panel in one load).  The library sizes the grid and the shared memory
-    from the tile itself; ``grid`` and ``smem_bytes`` here are the same
-    numbers, for the launch-limit check and for display."""
+    element-wise loads, any layout; ``"bf16_tma/nt"``: the TMA weight
+    stream, x row-major and w transposed), ``bm x bn`` the output tile,
+    ``kc`` the K depth of one shared-memory stage and ``stages`` their
+    number (1: the whole K panel in one load).  ``layout`` is x's and w's:
+    ``n`` row-major, ``t`` transposed.  The library sizes the grid and the
+    shared memory from the tile itself; ``grid`` and ``smem_bytes`` here
+    are the same numbers, for the launch-limit check and for display (the
+    stream's grid is its persistent blocks)."""
 
     variant: str
     bm: int
@@ -68,6 +103,7 @@ class Launch:
     stages: int
     grid: tuple[int, int, int]
     smem_bytes: int
+    layout: str = "nn"
 
     @property
     def vec(self) -> bool:
@@ -84,15 +120,49 @@ def _fit(M: int, rows: tuple[int, ...]) -> int:
     return next((r for r in rows if M <= r), rows[-1])
 
 
-def choose_launch(lanes: int, M: int, N: int, K: int, dtype: str, aligned: bool) -> Launch:
+def tma_smem_bytes(rt: int, stages: int) -> int:
+    """The stream's dynamic shared memory, as the library sizes it: 1024
+    bytes to align the ring, ``stages`` stages of an ``rt``-row x tile and
+    a ``TMA_BN``-column w tile (128 bytes a row of either), each of the
+    four consumer warps' 16 staged output rows (64 columns padded by 16
+    bytes), and the ring's mbarriers."""
+    return 1024 + stages * (rt + TMA_BN) * 128 + 4 * 16 * 72 * 2 + 16 * stages
+
+
+def _tma_launch(lanes: int, M: int, N: int, rt: int, layout: str) -> Launch:
+    """The stream's launch: one persistent block an SM (fewer where there
+    are fewer items), a ring of ``TMA_STAGES``."""
+    items = lanes * -(-M // rt) * -(-N // TMA_BN)
+    if items > MAX_GRID_X:
+        raise ValueError(f"lanes {lanes}, M {M} or N {N} exceeds the stream's {MAX_GRID_X} items")
+    return Launch(f"bf16_tma/{layout}", rt, TMA_BN, TMA_KC, TMA_STAGES, (min(items, SMS), 1, 1),
+                  tma_smem_bytes(rt, TMA_STAGES), layout)
+
+
+def choose_launch(lanes: int, M: int, N: int, K: int, dtype: str, aligned: bool, *,
+                  x_t: bool = False, w_t: bool = False, shared: bool = False) -> Launch:
     """The kernel launch for ``lanes`` products ``(M, K) @ (K, N)`` of
     ``dtype`` ("float32" or "bfloat16").  ``aligned``: every base pointer is
-    on 16 bytes (:func:`vector_aligned`); with it, K and N in whole 16-byte
-    vectors take cp.async copies, anything else masked element-wise loads.
-    Plain Python, decides nothing about a card.  Raises ``ValueError`` where
-    the grid would pass the launch limits."""
+    on 16 bytes (:func:`vector_aligned`); ``x_t``/``w_t``: x/w lies
+    transposed; ``shared``: one x for every lane (lane stride 0).  bf16
+    products with a per-lane x, TMA's alignment (16-byte bases and rows)
+    and a weight panel of at least ``TMA_MIN_PANEL`` bytes take the TMA
+    weight stream at M <= 64, or wherever x lies transposed (its output
+    panel counted).  Everything else takes the rings: row-major operands
+    with K and N in whole 16-byte vectors take cp.async copies, anything
+    else masked element-wise loads.  Plain Python, decides nothing about a
+    card.  Raises ``ValueError`` where the grid would pass the launch
+    limits."""
+    layout = ("t" if x_t else "n") + ("t" if w_t else "n")
     vec_elems = VECTOR_BYTES // (4 if dtype == "float32" else 2)
-    loader = "vec" if aligned and K % vec_elems == 0 and N % vec_elems == 0 else "elem"
+    # the rows of x, w and out as they lie (M for xᵀ, K for x and wᵀ, N for
+    # w and out) in whole 16-byte units
+    rows_ok = (M if x_t else K) % 8 == 0 and (K if w_t else N) % 8 == 0 and N % 8 == 0
+    if dtype == "bfloat16" and layout in TMA_LAYOUTS and aligned and not shared and rows_ok \
+            and (M <= TMA_ROWS[-1] or x_t) and max(K, M if x_t else 0) * N * 2 >= TMA_MIN_PANEL:
+        return _tma_launch(lanes, M, N, TMA_ROWS[-1] if x_t else _fit(M, TMA_ROWS), layout)
+    loader = "vec" if (aligned and layout == "nn" and K % vec_elems == 0
+                       and N % vec_elems == 0) else "elem"
     if dtype == "float32":
         bm, bn = _fit(M, F32_ROWS), F32_BN
         kc = -(-K // 4) * 4                  # the whole panel, in float4 steps
@@ -110,12 +180,46 @@ def choose_launch(lanes: int, M: int, N: int, K: int, dtype: str, aligned: bool)
     grid = (-(-N // bn), -(-M // bm), lanes)
     if grid[0] > MAX_GRID_X or grid[1] > MAX_GRID_YZ or grid[2] > MAX_GRID_YZ:
         raise ValueError(f"lanes {lanes}, M {M} or N {N} exceeds the launch grid {grid}")
-    return Launch(f"{variant}/{loader}", bm, bn, kc, stages, grid, smem)
+    return Launch(f"{variant}/{loader}", bm, bn, kc, stages, grid, smem, layout)
 
 
 def vector_aligned(*tensors: torch.Tensor) -> bool:
     """Every tensor's first element lies on a 16-byte boundary."""
     return all(t.data_ptr() % VECTOR_BYTES == 0 for t in tensors)
+
+
+def operand_layout(t: torch.Tensor, shared_ok: bool = False) -> str | None:
+    """How each lane's matrix of the 3-d operand ``t`` lies: ``"n"``
+    row-major, ``"t"`` the transpose of a row-major matrix (its rows
+    contiguous), None for any other layout.  Lanes follow one another
+    densely, or all lie at one place (lane stride 0) where ``shared_ok``.
+    Read from the strides alone."""
+    lanes, R, C = t.shape
+    s0, s1, s2 = t.stride()
+    if (C == 1 or s2 == 1) and (R == 1 or s1 == C):
+        layout = "n"
+    elif (R == 1 or s1 == 1) and (C == 1 or s2 == R):
+        layout = "t"
+    else:
+        return None
+    if lanes == 1 or s0 == R * C or (shared_ok and s0 == 0):
+        return layout
+    return None
+
+
+def operands(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x`` and ``w`` as the kernel reads them: each where it lies when
+    :func:`operand_layout` names its layout, else one contiguous copy,
+    counted in ``layout_copies`` (a shared x copies its one matrix)."""
+    global layout_copies
+    if operand_layout(x, shared_ok=True) is None:
+        layout_copies += 1
+        x = (x[0].contiguous().expand_as(x) if x.shape[0] > 1 and x.stride(0) == 0
+             else x.contiguous())
+    if operand_layout(w) is None:
+        layout_copies += 1
+        w = w.contiguous()
+    return x, w
 
 
 def _library(device: torch.device) -> ctypes.CDLL:
@@ -133,8 +237,9 @@ def _library(device: torch.device) -> ctypes.CDLL:
         lib.stream_pack_matmul.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_longlong),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.stream_pack_matmul.restype = ctypes.c_int
         _lib = lib
@@ -159,10 +264,30 @@ def check_blocks(M: int, N: int, K: int, block_m: int = 128, block_n: int = 128,
 
 
 def launch_for(x: torch.Tensor, w: torch.Tensor) -> Launch:
-    """The launch :func:`stream_pack_matmul` makes for ``x`` and ``w``."""
+    """The launch :func:`stream_pack_matmul` makes for ``x`` and ``w``, their
+    layouts read from the strides.  Raises ``ValueError`` on a layout the
+    kernel does not read."""
     lanes, M, K = x.shape
+    x_layout, w_layout = operand_layout(x, shared_ok=True), operand_layout(w)
+    if x_layout is None or w_layout is None:
+        raise ValueError(f"stream_pack reads each lane's matrix row-major or transposed, lanes "
+                         f"dense (x also shared): x strides {x.stride()}, w strides {w.stride()}")
     dtype = str(x.dtype).removeprefix("torch.")
-    return choose_launch(lanes, M, w.shape[2], K, dtype, vector_aligned(x, w))
+    return choose_launch(lanes, M, w.shape[2], K, dtype, vector_aligned(x, w),
+                         x_t=x_layout == "t", w_t=w_layout == "t",
+                         shared=lanes > 1 and x.stride(0) == 0)
+
+
+def _strides(x: torch.Tensor, w: torch.Tensor, layout: str) -> _STRIDES:
+    """x's (lane, row, depth) and w's (lane, depth, column) strides in
+    elements, as the layout lays them (a size-1 dimension's stride is
+    whatever PyTorch left, so it is not read)."""
+    lanes, M, K = x.shape
+    N = w.shape[2]
+    x_lane = 0 if lanes == 1 else x.stride(0)
+    xs = (K, 1) if layout[0] == "n" else (1, M)
+    ws = (N, 1) if layout[1] == "n" else (1, K)
+    return _STRIDES(x_lane, *xs, K * N, *ws)
 
 
 def stream_pack_matmul(
@@ -199,20 +324,15 @@ def stream_pack_matmul(
         raise ValueError(f"x and w must share one device; w is on {w.device}")
     if min(lanes, M, N, K) < 1:
         raise ValueError(f"empty product: lanes {lanes}, M {M}, N {N}, K {K}")
-    if (K > 1 and x.stride(2) != 1) or (M > 1 and x.stride(1) != K):
-        raise ValueError(f"x's rows must be contiguous; strides {x.stride()}")
-    x_lane_stride = 0 if lanes == 1 else x.stride(0)
-    if x_lane_stride not in (0, M * K):
-        raise ValueError(f"x's lane stride must be 0 (shared) or M*K; got {x_lane_stride}")
-    if not w.is_contiguous():
-        raise ValueError("w must be contiguous")
     launch = launch_for(x, w)
     lib = _library(x.device)
     out = torch.empty((lanes, M, N), dtype=x.dtype, device=x.device)
     err = lib.stream_pack_matmul(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
-        lanes, M, N, K, x_lane_stride, launch.stages, int(launch.vec), launch.bm,
-        launch.bn, launch.kc, torch.cuda.current_stream(x.device).cuda_stream,
+        lanes, M, N, K, _strides(x, w, launch.layout), _KIND[launch.variant.split("/")[0]],
+        launch.stages, int(launch.vec), launch.bm, launch.bn, launch.kc,
+        int(launch.layout[0] == "t"), int(launch.layout[1] == "t"), launch.grid[0],
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"stream_pack launch failed: CUDA error {err} ({launch})")

@@ -35,8 +35,8 @@ class StreamPack(torch.autograd.Function):
     on CPU tensors): ``dx = dy · wᵀ`` ``(lanes, M, N) × (lanes, N, K)``,
     summed over the lanes for a shared ``(M, K)`` x, and ``dw = xᵀ · dy``
     ``(lanes, K, M) × (lanes, M, N)``, xᵀ shared when x is.  The kernel
-    takes its right operand contiguous, so ``wᵀ`` and ``xᵀ`` are one copy
-    each."""
+    reads either operand transposed where it lies, so ``wᵀ`` and ``xᵀ``
+    are views: no copy of w or x (``kernel.layout_copies`` counts any)."""
 
     @staticmethod
     def forward(x, w):
@@ -52,12 +52,11 @@ class StreamPack(torch.autograd.Function):
         dy = dy.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = _stream_pack(dy, w.transpose(1, 2).contiguous())
+            dx = _stream_pack(dy, w.transpose(1, 2))
             if x.dim() == 2:
                 dx = dx.sum(0)
         if ctx.needs_input_grad[1]:
-            xt = x.transpose(-2, -1).contiguous()
-            dw = _stream_pack(xt, dy)
+            dw = _stream_pack(x.transpose(-2, -1), dy)
         return dx, dw
 
 
@@ -123,7 +122,9 @@ def _on_shards(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def stream_pack(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (lanes, M, K), or (M, K) shared by every lane (passed to the
     kernel with lane stride 0, never copied); w: (lanes, K, N) →
-    (lanes, M, N).  Strided operands are made contiguous first.  With grad
+    (lanes, M, N).  Each operand's matrices may lie row-major or
+    transposed; any other layout is copied once
+    (``kernel.layout_copies``).  With grad
     enabled and an operand that requires it, through :class:`StreamPack`;
     DTensors on their local shards."""
     if isinstance(w, DTensor) or isinstance(x, DTensor):
@@ -135,14 +136,12 @@ def stream_pack(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _stream_pack(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dim() == 2:
-        x = x.contiguous().expand(w.shape[0], *x.shape)
+        x = x.expand(w.shape[0], *x.shape)
     if takes_plain(x):
         return run_plain(stream_pack_matmul_ref, x, w)
+    x, w = kernel.operands(x, w)
     _, M, K = x.shape
-    if x.stride(0) != 0 or not x[0].is_contiguous():
-        x = x.contiguous()
-    return kernel.stream_pack_matmul(x, w.contiguous(), block_m=M, block_n=w.shape[2],
-                                     block_k=K)
+    return kernel.stream_pack_matmul(x, w, block_m=M, block_n=w.shape[2], block_k=K)
 
 
 def packed_branches(xs, ws) -> list[torch.Tensor]:

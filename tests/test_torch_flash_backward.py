@@ -363,32 +363,50 @@ def test_backward_launch_failure_raises_and_never_falls_back(fake_launch, monkey
 
 
 def test_library_path_hashes_the_shared_header(tmp_path, monkeypatch):
-    """Both B1 sources include csrc/hopper.cuh: editing the header (and
-    only a header the source includes) gives another library name, so a
-    stale library is never loaded."""
+    """Both B1 sources and B2's include csrc/hopper.cuh: editing the header
+    (and only a header the source includes) gives another library name, so
+    a stale library is never loaded."""
     from repro_torch.kernels import build
+    from repro_torch.kernels.adamw import kernel as adamw
 
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
     csrc = backward.SOURCE.parent
-    for source in (backward.SOURCE, kernel.SOURCE):
-        assert (csrc / "hopper.cuh") in build.source_files(source)
-        copy, header = tmp_path / source.name, tmp_path / "hopper.cuh"
+    for source in (backward.SOURCE, kernel.SOURCE, pack.SOURCE):
+        files = [p.resolve() for p in build.source_files(source)]
+        assert (csrc / "hopper.cuh").resolve() in files
+        # the copy includes the header by the source's own relative path
+        include = next(n for n in build._INCLUDE.findall(source.read_text())
+                       if n.endswith("hopper.cuh"))
+        copy = tmp_path / source.stem / "csrc" / source.name
+        copy.parent.mkdir(parents=True, exist_ok=True)
+        header = copy.parent / include
+        header.parent.mkdir(parents=True, exist_ok=True)
         copy.write_text(source.read_text())
         header.write_text((csrc / "hopper.cuh").read_text())
-        (tmp_path / "unrelated.cuh").write_text("// not included\n")
+        (copy.parent / "unrelated.cuh").write_text("// not included\n")
         first = build.library_path(copy)
         assert first == build.library_path(copy)
-        (tmp_path / "unrelated.cuh").write_text("// edited\n")
+        (copy.parent / "unrelated.cuh").write_text("// edited\n")
         assert build.library_path(copy) == first
         header.write_text(header.read_text() + "\n// edited\n")
         assert build.library_path(copy) != first
         assert build.library_path(copy).name.startswith(f"lib{source.stem}_")
     # a source with no local include keeps the hash of its own bytes
-    assert build.source_files(pack.SOURCE) == [pack.SOURCE]
+    assert build.source_files(adamw.SOURCE) == [adamw.SOURCE]
 
 
 @pytest.mark.parametrize("shared", [False, True])
-def test_stream_pack_gradient_matches_jax_grad(shared):
+def test_stream_pack_gradient_matches_jax_grad(shared, monkeypatch):
+    """dx and dw through ``StreamPack`` against ``jax.grad`` of the JAX
+    package's plain stream_pack (float32 within TOL: summation order), for
+    a per-lane or shared x and a dy that lies contiguous or transposed.
+    First on the CPU (the plain version); then through the kernel's path,
+    the kernel standing in as the plain version behind its own operand
+    checks: the backward hands wᵀ and xᵀ over as they lie (dx = dy · wᵀ
+    reads w transposed, dw = xᵀ · dy reads x transposed, of a shared x
+    too) and no copy of x or w is made (``layout_copies`` 0)."""
+    from repro_torch.kernels.stream_pack import ops, stream_pack_matmul_ref
+
     rng = np.random.default_rng(6)
     lanes, M, K, N = 4, 8, 16, 12
     x = rng.standard_normal((M, K) if shared else (lanes, M, K), dtype=np.float32)
@@ -400,14 +418,31 @@ def test_stream_pack_gradient_matches_jax_grad(shared):
         return jnp.sum(jax_pack_ref(xx, w) * dy)
 
     want = jax.grad(f, argnums=(0, 1))(x, w)
-    tx, tw = (torch.from_numpy(a).requires_grad_(True) for a in (x, w))
-    before = pack.launches
-    y = stream_pack(tx, tw)
-    assert type(y.grad_fn).__name__.startswith("StreamPack")
-    got = torch.autograd.grad(y, (tx, tw), torch.from_numpy(dy))
-    assert pack.launches == before
-    for g, w_ in zip(got, want):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w_), rtol=TOL, atol=TOL)
+    seen = []
+
+    def on_card(xk, wk, **blocks):       # the kernel's operand checks, then its plain version
+        seen.append(pack.launch_for(xk, wk).layout)
+        return stream_pack_matmul_ref(xk, wk)
+
+    copies = pack.layout_copies
+    for path in ("plain", "kernel"):
+        if path == "kernel":
+            monkeypatch.setattr(ops, "takes_plain", lambda t: False)
+            monkeypatch.setattr(pack, "stream_pack_matmul", on_card)
+        for dy_t in (False, True):
+            tx, tw = (torch.from_numpy(a).requires_grad_(True) for a in (x, w))
+            tdy = (torch.from_numpy(dy.transpose(0, 2, 1).copy()).transpose(1, 2) if dy_t
+                   else torch.from_numpy(dy))
+            before = pack.launches
+            y = stream_pack(tx, tw)
+            assert type(y.grad_fn).__name__.startswith("StreamPack")
+            got = torch.autograd.grad(y, (tx, tw), tdy)
+            assert pack.launches == before
+            for g, w_ in zip(got, want):
+                np.testing.assert_allclose(g.numpy(), np.asarray(w_), rtol=TOL, atol=TOL)
+    # each kernel pass: the forward (x row-major), dx (wᵀ), dw (xᵀ)
+    assert seen == ["nn", "nt", "tn"] * 2
+    assert pack.layout_copies == copies
 
 
 def test_stream_pack_kernel_wrapper_refuses_to_detach():

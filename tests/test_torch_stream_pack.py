@@ -186,40 +186,49 @@ CELLS = list(SMOKE.BRANCHY_PACKS.values())
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("lmkn", [(lanes, *mkn) for lanes in (1, 12) for mkn in SWEEP] + CELLS)
 def test_every_shape_gets_a_launch_the_card_takes(lmkn, dtype):
-    """Each shape of the sweep and of the cells gets a kernel the library
-    has, shared memory the card gives (above 48 KB only where the tile
-    needs it: stream_pack_init opts every kernel in), a grid within the
-    launch limits and a tile that covers the product."""
+    """Each shape of the sweep and of the cells, in every layout of x and
+    w, gets a kernel the library has, shared memory the card gives (above
+    48 KB only where the tile needs it: stream_pack_init opts every kernel
+    in), a grid within the launch limits and a tile that covers the
+    product; cp.async copies only for row-major operands."""
     lanes, M, K, N = lmkn
     for aligned in (True, False):
-        ln = kernel.choose_launch(lanes, M, N, K, dtype, aligned)
-        assert ln.instance in kernel.INSTANCES
-        assert ln.variant.startswith("f32" if dtype == "float32" else "bf16")
-        if ln.variant.startswith("f32"):
-            assert ln.kc >= K if ln.stages == 1 else ln.kc == kernel.RING_KC
-        else:
-            assert ln.kc == kernel.RING_KC and ln.stages == kernel.RING_STAGES
-        assert 0 < ln.smem_bytes <= MAX_SMEM
-        if ln.variant.startswith("f32_panel"):
-            assert ln.smem_bytes <= kernel.PANEL_MAX_SMEM
-        gx, gy, gz = ln.grid
-        assert gx <= kernel.MAX_GRID_X and gy <= kernel.MAX_GRID_YZ and gz == lanes
-        assert gx * ln.bn >= N > (gx - 1) * ln.bn and gy * ln.bm >= M > (gy - 1) * ln.bm
-        per_vec = 4 if dtype == "float32" else 8
-        assert ln.vec == (aligned and K % per_vec == 0 and N % per_vec == 0)
+        for layout in kernel.LAYOUTS:
+            ln = kernel.choose_launch(lanes, M, N, K, dtype, aligned, x_t=layout[0] == "t",
+                                      w_t=layout[1] == "t")
+            assert ln.instance in kernel.INSTANCES and ln.layout == layout
+            assert ln.variant.startswith("f32" if dtype == "float32" else "bf16")
+            if ln.variant.startswith("f32"):
+                assert ln.kc >= K if ln.stages == 1 else ln.kc == kernel.RING_KC
+            else:
+                assert ln.kc == kernel.RING_KC and ln.stages == kernel.RING_STAGES
+            assert 0 < ln.smem_bytes <= MAX_SMEM
+            if ln.variant.startswith("f32_panel"):
+                assert ln.smem_bytes <= kernel.PANEL_MAX_SMEM
+            gx, gy, gz = ln.grid
+            assert gx <= kernel.MAX_GRID_X and gy <= kernel.MAX_GRID_YZ and gz == lanes
+            assert gx * ln.bn >= N > (gx - 1) * ln.bn and gy * ln.bm >= M > (gy - 1) * ln.bm
+            per_vec = 4 if dtype == "float32" else 8
+            assert ln.vec == (aligned and layout == "nn" and K % per_vec == 0
+                              and N % per_vec == 0)
 
 
 def _phase6_launches():
-    return [kernel.choose_launch(lanes, M, N, K, dname, offset == 0)
-            for dname, lanes, (M, K, N), _shared, offset in SMOKE.pack_cases()]
+    return [kernel.choose_launch(lanes, M, N, K, dname, offset == 0, x_t=layout[0] == "t",
+                                 w_t=layout[1] == "t", shared=shared and lanes > 1)
+            for dname, lanes, (M, K, N), shared, offset, layout in SMOKE.pack_cases()]
 
 
 def test_phase6_launches_every_kernel():
-    """chip_smoke.py phase 6's cases reach every kernel of the library, each
-    loader of each tile, so each is held against the plain version on the
-    card."""
-    assert {ln.instance for ln in _phase6_launches()} == set(kernel.INSTANCES)
-    assert len(kernel.INSTANCES) == len(set(kernel.INSTANCES)) == 18
+    """chip_smoke.py phase 6's cases reach every kernel of the library (each
+    loader of each ring tile, each layout, row tile and column tile of the
+    stream) and every layout of x and w through each ring's element-wise
+    loads, so each is held against the plain version on the card."""
+    launches = _phase6_launches()
+    assert {ln.instance for ln in launches} == set(kernel.INSTANCES)
+    assert len(kernel.INSTANCES) == len(set(kernel.INSTANCES)) == 18 + 7
+    assert SMOKE.pack_coverage(launches) == set()
+    assert {ln.layout for ln in launches if ln.variant.endswith("/elem")} == set(kernel.LAYOUTS)
 
 
 def test_library_opts_into_dynamic_shared_memory():
@@ -228,7 +237,7 @@ def test_library_opts_into_dynamic_shared_memory():
     card checks the opt-in; none asks for more than the card has."""
     launches = _phase6_launches()
     big = {ln.variant.split("/")[0] for ln in launches if ln.smem_bytes > STATIC_SMEM}
-    assert big == {"f32_panel", "f32_ring", "bf16_ring"}
+    assert big == {"f32_panel", "f32_ring", "bf16_ring", "bf16_tma"}
     assert max(ln.smem_bytes for ln in launches) <= MAX_SMEM
 
 
@@ -298,15 +307,28 @@ def test_chooser_refuses_other_dtypes():
 EXPERTS = SMOKE.EXPERT_GEMMS
 
 
+def _covers(ln, lanes, M, N):
+    """The stream's one launch covers the (lanes, M, N) output: its row
+    and column tiles span M and N, and its persistent blocks (no more than
+    the items, no more than the SMs) walk every item."""
+    rows, cols = -(-M // ln.bm), -(-N // ln.bn)
+    assert (rows - 1) * ln.bm < M <= rows * ln.bm and (cols - 1) * ln.bn < N <= cols * ln.bn
+    assert ln.grid == (min(lanes * rows * cols, kernel.SMS), 1, 1)
+
+
+@pytest.mark.parametrize("product", ["forward", "dx", "dw"])
 @pytest.mark.parametrize("down", [False, True], ids=["gate_up", "down"])
 @pytest.mark.parametrize("arch", sorted(EXPERTS))
-def test_expert_gemms_get_a_launch_the_card_takes(arch, down):
+def test_expert_gemms_get_a_launch_the_card_takes(arch, down, product):
     """The MoE expert GEMMs at every capacity serving gives them (4 decode
     slots, prefill buckets 64..512: M 2..64) at full width, bf16, 128 or
-    160 lanes: the bf16 ring with cp.async copies, rows fitted to M, 32
-    columns, a grid within the launch limits.  The lanes and widths are
-    the configs'; phase 6 checks B2 against its plain version at each of
-    these M, and times it at 4 and 64."""
+    160 lanes, take the TMA weight stream in each product: the forward x ·
+    w (both row-major), dx = dy · wᵀ (w read transposed where it lies) and
+    dw = xᵀ · dy (x read transposed).  Rows fitted to M (64 for xᵀ), a
+    ring within the card's shared memory, one launch whose persistent
+    blocks cover the product.  The lanes and widths are the configs';
+    phase 6 checks B2 against its plain version at each of these M, and
+    times it at 4 and 64; 19b checks and times the backward."""
     import repro_torch.configs as TC
     from repro_torch.models.moe import capacity
 
@@ -318,9 +340,67 @@ def test_expert_gemms_get_a_launch_the_card_takes(arch, down):
     assert list(SMOKE.expert_capacities(arch)) == served
     assert set(SMOKE.EXPERT_TIMED_M) <= set(served)
     for M in served:
-        ln = kernel.choose_launch(lanes, M, N, K, "bfloat16", True)
-        assert ln.variant == "bf16_ring/vec" and ln.instance in kernel.INSTANCES
-        assert ln.bm == next(r for r in kernel.BF16_ROWS if M <= r) and ln.bn == 32
-        assert ln.stages == kernel.RING_STAGES and ln.kc == kernel.RING_KC
-        assert ln.grid == (-(-N // 32), 1, lanes) and ln.smem_bytes <= MAX_SMEM
-        assert ln.grid[0] <= kernel.MAX_GRID_X and lanes <= kernel.MAX_GRID_YZ
+        # (rows, columns, depth) of the product and its layout
+        rows, cols, depth, layout = {"forward": (M, N, K, "nn"), "dx": (M, K, N, "nt"),
+                                     "dw": (K, N, M, "tn")}[product]
+        ln = kernel.choose_launch(lanes, rows, cols, depth, "bfloat16", True,
+                                  x_t=layout[0] == "t", w_t=layout[1] == "t")
+        assert ln.variant == f"bf16_tma/{layout}" and ln.instance in kernel.INSTANCES
+        want_rows = 64 if layout[0] == "t" else next(r for r in kernel.TMA_ROWS if M <= r)
+        assert ln.bm == want_rows and ln.bn == kernel.TMA_BN and ln.kc == kernel.TMA_KC
+        assert ln.stages == kernel.TMA_STAGES
+        assert ln.smem_bytes == kernel.tma_smem_bytes(ln.bm, ln.stages) <= MAX_SMEM
+        _covers(ln, lanes, rows, cols)
+
+
+@pytest.mark.parametrize("why, args, kw, variant", [
+    ("w's rows off 16 bytes", (160, 64, 1532, 5120), {}, "bf16_ring/elem"),
+    ("x's rows off 16 bytes", (160, 64, 1536, 5116), {}, "bf16_ring/elem"),
+    ("a base off 16 bytes", (160, 64, 1536, 5120, "bfloat16", False), {}, "bf16_ring/elem"),
+    ("shared x", (160, 64, 1536, 5120), {"shared": True}, "bf16_ring/vec"),
+    ("xᵀ's rows off 16 bytes", (160, 5116, 1536, 64), {"x_t": True}, "bf16_ring/elem"),
+    ("both transposed", (160, 64, 1536, 5120), {"x_t": True, "w_t": True}, "bf16_ring/elem"),
+    ("M past 64", (160, 65, 1536, 5120), {}, "bf16_ring/vec"),
+    ("float32", (4, 64, 1536, 5120, "float32"), {}, "f32_ring/vec"),
+    ("a small panel", (160, 64, 512, 256), {}, "bf16_ring/vec"),
+])
+def test_shapes_tma_cannot_take_go_to_the_rings(why, args, kw, variant):
+    """Where the stream's tensor maps cannot be built (a row or base off 16
+    bytes), x is shared (lane stride 0), both operands lie transposed, M
+    passes 64 with x row-major, the type is float32 or the weight panel is
+    under ``TMA_MIN_PANEL``, the product takes the named ring."""
+    lanes, M, N, K, *rest = args
+    dtype, aligned = (rest + ["bfloat16", True][len(rest):])[:2]
+    ln = kernel.choose_launch(lanes, M, N, K, dtype, aligned, **kw)
+    assert ln.variant == variant, why
+    assert ln.instance in kernel.INSTANCES and ln.grid[2] == lanes
+
+
+def test_launch_for_reads_transposed_views_without_copying():
+    """``launch_for`` and ``operands`` read the layout of a transposed view
+    from its strides: the backward's wᵀ, xᵀ (also of a shared x) and a
+    transposed dy are read where they lie, no copy, ``layout_copies``
+    unchanged; a strided slice is copied once and counted."""
+    lanes, M, K, N = 4, 16, 1024, 1024
+    x = torch.zeros(lanes, M, K, dtype=torch.bfloat16)
+    w = torch.zeros(lanes, K, N, dtype=torch.bfloat16)
+    dy = torch.zeros(lanes, M, N, dtype=torch.bfloat16)
+    before = kernel.layout_copies
+    for a, b, layout in ((x, w, "nn"), (dy, w.transpose(1, 2), "nt"),
+                         (x.transpose(1, 2), dy, "tn"),
+                         (dy.transpose(1, 2).contiguous().transpose(1, 2), w.transpose(1, 2), "tt"),
+                         (x[0].t().expand(lanes, K, M), dy, "tn")):
+        got_a, got_b = kernel.operands(a, b)
+        assert got_a is a and got_b is b
+        assert kernel.launch_for(a, b).layout == layout
+    assert kernel.launch_for(dy, w.transpose(1, 2)).variant == "bf16_tma/nt"
+    assert kernel.launch_for(x.transpose(1, 2), dy).variant == "bf16_tma/tn"
+    assert kernel.launch_for(x[0].t().expand(lanes, K, M), dy).variant == "bf16_ring/elem"
+    assert kernel.layout_copies == before
+    sliced = x[:, :, ::2]
+    with pytest.raises(ValueError, match="row-major or transposed"):
+        kernel.launch_for(sliced, w[:, ::2])
+    got_x, got_w = kernel.operands(sliced, w[:, ::2])
+    assert got_x.is_contiguous() and got_w.is_contiguous()
+    assert kernel.layout_copies == before + 2
+    kernel.layout_copies = before
