@@ -238,7 +238,31 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
     to the unsharded forward's, B1 launched through ``local_map`` once per
     shared attention block (9).
     Collectives across cards are checked on the CPU only (gloo, tier-1):
-    NCCL refuses two ranks on one card.
+    NCCL refuses two ranks on one card;
+22. long_500k on the card (batch 1, a cache of 524288 positions, the
+    long-context rules' cache sharded over positions): (a) B3's partials
+    form at zamba2-2.7b's cache form (32 heads of 80) and gemma2-27b's
+    global and local (window 4096) layers in the deferred form (32 over 16
+    heads of 128, cap 50), the cache split into 1, 2, 3 (uneven), 4 and 8
+    shards as strided views, kv_valid inside a shard, on a boundary and
+    before whole shards: each shard's (out, lse) against its plain version,
+    the shards combined (``ops.combine`` over their stack) against the
+    plain version and the whole-cache B3, all at B3's tolerance; then the
+    whole B3, the partials of 1, 2 and 8 shards plus the combine, the plain
+    version and ``F.scaled_dot_product_attention`` with a boolean mask timed
+    in a CUDA graph beside the bytes bound; (b) zamba2-2.7b at full width
+    and depth and (b') gemma2-27b at full width and 2 layers (one local,
+    one global), bf16, the cache filled from a seed, pos 17 before its end:
+    16 greedy steps eagerly and as replays of one captured step, then the
+    same storage wrapped as DTensors on phase 21's (1, 1) mesh, the cache
+    ``Shard`` over its positions, so that attention takes the partials
+    path: the same tokens, logits within B3's tolerance (bit-identical
+    said), ms per replay of both beside the step's bytes bound, the peak
+    memory, one B3 kernel an attention layer in a profiled replay of each;
+    (c) two processes on the one card over gloo, a (2,) mesh over
+    positions, each holding its half of zamba2's cache:
+    ``layers._decode_attention`` within B3's tolerance of the whole-cache
+    B3 and of the plain version, the two ranks' outputs equal.
 
 Each phase prints its times (CUDA events, graph replays), the kernels of
 one profiled call, and the wrappers' counts; each forward and each decode
@@ -250,7 +274,8 @@ give them back right, so a replay that ran nothing cannot pass as a
 profiler that saw nothing.
 
 B3's launches are counted over each decode path (``B3_BY_PATH``: phases
-4, 5, 8, 10-13, 15-18 and 20b, each of which must launch it), every B3
+4, 5, 8, 10-13, 15-18, 20b and 22b, each of which must launch it; its
+partials form's over 22b's sharded paths, ``B3_PARTIALS_BY_PATH``), every B3
 kernel (dtype, head dim, rows) the paths ran must be one phase 3b checked,
 and no phase after 3b may make a layout copy for it; the profiled decode
 replays held and B3's kernels in them are counted (``B3_REPLAYS``).  B2's
@@ -5144,10 +5169,525 @@ def phase_sharded(number: int, reference: dict) -> dict:
     return dict(train=train, forward=fwd, memory=memory, recurrent=recurrent, hybrid=hybrid)
 
 
+# ---------------------------------------------------------------------------
+# phase 22: long_500k on the card
+# ---------------------------------------------------------------------------
+
+# long_500k: batch 1 over a cache of 524288 positions, the steps timed, and
+# pos at the start of the steps (the steps write the 16 positions after it)
+LONG_T, LONG_STEPS = 524288, 16
+LONG_POS = LONG_T - 17
+# 22a: the shapes (label, arch, deferred form, window), the splits into
+# shards (3: uneven) and the offsets: kv_valid inside a shard, on the
+# boundary of the first shard of 2 (of 4 and 8 too) and of 3 shards, and so
+# early that whole shards lie past it (and, under the window, before its
+# reach)
+LONG_SHAPES = [("zamba2-2.7b cache form", "zamba2-2.7b", False, None),
+               ("gemma2-27b global layer, deferred, cap 50", "gemma2-27b", True, 2**30),
+               ("gemma2-27b local layer, window 4096, cap 50", "gemma2-27b", True, 4096)]
+LONG_SPLITS = (1, 2, 3, 4, 8)
+LONG_LSE_ATOL = 1e-3
+# 22b': gemma2-27b's depth on the card, one local and one global layer
+LONG_GEMMA_LAYERS = 2
+
+
+def long_bounds(T: int, P: int) -> list[int]:
+    """The first position of each of ``P`` shards of ``T`` and the end, as
+    ``torch.tensor_split`` cuts (uneven when ``P`` does not divide ``T``)."""
+    return [i * (T // P) + min(i, T % P) for i in range(P + 1)]
+
+
+def long_inputs(arch: str, new: bool, seed: int):
+    """q (1, 1, NH, hd), the cache (1, LONG_T, NKV, hd) as views of one
+    (2, 1, LONG_T, NKV, hd) tensor, the step's own keys (the deferred form)
+    and the call's keywords for ``arch``'s heads, bf16 on the card."""
+    import torch
+
+    import repro_torch.configs as C
+
+    cfg = C.get(arch)
+    NH, NKV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((1, 1, NH, hd), generator=g, device="cuda").to(torch.bfloat16)
+    if cfg.attn_softcap:
+        q = q * CAP_Q_SCALE
+    kv = torch.empty((2, 1, LONG_T, NKV, hd), dtype=torch.bfloat16, device="cuda")
+    kv.normal_(generator=g)
+    kn = vn = None
+    if new:
+        kn, vn = torch.randn((2, 1, 1, NKV, hd), generator=g, device="cuda").to(torch.bfloat16)
+    kw = dict(scale=cfg.attn_logit_scale or 1.0 / math.sqrt(hd), softcap=cfg.attn_softcap)
+    return q, kv[0], kv[1], kn, vn, kw
+
+
+def long_offsets(new: bool, kvv: int) -> dict:
+    """positions and kv_valid (0-d, on the card) for a step whose cache
+    holds ``kvv`` valid positions: the deferred form's query sits at kvv,
+    the cache form's at kvv - 1 (its own key already written)."""
+    import torch
+
+    pos = kvv if new else kvv - 1
+    return dict(positions=torch.tensor([pos], device="cuda"),
+                kv_valid=torch.tensor(kvv, device="cuda"))
+
+
+def long_split(q, kc, vc, kn, vn, kw, P: int):
+    """B3's partials over ``P`` shards of the cache (strided views, each
+    with its ``t_start``, the step's own keys on the first) and their plain
+    versions: the kernel's and the plain (out, lse) stacked, and each
+    shard's positions."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import (decode_attention_partials,
+                                                      decode_attention_partials_ref)
+
+    b = long_bounds(kc.shape[1], P)
+    got, ref, count = [], [], []
+    for i in range(P):
+        new = (kn, vn) if i == 0 else (None, None)
+        args = (q, kc[:, b[i]:b[i + 1]], vc[:, b[i]:b[i + 1]], *new)
+        got.append(decode_attention_partials(*args, t_start=b[i], **kw))
+        ref.append(decode_attention_partials_ref(*args, t_start=b[i], **kw))
+        count.append(b[i + 1] - b[i] + (0 if kn is None or i else kn.shape[1]))
+    stack = [tuple(torch.stack(x) for x in zip(*parts)) for parts in (got, ref)]
+    return stack[0], stack[1], torch.tensor(count, dtype=torch.float32, device="cuda")
+
+
+def long_partials() -> dict:
+    """22a: B3's partials form at long_500k's shapes, each split of the
+    cache into shards combined over their stack, against the plain
+    partials shard by shard and, combined, against the plain version and
+    the whole-cache B3; then timed."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import (combine, decode_attention,
+                                                      decode_attention_ref, over_stack)
+    from repro_torch.kernels.decode_attention import ref as b3_ref
+
+    say(f"-- 22a: B3's partials form over a cache of {LONG_T} positions (bf16), split into "
+        f"{LONG_SPLITS} shards (strided views, 3 uneven), each shard's (out, lse) against its "
+        f"plain version (out at B3's tolerance, lse within {LONG_LSE_ATOL:g}; a shard that "
+        "sees no key: the kernel's 0 and -inf), the shards combined (ops.combine over their "
+        "stack) against the plain version and the whole-cache B3 on the whole cache")
+    worst, failed, cases = 0.0, [], 0
+    for n, (label, arch, new, window) in enumerate(LONG_SHAPES):
+        q, kc, vc, kn, vn, kw = long_inputs(arch, new, seed=2200 + n)
+        kw["window"] = window
+        for kvv in (LONG_POS + 1, long_bounds(LONG_T, 2)[1], long_bounds(LONG_T, 3)[1],
+                    LONG_T // 8 + 5):
+            kw.update(long_offsets(new, kvv))
+            whole = decode_attention(q, kc, vc, kn, vn, **kw)
+            plain = decode_attention_ref(q, kc, vc, kn, vn, **kw)
+            r_whole = decode_ratio(whole, plain, "bfloat16")
+            for P in LONG_SPLITS:
+                (out, lse), (pout, plse), count = long_split(q, kc, vc, kn, vn, kw, P)
+                seen = plse > b3_ref.NEG_INF / 2
+                empty_ok = bool((lse[~seen] == -math.inf).all() and (out[~seen] == 0).all())
+                lse_err = (lse[seen] - plse[seen]).abs().max().item() if seen.any() else 0.0
+                r_out = decode_ratio(torch.where(seen[..., None], out, pout), pout, "bfloat16")
+                got = combine(out, lse, count.reshape(-1, 1, 1, 1), over_stack,
+                              dtype=q.dtype)[0]
+                r_plain = decode_ratio(got, plain, "bfloat16")
+                r_kernel = decode_ratio(got, whole, "bfloat16")
+                same = torch.equal(got, whole)
+                ok = (empty_ok and lse_err <= LONG_LSE_ATOL and max(r_out, r_plain, r_kernel)
+                      <= 1.0)
+                cases += 1
+                worst = max(worst, r_out, r_plain, r_kernel)
+                say(f"  {label}: kv_valid {kvv}, {P} shards ({int(seen[:, 0, 0, 0].sum())} "
+                    f"with a visible key): shards {r_out:.2f} of tolerance, lse err "
+                    f"{lse_err:.2e}, empty shards {'0/-inf' if empty_ok else 'WRONG'}; "
+                    f"combined {r_plain:.2f} of tolerance against plain, {r_kernel:.2f} "
+                    f"against the whole B3 ({'bit-identical' if same else 'not bit-identical'}; "
+                    f"whole B3 {r_whole:.2f} against plain) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failed.append(f"{label} kv_valid {kvv} P {P}")
+                del out, lse, pout, plse, got
+            del whole, plain
+        del q, kc, vc, kn, vn
+        torch.cuda.empty_cache()
+    if failed:
+        fail(f"B3's partials disagree at {failed}")
+    say(f"  {cases} splits within tolerance (worst at {worst:.2f} of it)")
+    record = long_partials_time()
+    record.update(cases=cases, worst_of_tolerance=worst)
+    return record
+
+
+def long_partials_time() -> dict:
+    """22a's times at zamba2-2.7b's shape, kv_valid near the end, in a CUDA
+    graph: the whole-cache B3, the partials of 1, 2 and 8 shards plus the
+    combine, the plain version, ``F.scaled_dot_product_attention`` with a
+    boolean mask (a yardstick), beside the bound: the cache's K and V once
+    (5.37 GB)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.decode_attention import (combine, decode_attention,
+                                                      decode_attention_partials,
+                                                      decode_attention_ref, over_stack)
+    from repro_torch.kernels.decode_attention import kernel as decode
+
+    label, arch, new, window = LONG_SHAPES[0]
+    q, kc, vc, kn, vn, kw = long_inputs(arch, new, seed=2299)
+    kw.update(long_offsets(new, LONG_POS + 1), window=window)
+    NH, NKV, hd = q.shape[2], kc.shape[2], q.shape[3]
+
+    def split(P):
+        b = long_bounds(LONG_T, P)
+        count = torch.tensor([b[i + 1] - b[i] for i in range(P)], dtype=torch.float32,
+                             device="cuda").reshape(-1, 1, 1, 1)
+
+        def run():
+            parts = [decode_attention_partials(q, kc[:, b[i]:b[i + 1]], vc[:, b[i]:b[i + 1]],
+                                               t_start=b[i], **kw) for i in range(P)]
+            out, lse = (torch.stack(x) for x in zip(*parts))
+            return combine(out, lse, count, over_stack, dtype=q.dtype)[0]
+
+        return run
+
+    q4, k4, v4 = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+    mask = (torch.arange(LONG_T, device="cuda") < kw["kv_valid"])[None, None, None]
+
+    def library():
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION]):
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, enable_gqa=True,
+                                                  scale=kw["scale"])
+
+    before, before_p = decode.launches, decode.partials_launches
+    calls = {"whole": lambda: decode_attention(q, kc, vc, **kw), "partials_1": split(1),
+             "partials_2": split(2), "partials_8": split(8),
+             "plain": lambda: decode_attention_ref(q, kc, vc, **kw), "library": library}
+    want = calls["plain"]()
+    errs = {name: (fn().float() - want.float()).abs().max().item()
+            for name, fn in calls.items() if name != "plain"}
+    ms = {name: graph_ms(fn, reps=2, iters=5) for name, fn in calls.items()}
+    decode.launches, decode.partials_launches = before, before_p   # not a path's
+    visible = int(kw["kv_valid"])
+    nbytes = 2 * visible * NKV * hd * 2 + 2 * q.numel() * 2 + 16
+    bound_ms, bound_by = bound(4.0 * hd * NH * visible, nbytes, "bfloat16")
+    say(f"-- 22a timing, {label}: q (1,1,{NH},{hd}) over {visible} visible positions of "
+        f"{NKV} kv heads | graph whole_ms {ms['whole']:.5f} partials_ms (1 shard + combine) "
+        f"{ms['partials_1']:.5f}, (2) {ms['partials_2']:.5f}, (8) {ms['partials_8']:.5f} | "
+        f"plain_ms {ms['plain']:.5f} library_ms {ms['library']:.5f} | bound_ms "
+        f"{bound_ms:.5f} ({bound_by}, {nbytes / 1e9:.3f} GB) | whole at "
+        f"{bound_ms / ms['whole']:.1%}, 1 shard + combine at {bound_ms / ms['partials_1']:.1%} "
+        f"of the bound | max_abs_err against plain {errs}")
+    del q, kc, vc, want
+    torch.cuda.empty_cache()
+    return dict(shape=[1, LONG_T, 1, NH, NKV, hd], ms=ms["partials_1"], whole_ms=ms["whole"],
+                split_ms={P: ms[f"partials_{P}"] for P in (1, 2, 8)}, plain_ms=ms["plain"],
+                library_ms=ms["library"], bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes, max_abs_err=errs["partials_1"])
+
+
+def long_model(arch: str, layers: int | None):
+    """``arch`` at full width (``layers`` of its depth, or all), bf16,
+    random weights drawn on the card from seed 0."""
+    import torch
+
+    import repro_torch.configs as C
+    from repro_torch.launch import serve
+
+    release()
+    cfg = dataclasses.replace(C.get(arch), dtype="bfloat16")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    model = serve.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    return cfg, model
+
+
+def long_decode(arch: str, layers: int | None, mesh) -> dict:
+    """22b / 22b': ``arch`` at full width, bf16, batch 1, a cache of
+    ``LONG_T`` positions (``init_cache(per_slot=False)``: long_500k's
+    synchronized cache) filled from a seeded generator, the recurrent state
+    too, pos at ``LONG_POS``: ``LONG_STEPS`` greedy steps eagerly and as
+    replays of one captured step; then the same storage wrapped as
+    DTensors on ``mesh`` (the attention cache ``Shard`` over its positions,
+    the rest replicated, the parameters through ``shard_model``) under the
+    long-context rules, so that attention takes the partials path: the
+    same again.  The sharded tokens must equal the unsharded ones and the
+    logits lie within B3's tolerance of them; each replay runs one B3
+    kernel an attention layer.  Between runs only the positions the steps
+    write, the recurrent state and pos are restored."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.distributed import LONG_CONTEXT_OVERRIDES, shard_model, use_sharding_ctx
+    from repro_torch.kernels.decode_attention import kernel as decode
+    from repro_torch.models import decode_step, init_cache, param_axes
+    from repro_torch.models.transformer import _window_schedule
+
+    cfg, model = long_model(arch, layers)
+    torch.cuda.reset_peak_memory_stats()
+    cache = init_cache(cfg, 1, LONG_T, per_slot=False, device="cuda")
+    kv_names = ("attn_k", "attn_v") if cfg.family == "hybrid" else ("k", "v")
+    g = torch.Generator(device="cuda").manual_seed(22)
+    for name, t in cache.items():
+        if name != "pos":
+            t.normal_(generator=g)            # in place, a layer's worth at a time is no temp
+    cache["pos"].fill_(LONG_POS)
+    attn = (cfg.n_layers // cfg.hybrid_attn_every if cfg.family == "hybrid"
+            else cfg.n_layers)
+    cache_gb = sum(cache[n].numel() * cache[n].element_size() for n in kv_names) / 1e9
+    weights_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    # the K and V a step reads: every valid position, or a local layer's window
+    visible = sum(LONG_POS + 1 if w is None else min(LONG_POS + 1, w)
+                  for w in (_window_schedule(cfg) or [None] * attn))
+    read_gb = cache_gb * visible / (attn * LONG_T)
+    written = slice(LONG_POS, LONG_POS + LONG_STEPS)
+    saved = {n: (cache[n][:, :, written].clone() if n in kv_names else cache[n].clone())
+             for n in cache if n != "pos"}
+
+    def restore():
+        for n, s in saved.items():
+            (cache[n][:, :, written] if n in kv_names else cache[n]).copy_(s)
+        cache["pos"].fill_(LONG_POS)
+
+    first = _tokens(cfg, 1, 1, seed=23)
+    label = f"{cfg.name}, full width, {cfg.n_layers} layers"
+    say(f"-- {label}: bf16, batch 1, cache of {LONG_T} positions ({attn} attention layers, "
+        f"{cache_gb:.2f} GB of K and V), {weights_gb:.2f} GB of weights, pos 0-d at {LONG_POS}")
+
+    def run(state, tokens_in, ctx):
+        """Eager steps, then replays of one captured step: their tokens
+        (which must agree), logits, times and B3 launches."""
+        def step(tok):
+            with ctx():
+                logits, _ = decode_step(model, state, tok, cfg)
+            logits = logits.to_local() if isinstance(logits, DTensor) else logits
+            return logits[:, -1, : cfg.vocab].float(), torch.argmax(logits[:, -1, : cfg.vocab],
+                                                                     dim=-1)
+
+        def feed(tok):
+            return tokens_in(tok[:, None])
+
+        before, before_p = decode.launches, decode.partials_launches
+        restore()
+        tok, eager, logits = feed(first[:, 0]), [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LONG_STEPS):
+            lg, nxt = step(tok)
+            eager.append(nxt)
+            logits.append(lg)
+            tok = feed(nxt)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) / LONG_STEPS * 1e3
+        restore()
+        tok_in = feed(first[:, 0])
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step(tok_in)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        restore()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            _, out = step(tok_in)
+        got = []
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(LONG_STEPS):
+            graph.replay()
+            got.append(out.clone())
+            local = tok_in.to_local() if isinstance(tok_in, DTensor) else tok_in
+            local.copy_(out[:, None])
+        stop.record()
+        stop.synchronize()
+        replay_ms = start.elapsed_time(stop) / LONG_STEPS
+        launches = (decode.launches - before, decode.partials_launches - before_p)
+        eager, got = torch.stack(eager, 1).cpu(), torch.stack(got, 1).cpu()
+        if not torch.equal(eager, got):
+            fail(f"{label}: the captured step gives other tokens than the eager one: "
+                 f"{eager.tolist()} against {got.tolist()}")
+
+        def replay():
+            restore()
+            local = tok_in.to_local() if isinstance(tok_in, DTensor) else tok_in
+            local.copy_(first)
+            graph.replay()
+            return out
+
+        rows = by_kernel(kernels_in_one(replay))
+        b3 = check_b3_replay(rows, attn, f"{label} replay")
+        del graph
+        return dict(tokens=eager, logits=torch.stack(logits), eager_ms=eager_ms,
+                    replay_ms=replay_ms, launches=launches, b3_in_replay=b3)
+
+    with torch.no_grad():
+        with b3_path(f"long_500k {cfg.name} unsharded"):
+            plain = run(cache, lambda t: t.clone(), contextlib.nullcontext)
+        if plain["launches"][1]:
+            fail(f"{label}: the unsharded steps launched B3's partials form")
+        # the same storage as DTensors: attention's cache over its positions
+        whole = [Replicate()] * mesh.ndim
+        seq = [Shard(2)] + [Replicate()] * (mesh.ndim - 1)
+        placed = {n: DTensor.from_local(t, mesh, seq if n in kv_names else whole,
+                                        run_check=False) for n, t in cache.items()}
+        if any(placed[n].to_local().data_ptr() != cache[n].data_ptr() for n in cache):
+            fail(f"{label}: wrapping the cache as DTensors copied it")
+        shard_model(model, param_axes(cfg), mesh)
+        rules = dict(LONG_CONTEXT_OVERRIDES)
+        with b3_path(f"long_500k {cfg.name} sharded over positions (partials)"):
+            sharded = run(placed, lambda t: DTensor.from_local(t.clone(), mesh, whole,
+                                                               run_check=False),
+                          lambda: use_sharding_ctx(mesh, rules))
+    B3_PARTIALS_BY_PATH[f"long_500k {cfg.name} sharded over positions"] = sharded["launches"][1]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    same_tokens = torch.equal(plain["tokens"], sharded["tokens"])
+    same_logits = torch.equal(plain["logits"], sharded["logits"])
+    r = decode_ratio(sharded["logits"], plain["logits"], "bfloat16")
+    bound_ms, _ = bound(0.0, read_gb * 1e9 + weights_gb * 1e9, "bfloat16")
+    say(f"  unsharded: eager {plain['eager_ms']:.3f} ms a step (host clock), replay "
+        f"{plain['replay_ms']:.3f} ms a step (CUDA events); B3 launches {plain['launches'][0]}")
+    say(f"  sharded over positions ({mesh.ndim}-d mesh {tuple(mesh.shape)}): eager "
+        f"{sharded['eager_ms']:.3f} ms a step, replay {sharded['replay_ms']:.3f} ms a step; B3 "
+        f"launches {sharded['launches'][0]}, of them partials {sharded['launches'][1]}")
+    say(f"  bytes bound of a step: {bound_ms:.3f} ms ({read_gb:.2f} GB of the cache's K and V "
+        f"that the step's rows see + {weights_gb:.2f} GB of weights at the card's rate); "
+        f"replays at "
+        f"{bound_ms / plain['replay_ms']:.1%} / {bound_ms / sharded['replay_ms']:.1%} of it; "
+        f"peak memory {peak:.2f} GiB")
+    say(f"  tokens unsharded {plain['tokens'].tolist()}")
+    say(f"  tokens sharded   {sharded['tokens'].tolist()}")
+    say(f"  sharded tokens equal: {same_tokens}; logits bit-identical: {same_logits}, "
+        f"{r:.3f} of B3's tolerance")
+    want = (LONG_STEPS + 2) * attn
+    if not same_tokens or r > 1.0:
+        fail(f"{label}: the decode sharded over positions differs from the unsharded one")
+    if sharded["launches"] != (want, want) or plain["launches"][0] != want:
+        fail(f"{label}: B3 launches {plain['launches']} unsharded and {sharded['launches']} "
+             f"sharded (whole, partials), want {want} and ({want}, {want})")
+    del model, cache, placed, saved
+    return dict(arch=cfg.name, layers=cfg.n_layers, cache_gb=cache_gb, read_gb=read_gb,
+                weights_gb=weights_gb,
+                replay_ms=plain["replay_ms"], sharded_replay_ms=sharded["replay_ms"],
+                eager_ms=plain["eager_ms"], sharded_eager_ms=sharded["eager_ms"],
+                bound_ms=bound_ms, peak_gib=peak, logits_bit_identical=same_logits,
+                b3_in_replay=plain["b3_in_replay"], partials_in_replay=sharded["b3_in_replay"])
+
+
+# 22c: the two processes' rendezvous and result files, and their time limit
+PAIR_JOIN_S = 300.0
+
+
+def _long_pair_child(rank: int, tmp: str) -> None:
+    """22c's process ``rank`` of 2 on the one card: a gloo group, a (2,)
+    mesh over positions; zamba2-2.7b's attention application over the
+    whole cache (the same seed in both), this rank's half of it wrapped as
+    a ``Shard(1)`` DTensor, ``layers._decode_attention`` on it; saves the
+    output, the whole-cache B3's (and on rank 0 the plain version's) and
+    its launch counts."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+    from repro_torch.kernels.decode_attention import kernel as decode
+    from repro_torch.models import layers
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(f"{tmp}/store", 2), rank=rank,
+                            world_size=2)
+    try:
+        mesh = DeviceMesh("cuda", torch.arange(2), mesh_dim_names=("data",))
+        q, kc, vc, _, _, kw = long_inputs("zamba2-2.7b", False, seed=2201)
+        kw.update(long_offsets(False, LONG_POS + 1), window=None)
+        with torch.no_grad():
+            whole = decode_attention(q, kc, vc, **kw)
+            plain = decode_attention_ref(q, kc, vc, **kw) if rank == 0 else None
+            b = long_bounds(LONG_T, 2)
+            halves = [t[:, b[rank]:b[rank + 1]].clone() for t in (kc, vc)]
+            shape, stride = kc.shape, kc.contiguous().stride()
+            del kc, vc
+            torch.cuda.empty_cache()
+            kd, vd = (DTensor.from_local(h, mesh, [Shard(1)], run_check=False, shape=shape,
+                                         stride=stride) for h in halves)
+            decode.launches = decode.partials_launches = 0
+            out = layers._decode_attention(q, kd, vd, None, None, scale=kw["scale"],
+                                           softcap_val=kw["softcap"],
+                                           positions=kw["positions"], window=None,
+                                           kv_valid=kw["kv_valid"])
+            torch.cuda.synchronize()
+        torch.save(dict(out=out.to_local().cpu(), whole=whole.cpu(),
+                        plain=None if plain is None else plain.cpu(),
+                        launches=(decode.launches, decode.partials_launches),
+                        local=tuple(kd.to_local().shape)), f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def long_pair() -> dict:
+    """22c: ``_long_pair_child`` in two processes on the one card over
+    gloo, eager: the combine's all-reduces cross ranks on the card.  Both
+    outputs equal bit for bit and within B3's tolerance of the whole-cache
+    B3 and of the plain version; each rank one partials launch."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    say("-- 22c: two processes on the one card over gloo, a (2,) mesh over zamba2-2.7b's "
+        f"{LONG_T} cache positions, each holding its half: layers._decode_attention, B3's "
+        "partials on each half, ops.combine's max and sum all-reduced across the ranks")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(_long_pair_child, args=(tmp,), nprocs=2, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + PAIR_JOIN_S
+        try:
+            while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+                if time.monotonic() > deadline:
+                    fail(f"22c: the two processes still run after {PAIR_JOIN_S:.0f}s")
+        except mp.ProcessRaisedException as e:
+            fail(f"22c: a process failed:\n{e}")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        res = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(2)]
+    out, whole, plain = res[0]["out"], res[0]["whole"], res[0]["plain"]
+    same = torch.equal(res[0]["out"], res[1]["out"])
+    r_whole, r_plain = decode_ratio(out, whole, "bfloat16"), decode_ratio(out, plain, "bfloat16")
+    err = (out.float() - plain.float()).abs().max().item()
+    say(f"  local shards {[r['local'] for r in res]}; launches (B3, of them partials) "
+        f"{[r['launches'] for r in res]}; the ranks' outputs equal: {same}; {r_whole:.2f} of "
+        f"B3's tolerance against the whole-cache B3 ({'bit-identical' if torch.equal(out, whole) else 'not bit-identical'}), "
+        f"{r_plain:.2f} against the plain version (max_abs_err {err:.3e}); "
+        f"{time.perf_counter() - t0:.1f}s with the processes' start")
+    if not same or max(r_whole, r_plain) > 1.0 or any(r["launches"] != (1, 1) for r in res):
+        fail("22c: the two-process decode attention disagrees or missed B3's partials")
+    return dict(of_tolerance=max(r_whole, r_plain), ranks_equal=same, max_abs_err=err)
+
+
+def phase_long(number: int) -> dict:
+    """Phase 22: long_500k on the card; see the module docstring."""
+    say(f"== phase {number}: long_500k on the card (batch 1, a cache of {LONG_T} positions "
+        "sharded over positions)")
+    release()
+    partials = long_partials()
+    with one_card_mesh() as mesh:
+        zamba2 = long_decode("zamba2-2.7b", None, mesh)
+        release()
+        gemma2 = long_decode("gemma2-27b", LONG_GEMMA_LAYERS, mesh)
+    release()
+    pair = long_pair()
+    return dict(partials=partials, zamba2=zamba2, gemma2=gemma2, pair=pair)
+
+
 # B3's launches on each path (the count set to 0 just before the path and
 # read just after it), and the kernels (dtype, head dim, query rows a CTA)
 # the paths ran it with
 B3_BY_PATH: dict[str, int] = {}
+# ... and of its partials form, on the paths sharded over positions
+B3_PARTIALS_BY_PATH: dict[str, int] = {}
 
 
 @contextlib.contextmanager
@@ -5309,6 +5849,7 @@ def main() -> None:
             launch = phase_launch(20)
         with b2_path("sharded (phase 21)"):
             sharded = phase_sharded(21, phi4.pop("reference"))
+        long = phase_long(22)
     idle = sorted(name for name, n in B3_BY_PATH.items() if n == 0)
     if idle:
         fail(f"B3 was launched no time on the paths {idle}")
@@ -5317,8 +5858,12 @@ def main() -> None:
         fail(f"the paths ran B3 kernels (dtype, hd, rows) phase 3b never checked: {unchecked}")
     if decode.layout_copies:
         fail(f"the paths made {decode.layout_copies} layout copies for B3")
-    say(f"B3 launches by path: {B3_BY_PATH}; kernels (dtype, hd, rows) the paths ran, each "
-        f"checked in phase 3b: {sorted(b3_seen)}; 0 layout copies")
+    idle = sorted(name for name, n in B3_PARTIALS_BY_PATH.items() if n == 0)
+    if idle or not B3_PARTIALS_BY_PATH:
+        fail(f"B3's partials form was launched no time on the paths {idle}")
+    say(f"B3 launches by path: {B3_BY_PATH}, of them the partials form: {B3_PARTIALS_BY_PATH}; "
+        f"kernels (dtype, hd, rows) the paths ran, each checked in phase 3b: {sorted(b3_seen)}; "
+        "0 layout copies")
     idle = sorted(name for name, n in B4_BY_PATH.items() if n == 0)
     if idle:
         fail(f"B4 was launched no time on the paths {idle}")
@@ -5402,6 +5947,8 @@ def main() -> None:
         profiled_replays=B3_REPLAYS["replays"],
         kernels_per_launch=B3_REPLAYS["kernels"] / max(B3_REPLAYS["calls"], 1),
         layout_copies=decode.layout_copies,
+        partials_launches=sum(B3_PARTIALS_BY_PATH.values()),
+        partials_launches_by_path=dict(B3_PARTIALS_BY_PATH), long_500k=long,
         **b3_record,
     ), dict(
         name="adamw", route="cuda",

@@ -406,6 +406,38 @@ def shard_groups(like: DTensor, dim: int) -> tuple[str, ...]:
                  if isinstance(p, Shard) and p.dim == dim and mesh.size(i) > 1)
 
 
+def shard_group(like: DTensor, dim: int) -> Optional[str]:
+    """The name of one process group over the devices that split ``like``
+    along ``dim`` (where several mesh dimensions do, their flattened
+    mesh's), or None when no mesh dimension of more than one device does:
+    a reduction over that dimension's shards is one collective on it."""
+    mesh = like.device_mesh
+    names = tuple(mesh.mesh_dim_names[i] for i, p in enumerate(like.placements)
+                  if isinstance(p, Shard) and p.dim == dim and mesh.size(i) > 1)
+    if not names:
+        return None
+    sub = mesh[names[0]] if len(names) == 1 else mesh[names]._flatten("_".join(names))
+    return sub.get_group().group_name
+
+
+def all_reduce_over(groups: Sequence[str]):
+    """``reduce(t, op)``: ``t`` all-reduced with ``op`` ("max" or "sum")
+    over each process group in ``groups``, in order, as functional
+    collectives (a CUDA graph captures them); None for no group.  Every
+    rank of a group sums the same values in the same order, so every rank
+    gets the same bits."""
+    if not groups:
+        return None
+
+    def reduce(t: torch.Tensor, op: str) -> torch.Tensor:
+        c10d = torch.ops._c10d_functional
+        for name in groups:
+            t = c10d.wait_tensor(c10d.all_reduce(t, op, name))
+        return t
+
+    return reduce
+
+
 def shard_offset(like: DTensor, dim: int) -> int:
     """Where this process's shard of ``like`` starts along ``dim``: a
     ``torch.chunk`` per mesh dimension sharding it, major to minor."""

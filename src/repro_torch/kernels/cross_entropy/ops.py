@@ -24,22 +24,9 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.distributed import all_reduce_over
+
 from . import kernel
-
-
-def _all_reduce(groups: Sequence[str]):
-    """``reduce(t, op)``: ``t`` all-reduced with ``op`` ("max" or "sum")
-    over each process group in ``groups``, in order; None for none."""
-    if not groups:
-        return None
-
-    def reduce(t: torch.Tensor, op: str) -> torch.Tensor:
-        c10d = torch.ops._c10d_functional
-        for name in groups:
-            t = c10d.wait_tensor(c10d.all_reduce(t, op, name))
-        return t
-
-    return reduce
 
 
 def combine(m: torch.Tensor, s: torch.Tensor, gold: torch.Tensor, reduce=None
@@ -63,7 +50,7 @@ class TokenNLL(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, labels, start: int, vocab: int, groups: tuple):
         m, s, gold = kernel.ce_partials(logits, labels, start, vocab)
-        lse, gold = combine(m, s, gold, _all_reduce(groups))
+        lse, gold = combine(m, s, gold, all_reduce_over(groups))
         ctx.save_for_backward(logits, labels, lse)
         ctx.start, ctx.vocab = start, vocab
         return lse - gold

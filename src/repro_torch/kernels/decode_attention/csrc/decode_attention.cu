@@ -48,6 +48,15 @@
 //   of the plan's new rank (the cluster's last), at key positions
 //   kv_valid[b] + j: the combine weighs them last, as their own part was
 //   before.
+// * The partials form, for a cache split over positions across devices
+//   (the JAX package's long-context rules shard kv_seq): the call gets one
+//   shard, whose row t holds key position t_start + t; the masks, the
+//   window and kv_valid stay in global positions, kv_valid on the device.
+//   The cluster combines as above, then writes the float32 output
+//   normalized over this shard's keys and each row's log-sum-exp, which
+//   ops.py's combine weighs across the shards.  Only the shard the caller
+//   gives the step's own keys counts them.  A shard with no visible key
+//   writes 0 and -inf, which the combine weighs by 0.
 // * Loads: one producer warp feeds a ring of 3 or 4 stages (by shared
 //   memory, in the plan) of 64-position K and V tiles, each stage completing
 //   on its mbarrier; consumer warps spend no registers or issue slots on
@@ -129,6 +138,8 @@ struct Params {
   long long pos_s[2];     // batch, step
   long long kvv_s;        // batch (0: one offset for every row)
   long long window;       // 0: none
+  long long t_start;      // the global position of the cache's first row
+  float* lse;             // the partials form's log-sum-exp (B, S, NH), or null
   int B, S, NKV, G, T, hd, chunk, cluster, stages, new_rank, causal;
   float scale, softcap;
 };
@@ -244,10 +255,12 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 
 // One rank's work: the cache rows [start, end), then, on the new rank, the
 // step's own rows [0, S) at key positions kvv + j; tiles of TK rows each.
-// The ranks split the positions some row of the tile sees: [lo, kv_valid)
-// with lo 0, or, under a window, the earliest row's window start; the last
-// rank takes what is left past the plan's chunks (nothing, unless the
-// positions of one tile's rows lie further apart than its steps).
+// Cache row t holds key position t_start + t (t_start 0 but for a shard of
+// a cache split over positions).  The ranks split the rows some row of the
+// tile sees: [lo, kv_valid - t_start) with lo 0, or, under a window, the
+// earliest row's window start; the last rank takes what is left past the
+// plan's chunks (nothing, unless the positions of one tile's rows lie
+// further apart than its steps).
 struct Span {
   long long start, end, kvv;
   int cache_tiles, tiles;
@@ -265,7 +278,7 @@ template <int R>
 __device__ Span span_of(const Params& p, int b, int rt, int rank) {
   Span sp;
   sp.kvv = p.kv_valid[b * p.kvv_s];
-  long long limit = sp.kvv < p.T ? sp.kvv : (long long)p.T;
+  long long limit = sp.kvv - p.t_start < p.T ? sp.kvv - p.t_start : (long long)p.T;
   if (limit < 0) limit = 0;
   long long lo = 0;
   if (p.window > 0) {
@@ -275,6 +288,7 @@ __device__ Span span_of(const Params& p, int b, int rt, int rank) {
       const long long qp = p.positions[b * p.pos_s[0] + s * p.pos_s[1]];
       if (lo < 0 || qp - p.window + 1 < lo) lo = qp - p.window + 1 < 0 ? 0 : qp - p.window + 1;
     }
+    lo = lo > p.t_start ? lo - p.t_start : 0;
   }
   sp.start = lo + (long long)rank * p.chunk;
   sp.end = rank == p.cluster - 1 || sp.start + p.chunk > limit ? limit : sp.start + p.chunk;
@@ -294,7 +308,7 @@ __device__ __forceinline__ Tile tile_of(const Params& p, const Span& sp, int b, 
     t.vstep = p.vc_s[1];
     t.t0 = sp.start + (long long)i * TK;
     t.t_end = sp.end;
-    t.base = 0;
+    t.base = p.t_start;
   } else {
     t.k = static_cast<const T*>(p.kn) + b * p.kn_s[0] + kvh * p.kn_s[2];
     t.v = static_cast<const T*>(p.vn) + b * p.vn_s[0] + kvh * p.vn_s[2];
@@ -740,7 +754,9 @@ __device__ void consume_f32(const Params& p, const Span& sp, int b, int kvh, int
 // cache positions [r·chunk, (r+1)·chunk).  After its chunk, each rank's
 // part is weighed with every rank's, in rank order, and the rank writes the
 // output elements r·THREADS + tid, stepping by c·THREADS, in q's dtype to
-// out (B, S, NH, hd).
+// out (B, S, NH, hd).  The partials form (lse set) writes them in float32,
+// normalized over this cache's keys alone, and rank 0 writes each row's
+// log-sum-exp, M + log(L); a row that sees no key here gets 0 and -inf.
 template <typename T, int R, int HD>
 __global__ void __launch_bounds__(THREADS)
     decode_attention_kernel(const __grid_constant__ Maps maps, const Params p) {
@@ -802,9 +818,16 @@ __global__ void __launch_bounds__(THREADS)
       L = fmaf(cluster.map_shared_rank(part.l, k)[tid], w, L);
     }
     total[tid] = L;
+    const int rr = rt * R + tid;
+    if (p.lse != nullptr && rank == 0 && rr < p.G * p.S) {
+      const int s = rr / p.G, g = rr - s * p.G;
+      p.lse[((long long)b * p.S + s) * (p.NKV * p.G) + kvh * p.G + g] =
+          L > 0.f ? M + logf(L) : -INFINITY;
+    }
   }
   __syncthreads();
   T* out = static_cast<T*>(p.out);
+  float* out_f = static_cast<float*>(p.out);
   const int GS = p.G * p.S;
   for (int i = rank * THREADS + tid; i < R * hd; i += nrank * THREADS) {
     const int r = i / hd, d = i - r * hd, rr = rt * R + r;
@@ -813,8 +836,12 @@ __global__ void __launch_bounds__(THREADS)
     for (int k = 0; k < nrank; ++k)
       O = fmaf(cluster.map_shared_rank(part.o, k)[i], wt[r * MAX_CLUSTER + k], O);
     const int s = rr / p.G, g = rr - s * p.G;
-    out[b * p.o_s[0] + s * p.o_s[1] + (long long)(kvh * p.G + g) * p.o_s[2] + d] =
-        from_f<T>(total[r] > 0.f ? O / total[r] : 0.f);
+    const long long at = b * p.o_s[0] + s * p.o_s[1] + (long long)(kvh * p.G + g) * p.o_s[2] + d;
+    const float o = total[r] > 0.f ? O / total[r] : 0.f;
+    if (p.lse != nullptr)
+      out_f[at] = o;
+    else
+      out[at] = from_f<T>(o);
   }
   // no rank leaves while another may still read its part
   cluster.sync();
@@ -942,19 +969,21 @@ extern "C" int decode_attention_max_clusters(int is_bf16, int rows, int hd, int 
 // cudaErrorInvalidValue for a plan it cannot run, 9000 / 9001 when a bf16
 // call's tensor maps cannot be built (no cuTensorMapEncodeTiled, or the
 // driver refused a map).
-extern "C" int decode_attention(const void* q, const void* kc, const void* vc, const void* kn,
-                                const void* vn, void* out, const long long* positions,
-                                const long long* kv_valid, const long long* strides,
-                                long long pos_b, long long pos_s, long long kvv_b, int is_bf16,
-                                int B, int S, int NKV, int G, int T, int hd, int rows,
-                                int cluster, int chunk, int stages, int new_rank, float scale,
-                                float softcap, long long window, int causal, int smem,
-                                void* stream) {
+// The partials form (lse not null) takes a shard of the cache whose row t
+// holds key position t_start + t and writes out in float32 and lse
+// (B, S, NH) float32, contiguous.
+static int run(const void* q, const void* kc, const void* vc, const void* kn, const void* vn,
+               void* out, float* lse, long long t_start, const long long* positions,
+               const long long* kv_valid, const long long* strides, long long pos_b,
+               long long pos_s, long long kvv_b, int is_bf16, int B, int S, int NKV, int G,
+               int T, int hd, int rows, int cluster, int chunk, int stages, int new_rank,
+               float scale, float softcap, long long window, int causal, int smem,
+               void* stream) {
   const int esize = is_bf16 ? 2 : 4;
   const Instance* in = find(is_bf16, rows, hd);
   if (in == nullptr || hd % COLS || hd > MAX_HD || hd * esize % 16 || chunk <= 0 ||
       cluster < 1 || cluster > MAX_CLUSTER || stages < MIN_STAGES || stages > MAX_STAGES ||
-      new_rank != (kn != nullptr ? cluster - 1 : -1) ||
+      new_rank != (kn != nullptr ? cluster - 1 : -1) || t_start < 0 ||
       smem != layout(rows, hd, esize, stages).total)
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -968,6 +997,8 @@ extern "C" int decode_attention(const void* q, const void* kc, const void* vc, c
   p.pos_s[1] = pos_s;
   p.kvv_s = kvv_b;
   p.window = window;
+  p.t_start = t_start;
+  p.lse = lse;
   p.B = B; p.S = S; p.NKV = NKV; p.G = G; p.T = T; p.hd = hd;
   p.chunk = chunk;
   p.cluster = cluster;
@@ -977,4 +1008,31 @@ extern "C" int decode_attention(const void* q, const void* kc, const void* vc, c
   p.scale = scale;
   p.softcap = softcap;
   return in->run(p, cluster, smem, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int decode_attention(const void* q, const void* kc, const void* vc, const void* kn,
+                                const void* vn, void* out, const long long* positions,
+                                const long long* kv_valid, const long long* strides,
+                                long long pos_b, long long pos_s, long long kvv_b, int is_bf16,
+                                int B, int S, int NKV, int G, int T, int hd, int rows,
+                                int cluster, int chunk, int stages, int new_rank, float scale,
+                                float softcap, long long window, int causal, int smem,
+                                void* stream) {
+  return run(q, kc, vc, kn, vn, out, nullptr, 0, positions, kv_valid, strides, pos_b, pos_s,
+             kvv_b, is_bf16, B, S, NKV, G, T, hd, rows, cluster, chunk, stages, new_rank, scale,
+             softcap, window, causal, smem, stream);
+}
+
+// The partials form: decode_attention's arguments, then lse and t_start.
+extern "C" int decode_attention_partials(
+    const void* q, const void* kc, const void* vc, const void* kn, const void* vn, void* out,
+    const long long* positions, const long long* kv_valid, const long long* strides,
+    long long pos_b, long long pos_s, long long kvv_b, int is_bf16, int B, int S, int NKV,
+    int G, int T, int hd, int rows, int cluster, int chunk, int stages, int new_rank,
+    float scale, float softcap, long long window, int causal, int smem, void* stream,
+    float* lse, long long t_start) {
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  return run(q, kc, vc, kn, vn, out, lse, t_start, positions, kv_valid, strides, pos_b, pos_s,
+             kvv_b, is_bf16, B, S, NKV, G, T, hd, rows, cluster, chunk, stages, new_rank, scale,
+             softcap, window, causal, smem, stream);
 }

@@ -10,6 +10,14 @@ view of the ``(L, B, T, NKV, hd)`` cache, read through its strides) and,
 for the deferred form, the step's own keys and values ``(B, S, NKV, hd)``.
 Its plain version is :func:`.ref.decode_attention_ref`.
 
+:func:`decode_attention_partials` is the partials form, for a cache split
+over positions across devices: one shard of the cache, whose row t holds
+key position ``t_start + t``, gives each row's float32 output over this
+shard's keys and the log-sum-exp of their scores, which
+:func:`.ops.combine` weighs across the shards.  Same plan, same checks,
+the same kernel; its plain version is
+:func:`.ref.decode_attention_partials_ref`.
+
 Routing.  CPU and meta tensors take the plain version through
 :func:`repro_torch.kernels.run_plain` (the dry run counts it as one
 launch); CUDA tensors launch the kernel or raise; a ``DTensor`` raises
@@ -31,7 +39,8 @@ bytes, or whose last dimension is not contiguous, is copied once here and
 counted in ``layout_copies`` (0 on the served paths).
 
 ``launches`` counts the calls that launched the kernel from Python, or
-recorded it into a CUDA graph under capture; a graph replay runs it again
+recorded it into a CUDA graph under capture (of either form;
+``partials_launches`` those of the partials form alone); a graph replay runs it again
 without passing through here.  Each launch is one kernel: a cluster of
 CTAs per (batch row, kv head, row tile) over the positions, combined in
 the cluster's distributed shared memory.
@@ -49,7 +58,7 @@ import torch
 
 from repro_torch.kernels import run_plain, takes_plain
 
-from .ref import decode_attention_ref
+from .ref import decode_attention_partials_ref, decode_attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 HEAD_DIMS = (32, 64, 80, 128)
@@ -71,9 +80,11 @@ SMEM_RESERVED = 1024          # ... of which each resident CTA takes 1 KB more
 MAX_SMEM = 232448             # a CTA's largest dynamic shared memory (227 KB)
 MAX_THREADS_PER_SM = 2048
 MAX_GRID_YZ = 65535
+MAX_ROWS = 2**31 - 1          # a shard's last position: the kernel counts cache rows in int
 VEC = 16                      # bytes: alignment of a TMA or bulk copy's rows
 
 launches = 0
+partials_launches = 0
 layout_copies = 0
 _lib = None
 _ready_devices: set[int] = set()
@@ -290,6 +301,9 @@ def _kernel(device: torch.device):
             + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 12 + [ctypes.c_float] * 2
             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         lib.decode_attention.restype = ctypes.c_int
+        lib.decode_attention_partials.argtypes = lib.decode_attention.argtypes + [
+            ctypes.c_void_p, ctypes.c_longlong]
+        lib.decode_attention_partials.restype = ctypes.c_int
         lib.decode_attention_max_clusters.argtypes = [ctypes.c_int] * 5
         lib.decode_attention_max_clusters.restype = ctypes.c_int
         _lib = lib
@@ -365,6 +379,16 @@ def _check(q, k_cache, v_cache, k_new, v_new, positions, kv_valid, scale, softca
                          "positive int")
 
 
+def _check_shard(t_start, T: int) -> None:
+    """Raises ``ValueError`` unless ``t_start`` is an int >= 0 and the
+    shard's positions ``t_start .. t_start + T - 1`` lie within ``MAX_ROWS``."""
+    if isinstance(t_start, bool) or not isinstance(t_start, int) or t_start < 0:
+        raise ValueError(f"decode_attention_partials: t_start {t_start!r} must be an int >= 0")
+    if t_start + T > MAX_ROWS:
+        raise ValueError(f"decode_attention_partials: a shard of {T} positions from {t_start} "
+                         f"ends past {MAX_ROWS}")
+
+
 def needs_grad(*tensors) -> bool:
     """Grad is enabled and one of ``tensors`` requires it."""
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
@@ -373,6 +397,11 @@ def needs_grad(*tensors) -> bool:
 def _plain(q, k_cache, v_cache, k_new, v_new, positions, kv_valid, **kw):
     return decode_attention_ref(q, k_cache, v_cache, k_new, v_new, positions=positions,
                                 kv_valid=kv_valid, **kw)
+
+
+def _plain_partials(q, k_cache, v_cache, k_new, v_new, positions, kv_valid, **kw):
+    return decode_attention_partials_ref(q, k_cache, v_cache, k_new, v_new,
+                                         positions=positions, kv_valid=kv_valid, **kw)
 
 
 def _index(t: torch.Tensor) -> torch.Tensor:
@@ -385,8 +414,10 @@ def _index(t: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(q, k_cache, v_cache, k_new, v_new, positions, kv_valid, scale, softcap,
-            window, causal) -> torch.Tensor:
-    global launches, layout_copies
+            window, causal, t_start=None):
+    """The kernel on the card: the output in q's dtype, or with ``t_start``
+    the partials form's float32 ``(out, lse)``."""
+    global launches, partials_launches, layout_copies
     B, S, NH, hd = q.shape
     new = k_new is not None
     if q.stride(-1) != 1:                 # q is read element by element
@@ -397,10 +428,12 @@ def _launch(q, k_cache, v_cache, k_new, v_new, positions, kv_valid, scale, softc
         k_new, v_new = prepare(k_new, v_new)
     positions, kv_valid = _index(positions), _index(kv_valid)
     launch = launch_for(q, k_cache, new, window)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    partial = t_start is not None
+    out = torch.empty(q.shape, dtype=torch.float32 if partial else q.dtype, device=q.device)
     parts = (q, k_cache, v_cache, k_new if new else k_cache, v_new if new else v_cache, out)
     strides = _STRIDES(*(st for t in parts for st in t.stride()[:3]))
-    err = _kernel(q.device).decode_attention(
+    lib = _kernel(q.device)
+    args = (
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_new.data_ptr() if new else None, v_new.data_ptr() if new else None,
         out.data_ptr(), positions.data_ptr(), kv_valid.data_ptr(), strides,
@@ -412,9 +445,17 @@ def _launch(q, k_cache, v_cache, k_new, v_new, positions, kv_valid, scale, softc
         float(scale), float(softcap), int(window or 0), int(bool(causal)), launch.smem_bytes,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
+    if partial:
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        err = lib.decode_attention_partials(*args, lse.data_ptr(), t_start)
+    else:
+        err = lib.decode_attention(*args)
     if err != 0:
         raise RuntimeError(f"decode_attention launch failed: error {err} ({launch})")
     launches += 1
+    if partial:
+        partials_launches += 1
+        return out, lse
     return out
 
 
@@ -450,3 +491,39 @@ def decode_attention(
         return run_plain(functools.partial(_plain, **kw), q, k_cache, v_cache, k_new, v_new,
                          positions, kv_valid)
     return _launch(q, k_cache, v_cache, k_new, v_new, positions, kv_valid, **kw)
+
+
+def decode_attention_partials(
+    q: torch.Tensor,                  # (B, S, NH, hd)
+    k_cache: torch.Tensor,            # (B, T, NKV, hd): one shard, any strides
+    v_cache: torch.Tensor,            # (B, T, NKV, hd)
+    k_new: torch.Tensor | None = None,   # (B, S, NKV, hd): on the shard that counts them
+    v_new: torch.Tensor | None = None,
+    *,
+    positions: torch.Tensor,          # (B, S) or (S,), global
+    kv_valid: torch.Tensor,           # (B,) or 0-d, global
+    t_start: int,                     # the global position of the shard's first row
+    scale: float | None = None,
+    softcap: float = 0.0,
+    window: int | None = None,
+    causal: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One shard's part of a decode step's attention: ``(out, lse)``, out
+    ``(B, S, NH, hd)`` float32 over the keys this shard holds (cache row t
+    at position ``t_start + t``, and the step's own keys if given), lse
+    ``(B, S, NH)`` float32, the log-sum-exp of their scores; the masks as
+    :func:`decode_attention`'s, in global positions.  :func:`.ops.combine`
+    weighs the shards' parts into the output."""
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    _check(q, k_cache, v_cache, k_new, v_new, positions, kv_valid, scale, softcap, window,
+           causal)
+    _check_shard(t_start, k_cache.shape[1])
+    if needs_grad(q, k_cache, v_cache, k_new, v_new):
+        raise ValueError("decode_attention_partials has no gradient: call it under "
+                         "torch.no_grad() or on tensors that do not require one")
+    kw = dict(scale=scale, softcap=softcap, window=window, causal=causal)
+    if takes_plain(q):
+        return run_plain(functools.partial(_plain_partials, t_start=t_start, **kw), q, k_cache,
+                         v_cache, k_new, v_new, positions, kv_valid)
+    return _launch(q, k_cache, v_cache, k_new, v_new, positions, kv_valid, t_start=t_start,
+                   **kw)

@@ -23,16 +23,19 @@ The scores are float32 products of the operands upcast to float32 (the
 JAX package multiplies them in their own dtype with float32 accumulation,
 the same numbers: products of two bf16 values are exact in float32); the
 probabilities are rounded to v's dtype before the product with v, as in
-JAX.  Runs on plain tensors on any device and, for the dry run and the CPU
-tests of sharded execution, on DTensors whose cache is sharded over
-positions.
+JAX.  Runs on plain tensors on any device.
+
+:func:`decode_attention_partials_ref` is the plain version of the partials
+form, for a cache split over positions: one shard, whose row t holds key
+position ``t_start + t``, gives each row's float32 output normalized over
+the keys of this shard and the log-sum-exp of their scores, the same masks
+read in global positions.  ``ops.combine`` weighs the shards' partials
+into the output over the whole cache.
 """
 
 from __future__ import annotations
 
 import torch
-
-from repro_torch.distributed import replicate_like
 
 NEG_INF = -1e30
 
@@ -55,7 +58,7 @@ def decode_attention_ref(q, k_cache, v_cache, k_new=None, v_new=None, *, positio
     if positions.dim() == 1:
         positions = positions[None].expand(B, S)
     qg = q.reshape(B, S, NKV, G, H).float()
-    t = replicate_like(torch.arange(T, device=dev), q)
+    t = torch.arange(T, device=dev)
 
     if k_new is None:
         # the cache form of _sdpa: kv_pos = arange(T)
@@ -65,7 +68,7 @@ def decode_attention_ref(q, k_cache, v_cache, k_new=None, v_new=None, *, positio
         if causal:
             mask = kp <= qp
         else:
-            mask = replicate_like(torch.ones((B, S, T), dtype=torch.bool, device=dev), q)
+            mask = torch.ones((B, S, T), dtype=torch.bool, device=dev)
         if window is not None:
             mask = mask & (kp > qp - window)
         mask = mask & (kp < kv_valid[:, None, None])
@@ -86,7 +89,7 @@ def decode_attention_ref(q, k_cache, v_cache, k_new=None, v_new=None, *, positio
     # part 2: the new tokens (causal among themselves)
     s2 = torch.einsum("bsngh,btnh->bngst", qg, k_new.float()) * scale
     s2 = _softcap(s2, softcap)
-    new_pos = kv_valid[:, None] + replicate_like(torch.arange(S, device=dev), q)[None, :]
+    new_pos = kv_valid[:, None] + torch.arange(S, device=dev)[None, :]
     m2 = new_pos[:, None, :] <= positions[..., None]             # (B,S,S)
     if window is not None:
         m2 = m2 & (new_pos[:, None, :] > positions[..., None] - window)
@@ -97,3 +100,49 @@ def decode_attention_ref(q, k_cache, v_cache, k_new=None, v_new=None, *, positio
     out = torch.einsum("bngst,btnh->bsngh", p1.to(v_cache.dtype), v_cache)
     out = out + torch.einsum("bngst,btnh->bsngh", p2.to(v_new.dtype), v_new)
     return out.reshape(B, S, NH, H)
+
+
+def decode_attention_partials_ref(q, k_cache, v_cache, k_new=None, v_new=None, *, positions,
+                                  kv_valid, t_start, scale, softcap=0.0, window=None,
+                                  causal=True):
+    """``(out, lse)`` of one shard of the cache: ``out`` ``(B, S, NH, hd)``
+    float32, each row's attention over the keys it sees in this shard (the
+    cache rows ``t`` at positions ``t_start + t`` below ``kv_valid`` and,
+    with ``k_new``/``v_new``, the step's own keys at ``kv_valid + j``),
+    ``lse`` ``(B, S, NH)`` float32, the log-sum-exp of those scores.  A
+    row that sees no key here comes out as the mean of v over the shard's
+    positions with ``lse`` about ``NEG_INF``, as JAX's softmax of
+    ``NEG_INF`` scores gives it; ``ops.combine`` weighs such a shard by 0,
+    or, where no shard sees a key, by its positions.  The probabilities are
+    rounded to v's dtype before the product with v, which sums in float32."""
+    B, S, NH, H = q.shape
+    T, NKV = k_cache.shape[1], k_cache.shape[2]
+    G = NH // NKV
+    dev = q.device
+    if kv_valid.dim() == 0:
+        kv_valid = kv_valid.expand(B)
+    if positions.dim() == 1:
+        positions = positions[None].expand(B, S)
+    qg = q.reshape(B, S, NKV, G, H).float()
+    kp = (torch.arange(T, device=dev) + t_start)[None, None, :]     # (1, 1, T)
+    qp = positions[..., None]                                       # (B, S, 1)
+    s = _softcap(torch.einsum("bsngh,btnh->bngst", qg, k_cache.float()) * scale, softcap)
+    mask = kp < kv_valid[:, None, None]
+    if causal:
+        mask = mask & (kp <= qp)
+    if window is not None:
+        mask = mask & (kp > qp - window)
+    scores, values = [torch.where(mask[:, None, None], s, NEG_INF)], [v_cache]
+    if k_new is not None:
+        s2 = _softcap(torch.einsum("bsngh,btnh->bngst", qg, k_new.float()) * scale, softcap)
+        new_pos = (kv_valid[:, None] + torch.arange(S, device=dev)[None, :])[:, None, :]
+        m2 = new_pos <= qp                                          # (B, S, S)
+        if window is not None:
+            m2 = m2 & (new_pos > qp - window)
+        scores.append(torch.where(m2[:, None, None], s2, NEG_INF))
+        values.append(v_new)
+    scores = torch.cat(scores, dim=-1)                              # (B, NKV, G, S, T [+ S])
+    lse = torch.logsumexp(scores, dim=-1)
+    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype).float()
+    out = torch.einsum("bngst,btnh->bsngh", probs, torch.cat(values, dim=1).float())
+    return out.reshape(B, S, NH, H), lse.permute(0, 3, 1, 2).reshape(B, S, NH)

@@ -23,6 +23,10 @@ footprint, JAX's ``cost_analysis()["bytes accessed"]`` and
   plus its outputs.  The port's step is unfused, and a CUDA graph replays
   the same ops, so this is what the port reads and writes; XLA counts
   after fusion, where intermediates of a fused region never reach memory.
+  An indexed read or write (``index``, ``index_put_``, ``index_copy_``)
+  counts the rows it names, not the tensor it indexes: its indices, and
+  the rows read and written (a cache write moves its new rows, as XLA's
+  in-place ``dynamic-update-slice`` does).
 * ``live_bytes`` and ``peak_bytes``: the bytes of the storages the ops
   make (an op's outputs that share no input's storage), added when an op
   makes one and taken off when it dies (a weak reference to the storage
@@ -96,6 +100,28 @@ def operand_bytes(args: Any) -> int:
 _LOCAL = (torch.Tensor, torch.nn.Parameter)
 # the namespaces of every op CommDebugMode counts
 _COMMS = NAMESPACES + ("c10d",)
+_aten = torch.ops.aten
+# indexed reads (the rows are the output) and writes (the rows are the
+# source; argument position), which touch only the rows they name
+_INDEXED_READS = (_aten.index,)
+_INDEXED_WRITES = {_aten.index_put_: 2, _aten._index_put_impl_: 2, _aten.index_copy_: 3}
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _indexed_bytes(packet, args, out) -> int | None:
+    """The bytes an indexed read or write moves: its indices, and the rows
+    it reads and writes twice over (read, then written); None for any
+    other op."""
+    if packet in _INDEXED_READS:
+        return _nbytes(_tensors(args[1:], [])) + 2 * _nbytes(_tensors(out, []))
+    at = _INDEXED_WRITES.get(packet)
+    if at is None:
+        return None
+    rows = _nbytes(_tensors(args[at], []))
+    return _nbytes(_tensors(args[1:at], [])) + 2 * rows
 
 
 def _tensors(tree: Any, out: list) -> list:
@@ -194,8 +220,10 @@ class CommCounter(CommDebugMode):
         view, mutable = self._kind(func)
         if view or self._in_plain:
             return out
+        indexed = None if collective else _indexed_bytes(packet, args, out)
         self._account(_tensors(kwargs, _tensors(args, [])), _tensors(out, []),
-                      made=not mutable, accessed=not collective)
+                      made=not mutable, accessed=not collective and indexed is None)
+        self.bytes_accessed += indexed or 0
         return out
 
     def _account(self, ins, outs, *, made: bool = True, accessed: bool = True,

@@ -24,10 +24,11 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
-from repro_torch.distributed import (constrain, constrain_split, gather_fsdp, hold_layout,
-                                     on_local_shards, replicate_like, shard_offset)
-from repro_torch.kernels import PLAIN_DEVICES
-from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+from repro_torch.distributed import (all_reduce_over, constrain, constrain_split, gather_fsdp,
+                                     hold_layout, on_local_shards, replicate_like, shard_group,
+                                     shard_offset)
+from repro_torch.kernels.decode_attention import (combine, decode_attention,
+                                                  decode_attention_partials)
 from repro_torch.kernels.flash_attention import mha_flash
 
 Params = Mapping[str, torch.Tensor]
@@ -36,6 +37,8 @@ NEG_INF = -1e30
 # rows only, for attention cores run on each device's shards
 HEADS = {"batch": 0, "heads": 2}
 ROWS = {"batch": 0}
+# ... and of a (B, T, kv heads, head_dim) cache whose positions are sharded
+POSITIONS = {"batch": 0, "kv_seq": 1, "heads": 2}
 
 
 def _keys_whole(k: torch.Tensor) -> bool:
@@ -305,12 +308,10 @@ def _decode_attention(q, k_cache, v_cache, k_new, v_new, *, scale, softcap_val, 
     ``kv_valid`` ``(B,)`` or 0-d.  Plain tensors go to B3's wrapper: on the
     card the kernel reads the cache in its own dtype into float32 scores,
     as JAX's ``preferred_element_type`` dots do; on the CPU and the meta
-    device its plain version.  DTensors
-    holding every key position run it on each device's rows and heads
-    (DTensor would flatten the sharded batch and heads together).  DTensors
-    sharded over positions take the plain version on the DTensors, on the
-    CPU and the meta device (the dry run, the gloo tests); on the card they
-    raise: the kernel's parts would need combining across devices."""
+    device its plain version.  DTensors holding every key position run it
+    on each device's rows and heads (DTensor would flatten the sharded
+    batch and heads together); DTensors sharded over positions (the
+    long-context rules) run :func:`_decode_on_position_shards`."""
     kw = dict(scale=scale, softcap=softcap_val, window=window, causal=causal)
     if _keys_whole(k_cache):
         def local(q, k_cache, v_cache, k_new, v_new, positions, kv_valid):
@@ -323,15 +324,42 @@ def _decode_attention(q, k_cache, v_cache, k_new, v_new, *, scale, softcap_val, 
             (positions, ROWS if positions.dim() > 1 else {}),
             (kv_valid, ROWS if kv_valid.dim() else {})], [HEADS])
     if isinstance(k_cache, DTensor):
-        if k_cache.to_local().device.type not in PLAIN_DEVICES:
-            raise NotImplementedError(
-                f"decode attention over a cache sharded over positions "
-                f"({k_cache.placements}) on {k_cache.to_local().device.type}: B3's parts "
-                "would need combining across devices")
-        return decode_attention_ref(q, k_cache, v_cache, k_new, v_new, positions=positions,
-                                    kv_valid=kv_valid, **kw)
+        return _decode_on_position_shards(q, k_cache, v_cache, k_new, v_new, positions=positions,
+                                          kv_valid=kv_valid, **kw)
     return decode_attention(q, k_cache, v_cache, k_new, v_new, positions=positions,
                             kv_valid=kv_valid, **kw)
+
+
+def _decode_on_position_shards(q, k_cache, v_cache, k_new, v_new, *, positions, kv_valid,
+                               **kw):
+    """Decode attention over a cache DTensor sharded over positions (the
+    long-context rules shard ``kv_seq``, as XLA partitions JAX's ``_sdpa``
+    and ``_sdpa_deferred``): each device runs B3's partials form on its
+    rows, heads and positions, its shard's first position
+    (:func:`repro_torch.distributed.shard_offset`) as ``t_start``; the
+    step's own keys count on the position axis's first coordinate alone;
+    then :func:`repro_torch.kernels.decode_attention.combine` weighs the
+    partials with one max and one sum all-reduce over the devices that
+    split the positions.  On the card the kernel, on the CPU and the meta
+    device its plain version: the same branch, and no device gathers the
+    cache or the scores."""
+    t_start, S = shard_offset(k_cache, 1), q.shape[1]
+    group = shard_group(k_cache, 1)
+    reduce = all_reduce_over((group,) if group else ())
+
+    def local(q, k_cache, v_cache, k_new, v_new, positions, kv_valid):
+        if t_start:
+            k_new = v_new = None
+        out, lse = decode_attention_partials(q, k_cache, v_cache, k_new, v_new,
+                                             positions=positions, kv_valid=kv_valid,
+                                             t_start=t_start, **kw)
+        count = k_cache.shape[1] + (0 if k_new is None else S)
+        return combine(out, lse, count, reduce, dtype=q.dtype)
+
+    return on_local_shards(local, k_cache, POSITIONS, [
+        (q, HEADS), (k_cache, POSITIONS), (v_cache, POSITIONS), (k_new, HEADS), (v_new, HEADS),
+        (positions, ROWS if positions.dim() > 1 else {}),
+        (kv_valid, ROWS if kv_valid.dim() else {})], [HEADS])
 
 
 def _slot_rows(B: int, T: int, S_new: int, pos: torch.Tensor) -> torch.Tensor:
@@ -347,13 +375,20 @@ def _slot_rows(B: int, T: int, S_new: int, pos: torch.Tensor) -> torch.Tensor:
 def _masked_write(c, u, start, t_start: int, b_dim: int, t_dim: int):
     """``c``'s positions ``start[b] + s`` along ``t_dim`` take ``u``'s
     ``s``-th rows (``start``: (B,), or 0-d for every slot), in place, where
-    ``c`` holds the positions from ``t_start`` on (a shard of them)."""
+    ``c`` holds the positions from ``t_start`` on (a shard of them).  It
+    reads and writes ``S_new`` rows a slot, no more: the rows from the local
+    offset clamped into the shard, each keeping its old value where its
+    position lies outside the new rows (a write that falls partly or wholly
+    in another shard), in one indexed write."""
     cm, um = c.movedim((b_dim, t_dim), (0, 1)), u.movedim((b_dim, t_dim), (0, 1))
-    t = torch.arange(cm.shape[1], device=c.device) + t_start
-    j = t[None, :] - start.reshape(-1, 1)                       # (B or 1, T_local)
-    hit = (j >= 0) & (j < um.shape[1])
-    picked = um[torch.arange(um.shape[0], device=c.device)[:, None], j.clamp(0, um.shape[1] - 1)]
-    cm.copy_(torch.where(hit.reshape(hit.shape + (1,) * (cm.dim() - 2)), picked.to(c.dtype), cm))
+    B, T, S = cm.shape[0], cm.shape[1], um.shape[1]
+    n = min(S, T)
+    local = start.reshape(-1, 1) - t_start                      # (B or 1, 1)
+    rows = (local.clamp(0, T - n) + torch.arange(n, device=c.device)).expand(B, n)
+    j = rows - local                                            # the row of u each takes
+    hit = ((j >= 0) & (j < S)).reshape((B, n) + (1,) * (cm.dim() - 2))
+    b = torch.arange(B, device=c.device)[:, None]
+    cm[b, rows] = torch.where(hit, um[b, j.clamp(0, S - 1)].to(c.dtype), cm[b, rows])
     return c
 
 

@@ -106,14 +106,14 @@ def assert_step_equal(got, want):
     assert got["counter"] == (1, "DTensor") and want["counter"] == (1, "Tensor")
 
 
-def _child(rank, world, shape, body, args, store, threads, out):
+def _child(rank, world, shape, body, args, store, threads, out, names=("data", "model")):
     torch.set_num_threads(threads)
     dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
                             world_size=world)
     try:
         from torch.distributed.device_mesh import init_device_mesh
 
-        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
         results = body(mesh, shape, *args)
         if rank == 0:
             torch.save(results, out)
@@ -121,15 +121,15 @@ def _child(rank, world, shape, body, args, store, threads, out):
         dist.destroy_process_group()
 
 
-def run_mesh(shape, body, args, tmp: Path) -> dict:
-    """Spawn ``prod(shape)`` gloo processes over a ``("data", "model")``
-    mesh of ``shape``, each running ``body(mesh, shape, *args)`` (a
+def run_mesh(shape, body, args, tmp: Path, names=("data", "model")) -> dict:
+    """Spawn ``prod(shape)`` gloo processes over a mesh of ``shape`` whose
+    dimensions are ``names``, each running ``body(mesh, shape, *args)`` (a
     module-level function); returns rank 0's result."""
     world = int(np.prod(shape))
     threads = max(1, torch.get_num_threads() // world)
     out = tmp / "results.pt"
     ctx = mp.start_processes(_child, args=(world, shape, body, args, str(tmp / "store"),
-                                           threads, str(out)),
+                                           threads, str(out), names),
                              nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + JOIN_S
     try:

@@ -354,6 +354,78 @@ def test_the_train_step_gathers_no_logits():
     assert reduces.count(4 * rows) >= 1 and reduces.count(8 * rows) >= 1
 
 
+def _long_decode_counts(arch, positions):
+    """One device's share of ``arch`` smoke's long_500k decode step over a
+    cache of ``positions`` on a fake (2, 2) mesh under the long-context
+    rules: the counts and the collective records (wait_tensor left out)."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.comm_analysis import CommCounter
+
+    shape = InputShape("long_500k", positions, 1, "decode")
+    with dryrun.fake_mesh((2, 2), ("data", "model")) as mesh:
+        case = dryrun.build_case(TC.get(arch, smoke=True), shape, mesh,
+                                 dict(dryrun.LONG_CONTEXT_OVERRIDES))
+        with dryrun.MetaShapeCache(), CommCounter() as counter:
+            case.step()
+    return counter, [r for r in counter.records if r[0] != "wait_tensor"]
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "gemma2-27b"])
+def test_the_long_decode_combines_partials_and_gathers_no_scores(arch):
+    """zamba2 and gemma2 smoke at long_500k (batch 1, 524288 positions) on
+    a fake (2, 2) mesh: the data axis splits the cache's positions, the
+    model axis its kv heads.  Each attention layer runs B3's partials on
+    the device's positions and the combine's two all-reduces over the data
+    axis: a max of (1, 1, NH / 2) and a sum of (1, 1, NH / 2, hd + 1)
+    float32.  No all-gather grows with the cache (the same records at
+    65536 positions; on the parent, DTensor's plain version gathered the
+    float32 scores: 18 all-gathers, 2,171,832 B, for zamba2), and the only
+    bytes that do are one read of the device's K and V: the cache writes
+    move their new rows, not the shard."""
+    from repro_torch.launch.comm_analysis import KINDS
+
+    cfg = TC.get(arch, smoke=True)
+    layers = cfg.n_layers // cfg.hybrid_attn_every if cfg.family == "hybrid" else cfg.n_layers
+    heads, hd = cfg.n_heads // 2, cfg.resolved_head_dim
+    counter, records = _long_decode_counts(arch, 524288)
+    short, short_records = _long_decode_counts(arch, 65536)
+    reduces = [n for op, n in records if KINDS.get(op) == "all-reduce"]
+    assert reduces.count(4 * heads) == reduces.count(4 * heads * (hd + 1)) == layers > 0
+    assert records == short_records
+    kv_local = (cfg.n_kv_heads // 2) * hd * 2 * getattr(torch, cfg.dtype).itemsize
+    assert counter.bytes_accessed - short.bytes_accessed == \
+        layers * kv_local * (524288 - 65536) // 2
+
+
+def test_a_cache_write_moves_its_rows_not_the_shard():
+    """A synchronized append of one new row to every layer of a cache
+    sharded over positions (the data axis of a fake (2, 2) mesh): its
+    bytes accessed do not grow with the cache, and stay below 16 x the new
+    rows' bytes (the rows read and written, the old rows kept where a
+    write falls in another shard, the indices), where rewriting the shard
+    moved it twice."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed import place
+    from repro_torch.models import layers as TL
+
+    L_, NKV, hd = 2, 2, 32
+    counts = []
+    with dryrun.fake_mesh((2, 2), ("data", "model")) as mesh:
+        for positions in (4096, 65536):
+            cache = [place(torch.empty((L_, 1, positions, NKV, hd), dtype=torch.bfloat16,
+                                       device="meta"), mesh, [Shard(2), Replicate()])
+                     for _ in range(2)]
+            new = [torch.empty((L_, 1, 1, NKV, hd), dtype=torch.bfloat16, device="meta")
+                   for _ in range(2)]
+            pos = torch.tensor(positions - 3, device="meta")
+            counts.append(dryrun.count_step(lambda: TL.append_kv_synced(*cache, *new, pos)))
+    rows = 2 * L_ * NKV * hd * 2
+    assert counts[0]["bytes_accessed"] == counts[1]["bytes_accessed"] < 16 * rows
+    assert counts[1]["temp_bytes"] < 16 * rows
+
+
 @pytest.mark.timeout(300)
 @pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
 def test_flops_per_device_times_devices_is_the_global_count(shape):
@@ -403,13 +475,14 @@ def test_depth_extrapolation_equals_the_full_depth():
 @pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
 def test_depth_extrapolation_of_the_peak_holds_without_autograd(shape):
     """Without autograd the first layer's peak holds no earlier layer's
-    output, so the prefill's peak grows from 1 to 2 layers by another
-    amount than from 2 on (not at all after that): the pass runs at 2P and
-    3P and equals a 5-layer run in every count.  The decode's peak grows by
-    each layer's new keys and values from the first layer on: its
-    attention is decode attention's plain version, counted as one launch
-    that holds no float32 copy of the cache, so 1 and 2 layers would
-    extrapolate to it too."""
+    output, so the peak grows from 1 to 2 layers by another amount than
+    from 2 on: the pass runs at 2P and 3P and equals a 5-layer run in every
+    count, where 1 and 2 layers would miss it.  So for the prefill (not at
+    all after 2 layers) and for the decode (each layer's new keys and
+    values from 2 on): its attention is decode attention's plain version,
+    counted as one launch that holds no float32 copy of the cache, and its
+    cache append writes the new rows alone, with no temporary the size of
+    the cache's shard."""
     cfg = dataclasses.replace(TC.get("phi4-mini-3.8b", smoke=True), n_layers=5)
     got = dryrun.partitioned(cfg, shape, (2, 2), ("data", "model"))
     assert got["partitioned_layers"] == [2, 3]
@@ -420,10 +493,7 @@ def test_depth_extrapolation_of_the_peak_holds_without_autograd(shape):
     for key in COUNTS:
         assert got[key] == full[key], key
     from_one = dryrun._extrapolate(one, two, 4)["temp_bytes"]
-    if shape == "prefill_32k":
-        assert from_one != full["temp_bytes"]          # 1 and 2 layers would miss the peak
-    else:
-        assert from_one == full["temp_bytes"]
+    assert from_one != full["temp_bytes"]              # 1 and 2 layers would miss the peak
 
 
 @pytest.mark.timeout(300)

@@ -74,6 +74,7 @@ def test_port_file_list_is_complete():
                  "src/repro_torch/launch/dryrun.py", "src/repro_torch/launch/comm_analysis.py",
                  "src/repro_torch/kernels/decode_attention/kernel.py",
                  "src/repro_torch/kernels/decode_attention/ref.py",
+                 "src/repro_torch/kernels/decode_attention/ops.py",
                  "src/repro_torch/kernels/adamw/kernel.py",
                  "src/repro_torch/kernels/adamw/ref.py", "tools/adamw_faults.py",
                  "tools/train_phi4_step.py",

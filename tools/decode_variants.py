@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Check and time B3 (decode attention) and edited copies of it on one card.
 
-    python3 tools/decode_variants.py [--check] [--shapes 0,2] [--clusters 2,4,8]
+    python3 tools/decode_variants.py [--check] [--shapes 0,2] [--long] [--clusters 2,4,8]
         [--edit 'NAME:OLD=>NEW' ...]
 
 The library is built from ``src/repro_torch/kernels/decode_attention/csrc/
@@ -15,7 +15,9 @@ dtypes against the plain version and prints its share of
 shape of ``chip_smoke.DECODE_TIMED`` (or ``--shapes``: indices into
 ``DECODE_CASES``) is timed in a CUDA graph (``chip_smoke.graph_ms``) with
 its plan, and again with the plan's cluster forced to each size of
-``--clusters``, each with its error's share of the tolerance.  Numbers from
+``--clusters``, each with its error's share of the tolerance; ``--long``
+times long_500k's shapes instead (``chip_smoke.LONG_SHAPES``: a cache of
+524288 positions, kv_valid near its end).  Numbers from
 this script are the card's only when it runs there.
 """
 
@@ -66,6 +68,7 @@ def main() -> None:
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--shapes", default=None)
     ap.add_argument("--clusters", default="")
+    ap.add_argument("--long", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -99,10 +102,17 @@ def main() -> None:
                                        decode_attention_ref(q, kc, vc, kn, vn, **kw), dname)
                     print(f"{name} check {dname:8s} {label}: {r:.2f} of tolerance "
                           f"{'ok' if r <= 1.0 else 'FAIL'}", flush=True)
-        for i in shapes:
-            label, arch, smoke, B, T, S, new, kvv0d = c.DECODE_CASES[i]
-            q, kc, vc, kn, vn, kw = c._decode_inputs(arch, smoke, B, T, S, new, kvv0d,
-                                                     torch.bfloat16, seed=400 + T, full=True)
+        for i in ([] if args.long else shapes) + (c.LONG_SHAPES if args.long else []):
+            if args.long:
+                label, arch, new, window = i
+                q, kc, vc, kn, vn, kw = c.long_inputs(arch, new, seed=2299)
+                kw.update(c.long_offsets(new, c.LONG_POS + 1), window=window)
+                B, T = 1, c.LONG_T
+            else:
+                label, arch, smoke, B, T, S, new, kvv0d = c.DECODE_CASES[i]
+                q, kc, vc, kn, vn, kw = c._decode_inputs(arch, smoke, B, T, S, new, kvv0d,
+                                                         torch.bfloat16, seed=400 + T,
+                                                         full=True)
             ref = decode_attention_ref(q, kc, vc, kn, vn, **kw)
             base = plan_of(q, kc, new, kw["window"])
             for n in [None] + clusters:
