@@ -8,8 +8,9 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
 1. device: name, count, power limit; TF32 off for float32 matmuls and
    convolutions;
 2. build: compile the kernels (flash attention B1, its backward, stream_pack
-   B2, decode attention B3, AdamW B4, cross-entropy B5) for sm_90a, one nvcc
-   for each source, all started together; print their ptxas register /
+   B2, decode attention B3, AdamW B4, cross-entropy B5, latent attention B6)
+   for sm_90a, one nvcc for each source, all started together; print their
+   ptxas register /
    shared-memory / spill reports;
 3. kernel against its plain PyTorch version on the card over a sweep of
    dtypes, head dims (zamba2's 80 among them), GQA groups, lengths (ragged
@@ -48,6 +49,19 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    launched from Python, beside the plain version,
    ``F.scaled_dot_product_attention`` over the cache with a boolean mask
    (a yardstick only: the port never calls it) and the bound;
+3c. latent attention (B6) against its plain version on the card at every
+   shape a DeepSeek-V2 path gives it (``LATENT_CASES``: the served decode,
+   3 new tokens, the prefill buckets 64-512 at B = 1, decode_32k's share
+   with a 0-d offset, which must give the bits of the same offset per row,
+   the float32 smoke config's decode and prompt passes, the smoke widths
+   at bf16), at B3's tolerance (``DECODE_TOL``); a fully masked row (the
+   latents' mean, with and without a split); each case prints its plan
+   (grid, split, stages, shared memory, kernels a call); then times at the
+   served decode, decode_32k's share and prefill bucket 512, in a CUDA
+   graph and launched from Python, beside the plain version, the fastest
+   ``F.scaled_dot_product_attention`` call over q = [q_lat | q_rope], k =
+   [ckv | krope], v = ckv in three layouts under each backend (a
+   yardstick only; each refusal printed with its reasons) and the bound;
 4. serve: phi4-mini-3.8b at full width and depth, bf16, random weights made
    on the card from a seed, 8 requests through ``ServingEngine`` with
    CUDA-graph-sealed steps; checks the tokens and that prefill went
@@ -95,9 +109,15 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    TTFT p50, decode tok/s, peak memory and the top device ops of each
    profiled replay with B2's share;
 9. the same for deepseek-v2-236b (2 of 60 layers, MLA: no flash kernel and
-   no B3);
+   no B3; MLA's absorbed attention runs on B6 in every decode step and prompt
+   pass: the wrapper counts 2 x n_layers launches a captured step, the
+   profiled decode and bucket-512 prefill replays each run n_layers B6
+   calls, their kernels counted with B6's share beside B2's, and no layout
+   copy);
 10. arctic-smoke and deepseek-v2-smoke on the card and on the CPU at
-    float32, one set of weights: identical greedy tokens;
+    float32, one set of weights (deepseek's MLA on B6's float32 kernel):
+    identical greedy tokens, and the logits of a 48-token prompt pass and
+    of the decode step after it within 1e-3;
 11. llava-next-34b at full width and 4 of its 60 layers, bf16: served as
     phase 4 serves phi4-mini (text prompts), then one ``forward`` of 2880
     vision embeddings and 64 tokens (B1 at S = 2944, GQA 7);
@@ -125,7 +145,8 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
     under a pool of two, and once more profiled (the profiler must see
     exactly the ``flash_fwd`` and ``stream_pack`` kernels the lanes'
     replays imply, up to three bursts; that session gives the device's
-    busy share of the burst).  phi4-mini's tokens
+    busy share of the burst; the MoE lane's B6 launches are counted).
+    phi4-mini's tokens
     must equal the same engine's driven by ``run_until_drained``; the MoE
     lane's requests must complete with their token counts.  Then a third
     lane (phi4-mini smoke, float32, a schedule cache of one entry)
@@ -262,7 +283,13 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
     (c) two processes on the one card over gloo, a (2,) mesh over
     positions, each holding its half of zamba2's cache:
     ``layers._decode_attention`` within B3's tolerance of the whole-cache
-    B3 and of the plain version, the two ranks' outputs equal.
+    B3 and of the plain version, the two ranks' outputs equal;
+23. DeepSeek-V2 at decode_32k's per-device share: deepseek-v2-236b at full
+    width and 2 layers, bf16, phase 9's weights' seed, 8 sequences over a
+    synchronized latent cache of 32768 positions filled from a seed, all
+    128 heads: 8 greedy steps eagerly and as replays of one captured step
+    give the same tokens and logits; ms a replay, its kernel time, B6's
+    kernels and share beside B2's, the peak memory.
 
 Each phase prints its times (CUDA events, graph replays), the kernels of
 one profiled call, and the wrappers' counts; each forward and each decode
@@ -285,7 +312,11 @@ and B5's launches are counted over each training path (``B4_BY_PATH``,
 ``B5_BY_PATH``: 19c, 19d, 21a, 21d, each of which must launch them), and
 the profiled training replay's B1-backward, B4 and B5 kernels over the
 wrapper's counts for the capture (``B1BWD_REPLAYS``, ``B4_REPLAYS``,
-``B5_REPLAYS``): the kernels line prints these measured counts.
+``B5_REPLAYS``): the kernels line prints these measured counts.  B6's
+launches are counted over each path that serves DeepSeek-V2
+(``B6_BY_PATH``: phases 9, 10, 16 and 23, each of which must launch it, none
+after phase 3c with a layout copy), and its kernels in the profiled replays
+of phases 9 and 23 over their calls (``B6_REPLAYS``).
 
 The line before the last is the per-kernel JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -297,6 +328,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -435,11 +467,12 @@ def phase_build():
     from repro_torch.kernels.decode_attention import kernel as decode
     from repro_torch.kernels.flash_attention import backward as flash_bwd
     from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.latent_attention import kernel as latent
     from repro_torch.kernels.stream_pack import kernel as pack
 
     say("== phase 2: build")
     sources = [flash.SOURCE, flash_bwd.SOURCE, pack.SOURCE, decode.SOURCE, adamw.SOURCE,
-               ce.SOURCE]
+               ce.SOURCE, latent.SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:      # one nvcc per source
         list(pool.map(build.build, sources))
@@ -1193,6 +1226,329 @@ def decode_time(label, arch, smoke, B, T, S, new, kvv0d) -> dict:
                 bytes=nbytes)
 
 
+# phase 3c: B6 (latent attention) against its plain version at every shape
+# a DeepSeek-V2 path gives it: (label, B, S, T, N, R, Rr, dtype, a 0-d
+# offset for every row, the prompt pass (positions 0..S-1 over the prompt's
+# own latents, T = S))
+LATENT_CASES = [
+    ("served decode (phases 9, 16)", SERVE_SLOTS, 1, 1024, 128, 512, 64, "bfloat16", False,
+     False),
+    ("3 new tokens", SERVE_SLOTS, 3, 1024, 128, 512, 64, "bfloat16", False, False),
+    *[(f"prefill bucket {b} (phases 9, 16)", 1, b, b, 128, 512, 64, "bfloat16", False, True)
+      for b in PREFILL_BUCKETS],
+    ("decode_32k share (phase 23)", 8, 1, 32768, 128, 512, 64, "bfloat16", True, False),
+    ("smoke decode (phase 10)", 4, 1, 256, 4, 32, 16, "float32", False, False),
+    *[(f"smoke prefill bucket {b} (phase 10)", 1, b, b, 4, 32, 16, "float32", False, True)
+      for b in (16, 128)],
+    ("smoke widths at bf16", 4, 1, 256, 4, 32, 16, "bfloat16", False, False),
+]
+# the shapes B6 is timed at: the served decode, decode_32k's share, prefill
+# bucket 512
+LATENT_TIMED = (0, 6, 5)
+# B6's tolerance: B3's (DECODE_TOL), bf16's atol scaled by each output
+# row's rms; float32 summation order
+LATENT_TOL = DECODE_TOL
+
+
+def _latent_inputs(B, S, T, N, R, Rr, dtype, kvv0d, prompt, seed, full=False):
+    """q_lat, q_rope, ckv, krope, positions, kv_len and the scale, on the
+    card, in the layouts the served path gives them: q_lat a permuted view
+    of (N, B, S, R) storage (the einsum's output), q_rope a slice of the
+    (B, S, N, 128 + Rr) query, ckv and krope layer 1 of a 2-layer cache.
+    Offsets: the prompt pass 0..S-1 over T = S; a decode step's slots spread
+    over [0, T - S] (with ``full``, near the end), kv_len = pos + S; a 0-d
+    offset as the synchronized step passes it."""
+    import torch
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dt)
+
+    q_lat = randn(N, B, S, R).permute(1, 2, 0, 3)
+    q_rope = randn(B, S, N, 128 + Rr)[..., 128:]
+    ckv, krope = randn(2, B, T, R)[1], randn(2, B, T, Rr)[1]
+    ar = torch.arange(S, device="cuda")
+    if prompt:
+        positions, kv_len = ar[None].expand(B, S).clone(), torch.full((B,), S, device="cuda")
+    elif kvv0d:
+        pos = torch.tensor(T - S - 16 if full else (T - S) // 2 + 5, device="cuda")
+        positions, kv_len = pos + ar, pos + S
+    else:
+        pos = torch.randint(0, T - S + 1, (B,), generator=g, device="cuda")
+        if full:
+            pos = T - S - torch.arange(B, device="cuda") % 7
+        elif B > 1:
+            pos[0], pos[1] = 0, T - S
+        positions, kv_len = pos[:, None] + ar[None, :], pos + S
+    return q_lat, q_rope, ckv, krope, positions, kv_len, 1.0 / math.sqrt(128 + Rr)
+
+
+def latent_plan_text(launch, B, S, N) -> str:
+    """B6's plan as 3c prints it."""
+    return (f"grid {launch.grid(B, S, N)}, rows {launch.rows}, split {launch.split} x {launch.chunk} "
+            f"positions, stages {launch.stages}, smem {launch.smem_bytes}, {launch.kernels} "
+            f"kernel{'s' if launch.kernels > 1 else ''} a call")
+
+
+def phase_latent_kernel() -> dict:
+    import torch
+
+    from repro_torch.kernels.latent_attention import kernel as b6
+    from repro_torch.kernels.latent_attention import latent_attention, latent_attention_ref
+
+    say("== phase 3c: latent_attention (B6) vs plain version at every DeepSeek-V2 path's "
+        "shape (tolerance B3's: f32 1e-4 + 0 for summation order; bf16 "
+        f"{DECODE_BF16_RMS:g} x the row's rms(ref) + 1e-2*|ref| for the plain version's "
+        "bf16 probabilities and the outputs' rounding)")
+    worst, failed = 0.0, []
+    for i, (label, B, S, T, N, R, Rr, dname, kvv0d, prompt) in enumerate(LATENT_CASES):
+        args = _latent_inputs(B, S, T, N, R, Rr, dname, kvv0d, prompt, seed=500 + i)
+        *ten, scale = args
+        launch = b6.launch_for(*ten[:3])
+        with torch.no_grad():
+            got = latent_attention(*ten, scale=scale)
+            ref = latent_attention_ref(*ten, scale=scale)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        r, er = decode_ratio(got, ref, dname), rms_err(got, ref)
+        ok = math.isfinite(err) and r <= 1.0
+        note = ""
+        if kvv0d:
+            q_lat, q_rope, ckv, krope, positions, kv_len = ten
+            per_row = latent_attention(q_lat, q_rope, ckv, krope,
+                                       positions.expand(B, S).clone(), kv_len.expand(B).clone(),
+                                       scale=scale)
+            same = torch.equal(got, per_row)
+            note = f" | 0-d offset == per-row offsets: {same}"
+            if not same:
+                fail(f"{label}: B6 with a 0-d offset differs from the same offset per row")
+        say(f"  {dname:8s} {label}: B={B} S={S} T={T} N={N} R={R} Rr={Rr} | "
+            f"{latent_plan_text(launch, B, S, N)} | max_abs_err {err:.3e}, err/rms {er:.3e} "
+            f"({r:.2f} of tolerance) {'ok' if ok else 'FAIL'}{note}")
+        if not ok:
+            failed.append(f"{label} {dname} ({r:.3f} of tolerance)")
+        worst = max(worst, r)
+        del args, ten, got, ref
+    if failed:
+        fail(f"B6 disagrees with its plain version at {failed}")
+    say(f"  {len(LATENT_CASES)} cases within tolerance (worst at {worst:.2f} of its tolerance)")
+    latent_masked_row()
+    record = latent_time(*LATENT_CASES[LATENT_TIMED[0]])
+    record["decode_32k"] = latent_time(*LATENT_CASES[LATENT_TIMED[1]])
+    record["prefill_512"] = latent_time(*LATENT_CASES[LATENT_TIMED[2]])
+    return record
+
+
+def latent_masked_row() -> None:
+    """A row whose every key is masked (position -1): B6 gives the mean of
+    the latents over every position, as the plain version and JAX's
+    softmax of -1e30 logits do, at both dtypes and with and without a split."""
+    import torch
+
+    from repro_torch.kernels.latent_attention import kernel as b6
+    from repro_torch.kernels.latent_attention import latent_attention, latent_attention_ref
+
+    for dname, N, R, Rr in (("bfloat16", 128, 512, 64), ("float32", 4, 32, 16)):
+        *ten, scale = _latent_inputs(2, 1, 256, N, R, Rr, dname, False, False, seed=499)
+        ten[4] = ten[4].clone()
+        ten[4][0] = -1                                 # slot 0's query sees no key
+        with torch.no_grad():
+            got = latent_attention(*ten, scale=scale)
+            ref = latent_attention_ref(*ten, scale=scale)
+        mean = ten[2][0].float().mean(0)
+        r = decode_ratio(got, ref, dname)
+        to_mean = (got[0, 0].float() - mean).abs().max().item()
+        say(f"  {dname} a fully masked row (split {b6.launch_for(*ten[:3]).split}): "
+            f"{r:.2f} of tolerance from the plain version over both slots; the masked row "
+            f"within {to_mean:.3e} of the latents' mean")
+        if not r <= 1.0 or not to_mean <= 0.02:
+            fail(f"B6's fully masked row ({dname}) is not the latents' mean, or the other "
+                 "slot disagrees")
+
+
+# the warning that heads each SDPA backend's reasons for refusing a call
+SDPA_HEADERS = {"FLASH_ATTENTION": "Flash attention kernel",
+                "EFFICIENT_ATTENTION": "Memory efficient kernel",
+                "CUDNN_ATTENTION": "cuDNN attention kernel"}
+
+
+def sdpa_reasons(backend: str, messages: list[str]) -> str:
+    """The reasons ``backend`` gave for refusing a call, from the warnings
+    PyTorch raised (each backend's headed by its ``SDPA_HEADERS`` line;
+    the others only say they were disabled)."""
+    lines = [" ".join(re.sub(r"\(Triggered internally at [^)]*\)\.?", "", m).split())
+             for m in messages]
+    own, mine = [], False
+    for line in lines:
+        if line.endswith("not used because:"):
+            mine = line.startswith(SDPA_HEADERS.get(backend, "?"))
+        elif mine:
+            own.append(line)
+    return "; ".join(own or lines)[:300]
+
+
+def latent_library(q_lat, q_rope, ckv, krope, seen, scale, causal) -> tuple[dict, dict, dict]:
+    """B6's library yardstick: one ``F.scaled_dot_product_attention`` call
+    over q = [q_lat | q_rope], k = [ckv | krope], v = ckv and the boolean
+    mask ``seen`` (B, S, T), in three layouts of the same inputs: ``gqa``
+    (the N query heads over one kv head, ``enable_gqa``), ``expanded`` (k
+    and v expanded to N heads as views) and ``folded`` (the N heads folded
+    into the query rows of one head, as B6 folds them); with ``causal``
+    (a prompt pass, where ``seen`` is the causal mask) ``gqa`` and
+    ``expanded`` also as ``is_causal`` with no mask.  Each fused backend is
+    tried in each layout, MATH in the folded one (in the others it would
+    repeat the cache N times).  Returns the calls that ran by
+    "BACKEND/layout", each giving the (B, S, N, R) context as a view; the
+    refusals by the same key, with the backend's reasons; and the backend
+    the default dispatch picks in each layout."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    B, S, N, R = q_lat.shape
+    T = ckv.shape[1]
+    q = torch.cat([q_lat, q_rope], -1)                             # (B, S, N, R + Rr)
+    k = torch.cat([ckv, krope], -1)[:, None]                       # (B, 1, T, R + Rr)
+    v = ckv[:, None]
+
+    def heads(o):                                                  # (B, N, S, R) -> (B, S, N, R)
+        return o.transpose(1, 2)
+
+    layouts = {
+        "gqa": (q.transpose(1, 2), k, v, seen[:, None], True, heads),
+        "expanded": (q.transpose(1, 2), k.expand(B, N, T, -1), v.expand(B, N, T, -1),
+                     seen[:, None], False, heads),
+        "folded": (q.reshape(B, 1, S * N, -1), k, v,
+                   seen[:, :, None].expand(B, S, N, T).reshape(B, 1, S * N, T), False,
+                   lambda o: o.view(B, S, N, R)),
+    }
+    if causal:
+        layouts["gqa/causal"] = (*layouts["gqa"][:3], None, True, heads)
+        layouts["expanded/causal"] = (*layouts["expanded"][:3], None, False, heads)
+    names = {b.value: b.name for b in SDPBackend.__members__.values()}
+    default = {}
+    for layout, (qq, kk, vv, mask, gqa, _) in layouts.items():
+        try:
+            default[layout] = names.get(int(torch._fused_sdp_choice(
+                qq, kk, vv, attn_mask=mask, is_causal=mask is None, scale=scale,
+                enable_gqa=gqa)), "?")
+        except (RuntimeError, AttributeError, TypeError) as e:
+            default[layout] = f"not known ({type(e).__name__})"
+
+    def call(backend, layout):
+        qq, kk, vv, mask, gqa, back = layouts[layout]
+
+        def fn():
+            with sdpa_kernel([backend]):
+                return back(F.scaled_dot_product_attention(
+                    qq, kk, vv, attn_mask=mask, is_causal=mask is None, scale=scale,
+                    enable_gqa=gqa))
+        return fn
+
+    ran, refused = {}, {}
+    tries = [(b, lay) for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                                SDPBackend.CUDNN_ATTENTION) for lay in layouts]
+    for backend, layout in tries + [(SDPBackend.MATH, "folded")]:
+        key, fn = f"{backend.name}/{layout}", call(backend, layout)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            try:
+                fn()
+                torch.cuda.synchronize()
+                ran[key] = fn
+            except RuntimeError as e:
+                refused[key] = sdpa_reasons(backend.name, [str(w.message) for w in caught]) \
+                    or str(e).splitlines()[0][:300]
+    return ran, refused, default
+
+
+def latent_time(label, B, S, T, N, R, Rr, dname, kvv0d, prompt) -> dict:
+    """B6 at one of the paths' shapes, bf16, offsets near the end of the
+    cache: in a CUDA graph and launched from Python, beside the plain
+    version, the library (:func:`latent_library`'s fastest call that gives
+    finite values: a yardstick only, the port never calls it) and the
+    bound: the [ckv | krope] rows some query sees, q and the output once
+    each, against the products' operations over the keys each query sees
+    at the bf16 peak."""
+    import torch
+
+    from repro_torch.kernels.latent_attention import kernel as b6
+    from repro_torch.kernels.latent_attention import latent_attention, latent_attention_ref
+
+    *ten, scale = _latent_inputs(B, S, T, N, R, Rr, dname, kvv0d, prompt, seed=600 + T,
+                                 full=True)
+    q_lat, q_rope, ckv, krope, positions, kv_len = ten
+    pos = positions.expand(B, S)
+    kvl = kv_len.expand(B)
+    t = torch.arange(T, device="cuda")
+    seen = (t[None, None, :] <= pos[..., None]) & (t[None, None, :] < kvl[:, None, None])
+    rows_seen = int(seen.any(1).sum())                 # cache rows some query sees
+    keys = int(seen.sum())                             # (query token, key) pairs
+    with torch.no_grad():
+        got = latent_attention(*ten, scale=scale)
+        ref = latent_attention_ref(*ten, scale=scale)
+    err = (got.float() - ref.float()).abs().max().item()
+    if not decode_ratio(got, ref, dname) <= 1.0:
+        fail(f"B6 disagrees at {label} (timing inputs): max_abs_err {err}")
+    ran, refused, default = latent_library(q_lat, q_rope, ckv, krope, seen, scale, prompt)
+    lib_ratio = {}
+    for key, fn in list(ran.items()):
+        out = fn()
+        if not torch.isfinite(out).all():
+            refused[key] = "ran, but its output is not finite"
+            del ran[key]
+        else:
+            lib_ratio[key] = decode_ratio(out, ref, dname)
+        del out
+
+    before = b6.launches
+    calls = {"kernel": lambda: latent_attention(*ten, scale=scale),
+             "plain": lambda: latent_attention_ref(*ten, scale=scale)}
+    big = B * T * N * S > 2**24
+    reps, iters = (2, 5) if big else (10, 20)
+    with torch.no_grad():
+        graphed = {name: graph_ms(fn, reps, iters) for name, fn in calls.items()}
+        eager_ms = time_ms(calls["kernel"], iters)
+        for key, fn in list(ran.items()):
+            try:
+                graphed[key] = graph_ms(fn, reps, iters)
+            except RuntimeError as e:
+                torch.cuda.synchronize()
+                refused[key] = f"ran, but not in a CUDA graph: {str(e).splitlines()[0][:200]}"
+                del ran[key]
+    b6.launches = before                       # timing launches are not a path's
+    esize = q_lat.element_size()
+    nbytes = (rows_seen * (R + Rr) + q_lat.numel() // R * (R + Rr) + got.numel()) * esize \
+        + 8 * (positions.numel() + kv_len.numel())
+    bound_ms, bound_by = bound(2.0 * N * keys * (2 * R + Rr), nbytes, "bfloat16")
+    launch = b6.launch_for(q_lat, q_rope, ckv)
+    lib_ms = {key: graphed[key] for key in ran}
+    best = min(lib_ms, key=lib_ms.get) if lib_ms else None
+    say(f"-- B6 timing at {label}: q ({B},{S},{N},{R}+{Rr}) over a {dname} cache of {T} "
+        f"positions, {rows_seen} rows seen | graph kernel_ms {graphed['kernel']:.5f} "
+        f"plain_ms {graphed['plain']:.5f} library_ms "
+        + (f"{lib_ms[best]:.5f} ({best})" if best else "none (every call refused)")
+        + f" | eager kernel_ms {eager_ms:.5f} | bound_ms {bound_ms:.5f} ({bound_by}, "
+        f"{nbytes / 1e6:.3f} MB, {2.0 * N * keys * (2 * R + Rr) / 1e9:.3f} GFLOP) | kernel at "
+        f"{bound_ms / graphed['kernel']:.1%} of bound, {graphed['plain'] / graphed['kernel']:.2f}x "
+        f"the plain version's speed"
+        + (f", {lib_ms[best] / graphed['kernel']:.2f}x the library's" if best else "")
+        + f" | {latent_plan_text(launch, B, S, N)} | max_abs_err {err:.3e}")
+    say(f"   SDPA at {label}: the default dispatch picks {default}; ran "
+        + (", ".join(f"{key} {ms:.5f} ms ({lib_ratio[key]:.2f} of B6's tolerance from the "
+                     "plain version)" for key, ms in lib_ms.items()) or "nothing"))
+    for key, why in refused.items():
+        say(f"   SDPA {key} refused: {why}")
+    return dict(shape=[B, S, T, N, R, Rr], max_abs_err=err, ms=graphed["kernel"],
+                eager_ms=eager_ms, plain_ms=graphed["plain"],
+                library_ms=lib_ms[best] if best else None, library_backend=best,
+                library_ms_by_call=lib_ms, library_tolerance_ratio=lib_ratio,
+                library_default=default, library_refusals=refused, bound_ms=bound_ms,
+                bound_by=bound_by, bytes=nbytes, kernels_per_call=launch.kernels)
+
+
 def serve_on_card(cfg) -> tuple:
     """Serve ``cfg`` on the card: random weights drawn there from seed 0,
     then 8 requests of 20-500 prompt tokens and 16 new ones through a
@@ -1201,12 +1557,14 @@ def serve_on_card(cfg) -> tuple:
     tokens in range and the graph replays equal the requests and the
     steps.  Returns the drained engine and the wrappers' counts over the
     served run: stream_pack launches, flash launches, flash layout copies,
-    decode_attention launches and its layout copies."""
+    decode_attention launches and its layout copies, latent_attention
+    launches and its layout copies."""
     import numpy as np
     import torch
 
     from repro_torch.kernels.decode_attention import kernel as decode
     from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.latent_attention import kernel as b6
     from repro_torch.kernels.stream_pack import kernel as pack
     from repro_torch.launch import serve
     from repro_torch.serving import ServingEngine
@@ -1220,8 +1578,9 @@ def serve_on_card(cfg) -> tuple:
     torch.cuda.reset_peak_memory_stats()
 
     pack.launches = flash.launches = flash.layout_copies = 0   # the path's run starts here
-    # B3's counts run on over every decode path (main reads them): a difference here
+    # B3's and B6's counts run on over every path (main reads them): a difference here
     b3_launches, b3_copies = decode.launches, decode.layout_copies
+    b6_launches, b6_copies = b6.launches, b6.layout_copies
     t0 = time.perf_counter()
     engine = ServingEngine(cfg, params, max_slots=SERVE_SLOTS, max_len=1024,
                            bucketing=f"pow2:{min(PREFILL_BUCKETS)}:{max(PREFILL_BUCKETS)}",
@@ -1231,7 +1590,8 @@ def serve_on_card(cfg) -> tuple:
     res = serve.serve(engine, reqs)
     torch.cuda.synchronize()
     counts = (pack.launches, flash.launches, flash.layout_copies,   # ... and ends here
-              decode.launches - b3_launches, decode.layout_copies - b3_copies)
+              decode.launches - b3_launches, decode.layout_copies - b3_copies,
+              b6.launches - b6_launches, b6.layout_copies - b6_copies)
     st = engine.stats
     captures = st.prefill_compiles + st.decode_compiles
     say(f"seal {seal_s:.2f}s ({st.prefill_compiles} prefill buckets + "
@@ -1244,8 +1604,9 @@ def serve_on_card(cfg) -> tuple:
     say(f"CUDA graphs: {captures} captures, {st.prefill_replays} prefill + "
         f"{st.decode_replays} decode replays | wrapper calls (eager warm-up runs, plus "
         f"graph captures that record the kernel without running it): stream_pack "
-        f"{counts[0]}, flash {counts[1]}, decode_attention {counts[3]}; layout copies "
-        f"{counts[2]} (flash), {counts[4]} (decode_attention)")
+        f"{counts[0]}, flash {counts[1]}, decode_attention {counts[3]}, latent_attention "
+        f"{counts[5]}; layout copies {counts[2]} (flash), {counts[4]} (decode_attention), "
+        f"{counts[6]} (latent_attention)")
 
     if len(res["done"]) != len(reqs):
         fail(f"{len(res['done'])} of {len(reqs)} requests finished")
@@ -1259,11 +1620,16 @@ def serve_on_card(cfg) -> tuple:
         fail(f"graph replays: prefill {st.prefill_replays}, decode "
              f"{st.decode_replays} over {st.steps} steps")
     # the decode step's attention, each layer's, on B3 in the warm-up run and
-    # the capture of every sealed decode step (MLA attends in plain PyTorch)
+    # the capture of every sealed decode step; MLA's absorbed attention on B6
+    # in every sealed decode step and prompt pass instead
     want = 0 if cfg.mla else 2 * cfg.n_layers * st.decode_compiles
     if counts[3] != want or counts[4]:
         fail(f"decode_attention launched {counts[3]} times for {st.decode_compiles} captured "
              f"decode steps (want {want}), {counts[4]} layout copies")
+    want = 2 * cfg.n_layers * captures if cfg.mla else 0
+    if counts[5] != want or counts[6]:
+        fail(f"latent_attention launched {counts[5]} times for {captures} captured steps "
+             f"(want {want}), {counts[6]} layout copies")
     return engine, counts
 
 
@@ -1275,7 +1641,7 @@ def phase_serve() -> tuple[int, int | None, int]:
 
     say("== phase 4: serve phi4-mini-3.8b, full width and depth, bf16, on the card")
     cfg = dataclasses.replace(C.get("phi4-mini-3.8b"), dtype="bfloat16")
-    engine, (_, launches, copies, _, _) = serve_on_card(cfg)
+    engine, (_, launches, copies, *_) = serve_on_card(cfg)
     st = engine.stats
     if launches < cfg.n_layers * st.prefill_compiles or st.prefill_compiles < 1:
         fail(f"flash kernel launched {launches} times for {st.prefill_compiles} "
@@ -1502,6 +1868,41 @@ def check_b3_replay(rows, want: int, label: str) -> int:
     if n != want or old:
         fail(f"{label}: a decode replay ran {n} B3 kernels and {old} of its first design's "
              f"partial passes and combines, want {want} and none (one per attention layer)")
+    return n
+
+
+# B6's kernels: the attention and, after a split over positions, the combine
+B6_KERNELS = ("latent_attention_kernel", "latent_combine")
+# the profiled replays check_b6_replay held, B6's kernels the profiler saw in
+# them, and the B6 calls they replay (one per MLA layer)
+B6_REPLAYS = {"replays": 0, "kernels": 0, "calls": 0}
+
+
+def b6_kernels_per_call(cfg, B: int, S: int, T: int) -> int:
+    """The kernels one B6 call runs for ``cfg``'s MLA at (B, S) queries
+    over T positions in the model's dtype: its plan's."""
+    from repro_torch.kernels.latent_attention import kernel as b6
+
+    m = cfg.mla
+    return b6.choose_launch(B, S, cfg.n_heads, T, m.kv_lora_rank, m.qk_rope_head_dim,
+                            cfg.dtype).kernels
+
+
+def check_b6_replay(rows, calls: int, per_call: int, label: str) -> int:
+    """Fails unless a profiled replay's kernels (``rows``) hold ``calls``
+    B6 calls of ``per_call`` kernels each; adds them to ``B6_REPLAYS``,
+    returns the count and prints B6's share of the replay's kernel time."""
+    n = sum(c for _, c, key in rows if any(k in key for k in B6_KERNELS))
+    b6_us = sum(us for us, _, key in rows if any(k in key for k in B6_KERNELS))
+    total = sum(us for us, _, _ in rows)
+    B6_REPLAYS["replays"] += 1
+    B6_REPLAYS["kernels"] += n
+    B6_REPLAYS["calls"] += calls
+    say(f"  {label}: {n} B6 kernels ({calls} calls of {per_call}), {b6_us / 1e3:.3f} ms "
+        f"({b6_us / total:.1%} of the replay's kernel time)")
+    if n != calls * per_call:
+        fail(f"{label}: a replay ran {n} B6 kernels, want {calls * per_call} ({calls} MLA "
+             f"layers x {per_call} a call)")
     return n
 
 
@@ -2001,25 +2402,26 @@ def phase_serve_moe(arch: str, number: int, n_layers: int = 2) -> dict:
         + (f", {cfg.moe.num_shared_experts} shared" if cfg.moe.num_shared_experts else "")
         + f", d_model {cfg.d_model}, "
         + ("MLA" if cfg.mla else f"GQA {cfg.n_heads} over {cfg.n_kv_heads} heads"))
-    engine, (b2, fl, copies, _, _) = serve_on_card(cfg)
+    engine, (b2, fl, copies, _, _, b6, _) = serve_on_card(cfg)
     st = engine.stats
     captures = st.prefill_compiles + st.decode_compiles
     # three expert GEMMs per layer in every sealed step, each launched once
     # by the warm-up run and once by the capture; prefill attention on B1
-    # for GQA, none for MLA (plain PyTorch)
+    # for GQA, on B6 for MLA (serve_on_card counts B6 in every step)
     want_flash = 0 if cfg.mla else 2 * n_layers * st.prefill_compiles
     if b2 != 2 * 3 * n_layers * captures or fl != want_flash or copies:
         fail(f"stream_pack wrapper calls {b2} (want {2 * 3 * n_layers * captures}), flash "
              f"{fl} (want {want_flash}), layout copies {copies}: not the main path")
     seen = moe_replays(engine)
-    return dict(b2_launches=b2, flash_launches=fl, **seen)
+    return dict(b2_launches=b2, flash_launches=fl, b6_launches=b6, **seen)
 
 
 def moe_replays(engine) -> dict:
     """:func:`replay_times`, then the device kernels of one decode replay
     and one prefill replay of the largest bucket (torch.profiler): each
     must run 3 × n_layers B2 kernels, and the prefill n_layers
-    ``flash_fwd`` unless the model attends with MLA.  A decode replay moves
+    ``flash_fwd`` unless the model attends with MLA, where both run
+    n_layers B6 calls (:func:`check_b6_replay`).  A decode replay moves
     the cache's offsets, so the profiled one starts from the same offsets
     as the call before it."""
     import torch
@@ -2036,9 +2438,10 @@ def moe_replays(engine) -> dict:
     b = engine.prompt_buckets[-1]
     exe, padded = engine._get_prefill_exec(b), torch.zeros((1, b), dtype=torch.long)
     seen = {"b2_in_replays": 0, "flash_in_replays": 0, "profiled_replays": 0,
-            "b3_in_replays": 0}
-    for name, run in (("decode", decode_replay),
-                      (f"prefill {b}", lambda: exe(params, cache, padded, 0, b))):
+            "b3_in_replays": 0, "b6_in_replays": 0}
+    for name, run, shape in (
+            ("decode", decode_replay, (engine.max_slots, 1, engine.max_len)),
+            (f"prefill {b}", lambda: exe(params, cache, padded, 0, b), (1, b, b))):
         rows = by_kernel(kernels_in_one(run))
         if not rows:
             fail(f"one {name} graph replay: the profiler saw no device time")
@@ -2057,6 +2460,9 @@ def moe_replays(engine) -> dict:
                  f"layers (want {3 * L} and {want_fl})")
         if name == "decode":
             seen["b3_in_replays"] = check_b3_replay(rows, 0 if cfg.mla else L, "decode replay")
+        if cfg.mla:
+            seen["b6_in_replays"] += check_b6_replay(rows, L, b6_kernels_per_call(cfg, *shape),
+                                                     f"{name} replay")
         seen["b2_in_replays"] += b2
         seen["flash_in_replays"] += fl
         seen["profiled_replays"] += 1
@@ -2067,15 +2473,17 @@ def phase_moe_cpu_parity(number: int) -> None:
     """The MoE smoke configs through ``ServingEngine`` on the card and on
     the CPU, one set of weights (drawn on the card, copied over)."""
     import repro_torch.configs as C
+    from repro_torch.kernels.latent_attention import kernel as b6
     from repro_torch.kernels.stream_pack import kernel as pack
     from repro_torch.launch import serve
     from repro_torch.models import Transformer
     from repro_torch.serving import ServingEngine
 
     say(f"== phase {number}: card against CPU, arctic-smoke and deepseek-v2-smoke, float32 "
-        "(identical greedy tokens; B2 takes its float32 kernels on the card, its plain "
-        "version on the CPU; prompts of 8-119 tokens, buckets 16 and 128, the latter "
-        "past the dropless limit of 64)")
+        "(identical greedy tokens, and the logits of a prompt pass and of the decode step "
+        "after it within 1e-3; B2 takes its float32 kernels on the card, its plain "
+        "version on the CPU, and so does deepseek's MLA on B6; prompts of 8-119 tokens, "
+        "buckets 16 and 128, the latter past the dropless limit of 64)")
     release()
     for arch in ("arctic-480b", "deepseek-v2-236b"):
         cfg = dataclasses.replace(C.get(arch, smoke=True), dtype="float32")
@@ -2084,17 +2492,53 @@ def phase_moe_cpu_parity(number: int) -> None:
         p_cpu.load_state_dict(p_gpu.state_dict())
         out = {}
         for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
-            pack.launches = 0
+            pack.launches = b6.launches = 0
             engine = ServingEngine(cfg, params, max_slots=4, max_len=256,
                                    bucketing=(16, 128), device=dev)
             reqs = serve.make_requests(cfg, 6, max_new=8, seed=2, min_len=8, max_len=120)
             out[dev] = {r.rid: r.generated for r in serve.serve(engine, reqs)["done"]}
             if dev == "cuda" and pack.launches == 0:
                 fail(f"{cfg.name} on the card never launched stream_pack")
+            if dev == "cuda" and cfg.mla:
+                B6_BY_PATH["deepseek-v2-smoke f32 on the card (phase 10)"] = b6.launches
         say(f"  {cfg.name} greedy tokens cuda: {out['cuda']}")
         say(f"  {cfg.name} greedy tokens cpu:  {out['cpu']}")
         if out["cuda"] != out["cpu"]:
             fail(f"{cfg.name}: greedy tokens differ between the card and the CPU")
+        err = logits_card_vs_cpu(cfg, p_gpu, p_cpu)
+        say(f"  {cfg.name} logits, max |cuda - cpu|: prompt pass {err[0]:.3e}, decode step "
+            f"{err[1]:.3e}")
+        if not max(err) <= 1e-3:
+            fail(f"{cfg.name}: logits differ by {max(err)} > 1e-3 between the card and the CPU")
+
+
+def logits_card_vs_cpu(cfg, p_gpu, p_cpu) -> tuple[float, float]:
+    """The largest |card - CPU| of the logits of a 48-token prompt pass,
+    and of one decode step over a 64-position cache holding that prompt's
+    keys (MLA's latents), each device from its own prompt pass."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.models.transformer import cache_names
+
+    P = 48
+    tokens = torch.from_numpy(
+        np.random.default_rng(4).integers(0, cfg.vocab, (1, P)).astype(np.int64))
+    got = {}
+    with torch.no_grad():
+        for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+            logits, new = prefill(params, tokens.to(dev), cfg)
+            cache = init_cache(cfg, 1, 64, device=dev)
+            for name, val in zip(cache_names(cfg), new):
+                cache[name][:, :, :P].copy_(val)
+            cache["pos"].fill_(P)
+            nxt = logits[:, -1:, : cfg.vocab].argmax(-1)
+            step, _ = decode_step(params, cache, nxt, cfg)
+            got[dev] = (logits[..., : cfg.vocab].cpu(), step[..., : cfg.vocab].cpu(), nxt.cpu())
+    if not torch.equal(got["cuda"][2], got["cpu"][2]):
+        fail(f"{cfg.name}: the prompt pass's greedy token differs between the card and the CPU")
+    return tuple((got["cuda"][i] - got["cpu"][i]).abs().max().item() for i in (0, 1))
 
 
 # the batch decode of phases 12-14: sequences, steps, and prompt length of the
@@ -2295,7 +2739,7 @@ def phase_vlm(number: int) -> dict:
     say(f"== phase {number}: serve llava-next-34b, full width, 4 layers, bf16, on the card")
     release()
     cfg = dataclasses.replace(C.get("llava-next-34b"), n_layers=4, dtype="bfloat16")
-    engine, (_, served, copies, _, _) = serve_on_card(cfg)
+    engine, (_, served, copies, *_) = serve_on_card(cfg)
     st = engine.stats
     if served != 2 * cfg.n_layers * st.prefill_compiles or copies:
         fail(f"flash launched {served} times for {st.prefill_compiles} captured prefill "
@@ -3124,8 +3568,6 @@ BWD_KERNELS = ("bwd_dot", "bwd_dkdv", "bwd_dq")
 def bwd_registers() -> dict:
     """Registers and spill bytes (stores, loads) of each backward kernel
     from ptxas's report in the build log, by (kernel, dtype, hd)."""
-    import re
-
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import backward
 
@@ -5681,6 +6123,133 @@ def phase_long(number: int) -> dict:
     pair = long_pair()
     return dict(partials=partials, zamba2=zamba2, gemma2=gemma2, pair=pair)
 
+# ---------------------------------------------------------------------------
+# phase 23: DeepSeek-V2 at decode_32k's per-device share
+# ---------------------------------------------------------------------------
+
+
+def phase_latent_32k(number: int) -> dict:
+    """23: deepseek-v2-236b at full width and 2 of its 60 layers, bf16,
+    weights drawn from phase 9's seed, at decode_32k's per-device share:
+    SYNC_BATCH sequences over a synchronized (``per_slot=False``) latent
+    cache of LONG_PROMPT positions filled from a seed, ``pos`` near its
+    end.  SYNC_STEPS greedy steps eagerly and as replays of one captured
+    step (its logits and tokens): the same tokens and logits; ms a replay,
+    its kernels with B6's and B2's shares, the peak memory.  Between runs
+    the positions the steps write, and ``pos``, are restored."""
+    import torch
+
+    import repro_torch.configs as C
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_step, init_cache
+
+    release()
+    cfg = dataclasses.replace(C.get("deepseek-v2-236b"), n_layers=2, dtype="bfloat16")
+    B, T = SYNC_BATCH, LONG_PROMPT
+    t0 = time.perf_counter()
+    model = serve.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    say(f"== phase {number}: deepseek-v2-236b at decode_32k's per-device share, full width, "
+        f"{cfg.n_layers} of 60 layers, bf16: B = {B} (decode_32k's 128 over the 16-way data "
+        f"axis), a synchronized latent cache of {T} positions, all {cfg.n_heads} heads; "
+        f"weights drawn in {time.perf_counter() - t0:.1f}s")
+    torch.cuda.reset_peak_memory_stats()
+    cache = init_cache(cfg, B, T, per_slot=False, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(23)
+    for name in ("ckv", "krope"):
+        cache[name].copy_(torch.randn(cache[name].shape, generator=g, device="cuda",
+                                      dtype=cache[name].dtype))
+    cache_gb = sum(cache[n].numel() * cache[n].element_size() for n in ("ckv", "krope")) / 1e9
+    p0 = T - 2 * SYNC_STEPS
+    written = slice(p0, p0 + SYNC_STEPS)
+    saved = {n: cache[n][:, :, written].clone() for n in ("ckv", "krope")}
+
+    def restore():
+        for n in ("ckv", "krope"):
+            cache[n][:, :, written].copy_(saved[n])
+        cache["pos"].fill_(p0)
+
+    def step(tok):
+        logits, _ = decode_step(model, cache, tok, cfg)
+        logits = logits[:, -1, : cfg.vocab]
+        return logits, torch.argmax(logits, dim=-1)
+
+    first = _tokens(cfg, B, 1, seed=24)
+    with torch.no_grad():
+        restore()
+        tok, eager = first.clone(), []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SYNC_STEPS):
+            logits, nxt = step(tok)
+            eager.append((logits.clone(), nxt))
+            tok = nxt[:, None]
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) / SYNC_STEPS * 1e3
+
+        restore()
+        tok_in = first.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step(tok_in)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        restore()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = step(tok_in)
+        got = []
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(SYNC_STEPS):
+            graph.replay()
+            got.append((out[0].clone(), out[1].clone()))
+            tok_in.copy_(out[1][:, None])
+        stop.record()
+        stop.synchronize()
+        replay_ms = start.elapsed_time(stop) / SYNC_STEPS
+    tokens = {k: torch.stack([t for _, t in run], 1).cpu() for k, run in
+              (("eager", eager), ("graph", got))}
+    diff = max((a - b).abs().max().item() for (a, _), (b, _) in zip(eager, got))
+    same = all(torch.equal(a, b) for (a, _), (b, _) in zip(eager, got))
+    say(f"  cache {cache_gb:.3f} GB of bf16 latents, pos 0-d at {p0}; {SYNC_STEPS} greedy "
+        f"steps: eager {eager_ms:.3f} ms a step (host clock), graph replay {replay_ms:.3f} ms a "
+        f"step (CUDA events, with the token feed)")
+    say(f"  tokens eager {tokens['eager'].tolist()}")
+    say(f"  tokens graph {tokens['graph'].tolist()}")
+    say(f"  logits eager against graph: max |diff| {diff:.3e}, "
+        f"{'equal' if same else 'NOT equal'}")
+    if not torch.equal(tokens["eager"], tokens["graph"]) or not same:
+        fail("the captured decode_32k step gives other tokens or logits than the eager one")
+    if tokens["eager"].min() < 0 or tokens["eager"].max() >= cfg.vocab:
+        fail(f"a token outside [0, {cfg.vocab})")
+
+    def replay():
+        restore()
+        tok_in.copy_(first)
+        graph.replay()
+        return out
+
+    rows = by_kernel(kernels_in_one(replay))
+    if not rows:
+        fail("the profiler saw no device time in a decode_32k replay")
+    total = sum(us for us, _, _ in rows)
+    b2_us = sum(us for us, _, key in rows if "stream_pack_" in key)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"  one replay (after the copies that restore its state): {sum(c for _, c, _ in rows)} "
+        f"device ops, {total / 1e3:.3f} ms of kernels, B2 {b2_us / 1e3:.3f} ms "
+        f"({b2_us / total:.1%}); peak memory {peak:.2f} GiB; top:")
+    for us, count, key in sorted(rows, reverse=True)[:8]:
+        say(f"  {us / total:6.1%} {us / 1e3:8.3f} ms x{count:<4d} {key[:90]}")
+    b6 = check_b6_replay(rows, cfg.n_layers, b6_kernels_per_call(cfg, B, 1, T),
+                         "decode_32k replay")
+    del graph, cache, saved, model
+    release()
+    return dict(batch=B, cache_positions=T, cache_gb=cache_gb, eager_step_ms=eager_ms,
+                replay_ms=replay_ms, replay_kernels_ms=total / 1e3, b2_ms=b2_us / 1e3,
+                peak_gib=peak, logits_equal=same, b6_in_replay=b6)
+
 
 # B3's launches on each path (the count set to 0 just before the path and
 # read just after it), and the kernels (dtype, head dim, query rows a CTA)
@@ -5688,6 +6257,23 @@ def phase_long(number: int) -> dict:
 B3_BY_PATH: dict[str, int] = {}
 # ... and of its partials form, on the paths sharded over positions
 B3_PARTIALS_BY_PATH: dict[str, int] = {}
+
+
+# B6's launches on each path that serves DeepSeek-V2 (the count set to 0
+# just before the path and read just after it)
+B6_BY_PATH: dict[str, int] = {}
+
+
+@contextlib.contextmanager
+def b6_path(name: str):
+    """Count B6's launches over one path into ``B6_BY_PATH[name]``."""
+    from repro_torch.kernels.latent_attention import kernel as b6
+
+    b6.launches = 0
+    try:
+        yield
+    finally:
+        B6_BY_PATH[name] = B6_BY_PATH.get(name, 0) + b6.launches
 
 
 @contextlib.contextmanager
@@ -5800,9 +6386,11 @@ def main() -> None:
     phase_build()
     record = phase_kernel()
     b3_record = phase_decode_kernel()
+    b6_record = phase_latent_kernel()
     from repro_torch.kernels.decode_attention import kernel as decode
+    from repro_torch.kernels.latent_attention import kernel as latent
 
-    decode.layout_copies = 0
+    decode.layout_copies = latent.layout_copies = 0
     from repro_torch.kernels.stream_pack import kernel as pack
 
     pack.layout_copies = 0
@@ -5817,7 +6405,7 @@ def main() -> None:
             pack_launches, pack_in_replays, pack_profiled = phase_nimble()
         with b3_path("serve arctic-480b"), b2_path("serve arctic-480b"):
             arctic = phase_serve_moe("arctic-480b", 8)
-        with b2_path("serve deepseek-v2-236b"):
+        with b2_path("serve deepseek-v2-236b"), b6_path("serve deepseek-v2-236b"):
             deepseek = phase_serve_moe("deepseek-v2-236b", 9)
         with b3_path("arctic-smoke f32 on the card (phase 10)"):
             phase_moe_cpu_parity(10)
@@ -5834,7 +6422,8 @@ def main() -> None:
         with b3_path("llava, seamless, zamba2 smoke f32 on the card (phase 15)"):
             phase_families_cpu_parity(15)
         with b3_path("dispatch phi4-mini + deepseek-v2 + smoke lane"), \
-                b2_path("dispatch phi4-mini + deepseek-v2 + smoke lane"):
+                b2_path("dispatch phi4-mini + deepseek-v2 + smoke lane"), \
+                b6_path("dispatch phi4-mini + deepseek-v2 + smoke lane"):
             dispatch = phase_dispatch(16)
         with b3_path("worker plane phi4-mini (in process)"):
             workers = phase_workers(17)
@@ -5850,6 +6439,8 @@ def main() -> None:
         with b2_path("sharded (phase 21)"):
             sharded = phase_sharded(21, phi4.pop("reference"))
         long = phase_long(22)
+        with b6_path("deepseek-v2-236b decode_32k share (phase 23)"):
+            latent32k = phase_latent_32k(23)
     idle = sorted(name for name, n in B3_BY_PATH.items() if n == 0)
     if idle:
         fail(f"B3 was launched no time on the paths {idle}")
@@ -5864,6 +6455,12 @@ def main() -> None:
     say(f"B3 launches by path: {B3_BY_PATH}, of them the partials form: {B3_PARTIALS_BY_PATH}; "
         f"kernels (dtype, hd, rows) the paths ran, each checked in phase 3b: {sorted(b3_seen)}; "
         "0 layout copies")
+    idle = sorted(name for name, n in B6_BY_PATH.items() if n == 0)
+    if idle or len(B6_BY_PATH) < 4:
+        fail(f"B6 was launched no time on the paths {idle} (of {sorted(B6_BY_PATH)})")
+    if latent.layout_copies:
+        fail(f"the paths made {latent.layout_copies} layout copies for B6")
+    say(f"B6 launches by path: {B6_BY_PATH}; 0 layout copies")
     idle = sorted(name for name, n in B4_BY_PATH.items() if n == 0)
     if idle:
         fail(f"B4 was launched no time on the paths {idle}")
@@ -5972,6 +6569,20 @@ def main() -> None:
         launches=sum(B5_BY_PATH.values()), launches_by_path=dict(B5_BY_PATH),
         launches_in_replays=B5_REPLAYS["kernels"], profiled_replays=B5_REPLAYS["replays"],
         kernels_per_launch=B5_REPLAYS["kernels"] / max(B5_REPLAYS["calls"], 1), **train["ce"],
+    ), dict(
+        name="latent_attention", route="cuda",
+        source="src/repro_torch/kernels/latent_attention/csrc/latent_attention.cu",
+        replaces="none: not a TPU kernel; the jnp absorbed attention of "
+                 "src/repro/models/mla.py:113-128, which the port's plain version computes "
+                 "with a float32 copy of the latent cache and the scores in memory",
+        note="launches count calls: a call is one kernel, or two (the attention and the "
+             "combine of its split over positions) at the decode shapes; ms, plain_ms, "
+             "bound_ms and library_ms are at the served decode (4 slots over 1024 positions) "
+             "in a CUDA graph, decode_32k and prefill_512 beside them",
+        launches=sum(B6_BY_PATH.values()), launches_by_path=dict(B6_BY_PATH),
+        launches_in_replays=B6_REPLAYS["kernels"], profiled_replays=B6_REPLAYS["replays"],
+        kernels_per_launch=B6_REPLAYS["kernels"] / max(B6_REPLAYS["calls"], 1),
+        layout_copies=latent.layout_copies, decode_32k_model=latent32k, **b6_record,
     )]
     say(f"all phases passed in {time.perf_counter() - t_start:.1f}s; seconds by phase: "
         f"{phase_seconds(time.perf_counter())}")

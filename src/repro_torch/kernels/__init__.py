@@ -11,6 +11,7 @@ counts a launch.  On a CUDA tensor it launches the kernel or raises.  A
 
 import sys
 
+import torch
 from torch.distributed.tensor import DTensor
 
 #: the devices whose tensors take a kernel's plain version
@@ -43,6 +44,23 @@ def takes_plain(t) -> bool:
         raise TypeError("a DTensor reaches a kernel only as its local shard, through local_map")
     return t.device.type in PLAIN_DEVICES
 
+
+def readable(t: torch.Tensor) -> bool:
+    """A kernel that reads by TMA or bulk copies reads ``t`` in place: its
+    last dimension is contiguous, its base pointer and the strides of its
+    other dimensions longer than 1 are multiples of 16 bytes."""
+    if t.shape[-1] > 1 and t.stride(-1) != 1:
+        return False
+    if t.data_ptr() % 16:
+        return False
+    return all(n == 1 or st * t.element_size() % 16 == 0
+               for n, st in zip(t.shape[:-1], t.stride()[:-1]))
+
+
+def needs_grad(*tensors) -> bool:
+    """Grad is enabled and one of ``tensors`` (None allowed) requires it."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
 #: the kernel modules, by kernel name
 KERNEL_MODULES = {
     "flash_attention": f"{__name__}.flash_attention.kernel",
@@ -51,6 +69,7 @@ KERNEL_MODULES = {
     "decode_attention": f"{__name__}.decode_attention.kernel",
     "adamw": f"{__name__}.adamw.kernel",
     "cross_entropy": f"{__name__}.cross_entropy.kernel",
+    "latent_attention": f"{__name__}.latent_attention.kernel",
 }
 
 

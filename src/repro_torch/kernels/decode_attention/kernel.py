@@ -56,7 +56,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import run_plain, takes_plain
+from repro_torch.kernels import needs_grad, readable, run_plain, takes_plain
 
 from .ref import decode_attention_partials_ref, decode_attention_ref
 
@@ -81,7 +81,6 @@ MAX_SMEM = 232448             # a CTA's largest dynamic shared memory (227 KB)
 MAX_THREADS_PER_SM = 2048
 MAX_GRID_YZ = 65535
 MAX_ROWS = 2**31 - 1          # a shard's last position: the kernel counts cache rows in int
-VEC = 16                      # bytes: alignment of a TMA or bulk copy's rows
 
 launches = 0
 partials_launches = 0
@@ -263,18 +262,6 @@ def launch_for(q: torch.Tensor, k_cache: torch.Tensor, new: bool,
     return choose_launch(B, T, NKV, NH // NKV * S, hd, str(q.dtype)[6:], new, window)
 
 
-def readable(t: torch.Tensor) -> bool:
-    """The kernel reads ``t`` (4-d) in place, by TMA or one bulk copy a
-    row: its last dimension is contiguous, its base pointer and the strides
-    of its other dimensions longer than 1 are multiples of 16 bytes."""
-    if t.shape[-1] > 1 and t.stride(-1) != 1:
-        return False
-    if t.data_ptr() % VEC:
-        return False
-    return all(n == 1 or st * t.element_size() % VEC == 0
-               for n, st in zip(t.shape[:-1], t.stride()[:-1]))
-
-
 def prepare(*tensors: torch.Tensor) -> list[torch.Tensor]:
     """Each tensor as it is if the kernel reads it in place, else one fresh
     contiguous copy, counted in ``layout_copies``."""
@@ -387,11 +374,6 @@ def _check_shard(t_start, T: int) -> None:
     if t_start + T > MAX_ROWS:
         raise ValueError(f"decode_attention_partials: a shard of {T} positions from {t_start} "
                          f"ends past {MAX_ROWS}")
-
-
-def needs_grad(*tensors) -> bool:
-    """Grad is enabled and one of ``tensors`` requires it."""
-    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def _plain(q, k_cache, v_cache, k_new, v_new, positions, kv_valid, **kw):

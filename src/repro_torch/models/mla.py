@@ -12,10 +12,14 @@ are cached.  Two forms, as in JAX:
 
 Both take the logits in float32 and cast the probabilities back to the
 activation dtype.  The sharding hints stand where JAX has them.  JAX
-computes MLA in jnp outside any Pallas kernel, and its head dims (qk 192,
-v 128) are outside B1's contract, so it stays plain PyTorch here.  Unlike JAX, which returns a new cache, :func:`mla_attention`
-writes the new latents into the cache **in place** (a captured CUDA graph
-replays against fixed addresses).
+computes MLA in jnp outside any Pallas kernel.  The absorbed form's
+attention, from the scores to the context in latent space, runs on the
+port's B6 (``kernels.latent_attention``), which reads the latent cache in
+its own dtype and keeps the scores on chip; the expanded form's head dims
+(qk 192, v 128) are outside B1's contract, so it stays plain PyTorch.
+Unlike JAX, which returns a new cache, :func:`mla_attention` writes the new
+latents into the cache **in place** (a captured CUDA graph replays against
+fixed addresses).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.distributed import constrain, gather_fsdp, on_local_shards, replicate_like
+from repro_torch.kernels.latent_attention import latent_attention
 
 from .layers import HEADS, NEG_INF, ROWS, Shape, _merge, _rms, apply_rope, write_rows
 
@@ -78,15 +83,14 @@ def _scale(cfg) -> float:
 
 
 def absorbed_attention(p: Mapping, q_nope, q_rope, ckv, krope, cfg, *,
-                       positions: torch.Tensor, kv_len: torch.Tensor,
-                       dtype: torch.dtype) -> torch.Tensor:
+                       positions: torch.Tensor, kv_len: torch.Tensor) -> torch.Tensor:
     """Attention of the queries against latents ``ckv`` (B,T,lora) and
     ``krope`` (B,T,rope): key t of slot b is visible to the query at
     ``positions[b, s]`` when ``t <= positions[b, s]`` and ``t < kv_len[b]``.
     Returns ``(B, S, D)``; on DTensors the attention runs on each device's
     rows and heads."""
     args = (q_nope, q_rope, ckv, krope, p["w_uk"], p["w_uv"], positions, kv_len)
-    core = functools.partial(_absorbed_core, scale=_scale(cfg), dtype=dtype)
+    core = functools.partial(_absorbed_core, scale=_scale(cfg))
     if isinstance(q_nope, DTensor):
         lora_heads = {"heads": 1}
         out = on_local_shards(core, q_nope, HEADS, list(zip(args, (
@@ -107,19 +111,12 @@ def _project_out(p: Mapping, out: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bsnh,nhd->bsd", out, w_o)
 
 
-def _absorbed_core(q_nope, q_rope, ckv, krope, w_uk, w_uv, positions, kv_len, *, scale, dtype):
-    """The absorbed form's attention: (B, S, heads, v_head_dim)."""
+def _absorbed_core(q_nope, q_rope, ckv, krope, w_uk, w_uv, positions, kv_len, *, scale):
+    """The absorbed form's attention: (B, S, heads, v_head_dim).  W_uk folds
+    into the query; B6 attends in latent space (the scores, the mask, the
+    softmax and the context over ``ckv``); W_uv expands the context."""
     q_lat = torch.einsum("bsnh,rnh->bsnr", q_nope, w_uk)
-    logits = (
-        torch.einsum("bsnr,btr->bnst", q_lat.float(), ckv.float())
-        + torch.einsum("bsnh,bth->bnst", q_rope.float(), krope.float())
-    ) * scale
-    t = torch.arange(ckv.shape[1], device=ckv.device)
-    mask = ((t[None, None, :] <= positions[..., None])
-            & (t[None, None, :] < kv_len[:, None, None]))[:, None]     # (B,1,S,T)
-    probs = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1).to(dtype)
-    # attend in latent space, then expand through W_uv
-    ctx_lat = torch.einsum("bnst,btr->bsnr", probs, ckv)
+    ctx_lat = latent_attention(q_lat, q_rope, ckv, krope, positions, kv_len, scale=scale)
     return torch.einsum("bsnr,rnh->bsnh", ctx_lat, w_uv)
 
 
@@ -145,7 +142,7 @@ def mla_prefill(p: Mapping, x: torch.Tensor, cfg, *, positions: torch.Tensor):
     kv_len = replicate_like(torch.full((B,), S, dtype=positions.dtype, device=x.device),
                             positions)
     y = absorbed_attention(p, q_nope, q_rope, c_kv, k_rope, cfg, positions=positions,
-                           kv_len=kv_len, dtype=x.dtype)
+                           kv_len=kv_len)
     return y, (c_kv, k_rope)
 
 
@@ -193,5 +190,5 @@ def mla_attention(
             c = cache[name]
             c.view(B * T, -1).index_copy_(0, rows, new.to(c.dtype).reshape(B * S, -1))
     y = absorbed_attention(p, q_nope, q_rope, cache["ckv"], cache["krope"], cfg,
-                           positions=positions, kv_len=pos + S, dtype=x.dtype)
+                           positions=positions, kv_len=pos + S)
     return y, (c_kv, k_rope)

@@ -601,6 +601,40 @@ def test_a_plain_version_counts_as_one_launch():
     assert got["flops_per_device"] == 4 * 2 * 6 * 1024 * 1024 * 64
 
 
+def test_the_mla_decode_counts_latent_attention_as_one_launch(monkeypatch):
+    """deepseek-v2 smoke's decode step on meta tensors: B6's plain version
+    runs once a layer and counts as one launch (q, the layer's latents and
+    the offsets read once, the context written), so the bytes accessed grow
+    with the cache by exactly one read of every layer's latents, and the
+    temp holds no (B, N, S, T) float32 scores and no float32 copy of the
+    cache, which the plain absorbed form made before B6."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.kernels.latent_attention import kernel as b6
+
+    cfg = TC.get("deepseek-v2-236b", smoke=True)
+    m, B = cfg.mla, 8
+    calls = []
+    inner = b6.latent_attention_ref
+
+    def counting(*args, **kw):
+        calls.append(args[2].shape)
+        return inner(*args, **kw)
+
+    monkeypatch.setattr(b6, "latent_attention_ref", counting)
+    counts = {}
+    for T in (4096, 16384):
+        case = dryrun.build_case(cfg, InputShape("decode_mla", T, B, "decode"))
+        counts[T] = dryrun.count_step(case.step)
+    assert calls == [(B, 4096, m.kv_lora_rank)] * cfg.n_layers + \
+        [(B, 16384, m.kv_lora_rank)] * cfg.n_layers
+    esize = getattr(torch, cfg.dtype).itemsize
+    latents = cfg.n_layers * B * (m.kv_lora_rank + m.qk_rope_head_dim) * esize
+    grown = counts[16384]["bytes_accessed"] - counts[4096]["bytes_accessed"]
+    assert grown == latents * (16384 - 4096)
+    scores = B * cfg.n_heads * 1 * 16384 * 4
+    assert counts[16384]["temp_bytes"] == counts[4096]["temp_bytes"] < scores
+
+
 @pytest.mark.timeout(300)
 def test_the_meta_prediction_equals_the_counted_cpu_step():
     """The counter's prediction for a train step on meta DTensors over a

@@ -21,7 +21,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "examples" / "branchy_inference_torch.py", ROOT / "examples" / "serve_llm_torch.py",
     ROOT / "examples" / "train_lm_torch.py", ROOT / "tools" / "decode_variants.py",
     ROOT / "tools" / "adamw_faults.py", ROOT / "tools" / "train_phi4_step.py",
-    ROOT / "tools" / "ce_faults.py", ROOT / "tools" / "stream_pack_variants.py"]
+    ROOT / "tools" / "ce_faults.py", ROOT / "tools" / "stream_pack_variants.py",
+    ROOT / "tools" / "mla_replays.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -81,7 +82,9 @@ def test_port_file_list_is_complete():
                  "src/repro_torch/kernels/cross_entropy/kernel.py",
                  "src/repro_torch/kernels/cross_entropy/ref.py",
                  "src/repro_torch/kernels/cross_entropy/ops.py", "tools/ce_faults.py",
-                 "tools/stream_pack_variants.py"):
+                 "tools/stream_pack_variants.py",
+                 "src/repro_torch/kernels/latent_attention/kernel.py",
+                 "src/repro_torch/kernels/latent_attention/ref.py", "tools/mla_replays.py"):
         assert must in names
 
 
