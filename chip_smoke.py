@@ -54,11 +54,17 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    3 new tokens, the prefill buckets 64-512 at B = 1, decode_32k's share
    with a 0-d offset, which must give the bits of the same offset per row,
    the float32 smoke config's decode and prompt passes, the smoke widths
-   at bf16), at B3's tolerance (``DECODE_TOL``); a fully masked row (the
-   latents' mean, with and without a split); each case prints its plan
-   (grid, split, stages, shared memory, kernels a call); then times at the
-   served decode, decode_32k's share and prefill bucket 512, in a CUDA
-   graph and launched from Python, beside the plain version, the fastest
+   at bf16, and the edges of the bf16 kernel's schedule: a chunk of an odd
+   number of tiles, T off the 64-position tile, a visible end inside the
+   second tile of a pair, a prompt of a pair and a lone tile), at B3's
+   tolerance (``DECODE_TOL``), each run twice for the same bits; a fully
+   masked row (the latents' mean, with and without a split); ptxas's
+   registers and spills for each of the bf16 kernel's widths (a spill, or
+   a note that ptxas serialized its wgmma, fails the run); each case prints
+   its plan (grid, split, shared memory, kernels a call); then
+   times at the served decode, decode_32k's share and prefill bucket 512,
+   in a CUDA graph and launched from Python, beside the plain version, the
+   fastest
    ``F.scaled_dot_product_attention`` call over q = [q_lat | q_rope], k =
    [ckv | krope], v = ckv in three layouts under each backend (a
    yardstick only; each refusal printed with its reasons) and the bound;
@@ -1241,6 +1247,15 @@ LATENT_CASES = [
     *[(f"smoke prefill bucket {b} (phase 10)", 1, b, b, 4, 32, 16, "float32", False, True)
       for b in (16, 128)],
     ("smoke widths at bf16", 4, 1, 256, 4, 32, 16, "bfloat16", False, False),
+    # the edges of the bf16 kernel's schedule (prefill bucket 64 above is a
+    # chunk of one tile: warpgroup 1 scores nothing)
+    ("a chunk of an odd number of tiles: T 320 over 3 splits", 2, 1, 320, 128, 512, 64,
+     "bfloat16", False, False),
+    ("T 1000: a ragged last tile", SERVE_SLOTS, 1, 1000, 128, 512, 64, "bfloat16", False, False),
+    ("T 96: a visible end inside a pair's second tile", SERVE_SLOTS, 1, 96, 128, 512, 64,
+     "bfloat16", False, False),
+    ("a prompt of 192 tokens: a pair and a lone tile", 1, 192, 192, 128, 512, 64, "bfloat16",
+     False, True),
 ]
 # the shapes B6 is timed at: the served decode, decode_32k's share, prefill
 # bucket 512
@@ -1288,7 +1303,7 @@ def _latent_inputs(B, S, T, N, R, Rr, dtype, kvv0d, prompt, seed, full=False):
 def latent_plan_text(launch, B, S, N) -> str:
     """B6's plan as 3c prints it."""
     return (f"grid {launch.grid(B, S, N)}, rows {launch.rows}, split {launch.split} x {launch.chunk} "
-            f"positions, stages {launch.stages}, smem {launch.smem_bytes}, {launch.kernels} "
+            f"positions, smem {launch.smem_bytes}, {launch.kernels} "
             f"kernel{'s' if launch.kernels > 1 else ''} a call")
 
 
@@ -1302,6 +1317,15 @@ def phase_latent_kernel() -> dict:
         "shape (tolerance B3's: f32 1e-4 + 0 for summation order; bf16 "
         f"{DECODE_BF16_RMS:g} x the row's rms(ref) + 1e-2*|ref| for the plain version's "
         "bf16 probabilities and the outputs' rounding)")
+    ptxas = latent_registers()
+    for name, rep in sorted(ptxas.items()):
+        say(f"  ptxas {name}: {rep.get('registers')} registers, spills (stores, loads) "
+            f"{rep.get('spills')}{', wgmma serialized' if rep.get('serialized') else ''}")
+    bad = [name for name, rep in ptxas.items() if name.startswith("latent_attention_kernel")
+           and (rep.get("spills") != (0, 0) or rep.get("serialized"))]
+    if bad or not any(name.startswith("latent_attention_kernel") for name in ptxas):
+        fail(f"B6's bf16 kernel spills registers or has its wgmma serialized ({bad}), or "
+             "ptxas reported none of it")
     worst, failed = 0.0, []
     for i, (label, B, S, T, N, R, Rr, dname, kvv0d, prompt) in enumerate(LATENT_CASES):
         args = _latent_inputs(B, S, T, N, R, Rr, dname, kvv0d, prompt, seed=500 + i)
@@ -1314,14 +1338,18 @@ def phase_latent_kernel() -> dict:
         err = (got.float() - ref.float()).abs().max().item()
         r, er = decode_ratio(got, ref, dname), rms_err(got, ref)
         ok = math.isfinite(err) and r <= 1.0
-        note = ""
+        with torch.no_grad():
+            again = latent_attention(*ten, scale=scale)
+        note = f" | again: the same bits {torch.equal(got, again)}"
+        if not torch.equal(got, again):
+            fail(f"{label} ({dname}): two runs of B6 on the same inputs differ")
         if kvv0d:
             q_lat, q_rope, ckv, krope, positions, kv_len = ten
             per_row = latent_attention(q_lat, q_rope, ckv, krope,
                                        positions.expand(B, S).clone(), kv_len.expand(B).clone(),
                                        scale=scale)
             same = torch.equal(got, per_row)
-            note = f" | 0-d offset == per-row offsets: {same}"
+            note += f" | 0-d offset == per-row offsets: {same}"
             if not same:
                 fail(f"{label}: B6 with a 0-d offset differs from the same offset per row")
         say(f"  {dname:8s} {label}: B={B} S={S} T={T} N={N} R={R} Rr={Rr} | "
@@ -1338,6 +1366,8 @@ def phase_latent_kernel() -> dict:
     record = latent_time(*LATENT_CASES[LATENT_TIMED[0]])
     record["decode_32k"] = latent_time(*LATENT_CASES[LATENT_TIMED[1]])
     record["prefill_512"] = latent_time(*LATENT_CASES[LATENT_TIMED[2]])
+    record["ptxas"] = {name: rep for name, rep in ptxas.items()
+                       if name.startswith("latent_attention_kernel")}
     return record
 
 
@@ -3588,6 +3618,40 @@ def bwd_registers() -> dict:
             out[entry]["spills"] = (int(st), int(ld))
         elif entry is not None and "Used" in line and "registers" in line:
             out[entry]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
+
+
+def latent_registers(log: str | None = None) -> dict:
+    """Registers, spill bytes (stores, loads) and whether ptxas serialized
+    its ``wgmma`` (a C75xx note: for want of registers, C7512, or for a
+    fence the compiler put in a divergent path, C7520), of each of B6's
+    kernels, from ptxas's report (``log``, or the build log of
+    ``latent_attention.cu``), by name: ``latent_attention_kernel<NCH>``
+    (the bf16 kernel at latent widths up to 128 NCH), ``latent_combine``,
+    ``latent_attention_f32``."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.latent_attention import kernel as b6
+
+    def name_in(line):
+        found = re.search(r"(latent_attention_kernel|latent_combine|latent_attention_f32)"
+                          r"(?:ILi(\d+)E)?", line)
+        return found and (f"{found[1]}<{found[2]}>" if found[2] else found[1])
+
+    out, entry, serialized = {}, None, set()
+    for line in (build.build_log(b6.SOURCE) if log is None else log).splitlines():
+        if "serialized" in line and name_in(line):
+            serialized.add(name_in(line))
+        elif "Compiling entry" in line:
+            entry = name_in(line) or None
+            if entry:
+                out[entry] = {}
+        elif entry is not None and "spill stores" in line:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
+            out[entry]["spills"] = (int(st), int(ld))
+        elif entry is not None and "Used" in line and "registers" in line:
+            out[entry]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    for name, rec in out.items():
+        rec["serialized"] = name in serialized
     return out
 
 

@@ -24,36 +24,58 @@
 // of either, so its latency chain is its time.
 //
 // bf16 design:
-// * A CTA takes 64 query rows of one batch row (the flattened (token,
-//   head) index, so at 128 heads one token's 64 heads) against the key
-//   positions of one split: the heads are the products' M, so each cache
-//   tile loaded once serves 64 rows.  Two consumer warpgroups and one
-//   producer warp.
-// * The producer streams 64-position tiles of [ckv | krope] into a ring of
-//   2 or 3 stages by TMA (a box of 64 columns a 128-byte swizzle row, the
-//   rope columns one more box), each stage completing on its mbarrier.  A
-//   tile at DeepSeek's widths is 72 KB; the Q tile (64 x 576, copied once by
-//   the consumers from q_lat and q_rope through their strides, every
-//   16-byte cp.async in flight at once) is 72 KB more, so a 512-wide latent
-//   fits two stages.  Latent widths are padded to a multiple of 128 and the
-//   rope width to 64: boxes wholly past the width are zeroed once and never
+// * A CTA of 256 threads, two warpgroups and no producer warp, takes 64
+//   query rows of one batch row (the flattened (token, head) index, so at
+//   128 heads one token's 64 heads) against the key positions of one
+//   split: the heads are the products' M, so each cache tile loaded once
+//   serves 64 rows.  __launch_bounds__(256, 1) lets ptxas give a thread up
+//   to 255 registers: a warpgroup's half of the output (64 x R/2 float32,
+//   128 a thread at R = 512), a whole tile's scores (32) and its P as
+//   wgmma A fragments (16) stay in registers.  A producer warp would make
+//   it 288 threads, which the card allocates as 384: ptxas then holds a
+//   thread to 168 registers, spills and issues each product alone.
+// * The cache comes in pairs of 64-position tiles of [ckv | krope], tile
+//   2p into buffer 0 and 2p + 1 into buffer 1, by TMA (a box of 64 columns
+//   a 128-byte swizzle row, the rope columns one more box).  Q (64 x 576,
+//   72 KB at DeepSeek's widths, copied once from q_lat and q_rope through
+//   their strides, every 16-byte cp.async in flight at once) and the two
+//   buffers (72 KB each) fill 222,784 of the 232,448 bytes a CTA may have,
+//   so there is no third buffer: each buffer is refilled in two groups of
+//   boxes, each on its own mbarrier, as soon as the products that read the
+//   group are done (one thread of the warpgroup that finishes them issues
+//   the loads), and a warpgroup scores the group that comes back first
+//   first.  Latent widths are padded to a multiple of 128 and the rope
+//   width to 64: boxes wholly past the width are zeroed once and never
 //   loaded, and the TMA zero-fills the columns past the width inside a box
 //   and the rows past T.
-// * S = Q K^T on wgmma (m64n32k16, Q and K in shared memory, both K-major):
-//   warpgroup j scores keys 32j .. 32j + 31 of the tile over the whole
-//   depth.  The two halves' row maxima meet in shared memory, both take the
-//   same running max, and each writes its half of P (bf16, unnormalised,
-//   the sum of exponentials taken before the rounding) into a swizzled
-//   64 x 64 tile.  Then O += P V on wgmma (m64n64k16, P K-major and V
-//   MN-major from the same ckv tile): warpgroup j owns output columns
-//   [R/2 j, R/2 (j + 1)), 128 float32 accumulators a thread at R = 512
-//   (the 64 x 512 float32 output of a tile is 128 KB: split over two
-//   warpgroups it fits their registers).  The card allocates a 288-thread
-//   CTA's registers as a 384-thread one's, so ptxas holds the kernel to
-//   168 a thread and issues the products one at a time, short of what the
-//   R = 512 kernel needs to keep them in flight (a build given more fails
-//   to launch for resources): the first thing a faster design has to
-//   change.
+// * Warpgroup s scores tile 2p + s against all 64 rows, S = Q K^T on wgmma
+//   (m64n64k16, Q and K in shared memory, both K-major, 36 steps over the
+//   576-wide depth), and owns output columns [R/2 s, R/2 (s + 1)).  The
+//   order follows FlashMLA's "seesaw" (DeepSeek, 2025): warpgroup 0 takes
+//   tile 2p's softmax from the running max (m0 = max(m, rowmax S0), P0 =
+//   2^(S0 - m0), a0 = 2^(m - m0)), publishes m0, a0 and P0 (P overwriting
+//   the tile's rope box, whose scores are done: the same 64 x 64 bf16 in
+//   the same swizzle) and starts O0 = O0 a0 + P0 V0 with P0 from registers;
+//   warpgroup 1 starts O1 = O1 a0 + P0 V0 with P0 from shared memory and,
+//   under that product, takes tile 2p + 1's softmax from m0 (m1, P1, a1),
+//   publishes them and adds O1 = O1 a1 + P1 V1 from registers; warpgroup 0
+//   then adds O0 = O0 a1 + P1 V1 from shared memory.  Each P is shared at
+//   its own max and both halves apply a0 then a1, so the halves agree, and
+//   buffer 0 is read to its end early in the pair: tile 2p + 2 loads under
+//   the pair's second half.  At R 512 each P·V step is one m64n256k16 (A
+//   sent once for the four boxes).  Only warpgroup 0 issues the next
+//   pair's scores before it waits for its last product: warpgroup 1's next
+//   tile lands in buffer 1, which is reloaded only after its P1 V1, so its
+//   scores wait for that load.  A chunk with an odd number of tiles gives
+//   its last tile to warpgroup 0 alone.
+// * What bounds it (H100, PERF.md): at decode_32k's share the loads alone
+//   (the products removed) take 0.145 ms of its 0.164 and the products and
+//   softmax alone 0.127.  Each cache tile goes to the CTAs of both row
+//   tiles of a token; with two buffers the pair's second tile is reloaded
+//   only after its last product, so the next pair's odd tile waits for its
+//   load; the scores' m64n64k16 steps read both operands from shared memory
+//   (4 KB a step, the SM's 128 bytes a cycle at the tensor cores' rate),
+//   and a softmax waits for the other warpgroup's max.
 // * Masks as JAX's: key t of a row at position p in slot b is visible when
 //   t <= p and t < kv_len[b]; a masked logit is the finite -1e30, so a row
 //   whose every key is masked comes out as the mean of the latents with no
@@ -63,17 +85,19 @@
 //   its diagonal; a decode step the slots' unwritten tail); one with a
 //   fully masked row reads all T.  The limits are read on the device: the
 //   plan depends on shapes alone, and a captured CUDA graph stays valid as
-//   the offsets advance.
+//   the offsets advance.  A prompt pass's last tokens see the most tiles,
+//   so blockIdx.x runs over the row tiles from the last: the longest CTAs
+//   start first and the short ones fill the wave's tail.
 // * The split over positions.  A served decode step has only B x N / 64
 //   row tiles (8 for 4 slots at 128 heads) for 132 SMs, so kernel.py's plan
-//   splits the positions into chunks of whole tiles, one CTA a (row tile,
-//   chunk).  A CTA takes 230 KB of shared memory, one an SM, so a cluster
+//   splits the positions into chunks of whole pairs of tiles (one tile for
+//   each warpgroup to score), one CTA a (row tile, chunk).  A CTA takes 218 KB of shared memory, one an SM, so a cluster
 //   combine in distributed shared memory would cap the split by the
-//   clusters a GPC holds at once (14 of 8 CTAs); instead each CTA writes
-//   its float32 row sums, max and sum of exponentials, and a second kernel,
-//   latent_combine, weighs the splits in order into the output: two
-//   kernels a call, bit-repeatable.  A plan of one split (a prompt pass)
-//   normalises and writes the output itself: one kernel a call.
+//   clusters a GPC holds at once; instead each CTA writes its float32 row
+//   sums, max and sum of exponentials, and a second kernel, latent_combine,
+//   weighs the splits in order into the output: two kernels a call.  A plan
+//   of one split (a prompt pass) normalises and writes the output itself:
+//   one kernel a call.  Every sum has a fixed order, so bits repeat.
 //
 // float32 (the smoke configs, the parity runs against the CPU) keeps the
 // CUDA cores: a CTA of 128 threads takes 16 query rows over every tile of
@@ -93,16 +117,17 @@ namespace {
 constexpr int MT = 64;                    // bf16: query rows a CTA, the products' M
 constexpr int TK = 64;                    // bf16: key positions a tile
 constexpr int BOX = 64;                   // bf16 columns in one 128-byte swizzle row
-constexpr int CONSUMERS = 256;            // two consumer warpgroups
-constexpr int THREADS = CONSUMERS + 32;   // and one producer warp
-constexpr int CWARPS = CONSUMERS / 32;
-constexpr int MIN_STAGES = 2, MAX_STAGES = 3;
+constexpr int BOX_BYTES = 64 * 128;       // one box of 64 rows: Q, K and P alike
+constexpr int THREADS = 256;              // two warpgroups, no producer warp
+constexpr int STAGES = 2;                 // the two tile buffers
 constexpr int MAX_SPLIT = 256;            // the combine's weights in shared memory
 constexpr int FR = 16;                    // float32: query rows a CTA
 constexpr int FK = 32;                    // float32: key positions a tile
 constexpr int F_THREADS = 128;
 constexpr int COMBINE_THREADS = 128;
 constexpr long long NO_ROW = -(1LL << 62);  // the position of a padding row
+// named barriers (0 is __syncthreads): warpgroup 0's and warpgroup 1's own
+constexpr int BAR_WG = 1;
 
 struct Params {
   const void* q_lat;     // (B, S, N, R)
@@ -121,28 +146,29 @@ struct Params {
   long long o_s[3];
   long long pos_s[2];    // batch (0: one row of positions for every slot), token
   long long kvl_s;       // batch (0: one length for every slot)
-  int B, S, N, T, R, Rr, split, chunk, stages, row_tiles;
+  int B, S, N, T, R, Rr, split, chunk, row_tiles;
   float scale;
 };
 
-// bf16 shared memory, in bytes from its start: the Q tile (KB boxes of 64
-// rows), the ring of `stages` K tiles (KB boxes of TK rows each), the P tile
-// (64 x 64), the two warpgroups' row maxima (then sums), the mbarriers (full
-// and empty a stage) and the CTA's visible limit.  KB = 2 NCH + 1: the
-// latent padded to 128 NCH columns, then one rope box.
+// bf16 shared memory, in bytes from its start: the Q tile and the two tile
+// buffers (KB boxes of 64 rows each: the latent padded to 128 NCH columns,
+// then the rope box), the row exchange (each buffer's tile's max and
+// rescale, then the two warpgroups' row sums: 64 floats each), three
+// mbarriers a buffer (its two groups of boxes landed; its tile's max,
+// rescale and P published) and the CTA's visible limit.  kernel.py's
+// smem_bytes is the same formula.
 struct Layout {
-  int stage, ring, p, xch, bars, limit, total;
+  int stage, buf, xch, bars, limit, total;
 };
 
-__host__ __device__ inline Layout layout_bf16(int nch, int stages) {
+__host__ __device__ inline Layout layout_bf16(int nch) {
   const int kb = 2 * nch + 1;
   Layout l;
-  l.stage = kb * TK * 2 * BOX;
-  l.ring = kb * MT * 2 * BOX;
-  l.p = l.ring + stages * l.stage;
-  l.xch = l.p + MT * 2 * BOX;
-  l.bars = l.xch + 2 * MT * 4;
-  l.limit = l.bars + 16 * MAX_STAGES;
+  l.stage = kb * BOX_BYTES;
+  l.buf = l.stage;                                     // after Q
+  l.xch = l.buf + STAGES * l.stage;
+  l.bars = l.xch + 6 * MT * 4;
+  l.limit = l.bars + 8 * 3 * STAGES;
   l.total = l.limit + 16;
   return l;
 }
@@ -186,20 +212,8 @@ __device__ void reduce_limit(const Params& p, int b, long long r0, int rows, int
 }
 
 // ---------------------------------------------------------------------------
-// bf16: two consumer warpgroups on wgmma, fed by a TMA ring
+// bf16: two warpgroups on wgmma in a seesaw over pairs of TMA-fed tiles
 // ---------------------------------------------------------------------------
-
-// d (64 x 32) (+)= A (64 x 16, shared, K-major) * B (16 x 32, shared, K-major)
-__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
 
 // d (64 x 64) += A (64 x 16, shared, K-major) * B (16 x 64, shared, MN-major)
 __device__ __forceinline__ void wgmma_n64_mn(float (&d)[32], uint64_t da, uint64_t db) {
@@ -215,6 +229,59 @@ __device__ __forceinline__ void wgmma_n64_mn(float (&d)[32], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(1));
 }
 
+// d (64 x 256, four 64-column boxes) += A (64 x 16, shared, K-major) * B (16 x 256, shared,
+// MN-major: four boxes LBO apart)
+__device__ __forceinline__ void wgmma_n256_mn(float (&d)[4][32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[0][4]), "+f"(d[0][5]), "+f"(d[0][6]), "+f"(d[0][7]),
+        "+f"(d[0][8]), "+f"(d[0][9]), "+f"(d[0][10]), "+f"(d[0][11]), "+f"(d[0][12]), "+f"(d[0][13]), "+f"(d[0][14]), "+f"(d[0][15]),
+        "+f"(d[0][16]), "+f"(d[0][17]), "+f"(d[0][18]), "+f"(d[0][19]), "+f"(d[0][20]), "+f"(d[0][21]), "+f"(d[0][22]), "+f"(d[0][23]),
+        "+f"(d[0][24]), "+f"(d[0][25]), "+f"(d[0][26]), "+f"(d[0][27]), "+f"(d[0][28]), "+f"(d[0][29]), "+f"(d[0][30]), "+f"(d[0][31]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[1][4]), "+f"(d[1][5]), "+f"(d[1][6]), "+f"(d[1][7]),
+        "+f"(d[1][8]), "+f"(d[1][9]), "+f"(d[1][10]), "+f"(d[1][11]), "+f"(d[1][12]), "+f"(d[1][13]), "+f"(d[1][14]), "+f"(d[1][15]),
+        "+f"(d[1][16]), "+f"(d[1][17]), "+f"(d[1][18]), "+f"(d[1][19]), "+f"(d[1][20]), "+f"(d[1][21]), "+f"(d[1][22]), "+f"(d[1][23]),
+        "+f"(d[1][24]), "+f"(d[1][25]), "+f"(d[1][26]), "+f"(d[1][27]), "+f"(d[1][28]), "+f"(d[1][29]), "+f"(d[1][30]), "+f"(d[1][31]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[2][4]), "+f"(d[2][5]), "+f"(d[2][6]), "+f"(d[2][7]),
+        "+f"(d[2][8]), "+f"(d[2][9]), "+f"(d[2][10]), "+f"(d[2][11]), "+f"(d[2][12]), "+f"(d[2][13]), "+f"(d[2][14]), "+f"(d[2][15]),
+        "+f"(d[2][16]), "+f"(d[2][17]), "+f"(d[2][18]), "+f"(d[2][19]), "+f"(d[2][20]), "+f"(d[2][21]), "+f"(d[2][22]), "+f"(d[2][23]),
+        "+f"(d[2][24]), "+f"(d[2][25]), "+f"(d[2][26]), "+f"(d[2][27]), "+f"(d[2][28]), "+f"(d[2][29]), "+f"(d[2][30]), "+f"(d[2][31]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[3][4]), "+f"(d[3][5]), "+f"(d[3][6]), "+f"(d[3][7]),
+        "+f"(d[3][8]), "+f"(d[3][9]), "+f"(d[3][10]), "+f"(d[3][11]), "+f"(d[3][12]), "+f"(d[3][13]), "+f"(d[3][14]), "+f"(d[3][15]),
+        "+f"(d[3][16]), "+f"(d[3][17]), "+f"(d[3][18]), "+f"(d[3][19]), "+f"(d[3][20]), "+f"(d[3][21]), "+f"(d[3][22]), "+f"(d[3][23]),
+        "+f"(d[3][24]), "+f"(d[3][25]), "+f"(d[3][26]), "+f"(d[3][27]), "+f"(d[3][28]), "+f"(d[3][29]), "+f"(d[3][30]), "+f"(d[3][31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 256) += A (64 x 16, registers) * B (16 x 256, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[4][32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[0][4]), "+f"(d[0][5]), "+f"(d[0][6]), "+f"(d[0][7]),
+        "+f"(d[0][8]), "+f"(d[0][9]), "+f"(d[0][10]), "+f"(d[0][11]), "+f"(d[0][12]), "+f"(d[0][13]), "+f"(d[0][14]), "+f"(d[0][15]),
+        "+f"(d[0][16]), "+f"(d[0][17]), "+f"(d[0][18]), "+f"(d[0][19]), "+f"(d[0][20]), "+f"(d[0][21]), "+f"(d[0][22]), "+f"(d[0][23]),
+        "+f"(d[0][24]), "+f"(d[0][25]), "+f"(d[0][26]), "+f"(d[0][27]), "+f"(d[0][28]), "+f"(d[0][29]), "+f"(d[0][30]), "+f"(d[0][31]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[1][4]), "+f"(d[1][5]), "+f"(d[1][6]), "+f"(d[1][7]),
+        "+f"(d[1][8]), "+f"(d[1][9]), "+f"(d[1][10]), "+f"(d[1][11]), "+f"(d[1][12]), "+f"(d[1][13]), "+f"(d[1][14]), "+f"(d[1][15]),
+        "+f"(d[1][16]), "+f"(d[1][17]), "+f"(d[1][18]), "+f"(d[1][19]), "+f"(d[1][20]), "+f"(d[1][21]), "+f"(d[1][22]), "+f"(d[1][23]),
+        "+f"(d[1][24]), "+f"(d[1][25]), "+f"(d[1][26]), "+f"(d[1][27]), "+f"(d[1][28]), "+f"(d[1][29]), "+f"(d[1][30]), "+f"(d[1][31]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[2][4]), "+f"(d[2][5]), "+f"(d[2][6]), "+f"(d[2][7]),
+        "+f"(d[2][8]), "+f"(d[2][9]), "+f"(d[2][10]), "+f"(d[2][11]), "+f"(d[2][12]), "+f"(d[2][13]), "+f"(d[2][14]), "+f"(d[2][15]),
+        "+f"(d[2][16]), "+f"(d[2][17]), "+f"(d[2][18]), "+f"(d[2][19]), "+f"(d[2][20]), "+f"(d[2][21]), "+f"(d[2][22]), "+f"(d[2][23]),
+        "+f"(d[2][24]), "+f"(d[2][25]), "+f"(d[2][26]), "+f"(d[2][27]), "+f"(d[2][28]), "+f"(d[2][29]), "+f"(d[2][30]), "+f"(d[2][31]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[3][4]), "+f"(d[3][5]), "+f"(d[3][6]), "+f"(d[3][7]),
+        "+f"(d[3][8]), "+f"(d[3][9]), "+f"(d[3][10]), "+f"(d[3][11]), "+f"(d[3][12]), "+f"(d[3][13]), "+f"(d[3][14]), "+f"(d[3][15]),
+        "+f"(d[3][16]), "+f"(d[3][17]), "+f"(d[3][18]), "+f"(d[3][19]), "+f"(d[3][20]), "+f"(d[3][21]), "+f"(d[3][22]), "+f"(d[3][23]),
+        "+f"(d[3][24]), "+f"(d[3][25]), "+f"(d[3][26]), "+f"(d[3][27]), "+f"(d[3][28]), "+f"(d[3][29]), "+f"(d[3][30]), "+f"(d[3][31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // 3-d TMA load of box {c, t, b} into shared memory, completing on `bar`
 __device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map, int c, int t,
                                           int b, uint32_t bar) {
@@ -225,8 +292,9 @@ __device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map, 
       : "memory");
 }
 
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+// named barrier `id` over `n` threads
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // generic-proxy writes to shared memory, made visible to wgmma's reads
@@ -244,34 +312,190 @@ struct Maps {
   CUtensorMap ckv, krope;
 };
 
+// One group of a buffer's boxes for the tile at position t0: the latent
+// boxes of half `half`, [half NCH, (half + 1) NCH), those below `boxes`
+// (the ones the latent's width reaches), and with `rope` the rope box;
+// completing on `bar`.  One thread calls it.
+template <int NCH>
+__device__ __forceinline__ void load_group(const Maps& maps, uint32_t buf, uint32_t bar, int half,
+                                           bool rope, int boxes, int t0, int b) {
+  int n = rope ? 1 : 0;
+#pragma unroll
+  for (int c = half * NCH; c < (half + 1) * NCH; ++c) n += c < boxes;
+  mbar_expect_tx(bar, n * BOX_BYTES);
+#pragma unroll
+  for (int c = half * NCH; c < (half + 1) * NCH; ++c)
+    if (c < boxes) tma_load3(buf + c * BOX_BYTES, &maps.ckv, c * BOX, t0, b, bar);
+  if (rope) tma_load3(buf + 2 * NCH * BOX_BYTES, &maps.krope, 0, t0, b, bar);
+}
+
+// S (+)= Q K^T over the depth of boxes [c0, c1) of Q and of the K tile in
+// `buf` (64 x 64 on m64n64k16, both K-major); the first step overwrites S
+// when `fresh`.
+__device__ __forceinline__ void score_boxes(float (&s)[32], uint32_t sQ, uint32_t buf, int c0,
+                                            int c1, bool fresh) {
+#pragma unroll
+  for (int c = c0; c < c1; ++c)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<64>(s, make_desc(sQ + c * BOX_BYTES + kk * 32, 16, 1024, 1),
+                   make_desc(buf + c * BOX_BYTES + kk * 32, 16, 1024, 1),
+                   fresh && c == c0 && kk == 0 ? 0 : 1);
+}
+
+// O (+)= P V over a warpgroup's NCH boxes of output columns, from box c0 of
+// the tile in `buf` (V MN-major), P (64 x 64) as A fragments in registers.
+// At R 512 one m64n256k16 a step takes the four boxes (B's boxes LBO
+// apart), so A is sent once, not four times.
+template <int NCH>
+__device__ __forceinline__ void pv_registers(float (&acc)[NCH][32], const uint32_t (&pa)[4][4],
+                                             uint32_t buf, int c0) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (NCH == 4) {
+      wgmma_rs_n256(acc, pa[kk],
+                    make_desc(buf + c0 * BOX_BYTES + kk * 16 * 128, BOX_BYTES, 1024, 1));
+    } else {
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+        wgmma_rs<64>(acc[c], pa[kk],
+                     make_desc(buf + (c0 + c) * BOX_BYTES + kk * 16 * 128, BOX_BYTES, 1024, 1));
+    }
+  }
+}
+
+// the same with P from the swizzled box at `p_box` (K-major), read once a
+// step at R 512
+template <int NCH>
+__device__ __forceinline__ void pv_shared(float (&acc)[NCH][32], uint32_t p_box, uint32_t buf,
+                                          int c0) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (NCH == 4) {
+      wgmma_n256_mn(acc, make_desc(p_box + kk * 32, 16, 1024, 1),
+                    make_desc(buf + c0 * BOX_BYTES + kk * 16 * 128, BOX_BYTES, 1024, 1));
+    } else {
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+        wgmma_n64_mn(acc[c], make_desc(p_box + kk * 32, 16, 1024, 1),
+                     make_desc(buf + (c0 + c) * BOX_BYTES + kk * 16 * 128, BOX_BYTES, 1024, 1));
+    }
+  }
+}
+
+// A 64 x 64 P held as wgmma A fragments (pack_a<8>: a[kk] keys 16 kk ..
+// 16 kk + 15) into a swizzled 64 x 64 bf16 box, the layout wgmma reads as a
+// K-major A: fragment register e of a[kk] holds row 16 wl + g + 8 (e & 1),
+// keys 16 kk + 8 (e >> 1) + 2 t4 and one more.
+__device__ __forceinline__ void store_p(unsigned char* box, const uint32_t (&a)[4][4], int wl,
+                                        int g, int t4) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      *reinterpret_cast<uint32_t*>(box + swz(16 * wl + g + 8 * (e & 1), 2 * kk + (e >> 1)) +
+                                   4 * t4) = a[kk][e];
+}
+
+// Scale a 64 x 64 score tile to log2 units and mask it, and leave each
+// row's max in mx.  Element 4q + e is row r0 + 8 (e >> 1), key 8 q + 2 t4 +
+// (e & 1) of the tile; a row sees its first lim_r keys, the cache holds the
+// first lim_t (masked keys take -1e30, keys past the cache -inf).
+__device__ __forceinline__ void mask_scores(float (&s)[32], float (&mx)[2], const int (&lim_r)[2],
+                                            int lim_t, float qk_scale, int t4) {
+  mx[0] = mx[1] = -INFINITY;
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1, kk = 8 * q + 2 * t4 + (e & 1);
+      float x = s[4 * q + e] * qk_scale;
+      if (kk >= lim_r[h]) x = kk < lim_t ? NEG_INF : -INFINITY;
+      s[4 * q + e] = x;
+      mx[h] = fmaxf(mx[h], x);
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+  }
+}
+
+// P = 2^(S - m) of a masked score tile (m -inf: every key past the cache,
+// taken as 0) and each row's sum of P, before any rounding
+__device__ __forceinline__ void exponentiate(float (&s)[32], float (&sum)[2], const float (&m)[2]) {
+  const float mu[2] = {m[0] == -INFINITY ? 0.f : m[0], m[1] == -INFINITY ? 0.f : m[1]};
+  sum[0] = sum[1] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = ex2(s[i] - mu[(i >> 1) & 1]);
+    sum[(i >> 1) & 1] += s[i];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+  }
+}
+
+template <int NCH>
+__device__ __forceinline__ void scale_rows(float (&acc)[NCH][32], float a0, float a1) {
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      acc[c][4 * q] *= a0;
+      acc[c][4 * q + 1] *= a0;
+      acc[c][4 * q + 2] *= a1;
+      acc[c][4 * q + 3] *= a1;
+    }
+}
+
+template <int NCH>
+__device__ __forceinline__ void fence_acc(float (&acc)[NCH][32]) {
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) fence_regs(acc[c]);
+}
+
 // One CTA: grid (row tiles, split, B).  Rows rt*64 .. rt*64 + 63 of batch
-// row b (the flattened (token, head) index) over the positions [k chunk,
-// (k + 1) chunk) of split k, cut at the CTA's visible limit.
+// row b (the flattened (token, head) index), rt = row tiles - 1 - blockIdx.x
+// (the heaviest first), over the positions [k chunk, (k + 1) chunk) of split
+// k, cut at the CTA's visible limit.
 template <int NCH>
 __global__ void __launch_bounds__(THREADS, 1)
     latent_attention_kernel(const __grid_constant__ Maps maps, const Params p) {
-  constexpr int RP = 128 * NCH;           // the latent's padded width
-  constexpr int KB = 2 * NCH + 1;         // boxes of a Q or K row
-  constexpr int KS = RP / 16 + 4;         // depth steps of the scores
-  constexpr int BOX_Q = MT * 2 * BOX;     // bytes of one Q box
-  constexpr int BOX_K = TK * 2 * BOX;     // bytes of one K box
+  constexpr int KB = 2 * NCH + 1;         // boxes of a Q or K row; the last is the rope box
+  constexpr int ROPE = KB - 1;
   extern __shared__ __align__(1024) unsigned char smem[];
-  const Layout lay = layout_bf16(NCH, p.stages);
+  const Layout lay = layout_bf16(NCH);
   const uint32_t base = smem_u32(smem);
   if (base & 1023u) __trap();
-  const uint32_t sQ = base, ring = base + lay.ring, sP = base + lay.p;
-  const uint32_t bars = base + lay.bars;
-  float* xch = reinterpret_cast<float*>(smem + lay.xch);
+  const uint32_t sQ = base, bars = base + lay.bars;
+  const uint32_t buf0 = base + lay.buf, buf1 = buf0 + lay.stage;
+  float* sM = reinterpret_cast<float*>(smem + lay.xch);    // [2][64]: m0, m1 of the pair
+  float* sA = sM + 2 * MT;                                   // [2][64]: their rescales a0, a1
+  float* sL = sM + 4 * MT;                                   // [2][64]: each warpgroup's row sums
   int* lim = reinterpret_cast<int*>(smem + lay.limit);
 
-  const int rt = blockIdx.x, k = blockIdx.y, b = blockIdx.z;
+  const int rt = p.row_tiles - 1 - (int)blockIdx.x, k = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the warpgroup as a value ptxas knows is the same across a warp (a
+  // branch on threadIdx is divergent to it, and it then serializes every
+  // wgmma behind fences of its own)
+  const int j = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int wl = warp & 3, g = lane >> 2, t4 = lane & 3;
   const long long r_first = (long long)rt * MT;
+  // buffer s's group grp has landed (grp 0: the latent half of warpgroup s,
+  // which scores the buffer's tile; grp 1: the other half and the rope box);
+  // warpgroup s has published its tile's max, rescale and P
+  auto full = [&](int s, int grp) { return bars + 8 * (2 * s + grp); };
+  auto pub = [&](int s) { return bars + 8 * (2 * STAGES + s); };
 
   if (tid == 0) {
-    for (int s = 0; s < p.stages; ++s) {
-      mbar_init(bars + 8 * s, 1);                        // full: the producer's arrival
-      mbar_init(bars + 8 * (MAX_STAGES + s), CWARPS);    // empty: one arrival a consumer warp
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s, 0), 1);
+      mbar_init(full(s, 1), 1);
+      mbar_init(pub(s), 128);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     *lim = 0;
@@ -279,49 +503,41 @@ __global__ void __launch_bounds__(THREADS, 1)
   __syncthreads();
   reduce_limit(p, b, r_first, MT, lim);
   __syncthreads();
-  const int limit = *lim;
+  const int limit = __shfl_sync(0xffffffffu, *lim, 0);   // uniform, as j
   const int start = k * p.chunk;
   const int end = start + p.chunk < limit ? start + p.chunk : limit;
   const int tiles = end > start ? (end - start + TK - 1) / TK : 0;
   const int boxes = (p.R + BOX - 1) / BOX;             // latent boxes the TMA loads
 
-  if (warp == CWARPS) {
-    // ---- producer: lane 0 keeps the ring full ----
-    if (lane == 0 && tiles > 0) {
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&maps.ckv)) : "memory");
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&maps.krope)) : "memory");
-      for (int i = 0; i < tiles; ++i) {
-        const int st = i % p.stages, round = i / p.stages;
-        const uint32_t full = bars + 8 * st;
-        if (round > 0) mbar_wait(bars + 8 * (MAX_STAGES + st), (round - 1) & 1);
-        mbar_expect_tx(full, (boxes + 1) * BOX_K);
-        const uint32_t dst = ring + st * lay.stage;
-        const int t0 = start + i * TK;
-        for (int c = 0; c < boxes; ++c) tma_load3(dst + c * BOX_K, &maps.ckv, c * BOX, t0, b, full);
-        tma_load3(dst + (KB - 1) * BOX_K, &maps.krope, 0, t0, b, full);
-      }
+  // tile i of the chunk goes to buffer i & 1, in its two groups of boxes
+  auto load = [&](int i, int grp) {
+    const int s = i & 1;
+    load_group<NCH>(maps, s ? buf1 : buf0, full(s, grp), grp == 0 ? s : 1 - s, grp == 1, boxes,
+                    start + i * TK, b);
+  };
+  if (tid == 0 && tiles > 0) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&maps.ckv)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&maps.krope)) : "memory");
+    for (int i = 0; i < STAGES && i < tiles; ++i) {
+      load(i, 0);
+      load(i, 1);
     }
-    return;
   }
 
-  // ---- consumers: warpgroup j scores keys 32j .. 32j + 31 of each tile and
-  // owns output columns [RP/2 j, RP/2 (j + 1)) ----
-  const int j = warp >> 2, wl = warp & 3, g = lane >> 2, t4 = lane & 3;
   const unsigned short* ql = static_cast<const unsigned short*>(p.q_lat);
   const unsigned short* qr = static_cast<const unsigned short*>(p.q_rope);
-
   // Q (64 x (RP + 64), swizzled boxes) from q_lat and q_rope, 16 bytes a
   // thread a copy, all in flight at once (cp.async; a copy of 0 source
   // bytes writes zeros): columns past R or Rr and rows past S N are zeros.
-  // The ring's boxes past the latent's loaded width are zeroed once.
-  for (int i = tid; i < MT * KB * 8; i += CONSUMERS) {
+  // Both buffers' boxes past the latent's loaded width are zeroed once.
+  for (int i = tid; i < MT * KB * 8; i += THREADS) {
     const int r = i / (KB * 8), rest = i - r * (KB * 8), c = rest >> 3, ch = rest & 7;
     const long long rr = r_first + r;
     const unsigned short* src = ql;
     int bytes = 0;
     if (rr < (long long)p.S * p.N) {
       const int s = (int)(rr / p.N), n = (int)(rr - (long long)s * p.N);
-      if (c < KB - 1) {
+      if (c < ROPE) {
         const int col = c * BOX + 8 * ch;
         src = ql + b * p.ql_s[0] + s * p.ql_s[1] + n * p.ql_s[2] + col;
         bytes = col < p.R ? 16 : 0;
@@ -331,152 +547,216 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
       if (bytes == 0) src = ql;
     }
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sQ + c * BOX_Q + swz(r, ch)),
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sQ + c * BOX_BYTES +
+                                                                          swz(r, ch)),
                  "l"(src), "r"(bytes)
                  : "memory");
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   {
-    const int zero_boxes = KB - 1 - boxes;             // per stage
-    const int per = zero_boxes * BOX_K / 16;
-    for (int i = tid; i < p.stages * per; i += CONSUMERS) {
+    const int per = (ROPE - boxes) * BOX_BYTES / 16;   // per buffer
+    for (int i = tid; i < STAGES * per; i += THREADS) {
       const int st = i / per, off = (i - st * per) * 16;
-      *reinterpret_cast<uint4*>(smem + lay.ring + st * lay.stage + boxes * BOX_K + off) =
+      *reinterpret_cast<uint4*>(smem + lay.buf + st * lay.stage + boxes * BOX_BYTES + off) =
           make_uint4(0u, 0u, 0u, 0u);
     }
   }
   fence_async_shared();
-  consumer_sync();
+  __syncthreads();
 
-  // this thread's rows: 16 wl + g and + 8 of the tile
-  long long qp[2];
-  long long kvl[2];
+  // this thread's rows, in either warpgroup: 16 wl + g and + 8 of the tile,
+  // and the positions each sees, [0, vis_end)
+  const int r0 = 16 * wl + g;
+  long long vis_end[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    qp[h] = row_position(p, b, r_first + 16 * wl + g + 8 * h);
-    kvl[h] = p.kv_len[b * p.kvl_s];
+    const long long qp = row_position(p, b, r_first + r0 + 8 * h);
+    vis_end[h] = qp == NO_ROW ? 0 : visible_end(p, b, qp);
   }
   const float qk_scale = p.scale * LOG2E;
+  // warpgroup j: its own tile's buffer and the other, its latent half's first
+  // box and the other half's, the thread that issues its loads
+  const uint32_t own = j ? buf1 : buf0, other = j ? buf0 : buf1;
+  const int c_own = j * NCH, c_other = (1 - j) * NCH;
+  const bool leader = (tid & 127) == 0;
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
   float acc[NCH][32];
 #pragma unroll
   for (int c = 0; c < NCH; ++c)
 #pragma unroll
     for (int e = 0; e < 32; ++e) acc[c][e] = 0.f;
-  float sc[16];
-  float* xmax = xch;                                   // [2][64]
+  float sc[32];
+  uint32_t pa[4][4];
+  const int pairs = (tiles + 1) / 2;
 
-  for (int i = 0; i < tiles; ++i) {
-    const int st = i % p.stages;
-    const uint32_t stage = ring + st * lay.stage;
-    mbar_wait(bars + 8 * st, (i / p.stages) & 1);
-    // S = Q K^T over this warpgroup's 32 keys
+  // the scores of tile i (warpgroup i & 1's): score_tile issues and commits
+  // its own half's boxes once they have landed and returns the barriers'
+  // parity; score_rest the other half's and the rope box
+  auto score_tile = [&](int i) {
+    const int par = (i >> 1) & 1;
     wgmma_fence();
-#pragma unroll
-    for (int kc = 0; kc < KS; ++kc) {
-      const int c = kc >> 2, off = (kc & 3) * 32;
-      wgmma_n32(sc, make_desc(sQ + c * BOX_Q + off, 16, 1024, 1),
-                make_desc(stage + c * BOX_K + 32 * j * 128 + off, 16, 1024, 1), kc > 0);
-    }
+    mbar_wait(full(j, 0), par);
+    score_boxes(sc, sQ, own, c_own, c_own + NCH, true);
     wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(sc);
-
-    // scale to log2 units and mask: element 4q + e is row 16 wl + g + 8 (e >> 1),
-    // key t0 + 32 j + 8 q + 2 t4 + (e & 1)
-    const long long t0 = (long long)start + (long long)i * TK + 32 * j;
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const long long t = t0 + 8 * q + 2 * t4 + (e & 1);
-        float x = sc[4 * q + e] * qk_scale;
-        if (t >= p.T) x = -INFINITY;                   // past the cache: no key at all
-        else if (!(t <= qp[h] && t < kvl[h])) x = NEG_INF;
-        sc[4 * q + e] = x;
-        mx[h] = fmaxf(mx[h], x);
-      }
+    return par;
+  };
+  auto score_rest = [&](int par) {
+    mbar_wait(full(j, 1), par);
+    score_boxes(sc, sQ, own, c_other, c_other + NCH, false);
+    score_boxes(sc, sQ, own, ROPE, KB, false);
+    wgmma_commit();
+  };
+  // this warpgroup's reads of group grp of tile i's buffer are done (it has
+  // waited for them): load tile i + 2 there
+  auto release = [&](int i, int grp) {
+    if (i + 2 < tiles) {
+      bar_sync(BAR_WG + j, 128);
+      if (leader) load(i + 2, grp);
+    }
+  };
+  // the masks of tile i's rows, and its softmax from the running max m:
+  // m_new, the rescale of what came before, P = 2^(S - m_new) as A fragments,
+  // each row's sum of P; then P, m_new and the rescale published for the
+  // other warpgroup (P into the tile's rope box, whose scores are done)
+  auto softmax = [&](int i, const float (&mx)[2], float (&a)[2], float (&sum)[2]) {
+    float m_new[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      if (t4 == 0) xmax[j * MT + 16 * wl + g + 8 * h] = mx[h];
+      m_new[h] = fmaxf(m_run[h], mx[h]);
+      a[h] = m_run[h] == -INFINITY ? 0.f : ex2(m_run[h] - m_new[h]);
+      m_run[h] = m_new[h];
     }
-    consumer_sync();
-    float alpha[2], m_use[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = 16 * wl + g + 8 * h;
-      const float m_new = fmaxf(m_run[h], fmaxf(xmax[row], xmax[MT + row]));
-      alpha[h] = m_run[h] == -INFINITY ? 0.f : ex2(m_run[h] - m_new);
-      m_use[h] = m_new == -INFINITY ? 0.f : m_new;
-      m_run[h] = m_new;
-    }
-    float ps[2] = {0.f, 0.f};
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pr = ex2(sc[4 * q + e] - m_use[e >> 1]);
-        sc[4 * q + e] = pr;
-        ps[e >> 1] += pr;
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 1);
-      ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 2);
-      l_run[h] = l_run[h] * alpha[h] + ps[h];
-    }
-#pragma unroll
-    for (int c = 0; c < NCH; ++c)
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        acc[c][4 * q] *= alpha[0];
-        acc[c][4 * q + 1] *= alpha[0];
-        acc[c][4 * q + 2] *= alpha[1];
-        acc[c][4 * q + 3] *= alpha[1];
-      }
-    // this half of P, rounded to bf16, into the swizzled 64 x 64 tile
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
+    exponentiate(sc, sum, m_new);
+    pack_a<8>(pa, sc);
+    store_p(smem + lay.buf + (i & 1) * lay.stage + ROPE * BOX_BYTES, pa, wl, g, t4);
+    if (t4 == 0) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int row = 16 * wl + g + 8 * h, col = 32 * j + 8 * q + 2 * t4;
-        *reinterpret_cast<uint32_t*>(smem + lay.p + swz(row, col >> 3) + (col & 7) * 2) =
-            pack_bf16(sc[4 * q + 2 * h], sc[4 * q + 2 * h + 1]);
+        sM[(i & 1) * MT + r0 + 8 * h] = m_new[h];
+        sA[(i & 1) * MT + r0 + 8 * h] = a[h];
       }
+    }
     fence_async_shared();
-    consumer_sync();
-    // O += P V over this warpgroup's columns
-    wgmma_fence();
+    mbar_arrive(pub(i & 1));
+  };
+  auto mask = [&](int i, float (&mx)[2]) {
+    const long long t0 = (long long)start + (long long)i * TK;
+    int lim_r[2];
 #pragma unroll
-    for (int c = 0; c < NCH; ++c)
+    for (int h = 0; h < 2; ++h) {
+      const long long v = vis_end[h] - t0;
+      lim_r[h] = v < 0 ? 0 : (v > TK ? TK : (int)v);
+    }
+    mask_scores(sc, mx, lim_r, p.T - t0 < TK ? (int)(p.T - t0) : TK, qk_scale, t4);
+  };
+  // the other warpgroup's m and rescale of tile i
+  auto take = [&](int i, float (&a)[2]) {
+    mbar_wait(pub(i & 1), (i >> 1) & 1);
 #pragma unroll
-      for (int kk = 0; kk < TK / 16; ++kk)
-        wgmma_n64_mn(acc[c], make_desc(sP + kk * 32, 16, 1024, 1),
-                     make_desc(stage + (NCH * j + c) * BOX_K + kk * 16 * 128, BOX_K, 1024, 1));
-    wgmma_commit();
+    for (int h = 0; h < 2; ++h) {
+      m_run[h] = sM[(i & 1) * MT + r0 + 8 * h];
+      a[h] = sA[(i & 1) * MT + r0 + 8 * h];
+    }
+  };
+  // O *= a, row by row
+  auto rescale = [&](const float (&a)[2]) { scale_rows<NCH>(acc, a[0], a[1]); };
+
+  if (j < tiles) {
+    score_rest(score_tile(j));
     wgmma_wait<0>();
-#pragma unroll
-    for (int c = 0; c < NCH; ++c) fence_regs(acc[c]);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(bars + 8 * (MAX_STAGES + st));
+    fence_regs(sc);
   }
 
-  // the row sums of both halves, in order
-  float* xl = xch;                                     // [2][64], free after the loop
+  for (int pr = 0; pr < pairs; ++pr) {
+    const int i0 = 2 * pr, i1 = i0 + 1;
+    const bool has1 = i1 < tiles;
+    float mx[2], a[2], sum[2];
+    if (j == 0) {
+      // ---- warpgroup 0: tile i0's softmax from the running max ----
+      mask(i0, mx);
+      softmax(i0, mx, a, sum);
+      rescale(a);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l_run[h] = l_run[h] * a[h] + sum[h];
+      // O_0 += P0 V0 (this half's columns), P0 from registers
+      wgmma_fence();
+      pv_registers<NCH>(acc, pa, own, c_own);
+      wgmma_commit();
+      if (has1) take(i1, a);
+      wgmma_wait<0>();
+      fence_acc<NCH>(acc);
+      fence_regs(pa);
+      release(i0, 0);                                  // this half of tile i0 is read
+      if (has1) {
+        // O_0 = O_0 a1 + P1 V1, P1 from the rope box of tile i1
+        rescale(a);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) l_run[h] *= a[h];
+        wgmma_fence();
+        pv_shared<NCH>(acc, other + ROPE * BOX_BYTES, other, c_own);
+        wgmma_commit();
+      }
+      if (i0 + 2 < tiles) {
+        // the next pair's scores, under this pair's last product
+        const int next = score_tile(i0 + 2);
+        wgmma_wait<1>();
+        fence_acc<NCH>(acc);
+        release(i1, 1);                                // tile i1's other half and P1 are read
+        score_rest(next);
+        wgmma_wait<0>();
+        fence_regs(sc);
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_acc<NCH>(acc);
+    } else {
+      // ---- warpgroup 1: P0 into this half, then tile i1's softmax from m0 ----
+      mx[0] = mx[1] = -INFINITY;
+      if (has1) mask(i1, mx);
+      take(i0, a);
+      rescale(a);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l_run[h] *= a[h];
+      // O_1 = O_1 a0 + P0 V0, P0 from the rope box of tile i0
+      wgmma_fence();
+      pv_shared<NCH>(acc, other + ROPE * BOX_BYTES, other, c_own);
+      wgmma_commit();
+      if (has1) softmax(i1, mx, a, sum);
+      wgmma_wait<0>();
+      fence_acc<NCH>(acc);
+      release(i0, 1);                                  // tile i0's other half and P0 are read
+      if (has1) {
+        // O_1 = O_1 a1 + P1 V1 (this half's columns), P1 from registers
+        rescale(a);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) l_run[h] = l_run[h] * a[h] + sum[h];
+        wgmma_fence();
+        pv_registers<NCH>(acc, pa, own, c_own);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc<NCH>(acc);
+        fence_regs(pa);
+        release(i1, 0);                                // this half of tile i1 is read
+        if (i1 + 2 < tiles) {
+          score_rest(score_tile(i1 + 2));
+          wgmma_wait<0>();
+          fence_regs(sc);
+        }
+      }
+    }
+  }
+
+  // the two warpgroups' row sums, in order
   if (t4 == 0) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) xl[j * MT + 16 * wl + g + 8 * h] = l_run[h];
+    for (int h = 0; h < 2; ++h) sL[j * MT + 16 * wl + g + 8 * h] = l_run[h];
   }
-  consumer_sync();
+  __syncthreads();
   float l_tot[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = 16 * wl + g + 8 * h;
-    l_tot[h] = xl[row] + xl[MT + row];
+    l_tot[h] = sL[row] + sL[MT + row];
   }
 
   const long long M = (long long)p.S * p.N;
@@ -497,7 +777,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int c = 0; c < NCH; ++c)
 #pragma unroll
         for (int q = 0; q < 8; ++q) {
-          const int col = (NCH * j + c) * BOX + 8 * q + 2 * t4;
+          const int col = (c_own + c) * BOX + 8 * q + 2 * t4;
           if (col < p.R)
             *reinterpret_cast<uint32_t*>(o + col) =
                 pack_bf16(acc[c][4 * q + 2 * h] * inv, acc[c][4 * q + 2 * h + 1] * inv);
@@ -509,7 +789,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int c = 0; c < NCH; ++c)
 #pragma unroll
         for (int q = 0; q < 8; ++q) {
-          const int col = (NCH * j + c) * BOX + 8 * q + 2 * t4;
+          const int col = (c_own + c) * BOX + 8 * q + 2 * t4;
           if (col < p.R)
             *reinterpret_cast<float2*>(o + col) =
                 make_float2(acc[c][4 * q + 2 * h], acc[c][4 * q + 2 * h + 1]);
@@ -524,7 +804,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // The splits of a row weighed in order: M = max_k m_k, w_k = 2^(m_k - M),
 // out = sum_k w_k o_k / sum_k w_k l_k, in bf16 through out's strides.  One
-// block a partial row; a padding row returns.
+// block a partial row; a padding row returns.  The loops over the splits
+// are unrolled by 8 so that their loads are in flight together: at the
+// served decode each is a round trip to L2 the block would otherwise wait
+// for in turn (a rolled loop took 7.2 of the call's 25 us on an H100).
 __global__ void __launch_bounds__(COMBINE_THREADS)
     latent_combine(const Params p) {
   __shared__ float w[MAX_SPLIT];
@@ -537,13 +820,15 @@ __global__ void __launch_bounds__(COMBINE_THREADS)
   const long long P = (long long)p.B * per_b;
   if (threadIdx.x == 0) {
     float M = -INFINITY;
+#pragma unroll 8
     for (int k = 0; k < p.split; ++k) M = fmaxf(M, p.ml_part[2 * (k * P + prow)]);
     float L = 0.f;
+#pragma unroll 8
     for (int k = 0; k < p.split; ++k) {
-      const float m = p.ml_part[2 * (k * P + prow)];
-      const float wk = m == -INFINITY ? 0.f : ex2(m - M);
+      const float2 ml = *reinterpret_cast<const float2*>(p.ml_part + 2 * (k * P + prow));
+      const float wk = ml.x == -INFINITY ? 0.f : ex2(ml.x - M);
       w[k] = wk;
-      L = fmaf(wk, p.ml_part[2 * (k * P + prow) + 1], L);
+      L = fmaf(wk, ml.y, L);
     }
     total = L;
   }
@@ -554,9 +839,10 @@ __global__ void __launch_bounds__(COMBINE_THREADS)
   const float inv = 1.f / total;
   for (int col = 2 * threadIdx.x; col < p.R; col += 2 * COMBINE_THREADS) {
     float a0 = 0.f, a1 = 0.f;
+#pragma unroll 8
     for (int k = 0; k < p.split; ++k) {
-      if (w[k] == 0.f) continue;
       const float2 v = *reinterpret_cast<const float2*>(p.o_part + (k * P + prow) * p.R + col);
+      if (w[k] == 0.f) continue;
       a0 = fmaf(w[k], v.x, a0);
       a1 = fmaf(w[k], v.y, a1);
     }
@@ -743,7 +1029,7 @@ extern "C" int latent_attention_init(void) {
 // out (B, S, N, R), each read through its strides (strides: q_lat 3,
 // q_rope 3, ckv 2, krope 2, out 3) with a contiguous last dimension;
 // bf16 rows 16-byte aligned.  positions int64 at b pos_b + s pos_s, kv_len
-// int64 at b kvl_b.  The plan (rows, split, chunk, stages, smem) is
+// int64 at b kvl_b.  The plan (rows, split, chunk, smem) is
 // kernel.py's choose_launch; with split > 1, o_part and ml_part are its
 // float32 scratch and latent_combine runs after.  Returns the first
 // launch error (0 on success), cudaErrorInvalidValue for a plan it cannot
@@ -753,17 +1039,16 @@ extern "C" int latent_attention(const void* q_lat, const void* q_rope, const voi
                                 const long long* positions, const long long* kv_len,
                                 const long long* strides, long long pos_b, long long pos_s,
                                 long long kvl_b, int is_bf16, int B, int S, int N, int T, int R,
-                                int Rr, int rows, int split, int chunk, int stages, int smem,
+                                int Rr, int rows, int split, int chunk, int smem,
                                 float scale, void* stream) {
   const int nch = (R + 127) / 128;
   const long long M = (long long)S * N;
   const int row_tiles = (int)((M + rows - 1) / rows);
   if (R < 16 || R > 512 || R % 16 || Rr < 16 || Rr > 64 || Rr % 16 || rows != (is_bf16 ? MT : FR) ||
-      split < 1 || split > MAX_SPLIT || chunk < 1 || (is_bf16 && chunk % TK) ||
+      split < 1 || split > MAX_SPLIT || chunk < 1 || (is_bf16 && chunk % (split > 1 ? 2 * TK : TK)) ||
       (long long)(split - 1) * chunk >= T || (long long)split * chunk < T ||
       (split > 1 && (!is_bf16 || o_part == nullptr || ml_part == nullptr)) ||
-      (is_bf16 && (stages < MIN_STAGES || stages > MAX_STAGES)) ||
-      smem != (is_bf16 ? layout_bf16(nch, stages).total : f32_smem_bytes(R + Rr)))
+      smem != (is_bf16 ? layout_bf16(nch).total : f32_smem_bytes(R + Rr)))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q_lat = q_lat; p.q_rope = q_rope; p.ckv = ckv; p.krope = krope; p.out = out;
@@ -784,7 +1069,7 @@ extern "C" int latent_attention(const void* q_lat, const void* q_rope, const voi
   p.pos_s[1] = pos_s;
   p.kvl_s = kvl_b;
   p.B = B; p.S = S; p.N = N; p.T = T; p.R = R; p.Rr = Rr;
-  p.split = split; p.chunk = chunk; p.stages = stages; p.row_tiles = row_tiles;
+  p.split = split; p.chunk = chunk; p.row_tiles = row_tiles;
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(row_tiles, split, B);

@@ -20,20 +20,26 @@ reaches B6 on each device's heads through ``on_local_shards``); an input
 that needs a gradient is refused (the absorbed form serves only, under
 ``no_grad``).  The checks of the inputs, and the kernel's own limits (R up
 to 512 and Rr up to 64, each a multiple of 16; float32 or bf16; the grid,
-the split, the stages and shared memory: :func:`choose_launch` and
+the split and shared memory: :func:`choose_launch` and
 :func:`check_launch`), run before the routing, so they refuse on CPU
 tensors too.
 
 The plan (:func:`choose_launch`, plain Python) depends on shapes only,
 never on the positions or ``kv_len``, which the kernel reads on the
 device: a captured CUDA graph stays valid as the offsets advance.  bf16
-runs on the tensor cores (``wgmma``) in CTAs of 64 query rows fed by a TMA
-ring, the positions split over CTAs where the row tiles alone would leave
-the card idle; a split's float32 partials are weighed by a second kernel.
-float32 runs on the FMA units (no TF32), 16 rows a CTA, no split.  A
-tensor whose last dimension is not contiguous, or whose base or strides
-are off 16 bytes, is copied once here and counted in ``layout_copies`` (0
-on the served paths).
+runs on the tensor cores (``wgmma``) in CTAs of 64 query rows and 256
+threads, two warpgroups and no producer warp: the cache comes in pairs of
+64-position tiles, one TMA-fed buffer each, warpgroup 0 scoring the even
+tile of a pair and warpgroup 1 the odd (:func:`tile_pairs`), each owning
+half of the output's columns, one's softmax under the other's products
+(FlashMLA's "seesaw" order; ``csrc/latent_attention.cu``'s note says what
+bounds it).  The row tiles run from the last (:func:`row_tile`): a prompt
+pass's heaviest first.  The positions split over CTAs in chunks of whole
+pairs where the row tiles alone would leave the card idle; a split's
+float32 partials are weighed by a second kernel.  float32 runs on the FMA
+units (no TF32), 16 rows a CTA, no split.  A tensor whose last dimension is
+not contiguous, or whose base or strides are off 16 bytes, is copied once
+here and counted in ``layout_copies`` (0 on the served paths).
 
 ``launches`` counts the calls that launched the kernel from Python, or
 recorded it into a CUDA graph under capture; a graph replay runs it again
@@ -61,8 +67,8 @@ ROPES = (16, 32, 48, 64)              # rope widths Rr
 ROWS = {"bfloat16": 64, "float32": 16}   # query rows a CTA (csrc MT, FR)
 TILE = 64                             # bf16: key positions a tile (csrc TK)
 BOX = 64                              # bf16 columns of one 128-byte swizzle row
-STAGES = (2, 3)                       # bf16: the ring's depths (csrc MIN_STAGES, MAX_STAGES)
-MIN_CHUNK_TILES = 2                   # tiles a split takes at least
+THREADS = 256                         # bf16: two warpgroups a CTA (csrc THREADS)
+BUFFERS = 2                           # bf16: the buffers of a pair of tiles (csrc STAGES)
 MAX_SPLIT = 256                       # csrc MAX_SPLIT: the combine's weights
 SMS = 132                             # an H100 SXM's streaming multiprocessors
 MAX_SMEM = 232448                     # a CTA's largest dynamic shared memory (227 KB)
@@ -80,14 +86,12 @@ _STRIDES = ctypes.c_longlong * 13     # q_lat 3, q_rope 3, ckv 2, krope 2, out 3
 @dataclass(frozen=True)
 class Launch:
     """What the kernel takes for one call: the positions in ``split``
-    chunks of ``chunk`` (the last may be shorter), a bf16 ring of
-    ``stages`` tiles (0 for float32, which has none), dynamic
-    ``smem_bytes``.  The rest follows from the shapes and the dtype."""
+    chunks of ``chunk`` (the last may be shorter), dynamic ``smem_bytes``.
+    The rest follows from the shapes and the dtype."""
 
     dtype: str
     split: int
     chunk: int
-    stages: int
     smem_bytes: int
 
     @property
@@ -111,27 +115,48 @@ def padded(R: int) -> int:
     return 128 * -(-R // 128)
 
 
-def smem_bytes(dtype: str, R: int, Rr: int, stages: int) -> int:
+def smem_bytes(dtype: str, R: int, Rr: int) -> int:
     """Dynamic shared memory of a CTA (csrc ``layout_bf16``,
-    ``f32_smem_bytes``).  bf16: the 64-row Q tile and ``stages`` 64-position
-    K tiles, each 2·RP/64 + 1 boxes of 128-byte rows (the latent padded to
-    RP, one rope box), the 64 x 64 P tile, the row maxima of both
-    warpgroups, the mbarriers and the CTA's limit.  float32: the Q rows,
-    one K tile of 32 padded rows, P, the rescale factors and the limit."""
+    ``f32_smem_bytes``).  bf16: the 64-row Q tile and ``BUFFERS`` buffers of
+    one 64-position tile, each 2·RP/64 + 1 boxes of 128-byte rows (the
+    latent padded to RP, one rope box, which a tile's P overwrites once its
+    scores are done), the row exchange between the warpgroups (six rows of
+    64 floats: each buffer's tile's max and rescale, each warpgroup's row
+    sums), three mbarriers a buffer (its two groups of boxes landed; its
+    tile's max, rescale and P published) and the CTA's limit.
+    float32: the Q rows, one K tile of 32 padded rows, P, the rescale
+    factors and the limit."""
     if dtype == "bfloat16":
         boxes = 2 * padded(R) // 128 + 1
-        return boxes * 128 * (ROWS[dtype] + stages * TILE) + 64 * 128 + 2 * 64 * 4 + 16 * 3 + 16
+        return boxes * 128 * (ROWS[dtype] + BUFFERS * TILE) + 6 * 64 * 4 + 8 * 3 * BUFFERS + 16
     D = R + Rr
     return 4 * (16 * D + 32 * (D + 1) + 16 * 32 + 16) + 16
+
+
+def tile_pairs(tiles: int) -> list[tuple[int, int | None]]:
+    """The bf16 kernel's schedule over a chunk of ``tiles`` 64-position
+    tiles: pairs in order, the first of each scored by warpgroup 0 into
+    buffer 0, the second by warpgroup 1 into buffer 1; a chunk with an odd
+    number gives its last tile to warpgroup 0 alone (None: warpgroup 1
+    scores nothing, and only multiplies warpgroup 0's P into its half)."""
+    return [(i, i + 1 if i + 1 < tiles else None) for i in range(0, tiles, 2)]
+
+
+def row_tile(x: int, row_tiles: int) -> int:
+    """The row tile the bf16 CTA at ``blockIdx.x = x`` takes: from the
+    last, so a prompt pass's last tokens, which see the most tiles, start
+    first and the shortest fill the wave's tail (csrc ``rt``)."""
+    return row_tiles - 1 - x
 
 
 def check_launch(launch: Launch, B: int, S: int, N: int, T: int, R: int, Rr: int) -> Launch:
     """``launch`` if the kernel can run it for these shapes, else
     ``ValueError``: the grid within the launch limits, chunks that each
-    start inside the cache and together cover it (whole tiles for bf16;
-    one for float32), at most ``MAX_SPLIT`` of them, a ring depth of
-    ``STAGES``, and shared memory as :func:`smem_bytes` sizes it and within
-    ``MAX_SMEM``.  The C entry checks the same limits again."""
+    start inside the cache and together cover it (whole tiles for bf16,
+    whole pairs with a split; one for float32), at most ``MAX_SPLIT`` of
+    them, and shared memory as :func:`smem_bytes` sizes
+    it and within ``MAX_SMEM``.  The C entry checks the same limits
+    again."""
     bf16 = launch.dtype == "bfloat16"
     grid = launch.grid(B, S, N)
     if grid[0] > MAX_GRID_X or max(grid[1:]) > MAX_GRID_YZ:
@@ -139,14 +164,11 @@ def check_launch(launch: Launch, B: int, S: int, N: int, T: int, R: int, Rr: int
     if not 1 <= launch.split <= (MAX_SPLIT if bf16 else 1):
         raise ValueError(f"latent_attention: a split of {launch.split} is outside 1.."
                          f"{MAX_SPLIT if bf16 else 1} for {launch.dtype}")
-    if (launch.chunk < 1 or (bf16 and launch.chunk % TILE)
+    if (launch.chunk < 1 or (bf16 and launch.chunk % (TILE * (1 + (launch.split > 1))))
             or not (launch.split - 1) * launch.chunk < T <= launch.split * launch.chunk):
         raise ValueError(f"latent_attention: {launch.split} chunks of {launch.chunk} positions "
                          f"do not each start inside T {T} and cover it")
-    if launch.stages not in (STAGES if bf16 else (0,)):
-        raise ValueError(f"latent_attention: {launch.stages} stages, not one of "
-                         f"{STAGES if bf16 else (0,)}")
-    want = smem_bytes(launch.dtype, R, Rr, launch.stages)
+    want = smem_bytes(launch.dtype, R, Rr)
     if launch.smem_bytes != want or want > MAX_SMEM:
         raise ValueError(f"latent_attention: shared memory {launch.smem_bytes} (the layout "
                          f"takes {want}; a CTA has {MAX_SMEM})")
@@ -158,13 +180,13 @@ def choose_launch(B: int, S: int, N: int, T: int, R: int, Rr: int, dtype: str) -
     """The launch for ``B`` batch rows of ``S`` tokens and ``N`` heads over
     ``T`` cached positions, latent width ``R``, rope width ``Rr``, ``dtype``
     ("float32" or "bfloat16").  Plain Python, a function of these shapes
-    alone.  bf16 takes 64 rows a CTA and the deepest ring that fits (2
-    stages above R 256, 3 up to it); when the row tiles (B x S·N / 64) leave
-    SMs idle, the positions split into chunks of at least
-    ``MIN_CHUNK_TILES`` whole tiles, as many as fill the card's ``SMS``
-    one CTA an SM.  float32 takes 16 rows a CTA and no split.  Raises
-    ``ValueError`` on a width or dtype the library lacks, an empty shape,
-    or a launch :func:`check_launch` refuses."""
+    alone.  bf16 takes 64 rows a CTA and a pair of tile buffers; when the
+    row tiles (B x S·N / 64) leave SMs idle, the positions split into
+    chunks of whole pairs (:func:`tile_pairs`: a pair is one round of the
+    two warpgroups), as many as fill the card's ``SMS`` one CTA an SM, then
+    as few as take the same pairs a chunk.  float32 takes 16 rows a CTA and
+    no split.  Raises ``ValueError`` on a width or dtype the library lacks,
+    an empty shape, or a launch :func:`check_launch` refuses."""
     if R not in RANKS or Rr not in ROPES:
         raise ValueError(f"latent_attention: R {R} and Rr {Rr} must be multiples of 16, R "
                          f"at most 512 and Rr at most 64")
@@ -175,15 +197,15 @@ def choose_launch(B: int, S: int, N: int, T: int, R: int, Rr: int, dtype: str) -
     if T > MAX_POSITIONS:
         raise ValueError(f"latent_attention: {T} positions exceed {MAX_POSITIONS}")
     if dtype == "float32":
-        return check_launch(Launch(dtype, 1, T, 0, smem_bytes(dtype, R, Rr, 0)),
-                            B, S, N, T, R, Rr)
-    stages = max(s for s in STAGES if smem_bytes(dtype, R, Rr, s) <= MAX_SMEM or s == STAGES[0])
+        return check_launch(Launch(dtype, 1, T, smem_bytes(dtype, R, Rr)), B, S, N, T, R, Rr)
     tiles = -(-T // TILE)
+    pairs = -(-tiles // 2)
     row_tiles = -(-S * N // ROWS[dtype])
-    split = max(1, min(-(-tiles // MIN_CHUNK_TILES), SMS // (B * row_tiles), MAX_SPLIT))
-    chunk_tiles = -(-tiles // split)
-    split = -(-tiles // chunk_tiles)
-    launch = Launch(dtype, split, TILE * chunk_tiles, stages, smem_bytes(dtype, R, Rr, stages))
+    split = max(1, min(pairs, SMS // (B * row_tiles), MAX_SPLIT))
+    chunk_pairs = -(-pairs // split)
+    split = -(-pairs // chunk_pairs)
+    chunk = TILE * (2 * chunk_pairs if split > 1 else tiles)
+    launch = Launch(dtype, split, chunk, smem_bytes(dtype, R, Rr))
     return check_launch(launch, B, S, N, T, R, Rr)
 
 
@@ -227,7 +249,7 @@ def _kernel(device: torch.device):
         lib.latent_attention_init.restype = ctypes.c_int
         lib.latent_attention.argtypes = (
             [ctypes.c_void_p] * 9 + [ctypes.POINTER(ctypes.c_longlong)]
-            + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p])
+            + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p])
         lib.latent_attention.restype = ctypes.c_int
         _lib = lib
     index = device.index if device.index is not None else torch.cuda.current_device()
@@ -299,7 +321,7 @@ def _launch(q_lat, q_rope, ckv, krope, positions, kv_len, scale, launch):
         positions.stride(0) if positions.dim() == 2 else 0, positions.stride(-1),
         kv_len.stride(0) if kv_len.dim() == 1 else 0,
         int(q_lat.dtype == torch.bfloat16), B, S, N, ckv.shape[1], R, q_rope.shape[-1],
-        launch.rows, launch.split, launch.chunk, launch.stages, launch.smem_bytes,
+        launch.rows, launch.split, launch.chunk, launch.smem_bytes,
         float(scale), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

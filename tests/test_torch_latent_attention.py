@@ -278,20 +278,24 @@ def test_the_wrapper_refuses_unsupported_widths_on_cpu_tensors():
 # ---------------------------------------------------------------------------
 
 # (B, S, N, T, R, Rr, dtype) of every case chip_smoke.py phase 3c runs, and
-# (grid, split, chunk, stages, kernels a call) of its plan
+# (grid, split, chunk, kernels a call) of its plan
 PLANS = [
-    ((4, 1, 128, 1024, 512, 64, "bfloat16"), ((2, 8, 4), 8, 128, 2, 2)),
-    ((4, 3, 128, 1024, 512, 64, "bfloat16"), ((6, 4, 4), 4, 256, 2, 2)),
-    ((1, 64, 128, 64, 512, 64, "bfloat16"), ((128, 1, 1), 1, 64, 2, 1)),
-    ((1, 128, 128, 128, 512, 64, "bfloat16"), ((256, 1, 1), 1, 128, 2, 1)),
-    ((1, 256, 128, 256, 512, 64, "bfloat16"), ((512, 1, 1), 1, 256, 2, 1)),
-    ((1, 512, 128, 512, 512, 64, "bfloat16"), ((1024, 1, 1), 1, 512, 2, 1)),
-    ((8, 1, 128, 32768, 512, 64, "bfloat16"), ((2, 8, 8), 8, 4096, 2, 2)),
-    ((4, 1, 4, 256, 32, 16, "float32"), ((1, 1, 4), 1, 256, 0, 1)),
-    ((1, 16, 4, 16, 32, 16, "float32"), ((4, 1, 1), 1, 16, 0, 1)),
-    ((1, 128, 4, 128, 32, 16, "float32"), ((32, 1, 1), 1, 128, 0, 1)),
-    ((4, 1, 4, 256, 32, 16, "bfloat16"), ((1, 2, 4), 2, 128, 3, 2)),
-    ((2, 1, 128, 256, 512, 64, "bfloat16"), ((2, 2, 2), 2, 128, 2, 2)),
+    ((4, 1, 128, 1024, 512, 64, "bfloat16"), ((2, 8, 4), 8, 128, 2)),
+    ((4, 3, 128, 1024, 512, 64, "bfloat16"), ((6, 4, 4), 4, 256, 2)),
+    ((1, 64, 128, 64, 512, 64, "bfloat16"), ((128, 1, 1), 1, 64, 1)),
+    ((1, 128, 128, 128, 512, 64, "bfloat16"), ((256, 1, 1), 1, 128, 1)),
+    ((1, 256, 128, 256, 512, 64, "bfloat16"), ((512, 1, 1), 1, 256, 1)),
+    ((1, 512, 128, 512, 512, 64, "bfloat16"), ((1024, 1, 1), 1, 512, 1)),
+    ((8, 1, 128, 32768, 512, 64, "bfloat16"), ((2, 8, 8), 8, 4096, 2)),
+    ((4, 1, 4, 256, 32, 16, "float32"), ((1, 1, 4), 1, 256, 1)),
+    ((1, 16, 4, 16, 32, 16, "float32"), ((4, 1, 1), 1, 16, 1)),
+    ((1, 128, 4, 128, 32, 16, "float32"), ((32, 1, 1), 1, 128, 1)),
+    ((4, 1, 4, 256, 32, 16, "bfloat16"), ((1, 2, 4), 2, 128, 2)),
+    ((2, 1, 128, 256, 512, 64, "bfloat16"), ((2, 2, 2), 2, 128, 2)),
+    ((2, 1, 128, 320, 512, 64, "bfloat16"), ((2, 3, 2), 3, 128, 2)),
+    ((4, 1, 128, 1000, 512, 64, "bfloat16"), ((2, 8, 4), 8, 128, 2)),
+    ((4, 1, 128, 96, 512, 64, "bfloat16"), ((2, 1, 4), 1, 128, 1)),
+    ((1, 192, 128, 192, 512, 64, "bfloat16"), ((384, 1, 1), 1, 192, 1)),
 ]
 
 
@@ -299,34 +303,116 @@ PLANS = [
 def test_choose_launch_at_every_shape_phase_3c_runs(shape, plan):
     """One CTA a (row tile, chunk, batch row): row tiles of 64 (bf16) or 16
     (float32) rows cover S·N; the chunks cover [0, T) once, each starting
-    inside it, whole 64-position tiles for bf16; shared memory within a
-    CTA's 232448 bytes; the combine's kernel exactly where there is a
-    split (``Launch.kernels``)."""
+    inside it, whole 64-position tiles for bf16 and whole pairs of them
+    with a split; shared memory within a CTA's 232448 bytes; the combine's
+    kernel exactly where there is a split (``Launch.kernels``)."""
     B, S, N, T, R, Rr, dtype = shape
     launch = kernel.choose_launch(*shape)
     grid = launch.grid(B, S, N)
-    assert (grid, launch.split, launch.chunk, launch.stages, launch.kernels) == plan
+    assert (grid, launch.split, launch.chunk, launch.kernels) == plan
     rows = 64 if dtype == "bfloat16" else 16
     assert launch.rows == rows and grid[0] * rows >= S * N > (grid[0] - 1) * rows
     starts = [k * launch.chunk for k in range(launch.split)]
     assert all(s < T for s in starts) and launch.split * launch.chunk >= T
     if dtype == "bfloat16":
-        assert launch.chunk % kernel.TILE == 0
+        assert launch.chunk % (kernel.TILE * (2 if launch.split > 1 else 1)) == 0
         assert grid[0] * launch.split * B <= kernel.SMS or launch.split == 1
-    assert launch.smem_bytes == kernel.smem_bytes(dtype, R, Rr, launch.stages) <= 232448
+    assert launch.smem_bytes == kernel.smem_bytes(dtype, R, Rr) <= 232448
     assert kernel.check_launch(launch, B, S, N, T, R, Rr) is launch
 
 
 def test_shared_memory_and_stages_follow_the_widths():
-    """DeepSeek's widths fill a CTA: the 64 x 576 Q tile and two 64 x 576
-    K tiles of bf16 (72 KB each), the P tile, the row maxima, the
-    mbarriers; up to R 256 a third stage fits."""
-    assert kernel.smem_bytes("bfloat16", 512, 64, 2) == 229952 <= kernel.MAX_SMEM
-    assert kernel.smem_bytes("bfloat16", 512, 64, 3) > kernel.MAX_SMEM
-    assert kernel.choose_launch(1, 1, 64, 64, 384, 64, "bfloat16").stages == 2
-    assert kernel.choose_launch(1, 1, 64, 64, 256, 64, "bfloat16").stages == 3
+    """DeepSeek's widths fill a CTA: the 64 x 576 Q tile and the two 64 x
+    576 tile buffers of bf16 (72 KB each; each tile's P takes its rope box),
+    the six rows of 64 floats the warpgroups exchange, three mbarriers a
+    buffer, the limit; every width takes two buffers, none a third."""
+    assert kernel.smem_bytes("bfloat16", 512, 64) == 3 * 9 * 64 * 128 + 6 * 64 * 4 + 6 * 8 + 16
+    assert kernel.smem_bytes("bfloat16", 512, 64) == 222784 <= kernel.MAX_SMEM
+    assert kernel.smem_bytes("bfloat16", 384, 64) == 3 * 7 * 64 * 128 + 1600
+    assert kernel.choose_launch(1, 1, 64, 64, 384, 64, "bfloat16").smem_bytes == 173632
+    assert kernel.choose_launch(1, 1, 64, 64, 256, 64, "bfloat16").smem_bytes == 3 * 5 * 8192 + 1600
+    assert kernel.BUFFERS == 2 and kernel.THREADS == 256
     assert kernel.padded(32) == kernel.padded(128) == 128 and kernel.padded(400) == 512
-    assert kernel.smem_bytes("float32", 512, 64, 0) == 4 * (16 * 576 + 32 * 577 + 512 + 16) + 16
+    assert kernel.smem_bytes("float32", 512, 64) == 4 * (16 * 576 + 32 * 577 + 512 + 16) + 16
+
+
+def _chip_smoke():
+    """The repo's chip_smoke.py as a module (its top level imports only the
+    standard library)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_the_plans_cover_every_case_phase_3c_runs():
+    """``PLANS`` holds the shape of every case of ``chip_smoke.LATENT_CASES``,
+    the edges of the bf16 schedule among them (and the masked row's)."""
+    cases = {(B, S, N, T, R, Rr, d) for _, B, S, T, N, R, Rr, d, _, _ in
+             _chip_smoke().LATENT_CASES}
+    assert cases <= {shape for shape, _ in PLANS}
+
+
+@pytest.mark.parametrize("tiles,pairs", [
+    (1, [(0, None)]),
+    (2, [(0, 1)]),
+    (3, [(0, 1), (2, None)]),
+    (8, [(0, 1), (2, 3), (4, 5), (6, 7)]),
+], ids=["one tile", "one pair", "odd count", "four pairs"])
+def test_tile_pairs_give_warpgroup_0_the_even_tiles_and_a_lone_last_tile(tiles, pairs):
+    """Warpgroup 0 scores the first tile of each pair, warpgroup 1 the
+    second; a chunk of one tile, or the last of an odd count, leaves
+    warpgroup 1 no scores.  Every tile is scored once, in order."""
+    got = kernel.tile_pairs(tiles)
+    assert got == pairs
+    assert [t for pair in got for t in pair if t is not None] == list(range(tiles))
+
+
+def _cta_tiles(S, N, T):
+    """The tiles each bf16 CTA of a prompt pass reads, in launch order:
+    its rows' largest visible end (the last row's position + 1) in whole
+    tiles."""
+    launch = kernel.choose_launch(1, S, N, T, 512, 64, "bfloat16")
+    row_tiles = launch.grid(1, S, N)[0]
+    out = []
+    for x in range(row_tiles):
+        rt = kernel.row_tile(x, row_tiles)
+        last = min(rt * 64 + 63, S * N - 1) // N
+        out.append(-(-(last + 1) // kernel.TILE))
+    return out
+
+
+@pytest.mark.parametrize("S", [64, 192, 512], ids=lambda S: f"prompt {S}")
+def test_a_prompt_starts_its_heaviest_row_tiles_first(S):
+    """blockIdx.x runs over the row tiles from the last: the prompt's last
+    tokens, which read the most tiles, launch first, and the tiles each CTA
+    reads never grow along the launch order."""
+    tiles = _cta_tiles(S, 128, S)
+    assert tiles[0] == max(tiles) == -(-S // 64)
+    assert all(a >= b for a, b in zip(tiles, tiles[1:]))
+    assert [kernel.row_tile(x, 4) for x in range(4)] == [3, 2, 1, 0]
+
+
+@pytest.mark.parametrize("shape", [
+    *[(1, b, 128, b, 512, 64) for b in (64, 128, 256, 512)],
+    (8, 1, 128, 32768, 512, 64),
+], ids=["bucket 64", "bucket 128", "bucket 256", "bucket 512", "decode_32k"])
+def test_each_bucket_and_decode_32k_fit_a_cta(shape):
+    """Every prompt bucket's plan and decode_32k's share take the pair of
+    buffers within a CTA's 232448 bytes (one CTA an SM), a prompt in one
+    split, decode_32k in chunks of whole pairs over the card's SMs."""
+    launch = kernel.choose_launch(*shape, "bfloat16")
+    assert launch.smem_bytes == 222784 <= kernel.MAX_SMEM == 232448
+    B, S, N, T = shape[:4]
+    if S > 1:
+        assert launch.split == 1 and launch.chunk == T
+    else:
+        assert launch.chunk % (2 * kernel.TILE) == 0
+        assert B * launch.grid(B, S, N)[0] * launch.split <= kernel.SMS
 
 
 def _served():
@@ -340,9 +426,10 @@ def _served():
     (lambda l: dict(chunk=64), "cover it"),
     (lambda l: dict(chunk=96), "cover it"),
     (lambda l: dict(chunk=1024), "cover it"),
-    (lambda l: dict(stages=4), "stages"),
-    (lambda l: dict(stages=3), "shared memory"),
+    (lambda l: dict(split=0), "split of 0"),
+    (lambda l: dict(smem_bytes=l.smem_bytes - 16), "shared memory"),
     (lambda l: dict(smem_bytes=l.smem_bytes + 1), "shared memory"),
+    (lambda l: dict(split=5, chunk=192), "cover it"),
 ])
 def test_check_launch_refuses_past_the_limits(change, match):
     launch = _served()
@@ -382,7 +469,7 @@ def fake_launch(monkeypatch):
 
 
 # argument positions of the library call (csrc latent_attention)
-ARG_PARTS, ARG_STRIDES, ARG_KVL_B, ARG_PLAN = slice(5, 7), 9, 12, slice(20, 25)
+ARG_PARTS, ARG_STRIDES, ARG_KVL_B, ARG_PLAN = slice(5, 7), 9, 12, slice(20, 24)
 
 
 def test_the_plan_is_a_function_of_shapes_alone(fake_launch):
@@ -408,7 +495,7 @@ def test_the_plan_is_a_function_of_shapes_alone(fake_launch):
     assert out.shape == big[0].shape and out.is_contiguous()
     args = fake_launch.calls[-1]
     assert all(p is not None for p in args[ARG_PARTS])
-    assert args[ARG_PLAN] == (64, 8, 128, 2, 229952)
+    assert args[ARG_PLAN] == (64, 8, 128, 222784)
 
 
 def test_the_model_layouts_are_read_in_place(fake_launch):

@@ -4,6 +4,7 @@ device time of MLA's plain absorbed attention by stage, for two checkouts
 in turns.
 
     python3 tools/mla_replays.py [--roots build/parent,.] [--order 0,1,1,0]
+                                 [--kernels [--variants]]
 
 For each entry of ``--order`` (an index into ``--roots``) a child process
 imports ``repro_torch`` from that checkout's ``src/`` and serves
@@ -28,6 +29,20 @@ records:
   the mask and ``where``, the softmax, the cast to bf16 and the context
   einsum, and the whole; beside it B6 where the served checkout has it.
 
+With ``--kernels`` each child times B6 alone instead, from its checkout's
+``latent_attention.cu``, at the three shapes phase 3c times (the served
+decode, decode_32k's share, prefill bucket 512; ``chip_smoke.LATENT_TIMED``,
+inputs from ``chip_smoke._latent_inputs``): in a CUDA graph, with the plan,
+ptxas's registers, spills and serialization notes
+(``chip_smoke.latent_registers``); at the served decode also the attention
+kernel and ``latent_combine`` apart (torch.profiler over 20 calls).  With
+``--variants`` as well, the same for two copies of that source edited as
+``VARIANTS`` says: the products removed, so the loads alone are left; the
+cache's loads removed, so the products and the softmax are left.  The
+edits are written for the two-warpgroup kernel: the run fails on a source
+where an edit's text does not occur exactly once.  It writes
+``chiprun_out/mla_kernels_<i>.json``.
+
 Each child writes ``chiprun_out/mla_replays_<i>.json``; the parent prints
 one line a run.  Numbers are the card's only when it runs there.
 """
@@ -46,6 +61,20 @@ HERE = Path(__file__).resolve().parents[1]
 OUT = HERE / "chiprun_out"
 REF = HERE / "src" / "repro_torch" / "kernels" / "latent_attention" / "ref.py"
 B2, B6 = "stream_pack_", "latent_"
+# Timing variants of the two-warpgroup bf16 kernel as text edits of its
+# source, (OLD, NEW) each, every OLD exactly once in it.
+VARIANTS = {
+    "no_products": [("wgmma_ss<64>(s, make_desc(", "if (0) wgmma_ss<64>(s, make_desc("),
+                    ("wgmma_rs<64>(acc[c], pa[kk],", "if (0) wgmma_rs<64>(acc[c], pa[kk],"),
+                    ("wgmma_n64_mn(acc[c], make_desc(p_box",
+                     "if (0) wgmma_n64_mn(acc[c], make_desc(p_box"),
+                    ("wgmma_rs_n256(acc, pa[kk],", "if (0) wgmma_rs_n256(acc, pa[kk],"),
+                    ("wgmma_n256_mn(acc, make_desc(p_box",
+                     "if (0) wgmma_n256_mn(acc, make_desc(p_box")],
+    "no_loads": [("mbar_expect_tx(bar, n * BOX_BYTES);", "mbar_arrive(bar);"),
+                 ("if (c < boxes) tma_load3(", "if (0) tma_load3("),
+                 ("if (rope) tma_load3(", "if (0) tma_load3(")],
+}
 
 
 def plain_stages(cs, q_lat, q_rope, ckv, krope, positions, kv_len, scale) -> dict:
@@ -169,24 +198,123 @@ def child(root: Path, index: int) -> None:
     print(json.dumps(rec), flush=True)
 
 
+def variant_sources(source: Path, into: Path) -> dict:
+    """An edited copy of ``source`` for each of ``VARIANTS``, each beside a
+    copy of the header it includes, at the same relative path.  Raises
+    ``SystemExit`` where an edit's OLD text does not occur exactly once."""
+    text = source.read_text()
+    header = source.parents[2] / "flash_attention" / "csrc" / "hopper.cuh"
+    out = {}
+    for name, edits in VARIANTS.items():
+        new = text
+        for old, rep in edits:
+            if text.count(old) != 1:
+                raise SystemExit(f"{source}: variant {name}'s edit {old!r} occurs "
+                                 f"{text.count(old)} times, not once")
+            new = new.replace(old, rep)
+        copy = into / name / "latent_attention" / "csrc" / f"latent_attention_{name}.cu"
+        copy.parent.mkdir(parents=True, exist_ok=True)
+        copy.write_text(new)
+        shared = into / name / "flash_attention" / "csrc" / header.name
+        shared.parent.mkdir(parents=True, exist_ok=True)
+        shared.write_text(header.read_text())
+        out[name] = copy
+    return out
+
+
+def kernel_child(root: Path, index: int, variants: bool) -> None:
+    """B6 alone at phase 3c's timed shapes, and its variants: see the
+    module's docstring."""
+    sys.path[:0] = [str(root / "src"), str(HERE)]
+    from concurrent.futures import ThreadPoolExecutor
+
+    import chip_smoke as cs
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.latent_attention import kernel as b6
+    from repro_torch.kernels.latent_attention import latent_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sources = {"kernel": b6.SOURCE}
+    if variants:
+        sources.update(variant_sources(b6.SOURCE, HERE / "build" / "mla_kernels" / str(index)))
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(build.build, sources.values()))
+    rec = dict(root=str(root), device=torch.cuda.get_device_name(0), nvidia_smi=cs.nvidia_smi(),
+               ptxas={}, ms={}, plans={})
+    cases = {name: cs.LATENT_CASES[i] for name, i in
+             zip(("served_decode", "decode_32k", "prefill_512"), cs.LATENT_TIMED)}
+    inputs = {}
+    for name, (label, B, S, T, N, R, Rr, dname, kvv0d, prompt) in cases.items():
+        *ten, scale = cs._latent_inputs(B, S, T, N, R, Rr, dname, kvv0d, prompt, seed=600 + T,
+                                        full=True)
+        inputs[name] = (ten, scale)
+        rec["plans"][name] = cs.latent_plan_text(b6.launch_for(*ten[:3]), B, S, N)
+    with torch.no_grad():
+        for variant, source in sources.items():
+            b6.SOURCE, b6._lib = source, None
+            b6._ready_devices.clear()
+            rec["ptxas"][variant] = {k: v for k, v in
+                                     cs.latent_registers(build.build_log(source)).items()
+                                     if k.startswith("latent_attention_kernel")}
+            rec["ms"][variant] = {
+                name: cs.graph_ms(lambda ten=ten, scale=scale: latent_attention(*ten, scale=scale),
+                                  10, 20)
+                for name, (ten, scale) in inputs.items()}
+        b6.SOURCE, b6._lib = sources["kernel"], None
+        b6._ready_devices.clear()
+        ten, scale = inputs["served_decode"]
+
+        def twenty():
+            for _ in range(20):
+                out = latent_attention(*ten, scale=scale)
+            return out
+
+        rec["served_decode_kernels_us"] = {
+            name: us / count for us, count, name in cs.by_kernel(cs.kernels_in_one(twenty))}
+    OUT.mkdir(exist_ok=True)
+    (OUT / f"mla_kernels_{index}.json").write_text(json.dumps(rec, indent=1))
+    print(json.dumps(rec), flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--roots", default="build/parent,.")
     ap.add_argument("--order", default="0,1,1,0")
+    ap.add_argument("--kernels", action="store_true",
+                    help="time B6 alone instead of the replays")
+    ap.add_argument("--variants", action="store_true",
+                    help="with --kernels, also the loads alone and the products alone")
     ap.add_argument("--child", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--root", default=None, help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
     if a.child is not None:
-        child(Path(a.root).resolve(), a.child)
+        if a.kernels:
+            kernel_child(Path(a.root).resolve(), a.child, a.variants)
+        else:
+            child(Path(a.root).resolve(), a.child)
         return
     roots = [(HERE / r).resolve() for r in a.roots.split(",")]
     runs = []
     for i, k in enumerate(int(x) for x in a.order.split(",")):
         proc = subprocess.run([sys.executable, __file__, "--child", str(i), "--root",
-                               str(roots[k])], cwd=HERE, capture_output=True, text=True)
+                               str(roots[k])] + ["--kernels"] * a.kernels
+                              + ["--variants"] * a.variants, cwd=HERE,
+                              capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-8000:])
             raise SystemExit(f"run {i} ({roots[k]}) failed: rc {proc.returncode}")
+        if a.kernels:
+            rec = json.loads((OUT / f"mla_kernels_{i}.json").read_text())
+            print(f"run {i} {roots[k].name or roots[k]}: {rec['device']} ({rec['nvidia_smi']}) | "
+                  f"plans {rec['plans']}", flush=True)
+            for variant, ms in rec["ms"].items():
+                print(f"    {variant:12s} " + " | ".join(f"{n} {v:.5f} ms" for n, v in ms.items())
+                      + f" | ptxas {rec['ptxas'][variant]}", flush=True)
+            print(f"    served decode by kernel (us a call): "
+                  f"{rec['served_decode_kernels_us']}", flush=True)
+            continue
         rec = json.loads((OUT / f"mla_replays_{i}.json").read_text())
         runs.append(rec)
         pk = rec["prefill_kernels"]
