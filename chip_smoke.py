@@ -8,9 +8,9 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
 1. device: name, count, power limit; TF32 off for float32 matmuls and
    convolutions;
 2. build: compile the kernels (flash attention B1, its backward, stream_pack
-   B2, decode attention B3, AdamW B4, cross-entropy B5, latent attention B6)
-   for sm_90a, one nvcc for each source, all started together; print their
-   ptxas register /
+   B2, decode attention B3, AdamW B4, cross-entropy B5, latent attention B6,
+   expanded attention B7 and its backward) for sm_90a, one nvcc for each
+   source, all started together; print their ptxas register /
    shared-memory / spill reports;
 3. kernel against its plain PyTorch version on the card over a sweep of
    dtypes, head dims (zamba2's 80 among them), GQA groups, lengths (ragged
@@ -68,6 +68,26 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    ``F.scaled_dot_product_attention`` call over q = [q_lat | q_rope], k =
    [ckv | krope], v = ckv in three layouts under each backend (a
    yardstick only; each refusal printed with its reasons) and the bound;
+3d. expanded attention (B7), MLA's expanded form, forward (with each row's
+   log-sum-exp) and backward (the five gradients), against its plain
+   versions computed in float32 from the same inputs (``EXPANDED_CASES``:
+   19h's shape, q (2, 4096, 128, 128 + 64) and v 128, a 16x16 device's
+   train_4k share (16, 4096, 8, ·), 21b's prompt (2, 256, 128, ·), S 1, 63,
+   65, 512 and 1000, a q_pos that is not arange with rows that see no key,
+   the smoke widths at bf16 and at float32), q_nope and q_rope the split views of one query and k_rope the
+   [:, :, 0] view the model makes, each within ``EXPANDED_GRAD_TOL`` (the
+   output at B3's), every case twice with the same bits, no layout copy,
+   every (dtype, direction) of the library launched (the wrappers'
+   counts); ptxas's registers and
+   spills for each of its ten kernels (a spill or a serialization note
+   fails the run); then at 19h's shape and the train_4k share the forward
+   and the forward + backward timed in a CUDA graph and from Python beside
+   the plain version (from Python, a few batch rows and heads at a time so
+   that its scores fit), the bound (the causal half's products at the bf16 peak: the
+   forward's two, the backward's five) and the fastest
+   ``F.scaled_dot_product_attention`` backend over q = [q_nope | q_rope],
+   k = [k_nope | k_rope broadcast], v, ``is_causal`` (a yardstick only;
+   each refusal printed);
 4. serve: phi4-mini-3.8b at full width and depth, bf16, random weights made
    on the card from a seed, 8 requests through ``ServingEngine`` with
    CUDA-graph-sealed steps; checks the tokens and that prefill went
@@ -218,7 +238,18 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
     one replay with each one's share of its time, and a checkpoint
     restored into a fresh model giving the next replay's loss bit for bit;
     (d) the phi4-mini, arctic and deepseek-v2 smoke configs at float32: one
-    sealed step on the card (B4's kernels counted) against the CPU's; (e) Nimble over the
+    sealed step on the card (B4's kernels counted; deepseek's MLA on B7's
+    float32 kernels, forward and backward) against the CPU's; (h)
+    deepseek-v2-236b at full width (d 5120, 128 heads, q_lora 1536, kv_lora
+    512, 160 experts) cut to 1 of its 60 layers, bf16, AdamW on B4, the loss
+    on B5, the expert GEMMs and their backward on B2, MLA's expanded form on
+    B7, batch 2 x 4096 from ``SyntheticLM`` (train_4k's sequence length): 3
+    eager steps against 3 replays of the step sealed as one CUDA graph from
+    the same state (losses, grad norms and parameters bit for bit), 20
+    replays in all (the loss must fall), ms per step eager and replayed,
+    tok/s, seal s, peak memory, no layout copy, and one profiled replay's
+    kernels: B7's five (forward, pre-pass, dK/dV, dQ, rope reduce) beside
+    B2's, B4's and B5's shares; (e) Nimble over the
     gradients of the four branchy cells at full size, eager torch.func
     against single-stream, multi-stream and packed replays, µs per call;
 20. the launch layer: (a) the dry run (``repro_torch.launch.dryrun``) of
@@ -252,7 +283,8 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
     eager (DTensor's dispatch on the host) and replayed, each beside 19c's;
     (b) deepseek-v2-236b at full width and 2 layers, bf16: a sharded
     ``forward`` of a 2 x 256 prompt, logits bit-identical to the unsharded
-    forward's, B2 launched through ``local_map`` 3 times a layer; (c) the
+    forward's, B2 launched through ``local_map`` 3 times a layer and B7
+    (MLA's expanded form) once a layer; (c) the
     dry run's memory count (a fake (1, 1) mesh, meta tensors) at 19c's
     step: its predicted peak (argument + temp + output bytes) against
     19c's measured eager peak less what earlier phases left allocated,
@@ -322,7 +354,11 @@ wrapper's counts for the capture (``B1BWD_REPLAYS``, ``B4_REPLAYS``,
 launches are counted over each path that serves DeepSeek-V2
 (``B6_BY_PATH``: phases 9, 10, 16 and 23, each of which must launch it, none
 after phase 3c with a layout copy), and its kernels in the profiled replays
-of phases 9 and 23 over their calls (``B6_REPLAYS``).
+of phases 9 and 23 over their calls (``B6_REPLAYS``).  B7's calls, forward
+and backward, are counted over each path that runs MLA's expanded form
+(``B7_BY_PATH``: 19d, 19h and 21b, each of which must launch it, none
+after phase 3d with a layout copy), and its kernels in 19h's profiled
+replay over the capture's calls (``B7_REPLAYS``).
 
 The line before the last is the per-kernel JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -471,6 +507,8 @@ def phase_build():
     from repro_torch.kernels.adamw import kernel as adamw
     from repro_torch.kernels.cross_entropy import kernel as ce
     from repro_torch.kernels.decode_attention import kernel as decode
+    from repro_torch.kernels.expanded_attention import backward as expanded_bwd
+    from repro_torch.kernels.expanded_attention import kernel as expanded
     from repro_torch.kernels.flash_attention import backward as flash_bwd
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.latent_attention import kernel as latent
@@ -478,7 +516,7 @@ def phase_build():
 
     say("== phase 2: build")
     sources = [flash.SOURCE, flash_bwd.SOURCE, pack.SOURCE, decode.SOURCE, adamw.SOURCE,
-               ce.SOURCE, latent.SOURCE]
+               ce.SOURCE, latent.SOURCE, expanded.SOURCE, expanded_bwd.SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:      # one nvcc per source
         list(pool.map(build.build, sources))
@@ -1577,6 +1615,366 @@ def latent_time(label, B, S, T, N, R, Rr, dname, kvv0d, prompt) -> dict:
                 library_ms_by_call=lib_ms, library_tolerance_ratio=lib_ratio,
                 library_default=default, library_refusals=refused, bound_ms=bound_ms,
                 bound_by=bound_by, bytes=nbytes, kernels_per_call=launch.kernels)
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: expanded attention (B7), forward and backward
+# ---------------------------------------------------------------------------
+
+# (label, B, S, N, nope, rope, dv, dtype, positions): q (B, S, N, nope +
+# rope) split into its two views, k_rope the [:, :, 0, :] view of (B, S, 1,
+# rope), T = S; positions "arange" (every caller's), "mixed" (a permutation
+# with repeats, negative entries whose rows see no key, entries past S)
+EXPANDED_CASES = [
+    ("19h: deepseek-v2-236b's train step, 2 x 4096", 2, 4096, 128, 128, 64, 128, "bfloat16",
+     "arange"),
+    ("train_4k's share of a 16x16 device", 16, 4096, 8, 128, 64, 128, "bfloat16", "arange"),
+    *[(f"S {S}", 2, S, 8, 128, 64, 128, "bfloat16", "arange") for S in (1, 63, 65, 512)],
+    ("S 1000: ragged tiles", 2, 1000, 8, 128, 64, 128, "bfloat16", "arange"),
+    ("a q_pos that is not arange", 2, 300, 8, 128, 64, 128, "bfloat16", "mixed"),
+    ("the smoke widths at bf16", 2, 200, 4, 32, 16, 32, "bfloat16", "arange"),
+    ("19d: deepseek-v2-smoke at float32", 2, 64, 4, 32, 16, 32, "float32", "arange"),
+    ("float32, ragged, a q_pos that is not arange", 2, 130, 4, 32, 16, 32, "float32", "mixed"),
+    ("21b: the sharded forward's prompt, 2 x 256", 2, 256, 128, 128, 64, 128, "bfloat16",
+     "arange"),
+]
+# the shapes B7 is timed at: 19h's and the train_4k share
+EXPANDED_TIMED = (0, 1)
+# B7's tolerance, |got - ref| <= atol + rtol * |ref| elementwise, the
+# reference computed in float32 from the same inputs.  float32: 1e-4 + 1e-4
+# (summation order, as B1's backward).  bf16: the output takes B3's
+# (DECODE_TOL: the bf16 probabilities and the output's rounding); each
+# gradient rtol 2**-7 (its own bf16 rounding, half an ulp: 2**-9, and D =
+# rowsum(dO * o) from the bf16 output, about 2**-9 more of dS) and atol
+# 2**-7 of the larger of the gradient's largest |ref| and 1 (sums over up
+# to 4096 queries or keys of terms with those errors; P and dS enter their
+# products to about 16 bits, as B1's backward; the inputs are unit normal,
+# and a gradient that is 0 by symmetry, as dq and dk at S 1, where each
+# row's softmax is 1, comes out as rounding noise)
+EXPANDED_GRAD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2.0 ** -7, 2.0 ** -7)}
+EXPANDED_GRADS = ("dq_nope", "dq_rope", "dk_nope", "dk_rope", "dv")
+
+
+def _expanded_inputs(B, S, N, nope, rope, dv, dname, kind, seed):
+    """q_nope, q_rope, k_nope, k_rope, v, q_pos, dO and the scale on the
+    card, in the layouts the model gives them: q_nope and q_rope the split
+    views of one (B, S, N, nope + rope) query, k_rope the [:, :, 0, :] view
+    of (B, S, 1, rope)."""
+    import torch
+
+    dt = getattr(torch, dname)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dt)
+
+    q_nope, q_rope = randn(B, S, N, nope + rope).split([nope, rope], dim=-1)
+    k_nope, k_rope, v = randn(B, S, N, nope), randn(B, S, 1, rope)[:, :, 0, :], randn(B, S, N, dv)
+    q_pos = torch.arange(S, device="cuda")
+    if kind == "mixed":
+        q_pos = torch.randint(-3, S + 4, (S,), generator=g, device="cuda")
+        q_pos[:3] = torch.tensor([-1, S + 2, 0], device="cuda")
+    return q_nope, q_rope, k_nope, k_rope, v, q_pos, randn(B, S, N, dv), 1.0 / math.sqrt(nope + rope)
+
+
+def expanded_plain(ten, do, scale, backward=True):
+    """The plain version's forward and, with ``backward``, its backward on
+    ``ten`` (q_nope, q_rope, k_nope, k_rope, v, q_pos) and ``do`` as given, a
+    few batch rows and heads at a time so that each chunk's (b, n, S, T)
+    float32 scores stay within 2 GiB: ``(o, lse, grads)`` in float32
+    (``grads`` None without ``backward``), dK_rope the chunks' float32 sum
+    over the heads."""
+    import torch
+
+    from repro_torch.kernels.expanded_attention import (expanded_attention_bwd_ref,
+                                                        expanded_attention_ref)
+
+    q_nope, q_rope, k_nope, k_rope, v, q_pos = ten
+    B, S, N, _ = q_nope.shape
+    T = k_nope.shape[1]
+    per = max(1, 2 ** 31 // (4 * S * T))           # (batch row, head) pairs a chunk
+    hn = min(N, per)
+    bn = max(1, min(B, per // hn))
+    o = torch.empty(do.shape, device="cuda")
+    lse = torch.empty((B, N, S), device="cuda")
+    grads = [torch.zeros(t.shape, device="cuda") for t in ten[:5]] if backward else None
+    for b0 in range(0, B, bn):
+        for h0 in range(0, N, hn):
+            bs, hs = slice(b0, b0 + bn), slice(h0, h0 + hn)
+            part = [q_nope[bs, :, hs], q_rope[bs, :, hs], k_nope[bs, :, hs], k_rope[bs],
+                    v[bs, :, hs], q_pos]
+            oc, lc = expanded_attention_ref(*part, scale=scale)
+            o[bs, :, hs], lse[bs, hs] = oc, lc
+            if backward:
+                gc = expanded_attention_bwd_ref(*part[:5], oc, lc, do[bs, :, hs], q_pos,
+                                                scale=scale)
+                for i, gi in enumerate(gc):
+                    if i == 3:
+                        grads[3][bs] += gi
+                    else:
+                        grads[i][bs, :, hs] = gi
+                del gc
+            del oc, lc
+    return o, lse, grads
+
+
+def expanded_registers() -> dict:
+    """Registers, spill bytes (stores, loads) and whether ptxas serialized
+    its ``wgmma`` (a C75xx note) of each of B7's kernels, by name, from the
+    build logs of both sources."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.expanded_attention import backward, kernel
+
+    def name_in(line):
+        found = re.search(r"(exp_fwd_bf16|exp_fwd_f32|exp_bwd_prep|exp_dkdv_bf16|exp_dq_bf16|"
+                          r"exp_dkdv_f32|exp_dq_f32|exp_rope_reduce)(I(\w+?)EEv)?", line)
+        if not found:
+            return None
+        if found[1] in ("exp_bwd_prep", "exp_rope_reduce"):
+            return f"{found[1]}<{'bf16' if 'bfloat16' in line else 'f32'}>"
+        return found[1]
+
+    out, serialized = {}, set()
+    for source in (kernel.SOURCE, backward.SOURCE):
+        entry = None
+        for line in build.build_log(source).splitlines():
+            if "serialized" in line and name_in(line):
+                serialized.add(name_in(line))
+            elif "Compiling entry" in line:
+                entry = name_in(line)
+                if entry:
+                    out[entry] = {}
+            elif entry is not None and "spill stores" in line:
+                st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                   line).groups()
+                out[entry]["spills"] = (int(st), int(ld))
+            elif entry is not None and "Used" in line and "registers" in line:
+                out[entry]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    for name, rec in out.items():
+        rec["serialized"] = name in serialized
+    return out
+
+
+def expanded_check(label, B, S, N, nope, rope, dv, dname, kind, seed) -> tuple:
+    """One case: B7's forward (with its LSE) and backward against the plain
+    version (float32 from the same inputs: bf16 to float32 loses nothing),
+    each run twice for the same bits.  Returns the largest ratio to the
+    tolerance, the largest |err|, and the (dtype, direction) kernels whose
+    wrappers counted their launches."""
+    import torch
+
+    from repro_torch.kernels.expanded_attention import backward as b7_bwd
+    from repro_torch.kernels.expanded_attention import kernel as b7
+
+    *ten, do, scale = _expanded_inputs(B, S, N, nope, rope, dv, dname, kind, seed)
+    copies, fwd0, bwd0 = b7.layout_copies, b7.launches, b7_bwd.launches
+    with torch.no_grad():
+        o, lse = b7.attend(*ten, scale=scale, with_lse=True)
+        grads = b7_bwd.expanded_attention_bwd(*ten[:5], o, lse, do, ten[5], scale=scale)
+        o2, lse2 = b7.attend(*ten, scale=scale, with_lse=True)
+        grads2 = b7_bwd.expanded_attention_bwd(*ten[:5], o, lse, do, ten[5], scale=scale)
+    torch.cuda.synchronize()
+    same = torch.equal(o, o2) and torch.equal(lse, lse2) and all(
+        torch.equal(a, b) for a, b in zip(grads, grads2))
+    if not same:
+        fail(f"B7 at {label} ({dname}): two calls on the same inputs differ")
+    if b7.layout_copies != copies:
+        fail(f"B7 at {label}: the model's layouts took {b7.layout_copies - copies} layout copies")
+    launched = {(dname, way) for way, n in (("forward", b7.launches - fwd0),
+                                            ("backward", b7_bwd.launches - bwd0)) if n == 2}
+    del o2, lse2, grads2
+    ro, rl, rg = expanded_plain([t.float() for t in ten[:5]] + [ten[5]], do.float(), scale)
+    ratios = {"o": decode_ratio(o, ro, dname)}
+    ratios["lse"] = (lse - rl).abs().max().item() / (1e-4 + 1e-4 * rl.abs().max().item())
+    if kind == "mixed":          # a fully masked row's LSE is -1e30 + log T: compare the rest
+        live = (ten[5] >= 0)[None, None].expand_as(rl)
+        ratios["lse"] = ((lse - rl).abs()[live].max().item()
+                         / (1e-4 + 1e-4 * rl[live].abs().max().item()))
+    atol, rtol = EXPANDED_GRAD_TOL[dname]
+    for name, got, ref in zip(EXPANDED_GRADS, grads, rg):
+        scale_ref = max(ref.abs().max().item(), 1.0) if dname == "bfloat16" else 1.0
+        ratios[name] = ratio(got, ref, atol * scale_ref, rtol)
+    worst = max(ratios.values())
+    ok = math.isfinite(worst) and worst <= 1.0
+    err = max([(o.float() - ro).abs().max().item()]
+              + [(a.float() - b).abs().max().item() for a, b in zip(grads, rg)])
+    say(f"  {dname:8s} {label}: B={B} S={S} N={N} nope={nope} rope={rope} v={dv} q_pos {kind} | "
+        + ", ".join(f"{k} {v:.2f}" for k, v in ratios.items())
+        + f" of tolerance | max_abs_err o {(o.float() - ro).abs().max().item():.3e} | twice: "
+          f"the same bits | {'ok' if ok else 'FAIL'}")
+    del ten, do, o, lse, grads, ro, rl, rg
+    torch.cuda.empty_cache()
+    return (worst if ok else float("inf")), err, launched
+
+
+def expanded_cases(cases=EXPANDED_CASES) -> tuple[list, float, list, set]:
+    """Every case of ``cases`` (:func:`expanded_check`): the labels of those
+    outside their tolerance, the worst ratio, each case's max |err|, and the
+    (dtype, direction) kernels launched."""
+    failed, worst, errs, launched = [], 0.0, [], set()
+    for i, case in enumerate(cases):
+        r, err, ran = expanded_check(*case, seed=700 + i)
+        errs.append(err)
+        launched |= ran
+        if not r <= 1.0:
+            failed.append(case[0])
+        worst = max(worst, r)
+    return failed, worst, errs, launched
+
+
+def phase_expanded_kernel() -> dict:
+    import torch
+
+    from repro_torch.kernels.expanded_attention import kernel as b7
+
+    say("== phase 3d: expanded_attention (B7) forward and backward vs the plain version "
+        "(float32 from the same inputs) at 19h's shape, a 16x16 device's train_4k share, "
+        "ragged and short lengths, a q_pos that is not arange and the smoke widths "
+        f"(tolerance: o B3's; gradients f32 {EXPANDED_GRAD_TOL['float32']}, bf16 rtol 2^-7 and "
+        "atol 2^-7 of max(the gradient's largest |ref|, 1))")
+    ptxas = expanded_registers()
+    for name, rep in sorted(ptxas.items()):
+        say(f"  ptxas {name}: {rep.get('registers')} registers, spills (stores, loads) "
+            f"{rep.get('spills')}{', wgmma serialized' if rep.get('serialized') else ''}")
+    bad = [name for name, rep in ptxas.items()
+           if rep.get("spills") != (0, 0) or rep.get("serialized")]
+    if bad or len(ptxas) < 10:
+        fail(f"B7's kernels spill registers or have their wgmma serialized ({bad}), or ptxas "
+             f"reported {len(ptxas)} of its 10 kernels")
+    failed, worst, errs, launched = expanded_cases()
+    if failed:
+        fail(f"B7 disagrees with its plain version at {failed}")
+    missing = sorted(set(b7.INSTANCES) - launched)
+    if missing:
+        fail(f"phase 3d launched no {missing}")
+    say(f"  {len(EXPANDED_CASES)} cases within tolerance, each twice with the same bits, every "
+        f"kernel of the library launched (worst at {worst:.2f} of its tolerance)")
+    record = expanded_time(*EXPANDED_CASES[EXPANDED_TIMED[0]])
+    record["train_4k_share"] = expanded_time(*EXPANDED_CASES[EXPANDED_TIMED[1]])
+    # the largest |kernel - plain| over o and the five gradients at 19h's shape
+    record["max_abs_err"] = errs[EXPANDED_TIMED[0]]
+    record["max_abs_err_by_case"] = dict(zip((c[0] for c in EXPANDED_CASES), errs))
+    record["ptxas"] = ptxas
+    return record
+
+
+def expanded_library(ten, do, scale) -> tuple[dict, dict]:
+    """B7's library yardstick: ``F.scaled_dot_product_attention`` over q =
+    [q_nope | q_rope], k = [k_nope | k_rope broadcast to the N heads] and v,
+    (B, N, S, ·), ``is_causal`` (the model's q_pos is arange), under each
+    fused backend: forward, and forward + backward through autograd.
+    Returns the calls that ran by "BACKEND" and "BACKEND+bwd", and the
+    refusals with each backend's reasons."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q_nope, q_rope, k_nope, k_rope, v, _ = ten
+    N = q_nope.shape[2]
+    q = torch.cat([q_nope, q_rope], -1).transpose(1, 2)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(-1, -1, N, -1)], -1).transpose(1, 2)
+    vt, dot = v.transpose(1, 2), do.transpose(1, 2)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, vt)]
+    ran, refused = {}, {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        def fwd(backend=backend):
+            with sdpa_kernel([backend]), torch.no_grad():
+                return F.scaled_dot_product_attention(q, k, vt, is_causal=True, scale=scale)
+
+        def both(backend=backend):
+            with sdpa_kernel([backend]):
+                out = F.scaled_dot_product_attention(*leaves, is_causal=True, scale=scale)
+                return torch.autograd.grad(out, leaves, dot)
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            try:
+                fwd()
+                both()
+                torch.cuda.synchronize()
+                ran[backend.name], ran[backend.name + "+bwd"] = fwd, both
+            except RuntimeError as e:
+                refused[backend.name] = sdpa_reasons(backend.name, [str(w.message) for w in caught]) \
+                    or str(e).splitlines()[0][:300]
+    return ran, refused
+
+
+def expanded_time(label, B, S, N, nope, rope, dv, dname, kind) -> dict:
+    """B7 at one of the training paths' shapes: the forward alone and the
+    forward + backward, in a CUDA graph and launched from Python, beside
+    the plain version (:func:`expanded_plain`, from Python), the library
+    (:func:`expanded_library`'s fastest call: a yardstick only, the port
+    never calls it) and the bound: the products of the causal half (the
+    pairs this run's q_pos makes visible) at the bf16 peak, the forward's
+    two and the backward's five (the scores recomputed once, dP, dV, dQ,
+    dK: 2.6x the forward), against each input read once and each output
+    written once."""
+    import torch
+
+    from repro_torch.kernels.expanded_attention import backward as b7_bwd
+    from repro_torch.kernels.expanded_attention import kernel as b7
+
+    *ten, do, scale = _expanded_inputs(B, S, N, nope, rope, dv, dname, kind, seed=790 + S)
+    T = S
+    pairs = int(torch.clamp(ten[5] + 1, 0, T).sum()) * B * N
+    fwd_flops = 2.0 * pairs * (nope + rope + dv)
+    bwd_flops = 2.0 * pairs * (3 * (nope + rope) + 2 * dv)
+    esize = ten[0].element_size()
+    inputs = sum(t.numel() for t in ten[:5]) * esize
+    out = B * S * N * dv * esize
+    fwd_bytes = inputs + out + 4 * B * N * S + 8 * S
+    bwd_bytes = inputs + 2 * out + 4 * B * N * S + 8 * S + inputs  # reads, and the five grads
+
+    def forward():
+        return b7.attend(*ten, scale=scale, with_lse=True)
+
+    def both():
+        o, lse = b7.attend(*ten, scale=scale, with_lse=True)
+        return b7_bwd.expanded_attention_bwd(*ten[:5], o, lse, do, ten[5], scale=scale)
+
+    before, before_bwd = b7.launches, b7_bwd.launches
+    graphed, eager, plain = {}, {}, {}
+    with torch.no_grad():
+        for name, fn in (("forward", forward), ("both", both)):
+            graphed[name] = graph_ms(fn, 2, 5)
+            eager[name] = time_ms(fn, 5)
+        # the plain version from Python, a few batch rows and heads at a time
+        for name, bwd in (("forward", False), ("both", True)):
+            plain[name] = time_ms(lambda bwd=bwd: expanded_plain(ten, do, scale, bwd), 1, warmup=1)
+    torch.cuda.empty_cache()
+    b7.launches, b7_bwd.launches = before, before_bwd    # timing launches are not a path's
+    ran, refused = expanded_library(ten, do, scale)
+    lib = {key: time_ms(fn, 5) for key, fn in ran.items()}
+    torch.cuda.empty_cache()
+    fwd_bound, fwd_by = bound(fwd_flops, fwd_bytes, "bfloat16")
+    both_bound, both_by = bound(fwd_flops + bwd_flops, fwd_bytes + bwd_bytes, "bfloat16")
+    best_f = min((k for k in lib if not k.endswith("+bwd")), key=lib.get, default=None)
+    best_b = min((k for k in lib if k.endswith("+bwd")), key=lib.get, default=None)
+    plain_f, plain_b = plain["forward"], plain["both"]
+
+    say(f"-- B7 timing at {label}: q ({B},{S},{N},{nope}+{rope}), v {dv}, {dname}, "
+        f"{pairs / B / N:.0f} visible pairs a head | forward: graph {graphed['forward']:.5f} ms, "
+        f"eager {eager['forward']:.5f}, plain {plain_f:.5f} (eager, chunked), library "
+        + (f"{lib[best_f]:.5f} ({best_f}, eager)" if best_f else "none")
+        + f", bound {fwd_bound:.5f} ({fwd_by}, {fwd_flops / 1e12:.4f} TFLOP) at "
+          f"{fwd_bound / graphed['forward']:.1%} | forward + backward: graph "
+          f"{graphed['both']:.5f} ms, eager {eager['both']:.5f}, plain {plain_b:.5f}, library "
+        + (f"{lib[best_b]:.5f} ({best_b}, eager)" if best_b else "none")
+        + f", bound {both_bound:.5f} ({both_by}, {(fwd_flops + bwd_flops) / 1e12:.4f} TFLOP) at "
+          f"{both_bound / graphed['both']:.1%}")
+    for key, why in refused.items():
+        say(f"   SDPA {key} refused: {why}")
+    del ten, do
+    torch.cuda.empty_cache()
+    return dict(shape=[B, S, N, nope, rope, dv], ms=graphed["both"], eager_ms=eager["both"],
+                forward_ms=graphed["forward"], forward_eager_ms=eager["forward"],
+                plain_ms=plain_b, plain_forward_ms=plain_f,
+                library_ms=lib[best_b] if best_b else None, library_backend=best_b,
+                library_forward_ms=lib[best_f] if best_f else None,
+                library_ms_by_call=lib, library_refusals=refused,
+                bound_ms=both_bound, bound_by=both_by, forward_bound_ms=fwd_bound,
+                flops=fwd_flops + bwd_flops, forward_flops=fwd_flops)
 
 
 def serve_on_card(cfg) -> tuple:
@@ -4818,6 +5216,183 @@ def train_phi4() -> dict:
                 tokens_per_s=tokens / replay_med * 1e3)
 
 
+# 19h: deepseek-v2-236b at full width cut to TRAIN_MLA_LAYERS of its 60
+# layers, bf16, batch TRAIN_MLA_BATCH x TRAIN_MLA_SEQ (train_4k's sequence
+# length) from SyntheticLM: TRAIN_EAGER eager steps against as many replays
+# of the sealed step from the same state, then replays to TRAIN_MLA_REPLAYS
+TRAIN_MLA_LAYERS, TRAIN_MLA_BATCH, TRAIN_MLA_SEQ = 1, 2, 4096
+TRAIN_MLA_REPLAYS = 20
+# B7's kernels in a replay: the forward, then the backward's pre-pass, dK/dV,
+# dQ and the rope reduce (csrc); B2's expert GEMMs
+B7_KERNELS = ("exp_fwd_bf16", "exp_bwd_prep", "exp_dkdv_bf16", "exp_dq_bf16", "exp_rope_reduce")
+B7_REPLAYS = {"replays": 0, "kernels": 0, "calls": 0}
+
+
+def train_deepseek() -> dict:
+    """19h: deepseek-v2-236b at full width (d 5120, 128 heads, q_lora 1536,
+    kv_lora 512, 160 experts top-6) cut to ``TRAIN_MLA_LAYERS`` layer, bf16,
+    AdamW on B4, the loss on B5, the expert GEMMs and their backward on B2,
+    MLA's expanded form on B7 forward and backward: eager steps against
+    replays of the sealed step from the same state (losses and grad norms
+    bit for bit), then replays over which the loss must fall, and the
+    kernels of one profiled replay."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import repro_torch.configs as C
+    from repro_torch.data import SyntheticLM, data_config_for
+    from repro_torch.kernels.adamw import kernel as b4
+    from repro_torch.kernels.cross_entropy import kernel as b5
+    from repro_torch.kernels.expanded_attention import backward as b7_bwd
+    from repro_torch.kernels.expanded_attention import kernel as b7
+    from repro_torch.kernels.stream_pack import kernel as pack
+    from repro_torch.launch import serve
+    from repro_torch.optim import adamw_init, cosine_schedule
+    from repro_torch.training import make_train_step, seal_train_step
+    from repro_torch.training.train_lib import batch_to_device
+
+    release()
+    cfg = dataclasses.replace(C.get("deepseek-v2-236b"), n_layers=TRAIN_MLA_LAYERS,
+                              dtype="bfloat16")
+    data = SyntheticLM(data_config_for(cfg, batch_size=TRAIN_MLA_BATCH, seq_len=TRAIN_MLA_SEQ))
+    batches = [data.batch(i) for i in range(TRAIN_MLA_REPLAYS)]
+    tokens = TRAIN_MLA_BATCH * TRAIN_MLA_SEQ
+
+    def lr(step):
+        return cosine_schedule(step, peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                               total_steps=TRAIN_MLA_REPLAYS)
+
+    def fresh():
+        model = serve.init_params(cfg, seed=0, device="cuda")
+        return model, adamw_init(dict(model.named_parameters()))
+
+    def counts():
+        return (b7.launches, b7_bwd.launches, pack.launches, b4.launches, b5.launches)
+
+    step_fn = make_train_step(cfg, lr=lr)
+    t0 = time.perf_counter()
+    model, state = fresh()
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    leaves = len(list(model.parameters()))
+    say(f"-- 19h: {cfg.name} full width (d {cfg.d_model}, {cfg.n_heads} heads, q_lora "
+        f"{cfg.mla.q_lora_rank}, kv_lora {cfg.mla.kv_lora_rank}, {cfg.moe.num_experts} experts "
+        f"top-{cfg.moe.top_k}), {cfg.n_layers} of its 60 layers, bf16, {n / 1e9:.3f} B "
+        f"parameters, AdamW (float32 moments), batch {TRAIN_MLA_BATCH} x {TRAIN_MLA_SEQ} from "
+        f"SyntheticLM; initialised in {time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+
+    # eager steps; the path's run starts here
+    b7.launches = b7_bwd.launches = pack.launches = b4.launches = b5.launches = 0
+    copies, pack_copies = b7.layout_copies, pack.layout_copies
+    eager_loss, eager_gnorm, eager_ms = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_EAGER):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step_fn(model, state, batch_to_device(batches[i], "cuda"))[2]
+        eager_loss.append(float(m["loss"]))
+        eager_ms.append((time.perf_counter() - t) * 1e3)
+        eager_gnorm.append(float(m["grad_norm"]))
+        del m
+    eager_peak = torch.cuda.max_memory_allocated()
+    eager_params = [p.detach().cpu() for p in model.parameters()]
+    eager = counts()
+    say(f"  eager steps: loss {eager_loss}, grad norm {eager_gnorm}, ms "
+        f"{[round(x, 3) for x in eager_ms]}, peak memory {eager_peak / 2**30:.2f} GiB; B7 "
+        f"forward calls {eager[0]}, backward calls {eager[1]}; B2 calls {eager[2]}; B4 kernels "
+        f"{eager[3]}; B5 kernels {eager[4]}")
+    want = (TRAIN_EAGER * cfg.n_layers, TRAIN_EAGER * cfg.n_layers)
+    if eager[:2] != want or min(eager[2:]) == 0:
+        fail(f"the eager steps launched B7 {eager[:2]} times (want {want}), B2, B4, B5 "
+             f"{eager[2:]}")
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same steps sealed as one CUDA graph, from the same state
+    model, state = fresh()
+    torch.cuda.reset_peak_memory_stats()
+    sealed = seal_train_step(step_fn, model, state, batches[0])
+    seal_peak, seal_s = torch.cuda.max_memory_allocated(), sealed.seal_s
+    seal = tuple(c1 - c0 for c1, c0 in zip(counts(), eager))
+    layout = (b7.layout_copies - copies, pack.layout_copies - pack_copies)
+    say(f"  sealed fwd + bwd + clip + AdamW as one CUDA graph in {seal_s:.2f}s; peak memory "
+        f"{seal_peak / 2**30:.2f} GiB, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+        f"after; B7 forward and backward calls by the seal (warm-up and capture) {seal[:2]}; "
+        f"layout copies by B7 and B2 over the eager steps and the seal: {layout}")
+    if seal[:2] != (2 * cfg.n_layers, 2 * cfg.n_layers) or any(layout):
+        fail(f"the seal launched B7 {seal[:2]} times (want twice {cfg.n_layers} each) or made "
+             f"layout copies {layout}")
+    losses, gnorms, replay_ms = [], [], []
+    for i in range(TRAIN_MLA_REPLAYS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = sealed(batches[i])
+        losses.append(float(m["loss"]))
+        replay_ms.append((time.perf_counter() - t) * 1e3)
+        gnorms.append(float(m["grad_norm"]))
+        if i == TRAIN_EAGER - 1:
+            same, total = 0, 0
+            for p, e in zip(model.parameters(), eager_params):
+                same += int((p.detach().cpu() == e).sum())
+                total += e.numel()
+            say(f"  {TRAIN_EAGER} replays against the {TRAIN_EAGER} eager steps: losses "
+                f"{losses} vs {eager_loss}, grad norms {gnorms} vs {eager_gnorm}; parameters "
+                f"{same / total:.6%} bit-identical")
+            if losses != eager_loss or gnorms != eager_gnorm or same != total:
+                fail("the sealed step's replays are not bit-identical to the eager steps")
+            del eager_params
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    say(f"  {TRAIN_MLA_REPLAYS} replays: loss {losses[0]:.4f} -> {losses[-1]:.4f} (first 5 mean "
+        f"{first:.4f}, last 5 mean {last:.4f})")
+    if not (all(math.isfinite(x) for x in losses) and last < first):
+        fail("19h's loss did not fall over the replays")
+    replay_med = float(np.median(replay_ms[TRAIN_EAGER:]))
+    eager_med = float(np.median(eager_ms[1:]))
+    dev_ms = time_ms(sealed.graph.replay, 3, warmup=1)
+    say(f"  host clock, batch copied in, synchronised per step: eager {eager_med:.3f} ms/step "
+        f"({tokens / eager_med * 1e3:,.0f} tok/s), sealed replay {replay_med:.3f} ms/step "
+        f"({tokens / replay_med * 1e3:,.0f} tok/s); one replay on CUDA events {dev_ms:.3f} ms")
+
+    events = kernels_in_replay(lambda: sealed())
+    rows = sorted(by_kernel(events), reverse=True)
+    total_us = sum(us for us, _, _ in rows)
+    b7_kinds = {k: sum(1 for e in events if k in e.name) for k in B7_KERNELS}
+    b7_us = {k: sum(us for us, _, key in rows if k in key) for k in B7_KERNELS}
+    shares = {name: sum(us for us, _, key in rows if any(w in key for w in words))
+              for name, words in (("B2", ("stream_pack",)), ("B4", B4_KERNELS),
+                                  ("B5", B5_KERNELS))}
+    gemm = sum(us for us, _, key in rows if any(w in key.lower() for w in GEMM_NAMES))
+    say(f"  one profiled replay: {sum(c for _, c, _ in rows)} device kernels, "
+        f"{total_us / 1e3:.3f} ms of kernel time: B7 {sum(b7_us.values()) / 1e3:.3f} ms "
+        f"({sum(b7_us.values()) / total_us:.1%}: "
+        + ", ".join(f"{k} x{b7_kinds[k]} {v / 1e3:.3f} ms" for k, v in b7_us.items()) + "), "
+        + ", ".join(f"{k} {v / 1e3:.3f} ms ({v / total_us:.1%})" for k, v in shares.items())
+        + f", cuBLAS products {gemm / 1e3:.3f} ms ({gemm / total_us:.1%}); top:")
+    for us, count, key in rows[:8]:
+        say(f"      {us / 1e3:9.3f} ms x{count:4d}  {key[:90]}")
+    want_kinds = {k: cfg.n_layers for k in B7_KERNELS}
+    if b7_kinds != want_kinds:
+        fail(f"a replay ran B7's kernels {b7_kinds}, not {want_kinds}")
+    B7_REPLAYS["replays"] += 1
+    B7_REPLAYS["kernels"] += sum(b7_kinds.values())
+    B7_REPLAYS["calls"] += 2 * cfg.n_layers         # the capture's forward and backward calls
+    del sealed, model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(eager_ms=eager_med, replay_ms=replay_med, replay_device_ms=dev_ms,
+                tokens_per_step=tokens, tokens_per_s=tokens / replay_med * 1e3, seal_s=seal_s,
+                eager_peak_gib=eager_peak / 2**30, seal_peak_gib=seal_peak / 2**30,
+                losses=losses, b7_launches=b7.launches + b7_bwd.launches,
+                b2_launches=pack.launches, in_replay=b7_kinds,
+                b7_replay_ms={k: v / 1e3 for k, v in b7_us.items()},
+                shares_ms={k: v / 1e3 for k, v in shares.items()},
+                replay_kernel_ms=total_us / 1e3, parameters=n, leaves=leaves)
+
+
 def train_card_vs_cpu() -> dict:
     """19d: one sealed training step of the phi4-mini, arctic and
     deepseek-v2 smoke configs at float32 on the card against the same step
@@ -4830,6 +5405,8 @@ def train_card_vs_cpu() -> dict:
     from repro_torch.data import SyntheticLM, data_config_for
     from repro_torch.kernels.adamw import kernel as b4
     from repro_torch.kernels.cross_entropy import kernel as b5
+    from repro_torch.kernels.expanded_attention import backward as b7_bwd
+    from repro_torch.kernels.expanded_attention import kernel as b7
     from repro_torch.kernels.flash_attention import backward, kernel
     from repro_torch.kernels.stream_pack import kernel as pack
     from repro_torch.launch import serve
@@ -4848,7 +5425,8 @@ def train_card_vs_cpu() -> dict:
         on_cpu = Transformer(cfg, device="cpu")
         on_cpu.load_state_dict(on_card.state_dict())
         step = make_train_step(cfg, lr=lr)
-        before = (kernel.launches, backward.launches, pack.launches, b4.launches, b5.launches)
+        before = (kernel.launches, backward.launches, pack.launches, b4.launches, b5.launches,
+                  b7.launches, b7_bwd.launches)
         copies = pack.layout_copies
         got = {}
         for dev, model in (("cuda", on_card), ("cpu", on_cpu)):
@@ -4859,21 +5437,25 @@ def train_card_vs_cpu() -> dict:
             if dev == "cuda" and sealed.graph is None:
                 fail(f"{arch}: the step on the card was not sealed as a CUDA graph")
         counts[arch] = tuple(c1 - c0 for c1, c0 in zip(
-            (kernel.launches, backward.launches, pack.launches, b4.launches, b5.launches),
-            before))
+            (kernel.launches, backward.launches, pack.launches, b4.launches, b5.launches,
+             b7.launches, b7_bwd.launches), before))
         perr = max((a.detach().cpu() - b.detach()).abs().max().item()
                    for a, b in zip(on_card.parameters(), on_cpu.parameters()))
         rel = max(abs(got["cuda"][k] - got["cpu"][k]) / max(abs(got["cpu"][k]), 1e-12)
                   for k in ("loss", "grad_norm"))
         say(f"  {cfg.name}: card {got['cuda']} | cpu {got['cpu']} | loss/grad norm "
             f"{rel:.2e} relative, parameters max |diff| {perr:.3e} | wrapper calls on the card "
-            f"(B1 forward, B1 backward, B2; B4 kernels, B5 kernels) {counts[arch]}")
+            f"(B1 forward, B1 backward, B2; B4 kernels, B5 kernels; B7 forward, B7 backward) "
+            f"{counts[arch]}")
         if not (rel <= TRAIN_RTOL and perr <= TRAIN_PARAM_ATOL_LR * lr):
             fail(f"{cfg.name}: the step on the card differs from the CPU's")
         if arch != "deepseek-v2-236b" and min(counts[arch][:2]) == 0:
             fail(f"{cfg.name}: the step on the card never launched B1 or its backward")
         if cfg.moe is not None and counts[arch][2] == 0:
             fail(f"{cfg.name}: the step on the card never launched B2")
+        if cfg.mla is not None and counts[arch][5:] != (2 * cfg.n_layers,) * 2:
+            fail(f"{cfg.name}: the seal launched B7 {counts[arch][5:]} times, not its warm-up's "
+                 f"and its capture's {cfg.n_layers} forward and backward calls each")
         if pack.layout_copies != copies:
             fail(f"{cfg.name}: the step made {pack.layout_copies - copies} B2 layout copies "
                  "(its backward reads w^T and x^T where they lie)")
@@ -4944,7 +5526,7 @@ def train_nimble_grads() -> dict:
 
 
 def phase_train(number: int) -> dict:
-    """Phase 19: training on the card (19a, 19b, 19f, 19g, 19c, 19d, 19e)."""
+    """Phase 19: training on the card (19a, 19b, 19f, 19g, 19c, 19d, 19h, 19e)."""
     from repro_torch.kernels.flash_attention import backward
 
     say(f"== phase {number}: training on the card")
@@ -4956,11 +5538,16 @@ def phase_train(number: int) -> dict:
     with train_path("train phi4-mini-3.8b (eager steps, seal)"):
         phi4 = train_phi4()
     backward.launches = 0
-    with train_path("train smoke configs on the card"):
+    with train_path("train smoke configs on the card"), \
+            b7_path("train smoke configs on the card (19d)"):
         smoke = train_card_vs_cpu()
+    with train_path("train deepseek-v2-236b 1 layer (eager steps, seal)"), \
+            b7_path("train deepseek-v2-236b 1 layer (19h: eager steps, seal)"), \
+            b2_path("train deepseek-v2-236b 1 layer (19h)"):
+        deepseek = train_deepseek()
     nimble = train_nimble_grads()
     return dict(bwd=bwd_record, pack=pack_record, adamw=adamw_record, ce=ce_record, phi4=phi4,
-                smoke=smoke, nimble=nimble)
+                smoke=smoke, deepseek=deepseek, nimble=nimble)
 
 
 # phase 20: decode_32k's per-device share (128 sequences over the 16-way data
@@ -5408,6 +5995,8 @@ def sharded_forward(mesh) -> dict:
 
     import repro_torch.configs as C
     from repro_torch.distributed import batch_axes, shard_model, shard_tree, use_sharding_ctx
+    from repro_torch.kernels.expanded_attention import backward as b7_bwd
+    from repro_torch.kernels.expanded_attention import kernel as b7
     from repro_torch.kernels.stream_pack import kernel as pack_kernel
     from repro_torch.kernels.stream_pack import ops as pack_ops
     from repro_torch.launch import serve
@@ -5422,21 +6011,26 @@ def sharded_forward(mesh) -> dict:
         torch.cuda.synchronize()
         shard_model(model, param_axes(cfg), mesh)
         placed = shard_tree(batch, batch_axes(batch), mesh)
-        pack_kernel.launches = pack_ops.on_shards = 0    # the path's run starts here
+        # the path's run starts here: the unsharded forward above is not its
+        pack_kernel.launches = pack_ops.on_shards = b7.launches = b7_bwd.launches = 0
         with use_sharding_ctx(mesh):
             t = time.perf_counter()
             got = forward(model, placed, cfg)[0]
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t) * 1e3
     launches, on_shards = pack_kernel.launches, pack_ops.on_shards
+    b7_sharded = b7.launches + b7_bwd.launches
     same = bool(torch.equal(got.to_local(), want))
     say(f"-- 21b: {cfg.name}, full width, {cfg.n_layers} layers, bf16, a forward of "
         f"{SHARDED_PROMPT[0]} x {SHARDED_PROMPT[1]} tokens with DTensor parameters: logits "
         f"{tuple(got.shape)} bit-identical to the unsharded forward's: {same}; B2 launches "
-        f"{launches}, through local_map {on_shards} (want 3 x {cfg.n_layers}); {ms:.3f} ms "
-        f"(host clock, first call)")
+        f"{launches}, through local_map {on_shards} (want 3 x {cfg.n_layers}); B7 (MLA's "
+        f"expanded form) {b7_sharded} (want {cfg.n_layers}); {ms:.3f} ms (host clock, first "
+        f"call)")
     if not same or launches != 3 * cfg.n_layers or on_shards != launches:
         fail("the sharded forward differs from the unsharded one or missed B2")
+    if b7_sharded != cfg.n_layers:
+        fail(f"the sharded forward launched B7 {b7_sharded} times, not once a layer")
     del model, want, got
     return dict(b2_launches=launches, on_shards=on_shards, forward_ms=ms)
 
@@ -5665,7 +6259,8 @@ def phase_sharded(number: int, reference: dict) -> dict:
     with one_card_mesh() as mesh:
         with train_path("sharded train phi4-mini-3.8b on a (1, 1) mesh (eager steps, seal)"):
             train = sharded_train(mesh, reference)
-        fwd = sharded_forward(mesh)
+        with b7_path("sharded forward deepseek-v2-236b on a (1, 1) mesh (21b)"):
+            fwd = sharded_forward(mesh)
     memory = memory_count(reference)
     with one_card_mesh() as mesh:
         with train_path("train xlstm-125m unsharded and on a (1, 1) mesh"):
@@ -6340,6 +6935,25 @@ def b6_path(name: str):
         B6_BY_PATH[name] = B6_BY_PATH.get(name, 0) + b6.launches
 
 
+# B7's calls (forward and backward) on each path that runs MLA's expanded
+# form (the counts set to 0 just before the path and read just after it)
+B7_BY_PATH: dict[str, int] = {}
+
+
+@contextlib.contextmanager
+def b7_path(name: str):
+    """Count B7's forward and backward calls over one path into
+    ``B7_BY_PATH[name]``."""
+    from repro_torch.kernels.expanded_attention import backward as b7_bwd
+    from repro_torch.kernels.expanded_attention import kernel as b7
+
+    b7.launches = b7_bwd.launches = 0
+    try:
+        yield
+    finally:
+        B7_BY_PATH[name] = B7_BY_PATH.get(name, 0) + b7.launches + b7_bwd.launches
+
+
 @contextlib.contextmanager
 def b3_path(name: str):
     """Count B3's launches over one path into ``B3_BY_PATH[name]``."""
@@ -6451,10 +7065,12 @@ def main() -> None:
     record = phase_kernel()
     b3_record = phase_decode_kernel()
     b6_record = phase_latent_kernel()
+    b7_record = phase_expanded_kernel()
     from repro_torch.kernels.decode_attention import kernel as decode
+    from repro_torch.kernels.expanded_attention import kernel as expanded
     from repro_torch.kernels.latent_attention import kernel as latent
 
-    decode.layout_copies = latent.layout_copies = 0
+    decode.layout_copies = latent.layout_copies = expanded.layout_copies = 0
     from repro_torch.kernels.stream_pack import kernel as pack
 
     pack.layout_copies = 0
@@ -6525,6 +7141,12 @@ def main() -> None:
     if latent.layout_copies:
         fail(f"the paths made {latent.layout_copies} layout copies for B6")
     say(f"B6 launches by path: {B6_BY_PATH}; 0 layout copies")
+    idle = sorted(name for name, n in B7_BY_PATH.items() if n == 0)
+    if idle or len(B7_BY_PATH) < 3:
+        fail(f"B7 was launched no time on the paths {idle} (of {sorted(B7_BY_PATH)})")
+    if expanded.layout_copies:
+        fail(f"the paths made {expanded.layout_copies} layout copies for B7")
+    say(f"B7 calls (forward and backward) by path: {B7_BY_PATH}; 0 layout copies")
     idle = sorted(name for name, n in B4_BY_PATH.items() if n == 0)
     if idle:
         fail(f"B4 was launched no time on the paths {idle}")
@@ -6563,6 +7185,7 @@ def main() -> None:
                     "serve deepseek-v2-236b": deepseek["b2_launches"],
                     "dispatch phi4-mini + deepseek-v2 + smoke lane": dispatch["b2_launches"],
                     "train smoke configs on the card": sum(c[2] for c in smoke.values()),
+                    "train deepseek-v2-236b 1 layer (19h)": train["deepseek"]["b2_launches"],
                     "train nimble branchy gradients": train["nimble"]["b2_launches"],
                     "sharded forward deepseek-v2-236b on a (1, 1) mesh":
                         sharded["forward"]["b2_launches"]}
@@ -6647,6 +7270,22 @@ def main() -> None:
         launches_in_replays=B6_REPLAYS["kernels"], profiled_replays=B6_REPLAYS["replays"],
         kernels_per_launch=B6_REPLAYS["kernels"] / max(B6_REPLAYS["calls"], 1),
         layout_copies=latent.layout_copies, decode_32k_model=latent32k, **b6_record,
+    ), dict(
+        name="expanded_attention", route="cuda",
+        source="src/repro_torch/kernels/expanded_attention/csrc/expanded_attention.cu",
+        backward_source="src/repro_torch/kernels/expanded_attention/csrc/expanded_attention_bwd.cu",
+        replaces="none: not a TPU kernel; the jnp expanded attention of "
+                 "src/repro/models/mla.py:90-103 and its gradient through XLA, which the "
+                 "port's plain version computed with the (B, N, S, S) float32 scores in memory",
+        note="launches count calls, forward and backward: a forward call is one kernel, a "
+             "backward call four (pre-pass, dK/dV, dQ, the rope reduce); ms, plain_ms, "
+             "bound_ms and library_ms are forward + backward at 19h's shape (q (2, 4096, 128, "
+             "128 + 64), v 128, bf16, causal) in a CUDA graph (library_ms: eager), the train_4k "
+             "share of a 16x16 device beside them",
+        launches=sum(B7_BY_PATH.values()), launches_by_path=dict(B7_BY_PATH),
+        launches_in_replays=B7_REPLAYS["kernels"], profiled_replays=B7_REPLAYS["replays"],
+        kernels_per_launch=B7_REPLAYS["kernels"] / max(B7_REPLAYS["calls"], 1),
+        layout_copies=expanded.layout_copies, train_19h=train["deepseek"], **b7_record,
     )]
     say(f"all phases passed in {time.perf_counter() - t_start:.1f}s; seconds by phase: "
         f"{phase_seconds(time.perf_counter())}")

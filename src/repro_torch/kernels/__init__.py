@@ -70,6 +70,8 @@ KERNEL_MODULES = {
     "adamw": f"{__name__}.adamw.kernel",
     "cross_entropy": f"{__name__}.cross_entropy.kernel",
     "latent_attention": f"{__name__}.latent_attention.kernel",
+    "expanded_attention": f"{__name__}.expanded_attention.kernel",
+    "expanded_attention_bwd": f"{__name__}.expanded_attention.backward",
 }
 
 

@@ -15,8 +15,10 @@ activation dtype.  The sharding hints stand where JAX has them.  JAX
 computes MLA in jnp outside any Pallas kernel.  The absorbed form's
 attention, from the scores to the context in latent space, runs on the
 port's B6 (``kernels.latent_attention``), which reads the latent cache in
-its own dtype and keeps the scores on chip; the expanded form's head dims
-(qk 192, v 128) are outside B1's contract, so it stays plain PyTorch.
+its own dtype and keeps the scores on chip; the expanded form's attention
+(qk 192 wide, the rope key shared by the heads, v 128: outside B1's
+contract) runs on B7 (``kernels.expanded_attention``), forward and
+backward, with no scores in memory.
 Unlike JAX, which returns a new cache, :func:`mla_attention` writes the new
 latents into the cache **in place** (a captured CUDA graph replays against
 fixed addresses).
@@ -33,9 +35,10 @@ import torch
 from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.distributed import constrain, gather_fsdp, on_local_shards, replicate_like
+from repro_torch.kernels.expanded_attention import expanded_attention
 from repro_torch.kernels.latent_attention import latent_attention
 
-from .layers import HEADS, NEG_INF, ROWS, Shape, _merge, _rms, apply_rope, write_rows
+from .layers import HEADS, ROWS, Shape, _merge, _rms, apply_rope, write_rows
 
 
 def mla_shapes(cfg) -> dict[str, Shape]:
@@ -100,13 +103,16 @@ def absorbed_attention(p: Mapping, q_nope, q_rope, ckv, krope, cfg, *,
     return _project_out(p, out)
 
 
-def _project_out(p: Mapping, out: torch.Tensor) -> torch.Tensor:
-    """``einsum("bsnh,nhd->bsd", out, w_o)``; with the heads sharded, one
-    product over the merged (heads, v_head_dim), heads outer, as dense
-    attention's output projection, since DTensor (torch 2.11) cannot
-    flatten the heads after another sharded dimension as the einsum does."""
+def _project_out(p: Mapping, out: torch.Tensor, *, merged: bool = False) -> torch.Tensor:
+    """``einsum("bsnh,nhd->bsd", out, w_o)``; with the heads sharded, or
+    with ``merged``, one product over the merged (heads, v_head_dim), heads
+    outer, as dense attention's output projection: DTensor (torch 2.11)
+    cannot flatten the heads after another sharded dimension as the einsum
+    does, and the expanded form's contiguous ``out`` gets its gradient back
+    contiguous, which B7's backward reads in place (the einsum's comes back
+    with the heads innermost)."""
     w_o = gather_fsdp(p["w_o"], "heads", "_", "fsdp", group="attn")
-    if isinstance(out, DTensor) and Shard(2) in out.placements:
+    if merged or (isinstance(out, DTensor) and Shard(2) in out.placements):
         return _merge(out) @ _merge(w_o, first=True)
     return torch.einsum("bsnh,nhd->bsd", out, w_o)
 
@@ -121,14 +127,10 @@ def _absorbed_core(q_nope, q_rope, ckv, krope, w_uk, w_uv, positions, kv_len, *,
 
 
 def _expanded_core(q_nope, q_rope, k_nope, k_rope, v, q_pos, *, scale):
-    """The expanded form's causal attention: (B, S, heads, v_head_dim)."""
-    logits = (
-        torch.einsum("bsnh,btnh->bnst", q_nope.float(), k_nope.float())
-        + torch.einsum("bsnh,bth->bnst", q_rope.float(), k_rope.float())
-    ) * scale
-    mask = q_pos[:, None] >= torch.arange(q_nope.shape[1], device=q_pos.device)[None, :]
-    probs = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1)
-    return torch.einsum("bnst,btnh->bsnh", probs.to(v.dtype), v)
+    """The expanded form's causal attention: (B, S, heads, v_head_dim), on
+    B7 (the scores, the mask ``q_pos[s] >= t``, the softmax and the context
+    over v; its backward when an input needs a gradient)."""
+    return expanded_attention(q_nope, q_rope, k_nope, k_rope, v, q_pos, scale=scale)
 
 
 def mla_prefill(p: Mapping, x: torch.Tensor, cfg, *, positions: torch.Tensor):
@@ -174,7 +176,7 @@ def mla_attention(
                 HEADS, HEADS, HEADS, ROWS, HEADS, {}))), [HEADS])
         else:
             out = core(*args)
-        y = _project_out(p, out)
+        y = _project_out(p, out, merged=True)
         return y, (c_kv, k_rope)
 
     pos = cache["pos"]

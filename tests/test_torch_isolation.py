@@ -22,7 +22,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "examples" / "train_lm_torch.py", ROOT / "tools" / "decode_variants.py",
     ROOT / "tools" / "adamw_faults.py", ROOT / "tools" / "train_phi4_step.py",
     ROOT / "tools" / "ce_faults.py", ROOT / "tools" / "stream_pack_variants.py",
-    ROOT / "tools" / "mla_replays.py"]
+    ROOT / "tools" / "mla_replays.py", ROOT / "tools" / "expanded_faults.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -84,7 +84,11 @@ def test_port_file_list_is_complete():
                  "src/repro_torch/kernels/cross_entropy/ops.py", "tools/ce_faults.py",
                  "tools/stream_pack_variants.py",
                  "src/repro_torch/kernels/latent_attention/kernel.py",
-                 "src/repro_torch/kernels/latent_attention/ref.py", "tools/mla_replays.py"):
+                 "src/repro_torch/kernels/latent_attention/ref.py", "tools/mla_replays.py",
+                 "src/repro_torch/kernels/expanded_attention/kernel.py",
+                 "src/repro_torch/kernels/expanded_attention/backward.py",
+                 "src/repro_torch/kernels/expanded_attention/ops.py",
+                 "src/repro_torch/kernels/expanded_attention/ref.py", "tools/expanded_faults.py"):
         assert must in names
 
 
