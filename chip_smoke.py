@@ -98,12 +98,15 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    weights): prefill logits within 1e-3 and identical greedy tokens;
 6. stream_pack kernel against its plain PyTorch version on the card over
    lanes, shapes (the branchy cells', ragged ones, K or N off the 16-byte
-   vector, K too deep for the float32 panel, the bf16 weight stream's),
-   dtypes, a shared or separate x, x 4 bytes off a 16-byte boundary, and x
-   or w (or both) transposed where they lie, each within atol +
-   rtol*|ref|; every kernel of the library (each ring tile and loader, each
-   stream row tile, column tile and layout) and every layout through each
-   ring's element-wise loads must be launched; then times at the
+   vector, K too deep for the float32 panel, the bf16 weight stream's, the
+   wgmma kernel's ragged M, N, K and depth), dtypes, a shared or separate
+   x, x 4 bytes off a 16-byte boundary, and x or w (or both) transposed
+   where they lie, each within atol + rtol*|ref|; every kernel of the
+   library (each ring tile and loader, each stream row tile, column tile
+   and layout, each wgmma layout) and every layout through each ring's
+   element-wise loads must be launched; ptxas's registers and spills of
+   the wgmma kernels (a spill or a C75xx serialization note fails); then
+   times at the
    four branchy cells' shapes and one bf16 shape, with the variant and tile
    each took, each call inside a CUDA graph and launched from Python,
    beside the plain version, one ``torch.matmul`` over the broadcast x (a
@@ -113,7 +116,12 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    plain version (computed a few lanes at a time), and at the decode
    capacity (4) and prefill bucket 64's (64) timed beside ``torch.bmm``
    and the weights' bytes; one of them runs twice and must give the same
-   bits;
+   bits; then deepseek-v2-236b's six (product, layout) shapes at its
+   training capacity (M 384, 160 lanes: the forward nn, dx nt and dw tn of
+   gate/up and of down) on the wgmma kernel against the plain version, one
+   twice for the same bits, each timed in a CUDA graph and from Python
+   beside ``torch.bmm`` over the same views, the plain version and the
+   bound (3.3 GB of bytes);
 7. Nimble on the four branchy cells at full size, float32: plain eager
    PyTorch, ``EagerInterpreter``, ``Nimble`` on one stream, on Algorithm 1's
    streams (one CUDA graph over several CUDA streams) and packed onto
@@ -204,8 +212,9 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
     only), each of its three kernels' device time (profiler), the dK/dV
     kernel with one CTA per (q head, key tile) instead, and each kernel's
     registers and spills from ptxas; (b) B2's two backward products through its autograd Function
-    at the smoke experts' shapes, a shared x and one full deepseek-v2
-    expert shape (160 lanes, K 5120, N 1536, M 64), w^T and x^T read where
+    at the smoke experts' shapes, a shared x and a full deepseek-v2 expert
+    shape (160 lanes, K 5120, N 1536) at M 64 (the stream) and at the
+    training capacity M 384 (the wgmma kernel), w^T and x^T read where
     they lie (no layout copy, here or in 19d), timed there beside two
     ``torch.bmm``; (f) B4, the AdamW update (a sum of squares a leaf, a
     finish, an update a leaf), against its plain version at odd leaf sizes
@@ -249,7 +258,8 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
     replays in all (the loss must fall), ms per step eager and replayed,
     tok/s, seal s, peak memory, no layout copy, and one profiled replay's
     kernels: B7's five (forward, pre-pass, dK/dV, dQ, rope reduce) beside
-    B2's, B4's and B5's shares; (e) Nimble over the
+    B2's, B4's and B5's shares, B2's kernels by variant (its nine products
+    a layer must all be the wgmma kernel's); (e) Nimble over the
     gradients of the four branchy cells at full size, eager torch.func
     against single-stream, multi-stream and packed replays, µs per call;
 20. the launch layer: (a) the dry run (``repro_torch.launch.dryrun``) of
@@ -1719,9 +1729,8 @@ def expanded_plain(ten, do, scale, backward=True):
 
 
 def expanded_registers() -> dict:
-    """Registers, spill bytes (stores, loads) and whether ptxas serialized
-    its ``wgmma`` (a C75xx note) of each of B7's kernels, by name, from the
-    build logs of both sources."""
+    """:func:`ptxas_report` of B7's kernels, by name, from the build logs of
+    both sources."""
     from repro_torch.kernels import build
     from repro_torch.kernels.expanded_attention import backward, kernel
 
@@ -1734,25 +1743,7 @@ def expanded_registers() -> dict:
             return f"{found[1]}<{'bf16' if 'bfloat16' in line else 'f32'}>"
         return found[1]
 
-    out, serialized = {}, set()
-    for source in (kernel.SOURCE, backward.SOURCE):
-        entry = None
-        for line in build.build_log(source).splitlines():
-            if "serialized" in line and name_in(line):
-                serialized.add(name_in(line))
-            elif "Compiling entry" in line:
-                entry = name_in(line)
-                if entry:
-                    out[entry] = {}
-            elif entry is not None and "spill stores" in line:
-                st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                                   line).groups()
-                out[entry]["spills"] = (int(st), int(ld))
-            elif entry is not None and "Used" in line and "registers" in line:
-                out[entry]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
-    for name, rec in out.items():
-        rec["serialized"] = name in serialized
-    return out
+    return ptxas_report([build.build_log(s) for s in (kernel.SOURCE, backward.SOURCE)], name_in)
 
 
 def expanded_check(label, B, S, N, nope, rope, dv, dname, kind, seed) -> tuple:
@@ -2426,6 +2417,18 @@ PACK_TMA_SHAPES = [(lanes, M, K, N, layout) for layout in ("nn", "nt")
                    for lanes, K, N, rows in ((2, 1024, 1000, (4, 24, 64)),
                                              (33, 1024, 584, (16, 40)))
                    for M in rows] + [(1, 520, 72, 1032, "tn"), (3, 520, 72, 1032, "tn")]
+# the wgmma kernel's ragged edges (lanes, M, K, N, layout): a training
+# capacity of 65, 200 or 383 tokens as the forward's and dx's M (rows past M
+# zero-filled, a second warpgroup with 1 row or none, never stored) and as
+# dw's depth (the tokens: a last chunk 9, 8 or 63 deep); K 1000 and 520 end
+# inside a chunk; N 1000, 584 and 1032 inside a 256-column tile (584 and
+# 1032 inside its second or first 64-column box: the boxes past N are not
+# loaded); dw's rows 1032 end 8 rows into a tile (its second x box not
+# loaded), 1000 inside its second box
+PACK_WGMMA_SHAPES = [(lanes, M, K, N, layout) for layout in ("nn", "nt")
+                     for lanes, M, K, N in ((3, 65, 1024, 1000), (2, 200, 1000, 584),
+                                            (2, 383, 520, 1032))] + [
+    (3, 1000, 200, 1000, "tn"), (2, 1032, 383, 584, "tn"), (1, 1024, 136, 264, "tn")]
 
 
 def pack_cases() -> list[tuple[str, int, tuple[int, int, int], bool, int, str]]:
@@ -2440,7 +2443,8 @@ def pack_cases() -> list[tuple[str, int, tuple[int, int, int], bool, int, str]]:
               for lanes in (1, 7) for mkn in PACK_LAYOUT_SHAPES for shared in (False, True)
               for layout in ("tn", "nt", "tt")]
     return cases + [("bfloat16", lanes, (M, K, N), shared, 0, layout)
-                    for lanes, M, K, N, layout in PACK_TMA_SHAPES for shared in (False, True)]
+                    for lanes, M, K, N, layout in PACK_TMA_SHAPES + PACK_WGMMA_SHAPES
+                    for shared in (False, True)]
 
 
 def _pack_inputs(lanes, M, K, N, dtype, shared, seed, offset=0, layout="nn"):
@@ -2467,8 +2471,9 @@ def _pack_inputs(lanes, M, K, N, dtype, shared, seed, offset=0, layout="nn"):
 
 
 def _tile(launch) -> str:
+    cluster = f" in clusters of {launch.cluster}" if launch.cluster > 1 else ""
     return (f"{launch.variant} tile {launch.bm}x{launch.bn} kc {launch.kc} stages "
-            f"{launch.stages} grid {launch.grid} smem {launch.smem_bytes} B")
+            f"{launch.stages} grid {launch.grid}{cluster} smem {launch.smem_bytes} B")
 
 
 def pack_coverage(launches) -> set:
@@ -2484,6 +2489,35 @@ def pack_coverage(launches) -> set:
     return want - got
 
 
+def pack_registers(log: str | None = None) -> dict:
+    """:func:`ptxas_report` of B2's wgmma kernels (``log``, or the build log
+    of ``stream_pack.cu``), by name: ``stream_pack_wgmma<nn>``, ``<nt>``,
+    ``<tn>`` (template arguments x transposed, w transposed)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.stream_pack import kernel as pack
+
+    def name_in(line):
+        found = re.search(r"stream_pack_wgmmaILb([01])ELb([01])E", line)
+        return found and "stream_pack_wgmma<" + "nt"[int(found[1])] + "nt"[int(found[2])] + ">"
+
+    return ptxas_report([build.build_log(pack.SOURCE) if log is None else log], name_in)
+
+
+def check_pack_registers() -> dict:
+    """Print the wgmma kernels' registers and spills; fail on a spill, on
+    a serialization note or on a kernel missing from the report."""
+    regs = pack_registers()
+    say("  ptxas, B2's wgmma kernels: " + "; ".join(
+        f"{k} {v.get('registers')} registers, spills {v.get('spills')}, wgmma serialized "
+        f"{v['serialized']}" for k, v in sorted(regs.items())))
+    want = {f"stream_pack_wgmma<{lay}>" for lay in ("nn", "nt", "tn")}
+    bad = sorted(k for k, v in regs.items() if v["serialized"] or v.get("spills", (0, 0)) != (0, 0))
+    if set(regs) != want or bad:
+        fail(f"ptxas: B2's wgmma kernels {sorted(regs)} (want {sorted(want)}) spill or serialize "
+             f"their wgmma: {bad}")
+    return regs
+
+
 def phase_stream_pack() -> dict:
     import torch
 
@@ -2493,6 +2527,7 @@ def phase_stream_pack() -> dict:
     say("== phase 6: stream_pack kernel vs plain version (tolerance |err| <= atol + "
         "rtol*|ref|: f32 1e-4 + 1e-5*|ref| for summation order; bf16 1e-2 + "
         "1e-2*|ref| for the rounding of the output)")
+    registers = check_pack_registers()
     cases = pack_cases()
     worst, reached, made = 0.0, {}, []
     for n, (dname, lanes, (M, K, N), shared, offset, layout) in enumerate(cases):
@@ -2518,8 +2553,8 @@ def phase_stream_pack() -> dict:
     say(f"  float32 and bfloat16: lanes 1/2/7/12 x {len(PACK_SHAPES)} shapes x "
         f"shared/separate; lanes 1/7 x {len(PACK_OFFSET_SHAPES)} shapes x "
         f"shared/separate with x 4 bytes off 16; lanes 1/7 x {len(PACK_LAYOUT_SHAPES)} shapes "
-        f"x shared/separate x layouts tn/nt/tt; bf16 {len(PACK_TMA_SHAPES)} stream shapes x "
-        f"shared/separate: all within tolerance")
+        f"x shared/separate x layouts tn/nt/tt; bf16 {len(PACK_TMA_SHAPES)} stream shapes and "
+        f"{len(PACK_WGMMA_SHAPES)} ragged wgmma shapes x shared/separate: all within tolerance")
     say(f"  {len(cases)} cases within tolerance (worst at {worst:.2f} of its tolerance); "
         f"cases by kernel (variant, bm, bn): "
         + ", ".join(f"{v} {bm}x{bn} {n}" for (v, bm, bn), n in sorted(reached.items())))
@@ -2561,6 +2596,9 @@ def phase_stream_pack() -> dict:
             record = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
     record["expert_shapes"] = expert_gemms()
+    record["train_shapes"] = train_gemms()
+    record["ptxas_wgmma"] = registers
+    record["instances"] = [f"{v} {bm}x{bn}" for v, bm, bn in pack.INSTANCES]
     return record
 
 
@@ -2658,6 +2696,102 @@ def expert_gemms() -> list[dict]:
                                     bound_by=bound_by))
             del w, x, got
             torch.cuda.empty_cache()
+    return entries
+
+
+# DeepSeek-V2's training capacity: capacity(2 x 4096 tokens) of 19h's step
+TRAIN_EXPERT_M = 384
+# the (product, gemm) run twice at that capacity, whose outputs must have the
+# same bits
+TRAIN_REPEAT = ("dw", "gate/up")
+
+
+def train_products(lanes: int, M: int, K: int, N: int, seed: int):
+    """The three products of one expert GEMM at capacity M, bf16, random
+    normal operands on the card: {product: (layout, a, b)} with the
+    forward x (lanes, M, K) @ w (lanes, K, N) (nn), dx = dy @ wᵀ (nt) and
+    dw = xᵀ @ dy (tn), wᵀ and xᵀ as the views the backward passes."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((lanes, K, N), generator=g, device="cuda", dtype=torch.bfloat16)
+    x = torch.randn((lanes, M, K), generator=g, device="cuda", dtype=torch.bfloat16)
+    dy = torch.randn((lanes, M, N), generator=g, device="cuda", dtype=torch.bfloat16)
+    return {"forward": ("nn", x, w), "dx": ("nt", dy, w.transpose(1, 2)),
+            "dw": ("tn", x.transpose(1, 2), dy)}
+
+
+def train_gemms() -> list[dict]:
+    """B2 at deepseek-v2-236b's expert GEMMs at its training capacity
+    (``TRAIN_EXPERT_M``), bf16, 160 lanes: the forward, dx and dw of gate/up
+    and of down, each against the plain version ``REF_LANES`` lanes at a
+    time under ``PACK_TOL``, ``TRAIN_REPEAT`` twice for the same bits, then
+    timed in a CUDA graph and launched from Python beside one ``torch.bmm``
+    over the same views (a yardstick only: the port never calls it) and
+    the bound, which is the bytes (3.3 GB) by a hair over the operations."""
+    import torch
+
+    from repro_torch.kernels.stream_pack import kernel as pack
+    from repro_torch.kernels.stream_pack import stream_pack, stream_pack_matmul_ref
+
+    lanes, D, F = EXPERT_GEMMS["deepseek-v2-236b"]
+    M = TRAIN_EXPERT_M
+    say(f"-- deepseek-v2-236b's expert GEMMs at its training capacity M {M}, bf16, {lanes} "
+        "lanes: forward x w (nn), dx = dy w^T (nt), dw = x^T dy (tn); ms per call")
+    entries = []
+    for gemm, K, N in (("gate/up", D, F), ("down", F, D)):
+        products = train_products(lanes, M, K, N, seed=lanes + K + M)
+        for product, (layout, a, b) in products.items():
+            launch = pack.launch_for(a, b)
+            if launch.layout != layout or not launch.variant.startswith("bf16_wgmma"):
+                fail(f"{gemm} {product} at M {M} took {_tile(launch)}, not bf16_wgmma/{layout}")
+            got = stream_pack(a, b)
+            worst = err = 0.0
+            for i in range(0, lanes, REF_LANES):
+                ref = stream_pack_matmul_ref(a[i:i + REF_LANES], b[i:i + REF_LANES])
+                part = got[i:i + REF_LANES]
+                worst = max(worst, ratio(part, ref, *PACK_TOL["bfloat16"]))
+                err = max(err, (part.float() - ref.float()).abs().max().item())
+                del ref
+            if not (math.isfinite(err) and worst <= 1.0):
+                fail(f"stream_pack disagrees at deepseek-v2 {gemm} {product} M={M}: max_abs_err "
+                     f"{err} ({worst:.3f} of tolerance {PACK_TOL['bfloat16']})")
+            if (product, gemm) == TRAIN_REPEAT:
+                again = stream_pack(a, b)
+                if not torch.equal(again.view(torch.int16), got.view(torch.int16)):
+                    fail(f"two runs of stream_pack at deepseek-v2 {gemm} {product} M={M} differ "
+                         f"in {(again != got).sum().item()} elements")
+                say(f"  {gemm} {product} M {M}: two runs bit-identical")
+                del again
+            del got
+            (_, R, Dp), C = a.shape, b.shape[2]
+            calls = {"kernel": lambda: stream_pack(a, b), "library": lambda: torch.bmm(a, b)}
+            graphed = {k: graph_ms(f, reps=5, iters=10) for k, f in calls.items()}
+            eager = {k: time_ms(f, 20) for k, f in calls.items()}
+            plain_ms = time_ms(lambda: stream_pack_matmul_ref(a, b), 3, warmup=1)
+            nbytes = 2 * lanes * (R * Dp + Dp * C + R * C)
+            bound_ms, bound_by = bound(2.0 * lanes * R * C * Dp, nbytes, "bfloat16")
+            say(f"  {gemm} {product} ({layout}: lanes {lanes}, M {R}, K {Dp}, N {C}; "
+                f"{_tile(launch)}, {pack.resident_clusters(launch, a.device)} clusters "
+                f"resident): {worst:.2f} of tolerance, max_abs_err {err:.3e} | in a CUDA "
+                f"graph kernel_ms {graphed['kernel']:.5f} library_ms (torch.bmm) "
+                f"{graphed['library']:.5f} | from Python kernel_ms {eager['kernel']:.5f} "
+                f"library_ms {eager['library']:.5f} plain_ms {plain_ms:.5f} | bound_ms "
+                f"{bound_ms:.5f} ({bound_by}, {nbytes / 1e9:.3f} GB) | kernel at "
+                f"{bound_ms / graphed['kernel']:.1%} of "
+                f"bound, {graphed['library'] / graphed['kernel']:.3f}x the library's speed")
+            resident = pack.resident_clusters(launch, a.device)
+            entries.append(dict(gemm=gemm, product=product, layout=layout, lanes=lanes, M=R,
+                                K=Dp, N=C, variant=launch.variant, stages=launch.stages,
+                                cluster=launch.cluster, resident_clusters=resident,
+                                blocks=min(launch.grid[0] // launch.cluster, resident)
+                                * launch.cluster, max_abs_err=err, ms=graphed["kernel"],
+                                eager_ms=eager["kernel"], plain_ms=plain_ms,
+                                library_ms=graphed["library"],
+                                eager_library_ms=eager["library"], bound_ms=bound_ms,
+                                bound_by=bound_by))
+        del products, a, b
+        torch.cuda.empty_cache()
     return entries
 
 
@@ -4019,11 +4153,39 @@ def bwd_registers() -> dict:
     return out
 
 
-def latent_registers(log: str | None = None) -> dict:
+# ptxas's notes that it serialized a kernel's wgmma
+SERIALIZING = ("C7510", "C7512", "C7515", "C7520")
+
+
+def ptxas_report(logs, name_in) -> dict:
     """Registers, spill bytes (stores, loads) and whether ptxas serialized
-    its ``wgmma`` (a C75xx note: for want of registers, C7512, or for a
-    fence the compiler put in a divergent path, C7520), of each of B6's
-    kernels, from ptxas's report (``log``, or the build log of
+    its ``wgmma`` (a C75xx note that says so: for want of registers, C7510
+    or C7512, or for a fence the compiler put in a divergent path, C7515 or
+    C7520; C7519, a ``warpgroup.arrive`` it injected, is not one) of each
+    kernel of ptxas's reports ``logs`` that ``name_in(line)`` names."""
+    out, serialized = {}, set()
+    for log in logs:
+        entry = None
+        for line in log.splitlines():
+            if ("serialized" in line or any(c in line for c in SERIALIZING)) and name_in(line):
+                serialized.add(name_in(line))
+            elif "Compiling entry" in line:
+                entry = name_in(line) or None
+                if entry:
+                    out[entry] = {}
+            elif entry is not None and "spill stores" in line:
+                st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                   line).groups()
+                out[entry]["spills"] = (int(st), int(ld))
+            elif entry is not None and "Used" in line and "registers" in line:
+                out[entry]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    for name, rec in out.items():
+        rec["serialized"] = name in serialized
+    return out
+
+
+def latent_registers(log: str | None = None) -> dict:
+    """:func:`ptxas_report` of B6's kernels (``log``, or the build log of
     ``latent_attention.cu``), by name: ``latent_attention_kernel<NCH>``
     (the bf16 kernel at latent widths up to 128 NCH), ``latent_combine``,
     ``latent_attention_f32``."""
@@ -4035,22 +4197,7 @@ def latent_registers(log: str | None = None) -> dict:
                           r"(?:ILi(\d+)E)?", line)
         return found and (f"{found[1]}<{found[2]}>" if found[2] else found[1])
 
-    out, entry, serialized = {}, None, set()
-    for line in (build.build_log(b6.SOURCE) if log is None else log).splitlines():
-        if "serialized" in line and name_in(line):
-            serialized.add(name_in(line))
-        elif "Compiling entry" in line:
-            entry = name_in(line) or None
-            if entry:
-                out[entry] = {}
-        elif entry is not None and "spill stores" in line:
-            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
-            out[entry]["spills"] = (int(st), int(ld))
-        elif entry is not None and "Used" in line and "registers" in line:
-            out[entry]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
-    for name, rec in out.items():
-        rec["serialized"] = name in serialized
-    return out
+    return ptxas_report([build.build_log(b6.SOURCE) if log is None else log], name_in)
 
 
 def bwd_kernel_ms(call, reps: int = 5, attempts: int = 4) -> tuple[dict, int]:
@@ -4224,8 +4371,9 @@ def train_forward_timing(q, k, v, o, lse, kw) -> dict:
 def train_b2_backward() -> dict:
     """19b: B2's two backward products (through ``StreamPack``) against
     the plain version at the smoke experts' shapes (the capacities of the
-    19d step), a shared x, and one full deepseek-v2 expert shape, timed
-    there beside two ``torch.bmm`` (a yardstick only).  The products read
+    19d step), a shared x, and a full deepseek-v2 expert shape at M 64 and
+    at its training capacity (``TRAIN_EXPERT_M``, the wgmma kernel's), each
+    timed beside two ``torch.bmm`` (a yardstick only).  The products read
     w^T and x^T where they lie: ``layout_copies`` must stay 0."""
     import torch
 
@@ -4243,7 +4391,9 @@ def train_b2_backward() -> dict:
         cases += [(f"{arch} smoke gate/up", "float32", E, M, D, Fx, False),
                   (f"{arch} smoke down", "float32", E, M, Fx, D, False)]
     cases += [("branchy shared x", "float32", 7, 64, 64, 64, True),
-              ("deepseek-v2 full expert", "bfloat16", 160, 64, 5120, 1536, False)]
+              ("deepseek-v2 full expert", "bfloat16", 160, 64, 5120, 1536, False),
+              (f"deepseek-v2 full expert M {TRAIN_EXPERT_M}", "bfloat16", 160, TRAIN_EXPERT_M,
+               5120, 1536, False)]
     record = {}
     copies = pack.layout_copies
     for label, dname, lanes, M, K, N, shared in cases:
@@ -4278,7 +4428,7 @@ def train_b2_backward() -> dict:
             f"of tolerance; dx on {variants[0]}, dw on {variants[1]}")
         if not max(rx, rw) <= 1.0:
             fail(f"{label}: B2's backward disagrees with the plain version")
-        if label == "deepseek-v2 full expert":
+        if label.startswith("deepseek-v2 full expert"):
             from repro_torch.kernels.stream_pack.ops import _stream_pack
 
             def kern():
@@ -4298,10 +4448,11 @@ def train_b2_backward() -> dict:
                 f"dx alone {dx_ms:.4f}, dw alone {dw_ms:.4f}; two torch.bmm {lib_ms:.4f} ms; "
                 f"bound {bound_ms:.4f} ms (bytes); kernel at {bound_ms / ms:.1%} of bound, "
                 f"{lib_ms / ms:.3f}x the library's speed")
-            record = dict(backward_ms=ms, backward_eager_ms=eager_ms, backward_dx_ms=dx_ms,
-                          backward_dw_ms=dw_ms, backward_library_ms=lib_ms,
-                          backward_bound_ms=bound_ms, backward_shape=[lanes, M, K, N],
-                          backward_variants=list(variants))
+            key = "backward" if M == 64 else f"backward_m{M}"
+            record.update({f"{key}_ms": ms, f"{key}_eager_ms": eager_ms, f"{key}_dx_ms": dx_ms,
+                           f"{key}_dw_ms": dw_ms, f"{key}_library_ms": lib_ms,
+                           f"{key}_bound_ms": bound_ms, f"{key}_shape": [lanes, M, K, N],
+                           f"{key}_variants": list(variants)})
         del x, w, dy, y, dx, dw, xg, wg
     made = pack.layout_copies - copies
     say(f"  B2 layout copies over 19b: {made}")
@@ -5374,9 +5525,17 @@ def train_deepseek() -> dict:
         + f", cuBLAS products {gemm / 1e3:.3f} ms ({gemm / total_us:.1%}); top:")
     for us, count, key in rows[:8]:
         say(f"      {us / 1e3:9.3f} ms x{count:4d}  {key[:90]}")
+    b2_rows = [(b2_variant(key), count, us) for us, count, key in rows if "stream_pack" in key]
+    say("  B2's kernels in the replay, by variant: " + "; ".join(
+        f"{v} x{count} {us / 1e3:.3f} ms" for v, count, us in b2_rows))
     want_kinds = {k: cfg.n_layers for k in B7_KERNELS}
     if b7_kinds != want_kinds:
         fail(f"a replay ran B7's kernels {b7_kinds}, not {want_kinds}")
+    # the forward's gate, up and down and each one's dx and dw, a layer
+    b2_want = {f"bf16_wgmma/{lay}": 3 * cfg.n_layers for lay in ("nn", "nt", "tn")}
+    b2_got = {v: count for v, count, _ in b2_rows}
+    if b2_got != b2_want:
+        fail(f"a replay ran B2's kernels {b2_got}, not {b2_want}")
     B7_REPLAYS["replays"] += 1
     B7_REPLAYS["kernels"] += sum(b7_kinds.values())
     B7_REPLAYS["calls"] += 2 * cfg.n_layers         # the capture's forward and backward calls
@@ -5389,8 +5548,18 @@ def train_deepseek() -> dict:
                 losses=losses, b7_launches=b7.launches + b7_bwd.launches,
                 b2_launches=pack.launches, in_replay=b7_kinds,
                 b7_replay_ms={k: v / 1e3 for k, v in b7_us.items()},
+                b2_replay={v: dict(kernels=count, ms=us / 1e3) for v, count, us in b2_rows},
                 shares_ms={k: v / 1e3 for k, v in shares.items()},
                 replay_kernel_ms=total_us / 1e3, parameters=n, leaves=leaves)
+
+
+def b2_variant(name: str) -> str:
+    """The variant of the B2 kernel a profiler names (the wgmma kernel's
+    template arguments are x and w transposed), else the name itself."""
+    found = re.search(r"stream_pack_wgmma<(\w+), (\w+)>", name)
+    if not found:
+        return name.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+    return "bf16_wgmma/" + "".join("t" if f == "true" else "n" for f in found.groups())
 
 
 def train_card_vs_cpu() -> dict:

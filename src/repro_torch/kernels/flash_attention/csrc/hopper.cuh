@@ -1,9 +1,10 @@
-// Hopper (sm_90a) building blocks shared by B1's forward
-// (flash_attention.cu) and backward (flash_attention_bwd.cu): mbarriers,
-// TMA loads from tensor maps built on the host, wgmma descriptors and the
-// m64nNk16 bf16 products, and the host-side helpers that opt a kernel into
-// large shared memory and encode a tensor map.  Each .cu file includes it
-// once; build.py hashes it with the file, so an edit rebuilds both.
+// Hopper (sm_90a) building blocks shared by the port's kernels (B1's
+// forward and backward, B2, B3, B6, B7): mbarriers, TMA loads from tensor
+// maps built on the host, named barriers and the async-proxy fence, wgmma
+// descriptors and the m64nNk16 bf16 products, and the host-side helpers
+// that opt a kernel into large shared memory and encode a tensor map.  Each
+// .cu file includes it once; build.py hashes it with the file, so an edit
+// rebuilds every library that includes it.
 
 #pragma once
 
@@ -89,6 +90,27 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(s), "r"(h), "r"(b), "r"(bar)
       : "memory");
+}
+
+// 3-d TMA load of box {c0, c1, c2} into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                          int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// named barrier `id` over `n` threads
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// generic-proxy writes to shared memory, made visible to the async proxy
+// (wgmma's and the TMA's reads)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // the CHUNKS boxes of one ROWS x HDP tile at sequence position s of (h, b)

@@ -282,26 +282,6 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[4][32], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// 3-d TMA load of box {c, t, b} into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map, int c, int t,
-                                          int b, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(t), "r"(b), "r"(bar)
-      : "memory");
-}
-
-// named barrier `id` over `n` threads
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-// generic-proxy writes to shared memory, made visible to wgmma's reads
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // the byte of 8 bf16 columns (chunk j = col / 8 of a 64-column box) of row
 // `row` in a 128-byte-swizzled box of 128-byte rows
 __device__ __forceinline__ uint32_t swz(int row, int j) {

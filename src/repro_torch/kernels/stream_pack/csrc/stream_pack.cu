@@ -12,7 +12,7 @@
 // or transposed (its gradient's x^T and w^T are views), read through the
 // strides given.  The ragged edge is masked, so any M, N and K are taken.
 //
-// Two regimes, two designs; the tile is chosen in Python (kernel.py,
+// Three regimes, three designs; the tile is chosen in Python (kernel.py,
 // choose_launch), and the entry point sizes the grid and the dynamic shared
 // memory from it.
 //
@@ -82,10 +82,67 @@
 //   dw 15% less; handing them to TMA stores instead saved nothing in the
 //   forward and cost dw 7%, and a 512-column tile (x read half as often)
 //   saved nothing either, so what M 64 loses is the stores' own traffic.
+//
+// 3. Training's expert products (stream_pack_wgmma, bf16).  A training step
+// gives each expert a capacity of round(N k / E x 1.25) rows (384 at
+// DeepSeek-V2's 2 x 4096 tokens), and B2 runs each of a layer's three
+// expert GEMMs three times: the forward x w (nn), dx = dy w^T (nt) and
+// dw = x^T dy (tn), 160 lanes of 384 x 5120 x 1536 or the like.  At M 384 a
+// product does 384 FLOP a byte of weight, past the H100's ridge of about
+// 295, so the tensor cores bound it (0.977 ms at 989 TFLOP/s) as much as
+// its 3.3 GB do (0.996 ms at 3.35 TB/s).  The stream's mma.sync, fed by
+// ldmatrix, and its 16- to 64-row tiles cannot approach that.  So:
+// * wgmma m64n256k16, bf16 in, float32 sums in registers, both operands in
+//   shared memory, read through descriptors: x K-major (nn, nt) or
+//   MN-major (tn, the transpose bit), w MN-major (nn, tn) or K-major (nt:
+//   w^T lies as wgmma's native B).  One template <AT, BT> serves the three
+//   layouts with the same sequence of products.
+// * A 128 x 256 output tile a CTA, 64 rows for each of two consumer
+//   warpgroups (128 float32 accumulators a thread), and a producer warp:
+//   288 threads, 154-156 registers, no spill.  A 64-deep chunk of the tile
+//   does 85 FLOP a byte of shared memory it fills.  A consumer thread
+//   issuing the loads (this kernel's first design) issued each one only
+//   when both warpgroups had passed their products, and the loads stopped
+//   overlapping them (PERF.md §6, the stream_pack_wgmma findings).
+// * A ring of 4 stages of 48 KB, each a 64-deep chunk of x's 128 rows (one
+//   128 x 64 box, or x^T's two 64 x 64 boxes) and of w's 256 columns (four
+//   64 x 64 boxes), TMA boxes with the 128-byte swizzle the descriptors
+//   name; the TMA zero-fills depth past K and rows and columns past M and
+//   N, and boxes wholly past M or N are not loaded (they would fill only
+//   outputs that are never stored).  Each stage has an mbarrier for its
+//   loads and one that each consumer warpgroup of the cluster arrives on
+//   once its products have read it; the producer walks the chunks on from
+//   one item into the next.
+// * Clusters of cl = 2 or 3 CTAs along M (the first that divides the row
+//   tiles; 1 where none does) take one column tile of cl row tiles: each
+//   CTA loads its x rows and w's boxes j = rank mod cl for all of them
+//   (TMA multicast), so w's tile leaves L2 once a cluster.  At M 384 the 3
+//   row tiles are one cluster, and each weight column panel is read once;
+//   alone (cl 1) the forward took 1.9-2.4 ms, in clusters of 3 1.5-1.9.
+//   A cluster of 3 uses 117 of the 132 SMs (39 clusters resident), of 2
+//   all; clusters of 4 (30 resident) were no faster for dw.
+// * Persistent clusters walk (lane, row-tile group, column tile) items,
+//   column tiles fastest, as many as the card holds at once.
+// * Each consumer warpgroup keeps one group of products in flight behind
+//   the one it waits for (wgmma.wait_group 1), and starts each item with
+//   scale-d 0, so no instruction but a wgmma writes the accumulators;
+//   fence_regs around the waits keeps the compiler from moving the stores'
+//   reads of them above the last wait.  The warpgroup index comes through
+//   __shfl_sync, so ptxas sees it uniform across each warp (a branch on
+//   threadIdx around the products serializes them).
+// * Stores: a warpgroup writes its 64 x 256 outputs, rounded to bf16, into
+//   a 32 KB staging tile in the 128-byte swizzle (no bank conflicts), and
+//   one of its threads hands the four 64 x 64 boxes to TMA stores, which
+//   clip rows past M and columns past N.  The two warpgroups take turns at
+//   the one tile (named barriers 3 and 4), warpgroup 1 an epilogue behind
+//   warpgroup 0, so each one's stores go under the other's products.  4
+//   stages + staging + barriers take 230,464 of the 232,448 bytes a CTA may
+//   have.
 // Every output element is one thread's sum in ascending k, in every kernel:
 // no split-K and no atomics, so two runs give the same bits; bf16 output is
 // rounded once.  Dynamic shared memory above 48 KB (a panel of up to 64 KB,
-// a ring of up to 56 KB, the stream's about 90 KB) is allowed by
+// a ring of up to 56 KB, the stream's about 90 KB, the wgmma ring's 209 KB)
+// is allowed by
 // stream_pack_init, which the wrapper calls once per device before its
 // first launch, outside any CUDA-graph capture.
 
@@ -417,16 +474,6 @@ __device__ __forceinline__ uint32_t swz(uint32_t tile, int row, int chunk) {
   return tile + row * SWZ_ROW + ((chunk ^ (row & 7)) << 4);
 }
 
-// 3-d TMA load of box {c0, c1, c2} into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                          int c2, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
-      : "memory");
-}
-
 struct TmaShape {
   __nv_bfloat16* out;  // (lanes, R, C), contiguous
   int R, C, D;         // each lane: out (R x C) = A (R x D) . B (D x C)
@@ -581,6 +628,295 @@ stream_pack_tma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ 
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: training's products (wgmma, TMA ring, persistent blocks)
+// ---------------------------------------------------------------------------
+
+constexpr int WG_BM = 128;                           // tile rows: 64 for each warpgroup
+constexpr int WG_BN = 256;                           // tile columns: one m64n256k16
+constexpr int WG_KC = 64;                            // depth of a stage: one swizzle row
+constexpr int WG_CONSUMERS = 2;                      // warpgroups, 64 tile rows each
+constexpr int WG_THREADS = 128 * WG_CONSUMERS + 32;  // and a producer warp
+constexpr int WG_A_BYTES = WG_BM * SWZ_ROW;          // x's 128 rows of a chunk: 16 KB
+constexpr int WG_B_BYTES = WG_BN * SWZ_ROW;          // w's 256 columns of a chunk: 32 KB
+constexpr int WG_STAGE = WG_A_BYTES + WG_B_BYTES;    // 48 KB, a multiple of the 1 KB atom
+constexpr int WG_OUT_BYTES = 64 * WG_BN * 2;         // one warpgroup's outputs: 32 KB
+constexpr int WG_BOX_BYTES = BOX * SWZ_ROW;          // a 64 x 64 box: 8 KB
+constexpr int WG_MAX_STAGES = 8;
+constexpr int WG_MAX_CLUSTER = 4;
+
+// kernel.py's wgmma_smem_bytes: 1024 to align the ring, the ring, the
+// staging of half the output tile, a full and an empty mbarrier a stage
+__host__ __device__ constexpr size_t wgmma_smem_bytes(int stages) {
+  return 1024 + (size_t)stages * WG_STAGE + WG_OUT_BYTES + 16 * stages;
+}
+
+// d (64 x 256) (+)= A (64 x 16) * B (16 x 256), both in shared memory: A
+// K-major (TA 0) or MN-major (TA 1), B K-major (TB 0) or MN-major (TB 1);
+// where scale_d is 0, d is overwritten
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// 3-d TMA store of the box at `src` to {c0, c1, c2}, in this thread's bulk group
+__device__ __forceinline__ void tma_store3(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                           int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// this thread's bulk stores have read their shared memory (READ) or are done
+template <bool READ>
+__device__ __forceinline__ void bulk_wait_all() {
+  if constexpr (READ) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// 3-d TMA load of box {c0, c1, c2} into shared memory at `dst` of every CTA
+// of the cluster in `mask`, completing on the mbarrier at `bar` of each
+__device__ __forceinline__ void tma_load3_multicast(uint32_t dst, const CUtensorMap* map, int c0,
+                                                    int c1, int c2, uint32_t bar,
+                                                    uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar), "h"(mask)
+      : "memory");
+}
+
+// arrive on the mbarrier at shared address `bar` of CTA `cta` of the cluster
+// (release at CTA scope: a cluster-scope release costs about half a
+// microsecond an arrival)
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
+                   : "memory");
+}
+
+// this warp's arrival at named barrier `id` of `n` threads, not waiting
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+struct WgShape {
+  int R, C, D;  // each lane: out (R x C) = A (R x D) . B (D x C)
+  // the cluster's CTAs take `cl` consecutive row tiles of one column tile;
+  // items: lanes x row_tiles / cl x col_tiles
+  int row_tiles, col_tiles, items, stages, cl;
+};
+
+// AT: x lies transposed (its map's rows are depth, its columns x's rows: two
+// 64 x 64 boxes a chunk); BT: w lies transposed (its map's rows are w's
+// columns).  w's tile comes as four 64 x 64 boxes, box j issued by the
+// cluster's CTA j mod cl to all of them.  `to` maps the output (N, M,
+// lanes) in 64 x 64 boxes.
+template <bool AT, bool BT>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+stream_pack_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+                  const __grid_constant__ CUtensorMap to, const WgShape p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023) & ~1023u;  // the swizzle's atoms are 1024 bytes
+  const uint32_t staging = ring + p.stages * WG_STAGE;
+  const uint32_t bars = staging + WG_OUT_BYTES;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (p.stages + s); };
+
+  const int tid = threadIdx.x;
+  // the warpgroup as a value ptxas knows is the same across a warp
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int wl = (tid >> 5) & 3, lane = tid & 31, g8 = lane >> 2, t4 = lane & 3;
+  const bool leader = (tid & 127) == 0;  // its warpgroup's arrivals and stores
+  const int rank = (int)cluster_rank(), clusters = gridDim.x / p.cl;
+  const uint16_t all_ctas = (uint16_t)((1u << p.cl) - 1);
+  const int per_lane = p.row_tiles / p.cl * p.col_tiles;
+  const int nchunks = (p.D + WG_KC - 1) / WG_KC;
+
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2 * p.cl);  // each warpgroup of each CTA of the cluster
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();  // every CTA's barriers are set before any copy reaches them
+
+  if (wg == WG_CONSUMERS) {
+    // ---- the producer warp: one thread walks the block's (item, chunk)
+    // order, each chunk into the next stage once every warpgroup of the
+    // cluster has freed it (w's boxes land in every CTA's stage) ----
+    if (lane == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&ta)) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tb)) : "memory");
+      int cnt = 0;
+      for (int item = blockIdx.x / p.cl; item < p.items; item += clusters) {
+        const int g = item / per_lane, rest = item % per_lane;
+        const int r0 = (rest / p.col_tiles * p.cl + rank) * WG_BM;
+        const int c0 = rest % p.col_tiles * WG_BN;
+        // x^T's and w's 64 x 64 boxes that start before M and N
+        const int a_boxes = AT ? min(WG_BM / BOX, (p.R - r0 + BOX - 1) / BOX) : 0;
+        const int b_boxes = min(WG_BN / BOX, (p.C - c0 + BOX - 1) / BOX);
+        const uint32_t bytes =
+            (AT ? a_boxes * WG_BOX_BYTES : WG_A_BYTES) + b_boxes * WG_BOX_BYTES;
+        for (int c = 0; c < nchunks; ++c, ++cnt) {
+          const int s = cnt % p.stages, k0 = c * WG_KC;
+          mbar_wait(empty(s), ((cnt / p.stages) & 1) ^ 1);
+          mbar_expect_tx(full(s), bytes);
+          const uint32_t a = ring + s * WG_STAGE, b = a + WG_A_BYTES;
+          if (AT) {
+            for (int j = 0; j < a_boxes; ++j)  // 64 depth rows of 64 x rows
+              tma_load3(a + j * WG_BOX_BYTES, &ta, r0 + BOX * j, k0, g, full(s));
+          } else {
+            tma_load3(a, &ta, k0, r0, g, full(s));  // 128 x rows of 64 depth
+          }
+          for (int j = rank; j < b_boxes; j += p.cl) {
+            if (BT)  // 64 w columns of 64 depth
+              tma_load3_multicast(b + j * WG_BOX_BYTES, &tb, k0, c0 + BOX * j, g, full(s),
+                                  all_ctas);
+            else     // 64 depth rows of 64 columns
+              tma_load3_multicast(b + j * WG_BOX_BYTES, &tb, c0 + BOX * j, k0, g, full(s),
+                                  all_ctas);
+          }
+        }
+      }
+    }
+    __syncwarp();
+    cluster_sync();  // no CTA leaves while a peer may still arrive on its barriers
+    return;
+  }
+
+  // ---- the consumers ----
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&to)) : "memory");
+  // a warpgroup is done reading stage s (its products that read it have
+  // completed): its thread c tells CTA c of the cluster
+  auto release = [&](int s) {
+    if ((tid & 127) < p.cl) mbar_arrive_cluster(empty(s), tid & 127);
+  };
+
+  // The warpgroups take turns at the one staging tile: warpgroup 0 stages
+  // an item's outputs once warpgroup 1 has handed it the tile after the
+  // previous item (named barrier 4), warpgroup 1 once warpgroup 0 has
+  // (barrier 3).  A warpgroup hands it over when its stores have read it,
+  // checked after its next item's first products are issued.  So
+  // warpgroup 1 runs an epilogue behind warpgroup 0, and each one's stores
+  // go under the other's products.
+  bool holding = false;  // this warpgroup's stores still read the staging
+  auto hand_over = [&]() {
+    if (leader) bulk_wait_all<true>();
+    __syncwarp();
+    if (wl == 0) bar_arrive(3 + wg, 128 + 32);  // its warp 0 arrives, the other waits
+    holding = false;
+  };
+
+  // element i of acc: row 16 wl + g8 + 8 ((i >> 1) & 1) of the warpgroup's
+  // 64, column 8 (i >> 2) + 2 t4 + (i & 1)
+  float acc[128];
+  unsigned char* const stg = smem_raw + (staging - raw);
+  int cnt = 0, done = 0;
+  for (int item = blockIdx.x / p.cl; item < p.items; item += clusters) {
+    const int g = item / per_lane, rest = item % per_lane;
+    const int r0 = (rest / p.col_tiles * p.cl + rank) * WG_BM, c0 = rest % p.col_tiles * WG_BN;
+    for (int c = 0; c < nchunks; ++c, ++cnt) {
+      const int s = cnt % p.stages;
+      mbar_wait(full(s), (cnt / p.stages) & 1);
+      // this warpgroup's 64 rows of x (its box of x^T), w's 256 columns
+      const uint32_t a = ring + s * WG_STAGE + wg * WG_BOX_BYTES;
+      const uint32_t b = ring + s * WG_STAGE + WG_A_BYTES;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WG_KC / 16; ++kk) {
+        // K-major: 16 depth columns are 32 bytes along a swizzle row, 8-row
+        // groups 1024 bytes apart; MN-major: 16 depth rows are 16 swizzle
+        // rows down, 64-column boxes WG_BOX_BYTES apart
+        const uint64_t da = AT ? make_desc(a + kk * 16 * SWZ_ROW, WG_BOX_BYTES, 1024, 1)
+                               : make_desc(a + kk * 32, 16, 1024, 1);
+        const uint64_t db = BT ? make_desc(b + kk * 32, 16, 1024, 1)
+                               : make_desc(b + kk * 16 * SWZ_ROW, WG_BOX_BYTES, 1024, 1);
+        wgmma_n256<AT ? 1 : 0, BT ? 0 : 1>(acc, da, db, c > 0 || kk > 0);
+      }
+      wgmma_commit();
+      if (holding) hand_over();
+      wgmma_wait<1>();  // the previous chunk's products are done
+      fence_regs(acc);
+      if (c > 0) release((cnt - 1) % p.stages);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);  // no read of acc moves above the wait
+    release((cnt - 1) % p.stages);
+
+    // ---- stores: this warpgroup's turn at the staging tile ----
+    if (wg == 1 || done > 0) bar_sync(4 - wg, 128 + 32);
+#pragma unroll
+    for (int j = 0; j < WG_BN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 16 * wl + g8 + 8 * h;  // row & 7 == g8
+        *reinterpret_cast<uint32_t*>(stg + (j >> 3) * WG_BOX_BYTES + row * SWZ_ROW +
+                                     (((j & 7) ^ g8) << 4) + 4 * t4) =
+            pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    fence_async_shared();
+    bar_sync(1 + wg, 128);
+    const int rw = r0 + BOX * wg;
+    if (leader && rw < p.R) {
+      for (int j = 0; j < WG_BN / BOX && c0 + BOX * j < p.C; ++j)
+        tma_store3(&to, staging + j * WG_BOX_BYTES, c0 + BOX * j, rw, g);
+      bulk_commit();
+    }
+    holding = true;
+    ++done;
+  }
+  if (holding) hand_over();
+  if (wg == 0 && done > 0) bar_sync(4, 128 + 32);  // warpgroup 1's last turn
+  if (leader) bulk_wait_all<false>();
+  cluster_sync();  // no CTA leaves while a peer may still arrive on its barriers
+}
+
 // the 3-d map (d0, d1, d2) of a bf16 tensor, strides s1, s2 in elements,
 // boxes of b0 x b1 x 1 with the 128-byte swizzle; out of bounds reads as 0
 int make_map3(CUtensorMap* map, const void* ptr, long long d0, long long d1, long long d2,
@@ -678,6 +1014,97 @@ int launch_tma(const void* x, const void* w, void* out, int lanes, int M, int N,
   return (int)cudaGetLastError();
 }
 
+struct WgInstance {
+  int at, bt;
+  const void* fn;
+};
+
+// kernel.py's INSTANCES of training's products: nn, nt and tn
+#define WG(AT, BT) {AT, BT, (const void*)stream_pack_wgmma<AT, BT>}
+const WgInstance kWgmma[] = {WG(false, false), WG(false, true), WG(true, false)};
+#undef WG
+
+const void* find_wgmma(int at, int bt) {
+  for (const WgInstance& k : kWgmma)
+    if (k.at == at && k.bt == bt) return k.fn;
+  return nullptr;
+}
+
+// The clusters of `cl` CTAs of the wgmma kernel (at, bt) with a ring of
+// `stages` that the card holds at once (a cluster's CTAs share a GPC),
+// asked once for each kernel, cluster size and ring; 0 where it cannot say.
+int resident_clusters(int at, int bt, int stages, int cl) {
+  const void* fn = find_wgmma(at, bt);
+  if (fn == nullptr || cl < 1 || cl > WG_MAX_CLUSTER || stages < 2 || stages > WG_MAX_STAGES)
+    return 0;
+  static int known[3][WG_MAX_CLUSTER + 1][WG_MAX_STAGES + 1];
+  int& most = known[at * 2 + bt][cl][stages];
+  if (most == 0) {
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cl;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(cl);
+    cfg.blockDim = dim3(WG_THREADS);
+    cfg.dynamicSmemBytes = wgmma_smem_bytes(stages);
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    if (cudaOccupancyMaxActiveClusters(&most, fn, &cfg) != cudaSuccess) most = 0;
+  }
+  return most;
+}
+
+// Training's products over x (lanes, M, K) and w (lanes, K, N): R = M, D =
+// K, C = N.  x's map: row-major (K, M, lanes) in boxes of 64 x 128,
+// transposed (M, K, lanes) in boxes of 64 x 64; w's map: row-major (N, K,
+// lanes) or transposed (K, N, lanes), boxes of 64 x 64; out's map (N, M,
+// lanes) in boxes of 64 x 64.  Clusters of `cl` CTAs along M (cl divides
+// the row tiles), as many as the card holds at once and at most blocks / cl.
+int launch_wgmma(const void* x, const void* w, void* out, int lanes, int M, int N, int K,
+                 long long x_lane, int bm, int bn, int at, int bt, int stages, int cl,
+                 int blocks, cudaStream_t stream) {
+  const void* fn = find_wgmma(at, bt);
+  const long long row_tiles = (M + WG_BM - 1) / WG_BM, col_tiles = (N + WG_BN - 1) / WG_BN;
+  if (fn == nullptr || bm != WG_BM || bn != WG_BN || stages < 2 || stages > WG_MAX_STAGES ||
+      cl < 1 || cl > WG_MAX_CLUSTER || row_tiles % cl != 0 || blocks < cl ||
+      (lanes > 1 && x_lane == 0))
+    return (int)cudaErrorInvalidValue;
+  if (lanes == 1) x_lane = (long long)M * K;  // read for lane 0 only
+  const long long items = lanes * (row_tiles / cl) * col_tiles;
+  if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tb, to;
+  int err = at ? make_map3(&ta, x, M, K, lanes, M, x_lane, BOX, BOX)
+               : make_map3(&ta, x, K, M, lanes, K, x_lane, BOX, WG_BM);
+  if (!err)
+    err = bt ? make_map3(&tb, w, K, N, lanes, K, (long long)K * N, BOX, BOX)
+             : make_map3(&tb, w, N, K, lanes, N, (long long)K * N, BOX, BOX);
+  if (!err) err = make_map3(&to, out, N, M, lanes, N, (long long)M * N, BOX, BOX);
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.blockDim = dim3(WG_THREADS);
+  cfg.dynamicSmemBytes = wgmma_smem_bytes(stages);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const int most = resident_clusters(at, bt, stages, cl);
+  if (most < 1) return (int)cudaErrorInvalidConfiguration;
+  long long n = blocks / cl;
+  if (n > most) n = most;
+  if (n > items) n = items;
+  cfg.gridDim = dim3((unsigned)(n * cl));
+  WgShape p{M, N, K, (int)row_tiles, (int)col_tiles, (int)items, stages, cl};
+  void* args[] = {&ta, &tb, &to, &p};
+  cudaLaunchKernelExC(&cfg, fn, args);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Allows every kernel the device's largest dynamic shared memory.  Call once
@@ -694,7 +1121,17 @@ extern "C" int stream_pack_init(void) {
   for (const TmaInstance& k : kTma)
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  for (const WgInstance& k : kWgmma)
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
   return (int)err;
+}
+
+// How many clusters of `cl` CTAs of the wgmma kernel for x_t / w_t with a
+// ring of `stages` the card holds at once (after stream_pack_init); 0 where
+// there is no such kernel or the card cannot say.
+extern "C" int stream_pack_wgmma_clusters(int x_t, int w_t, int stages, int cl) {
+  return resident_clusters(x_t, w_t, stages, cl);
 }
 
 // x: lane g's (M, K) matrix at x + g * strides[0], element (m, k) at
@@ -703,13 +1140,14 @@ extern "C" int stream_pack_init(void) {
 // n * strides[5]; out (lanes, M, N) contiguous; strides in elements; float32
 // (is_bf16 = 0) or bfloat16 (is_bf16 = 1).  The tile, as kernel.py's
 // choose_launch gives it: kind 0 (f32: stages 1 the panel, 4 the ring), 1
-// (the bf16 ring) or 2 (the bf16 stream); vec (1: cp.async 16-byte copies of
-// row-major operands; 0: masked element-wise loads through the strides); bm
-// x bn (f32: bn 16; bf16 ring: bn 32; stream: bm its row tile, bn 256);
-// the K depth kc of one stage (f32: a multiple of 4, at least K for the
-// panel, 64 for the ring; bf16: 64); for the stream, x_t / w_t (x / w lies
-// transposed; the strides are then not read beyond x's lane stride), its
-// ring's stages and its persistent blocks.  The grid and the dynamic shared
+// (the bf16 ring), 2 (the bf16 stream) or 3 (training's products on
+// wgmma); vec (1: cp.async 16-byte copies of row-major operands; 0: masked
+// element-wise loads through the strides); bm x bn (f32: bn 16; bf16 ring:
+// bn 32; stream: bm its row tile, bn 256; wgmma: 128 x 256); the K depth kc
+// of one stage (f32: a multiple of 4, at least K for the panel, 64 for the
+// ring; bf16: 64); for the stream and wgmma, x_t / w_t (x / w lies
+// transposed; the strides are then not read beyond x's lane stride), their
+// ring's stages and their persistent blocks.  The grid and the dynamic shared
 // memory follow from the tile.  Launches on `stream`, allocates nothing, and
 // returns cudaGetLastError() after the launch (0 on success;
 // cudaErrorInvalidValue for a tile it has no kernel for; ERR_* of hopper.cuh
@@ -717,7 +1155,7 @@ extern "C" int stream_pack_init(void) {
 extern "C" int stream_pack_matmul(const void* x, const void* w, void* out, int is_bf16,
                                   int lanes, int M, int N, int K, const long long* strides,
                                   int kind, int stages, int vec, int bm, int bn, int kc, int x_t,
-                                  int w_t, int blocks, void* stream) {
+                                  int w_t, int cluster, int blocks, void* stream) {
   if (lanes <= 0 || M <= 0 || N <= 0 || K <= 0 || strides[0] < 0 || kc <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -725,6 +1163,11 @@ extern "C" int stream_pack_matmul(const void* x, const void* w, void* out, int i
     if (!is_bf16 || kc != TMA_KC) return (int)cudaErrorInvalidValue;
     return launch_tma(x, w, out, lanes, M, N, K, strides[0], bm, bn, x_t, w_t, stages, blocks,
                       s);
+  }
+  if (kind == 3) {
+    if (!is_bf16 || kc != WG_KC) return (int)cudaErrorInvalidValue;
+    return launch_wgmma(x, w, out, lanes, M, N, K, strides[0], bm, bn, x_t, w_t, stages, cluster,
+                        blocks, s);
   }
   const PackStrides st{strides[0], strides[1], strides[2], strides[3], strides[4], strides[5]};
   if (vec && (st.xk != 1 || st.wn != 1)) return (int)cudaErrorInvalidValue;

@@ -60,12 +60,34 @@ TMA_STAGES = 2
 # 32-column ring at 128 KB, 2.3-2.5x at 512 KB, 1.2-1.9x from 1.2 MB up;
 # smaller bf16 products keep the ring
 TMA_MIN_PANEL = 512 << 10
-# (x, w) layouts: n row-major, t transposed; the stream reads the first
-# three, the rings' element-wise loads all four
+# (x, w) layouts: n row-major, t transposed; the stream and the wgmma
+# kernel read the first three, the rings' element-wise loads all four
 LAYOUTS = ("nn", "nt", "tn", "tt")
 TMA_LAYOUTS = LAYOUTS[:3]
+# Training's products (bf16_wgmma): the stream's conditions (bf16, a
+# per-lane x, TMA's alignment, a panel of TMA_MIN_PANEL) at M past the
+# stream's 64 rows for nn and nt, or, for tn (dw = xᵀ · dy, whose depth is
+# the tokens a lane holds), at a depth of WGMMA_MIN_DEPTH.  Persistent
+# blocks, one an SM, walk 128 x 256 output tiles on wgmma m64n256k16 (two
+# warpgroups of 64 rows), fed by a ring of WGMMA_STAGES TMA stages 64 deep
+# (csrc/stream_pack.cu, 3.): 4 stages of 48 KB beside a 32 KB staging tile,
+# which the warpgroups take in turns, fill 230,464 of the 232,448 bytes a
+# block may have.
+# The blocks go in clusters of the first of WGMMA_CLUSTERS that divides the
+# row tiles, along M: a cluster's blocks take one column tile of as many
+# row tiles, and each loads a share of w's tile for all of them (TMA
+# multicast).  WGMMA_MIN_DEPTH: tools/stream_pack_variants.py --train
+# (PERF.md) timed DeepSeek-V2's dw at depths 64, 96, 128, 160, 256 and 384:
+# the stream took 1.07 ms at 64 and 1.48 at 96, the wgmma kernel 1.09-1.11
+# and 1.17-1.18; M > 64 is where nn and nt turn too (at M 96 the wgmma
+# kernel 0.94-1.02 ms, the stream 1.02-1.17; at 64 the stream 0.87-0.89,
+# the wgmma kernel 0.91-0.96).
+WGMMA_BM, WGMMA_BN, WGMMA_KC = 128, 256, 64
+WGMMA_STAGES = 4
+WGMMA_CLUSTERS = (2, 3, 1)
+WGMMA_MIN_DEPTH = 96
 # every kernel of the library as (variant, bm, bn): csrc/stream_pack.cu
-# instantiates the same tiles (kInstances, kTma), and phase 6 of
+# instantiates the same tiles (kInstances, kTma, kWgmma), and phase 6 of
 # chip_smoke.py launches each of them
 INSTANCES = tuple(
     (f"{kind}/{loader}", bm, bn)
@@ -73,8 +95,9 @@ INSTANCES = tuple(
                            ("bf16_ring", BF16_ROWS, BF16_BN))
     for bm in rows for loader in ("vec", "elem")) + tuple(
     (f"bf16_tma/{lay}", rt, TMA_BN)
-    for lay in TMA_LAYOUTS for rt in (TMA_ROWS if lay[0] == "n" else TMA_ROWS[-1:]))
-_KIND = {"f32_panel": 0, "f32_ring": 0, "bf16_ring": 1, "bf16_tma": 2}
+    for lay in TMA_LAYOUTS for rt in (TMA_ROWS if lay[0] == "n" else TMA_ROWS[-1:])) + tuple(
+    (f"bf16_wgmma/{lay}", WGMMA_BM, WGMMA_BN) for lay in TMA_LAYOUTS)
+_KIND = {"f32_panel": 0, "f32_ring": 0, "bf16_ring": 1, "bf16_tma": 2, "bf16_wgmma": 3}
 
 launches = 0
 layout_copies = 0
@@ -94,7 +117,9 @@ class Launch:
     ``n`` row-major, ``t`` transposed.  The library sizes the grid and the
     shared memory from the tile itself; ``grid`` and ``smem_bytes`` here
     are the same numbers, for the launch-limit check and for display (the
-    stream's grid is its persistent blocks)."""
+    stream's grid is its persistent blocks; the wgmma kernel's the most it
+    launches, in clusters of ``cluster`` blocks, fewer where the card holds
+    fewer such clusters at once)."""
 
     variant: str
     bm: int
@@ -104,6 +129,7 @@ class Launch:
     grid: tuple[int, int, int]
     smem_bytes: int
     layout: str = "nn"
+    cluster: int = 1
 
     @property
     def vec(self) -> bool:
@@ -129,6 +155,14 @@ def tma_smem_bytes(rt: int, stages: int) -> int:
     return 1024 + stages * (rt + TMA_BN) * 128 + 4 * 16 * 72 * 2 + 16 * stages
 
 
+def wgmma_smem_bytes(stages: int) -> int:
+    """The wgmma kernel's dynamic shared memory, as the library sizes it:
+    1024 bytes to align the ring, ``stages`` stages of x's 128 rows and w's
+    256 columns (128 bytes a row of either), one warpgroup's 64 x 256 bf16
+    outputs staged (the warpgroups take turns), and the ring's mbarriers."""
+    return 1024 + stages * (WGMMA_BM + WGMMA_BN) * 128 + WGMMA_BM * WGMMA_BN + 16 * stages
+
+
 def _tma_launch(lanes: int, M: int, N: int, rt: int, layout: str) -> Launch:
     """The stream's launch: one persistent block an SM (fewer where there
     are fewer items), a ring of ``TMA_STAGES``."""
@@ -139,6 +173,21 @@ def _tma_launch(lanes: int, M: int, N: int, rt: int, layout: str) -> Launch:
                   tma_smem_bytes(rt, TMA_STAGES), layout)
 
 
+def _wgmma_launch(lanes: int, M: int, N: int, layout: str) -> Launch:
+    """Training's products: persistent blocks, one an SM (fewer where there
+    are fewer items), in clusters along M, over 128 x 256 tiles, a ring of
+    ``WGMMA_STAGES``."""
+    row_tiles = -(-M // WGMMA_BM)
+    cluster = next(c for c in WGMMA_CLUSTERS if row_tiles % c == 0)
+    items = lanes * row_tiles // cluster * -(-N // WGMMA_BN)
+    if items > MAX_GRID_X:
+        raise ValueError(f"lanes {lanes}, M {M} or N {N} exceeds the wgmma kernel's "
+                         f"{MAX_GRID_X} items")
+    return Launch(f"bf16_wgmma/{layout}", WGMMA_BM, WGMMA_BN, WGMMA_KC, WGMMA_STAGES,
+                  (min(items, SMS // cluster) * cluster, 1, 1), wgmma_smem_bytes(WGMMA_STAGES),
+                  layout, cluster)
+
+
 def choose_launch(lanes: int, M: int, N: int, K: int, dtype: str, aligned: bool, *,
                   x_t: bool = False, w_t: bool = False, shared: bool = False) -> Launch:
     """The kernel launch for ``lanes`` products ``(M, K) @ (K, N)`` of
@@ -146,21 +195,25 @@ def choose_launch(lanes: int, M: int, N: int, K: int, dtype: str, aligned: bool,
     on 16 bytes (:func:`vector_aligned`); ``x_t``/``w_t``: x/w lies
     transposed; ``shared``: one x for every lane (lane stride 0).  bf16
     products with a per-lane x, TMA's alignment (16-byte bases and rows)
-    and a weight panel of at least ``TMA_MIN_PANEL`` bytes take the TMA
-    weight stream at M <= 64, or wherever x lies transposed (its output
-    panel counted).  Everything else takes the rings: row-major operands
-    with K and N in whole 16-byte vectors take cp.async copies, anything
-    else masked element-wise loads.  Plain Python, decides nothing about a
-    card.  Raises ``ValueError`` where the grid would pass the launch
-    limits."""
+    and a weight panel of at least ``TMA_MIN_PANEL`` bytes take the wgmma
+    kernel at M > 64 with x row-major, or from a depth K of
+    ``WGMMA_MIN_DEPTH`` where x lies transposed; else the TMA weight stream
+    at M <= 64, or wherever x lies transposed (its output panel counted).
+    Everything else takes the rings: row-major operands with K and N in
+    whole 16-byte vectors take cp.async copies, anything else masked
+    element-wise loads.  Plain Python, decides nothing about a card.
+    Raises ``ValueError`` where the grid would pass the launch limits."""
     layout = ("t" if x_t else "n") + ("t" if w_t else "n")
     vec_elems = VECTOR_BYTES // (4 if dtype == "float32" else 2)
     # the rows of x, w and out as they lie (M for xᵀ, K for x and wᵀ, N for
     # w and out) in whole 16-byte units
     rows_ok = (M if x_t else K) % 8 == 0 and (K if w_t else N) % 8 == 0 and N % 8 == 0
     if dtype == "bfloat16" and layout in TMA_LAYOUTS and aligned and not shared and rows_ok \
-            and (M <= TMA_ROWS[-1] or x_t) and max(K, M if x_t else 0) * N * 2 >= TMA_MIN_PANEL:
-        return _tma_launch(lanes, M, N, TMA_ROWS[-1] if x_t else _fit(M, TMA_ROWS), layout)
+            and max(K, M if x_t else 0) * N * 2 >= TMA_MIN_PANEL:
+        if (K >= WGMMA_MIN_DEPTH) if x_t else (M > TMA_ROWS[-1]):
+            return _wgmma_launch(lanes, M, N, layout)
+        if M <= TMA_ROWS[-1] or x_t:
+            return _tma_launch(lanes, M, N, TMA_ROWS[-1] if x_t else _fit(M, TMA_ROWS), layout)
     loader = "vec" if (aligned and layout == "nn" and K % vec_elems == 0
                        and N % vec_elems == 0) else "elem"
     if dtype == "float32":
@@ -239,9 +292,12 @@ def _library(device: torch.device) -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_longlong),
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
         ]
         lib.stream_pack_matmul.restype = ctypes.c_int
+        lib.stream_pack_wgmma_clusters.argtypes = [ctypes.c_int] * 4
+        lib.stream_pack_wgmma_clusters.restype = ctypes.c_int
         _lib = lib
     index = device.index if device.index is not None else torch.cuda.current_device()
     if index not in _ready_devices:
@@ -251,6 +307,14 @@ def _library(device: torch.device) -> ctypes.CDLL:
             raise RuntimeError(f"stream_pack_init failed: CUDA error {err}")
         _ready_devices.add(index)
     return _lib
+
+
+def resident_clusters(launch: Launch, device: torch.device) -> int:
+    """How many of a wgmma launch's clusters the card holds at once: the
+    library launches ``min(launch.grid[0] / launch.cluster, this)``
+    clusters (0 where the card cannot say)."""
+    return _library(device).stream_pack_wgmma_clusters(
+        int(launch.layout[0] == "t"), int(launch.layout[1] == "t"), launch.stages, launch.cluster)
 
 
 def check_blocks(M: int, N: int, K: int, block_m: int = 128, block_n: int = 128,
@@ -331,8 +395,8 @@ def stream_pack_matmul(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
         lanes, M, N, K, _strides(x, w, launch.layout), _KIND[launch.variant.split("/")[0]],
         launch.stages, int(launch.vec), launch.bm, launch.bn, launch.kc,
-        int(launch.layout[0] == "t"), int(launch.layout[1] == "t"), launch.grid[0],
-        torch.cuda.current_stream(x.device).cuda_stream,
+        int(launch.layout[0] == "t"), int(launch.layout[1] == "t"), launch.cluster,
+        launch.grid[0], torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"stream_pack launch failed: CUDA error {err} ({launch})")

@@ -226,7 +226,9 @@ def test_phase6_launches_every_kernel():
     loads, so each is held against the plain version on the card."""
     launches = _phase6_launches()
     assert {ln.instance for ln in launches} == set(kernel.INSTANCES)
-    assert len(kernel.INSTANCES) == len(set(kernel.INSTANCES)) == 18 + 7
+    assert len(kernel.INSTANCES) == len(set(kernel.INSTANCES)) == 18 + 7 + 3
+    assert {ln.instance for ln in launches if ln.variant.startswith("bf16_wgmma")} == {
+        (f"bf16_wgmma/{lay}", 128, 256) for lay in ("nn", "nt", "tn")}
     assert SMOKE.pack_coverage(launches) == set()
     assert {ln.layout for ln in launches if ln.variant.endswith("/elem")} == set(kernel.LAYOUTS)
 
@@ -237,7 +239,7 @@ def test_library_opts_into_dynamic_shared_memory():
     card checks the opt-in; none asks for more than the card has."""
     launches = _phase6_launches()
     big = {ln.variant.split("/")[0] for ln in launches if ln.smem_bytes > STATIC_SMEM}
-    assert big == {"f32_panel", "f32_ring", "bf16_ring", "bf16_tma"}
+    assert big == {"f32_panel", "f32_ring", "bf16_ring", "bf16_tma", "bf16_wgmma"}
     assert max(ln.smem_bytes for ln in launches) <= MAX_SMEM
 
 
@@ -360,15 +362,26 @@ def test_expert_gemms_get_a_launch_the_card_takes(arch, down, product):
     ("shared x", (160, 64, 1536, 5120), {"shared": True}, "bf16_ring/vec"),
     ("xᵀ's rows off 16 bytes", (160, 5116, 1536, 64), {"x_t": True}, "bf16_ring/elem"),
     ("both transposed", (160, 64, 1536, 5120), {"x_t": True, "w_t": True}, "bf16_ring/elem"),
-    ("M past 64", (160, 65, 1536, 5120), {}, "bf16_ring/vec"),
+    ("M past 64 over a small panel", (160, 65, 512, 256), {}, "bf16_ring/vec"),
     ("float32", (4, 64, 1536, 5120, "float32"), {}, "f32_ring/vec"),
     ("a small panel", (160, 64, 512, 256), {}, "bf16_ring/vec"),
+    ("M 384, shared x", (160, 384, 1536, 5120), {"shared": True}, "bf16_ring/vec"),
+    ("M 384, both transposed", (160, 384, 1536, 5120), {"x_t": True, "w_t": True},
+     "bf16_ring/elem"),
+    ("M 384, w's rows off 16 bytes", (160, 384, 1532, 5120), {}, "bf16_ring/elem"),
+    ("M 384, a base off 16 bytes", (160, 384, 1536, 5120, "bfloat16", False), {},
+     "bf16_ring/elem"),
+    ("M 384 as dw's rows: xᵀ's rows off 16 bytes", (160, 383, 1536, 384), {"x_t": True},
+     "bf16_ring/elem"),
+    ("M 384 in dx: wᵀ's rows off 16 bytes", (160, 384, 1532, 5116), {"w_t": True},
+     "bf16_ring/elem"),
 ])
 def test_shapes_tma_cannot_take_go_to_the_rings(why, args, kw, variant):
-    """Where the stream's tensor maps cannot be built (a row or base off 16
-    bytes), x is shared (lane stride 0), both operands lie transposed, M
-    passes 64 with x row-major, the type is float32 or the weight panel is
-    under ``TMA_MIN_PANEL``, the product takes the named ring."""
+    """Where neither the stream's nor the wgmma kernel's tensor maps can be
+    built (a row or base off 16 bytes), x is shared (lane stride 0), both
+    operands lie transposed, the type is float32 or the weight panel is
+    under ``TMA_MIN_PANEL``, the product takes the named ring, at served
+    capacities and at training's (M 384) alike."""
     lanes, M, N, K, *rest = args
     dtype, aligned = (rest + ["bfloat16", True][len(rest):])[:2]
     ln = kernel.choose_launch(lanes, M, N, K, dtype, aligned, **kw)
@@ -404,3 +417,139 @@ def test_launch_for_reads_transposed_views_without_copying():
     assert got_x.is_contiguous() and got_w.is_contiguous()
     assert kernel.layout_copies == before + 2
     kernel.layout_copies = before
+
+
+# --- training's capacities: the wgmma kernel (bf16_wgmma) -------------------
+
+# (rows, columns, depth, layout) of each product of one expert GEMM at
+# capacity M with d_in K and d_out N: the forward x · w, dx = dy · wᵀ and
+# dw = xᵀ · dy
+PRODUCTS = {"forward": lambda M, K, N: (M, N, K, "nn"), "dx": lambda M, K, N: (M, K, N, "nt"),
+            "dw": lambda M, K, N: (K, N, M, "tn")}
+
+
+def test_deepseek_training_capacity_is_384():
+    """A train_4k step of 2 x 4096 tokens gives each of deepseek-v2's 160
+    experts round(8192 · 6 / 160 · 1.25) = 384 slots: the M of 19h's nine
+    B2 products, and phase 6's ``TRAIN_EXPERT_M``."""
+    import repro_torch.configs as TC
+    from repro_torch.models.moe import capacity
+
+    assert capacity(2 * 4096, TC.get("deepseek-v2-236b")) == 384 == SMOKE.TRAIN_EXPERT_M
+
+
+@pytest.mark.parametrize("product", sorted(PRODUCTS))
+@pytest.mark.parametrize("down", [False, True], ids=["gate_up", "down"])
+def test_training_products_take_the_wgmma_kernel(down, product):
+    """At the training capacity each of the three products of gate/up and
+    down takes the wgmma kernel of its layout: 128 x 256 tiles 64 deep, a
+    ring of ``WGMMA_STAGES``, the shared memory of the formula (and the
+    card's), one persistent block an SM, whose items cover the output."""
+    lanes, D, F = EXPERTS["deepseek-v2-236b"]
+    K, N = (F, D) if down else (D, F)
+    rows, cols, depth, layout = PRODUCTS[product](384, K, N)
+    ln = kernel.choose_launch(lanes, rows, cols, depth, "bfloat16", True, x_t=layout[0] == "t",
+                              w_t=layout[1] == "t")
+    assert ln.variant == f"bf16_wgmma/{layout}" and ln.instance in kernel.INSTANCES
+    assert (ln.bm, ln.bn, ln.kc, ln.stages) == (128, 256, 64, kernel.WGMMA_STAGES)
+    assert ln.smem_bytes == kernel.wgmma_smem_bytes(ln.stages) <= MAX_SMEM
+    assert ln.smem_bytes == 1024 + ln.stages * (128 + 256) * 128 + 128 * 256 + 16 * ln.stages
+    _covers_in_clusters(ln, lanes, rows, cols)
+
+
+def _covers_in_clusters(ln, lanes, rows, cols):
+    """The wgmma kernel's one launch covers the (lanes, M, N) output: its
+    clusters divide the row tiles, each cluster item is a column tile of
+    ``cluster`` row tiles, and the blocks (at most the SMs, in whole
+    clusters, no more than the items) walk every item."""
+    row_tiles, col_tiles = -(-rows // ln.bm), -(-cols // ln.bn)
+    assert (row_tiles - 1) * ln.bm < rows <= row_tiles * ln.bm
+    assert (col_tiles - 1) * ln.bn < cols <= col_tiles * ln.bn
+    assert row_tiles % ln.cluster == 0 and ln.cluster in kernel.WGMMA_CLUSTERS
+    assert ln.cluster == next(c for c in (2, 3, 1) if row_tiles % c == 0)
+    items = lanes * row_tiles // ln.cluster * col_tiles
+    assert ln.grid == (min(items, kernel.SMS // ln.cluster) * ln.cluster, 1, 1)
+    assert ln.grid[0] % ln.cluster == 0 and ln.grid[0] <= kernel.SMS
+
+
+def test_wgmma_ring_fills_the_card():
+    """The ring's depth is the most 48 KB stages the card holds beside the
+    64 KB staged output tile."""
+    assert kernel.wgmma_smem_bytes(kernel.WGMMA_STAGES) <= MAX_SMEM
+    assert kernel.wgmma_smem_bytes(kernel.WGMMA_STAGES + 1) > MAX_SMEM
+
+
+def _served_launch(lanes, rows, cols, layout):
+    """The launch the served capacities took before the wgmma kernel: the
+    TMA weight stream, rows fitted to M (64 where x lies transposed), a
+    ring of 2 stages, one persistent block an SM."""
+    rt = 64 if layout[0] == "t" else next(r for r in (16, 32, 64) if rows <= r)
+    items = lanes * -(-rows // rt) * -(-cols // 256)
+    smem = 1024 + 2 * (rt + 256) * 128 + 4 * 16 * 72 * 2 + 16 * 2
+    return kernel.Launch(f"bf16_tma/{layout}", rt, 256, 64, 2, (min(items, 132), 1, 1), smem,
+                         layout)
+
+
+@pytest.mark.parametrize("product", sorted(PRODUCTS))
+@pytest.mark.parametrize("arch", sorted(EXPERTS))
+def test_served_capacities_keep_their_launch(arch, product):
+    """At every capacity serving gives the experts (M 2-64), each product
+    gets exactly the launch it got before the wgmma kernel (variant, tile,
+    stages, grid, shared memory, layout)."""
+    import repro_torch.configs as TC
+    from repro_torch.models.moe import capacity
+
+    cfg = TC.get(arch)
+    lanes, D, F = EXPERTS[arch]
+    for K, N in ((D, F), (F, D)):
+        for M in sorted({capacity(n, cfg) for n in (4, 64, 128, 256, 512)}):
+            assert M <= 64
+            rows, cols, depth, layout = PRODUCTS[product](M, K, N)
+            got = kernel.choose_launch(lanes, rows, cols, depth, "bfloat16", True,
+                                       x_t=layout[0] == "t", w_t=layout[1] == "t")
+            assert got == _served_launch(lanes, rows, cols, layout)
+
+
+@pytest.mark.parametrize("M", [64, 65, 96, 127, 128, 200, 383, 384])
+def test_wgmma_takes_m_past_64_and_dw_from_its_depth(M):
+    """nn and nt take the wgmma kernel from M 65 (any M: its ragged rows
+    are zero-filled and not stored), the stream up to 64; tn (dw) takes it
+    from a depth of ``WGMMA_MIN_DEPTH`` tokens, the stream below."""
+    lanes, K, N = 160, 5120, 1536
+    for layout in ("nn", "nt"):
+        ln = kernel.choose_launch(lanes, M, N, K, "bfloat16", True, w_t=layout == "nt")
+        assert ln.variant == (f"bf16_wgmma/{layout}" if M > 64 else f"bf16_tma/{layout}")
+    ln = kernel.choose_launch(lanes, K, N, M, "bfloat16", True, x_t=True)
+    assert ln.variant == ("bf16_wgmma/tn" if M >= kernel.WGMMA_MIN_DEPTH else "bf16_tma/tn")
+    assert 64 < kernel.WGMMA_MIN_DEPTH <= 384
+
+
+def test_launch_for_reads_training_views_without_copying():
+    """19h's backward hands B2 wᵀ and xᵀ as views at M 384: both take the
+    wgmma kernel where they lie, no copy; a shared x keeps the ring."""
+    lanes, M, K, N = 3, 384, 1024, 512
+    x = torch.zeros(lanes, M, K, dtype=torch.bfloat16)
+    w = torch.zeros(lanes, K, N, dtype=torch.bfloat16)
+    dy = torch.zeros(lanes, M, N, dtype=torch.bfloat16)
+    before = kernel.layout_copies
+    for a, b, layout in ((x, w, "nn"), (dy, w.transpose(1, 2), "nt"), (x.transpose(1, 2), dy, "tn")):
+        got_a, got_b = kernel.operands(a, b)
+        assert got_a is a and got_b is b
+        assert kernel.launch_for(a, b).variant == f"bf16_wgmma/{layout}"
+    assert kernel.launch_for(x[0].expand(lanes, M, K), w).variant == "bf16_ring/vec"
+    assert kernel.layout_copies == before
+
+
+def test_phase6_times_the_training_products():
+    """Phase 6 holds and times deepseek-v2's six (product, layout) shapes at
+    M 384 on 160 lanes, and its ragged wgmma cases end inside a tile in M
+    (65, 200, 383), in N, in K and in dw's depth and rows."""
+    lanes, D, F = EXPERTS["deepseek-v2-236b"]
+    assert lanes == 160 and (D, F) == (5120, 1536)
+    shapes = SMOKE.PACK_WGMMA_SHAPES
+    assert {M for _, M, _, _, lay in shapes if lay != "tn"} == {65, 200, 383}
+    assert {K for _, _, K, _, lay in shapes if lay == "tn"} >= {200, 383}
+    assert any(N % 256 and N % 256 <= 64 for *_, N, _ in shapes)
+    assert any(M % 128 and M % 128 <= 64 for _, M, _, _, lay in shapes if lay == "tn")
+    assert any(K % 64 for _, _, K, _, lay in shapes if lay != "tn")
+    assert SMOKE.TRAIN_REPEAT[0] in PRODUCTS
