@@ -73,8 +73,9 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    versions computed in float32 from the same inputs (``EXPANDED_CASES``:
    19h's shape, q (2, 4096, 128, 128 + 64) and v 128, a 16x16 device's
    train_4k share (16, 4096, 8, ·), 21b's prompt (2, 256, 128, ·), S 1, 63,
-   65, 512 and 1000, a q_pos that is not arange with rows that see no key,
-   the smoke widths at bf16 and at float32), q_nope and q_rope the split views of one query and k_rope the
+   65, 129, 512 and 1000, a q_pos that is not arange with rows that see no
+   key, large scores (q and k drawn 4x as large, S 1000), the smoke widths
+   at bf16 and at float32), q_nope and q_rope the split views of one query and k_rope the
    [:, :, 0] view the model makes, each within ``EXPANDED_GRAD_TOL`` (the
    output at B3's), every case twice with the same bits, no layout copy,
    every (dtype, direction) of the library launched (the wrappers'
@@ -1634,7 +1635,9 @@ def latent_time(label, B, S, T, N, R, Rr, dname, kvv0d, prompt) -> dict:
 # (label, B, S, N, nope, rope, dv, dtype, positions): q (B, S, N, nope +
 # rope) split into its two views, k_rope the [:, :, 0, :] view of (B, S, 1,
 # rope), T = S; positions "arange" (every caller's), "mixed" (a permutation
-# with repeats, negative entries whose rows see no key, entries past S)
+# with repeats, negative entries whose rows see no key, entries past S),
+# "sharp" (arange, q and k drawn 4 times as large: logits of standard
+# deviation 16, so each row's softmax peaks on a few keys)
 EXPANDED_CASES = [
     ("19h: deepseek-v2-236b's train step, 2 x 4096", 2, 4096, 128, 128, 64, 128, "bfloat16",
      "arange"),
@@ -1647,6 +1650,8 @@ EXPANDED_CASES = [
     ("float32, ragged, a q_pos that is not arange", 2, 130, 4, 32, 16, 32, "float32", "mixed"),
     ("21b: the sharded forward's prompt, 2 x 256", 2, 256, 128, 128, 64, 128, "bfloat16",
      "arange"),
+    ("large scores: q and k times 4, S 1000", 2, 1000, 8, 128, 64, 128, "bfloat16", "sharp"),
+    ("S 129: a 128-row tile and one row", 2, 129, 8, 128, 64, 128, "bfloat16", "arange"),
 ]
 # the shapes B7 is timed at: 19h's and the train_4k share
 EXPANDED_TIMED = (0, 1)
@@ -1674,12 +1679,14 @@ def _expanded_inputs(B, S, N, nope, rope, dv, dname, kind, seed):
 
     dt = getattr(torch, dname)
     g = torch.Generator(device="cuda").manual_seed(seed)
+    qk = 4.0 if kind == "sharp" else 1.0
 
-    def randn(*shape):
-        return torch.randn(shape, generator=g, device="cuda").to(dt)
+    def randn(*shape, mul=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * mul).to(dt)
 
-    q_nope, q_rope = randn(B, S, N, nope + rope).split([nope, rope], dim=-1)
-    k_nope, k_rope, v = randn(B, S, N, nope), randn(B, S, 1, rope)[:, :, 0, :], randn(B, S, N, dv)
+    q_nope, q_rope = randn(B, S, N, nope + rope, mul=qk).split([nope, rope], dim=-1)
+    k_nope, k_rope = randn(B, S, N, nope, mul=qk), randn(B, S, 1, rope, mul=qk)[:, :, 0, :]
+    v = randn(B, S, N, dv)
     q_pos = torch.arange(S, device="cuda")
     if kind == "mixed":
         q_pos = torch.randint(-3, S + 4, (S,), generator=g, device="cuda")
@@ -1728,9 +1735,9 @@ def expanded_plain(ten, do, scale, backward=True):
     return o, lse, grads
 
 
-def expanded_registers() -> dict:
+def expanded_registers(sources=None) -> dict:
     """:func:`ptxas_report` of B7's kernels, by name, from the build logs of
-    both sources."""
+    both sources (``sources``, or the library's two)."""
     from repro_torch.kernels import build
     from repro_torch.kernels.expanded_attention import backward, kernel
 
@@ -1743,7 +1750,8 @@ def expanded_registers() -> dict:
             return f"{found[1]}<{'bf16' if 'bfloat16' in line else 'f32'}>"
         return found[1]
 
-    return ptxas_report([build.build_log(s) for s in (kernel.SOURCE, backward.SOURCE)], name_in)
+    return ptxas_report([build.build_log(s) for s in sources or (kernel.SOURCE, backward.SOURCE)],
+                        name_in)
 
 
 def expanded_check(label, B, S, N, nope, rope, dv, dname, kind, seed) -> tuple:

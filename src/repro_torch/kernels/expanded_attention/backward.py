@@ -8,10 +8,10 @@ and the output's gradient, and returns ``(dq_nope, dq_rope, dk_nope,
 dk_rope, dv)`` in the inputs' dtype and shapes.  One call launches the
 library's four kernels on PyTorch's current stream (a pre-pass for ``D =
 rowsum(dO * O)`` and the query tiles' key limits from q_pos; dK_nope, dV
-and each head's share of dK_rope per key tile; dQ per query tile; the
-heads' shares of dK_rope summed in head order), so a CUDA graph captures
-them; ``launches`` counts the calls, as the forward's wrapper does.  Its
-plain version is :func:`.ref.expanded_attention_bwd_ref`.
+and each head's share of dK_rope per key tile; dQ per query tile, two a
+CTA at bf16; the heads' shares of dK_rope summed in head order), so a CUDA
+graph captures them; ``launches`` counts the calls, as the forward's
+wrapper does.  Its plain version is :func:`.ref.expanded_attention_bwd_ref`.
 
 bf16 loads q_nope, q_rope, k_nope, k_rope, v and dO by TMA: like the
 forward, the wrapper passes its inputs through :func:`.kernel.prepare`,
@@ -35,8 +35,9 @@ from . import kernel
 SOURCE = Path(__file__).resolve().parent / "csrc" / "expanded_attention_bwd.cu"
 ROWS = KEYS = 64                  # tiles (csrc BM, BN)
 BOX_BYTES = kernel.BOX_BYTES
-DKDV_STAGES, DQ_STAGES = 3, 2     # bf16 rings: (Q, dO) stages of dK/dV, (K, V) stages of dQ
-THREADS = {"bfloat16": (256, 160), "float32": (256, 256)}   # (dK/dV, dQ) threads a CTA
+DKDV_STAGES, DQ_STAGES = 3, 3     # bf16 rings: (Q, dO) stages of dK/dV, (K, V) stages of dQ
+THREADS = {"bfloat16": (256, 256), "float32": (256, 256)}   # (dK/dV, dQ) threads a CTA
+DQ_TILES = {"bfloat16": 2, "float32": 1}   # query tiles a dQ CTA
 LD_QK, LD_V, LD_P = 193, 129, 65  # float32 tiles' row lengths, a padding column each
 
 launches = 0
@@ -48,7 +49,9 @@ _STRIDES = ctypes.c_longlong * 34     # 3 a tensor, 2 for k_rope and its gradien
 @dataclass(frozen=True)
 class BwdLaunch:
     """One call of the library: the grids of the dK/dV kernel (batch x
-    heads, key tiles) and of the dQ kernel (batch x heads, query tiles),
+    heads, key tiles) and of the dQ kernel (batch x heads, pairs of query
+    tiles at bf16, query tiles at float32; bf16 launches each as one
+    dimension of their product, the (batch, head) outermost),
     their threads and dynamic shared memory, and the workspace: ``D`` and
     the LSE's rows, 2 x query tiles int32 limits, and each head's float32
     share of dK_rope."""
@@ -66,23 +69,24 @@ class BwdLaunch:
 def dkdv_smem_bytes(dtype: str, query_tiles: int) -> int:
     """Dynamic shared memory of a dK/dV CTA.  bf16 (csrc
     ``dkdv_bf16_smem``): K (three 8 KB boxes) and V (two), ``DKDV_STAGES``
-    stages of Q and dO, each stage's 64 LSE, D and positions, 1 + 2 *
+    stages of Q and dO, each stage's P^T (64 x 64 float32, handed from one
+    warpgroup to the other), each stage's 64 LSE, D and positions, 1 + 2 *
     stages mbarriers, the list's count and a pad, then the list of query
     tiles (an int each).  float32 (``dkdv_f32_smem``): K, Q, V and dO
     tiles, P and dS, the rows' LSE, D and positions."""
     if dtype == "bfloat16":
-        return ((1 + DKDV_STAGES) * 5 * BOX_BYTES + 3 * DKDV_STAGES * ROWS * 4
-                + 8 * (1 + 2 * DKDV_STAGES) + 8 + 4 * query_tiles)
+        return ((1 + DKDV_STAGES) * 5 * BOX_BYTES + DKDV_STAGES * KEYS * ROWS * 4
+                + 3 * DKDV_STAGES * ROWS * 4 + 8 * (1 + 2 * DKDV_STAGES) + 8 + 4 * query_tiles)
     return 4 * (2 * KEYS * LD_QK + 2 * KEYS * LD_V + 2 * ROWS * LD_P + 3 * ROWS)
 
 
 def dq_smem_bytes(dtype: str) -> int:
     """Dynamic shared memory of a dQ CTA.  bf16 (csrc ``dq_bf16_smem``): Q
-    and dO, ``DQ_STAGES`` stages of K and V, 1 + 2 * stages mbarriers.
-    float32 (``dq_f32_smem``): Q, dO, K and V tiles, dS, the rows' LSE, D
-    and positions."""
+    and dO of each of two query tiles, ``DQ_STAGES`` stages of K and V, 1 +
+    stages mbarriers and a count a stage.  float32 (``dq_f32_smem``): Q,
+    dO, K and V tiles, dS, the rows' LSE, D and positions."""
     if dtype == "bfloat16":
-        return (1 + DQ_STAGES) * 5 * BOX_BYTES + 8 * (1 + 2 * DQ_STAGES)
+        return (2 + DQ_STAGES) * 5 * BOX_BYTES + 8 * (1 + DQ_STAGES) + 4 * DQ_STAGES
     return 4 * (2 * ROWS * LD_QK + 2 * ROWS * LD_V + ROWS * LD_P + 3 * ROWS)
 
 
@@ -101,7 +105,11 @@ def choose_launch(B: int, S: int, N: int, T: int, nope: int, rope: int, dv: int,
     if dkdv > kernel.MAX_SMEM:
         raise ValueError(f"expanded_attention_bwd: {q_tiles} query tiles take {dkdv} bytes of "
                          f"shared memory; a CTA has {kernel.MAX_SMEM}")
-    return BwdLaunch(dtype, (B * N, k_tiles), (B * N, q_tiles), *THREADS[dtype], dkdv,
+    dq_grid = (B * N, -(-q_tiles // DQ_TILES[dtype]))
+    if dtype == "bfloat16" and B * N * max(k_tiles, dq_grid[1]) > kernel.MAX_GRID_X:
+        raise ValueError(f"expanded_attention_bwd: {B * N} heads of {k_tiles} key tiles exceed "
+                         f"the launch grid")
+    return BwdLaunch(dtype, (B * N, k_tiles), dq_grid, *THREADS[dtype], dkdv,
                      dq_smem_bytes(dtype), B * N * T * rope)
 
 
@@ -159,7 +167,7 @@ def expanded_attention_bwd(q_nope, q_rope, k_nope, k_rope, v, o, lse, do, q_pos,
     grads = [torch.empty(t.shape, dtype=t.dtype, device=dev)
              for t in (q_nope, q_rope, k_nope, k_rope, v)]
     D = torch.empty((B, N, S), dtype=torch.float32, device=dev)
-    tiles = torch.empty((2 * launch.dq_grid[1],), dtype=torch.int32, device=dev)
+    tiles = torch.empty((2 * -(-S // ROWS),), dtype=torch.int32, device=dev)
     part = torch.empty((launch.part_numel,), dtype=torch.float32, device=dev)
     widths = (nope, rope, nope, rope, dv, dv, dv, nope, rope, nope, rope, dv)
     tensors = (q_nope, q_rope, k_nope, k_rope, v, o, do, *grads)

@@ -35,24 +35,43 @@
 // and o: about 1700 operations a byte, far past the card's ridge (295), so
 // the products must run on the tensor cores.
 //
-// bf16 design: B1's forward (flash_attention.cu) at these widths.  A
-// CTA takes 64 query rows of one (batch, head), one producer warp and one
-// consumer warpgroup (160 threads).  The producer loads the 64 x 192 Q tile
-// once, as three TMA boxes of 64 columns (a 128-byte swizzle row each): two
-// from q_nope and one from q_rope, side by side, so that one K-major
-// descriptor walks the 192-wide depth; then it streams the K tiles the same
-// way (two boxes of k_nope and one of k_rope, read through its own map, so no
-// concatenated or head-broadcast copy is made) and the 64 x 128 V tiles
-// into a ring of two stages.  S = Q K^T runs on wgmma m64n64k16 over 12
-// k-steps, the online softmax on the accumulator fragments in float32 (log2
-// units, ex2), P rounded to bf16 after the rescale (as the plain version
-// rounds the probabilities), then O += P V on m64n128k16 with P from
-// registers and V MN-major.  The Q K^T of one tile and the P V of the one
-// before are in flight together.  Widths below the tile's boxes: the TMA
-// zero-fills the columns past a width inside a box; a box wholly past the
-// width is zeroed once and never loaded.  Q (24 KB) and two stages of K
-// and V (80 KB) take 106,568 bytes: two CTAs share an SM.  Heavy (late)
-// query tiles start first.
+// bf16 design: two consumer warpgroups in ping-pong (FlashAttention-3,
+// Shah et al. 2024) over one K/V ring.  A CTA takes 128 query rows of one
+// (batch, head), 64 for each consumer warpgroup, and one producer warp (288
+// threads).  The producer loads each warpgroup's 64 x 192 Q tile once, as
+// three TMA boxes of 64 columns (a 128-byte swizzle row each): two from
+// q_nope and one from q_rope, side by
+// side, so that one K-major descriptor walks the 192-wide depth; then it
+// streams BN-key K tiles the same way (two boxes of k_nope and one of
+// k_rope, read through its own map, so no concatenated or head-broadcast
+// copy is made) and the BN x 128 V tiles into a ring of STAGES stages that
+// both warpgroups read; K and V are released apart (a K tile once both
+// warpgroups' scores are done, a V tile once their P V is).  In each
+// warpgroup S = Q K^T runs on wgmma m64nBNk16 over 12 k-steps, the online
+// softmax on the accumulator fragments in float32 (log2 units, ex2), P
+// rounded to bf16 after the rescale (as the plain version rounds the
+// probabilities), then O += P V on m64n128k16 with P from registers and V
+// MN-major; the Q K^T of one tile and the P V of the one before are
+// issued together.  The two warpgroups take turns at issuing (named
+// barriers 1 and 2): warpgroup 0 issues its pair of products, then
+// warpgroup 1, and each one's softmax runs while the tensor cores run the
+// other's products.  Both walk the CTA's tiles (the second warpgroup's
+// rows see up to one tile more; the first masks it), so the turns pair up.
+// Widths below the tile's boxes: the TMA zero-fills the columns past a
+// width inside a box; a box wholly past the width is zeroed once and never
+// loaded.  At 64 keys a tile and four stages Q (48 KB) and the ring (160
+// KB) take 213,144 bytes: one CTA an SM.  288 threads put three warps on
+// one of the SM's four schedulers, which caps a thread at 168 registers:
+// at 128 keys a tile (the scores 64 registers, P 32) ptxas spilled 208
+// bytes and serialized the wgmma, and the kernel ran 25% slower than at
+// 64 (142 registers); without the producer warp (256 threads, a thread of
+// warpgroup 1 refilling the ring) 128 keys fit in 228 registers and ran
+// no faster than this design.  The grid is one dimension, the (batch,
+// head) outermost and heavy (late) query tiles first within it: the CTAs
+// in flight share a few heads' K and V, which the L2 serves after the
+// first read (with the head innermost, each CTA read its own head's from
+// device memory, about 11 GB for 2 x 4096 tokens at 128 heads, and the
+// kernel took as long without its products as with them).
 //
 // float32 (the smoke configs, the parity runs against the CPU) keeps the
 // FMA units (no TF32): 256 threads, each owning a 4 x 4 block of a 64 x 64
@@ -70,18 +89,24 @@
 
 namespace {
 
-constexpr int BM = 64;                 // query rows a CTA
-constexpr int BN = 64;                 // keys a tile
+constexpr int BM = 64;                 // query rows of a warpgroup (bf16) or a CTA (float32)
+constexpr int CTA_ROWS = 2 * BM;       // bf16: query rows a CTA, two consumer warpgroups
+constexpr int BN = 64;                 // bf16: keys a tile
+constexpr int STAGES = 4;              // bf16: the K/V ring
+constexpr int F_BN = 64;               // float32: keys a tile
 constexpr int BOX = 64;                // bf16 columns of one 128-byte swizzle row
-constexpr uint32_t BOX_BYTES = 64 * 128;
+constexpr uint32_t BOX_BYTES = 64 * 128;   // a box of 64 rows (Q)
+constexpr uint32_t KV_BOX = BN * 128;      // a box of BN rows (K, V)
 constexpr int ROPE_BOX = 2;            // a Q or K tile: nope boxes 0 and 1, the rope box
-constexpr uint32_t QK_TILE = 3 * BOX_BYTES;
-constexpr uint32_t V_TILE = 2 * BOX_BYTES;
-constexpr int STAGES = 2;
-constexpr int THREADS = 160;           // one consumer warpgroup and one producer warp
+constexpr uint32_t Q_TILE = 3 * BOX_BYTES;  // one warpgroup's 64 x 192 Q tile
+constexpr uint32_t K_TILE = 3 * KV_BOX, V_TILE = 2 * KV_BOX;
+constexpr int THREADS = 288;           // two consumer warpgroups and one producer warp
+constexpr int CONSUMERS = 256;
+constexpr int PRODUCER_WARP = 8;
+constexpr int BAR_TURN = 1;            // named barriers 1 and 2: warpgroup 0's and 1's turn
 constexpr int F_THREADS = 256;
 constexpr int FQK = 192, FV = 128;     // float32: the widest q . k and v
-constexpr int LDQK = FQK + 1, LDV = FV + 1, LDP = BN + 1;
+constexpr int LDQK = FQK + 1, LDV = FV + 1, LDP = F_BN + 1;
 constexpr float MASKED = -1e30f * LOG2E;   // -1e30 in natural-log units, in log2 units
 constexpr int ALL = 0x7fffffff;
 
@@ -100,14 +125,15 @@ struct Maps {
   CUtensorMap qn, qr, kn, kr, v;
 };
 
-// bf16 shared memory: Q, the K and V rings, 1 + 3 * STAGES mbarriers and the
-// CTA's key limit and smallest position.  kernel.py's smem_bytes is the same.
+// bf16 shared memory: the two warpgroups' Q tiles, the K and V rings, 1 +
+// 4 * STAGES mbarriers and the CTA's key limit and its warpgroups' smallest
+// positions.  kernel.py's smem_bytes is the same.
 constexpr size_t bf16_smem_bytes() {
-  return QK_TILE + STAGES * (QK_TILE + V_TILE) + 8 * (1 + 3 * STAGES) + 16;
+  return 2 * Q_TILE + STAGES * (K_TILE + V_TILE) + 8 * (1 + 4 * STAGES) + 16;
 }
 // float32: Q and K tiles of 192 + 1 columns, V of 128 + 1, P of 64 + 1, the limit
 constexpr size_t f32_smem_bytes() {
-  return 4 * (size_t)(BM * LDQK + BN * LDQK + BN * LDV + BM * LDP) + 16;
+  return 4 * (size_t)(BM * LDQK + F_BN * LDQK + F_BN * LDV + BM * LDP) + 16;
 }
 
 // the position of a query clamped to [-1, T - 1]: the keys t < T with t <= p
@@ -117,15 +143,16 @@ __device__ __forceinline__ int clamp_pos(long long p, int T) {
 }
 
 // the CTA's key limit (the largest visible end of its real rows, T when a
-// row sees no key) into lim[0] and its rows' smallest position into lim[1];
-// threads [0, BM) take a row each.  The caller zeroes lim[0], sets lim[1]
-// to ALL and synchronises before, and synchronises after.
-__device__ __forceinline__ void reduce_rows(const Params& p, int q0, int* lim) {
+// row sees no key) into lim[0] and the smallest position of each 64 of its
+// rows into lim[1], lim[2]; threads [0, rows) take a row each.  The caller
+// zeroes lim[0], sets the others to ALL and synchronises before, and
+// synchronises after.
+__device__ __forceinline__ void reduce_rows(const Params& p, int q0, int rows, int* lim) {
   const int t = threadIdx.x;
-  if (t < BM && q0 + t < p.S) {
+  if (t < rows && q0 + t < p.S) {
     const int qp = clamp_pos(p.q_pos[(long long)(q0 + t) * p.pos_s], p.T);
     atomicMax(&lim[0], qp < 0 ? p.T : qp + 1);
-    atomicMin(&lim[1], qp);
+    atomicMin(&lim[1 + t / BM], qp);
   }
 }
 
@@ -133,24 +160,29 @@ __device__ __forceinline__ void reduce_rows(const Params& p, int q0, int* lim) {
 // bf16: warp-specialised wgmma fed by a TMA ring
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, 1)
     exp_fwd_bf16(const __grid_constant__ Maps maps, const Params p) {
   // tiles start on 1024 bytes (the swizzle's period): the dynamic block starts
   // the CTA's shared window; a launch where it does not traps
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t sQ = smem_u32(smem_raw);
   if (sQ & 1023u) __trap();
-  const uint32_t sK = sQ + QK_TILE;
-  const uint32_t sV = sK + STAGES * QK_TILE;
-  const uint32_t bar = sV + STAGES * V_TILE;  // q_full, k_full[S], v_full[S], empty[S]
+  const uint32_t sK = sQ + 2 * Q_TILE;
+  const uint32_t sV = sK + STAGES * K_TILE;
+  // q_full, k_full[S], v_full[S], k_empty[S], v_empty[S]
+  const uint32_t bar = sV + STAGES * V_TILE;
   auto k_full = [&](int s) { return bar + 8u * (1 + s); };
   auto v_full = [&](int s) { return bar + 8u * (1 + STAGES + s); };
-  auto empty = [&](int s) { return bar + 8u * (1 + 2 * STAGES + s); };
-  int* lim = reinterpret_cast<int*>(smem_raw + QK_TILE + STAGES * (QK_TILE + V_TILE) +
-                                    8 * (1 + 3 * STAGES));
+  auto k_empty = [&](int s) { return bar + 8u * (1 + 2 * STAGES + s); };
+  auto v_empty = [&](int s) { return bar + 8u * (1 + 3 * STAGES + s); };
+  int* lim = reinterpret_cast<int*>(smem_raw + 2 * Q_TILE + STAGES * (K_TILE + V_TILE) +
+                                    8 * (1 + 4 * STAGES));
 
-  const int b = blockIdx.x / p.N, h = blockIdx.x % p.N;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;   // heavy (late) tiles first
+  // one dimension, the (batch, head) outermost (see the note above)
+  const int per = (p.S + CTA_ROWS - 1) / CTA_ROWS;
+  const int bh = blockIdx.x / per;
+  const int b = bh / p.N, h = bh % p.N;
+  const int q0 = (per - 1 - (int)(blockIdx.x % per)) * CTA_ROWS;   // heavy (late) tiles first
   const int tid = threadIdx.x;
   const int nb = (p.nope + BOX - 1) / BOX, vb = (p.dv + BOX - 1) / BOX;
 
@@ -159,65 +191,79 @@ __global__ void __launch_bounds__(THREADS, 2)
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(k_full(s), 1);
       mbar_init(v_full(s), 1);
-      mbar_init(empty(s), 128);  // every thread of the consumer warpgroup releases it
+      mbar_init(k_empty(s), CONSUMERS);  // every consumer thread releases it
+      mbar_init(v_empty(s), CONSUMERS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     lim[0] = 0;
-    lim[1] = ALL;
+    lim[1] = lim[2] = ALL;
   }
   // boxes wholly past a width are zeroed once and never loaded: nope box 1
-  // of Q and of every K stage, V box 1 of every stage
-  for (int i = tid; i < (int)(BOX_BYTES / 16); i += THREADS) {
+  // of both Q tiles and of every K stage, V box 1 of every stage
+  for (int i = tid; i < (int)(KV_BOX / 16); i += THREADS) {
     const uint4 z = make_uint4(0u, 0u, 0u, 0u);
     if (nb < 2) {
-      reinterpret_cast<uint4*>(smem_raw + BOX_BYTES)[i] = z;
+      if (i < (int)(BOX_BYTES / 16))
+        for (int w = 0; w < 2; ++w)
+          reinterpret_cast<uint4*>(smem_raw + w * Q_TILE + BOX_BYTES)[i] = z;
       for (int s = 0; s < STAGES; ++s)
-        reinterpret_cast<uint4*>(smem_raw + QK_TILE + s * QK_TILE + BOX_BYTES)[i] = z;
+        reinterpret_cast<uint4*>(smem_raw + 2 * Q_TILE + s * K_TILE + KV_BOX)[i] = z;
     }
     if (vb < 2)
       for (int s = 0; s < STAGES; ++s)
-        reinterpret_cast<uint4*>(smem_raw + QK_TILE + STAGES * QK_TILE + s * V_TILE +
-                                 BOX_BYTES)[i] = z;
+        reinterpret_cast<uint4*>(smem_raw + 2 * Q_TILE + STAGES * K_TILE + s * V_TILE + KV_BOX)[i] = z;
   }
   __syncthreads();
-  reduce_rows(p, q0, lim);
+  reduce_rows(p, q0, CTA_ROWS, lim);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the zeros, for wgmma
   __syncthreads();
   // uniform values, as ptxas must know them to be (a branch it takes for
   // divergent serializes every wgmma)
   const int limit = __shfl_sync(0xffffffffu, lim[0], 0);
-  const int min_pos = __shfl_sync(0xffffffffu, lim[1], 0);
-  const int tiles = (limit + BN - 1) / BN;
+  const int tiles = (limit + BN - 1) / BN;   // both warpgroups walk them all
 
   const int warp = tid / 32, lane = tid % 32;
-  if (warp == 4) {
-    // ---- producer: one thread loads Q once, then runs the K/V ring ----
+  if (warp == PRODUCER_WARP) {
+    // ---- producer: one thread loads both Q tiles once, then runs the K/V ring ----
     if (lane == 0) {
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&maps.kn)) : "memory");
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&maps.kr)) : "memory");
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&maps.v)) : "memory");
-      mbar_expect_tx(bar, (nb + 1) * BOX_BYTES);
-      for (int c = 0; c < nb; ++c) tma_load(sQ + c * BOX_BYTES, &maps.qn, c * BOX, q0, h, b, bar);
-      tma_load(sQ + ROPE_BOX * BOX_BYTES, &maps.qr, 0, q0, h, b, bar);
+      // warpgroup 1's rows, or, when all of them are past S, warpgroup 0's
+      // again (a row past S is computed and not stored)
+      const int q1 = q0 + BM < p.S ? q0 + BM : q0;
+      mbar_expect_tx(bar, 2 * (nb + 1) * BOX_BYTES);
+      for (int w = 0; w < 2; ++w) {
+        const uint32_t at = sQ + w * Q_TILE;
+        for (int c = 0; c < nb; ++c)
+          tma_load(at + c * BOX_BYTES, &maps.qn, c * BOX, w ? q1 : q0, h, b, bar);
+        tma_load(at + ROPE_BOX * BOX_BYTES, &maps.qr, 0, w ? q1 : q0, h, b, bar);
+      }
       for (int t = 0; t < tiles; ++t) {
         const int s = t % STAGES;
-        mbar_wait(empty(s), ((t / STAGES) & 1) ^ 1);
-        const uint32_t k_at = sK + s * QK_TILE, v_at = sV + s * V_TILE;
-        mbar_expect_tx(k_full(s), (nb + 1) * BOX_BYTES);
+        const uint32_t ph = ((t / STAGES) & 1) ^ 1;
+        const uint32_t k_at = sK + s * K_TILE, v_at = sV + s * V_TILE;
+        mbar_wait(k_empty(s), ph);
+        mbar_expect_tx(k_full(s), (nb + 1) * KV_BOX);
         for (int c = 0; c < nb; ++c)
-          tma_load(k_at + c * BOX_BYTES, &maps.kn, c * BOX, t * BN, h, b, k_full(s));
-        tma_load(k_at + ROPE_BOX * BOX_BYTES, &maps.kr, 0, t * BN, 0, b, k_full(s));
-        mbar_expect_tx(v_full(s), vb * BOX_BYTES);
+          tma_load(k_at + c * KV_BOX, &maps.kn, c * BOX, t * BN, h, b, k_full(s));
+        tma_load(k_at + ROPE_BOX * KV_BOX, &maps.kr, 0, t * BN, 0, b, k_full(s));
+        mbar_wait(v_empty(s), ph);
+        mbar_expect_tx(v_full(s), vb * KV_BOX);
         for (int c = 0; c < vb; ++c)
-          tma_load(v_at + c * BOX_BYTES, &maps.v, c * BOX, t * BN, h, b, v_full(s));
+          tma_load(v_at + c * KV_BOX, &maps.v, c * BOX, t * BN, h, b, v_full(s));
       }
     }
     return;
   }
 
-  // ---- the consumer warpgroup: 64 query rows, 16 a warp ----
+  // ---- the consumer warpgroups: 64 query rows each, 16 a warp ----
+  // the warpgroup as a value ptxas knows is the same across a warp
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int min_pos = __shfl_sync(0xffffffffu, lim[1 + wg], 0);
   const int g = lane >> 2, t4 = lane & 3;
-  const int r0 = q0 + 16 * warp + g;   // this thread's rows: r0, r0 + 8
+  const int r0 = q0 + BM * wg + 16 * (warp & 3) + g;   // this thread's rows: r0, r0 + 8
+  const uint32_t sQw = sQ + wg * Q_TILE;
   const float qk_scale = p.scale * LOG2E;
   int rpos[2];  // the rows' positions; a row past S sees every key (its output is not stored)
 #pragma unroll
@@ -230,19 +276,19 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
   float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f}, alpha[2];
-  float sc[32];        // scores of the newest tile, then its p
-  uint32_t pa[4][4];   // P of the tile whose PV product is next
+  float sc[BN / 2];        // scores of the newest tile, then its p
+  uint32_t pa[BN / 16][4];  // P of the tile whose PV product is next
 
   // S = Q K^T of stage s over the 192-wide depth (12 k-steps: two nope boxes
   // and the rope box side by side), issued, not waited
   auto issue_qk = [&](int s) {
 #pragma unroll
     for (int kc = 0; kc < 12; ++kc)
-      wgmma_ss<64>(sc, desc_kmajor<192, BM>(sQ, kc), desc_kmajor<192, BN>(sK + s * QK_TILE, kc),
+      wgmma_ss<BN>(sc, desc_kmajor<192, BM>(sQw, kc), desc_kmajor<192, BN>(sK + s * K_TILE, kc),
                    kc > 0);
     wgmma_commit();
   };
-  // O += P V of stage s over 4 k-steps; V is MN-major, its two boxes LBO apart
+  // O += P V of stage s over BN / 16 k-steps; V is MN-major, its two boxes LBO apart
   auto issue_pv = [&](int s) {
 #pragma unroll
     for (int kc = 0; kc < BN / 16; ++kc)
@@ -294,7 +340,7 @@ __global__ void __launch_bounds__(THREADS, 2)
       l_i[r] = alpha[r] * l_i[r] + sum;
     }
   };
-  // the mask only on tiles past T or past some row's position
+  // the mask only on tiles past T or past some row's position (of this warpgroup)
   auto softmax = [&](int k0) {
     if (k0 + BN > p.T || k0 + BN - 1 > min_pos) softmax_pass(k0, std::true_type{});
     else softmax_pass(k0, std::false_type{});
@@ -308,44 +354,60 @@ __global__ void __launch_bounds__(THREADS, 2)
       acc[4 * j + 2] *= alpha[1];
       acc[4 * j + 3] *= alpha[1];
     }
-    pack_a<8>(pa, sc);
+    pack_a<BN / 8>(pa, sc);
   };
+  // ping-pong: a warpgroup issues its products in its turn (named barrier
+  // BAR_TURN + wg, which the other warpgroup arrives on once it has issued
+  // its own), so that each one's softmax runs under the other's products
+  auto my_turn = [&]() { bar_sync(BAR_TURN + wg, CONSUMERS); };
+  auto your_turn = [&]() { bar_arrive(BAR_TURN + 1 - wg, CONSUMERS); };
 
   auto slot = [](int i) { return i % STAGES; };
   auto parity = [](int i) { return (uint32_t)((i / STAGES) & 1); };
   mbar_wait(bar, 0);
   mbar_wait(k_full(0), 0);
+  if (wg == 1) your_turn();  // warpgroup 0 goes first
+  my_turn();
   wgmma_fence();
   issue_qk(0);
+  your_turn();
   wgmma_wait<0>();
   fence_regs(sc);
+  mbar_arrive(k_empty(0));
   softmax(0);
   rescale_and_pack();
   for (int i = 1; i < tiles; ++i) {
     const int ip = i - 1;
     mbar_wait(k_full(slot(i)), parity(i));
     mbar_wait(v_full(slot(ip)), parity(ip));
+    my_turn();
     wgmma_fence();
     issue_qk(slot(i));
     issue_pv(slot(ip));
+    your_turn();
     wgmma_wait<1>();  // Q K^T of tile i done; PV of tile ip may run on
     fence_regs(sc);
+    mbar_arrive(k_empty(slot(i)));
     softmax(i * BN);
     wgmma_wait<0>();
     fence_regs(acc);
     fence_regs(pa);   // the PV product read these registers until now
-    mbar_arrive(empty(slot(ip)));
+    mbar_arrive(v_empty(slot(ip)));
     rescale_and_pack();
   }
   {
     const int ip = tiles - 1;
     mbar_wait(v_full(slot(ip)), parity(ip));
+    my_turn();
     wgmma_fence();
     issue_pv(slot(ip));
     wgmma_wait<0>();
     fence_regs(acc);
     fence_regs(pa);
-    mbar_arrive(empty(slot(ip)));
+    mbar_arrive(v_empty(slot(ip)));
+    // warpgroup 1's last turn; warpgroup 1 issues last, so no arrival of
+    // its is left over at the end
+    if (wg == 0) your_turn();
   }
 
   // epilogue: O / l through o's strides, rows past S masked, the dv columns
@@ -408,8 +470,8 @@ __global__ void __launch_bounds__(F_THREADS)
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + BM * LDQK;
-  float* Vs = Ks + BN * LDQK;
-  float* Ps = Vs + BN * LDV;
+  float* Vs = Ks + F_BN * LDQK;
+  float* Ps = Vs + F_BN * LDV;
   int* lim = reinterpret_cast<int*>(Ps + BM * LDP);
 
   const int b = blockIdx.x / p.N, h = blockIdx.x % p.N;
@@ -431,7 +493,7 @@ __global__ void __launch_bounds__(F_THREADS)
   }
   load_qk(Qs, qn, qr, p.qn, p.qr, b, h, q0, p.S, p.nope, p.rope, F_THREADS);
   __syncthreads();
-  reduce_rows(p, q0, lim);
+  reduce_rows(p, q0, BM, lim);
   __syncthreads();
   const int limit = lim[0];
   int qpos[4];  // a row past S sees every key (its output is not stored)
@@ -450,7 +512,7 @@ __global__ void __launch_bounds__(F_THREADS)
     for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
   }
 
-  for (int k0 = 0; k0 < limit; k0 += BN) {
+  for (int k0 = 0; k0 < limit; k0 += F_BN) {
     __syncthreads();  // the last tile's readers of K, V and P are done
     load_qk(Ks, kn, kr, p.kn, kr_s, b, h, k0, p.T, p.nope, p.rope, F_THREADS);
     load_v(Vs, v, p.v, b, h, k0, p.T, p.dv, F_THREADS);
@@ -514,7 +576,7 @@ __global__ void __launch_bounds__(F_THREADS)
     __syncthreads();
 
 #pragma unroll 4
-    for (int jj = 0; jj < BN; ++jj) {
+    for (int jj = 0; jj < F_BN; ++jj) {
       float pv[4], vv[8];
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = Ps[(tr + 16 * i) * LDP + jj];
@@ -600,7 +662,10 @@ extern "C" int expanded_attention_fwd(const void* q_nope, const void* q_rope, co
   if (B < 1 || S < 1 || N < 1 || T < 1 || nope < 16 || nope > 128 || nope % 16 || rope < 16 ||
       rope > 64 || rope % 16 || dv < 16 || dv > 128 || dv % 16 ||
       smem != (int)(is_bf16 ? bf16_smem_bytes() : f32_smem_bytes()) ||
-      (long long)B * N > 0x7fffffffLL || (S + BM - 1) / BM > 65535)
+      (long long)B * N > 0x7fffffffLL || (S + BM - 1) / BM > 65535)  // 64-row tiles, as the backward's
+    return (int)cudaErrorInvalidValue;
+  const int rows = is_bf16 ? CTA_ROWS : BM;   // query rows a CTA
+  if (is_bf16 && (long long)B * N * ((S + rows - 1) / rows) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.qn_p = q_nope; p.qr_p = q_rope; p.kn_p = k_nope; p.kr_p = k_rope; p.v_p = v; p.o_p = o;
@@ -619,7 +684,7 @@ extern "C" int expanded_attention_fwd(const void* q_nope, const void* q_rope, co
   p.B = B; p.S = S; p.N = N; p.T = T; p.nope = nope; p.rope = rope; p.dv = dv;
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(B * N, (S + BM - 1) / BM);
+  const dim3 grid(B * N, (S + rows - 1) / rows);
   if (!is_bf16) {
     exp_fwd_f32<<<grid, F_THREADS, smem, st>>>(p);
     return (int)cudaGetLastError();
@@ -632,6 +697,6 @@ extern "C" int expanded_attention_fwd(const void* q_nope, const void* q_rope, co
   if (!err) err = make_map_w(&maps.kr, k_rope, rope, T, 1, B, p.kr[0], p.kr[1], rope, BN);
   if (!err) err = make_map_w(&maps.v, v, dv, T, N, B, p.v[0], p.v[1], p.v[2], BN);
   if (err) return err;
-  exp_fwd_bf16<<<grid, THREADS, smem, st>>>(maps, p);
+  exp_fwd_bf16<<<grid.x * grid.y, THREADS, smem, st>>>(maps, p);
   return (int)cudaGetLastError();
 }

@@ -19,7 +19,8 @@
 //   dQ_nope = dS K_nope    dQ_rope = dS K_rope
 //   dK_nope = dS^T Q_nope  dK_rope = sum over the N heads of dS^T Q_rope
 //
-// Deterministic, no atomics, four kernels on the caller's stream:
+// Deterministic (every sum in a fixed order, no atomic sums), four kernels
+// on the caller's stream:
 //   1. exp_bwd_prep: D, and for each 64-row query tile the keys its rows see
 //      ([0, tile_lim), T when a row is fully masked) and its rows' smallest
 //      position (tile_min), from q_pos on the device;
@@ -28,44 +29,66 @@
 //      key), recomputing S, P, dP and dS for each: dV and dK_nope summed in
 //      registers in a fixed order and written once; dK_rope's share of this
 //      head written as float32 to a (B, N, T, rope) scratch;
-//   3. exp_dq: one CTA per (batch, head, 64-row query tile) walks the key
-//      tiles its rows see and accumulates dQ_nope and dQ_rope;
+//   3. exp_dq: one CTA per (batch, head, two 64-row query tiles; float32:
+//      one) walks the key tiles its rows see and accumulates dQ_nope and
+//      dQ_rope;
 //   4. exp_rope_reduce: dK_rope = the heads' shares summed in head order.
 // Two calls on the same inputs give the same bits, and so do a training
 // step run eagerly and replayed.
 //
 // What bounds it.  At 2 x 4096 tokens and 128 heads the causal half needs
 // 3.57 TFLOP, 2.6x the forward (the scores recomputed once, dP, dV, dQ and
-// dK): the tensor cores.  These kernels run 9.1 TFLOP of products (the
-// scores three times, dP twice, P and dS as bf16 pairs, one product whose
-// result is not used): simple first.
+// dK): the tensor cores.  These kernels run 5.02 TFLOP of products (the
+// scores and dP twice, once for dK/dV and once for dQ).
 //
-// bf16 design (the forward's pieces, hopper.cuh; B1's backward design at
-// MLA's widths).  Q and K tiles are 64 x 192, three TMA boxes side by side
-// (two from the nope tensor, one from the rope tensor: k_rope through its
-// own map, no head-broadcast copy); V and dO tiles 64 x 128, two boxes.
-//   exp_dkdv: a dK/dV CTA would hold dK_nope (64 x 128), dK_rope (64 x 64)
-//   and dV (64 x 128) in float32, 160 registers a thread in one warpgroup
+// bf16 design (the forward's pieces, hopper.cuh).  Q and K tiles are 64 x
+// 192, three TMA boxes side by side (two from the nope tensor, one from the
+// rope tensor: k_rope through its own map, no head-broadcast copy); V and
+// dO tiles 64 x 128, two boxes.  P and dS enter their products as bf16
+// fragments, as FlashAttention rounds them: phase 3d's tolerances hold on
+// every case, the large-score one too, so a (hi, lo) pair of fragments,
+// which B1's backward needs for its capped scores, would double the
+// accumulating products for nothing.  The grids are one dimension,
+// the (batch, head) outermost, so that the CTAs in flight share a few
+// heads' tiles in the L2.
+//   exp_dkdv: a dK/dV CTA holds dK_nope (64 x 128), dK_rope (64 x 64) and
+//   dV (64 x 128) in float32, 160 registers a thread in one warpgroup
 //   before the S and dP fragments.  So the CTA has two consumer warpgroups
 //   and no producer warp (256 threads, up to 255 registers each; a producer
-//   warp would make 288 and cap a thread at 168): both score S^T = K Q^T
-//   (m64n64k16, 12 k-steps) and dP^T = V dO^T (8), and take P^T; warpgroup
-//   0 adds dV += P^T dO (m64n128k16), warpgroup 1 takes dS^T = P^T (dP^T -
-//   D) and adds dK_nope += dS^T Q_nope (m64n128k16) and dK_rope += dS^T
-//   Q_rope (m64n64k16).  The two issue the same wgmma sequence, only the A
-//   registers and one B address differ (warpgroup 0 also runs the rope
-//   product into an accumulator it never stores): with the products under
-//   a branch on the warpgroup, ptxas serialized every wgmma (C7515).  So
-//   the scores and dP are computed twice, and each warpgroup keeps one
-//   accumulator set (64 + 32 float32).  The first warp of warpgroup 1
-//   refills the ring (three stages of Q, dO and the 64 rows' LSE, D and
-//   positions) once both warpgroups have released a stage.  The warpgroup index comes through
-//   __shfl_sync: a branch on threadIdx makes ptxas serialize every wgmma.
-//   exp_dq: B1's dQ CTA (one producer warp, one consumer warpgroup), the
-//   ring carrying the K and V tiles, dQ_nope and dQ_rope (64 + 32 float32)
-//   in registers.
-//   P and dS enter their products as a pair of bf16 fragments (hi and lo,
-//   split_a), so the products see them to about 16 bits, as in B1's.
+//   warp would make 288 and cap a thread at 168), and each query tile's
+//   products are split between them, each computed once.  Warpgroup 0
+//   scores S^T = K Q^T (m64n64k16, 12 k-steps), forms P^T (the masks, 1 / T
+//   on a fully masked row), writes P^T * scale as float32 into the stage's
+//   16 KB buffer and arrives on the stage's named barrier, then adds dV +=
+//   P^T dO (m64n128k16).  Warpgroup 1 takes dP^T = V dO^T (8 k-steps),
+//   waits on that barrier, forms dS^T = P^T * scale * (dP^T - D) from the
+//   buffer (each of its threads reads what the thread of warpgroup 0 in
+//   the same place wrote, the fragments' layouts being alike) and adds
+//   dK_nope += dS^T Q_nope (m64n128k16) and dK_rope += dS^T Q_rope
+//   (m64n64k16).  Per 64 x 64 tile pair 5.24 MFLOP of products (S 1.57, dP
+//   1.05, dV 1.05, dK_nope 1.05, dK_rope 0.52).  Each warpgroup's pass runs
+//   under the other's products.  (Issuing the product that closes tile i -
+//   1 beside the first of tile i, to run a warpgroup's own pass under it,
+//   holds each stage a tile longer, and the loads then wait: slower.)  Each
+//   warpgroup's products are issued and retired inside its own branch on
+//   the warpgroup index, which comes through __shfl_sync (a branch on
+//   threadIdx, or a product in flight across such a branch, makes ptxas
+//   serialize every wgmma).  The first warp of warpgroup 1, which is
+//   behind warpgroup 0 by the hand-off, refills the ring (three stages of
+//   Q, dO and the 64 rows' LSE, D and positions) once both warpgroups have
+//   released a stage; a stage's P^T buffer is rewritten only after that
+//   refill, so the three barriers never see two rounds at once.
+//   exp_dq: two consumer warpgroups and no producer warp (256 threads: a
+//   producer warp would cap a thread at 168 registers), each with its own
+//   64-row query tile's Q and dO, sharing one ring of K and V tiles, so
+//   each tile is loaded once for 128 rows; dQ_nope and dQ_rope (64 + 32
+//   float32) in registers.  Each warpgroup scores S = Q K^T and dP = dO
+//   V^T, forms P and dS and adds dQ_nope += dS K_nope and dQ_rope += dS
+//   K_rope (4.19 MFLOP a tile pair); each one's pass runs under the other's
+//   products.  Both walk the keys either tile sees (the first masks its
+//   last tile).  The one of the two that finishes a stage second (a count
+//   in shared memory, after a named barrier over its own warpgroup)
+//   refills it.
 //
 // float32 keeps the FMA units (no TF32): 256 threads, each owning a 4 x 4
 // block of a 64 x 64 score tile and 4 rows of the accumulators, the tiles
@@ -90,8 +113,9 @@ constexpr int PREP_THREADS = 256;
 constexpr int TILE_WARPS = PREP_THREADS / 32;   // the pre-pass's query tiles a block: a warp each
 constexpr int DKDV_THREADS = 256;      // two consumer warpgroups, no producer warp
 constexpr int DKDV_STAGES = 3;         // (Q, dO, rows) stages of exp_dkdv's ring
-constexpr int DQ_THREADS = 160;        // one consumer warpgroup and one producer warp
-constexpr int DQ_STAGES = 2;           // (K, V) stages of exp_dq's ring
+constexpr int DQ_THREADS = 256;        // two consumer warpgroups, no producer warp
+constexpr int DQ_STAGES = 3;           // (K, V) stages of exp_dq's ring
+constexpr int DQ_ROWS = 2 * BM;        // query rows of a dQ CTA: two tiles
 constexpr int F_THREADS = 256;
 constexpr int REDUCE_THREADS = 256;
 constexpr int FQK = 192, FV = 128;     // float32: the widest q . k and v
@@ -123,16 +147,21 @@ __device__ __forceinline__ int clamp_pos(long long p, int T) {
 }
 
 // the fixed part of a bf16 dK/dV CTA's shared memory: K and V, the ring's
-// Q and dO tiles, its stages' 64 LSE (times log2 e), D and positions, 1 + 2
-// * STAGES mbarriers, the list's count and a pad; the list of query tiles
-// (an int each) follows.  backward.py's dkdv_smem_bytes is the same.
-constexpr size_t DKDV_ROWS = (size_t)(1 + DKDV_STAGES) * (QK_TILE + V_TILE);
+// Q and dO tiles, its stages' P^T (64 x 64 float32, the hand-off from
+// warpgroup 0 to warpgroup 1), its stages' 64 LSE (times log2 e), D and
+// positions, 1 + 2 * STAGES mbarriers, the list's count and a pad; the list
+// of query tiles (an int each) follows.  backward.py's dkdv_smem_bytes is
+// the same.
+constexpr uint32_t PT_BYTES = BN * BM * 4;
+constexpr size_t DKDV_PT = (size_t)(1 + DKDV_STAGES) * (QK_TILE + V_TILE);
+constexpr size_t DKDV_ROWS = DKDV_PT + (size_t)DKDV_STAGES * PT_BYTES;
 constexpr size_t DKDV_BARS = DKDV_ROWS + 3 * DKDV_STAGES * BM * 4;
 constexpr size_t DKDV_LIST = DKDV_BARS + 8 * (1 + 2 * DKDV_STAGES) + 8;
 size_t dkdv_bf16_smem(int nqt) { return DKDV_LIST + 4 * (size_t)nqt; }
-// a bf16 dQ CTA: Q and dO, the ring's K and V tiles, 1 + 2 * STAGES mbarriers
+// a bf16 dQ CTA: each warpgroup's Q and dO, the ring's K and V tiles, 1 +
+// STAGES mbarriers and a count a stage of the warpgroups done with it
 constexpr size_t dq_bf16_smem() {
-  return (size_t)(1 + DQ_STAGES) * (QK_TILE + V_TILE) + 8 * (1 + 2 * DQ_STAGES);
+  return (size_t)(2 + DQ_STAGES) * (QK_TILE + V_TILE) + 8 * (1 + DQ_STAGES) + 4 * DQ_STAGES;
 }
 // float32: K, V, Q, dO, P and dS tiles, the rows' LSE, D and positions
 constexpr size_t dkdv_f32_smem() {
@@ -233,6 +262,11 @@ __device__ __forceinline__ void load_v(uint32_t dst, const CUtensorMap* x, int v
   for (int c = 0; c < vb; ++c) tma_load(dst + c * BOX_BYTES, x, c * BOX, pos, h, b, bar);
 }
 
+// named barriers (0 is __syncthreads): stage s's P^T buffer, BAR_PT + s,
+// which warpgroup 0 arrives on once it has written it and warpgroup 1
+// waits on before it reads it
+constexpr int BAR_PT = 1;
+
 // 2. dK_nope, dV and this head's share of dK_rope for one (batch, head, key tile)
 __global__ void __launch_bounds__(DKDV_THREADS, 1)
     exp_dkdv_bf16(const __grid_constant__ Maps maps, const Bwd d) {
@@ -244,6 +278,8 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
   auto q_off = [](int s) { return (uint32_t)((1 + s) * (QK_TILE + V_TILE)); };
   auto q_at = [&](int s) { return sK + q_off(s); };
   auto do_at = [&](int s) { return sK + q_off(s) + QK_TILE; };
+  // [S][8][128]: stage s's P^T * scale, float4 k of warpgroup thread w at [s][k][w]
+  float4* pt_s = reinterpret_cast<float4*>(smem_raw + DKDV_PT);
   float* lse_s = reinterpret_cast<float*>(smem_raw + DKDV_ROWS);  // [S][BM], times log2 e
   float* D_s = lse_s + S * BM;                                      // [S][BM]
   int* pos_s = reinterpret_cast<int*>(D_s + S * BM);                // [S][BM], clamped
@@ -253,12 +289,16 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
   int* count = reinterpret_cast<int*>(smem_raw + DKDV_LIST - 8);
   int* list = reinterpret_cast<int*>(smem_raw + DKDV_LIST);
 
-  const int b = blockIdx.x / d.N, h = blockIdx.x % d.N;
-  const int k0 = blockIdx.y * BN;
+  // one dimension, the (batch, head) outermost (as the forward's), heavy
+  // (early) key tiles first
+  const int per = (d.T + BN - 1) / BN;
+  const int bh = blockIdx.x / per;
+  const int b = bh / d.N, h = bh % d.N;
+  const int k0 = (int)(blockIdx.x % per) * BN;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   // the warpgroup as a value ptxas knows is the same across a warp
   const int j = __shfl_sync(0xffffffffu, tid >> 7, 0);
-  const int wl = warp & 3, g = lane >> 2, t4 = lane & 3;
+  const int wl = warp & 3, g = lane >> 2, t4 = lane & 3, wt = tid & 127;
   const int nb = (d.nope + BOX - 1) / BOX, vb = (d.dvw + BOX - 1) / BOX;
 
   if (tid == 0) {
@@ -335,19 +375,20 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
   for (int i = 0; i < 32; ++i) accB[i] = 0.f;
   // element 4q + e of a 64 x 64 tile: key kr + 8 (e >> 1), query
   // q0 + 8q + 2 t4 + (e & 1)
-  float st[32];          // S^T, then P^T times the scale (0 where masked)
-  float dpt[32];         // dP^T, then dS^T (warpgroup 1)
-  uint32_t xa[2][4][4];  // P^T (warpgroup 0) or dS^T (warpgroup 1) as a bf16 pair (hi, lo)
+  float st[32];        // warpgroup 0: S^T, then P^T; warpgroup 1: dP^T, then dS^T
+  uint32_t xa[4][4];   // st in bf16: the A operand of the product that closes its tile
 
-  // P^T of stage s into xa and st (st = P^T * scale where visible, 0 where not)
+  // warpgroup 0: P^T of stage s in place on st, and P^T * scale (0 where
+  // masked) into the stage's buffer for warpgroup 1
   auto p_pass = [&](int s, auto masked) {
     const float* lse2 = lse_s + s * BM;
     const int* qpos = pos_s + s * BM;
+    float4* buf = pt_s + s * (8 * 128);
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const float2 l = *reinterpret_cast<const float2*>(lse2 + 8 * q + 2 * t4);
       const int2 qp = *reinterpret_cast<const int2*>(qpos + 8 * q + 2 * t4);
-      float pv[4], lo[4];
+      float sv[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float pe = ex2(st[4 * q + e] * mul - ((e & 1) ? l.y : l.x));
@@ -359,77 +400,111 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
             f = 0.f;
           }
         }
-        st[4 * q + e] = pe * f;
-        pv[e] = pe;
-        lo[e] = pe - __bfloat162float(__float2bfloat16(pe));
+        sv[e] = pe * f;
+        st[4 * q + e] = pe;
       }
-      xa[0][q / 2][2 * (q & 1)] = pack_bf16(pv[0], pv[1]);
-      xa[0][q / 2][2 * (q & 1) + 1] = pack_bf16(pv[2], pv[3]);
-      xa[1][q / 2][2 * (q & 1)] = pack_bf16(lo[0], lo[1]);
-      xa[1][q / 2][2 * (q & 1) + 1] = pack_bf16(lo[2], lo[3]);
+      buf[q * 128 + wt] = make_float4(sv[0], sv[1], sv[2], sv[3]);
     }
   };
-  // dS^T = st * (dP^T - D) into xa
-  auto ds_pass = [&](int s) {
+  // warpgroup 0's pass over tile i (stage s), the mask only on tiles past T
+  // or past some row's position; then P^T's buffer is handed over
+  auto p_tile = [&](int i, int s) {
+    if (k0 + BN > d.T || d.tile_min[list[i]] < k0 + BN - 1) p_pass(s, std::true_type{});
+    else p_pass(s, std::false_type{});
+    bar_arrive(BAR_PT + s, 2 * 128);
+  };
+  // warpgroup 1: dS^T = P^T * scale * (dP^T - D) of stage s in place on
+  // st, P^T from the stage's buffer (written by the thread of warpgroup 0
+  // that holds the same elements) once warpgroup 0 has handed it over
+  auto ds_tile = [&](int s) {
+    bar_sync(BAR_PT + s, 2 * 128);
     const float* D = D_s + s * BM;
+    const float4* buf = pt_s + s * (8 * 128);
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const float2 dd = *reinterpret_cast<const float2*>(D + 8 * q + 2 * t4);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dpt[4 * q + e] = st[4 * q + e] * (dpt[4 * q + e] - ((e & 1) ? dd.y : dd.x));
+      const float4 pv = buf[q * 128 + wt];
+      st[4 * q] = pv.x * (st[4 * q] - dd.x);
+      st[4 * q + 1] = pv.y * (st[4 * q + 1] - dd.y);
+      st[4 * q + 2] = pv.z * (st[4 * q + 2] - dd.x);
+      st[4 * q + 3] = pv.w * (st[4 * q + 3] - dd.y);
     }
-    split_a<8>(xa, dpt);
   };
-
-  mbar_wait(bar, 0);
-  for (int i = 0; i < n; ++i) {
-    const int s = i % S, qt = list[i];
-    mbar_wait(full(s), (i / S) & 1);
-    // both warpgroups issue the same products (a wgmma under a branch on
-    // the warpgroup made ptxas serialize them all, C7515): S^T, dP^T, then
-    // accA += xa B and accB += xa Q_rope, where warpgroup 0's xa is P^T and
-    // its B dO, warpgroup 1's xa dS^T and its B Q_nope; warpgroup 0's accB
-    // is not used
-    wgmma_fence();
+  // the products, each committed as one group: S^T = K Q^T (12 k-steps),
+  // dP^T = V dO^T (8), and from xa dV += P^T dO and dK_nope += dS^T Q_nope,
+  // dK_rope += dS^T Q_rope (dO and Q MN-major, their boxes LBO apart)
+  auto issue_s = [&](int s) {
 #pragma unroll
     for (int kc = 0; kc < 12; ++kc)
       wgmma_ss<64>(st, desc_kmajor<192, BN>(sK, kc), desc_kmajor<192, BM>(q_at(s), kc), kc > 0);
     wgmma_commit();
+  };
+  auto issue_dp = [&](int s) {
 #pragma unroll
     for (int kc = 0; kc < 8; ++kc)
-      wgmma_ss<64>(dpt, desc_kmajor<128, BN>(sV, kc), desc_kmajor<128, BM>(do_at(s), kc), kc > 0);
+      wgmma_ss<64>(st, desc_kmajor<128, BN>(sV, kc), desc_kmajor<128, BM>(do_at(s), kc), kc > 0);
     wgmma_commit();
-    wgmma_wait<1>();  // S^T done; dP^T runs on
-    fence_regs(st);
-    // the mask only on tiles past T or past some row's position
-    if (k0 + BN > d.T || d.tile_min[qt] < k0 + BN - 1) p_pass(s, std::true_type{});
-    else p_pass(s, std::false_type{});
-    wgmma_wait<0>();  // dP^T done
-    fence_regs(dpt);
-    if (j == 1) ds_pass(s);
-    // warpgroup 0: dV += P^T dO; warpgroup 1: dK_nope += dS^T Q_nope,
-    // dK_rope += dS^T Q_rope (dO and Q MN-major, their first two boxes alike)
-    const uint32_t b_tile = j ? q_at(s) : do_at(s);
-    wgmma_fence();
+  };
+  auto issue_dv = [&](int s) {
 #pragma unroll
-    for (int part = 0; part < 2; ++part)
-#pragma unroll
-      for (int kc = 0; kc < BM / 16; ++kc) {
-        wgmma_rs<128>(accA, xa[part][kc], desc_mnmajor<128, BM>(b_tile, kc));
-        wgmma_rs<64>(accB, xa[part][kc], desc_mnmajor<64, BM>(q_at(s) + ROPE_BOX * BOX_BYTES, kc));
-      }
+    for (int kc = 0; kc < BM / 16; ++kc)
+      wgmma_rs<128>(accA, xa[kc], desc_mnmajor<128, BM>(do_at(s), kc));
     wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(accA);
-    fence_regs(accB);
-    fence_regs(xa[0]);
-    fence_regs(xa[1]);
-    mbar_arrive(empty(s));  // this thread's products are done with the stage
+  };
+  auto issue_dk = [&](int s) {
+#pragma unroll
+    for (int kc = 0; kc < BM / 16; ++kc) {
+      wgmma_rs<128>(accA, xa[kc], desc_mnmajor<128, BM>(q_at(s), kc));
+      wgmma_rs<64>(accB, xa[kc], desc_mnmajor<64, BM>(q_at(s) + ROPE_BOX * BOX_BYTES, kc));
+    }
+    wgmma_commit();
+  };
+  // this thread is done with tile i's stage (warpgroup 1 also with its
+  // P^T); the first warp of warpgroup 1 refills it once both are
+  auto release = [&](int i) {
+    const int s = i % S;
+    mbar_arrive(empty(s));
     if (warp == 4 && i + S < n) {
       mbar_wait(empty(s), (i / S) & 1);
       load(i + S);
     }
+  };
+
+  // Each warpgroup's products are issued and retired inside its own branch
+  // (a product in flight across such a branch made ptxas serialize them
+  // all); each one's pass runs under the other's products.
+  mbar_wait(bar, 0);
+  for (int i = 0; i < n; ++i) {
+    const int s = i % S;
+    mbar_wait(full(s), (i / S) & 1);
+    if (j == 0) {
+      // ---- warpgroup 0: S^T and P^T, then dV ----
+      wgmma_fence();
+      issue_s(s);
+      wgmma_wait<0>();
+      fence_regs(st);
+      p_tile(i, s);
+      pack_a<8>(xa, st);
+      wgmma_fence();
+      issue_dv(s);
+      wgmma_wait<0>();
+      fence_regs(accA);
+    } else {
+      // ---- warpgroup 1: dP^T and dS^T, then dK ----
+      wgmma_fence();
+      issue_dp(s);
+      wgmma_wait<0>();
+      fence_regs(st);
+      ds_tile(s);
+      pack_a<8>(xa, st);
+      wgmma_fence();
+      issue_dk(s);
+      wgmma_wait<0>();
+      fence_regs(accA);
+      fence_regs(accB);
+    }
+    fence_regs(xa);
+    release(i);
   }
 
   // epilogue: the keys below T, through the gradients' strides
@@ -466,71 +541,88 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
   }
 }
 
-// 3. dQ_nope and dQ_rope of one (batch, head, query tile)
+// named barriers of exp_dq (0 is __syncthreads): warpgroup 0's and 1's own
+constexpr int BAR_DQ = 1;
+
+// 3. dQ_nope and dQ_rope of two query tiles (128 rows) of one (batch, head)
 __global__ void __launch_bounds__(DQ_THREADS, 1)
     exp_dq_bf16(const __grid_constant__ Maps maps, const Bwd d) {
   constexpr int S = DQ_STAGES;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
-  const uint32_t sQ = smem_u32(smem_raw);
-  if (sQ & 1023u) __trap();
-  const uint32_t sdO = sQ + QK_TILE;
-  auto k_off = [](int s) { return (uint32_t)((1 + s) * (QK_TILE + V_TILE)); };
-  auto k_at = [&](int s) { return sQ + k_off(s); };
-  auto v_at = [&](int s) { return sQ + k_off(s) + QK_TILE; };
-  const uint32_t bar = sQ + (1 + S) * (QK_TILE + V_TILE);  // qdo_full, full[S], empty[S]
+  const uint32_t base = smem_u32(smem_raw);
+  if (base & 1023u) __trap();
+  // warpgroup w's Q and dO, then the ring's K and V stages
+  auto q_at = [&](int w) { return base + w * (QK_TILE + V_TILE); };
+  auto do_at = [&](int w) { return q_at(w) + QK_TILE; };
+  auto k_off = [](int s) { return (uint32_t)((2 + s) * (QK_TILE + V_TILE)); };
+  auto k_at = [&](int s) { return base + k_off(s); };
+  auto v_at = [&](int s) { return base + k_off(s) + QK_TILE; };
+  const uint32_t bar = base + (2 + S) * (QK_TILE + V_TILE);  // qdo_full, full[S]
   auto full = [&](int s) { return bar + 8u * (1 + s); };
-  auto empty = [&](int s) { return bar + 8u * (1 + S + s); };
+  // [S]: the warpgroups done with each stage, counted up for good (odd: one of the two)
+  int* done = reinterpret_cast<int*>(smem_raw + (2 + S) * (QK_TILE + V_TILE) + 8 * (1 + S));
 
-  const int b = blockIdx.x / d.N, h = blockIdx.x % d.N;
-  const int qt = gridDim.y - 1 - blockIdx.y;  // heavy (late) tiles first
-  const int q0 = qt * BM;
-  const int limit = d.tile_lim[qt], min_pos = d.tile_min[qt];
+  // one dimension, the (batch, head) outermost (as the forward's)
+  const int per = (d.nqt + 1) / 2;
+  const int bh = blockIdx.x / per;
+  const int b = bh / d.N, h = bh % d.N;
+  const int qt0 = 2 * (per - 1 - (int)(blockIdx.x % per));  // heavy (late) tiles first
+  const bool two = qt0 + 1 < d.nqt;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the warpgroup as a value ptxas knows is the same across a warp
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  // both warpgroups walk the keys either tile's rows see
+  const int limit = two ? max(d.tile_lim[qt0], d.tile_lim[qt0 + 1]) : d.tile_lim[qt0];
   const int tiles = (limit + BN - 1) / BN;
-  const int tid = threadIdx.x;
   const int nb = (d.nope + BOX - 1) / BOX, vb = (d.dvw + BOX - 1) / BOX;
+
+  // stage i's K and V tiles, by one thread
+  auto load = [&](int i) {
+    const int s = i % S;
+    mbar_expect_tx(full(s), (nb + 1 + vb) * BOX_BYTES);
+    load_qk(k_at(s), &maps.kn, &maps.kr, nb, i * BN, h, 0, b, full(s));
+    load_v(v_at(s), &maps.v, vb, i * BN, h, b, full(s));
+  };
 
   if (tid == 0) {
     mbar_init(bar, 1);
     for (int s = 0; s < S; ++s) {
       mbar_init(full(s), 1);
-      mbar_init(empty(s), 128);
+      done[s] = 0;
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (nb < 2) {
-    zero_box(smem_raw, 0, DQ_THREADS);
-    for (int s = 0; s < S; ++s) zero_box(smem_raw, k_off(s), DQ_THREADS);
+  for (int w = 0; w < 2; ++w) {
+    if (nb < 2) zero_box(smem_raw, w * (QK_TILE + V_TILE), DQ_THREADS);
+    if (vb < 2) zero_box(smem_raw, w * (QK_TILE + V_TILE) + QK_TILE, DQ_THREADS);
   }
-  if (vb < 2) {
-    zero_box(smem_raw, QK_TILE, DQ_THREADS);
-    for (int s = 0; s < S; ++s) zero_box(smem_raw, k_off(s) + QK_TILE, DQ_THREADS);
+  for (int s = 0; s < S; ++s) {
+    if (nb < 2) zero_box(smem_raw, k_off(s), DQ_THREADS);
+    if (vb < 2) zero_box(smem_raw, k_off(s) + QK_TILE, DQ_THREADS);
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
-
-  const int warp = tid / 32, lane = tid % 32;
-  if (warp == 4) {
-    // ---- producer: Q and dO once, then the K/V ring ----
-    if (lane == 0) {
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&maps.kn)) : "memory");
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&maps.v)) : "memory");
-      mbar_expect_tx(bar, (nb + 1 + vb) * BOX_BYTES);
-      load_qk(sQ, &maps.qn, &maps.qr, nb, q0, h, h, b, bar);
-      load_v(sdO, &maps.dO, vb, q0, h, b, bar);
-      for (int i = 0; i < tiles; ++i) {
-        const int s = i % S;
-        mbar_wait(empty(s), ((i / S) & 1) ^ 1);
-        mbar_expect_tx(full(s), (nb + 1 + vb) * BOX_BYTES);
-        load_qk(k_at(s), &maps.kn, &maps.kr, nb, i * BN, h, 0, b, full(s));
-        load_v(v_at(s), &maps.v, vb, i * BN, h, b, full(s));
-      }
+  if (tid == 0) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&maps.kn)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&maps.v)) : "memory");
+    // warpgroup 1's rows, or, when the last tile is warpgroup 0's, its rows
+    // again (warpgroup 1's rows are then past S: P = 0, nothing stored)
+    const int q1 = (two ? qt0 + 1 : qt0) * BM;
+    mbar_expect_tx(bar, 2 * (nb + 1 + vb) * BOX_BYTES);
+    for (int w = 0; w < 2; ++w) {
+      load_qk(q_at(w), &maps.qn, &maps.qr, nb, w ? q1 : qt0 * BM, h, h, b, bar);
+      load_v(do_at(w), &maps.dO, vb, w ? q1 : qt0 * BM, h, b, bar);
     }
-    return;
+    for (int i = 0; i < S && i < tiles; ++i) load(i);
   }
 
-  // ---- the consumer warpgroup: 64 query rows, 16 a warp ----
+  // ---- both warpgroups: 64 query rows each, 16 a warp ----
+  const int qt = qt0 + wg;            // warpgroup 1's is past the last tile when !two
+  const int min_pos = __shfl_sync(0xffffffffu, qt < d.nqt ? d.tile_min[qt] : ALL, 0);
   const int g = lane >> 2, t4 = lane & 3;
-  const int r0 = q0 + 16 * warp + g;  // this thread's rows: r0, r0 + 8
+  const int r0 = qt * BM + 16 * (warp & 3) + g;  // this thread's rows: r0, r0 + 8
+  const bool leader = (tid & 127) == 0;
+  const uint32_t sQ = q_at(wg), sdO = do_at(wg);
   const float mul = d.scale * LOG2E;
   float lse2[2], Dr[2];
   int rpos[2];  // rows past S: P = 0
@@ -550,9 +642,9 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
   for (int i = 0; i < 32; ++i) dqr[i] = 0.f;
   // element 4q + e of a 64 x 64 tile: row r0 + 8 (e >> 1), key
   // k0 + 8q + 2 t4 + (e & 1)
-  float sc[32];          // S, then P times the scale (0 where masked)
-  float dp[32];          // dP, then dS
-  uint32_t sa[2][4][4];  // dS as a bf16 pair (hi, lo): dQ's A operands (depth: 64 keys)
+  float sc[32];        // S, then P times the scale (0 where masked)
+  float dp[32];        // dP, then dS
+  uint32_t sa[4][4];   // dS in bf16: dQ's A operands (depth: 64 keys)
 
   auto p_pass = [&](int k0, auto masked) {
 #pragma unroll
@@ -567,12 +659,8 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
         sc[4 * q + e] = pe * d.scale;
       }
   };
-
-  mbar_wait(bar, 0);
-  for (int i = 0; i < tiles; ++i) {
-    const int s = i % S, k0 = i * BN;
-    mbar_wait(full(s), (i / S) & 1);
-    wgmma_fence();
+  // S = Q K^T (12 k-steps) and dP = dO V^T (8) of stage s, each a group
+  auto issue_s_dp = [&](int s) {
 #pragma unroll
     for (int kc = 0; kc < 12; ++kc)
       wgmma_ss<64>(sc, desc_kmajor<192, BM>(sQ, kc), desc_kmajor<192, BN>(k_at(s), kc), kc > 0);
@@ -581,31 +669,52 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
     for (int kc = 0; kc < 8; ++kc)
       wgmma_ss<64>(dp, desc_kmajor<128, BM>(sdO, kc), desc_kmajor<128, BN>(v_at(s), kc), kc > 0);
     wgmma_commit();
-    wgmma_wait<1>();  // S done; dP runs on
+  };
+  // dQ_nope += dS K_nope and dQ_rope += dS K_rope of stage s, K MN-major
+  auto issue_dq = [&](int s) {
+#pragma unroll
+    for (int kc = 0; kc < BN / 16; ++kc) {
+      wgmma_rs<128>(dqn, sa[kc], desc_mnmajor<128, BN>(k_at(s), kc));
+      wgmma_rs<64>(dqr, sa[kc], desc_mnmajor<64, BN>(k_at(s) + ROPE_BOX * BOX_BYTES, kc));
+    }
+    wgmma_commit();
+  };
+  // P once S is done (the mask only on tiles past T or past some row's
+  // position of this warpgroup), then dS in place on dp once dP is done
+  auto p_ds = [&](int k0, auto wait_dp) {
     fence_regs(sc);
     if (k0 + BN > d.T || k0 + BN - 1 > min_pos) p_pass(k0, std::true_type{});
     else p_pass(k0, std::false_type{});
-    wgmma_wait<0>();  // dP done
+    wait_dp();
     fence_regs(dp);
 #pragma unroll
     for (int q = 0; q < 32; ++q) dp[q] = sc[q] * (dp[q] - Dr[(q >> 1) & 1]);
-    split_a<8>(sa, dp);
-    // dQ_nope += dS K_nope and dQ_rope += dS K_rope, K MN-major
+  };
+  // this warpgroup is done with tile i's stage (its named barrier: every
+  // warp's products have read it); the second of the two to finish refills it
+  auto release = [&](int i) {
+    if (i + S < tiles) {
+      bar_sync(BAR_DQ + wg, 128);
+      if (leader && (atomicAdd(&done[i % S], 1) & 1)) load(i + S);
+    }
+  };
+
+  mbar_wait(bar, 0);
+  for (int i = 0; i < tiles; ++i) {
+    const int s = i % S;
+    mbar_wait(full(s), (i / S) & 1);
     wgmma_fence();
-#pragma unroll
-    for (int part = 0; part < 2; ++part)
-#pragma unroll
-      for (int kc = 0; kc < BN / 16; ++kc) {
-        wgmma_rs<128>(dqn, sa[part][kc], desc_mnmajor<128, BN>(k_at(s), kc));
-        wgmma_rs<64>(dqr, sa[part][kc], desc_mnmajor<64, BN>(k_at(s) + ROPE_BOX * BOX_BYTES, kc));
-      }
-    wgmma_commit();
+    issue_s_dp(s);
+    wgmma_wait<1>();  // S done; dP runs on
+    p_ds(i * BN, [] { wgmma_wait<0>(); });
+    pack_a<8>(sa, dp);
+    wgmma_fence();
+    issue_dq(s);
     wgmma_wait<0>();
     fence_regs(dqn);
     fence_regs(dqr);
-    fence_regs(sa[0]);
-    fence_regs(sa[1]);
-    mbar_arrive(empty(s));
+    fence_regs(sa);
+    release(i);
   }
 
 #pragma unroll
@@ -1023,7 +1132,11 @@ extern "C" int expanded_attention_bwd(
   d.B = B; d.S = S; d.N = N; d.T = T; d.nope = nope; d.rope = rope; d.dvw = dv_w; d.nqt = nqt;
   d.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // float32: two dimensions, a dQ CTA a query tile; bf16: one dimension,
+  // (batch, head) outermost, a dQ CTA two query tiles
   const dim3 kv_grid(B * N, (T + BN - 1) / BN), q_grid(B * N, nqt);
+  const long long kv_ctas = (long long)B * N * ((T + BN - 1) / BN),
+                  dq_ctas = (long long)B * N * ((nqt + 1) / 2);
   cudaError_t err;
   if (!is_bf16) {
     err = launch_prep<float>(d, st);
@@ -1034,6 +1147,7 @@ extern "C" int expanded_attention_bwd(
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     return (int)launch_tail<float>(d, st);
   }
+  if (kv_ctas > 0x7fffffffLL || dq_ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   Maps maps = {};
   int merr = make_map_w(&maps.qn, q_nope, nope, S, N, B, d.qn[0], d.qn[1], d.qn[2]);
   if (!merr) merr = make_map_w(&maps.qr, q_rope, rope, S, N, B, d.qr[0], d.qr[1], d.qr[2]);
@@ -1044,9 +1158,9 @@ extern "C" int expanded_attention_bwd(
   if (merr) return merr;
   err = launch_prep<__nv_bfloat16>(d, st);
   if (err != cudaSuccess) return (int)err;
-  exp_dkdv_bf16<<<kv_grid, DKDV_THREADS, dkdv_smem, st>>>(maps, d);
+  exp_dkdv_bf16<<<(unsigned)kv_ctas, DKDV_THREADS, dkdv_smem, st>>>(maps, d);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  exp_dq_bf16<<<q_grid, DQ_THREADS, dq_smem, st>>>(maps, d);
+  exp_dq_bf16<<<(unsigned)dq_ctas, DQ_THREADS, dq_smem, st>>>(maps, d);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   return (int)launch_tail<__nv_bfloat16>(d, st);
 }

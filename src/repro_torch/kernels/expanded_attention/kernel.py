@@ -26,11 +26,12 @@ enabled and an input that needs it, the call goes through
 :class:`.ops.ExpandedAttention`, whose forward also writes each row's
 log-sum-exp and whose backward is the backward kernel (:mod:`.backward`).
 
-bf16 runs on the tensor cores (``wgmma`` fed by a TMA ring: 64 query rows
-of one head a CTA, a 64 x 192 Q tile of two nope boxes and one rope box,
-K tiles read the same way from k_nope and k_rope, V tiles 64 x 128; the
-design is in the ``.cu`` file's note).  float32 runs on the FMA units (no
-TF32).  The plan (:func:`choose_launch`, plain Python) depends on shapes
+bf16 runs on the tensor cores (``wgmma`` fed by a TMA ring: 128 query rows
+of one head a CTA, 64 for each of two consumer warpgroups that take turns
+at the tensor cores, each with a 64 x 192 Q tile of two nope boxes and one
+rope box, ``KEYS``-key K tiles read the same way from k_nope and k_rope, V
+tiles ``KEYS`` x 128; the design is in the ``.cu`` file's note).  float32
+runs on the FMA units (no TF32).  The plan (:func:`choose_launch`, plain Python) depends on shapes
 only, never on ``q_pos``.  A tensor whose last dimension is not contiguous,
 or whose base or strides are off 16 bytes, is copied once here and counted
 in ``layout_copies`` (0 on the model's paths).
@@ -58,11 +59,12 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "expanded_attention.cu"
 NOPES = tuple(range(16, 129, 16))    # nope widths the kernels take
 ROPES = (16, 32, 48, 64)             # rope widths
 VALUES = tuple(range(16, 129, 16))   # v widths
-ROWS = 64                            # query rows a CTA (csrc BM)
-KEYS = 64                            # keys a tile (csrc BN)
-BOX_BYTES = 64 * 128                 # one TMA box: 64 rows of 64 bf16 columns
-STAGES = 2                           # bf16: the K/V ring (csrc STAGES)
-THREADS = {"bfloat16": 160, "float32": 256}
+ROWS = {"bfloat16": 128, "float32": 64}   # query rows a CTA (csrc CTA_ROWS, BM)
+KEYS = 64                            # bf16: keys a tile (csrc BN)
+F_KEYS = 64                          # float32: keys a tile (csrc F_BN)
+BOX_BYTES = 64 * 128                 # one TMA box of Q: 64 rows of 64 bf16 columns
+STAGES = 4                           # bf16: the K/V ring (csrc STAGES)
+THREADS = {"bfloat16": 288, "float32": 256}
 MAX_SMEM = 232448                    # a CTA's largest dynamic shared memory (227 KB)
 MAX_GRID_X, MAX_GRID_Y = 2**31 - 1, 65535
 # the library's kernels by (dtype, direction): phase 3d of chip_smoke.py
@@ -78,7 +80,10 @@ _STRIDES = ctypes.c_longlong * 17     # q_nope 3, q_rope 3, k_nope 3, k_rope 2, 
 
 @dataclass(frozen=True)
 class Launch:
-    """One forward launch: the grid (batch x heads, query tiles), threads
+    """One forward launch: the grid (batch x heads, query tiles; bf16
+    launches it as one dimension of their product, the (batch, head)
+    outermost, so that the CTAs in flight share a few heads' K and V in
+    the L2), threads
     a CTA and dynamic shared memory."""
 
     dtype: str
@@ -89,13 +94,15 @@ class Launch:
 
 def smem_bytes(dtype: str) -> int:
     """Dynamic shared memory of a forward CTA (csrc ``bf16_smem_bytes``,
-    ``f32_smem_bytes``).  bf16: the Q tile (three 8 KB boxes), ``STAGES``
-    stages of a K tile (three boxes) and a V tile (two), 1 + 3 * STAGES
-    mbarriers, the CTA's key limit and smallest position.  float32: Q and K
+    ``f32_smem_bytes``).  bf16: the two consumer warpgroups' Q tiles (three
+    8 KB boxes each), ``STAGES`` stages of a K tile (three boxes of
+    ``KEYS`` rows) and a V tile (two), 1 + 4 * STAGES mbarriers, the CTA's
+    key limit and its warpgroups' smallest positions.  float32: Q and K
     tiles of 193 columns, V of 129, P of 65 (float32), the limit."""
     if dtype == "bfloat16":
-        return 3 * BOX_BYTES + STAGES * 5 * BOX_BYTES + 8 * (1 + 3 * STAGES) + 16
-    return 4 * (ROWS * 193 + KEYS * 193 + KEYS * 129 + ROWS * 65) + 16
+        return (2 * 3 * BOX_BYTES + STAGES * 5 * KEYS * 128 + 8 * (1 + 4 * STAGES) + 16)
+    rows = ROWS["float32"]
+    return 4 * (rows * 193 + F_KEYS * 193 + F_KEYS * 129 + rows * 65) + 16
 
 
 @functools.lru_cache(maxsize=256)
@@ -113,10 +120,17 @@ def choose_launch(B: int, S: int, N: int, T: int, nope: int, rope: int, dv: int,
         raise ValueError(f"expanded_attention takes float32 or bfloat16, not {dtype}")
     if min(B, S, N, T) < 1:
         raise ValueError(f"expanded_attention: empty shape B {B} S {S} N {N} T {T}")
-    grid = (B * N, -(-S // ROWS))
-    if grid[0] > MAX_GRID_X or grid[1] > MAX_GRID_Y:
+    grid = (B * N, -(-S // ROWS[dtype]))
+    # 64-row tiles bound both dtypes (the float32 grid's, the backward's);
+    # bf16 launches the grid as one dimension
+    if (grid[0] > MAX_GRID_X or -(-S // ROWS["float32"]) > MAX_GRID_Y
+            or (dtype == "bfloat16" and grid[0] * grid[1] > MAX_GRID_X)):
         raise ValueError(f"expanded_attention: grid {grid} exceeds the launch limits")
-    return Launch(dtype, grid, THREADS[dtype], smem_bytes(dtype))
+    smem = smem_bytes(dtype)
+    if smem > MAX_SMEM:
+        raise ValueError(f"expanded_attention: a CTA takes {smem} bytes of shared memory; it "
+                         f"has {MAX_SMEM}")
+    return Launch(dtype, grid, THREADS[dtype], smem)
 
 
 def launch_for(q_nope: torch.Tensor, q_rope: torch.Tensor, k_nope: torch.Tensor,

@@ -737,11 +737,6 @@ __device__ __forceinline__ void cluster_sync() {
                    : "memory");
 }
 
-// this warp's arrival at named barrier `id` of `n` threads, not waiting
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
 struct WgShape {
   int R, C, D;  // each lane: out (R x C) = A (R x D) . B (D x C)
   // the cluster's CTAs take `cl` consecutive row tiles of one column tile;

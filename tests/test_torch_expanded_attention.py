@@ -378,24 +378,34 @@ def test_shared_memory_follows_the_formulas():
     """The library's layouts (csrc ``bf16_smem_bytes``, ``f32_smem_bytes``,
     ``dkdv_bf16_smem``, ``dq_bf16_smem``, ``dkdv_f32_smem``,
     ``dq_f32_smem``), every one within a CTA's 227 KB: the forward's bf16
-    CTA (Q, two stages of K and V) fits twice in an SM."""
-    assert kernel.smem_bytes("bfloat16") == 24576 + 2 * 40960 + 56 + 16 == 106568
+    CTA (two warpgroups' Q tiles, four stages of 64-key K and V tiles)
+    takes an SM alone; the dK/dV CTA's ring carries a 16 KB P^T buffer a
+    stage; the bf16 dQ CTA holds two query tiles' Q and dO and three
+    stages of K and V."""
+    assert kernel.smem_bytes("bfloat16") == 2 * 24576 + 4 * 40960 + 136 + 16 == 213144
     assert kernel.smem_bytes("float32") == 4 * (64 * 193 * 2 + 64 * 129 + 64 * 65) + 16
-    assert backward.dkdv_smem_bytes("bfloat16", 64) == 4 * 40960 + 2304 + 56 + 8 + 256 == 166464
-    assert backward.dq_smem_bytes("bfloat16") == 3 * 40960 + 40 == 122920
+    assert (backward.dkdv_smem_bytes("bfloat16", 64)
+            == 4 * 40960 + 3 * 16384 + 2304 + 56 + 8 + 256 == 215616)
+    assert backward.dq_smem_bytes("bfloat16") == 5 * 40960 + 32 + 12 == 204844
     assert backward.dkdv_smem_bytes("float32", 64) == 198912
     assert backward.dq_smem_bytes("float32") == 182272
-    assert 2 * (kernel.smem_bytes("bfloat16") + 1024) <= 233472
-    for n in (1, 64, 512):
+    assert kernel.smem_bytes("bfloat16") + 1024 <= 233472 < 2 * kernel.smem_bytes("bfloat16")
+    for n in (1, 64, 512, 4272):
         assert backward.dkdv_smem_bytes("bfloat16", n) <= kernel.MAX_SMEM
+    assert backward.dkdv_smem_bytes("bfloat16", 4273) > kernel.MAX_SMEM
 
 
-# (B, S, N, widths, dtype) -> forward grid, backward grids, part elements
+# (B, S, N, widths, dtype) -> forward grid, backward grids, part elements;
+# a bf16 forward or dQ CTA takes 128 query rows, a dK/dV CTA 64 keys, a
+# float32 CTA 64 rows or keys
 PLANS = [
-    ((2, 4096, 128, DEEPSEEK, "bfloat16"), (256, 64), (256, 64), (256, 64), 2 * 128 * 4096 * 64),
-    ((16, 4096, 8, DEEPSEEK, "bfloat16"), (128, 64), (128, 64), (128, 64), 16 * 8 * 4096 * 64),
-    ((2, 1000, 8, DEEPSEEK, "bfloat16"), (16, 16), (16, 16), (16, 16), 2 * 8 * 1000 * 64),
+    ((2, 4096, 128, DEEPSEEK, "bfloat16"), (256, 32), (256, 64), (256, 32), 2 * 128 * 4096 * 64),
+    ((16, 4096, 8, DEEPSEEK, "bfloat16"), (128, 32), (128, 64), (128, 32), 16 * 8 * 4096 * 64),
+    ((2, 1000, 8, DEEPSEEK, "bfloat16"), (16, 8), (16, 16), (16, 8), 2 * 8 * 1000 * 64),
     ((2, 64, 4, SMOKE, "float32"), (8, 1), (8, 1), (8, 1), 2 * 4 * 64 * 16),
+    ((2, 1, 8, DEEPSEEK, "bfloat16"), (16, 1), (16, 1), (16, 1), 2 * 8 * 1 * 64),
+    ((2, 129, 8, DEEPSEEK, "bfloat16"), (16, 2), (16, 3), (16, 2), 2 * 8 * 129 * 64),
+    ((2, 129, 4, SMOKE, "float32"), (8, 3), (8, 3), (8, 3), 2 * 4 * 129 * 16),
 ]
 
 
@@ -407,7 +417,8 @@ def test_choose_launch_gives_the_grids(shape, fwd, dkdv, dq, part):
     assert launch.smem_bytes == kernel.smem_bytes(dtype)
     bwd = backward.choose_launch(B, S, N, S, nope, rope, dv, dtype)
     assert (bwd.dkdv_grid, bwd.dq_grid, bwd.part_numel) == (dkdv, dq, part)
-    assert bwd.dkdv_smem == backward.dkdv_smem_bytes(dtype, dq[1])
+    assert bwd.dkdv_smem == backward.dkdv_smem_bytes(dtype, -(-S // 64))
+    assert bwd.dq_smem == backward.dq_smem_bytes(dtype)
     assert (bwd.dkdv_threads, bwd.dq_threads) == backward.THREADS[dtype]
 
 
@@ -418,6 +429,36 @@ def test_choose_launch_refuses_past_the_limits():
         backward.choose_launch(1, 64 * 20000, 1, 64, 128, 64, 128, "bfloat16")
     with pytest.raises(ValueError, match="empty"):
         kernel.choose_launch(0, 64, 1, 64, 128, 64, 128, "bfloat16")
+
+
+# (the plan, its shape, whether it fits): the dK/dV CTA's list of query
+# tiles at the last S that fits beside the ring and P^T buffers and the
+# first that does not; the forward's ring at four stages of 64 keys and at
+# five
+REFUSALS = [
+    ("dK/dV list fits", "backward", 64 * 4272, {}, True),
+    ("dK/dV list one tile past", "backward", 64 * 4272 + 1, {}, False),
+    ("forward, four stages", "forward", 4096, {}, True),
+    ("forward, five stages", "forward", 4096, {"STAGES": 5}, False),
+]
+
+
+@pytest.mark.parametrize("what,plan,S,consts,fits", REFUSALS, ids=[r[0] for r in REFUSALS])
+def test_the_plans_refuse_past_shared_memory(what, plan, S, consts, fits, monkeypatch):
+    for name, value in consts.items():
+        monkeypatch.setattr(kernel, name, value)
+    kernel.choose_launch.cache_clear()
+    backward.choose_launch.cache_clear()
+    try:
+        chooser = kernel.choose_launch if plan == "forward" else backward.choose_launch
+        if fits:
+            assert chooser(1, S, 1, S, 128, 64, 128, "bfloat16").dtype == "bfloat16"
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                chooser(1, S, 1, S, 128, 64, 128, "bfloat16")
+    finally:
+        kernel.choose_launch.cache_clear()
+        backward.choose_launch.cache_clear()
 
 
 class _FakeLibrary:
@@ -575,17 +616,20 @@ def _chip_smoke():
 
 def test_phase_3d_covers_the_paths_shapes_and_every_kernel():
     """19h's shape, a 16x16 device's train_4k share, 21b's prompt at 128
-    heads, S of 1, 63, 65, 512 and 1000, a q_pos that is not arange, the
-    smoke widths at float32 (19d) and bf16: each a launch both wrappers
-    plan, a case at each dtype of the library (every case runs both
-    directions; phase 3d fails unless each (dtype, direction) counted its
-    launches)."""
+    heads, S of 1, 63, 65, 129 (a forward CTA's second warpgroup with one
+    row), 512 and 1000, a q_pos that is not arange, large scores (q and k
+    drawn 4x as large at 19h's widths and S 1000), the smoke widths at
+    float32 (19d) and bf16: each a launch both wrappers plan, a case at
+    each dtype of the library (every case runs both directions; phase 3d
+    fails unless each (dtype, direction) counted its launches)."""
     cases = _chip_smoke().EXPANDED_CASES
     shapes = {(B, S, N) for _, B, S, N, *_ in cases}
     assert {(2, 4096, 128), (16, 4096, 8), (2, 256, 128)} <= shapes
     assert (2, 256, 128, 128, 64, 128, "bfloat16") in {c[1:8] for c in cases}
-    assert {1, 63, 65, 512, 1000} <= {S for _, _, S, *_ in cases}
-    assert {"arange", "mixed"} == {c[8] for c in cases}
+    assert {1, 63, 65, 129, 512, 1000} <= {S for _, _, S, *_ in cases}
+    assert {"arange", "mixed", "sharp"} == {c[8] for c in cases}
+    assert (1000, 128, 64, 128, "bfloat16", "sharp") in {c[2:3] + c[4:9] for c in cases}
+    assert (129, 128, 64, 128, "bfloat16", "arange") in {c[2:3] + c[4:9] for c in cases}
     assert {dt for *_, dt, _ in cases} == {"bfloat16", "float32"}
     for _, B, S, N, nope, rope, dv, dtype, _ in cases:
         kernel.choose_launch(B, S, N, S, nope, rope, dv, dtype)

@@ -22,7 +22,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "examples" / "train_lm_torch.py", ROOT / "tools" / "decode_variants.py",
     ROOT / "tools" / "adamw_faults.py", ROOT / "tools" / "train_phi4_step.py",
     ROOT / "tools" / "ce_faults.py", ROOT / "tools" / "stream_pack_variants.py",
-    ROOT / "tools" / "mla_replays.py", ROOT / "tools" / "expanded_faults.py"]
+    ROOT / "tools" / "mla_replays.py", ROOT / "tools" / "expanded_faults.py",
+    ROOT / "tools" / "expanded_variants.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -88,7 +89,8 @@ def test_port_file_list_is_complete():
                  "src/repro_torch/kernels/expanded_attention/kernel.py",
                  "src/repro_torch/kernels/expanded_attention/backward.py",
                  "src/repro_torch/kernels/expanded_attention/ops.py",
-                 "src/repro_torch/kernels/expanded_attention/ref.py", "tools/expanded_faults.py"):
+                 "src/repro_torch/kernels/expanded_attention/ref.py", "tools/expanded_faults.py",
+                 "tools/expanded_variants.py"):
         assert must in names
 
 
