@@ -271,7 +271,10 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
     global FLOPs and its partitioned step per device (a fake process group
     of the mesh's size): FLOPs, bytes accessed, temp and output bytes
     (``fits``: argument + temp + output within 80 GB) and collective bytes;
-    any failure, and any case that did not partition, fails the run;
+    any failure, and any case that did not partition, fails the run; the
+    MoE cases (deepseek-v2 and arctic at train_4k and prefill_32k, each
+    device routing its own tokens) printed again together: temp, ``fits``
+    and collective bytes by kind, under the host's torch;
     (b) decode_32k at one device's share: phi4-mini-3.8b at full width and
     depth, bf16, 8 sequences over a synchronized (``per_slot=False``)
     cache of 32768 positions filled from a seed: its logits equal the
@@ -306,7 +309,13 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
     zamba2-2.7b at full width and depth: a sharded ``forward`` of 4 x 512
     tokens (Mamba2's conv and scan on local shards), logits bit-identical
     to the unsharded forward's, B1 launched through ``local_map`` once per
-    shared attention block (9).
+    shared attention block (9); (f) phase 19h's DeepSeek-V2 step (full
+    width, 1 of 60 layers, 2 x 4096 tokens) with the parameters, AdamW
+    state and batch as DTensors, the MoE routing each device's tokens: 3
+    eager steps and 3 replays of the sealed step, losses, grad norms and
+    parameters bit-identical to 19h's (kept on the host), every B2 launch
+    from a call through ``local_map``, B7, B4 and B5 launched as in 19h, 0
+    collectives; ms per step eager and replayed beside 19h's.
     Collectives across cards are checked on the CPU only (gloo, tier-1):
     NCCL refuses two ranks on one card;
 22. long_500k on the card (batch 1, a cache of 524288 positions, the
@@ -358,7 +367,8 @@ replays held and B3's kernels in them are counted (``B3_REPLAYS``).  B2's
 launches are counted by path and variant (``B2_VARIANTS``), beside its
 layout copies over the run.  B4's
 and B5's launches are counted over each training path (``B4_BY_PATH``,
-``B5_BY_PATH``: 19c, 19d, 21a, 21d, each of which must launch them), and
+``B5_BY_PATH``: 19c, 19d, 19h, 21a, 21f, 21d, each of which must launch
+them), and
 the profiled training replay's B1-backward, B4 and B5 kernels over the
 wrapper's counts for the capture (``B1BWD_REPLAYS``, ``B4_REPLAYS``,
 ``B5_REPLAYS``): the kernels line prints these measured counts.  B6's
@@ -367,7 +377,7 @@ launches are counted over each path that serves DeepSeek-V2
 after phase 3c with a layout copy), and its kernels in the profiled replays
 of phases 9 and 23 over their calls (``B6_REPLAYS``).  B7's calls, forward
 and backward, are counted over each path that runs MLA's expanded form
-(``B7_BY_PATH``: 19d, 19h and 21b, each of which must launch it, none
+(``B7_BY_PATH``: 19d, 19h, 21b and 21f, each of which must launch it, none
 after phase 3d with a layout copy), and its kernels in 19h's profiled
 replay over the capture's calls (``B7_REPLAYS``).
 
@@ -5503,7 +5513,6 @@ def train_deepseek() -> dict:
                 f"{same / total:.6%} bit-identical")
             if losses != eager_loss or gnorms != eager_gnorm or same != total:
                 fail("the sealed step's replays are not bit-identical to the eager steps")
-            del eager_params
     first, last = np.mean(losses[:5]), np.mean(losses[-5:])
     say(f"  {TRAIN_MLA_REPLAYS} replays: loss {losses[0]:.4f} -> {losses[-1]:.4f} (first 5 mean "
         f"{first:.4f}, last 5 mean {last:.4f})")
@@ -5558,7 +5567,13 @@ def train_deepseek() -> dict:
                 b7_replay_ms={k: v / 1e3 for k, v in b7_us.items()},
                 b2_replay={v: dict(kernels=count, ms=us / 1e3) for v, count, us in b2_rows},
                 shares_ms={k: v / 1e3 for k, v in shares.items()},
-                replay_kernel_ms=total_us / 1e3, parameters=n, leaves=leaves)
+                replay_kernel_ms=total_us / 1e3, parameters=n, leaves=leaves,
+                # for 21f, on the host (the card holds one such model at a
+                # time): the eager steps', which the first replays equal
+                reference=dict(loss=eager_loss, gnorm=eager_gnorm, params=eager_params,
+                               eager_ms=eager_med, replay_ms=replay_med,
+                               replay_device_ms=dev_ms, b2=eager[2], b7=eager[:2],
+                               b4=eager[3], b5=eager[4]))
 
 
 def b2_variant(name: str) -> str:
@@ -5733,6 +5748,9 @@ SYNC_BATCH, SYNC_STEPS = 8, 8
 # the dry run's subprocesses at a time, on the host's CPU (8 cores beside
 # the card), while phase 20 draws its model's weights
 DRYRUN_PROCS = 6
+# the cases whose MoE 20a reports apart, on both meshes
+DRYRUN_MOE = ("deepseek-v2-236b_train_4k", "deepseek-v2-236b_prefill_32k", "arctic-480b_train_4k",
+              "arctic-480b_prefill_32k")
 
 
 class DryRun:
@@ -5808,7 +5826,11 @@ def dryrun_report(dry: DryRun) -> dict:
     """20a: every dry-run case's line; fails on a failed process, a FAIL
     line, a case missing (each applicable arch x shape on both meshes) or a
     case whose step did not partition (every case has its per-device
-    FLOPs, bytes accessed, temp, output and collective bytes)."""
+    FLOPs, bytes accessed, temp, output and collective bytes).  The MoE
+    cases' temps, ``fits`` and collective bytes by kind are printed again
+    together (``DRYRUN_MOE``)."""
+    import torch
+
     import repro_torch.configs as C
     from repro_torch.configs.shapes import INPUT_SHAPES, applicable
 
@@ -5840,7 +5862,23 @@ def dryrun_report(dry: DryRun) -> dict:
     wall = time.perf_counter() - dry.t0
     say(f"  {len(ok)} cases passed and partitioned in {len(results)} processes, {wall:.1f}s "
         f"from their start")
-    return dict(cases=len(ok), wall_s=wall)
+    moe = {}
+    for tag in DRYRUN_MOE:
+        for mesh in ("16x16", "2x16x16"):
+            r = json.loads((ROOT / "experiments" / "dryrun_torch" / f"{tag}_{mesh}.json")
+                           .read_text())
+            m, c = r["memory"], r["collectives"]
+            moe[f"{tag}_{mesh}"] = dict(
+                argument_gib=m["argument_bytes"] / 2**30, temp_gib=m["temp_bytes"] / 2**30,
+                fits=m["fits"], collectives_gib={k: v / 2**30 for k, v in
+                                                 c["bytes_per_kind"].items() if v})
+    lines = [f"{tag} temp {r['temp_gib']:.3f} GiB (arguments {r['argument_gib']:.3f}), fits "
+             f"{r['fits']}, collectives GiB "
+             + ", ".join(f"{k} {v:.1f}" for k, v in r["collectives_gib"].items())
+             for tag, r in moe.items()]
+    say(f"  the MoE cases, each device routing its own tokens (torch {torch.__version__}): "
+        + "; ".join(lines))
+    return dict(cases=len(ok), wall_s=wall, moe=moe)
 
 
 def synced_decode(cfg, model) -> dict:
@@ -6167,7 +6205,8 @@ def sharded_forward(mesh) -> dict:
     """21b: deepseek-v2-236b at full width and 2 layers, bf16: one forward of
     a prompt batch, then the same with the parameters and the batch as
     DTensors on ``mesh``: logits bit for bit, the three expert GEMMs of each
-    layer on B2 through ``local_map``."""
+    layer on B2 through ``local_map``.  The prompt's 512 tokens take the
+    capacity path (24 slots an expert), routed on the device's tokens."""
     import torch
 
     import repro_torch.configs as C
@@ -6210,6 +6249,153 @@ def sharded_forward(mesh) -> dict:
         fail(f"the sharded forward launched B7 {b7_sharded} times, not once a layer")
     del model, want, got
     return dict(b2_launches=launches, on_shards=on_shards, forward_ms=ms)
+
+
+def sharded_train_deepseek(mesh, ref: dict) -> dict:
+    """21f: phase 19h's step (deepseek-v2-236b at full width, 1 of 60
+    layers, bf16, AdamW, 2 x 4096 tokens from ``SyntheticLM``) with the
+    parameters, AdamW state and batch as DTensors on ``mesh``, the MoE
+    routing each device's tokens: eager steps against 19h's, then the step
+    sealed as one CUDA graph and replayed from the same state against
+    19h's replays (which equal its eager steps): losses, grad norms and
+    parameters bit for bit; every B2 launch from a call through
+    ``local_map``; B7, B4 and B5 launched as in 19h; no collective."""
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    import repro_torch.configs as C
+    from repro_torch.data import SyntheticLM, data_config_for, shard_batch
+    from repro_torch.distributed import shard_model
+    from repro_torch.kernels.adamw import kernel as b4
+    from repro_torch.kernels.cross_entropy import kernel as b5
+    from repro_torch.kernels.expanded_attention import backward as b7_bwd
+    from repro_torch.kernels.expanded_attention import kernel as b7
+    from repro_torch.kernels.stream_pack import kernel as pack
+    from repro_torch.kernels.stream_pack import ops as pack_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import param_axes
+    from repro_torch.optim import adamw_init, cosine_schedule
+    from repro_torch.training import make_train_step, seal_train_step
+
+    release()
+    cfg = dataclasses.replace(C.get("deepseek-v2-236b"), n_layers=TRAIN_MLA_LAYERS,
+                              dtype="bfloat16")
+    data = SyntheticLM(data_config_for(cfg, batch_size=TRAIN_MLA_BATCH, seq_len=TRAIN_MLA_SEQ))
+    batches = [data.batch(i) for i in range(TRAIN_EAGER)]
+
+    def lr(step):
+        return cosine_schedule(step, peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                               total_steps=TRAIN_MLA_REPLAYS)
+
+    def fresh():
+        model = serve.init_params(cfg, seed=0, device="cuda")
+        shard_model(model, param_axes(cfg), mesh)
+        return model, adamw_init(dict(model.named_parameters()))
+
+    def counts():
+        return (b7.launches, b7_bwd.launches, pack.launches, b4.launches, b5.launches,
+                pack_ops.on_shards)
+
+    def same_params(model) -> tuple[int, int]:
+        same = total = 0
+        for p, want in zip(model.parameters(), ref["params"]):
+            same += int((p.to_local().cpu() == want).sum())
+            total += want.numel()
+        return same, total
+
+    step_fn = make_train_step(cfg, lr=lr, mesh=mesh)
+    model, state = fresh()
+    first = next(model.parameters())
+    say(f"-- 21f: phase 19h's step ({cfg.name} full width, {cfg.n_layers} of its 60 layers, "
+        f"bf16, batch {TRAIN_MLA_BATCH} x {TRAIN_MLA_SEQ}) with the "
+        f"{sum(1 for _ in model.parameters())} parameters as DTensors ({type(first).__name__}, "
+        f"placements {first.placements}), AdamW's moments on their placements; the MoE "
+        f"routes each device's tokens")
+
+    # eager steps; the path's run starts here
+    b7.launches = b7_bwd.launches = pack.launches = pack_ops.on_shards = 0
+    b4.launches = b5.launches = 0
+    eager_loss, eager_gnorm, eager_ms = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    with CommDebugMode() as comm:
+        for i in range(TRAIN_EAGER):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = step_fn(model, state, shard_batch(batches[i], mesh, "cuda"))[2]
+            eager_loss.append(float(m["loss"]))
+            eager_ms.append((time.perf_counter() - t) * 1e3)
+            eager_gnorm.append(float(m["grad_norm"]))
+            del m
+    eager_peak = torch.cuda.max_memory_allocated()
+    eager = counts()
+    same, total = same_params(model)
+    say(f"  eager steps: loss {eager_loss} (19h {ref['loss']}), grad norm {eager_gnorm} (19h "
+        f"{ref['gnorm']}); parameters {same} of {total} bit-identical to 19h's; ms "
+        f"{[round(x, 3) for x in eager_ms]}; peak memory {eager_peak / 2**30:.2f} GiB; B7 "
+        f"forward, backward calls {eager[:2]} (19h {ref['b7']}); B2 launches {eager[2]} (19h "
+        f"{ref['b2']}), calls through local_map {eager[5]}; B4 kernels {eager[3]} (19h "
+        f"{ref['b4']}); B5 kernels {eager[4]} (19h {ref['b5']}); collectives "
+        f"{comm.get_total_counts()}")
+    if (eager_loss, eager_gnorm) != (ref["loss"], ref["gnorm"]) or same != total:
+        fail("the sharded DeepSeek-V2 eager steps differ from 19h's bit for bit")
+    if (eager[:2], eager[2], eager[3], eager[4]) != (ref["b7"], ref["b2"], ref["b4"], ref["b5"]):
+        fail(f"the sharded eager steps launched B7 {eager[:2]}, B2 {eager[2]}, B4 {eager[3]}, "
+             f"B5 {eager[4]}; 19h {ref['b7']}, {ref['b2']}, {ref['b4']}, {ref['b5']}")
+    # each call through local_map launches its product and, in the
+    # backward, the two products of its gradient
+    if eager[5] != 3 * cfg.n_layers * TRAIN_EAGER or eager[2] != 3 * eager[5]:
+        fail(f"B2 ran {eager[5]} calls through local_map for {eager[2]} launches, not "
+             f"{3 * cfg.n_layers} calls a step, 3 launches a call")
+    if comm.get_total_counts():
+        fail(f"a (1, 1) mesh ran collectives: {dict(comm.get_comm_counts())}")
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # sealed, from the same state: 19h's replays bit for bit
+    model, state = fresh()
+    torch.cuda.reset_peak_memory_stats()
+    with CommDebugMode() as comm:
+        sealed = seal_train_step(step_fn, model, state, batches[0])
+    seal_peak = torch.cuda.max_memory_allocated()
+    seal = tuple(c1 - c0 for c1, c0 in zip(counts(), eager))
+    losses, gnorms, replay_ms = [], [], []
+    for i in range(TRAIN_EAGER):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = sealed(batches[i])
+        losses.append(float(m["loss"]))
+        replay_ms.append((time.perf_counter() - t) * 1e3)
+        gnorms.append(float(m["grad_norm"]))
+    same, total = same_params(model)
+    dev_ms = time_ms(sealed.graph.replay, 3, warmup=1)
+    say(f"  sealed as one CUDA graph in {sealed.seal_s:.2f}s (peak memory "
+        f"{seal_peak / 2**30:.2f} GiB; B2 launches by the seal {seal[2]}, calls through "
+        f"local_map {seal[5]}; collectives {comm.get_total_counts()}); {TRAIN_EAGER} replays: loss "
+        f"{losses}, grad norm {gnorms}; parameters {same} of {total} bit-identical to 19h's "
+        f"after as many replays")
+    if (losses, gnorms) != (ref["loss"], ref["gnorm"]) or same != total:
+        fail("the sharded DeepSeek-V2 replays differ from 19h's bit for bit")
+    if seal[5] != 2 * 3 * cfg.n_layers or seal[2] != 3 * seal[5] or comm.get_total_counts():
+        fail(f"the seal ran B2 {seal[5]} calls through local_map for {seal[2]} launches (want "
+             f"the warm-up's and the capture's {3 * cfg.n_layers} each) or collectives")
+    replay_med = float(np.median(replay_ms))
+    eager_med = float(np.median(eager_ms[1:]))
+    say(f"  ms per step: eager {eager_med:.3f} (19h {ref['eager_ms']:.3f}: DTensor's host "
+        f"dispatch adds {eager_med - ref['eager_ms']:.3f}), sealed replay {replay_med:.3f} "
+        f"(host clock, batch copied in; 19h {ref['replay_ms']:.3f}); one replay on CUDA events "
+        f"{dev_ms:.3f} (19h {ref['replay_device_ms']:.3f}); {nvidia_smi()}")
+    del sealed, model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(b2_launches=pack.launches, on_shards=pack_ops.on_shards,
+                b7_launches=b7.launches + b7_bwd.launches, eager_ms=eager_med,
+                replay_ms=replay_med, replay_device_ms=dev_ms,
+                unsharded_replay_device_ms=ref["replay_device_ms"],
+                eager_peak_gib=eager_peak / 2**30, seal_peak_gib=seal_peak / 2**30)
 
 
 # 21c: the band the dry run's predicted peak of 19c's step must fall in, as
@@ -6424,27 +6610,33 @@ def one_card_mesh():
         dist.destroy_process_group()
 
 
-def phase_sharded(number: int, reference: dict) -> dict:
+def phase_sharded(number: int, reference: dict, deepseek_ref: dict) -> dict:
     """Phase 21: sharded execution on the card over a process group of one
     (NCCL, rank 0 of 1) and a (1, 1) mesh, where every placement is
     Replicate: the DTensor path, ``local_map`` and the sealed step run the
-    kernels on the card (21a, 21b, 21d, 21e); between them, 21c holds the
-    dry run's memory count (a fake process group of its own) against 19c's
-    measured peak.  Collectives across cards are checked on the CPU (gloo)
-    only: NCCL refuses two ranks on one card."""
+    kernels on the card (21a, 21b, 21f, 21d, 21e); between them, 21c holds
+    the dry run's memory count (a fake process group of its own) against
+    19c's measured peak.  Collectives across cards are checked on the CPU
+    (gloo) only: NCCL refuses two ranks on one card."""
     say(f"== phase {number}: sharded execution on one card (NCCL, world 1, a (1, 1) mesh)")
     with one_card_mesh() as mesh:
         with train_path("sharded train phi4-mini-3.8b on a (1, 1) mesh (eager steps, seal)"):
             train = sharded_train(mesh, reference)
         with b7_path("sharded forward deepseek-v2-236b on a (1, 1) mesh (21b)"):
             fwd = sharded_forward(mesh)
+        with train_path("sharded train deepseek-v2-236b on a (1, 1) mesh (21f)"), \
+                b7_path("sharded train deepseek-v2-236b on a (1, 1) mesh (21f)"), \
+                b2_path("sharded train deepseek-v2-236b on a (1, 1) mesh (21f)"):
+            deepseek = sharded_train_deepseek(mesh, deepseek_ref)
+        del deepseek_ref
     memory = memory_count(reference)
     with one_card_mesh() as mesh:
         with train_path("train xlstm-125m unsharded and on a (1, 1) mesh"):
             recurrent = sharded_recurrent_train(mesh)
         hybrid = sharded_hybrid_forward(mesh)
     release()
-    return dict(train=train, forward=fwd, memory=memory, recurrent=recurrent, hybrid=hybrid)
+    return dict(train=train, forward=fwd, deepseek=deepseek, memory=memory,
+                recurrent=recurrent, hybrid=hybrid)
 
 
 # ---------------------------------------------------------------------------
@@ -7294,7 +7486,8 @@ def main() -> None:
         with b3_path("synchronized decode_32k phi4-mini-3.8b"):
             launch = phase_launch(20)
         with b2_path("sharded (phase 21)"):
-            sharded = phase_sharded(21, phi4.pop("reference"))
+            sharded = phase_sharded(21, phi4.pop("reference"),
+                                    train["deepseek"].pop("reference"))
         long = phase_long(22)
         with b6_path("deepseek-v2-236b decode_32k share (phase 23)"):
             latent32k = phase_latent_32k(23)
@@ -7319,7 +7512,7 @@ def main() -> None:
         fail(f"the paths made {latent.layout_copies} layout copies for B6")
     say(f"B6 launches by path: {B6_BY_PATH}; 0 layout copies")
     idle = sorted(name for name, n in B7_BY_PATH.items() if n == 0)
-    if idle or len(B7_BY_PATH) < 3:
+    if idle or len(B7_BY_PATH) < 4:
         fail(f"B7 was launched no time on the paths {idle} (of {sorted(B7_BY_PATH)})")
     if expanded.layout_copies:
         fail(f"the paths made {expanded.layout_copies} layout copies for B7")
@@ -7365,7 +7558,9 @@ def main() -> None:
                     "train deepseek-v2-236b 1 layer (19h)": train["deepseek"]["b2_launches"],
                     "train nimble branchy gradients": train["nimble"]["b2_launches"],
                     "sharded forward deepseek-v2-236b on a (1, 1) mesh":
-                        sharded["forward"]["b2_launches"]}
+                        sharded["forward"]["b2_launches"],
+                    "sharded train deepseek-v2-236b on a (1, 1) mesh (21f)":
+                        sharded["deepseek"]["b2_launches"]}
     kernels = [dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",

@@ -32,6 +32,13 @@ partner, since DTensor refuses to mix the two.  :func:`place` never
 communicates: every process holds the same full tensor (drawn from one
 seed) and keeps its own shard; a meta tensor becomes a DTensor over an
 empty meta shard, which the dry run partitions with no devices.
+
+Code that runs on each device's local shards (``local_map`` regions)
+reduces and gathers across them with functional collectives over the
+groups :func:`shard_groups` names, none on a mesh dimension of one device:
+:func:`all_reduce_over` (B5's and B3's combines), :func:`all_gather_over`
+(shards stacked in shard order) and :func:`sum_over` (an in-place sum
+whose gradient is the output's: the MoE's dispatch and combine).
 """
 
 from __future__ import annotations
@@ -441,9 +448,66 @@ def all_reduce_over(groups: Sequence[str]):
 def shard_offset(like: DTensor, dim: int) -> int:
     """Where this process's shard of ``like`` starts along ``dim``: a
     ``torch.chunk`` per mesh dimension sharding it, major to minor."""
-    start, size, coord = 0, like.shape[dim], like.device_mesh.get_coordinate()
-    for i, p in enumerate(like.placements):
+    return placed_offset(like.device_mesh, like.placements, like.shape[dim], dim)
+
+
+def placed_offset(mesh: Any, placements: Sequence, size: int, dim: int) -> int:
+    """Where this process's shard starts along ``dim`` (of ``size``) of a
+    tensor laid out by ``placements`` on ``mesh``: :func:`shard_offset`
+    before the tensor exists."""
+    start, coord = 0, mesh.get_coordinate()
+    for i, p in enumerate(placements):
         if isinstance(p, Shard) and p.dim == dim:
-            size = -(-size // like.device_mesh.size(i))
+            size = -(-size // mesh.size(i))
             start += coord[i] * size
     return start
+
+
+def all_gather_over(groups: Sequence[str]):
+    """``gather(t)``: every shard's ``t`` over the process groups
+    ``groups`` (major to minor), stacked as ``(shards, *t.shape)`` in shard
+    order, the order :func:`shard_offset` cuts them in; functional
+    collectives (a CUDA graph captures them), none for no group.  No
+    gradient flows through it."""
+    if not groups:
+        return None
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    sizes = [_resolve_process_group(name).size() for name in groups]
+
+    def gather(t: torch.Tensor) -> torch.Tensor:
+        c10d = torch.ops._c10d_functional
+        out = t.reshape(-1)
+        for name, n in zip(reversed(groups), reversed(sizes)):    # minor first
+            out = c10d.wait_tensor(c10d.all_gather_into_tensor(out, n, name))
+        return out.view(math.prod(sizes), *t.shape)
+
+    return gather
+
+
+class _SumOver(torch.autograd.Function):
+    """``t`` summed in place over the process groups ``groups``; the
+    gradient is the output's, unchanged: every rank's ``t`` enters the sum
+    once, and the sum is the same on every rank, so each rank's gradient
+    of it is the one its callers give."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, groups: tuple) -> torch.Tensor:
+        c10d = torch.ops._c10d_functional
+        for name in groups:
+            c10d.wait_tensor(c10d.all_reduce_(t, "sum", name))
+        ctx.mark_dirty(t)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_over(t: torch.Tensor, groups: Sequence[str]) -> torch.Tensor:
+    """``t``, a contiguous tensor no one else reads, summed in place over
+    each process group in ``groups``, in order (no collective for no
+    group), as functional collectives; its gradient is the output's.  A
+    sum whose every entry has one nonzero term is exact, and every rank
+    gets the same bits."""
+    return _SumOver.apply(t, tuple(groups)) if groups else t

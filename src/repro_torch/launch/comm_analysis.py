@@ -66,6 +66,7 @@ KINDS = {
     "all_gather_into_tensor_coalesced": "all-gather",
     "all_gather_into_tensor_out": "all-gather",
     "all_reduce": "all-reduce",
+    "all_reduce_": "all-reduce",
     "all_reduce_coalesced": "all-reduce",
     "reduce_scatter_tensor": "reduce-scatter",
     "reduce_scatter_tensor_coalesced": "reduce-scatter",

@@ -29,6 +29,9 @@ package, on the CPU, with nothing allocated.
   (:func:`test_partitioned_memory_and_traffic_are_the_hand_counts`), a
   kernel's plain version counts as one launch, and the prediction for a
   train step on meta tensors equals the count of the real step on the CPU.
+* The MoE layer on each device's tokens: its collectives counted by hand
+  (:func:`test_the_moe_layer_gathers_no_tokens`), and the full MoE
+  configs' temps on the production meshes under their ceilings.
 """
 
 import dataclasses
@@ -352,6 +355,90 @@ def test_the_train_step_gathers_no_logits():
     assert logits == 512 * 2**20
     assert gathers and max(gathers) < logits
     assert reduces.count(4 * rows) >= 1 and reduces.count(8 * rows) >= 1
+
+
+@pytest.mark.timeout(300)
+def test_the_moe_layer_gathers_no_tokens():
+    """deepseek-v2 smoke's MoE layer (D 128, E 4 top-2, d_ff 64, one shared
+    expert, bf16) forward and backward on train_4k's tokens (B 256 x S
+    4096, N = 1,048,576) on a fake (2, 2) mesh, meta tensors.  A device
+    holds N_l = 524,288 tokens (128 MiB) and E_loc = 2 experts of
+    capacity(N) = 655,360 slots.  Its collectives, by hand:
+
+    * the router: its (D, E) weight gathered from its fsdp halves, (64, 4)
+      float32; the aux loss's probability sums, one all-reduce of (E,)
+      float32; the slots: one all-gather of the (E,) int64 counts;
+    * the dispatch: one all-reduce of the local buffer, (E_loc·cap + 1, D)
+      bf16 (one writer a slot);
+    * the combine: one all-reduce of the (N_l, K, D) rows (one nonzero an
+      entry);
+    * besides those, all-gathers of the shared expert's weights (4 KiB
+      each) and of B2's products' D halves, (E_loc, cap, D / 2) bf16: the
+      expert outputs, laid out on the fsdp halves of ``w_down``'s D, made
+      whole for the combine, and the capacity buffer's gradient from the
+      gate and up products on the halves of their D.
+
+    No all-gather carries tokens (N_l·D, or N_l·K·D, bytes) and none the
+    expert outputs over the model axis (E_loc·cap·D bytes).  The routing on
+    the global tokens gathered both: the tokens whole over the data axis
+    (an all-gather of exactly N_l·D·2 bytes) and every expert's outputs
+    over the model axis.  At this width a D half of the products
+    (E_loc·cap·D/2 = 1.25 N_l·D) is larger than the token shard (K·1.25
+    over a model axis of 2); DeepSeek-V2's on 16x16 is 0.47 of it."""
+    from repro_torch.distributed import shard_model, shard_tree, use_sharding_ctx
+    from repro_torch.launch.comm_analysis import KINDS, CommCounter
+    from repro_torch.models import moe
+
+    cfg = TC.get("deepseek-v2-236b", smoke=True)
+    m, D = cfg.moe, cfg.d_model
+    sh = INPUT_SHAPES["train_4k"]
+    N = sh.global_batch * sh.seq_len
+    N_l, E_loc, cap = N // 2, m.num_experts // 2, moe.capacity(N, cfg)
+    assert cap == 655360 and cfg.dtype == "bfloat16"
+    with dryrun.fake_mesh((2, 2), ("data", "model")) as mesh:
+        model, axes = abstract_model(cfg)
+        shard_model(model, axes, mesh)
+        p = model.layers[0]["moe"]
+        weights = [w.requires_grad_() for w in p.parameters()]
+        x = shard_tree(torch.empty(sh.global_batch, sh.seq_len, D, dtype=torch.bfloat16,
+                                   device="meta"), "batch seq embed", mesh).requires_grad_()
+        with dryrun.MetaShapeCache(), CommCounter() as counter, use_sharding_ctx(mesh):
+            out, aux = moe.apply_moe(p, x, cfg)
+            torch.autograd.grad(out.sum() + aux, [x] + weights)
+    gathers = [n for op, n in counter.records if KINDS.get(op) == "all-gather"]
+    reduces = [n for op, n in counter.records if KINDS.get(op) == "all-reduce"]
+    halves = E_loc * cap * D // 2 * 2
+    assert gathers.count(m.num_experts * 8) == 1                      # the counts
+    assert gathers.count(D // 2 * m.num_experts * 4) == 1             # the router
+    assert sorted(n for n in gathers if n > 4096) == [halves] * 3
+    assert max(n for n in gathers if n != halves) <= 4096
+    tokens = N_l * D * 2
+    assert tokens not in gathers and tokens * m.top_k not in gathers
+    assert max(gathers) < E_loc * cap * D * 2
+    assert reduces.count((E_loc * cap + 1) * D * 2) == 1              # the dispatch
+    assert reduces.count(N_l * m.top_k * D * 2) == 1                  # the combine
+    assert reduces.count(m.num_experts * 4) == 1                      # the aux loss
+
+
+# the temps the local routing keeps the MoE configs' steps under (GiB a
+# device): a quarter of deepseek-v2's train_4k at 16x16 on the global
+# tokens (448.685), and about a fifth of the others' (425.365, 277.654,
+# 380.151)
+MOE_TEMP_CEILINGS = [("deepseek-v2-236b", "train_4k", False, 112),
+                     ("deepseek-v2-236b", "train_4k", True, 107),
+                     ("arctic-480b", "train_4k", False, 90),
+                     ("deepseek-v2-236b", "prefill_32k", False, 95)]
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("arch, shape, multi_pod, ceiling", MOE_TEMP_CEILINGS)
+def test_moe_steps_stay_under_their_temp_ceilings(arch, shape, multi_pod, ceiling):
+    """The full configs on the production mesh (fake, meta tensors; the
+    dry run's own pass at depths 2 and 3, extrapolated): each device routes
+    its own tokens, so the step's temp is well under the global tokens'."""
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    r = dryrun.partitioned(TC.get(arch), shape, mesh.shape, mesh.mesh_dim_names)
+    assert r["temp_bytes"] <= ceiling * 2**30, r["temp_bytes"] / 2**30
 
 
 def _long_decode_counts(arch, positions):

@@ -27,8 +27,18 @@ their leaf's largest magnitude rtol 1e-4, atol 1e-5; parameters 0.2 x lr).
 * **the trainer under torchrun:** ``launch/train.py --model-axis 2`` on 2
   gloo ranks gives the one-process launcher's losses, and its checkpoint
   restores into a single-process model.
+* **MoE routing on each device's tokens,** on every mesh, at 2 x 100
+  tokens (capacity 125 a expert, so experts overflow): ``apply_moe`` of
+  arctic and deepseek-v2 alone on tokens that share a common direction
+  (one expert's run crosses the batch rows, the data shards), against
+  JAX's ``apply_moe`` and the single-process run (experts, slots and kept
+  mask equal); one train step of each on a ``SyntheticLM`` batch of 2 x
+  100 (tokens dropped in its first layer) at the harness's tolerances;
+  on a one-device mesh, bf16 forward and gradients bit for bit; tokens
+  sharded on ``seq`` refused.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -42,6 +52,8 @@ from torch.utils import _pytree as pytree
 
 from _sharded_harness import (LOGIT_TOL, METRIC_TOL, assert_logits_equal, assert_step_equal,
                               batch_of, config, local_step, run_mesh)
+from repro_torch.data import SyntheticLM, data_config_for
+import repro_torch.models.moe as TM
 from repro_torch.checkpoint import restore_checkpoint
 from repro_torch.launch.serve import init_params
 from repro_torch.models import Transformer, forward
@@ -51,6 +63,12 @@ ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["phi4-mini-3.8b", "arctic-480b", "deepseek-v2-236b"]
 # mesh -> the step kinds run on it
 MESHES = {(1, 2): ("forward", "train"), (2, 1): ("forward", "train"), (2, 2): ("train",)}
+MOE_ARCHS = ["arctic-480b", "deepseek-v2-236b"]
+# the MoE cases' batch: 200 tokens, capacity(200) = 125 slots a expert
+MOE_TOKENS = (2, 100)
+# apply_moe against JAX: test_torch_moe.py's tolerance at N = 200, whose
+# outputs hold sums that cancel: rtol 1e-5, atol 1e-6 of the largest |ref|
+MOE_JAX_RTOL, MOE_JAX_SHARE = 1e-5, 1e-6
 
 
 @pytest.fixture(autouse=True)
@@ -180,6 +198,45 @@ def kernel_regions(mesh):
     return out
 
 
+def moe_input(cfg) -> np.ndarray:
+    """(2, 100, D) float32 tokens sharing a common direction (as
+    ``test_torch_moe.py`` draws N = 200): the router sends most of them to
+    the same experts, which overflow."""
+    rng = np.random.default_rng(200)
+    x = rng.standard_normal((*MOE_TOKENS, cfg.d_model), dtype=np.float32)
+    x += 3 * rng.standard_normal(cfg.d_model, dtype=np.float32)
+    return x
+
+
+def moe_layer(cfg, mesh=None) -> dict:
+    """``route`` and ``apply_moe`` of layer 0 (seed 0's weights) on
+    :func:`moe_input`, the tokens sharded ``batch seq embed`` on ``mesh``
+    when given: every result whole, as numpy."""
+    from repro_torch.distributed import shard_model, shard_tree, use_sharding_ctx
+    from repro_torch.models import param_axes
+
+    model = init_params(cfg, seed=0, device="cpu")
+    x = torch.from_numpy(moe_input(cfg))
+    if mesh is not None:
+        shard_model(model, param_axes(cfg), mesh)
+        x = shard_tree(x, "batch seq embed", mesh)
+    p = model.layers[0]["moe"]
+    with torch.no_grad(), use_sharding_ctx(mesh):
+        r = TM.route(p, x, cfg)
+        out, aux = TM.apply_moe(p, x, cfg)
+
+    def whole(t):
+        return (t.full_tensor() if mesh is not None else t).numpy()
+
+    return dict(out=whole(out), aux=float(whole(aux)), gates=whole(r.gates),
+                experts=whole(r.experts), slots=whole(r.slots), keep=whole(r.keep), cap=r.cap)
+
+
+def moe_batch(cfg):
+    return SyntheticLM(data_config_for(cfg, batch_size=MOE_TOKENS[0],
+                                       seq_len=MOE_TOKENS[1])).batch(0)
+
+
 def cases(mesh, shape, kinds):
     """Every case of ``shape``, on one rank of its mesh."""
     results = {}
@@ -196,6 +253,10 @@ def cases(mesh, shape, kinds):
         # the long-context rules shard the cache's positions on the data axis
         results["decode long"] = decode_run(config("phi4-mini-3.8b"), mesh,
                                             dict(LONG_CONTEXT_OVERRIDES))
+    for arch in MOE_ARCHS:
+        cfg = config(arch)
+        results[f"moe {arch}"] = moe_layer(cfg, mesh)
+        results[f"moe train {arch}"] = local_step(cfg, moe_batch(cfg), mesh)
     if shape == (1, 2):
         results["dense_collectives"] = dense_collectives(mesh)
         results["kernel_regions"] = kernel_regions(mesh)
@@ -349,6 +410,116 @@ def test_kernels_run_on_local_shards_with_no_collective(sharded):
     assert pack["out"] == ["R", "S(0)"] and pack["grads"] == [["R", "S(0)"]] * 2
 
 
+@pytest.fixture(scope="module")
+def moe_reference():
+    """Per MoE arch, single-process: :func:`moe_layer`, JAX's ``apply_moe``
+    on the same weights and tokens (its out and aux), the train step on
+    :func:`moe_batch` and the tokens each MoE layer dropped in its
+    forward."""
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    import jax
+    import jax.numpy as jnp
+
+    import repro.configs as JC
+    import repro.models.moe as JM
+
+    refs = {}
+    for arch in MOE_ARCHS:
+        cfg = config(arch)
+        jcfg = dataclasses.replace(JC.get(arch, smoke=True), dtype="float32")
+        weights: dict = {}
+        for name, w in init_params(cfg, seed=0, device="cpu").layers[0]["moe"].named_parameters():
+            owner, _, leaf = name.rpartition(".")
+            (weights.setdefault(owner, {}) if owner else weights)[leaf] = \
+                jnp.asarray(w.detach().numpy())
+        want, waux = jax.jit(JM.apply_moe, static_argnums=2)(
+            weights, jnp.asarray(moe_input(cfg)), jcfg)
+        dropped, routed = [], TM._routed
+
+        def counted(*args):
+            r = routed(*args)
+            dropped.append(int((~r.keep).sum()))
+            return r
+
+        TM._routed = counted
+        try:
+            train = local_step(cfg, moe_batch(cfg))
+        finally:
+            TM._routed = routed
+        refs[arch] = dict(layer=moe_layer(cfg), jax_out=np.asarray(want), jax_aux=float(waux),
+                          train=train, dropped=dropped[:cfg.n_layers])
+    return refs
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_sharded_moe_matches_jax_and_routes_as_one_process(sharded, moe_reference, arch):
+    """``apply_moe`` alone on the mesh, each device routing its own
+    tokens: the experts, the slots and the kept mask equal the
+    single-process run's exactly (the global capacity, 125, and the
+    global order of each expert's run), the gates within float32's
+    rounding, out and aux within 1e-5 of the single-process run, and of
+    JAX's ``apply_moe`` on the same weights at ``test_torch_moe.py``'s
+    tolerance for these 200 tokens."""
+    _, runs = sharded
+    got, ref = runs[f"moe {arch}"], moe_reference[arch]
+    single = ref["layer"]
+    assert got["cap"] == single["cap"] == 125
+    for key in ("experts", "slots", "keep"):
+        np.testing.assert_array_equal(got[key], single[key], err_msg=key)
+    assert 0 < int((~got["keep"]).sum())            # the capacity path ran
+    np.testing.assert_allclose(got["gates"], single["gates"], rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(got["out"], single["out"], rtol=MOE_JAX_RTOL,
+                               atol=MOE_JAX_SHARE * float(np.abs(single["out"]).max()))
+    np.testing.assert_allclose(got["aux"], single["aux"], rtol=1e-5, atol=1e-7)
+    want = ref["jax_out"]
+    np.testing.assert_allclose(got["out"], want, rtol=MOE_JAX_RTOL,
+                               atol=MOE_JAX_SHARE * float(np.abs(want).max()))
+    np.testing.assert_allclose(got["aux"], ref["jax_aux"], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_overflow_straddles_the_data_shards(sharded, moe_reference, arch):
+    """The tokens of :func:`moe_input`: one expert's run has assignments in
+    both batch rows (the data shards of (2, 1) and (2, 2)) and reaches its
+    capacity in the second row, so the second row's drops depend on the
+    first row's count.  A capacity per shard (``capacity(100)`` = 62 of
+    each row's own run) would keep another set of tokens; the mesh keeps
+    the global set."""
+    _, runs = sharded
+    single, got = moe_reference[arch]["layer"], runs[f"moe {arch}"]
+    cfg = config(arch)
+    E, half = cfg.moe.num_experts, single["experts"].size // 2
+    row = [single["experts"][:half], single["experts"][half:]]
+    straddles = [e for e in range(E) if (row[0] == e).sum() < single["cap"]
+                 < (row[0] == e).sum() + (row[1] == e).sum() and (row[0] == e).any()]
+    assert straddles, [(int((row[0] == e).sum()), int((row[1] == e).sum())) for e in range(E)]
+
+    def ranks(run):                    # each assignment's rank in its expert's run
+        return np.array([int((run[:i] == e).sum()) for i, e in enumerate(run)])
+
+    np.testing.assert_array_equal(single["slots"], ranks(single["experts"]))
+    per_shard = np.concatenate([ranks(r) < TM.capacity(MOE_TOKENS[1], cfg) for r in row])
+    assert not np.array_equal(per_shard, single["keep"])
+    np.testing.assert_array_equal(got["keep"], single["keep"])
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_sharded_moe_train_step_equals_single_process(sharded, moe_reference, arch):
+    """One train step on a ``SyntheticLM`` batch of 2 x 100 tokens, whose
+    first MoE layer drops tokens: the logits, metrics, gradients and
+    parameters at the harness's tolerances.  On (1, 2) the router runs
+    whole on both model shards: a gradient that summed its share over
+    them would be twice the single-process one."""
+    _, runs = sharded
+    ref = moe_reference[arch]
+    assert ref["dropped"][0] > 0, ref["dropped"]
+    assert_logits_equal(runs[f"moe train {arch}"], ref["train"])
+    assert_step_equal(runs[f"moe train {arch}"], ref["train"])
+
+
 @pytest.fixture
 def fake_mesh():
     from repro_torch.launch.dryrun import fake_mesh
@@ -397,6 +568,75 @@ def test_kernels_never_take_a_dtensor_whole(fake_mesh):
     w_cols = place(torch.randn(3, 16, 12), fake_mesh, [Replicate(), Shard(2)])
     with pytest.raises(ValueError, match="would gather an operand"):
         stream_pack(x_rows, w_cols)
+
+
+def test_moe_refuses_tokens_sharded_on_seq(fake_mesh):
+    """The slots need the global token order ``b·S + s``, whose batch
+    shards are contiguous: tokens sharded on ``seq`` are refused, with
+    their layout, before anything is routed."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed import place, use_sharding_ctx
+
+    cfg = config("deepseek-v2-236b")
+    p = init_params(cfg, seed=0, device="cpu").layers[0]["moe"]
+    x = place(torch.randn(2, 6, cfg.d_model), fake_mesh, [Replicate(), Shard(1)])
+    with use_sharding_ctx(fake_mesh):
+        for fn in (TM.route, TM.apply_moe):
+            with pytest.raises(ValueError, match=r"whole along seq: x \(2, 6, 128\)"):
+                fn(p, x, cfg)
+
+
+def _moe_grads(cfg, mesh=None) -> list:
+    """out, aux and the gradients of x and of every MoE weight of layer 0
+    (bf16, seed 0) for :func:`moe_input`, on ``mesh`` when given: local
+    tensors, as float32."""
+    from repro_torch.distributed import shard_model, shard_tree, use_sharding_ctx
+    from repro_torch.models import param_axes
+
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    model = init_params(cfg, seed=0, device="cpu")
+    x = torch.from_numpy(moe_input(cfg)).to(torch.bfloat16)
+    if mesh is not None:
+        shard_model(model, param_axes(cfg), mesh)
+        x = shard_tree(x, "batch seq embed", mesh)
+    x.requires_grad_()
+    p = model.layers[0]["moe"]
+    weights = list(p.parameters())
+    for w in weights:
+        w.requires_grad_()
+    with use_sharding_ctx(mesh):
+        out, aux = TM.apply_moe(p, x, cfg)
+        grads = torch.autograd.grad(out.float().square().sum() + aux, [x] + weights)
+    return [(t.to_local() if mesh is not None else t).detach().float()
+            for t in (out, aux, *grads)]
+
+
+@pytest.mark.timeout(120)
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_one_device_mesh_moe_is_the_single_process_arithmetic(arch):
+    """On a (1, 1) mesh (a process group of one) every mesh dimension
+    holds one device, so no collective runs and each op is the
+    single-process one: bf16 ``apply_moe`` at 2 x 100 tokens (experts
+    overflowing), its out, aux and the gradients of x and of every MoE
+    weight bit for bit, and a float32 train step's logits, metrics,
+    gradients and parameters bit for bit (the card's 21f holds the bf16
+    step at full width the same way)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.launch.dryrun import fake_mesh as one_mesh
+
+    cfg = config(arch)
+    want, step = _moe_grads(cfg), local_step(cfg, moe_batch(cfg))
+    with one_mesh((1, 1), ("data", "model")) as mesh, CommDebugMode() as comm:
+        got, on_mesh = _moe_grads(cfg, mesh), local_step(cfg, moe_batch(cfg), mesh)
+    assert comm.get_total_counts() == 0
+    assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+    assert np.array_equal(on_mesh["logits"], step["logits"])
+    assert on_mesh["metrics"] == step["metrics"]
+    for key in ("grads", "params"):
+        assert set(on_mesh[key]) == set(step[key])
+        assert all(np.array_equal(on_mesh[key][n], v) for n, v in step[key].items()), key
 
 
 def _launch(args, env, tmp_path, tag):
