@@ -9,9 +9,9 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    convolutions;
 2. build: compile the kernels (flash attention B1, its backward, stream_pack
    B2, decode attention B3, AdamW B4, cross-entropy B5, latent attention B6,
-   expanded attention B7 and its backward) for sm_90a, one nvcc for each
-   source, all started together; print their ptxas register /
-   shared-memory / spill reports;
+   expanded attention B7 and its backward, RMSNorm B8, rotary embeddings
+   B9) for sm_90a, one nvcc for each source, all started together; print
+   their ptxas register / shared-memory / spill reports;
 3. kernel against its plain PyTorch version on the card over a sweep of
    dtypes, head dims (zamba2's 80 among them), GQA groups, lengths (ragged
    ones included), windows, soft-caps (with scores large enough for the cap
@@ -89,6 +89,21 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    ``F.scaled_dot_product_attention`` backend over q = [q_nope | q_rope],
    k = [k_nope | k_rope broadcast], v, ``is_causal`` (a yardstick only;
    each refusal printed);
+3e. RMSNorm (B8: the forward with each row's rstd, the backward's dx and
+   d(scale)) and rotary embeddings (B9, forward and with -sin, the
+   backward) against their plain versions on the card at every shape the
+   paths give them (``NORM_CASES``: 19c's 1024 x 3072 and 19h's 8192 x
+   5120 rows, MLA's c_kv read in its 576-wide rows, the qk-norm's rows of
+   128, the decode rows, the float32 widths of phases 5, 10, 15 and 19d,
+   odd widths in both layouts, a base 16 and 2 bytes off, a row of one;
+   ``ROPE_CASES``: 19c's q and k, 19h's q_rope in 192-wide heads and
+   k_rope in 576-wide rows where they lie, zamba2's hd 80, served decode
+   at offsets, the smoke widths at float32, an odd half, a base 16 bytes
+   off), B8 within the tolerances beside ``NORM_RTOL``, B9 bit for bit,
+   every case twice with the same bits and no layout copy; ptxas's
+   registers and spills; then at 19c's and 19h's shapes each timed in a
+   CUDA graph and from Python beside the plain versions, the bytes bound
+   and, for B8's forward, ``F.rms_norm`` (a yardstick only);
 4. serve: phi4-mini-3.8b at full width and depth, bf16, random weights made
    on the card from a seed, 8 requests through ``ServingEngine`` with
    CUDA-graph-sealed steps; checks the tokens and that prefill went
@@ -379,7 +394,15 @@ of phases 9 and 23 over their calls (``B6_REPLAYS``).  B7's calls, forward
 and backward, are counted over each path that runs MLA's expanded form
 (``B7_BY_PATH``: 19d, 19h, 21b and 21f, each of which must launch it, none
 after phase 3d with a layout copy), and its kernels in 19h's profiled
-replay over the capture's calls (``B7_REPLAYS``).
+replay over the capture's calls (``B7_REPLAYS``).  B8's and B9's calls
+are counted over the paths of phases 4, 5, 8-11, 13, 15-21 and 23
+(``NORM_ROPE_BY_PATH``; those of ``NORM_ROPE_PATHS`` must launch both),
+and every profiled replay of phases 4, 8, 9, 11, 19c and 19h must run
+them as often as its model's layers give (``check_norm_rope``: a norm
+and its backward's two kernels, a rotation and its backward, counted in
+``NORM_ROPE_REPLAYS``).  19c and 19h also profile one eager step with the
+chains' functions in ranges and print its element-wise kernels by chain
+beside each chain's bytes bound (``chain_breakdown``).
 
 The line before the last is the per-kernel JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -486,6 +509,27 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+@contextlib.contextmanager
+def capture(graph):
+    """``torch.cuda.graph(graph)`` with Python's cyclic garbage collector
+    held off: an automatic collection inside the capture may free a cycle
+    that holds another CUDA graph (an earlier phase's engine and its sealed
+    steps), and destroying a graph while a stream captures is refused and
+    ends the capture in an error."""
+    import gc
+
+    import torch
+
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def graph_ms(fn, reps: int = 20, iters: int = 50) -> float:
     """Mean time of one call of ``fn`` inside a CUDA graph of ``reps``
     back-to-back calls, replayed ``iters`` times: the device's time for the
@@ -499,7 +543,7 @@ def graph_ms(fn, reps: int = 20, iters: int = 50) -> float:
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with capture(graph):
         for _ in range(reps):
             fn()
     return time_ms(graph.replay, iters) / reps
@@ -533,11 +577,14 @@ def phase_build():
     from repro_torch.kernels.flash_attention import backward as flash_bwd
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.latent_attention import kernel as latent
+    from repro_torch.kernels.rms_norm import kernel as rms
+    from repro_torch.kernels.rotary import kernel as rotary
     from repro_torch.kernels.stream_pack import kernel as pack
 
     say("== phase 2: build")
     sources = [flash.SOURCE, flash_bwd.SOURCE, pack.SOURCE, decode.SOURCE, adamw.SOURCE,
-               ce.SOURCE, latent.SOURCE, expanded.SOURCE, expanded_bwd.SOURCE]
+               ce.SOURCE, latent.SOURCE, expanded.SOURCE, expanded_bwd.SOURCE, rms.SOURCE,
+               rotary.SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:      # one nvcc per source
         list(pool.map(build.build, sources))
@@ -916,7 +963,7 @@ def flash_layouts() -> None:
         mha_flash(q, k, v)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with capture(graph):
         out = mha_flash(q, k, v)
     for step in range(2):
         for t in (q, k, v):
@@ -1986,6 +2033,572 @@ def expanded_time(label, B, S, N, nope, rope, dv, dname, kind) -> dict:
                 flops=fwd_flops + bwd_flops, forward_flops=fwd_flops)
 
 
+# ---------------------------------------------------------------------------
+# phase 3e: RMSNorm (B8) and rotary embeddings (B9)
+# ---------------------------------------------------------------------------
+
+# B8's cases: (label, leading shape, width, row stride in elements (None: the
+# width), dtype, offset, the base's offset in elements).  19c's and 19h's
+# rows, MLA's c_kv read in its 576-wide rows, the qk-norm's rows of a head,
+# the decode rows, the float32 widths of phases 5, 10, 15 and 19d, odd widths
+# in both layouts, a base 16 bytes off (vector loads) and 2 bytes off
+# (element loads), a row of one
+NORM_CASES = [
+    ("19c apply_norm, phi4-mini", (2, 512), 3072, None, "bfloat16", 1.0, 0),
+    ("19h apply_norm, deepseek-v2", (2, 4096), 5120, None, "bfloat16", 1.0, 0),
+    ("19h kv_norm, c_kv in rows of 576", (2, 4096), 512, 576, "bfloat16", 0.0, 0),
+    ("qk-norm, rows of a head of 128", (2, 512, 24), 128, None, "bfloat16", 0.0, 0),
+    ("phi4-mini decode, 4 slots", (4, 1), 3072, None, "bfloat16", 1.0, 0),
+    ("deepseek-v2 decode kv_norm", (4, 1), 512, 576, "bfloat16", 0.0, 0),
+    ("phi4-mini width, float32", (2, 48), 3072, None, "float32", 1.0, 0),
+    ("smoke width 192, float32", (2, 48), 192, None, "float32", 1.0, 0),
+    ("deepseek-v2 smoke kv_norm, rows of 48, float32", (2, 48), 32, 48, "float32", 0.0, 0),
+    ("odd width 77, a warp a row", (3, 5), 77, None, "bfloat16", 1.0, 0),
+    ("odd width 1031, a block a row", (3, 5), 1031, None, "bfloat16", 1.0, 0),
+    ("odd width 1031, float32", (3, 5), 1031, None, "float32", 0.0, 0),
+    ("base 16 bytes off", (64,), 3072, None, "bfloat16", 1.0, 8),
+    ("base 2 bytes off", (64,), 3072, None, "bfloat16", 1.0, 1),
+    ("base 16 bytes off, float32", (64,), 1024, None, "float32", 1.0, 4),
+    ("a row of one", (5,), 1, None, "float32", 1.0, 0),
+]
+# the cases timed: 19c's rows and 19h's
+NORM_TIMED = (0, 1)
+NORM_EPS = 1e-6
+# B8 against its plain version computed in float32 from the same inputs.
+# float32: y and rstd within NORM_RTOL relative, dx within NORM_RTOL of its
+# row's largest |rstd * dy * (offset + scale)| (dx is the difference of two
+# terms of that size, so an element near 0 keeps no relative precision).
+# bf16: y within one bf16 ulp of the plain version's float32 value (the
+# kernel's float32 value differs from it by the row sum's order and is
+# rounded once); dx within one ulp plus the float32 rule.  dscale (float32, the rows summed in another
+# order) within NORM_DSCALE_TOL of its largest magnitude.
+NORM_RTOL = 1e-5
+NORM_DSCALE_TOL = 1e-4
+# B9's cases: (label, B, S, heads, head_dim, layout, dtype, positions).
+# layout: None (contiguous), ("heads", width, start) a slice of wider heads,
+# ("rows", width, start) a slice of wider rows with one head, ("off", n) the
+# base n elements off; positions "arange" or "offsets" (each row from its own
+# offset).  19c's q and k, 19h's q_rope and k_rope where they lie, zamba2's
+# hd 80, a served decode, the smoke widths at float32, an odd half (element
+# loads), a base 16 bytes off
+ROPE_CASES = [
+    ("19c q, phi4-mini", 2, 512, 24, 128, None, "bfloat16", "arange"),
+    ("19c k, phi4-mini", 2, 512, 8, 128, None, "bfloat16", "arange"),
+    ("19h q_rope in 192-wide heads", 2, 4096, 128, 64, ("heads", 192, 128), "bfloat16", "arange"),
+    ("19h k_rope in 576-wide rows", 2, 4096, 1, 64, ("rows", 576, 512), "bfloat16", "arange"),
+    ("zamba2 hd 80", 4, 512, 32, 80, None, "bfloat16", "arange"),
+    ("phi4-mini decode, S 1", 4, 1, 24, 128, None, "bfloat16", "offsets"),
+    ("deepseek-v2 decode q_rope", 4, 1, 128, 64, ("heads", 192, 128), "bfloat16", "offsets"),
+    ("smoke hd 32, float32", 2, 48, 6, 32, None, "float32", "arange"),
+    ("deepseek-v2 smoke q_rope, float32", 2, 48, 4, 16, ("heads", 48, 32), "float32", "arange"),
+    ("odd half 3", 2, 7, 3, 6, None, "bfloat16", "offsets"),
+    ("base 16 bytes off", 2, 64, 8, 128, ("off", 8), "bfloat16", "arange"),
+]
+# the cases timed: 19c's q and 19h's q_rope
+ROPE_TIMED = (0, 2)
+ROPE_THETA = 10000.0
+
+
+def bf16_ulp(v):
+    """One bf16 ulp at each |v| of a float32 tensor (the smallest normal's
+    at 0)."""
+    import torch
+
+    _, e = torch.frexp(v.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
+
+
+def norm_inputs(lead, width, stride, dname, offset, base, seed):
+    """x (lead + (width,)) read from rows ``stride`` apart starting ``base``
+    elements into its buffer, scale (float32) and dy, drawn on the card."""
+    import torch
+
+    dtype = getattr(torch, dname)
+    rows, st = math.prod(lead), stride or width
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    buf = torch.randn(base + rows * st, generator=g, device="cuda").to(dtype)
+    x = buf[base:].view(rows, st)[:, :width].view(*lead, width)
+    scale = torch.randn(width, generator=g, device="cuda") * 0.1 + (1.0 - offset)
+    dy = torch.randn(x.shape, generator=g, device="cuda").to(dtype)
+    return x, scale, dy
+
+
+def norm_check(label, lead, width, stride, dname, offset, base, seed) -> tuple[float, float]:
+    """B8's forward and backward against the plain versions in float32, each
+    run twice for the same bits; fails on a disagreement.  Returns the worst
+    share of the tolerance and the largest |y - plain|."""
+    import torch
+
+    from repro_torch.kernels.rms_norm import backward as b8b
+    from repro_torch.kernels.rms_norm import kernel as b8
+    from repro_torch.kernels.rms_norm.ref import rms_norm_bwd_ref, rms_norm_ref
+
+    x, scale, dy = norm_inputs(lead, width, stride, dname, offset, base, seed)
+    y, rstd = b8.rms_norm(x, scale, NORM_EPS, offset)
+    dx, ds = b8b.rms_norm_bwd(x, scale, rstd, dy, offset)
+    again = b8.rms_norm(x, scale, NORM_EPS, offset) + b8b.rms_norm_bwd(x, scale, rstd, dy, offset)
+    same = all(torch.equal(a, b) for a, b in zip((y, rstd, dx, ds), again))
+    want_y, want_r = rms_norm_ref(x.float(), scale, NORM_EPS, offset)
+    want_dx, want_ds = rms_norm_bwd_ref(x.float(), scale, want_r, dy.float(), offset)
+    terms = want_r[..., None] * dy.float() * (offset + scale)
+    row = NORM_RTOL * terms.abs().amax(dim=-1, keepdim=True) + 1e-30
+    if dname == "float32":
+        y_tol, dx_tol = NORM_RTOL * want_y.abs() + 1e-30, row
+    else:
+        y_tol, dx_tol = bf16_ulp(want_y), bf16_ulp(want_dx) + row
+    shares = {
+        "y": ((y.float() - want_y).abs() / y_tol).max().item(),
+        "rstd": ((rstd - want_r).abs() / (NORM_RTOL * want_r.abs())).max().item(),
+        "dx": ((dx.float() - want_dx).abs() / dx_tol).max().item(),
+        "dscale": ((ds - want_ds).abs().max() / (NORM_DSCALE_TOL * want_ds.abs().max() + 1e-30)
+                   ).item(),
+    }
+    worst = max(shares.values())
+    err = (y.float() - want_y).abs().max().item()
+    say(f"  {label}: x {tuple(x.shape)} {dname} row stride {stride or width}, base +{base}, "
+        f"offset {offset}, {b8.choose_launch(x.numel() // width, width)}; share of the "
+        "tolerance " + ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
+        + f"; max |y - plain| {err:.3e}; same bits twice: {same}")
+    if not (worst <= 1.0 and same):
+        fail(f"B8 disagrees with its plain version at {label} ({shares}, same bits {same})")
+    return worst, err
+
+
+def rope_inputs(B, S, H, hd, layout, dname, positions, seed):
+    """x (B, S, H, hd) in ``layout`` and the tables of ``positions``, on the
+    card."""
+    import torch
+
+    from repro_torch.kernels.rotary.ref import rope_tables
+
+    dtype = getattr(torch, dname)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    if layout is None:
+        x = draw(B, S, H, hd)
+    elif layout[0] == "heads":
+        x = draw(B, S, H, layout[1])[..., layout[2]:layout[2] + hd]
+    elif layout[0] == "rows":
+        x = draw(B, S, layout[1])[..., layout[2]:layout[2] + hd][:, :, None, :]
+    else:
+        x = draw(layout[1] + B * S * H * hd)[layout[1]:].view(B, S, H, hd)
+    pos = torch.arange(S, device="cuda").expand(B, S)
+    if positions == "offsets":
+        pos = pos + torch.randint(0, 1000, (B, 1), generator=g, device="cuda")
+    cos, sin = rope_tables(pos, hd, ROPE_THETA)
+    return x, cos, sin
+
+
+def rope_check(label, B, S, H, hd, layout, dname, positions, seed) -> None:
+    """B9 forward and backward (``negate``) against its plain version on the
+    card: the same bits, or the run fails."""
+    import torch
+
+    from repro_torch.kernels.rotary import kernel as b9
+    from repro_torch.kernels.rotary.ref import rotary_ref
+
+    x, cos, sin = rope_inputs(B, S, H, hd, layout, dname, positions, seed)
+    copies = b9.layout_copies
+    diff = {}
+    for negate in (False, True):
+        got = b9.rotary(x, cos, sin, negate=negate)
+        want = rotary_ref(x, cos, sin, negate)
+        diff[negate] = int((got != want).sum())
+    say(f"  {label}: x {tuple(x.shape)} {dname} strides {x.stride()}, vector loads "
+        f"{bool(b9.vectors(x, cos, sin))}; elements that differ from the plain version: "
+        f"forward {diff[False]}, backward {diff[True]}")
+    if any(diff.values()) or b9.layout_copies != copies:
+        fail(f"B9 is not bit-identical to its plain version at {label} ({diff}) or copied its "
+             f"input ({b9.layout_copies - copies})")
+
+
+def norm_time(label, lead, width, stride, dname, offset, base) -> dict:
+    """B8's forward and backward at one case, in a CUDA graph and launched
+    from Python, beside the plain versions, ``F.rms_norm`` (a yardstick of
+    the forward; the port never calls it) and the bytes bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rms_norm import backward as b8b
+    from repro_torch.kernels.rms_norm import kernel as b8
+    from repro_torch.kernels.rms_norm.ref import rms_norm_bwd_ref, rms_norm_ref
+
+    x, scale, dy = norm_inputs(lead, width, stride, dname, offset, base, seed=7)
+    rows, es = x.numel() // width, x.element_size()
+    rstd = b8.rms_norm(x, scale, NORM_EPS, offset)[1]
+    weight = offset + scale
+    try:
+        F.rms_norm(x, (width,), weight, NORM_EPS)
+        library = "F.rms_norm, float32 weight"
+    except RuntimeError:
+        weight = weight.to(x.dtype)
+        library = f"F.rms_norm, {dname} weight"
+    fwd_bytes = rows * width * es * 2 + rows * 4 + width * 4
+    bwd_bytes = rows * width * es * 3 + rows * 4 + width * 4 * 2
+    fwd_bound, fwd_by = bound(5.0 * rows * width, fwd_bytes, "float32")
+    bwd_bound, bwd_by = bound(10.0 * rows * width, bwd_bytes, "float32")
+    rec = dict(
+        shape=f"{tuple(x.shape)} {dname}",
+        ms=graph_ms(lambda: b8.rms_norm(x, scale, NORM_EPS, offset)),
+        eager_ms=time_ms(lambda: b8.rms_norm(x, scale, NORM_EPS, offset), 20),
+        plain_ms=graph_ms(lambda: rms_norm_ref(x, scale, NORM_EPS, offset)),
+        bound_ms=fwd_bound, bound_by=fwd_by, bytes=fwd_bytes,
+        library_ms=graph_ms(lambda: F.rms_norm(x, (width,), weight, NORM_EPS)), library=library,
+        bwd_ms=graph_ms(lambda: b8b.rms_norm_bwd(x, scale, rstd, dy, offset)),
+        bwd_eager_ms=time_ms(lambda: b8b.rms_norm_bwd(x, scale, rstd, dy, offset), 20),
+        bwd_plain_ms=graph_ms(lambda: rms_norm_bwd_ref(x, scale, rstd, dy, offset)),
+        bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by, bwd_bytes=bwd_bytes,
+        launch=str(b8.choose_launch(rows, width)),
+        bwd_launch=str(b8.choose_launch(rows, width, backward=True)))
+    say(f"  {label} {rec['shape']}: forward {rec['ms']:.5f} ms in a graph ({rec['eager_ms']:.5f} "
+        f"from Python), {rec['bound_ms'] / rec['ms']:.1%} of its {rec['bound_ms']:.5f} ms bound "
+        f"({fwd_bytes / 1e6:.3f} MB), plain {rec['plain_ms']:.5f}, {library} "
+        f"{rec['library_ms']:.5f}; backward {rec['bwd_ms']:.5f} ({rec['bwd_eager_ms']:.5f} from "
+        f"Python), {rec['bwd_bound_ms'] / rec['bwd_ms']:.1%} of its {rec['bwd_bound_ms']:.5f} ms "
+        f"bound ({bwd_bytes / 1e6:.3f} MB), plain {rec['bwd_plain_ms']:.5f}; {rec['launch']}, "
+        f"backward {rec['bwd_launch']}")
+    return rec
+
+
+def rope_time(label, B, S, H, hd, layout, dname, positions) -> dict:
+    """B9 at one case, in a CUDA graph and launched from Python, beside the
+    plain version and the bytes bound (torch has no rotary call)."""
+    from repro_torch.kernels.rotary import kernel as b9
+    from repro_torch.kernels.rotary.ref import rotary_ref
+
+    x, cos, sin = rope_inputs(B, S, H, hd, layout, dname, positions, seed=7)
+    nbytes = x.numel() * x.element_size() * 2 + B * S * (hd // 2) * 4 * 2
+    b, by = bound(6.0 * x.numel() / 2, nbytes, "float32")
+    rec = dict(shape=f"{tuple(x.shape)} {dname}", ms=graph_ms(lambda: b9.rotary(x, cos, sin)),
+               eager_ms=time_ms(lambda: b9.rotary(x, cos, sin), 20),
+               plain_ms=graph_ms(lambda: rotary_ref(x, cos, sin)), bound_ms=b, bound_by=by,
+               bytes=nbytes, library_ms=None)
+    say(f"  {label} {rec['shape']}: {rec['ms']:.5f} ms in a graph ({rec['eager_ms']:.5f} from "
+        f"Python), {b / rec['ms']:.1%} of its {b:.5f} ms bound ({nbytes / 1e6:.3f} MB), plain "
+        f"{rec['plain_ms']:.5f}")
+    return rec
+
+
+def norm_rope_registers() -> dict:
+    """Registers and spills of B8's and B9's kernels, from ptxas's reports."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.rms_norm import kernel as b8
+    from repro_torch.kernels.rotary import kernel as b9
+
+    def name_in(line):
+        found = re.search(r"(rms_fwd_kernel|rms_bwd_kernel|rms_dscale_kernel|rotary_kernel)"
+                          r"(I\w+?EEv|v)?", line)
+        return found and found[1] + (found[2] or "")
+
+    return ptxas_report([build.build_log(b8.SOURCE), build.build_log(b9.SOURCE)], name_in)
+
+
+def phase_norm_rope() -> dict:
+    """Phase 3e: B8 and B9 against their plain versions at every shape the
+    paths give them, then timed."""
+    say("== phase 3e: rms_norm (B8) forward and backward and rotary (B9) both ways vs the "
+        f"plain versions (B8: float32 {NORM_RTOL} relative, dx {NORM_RTOL} of its row's "
+        "largest rstd * dy * (offset + scale); bf16 one ulp of the plain float32 value, dx "
+        "plus the float32 rule; dscale "
+        f"{NORM_DSCALE_TOL} of its largest; B9: the same bits)")
+    for name, rep in sorted(norm_rope_registers().items()):
+        say(f"  ptxas {name}: {rep.get('registers')} registers, spills (stores, loads) "
+            f"{rep.get('spills')}")
+    from repro_torch.kernels.rms_norm import kernel as b8
+
+    copies = b8.layout_copies
+    results = [norm_check(*case, seed=i) for i, case in enumerate(NORM_CASES)]
+    if b8.layout_copies != copies:
+        fail(f"B8 copied {b8.layout_copies - copies} inputs it should read in place")
+    for i, case in enumerate(ROPE_CASES):
+        rope_check(*case, seed=i)
+    say(f"  {len(NORM_CASES)} B8 cases within tolerance (worst at "
+        f"{max(w for w, _ in results):.3f} of it), {len(ROPE_CASES)} B9 cases bit-identical, "
+        "both directions, every case twice with the same bits; no layout copy")
+    b8_rec = norm_time(*NORM_CASES[NORM_TIMED[0]])
+    b8_rec["deepseek_19h"] = norm_time(*NORM_CASES[NORM_TIMED[1]])
+    b8_rec["max_abs_err"] = results[NORM_TIMED[0]][1]
+    b9_rec = rope_time(*ROPE_CASES[ROPE_TIMED[0]])
+    b9_rec["deepseek_19h"] = rope_time(*ROPE_CASES[ROPE_TIMED[1]])
+    b9_rec["max_abs_err"] = 0.0
+    release()
+    return dict(b8=b8_rec, b9=b9_rec)
+
+
+# ---------------------------------------------------------------------------
+# B8 and B9 in the paths' replays, and the training step's element-wise
+# kernels by the chain that launched them
+# ---------------------------------------------------------------------------
+
+# B8's and B9's kernels, by a substring of their names
+B8_FWD, B8_BWD, B8_DSCALE, B9_KERNEL = ("rms_fwd_kernel", "rms_bwd_kernel", "rms_dscale_kernel",
+                                        "rotary_kernel")
+# the profiled replays check_norm_rope held, and by kernel module (B8's
+# forward, B8's backward: two kernels a call, B9) the kernels the profiler
+# saw in them and the calls they replay
+NORM_ROPE_REPLAYS = {"replays": 0, **{k: {"kernels": 0, "calls": 0}
+                                      for k in ("rms_norm", "rms_norm_bwd", "rotary")}}
+
+
+def norm_rope_calls(cfg) -> tuple[int, int]:
+    """B8's and B9's calls in one forward of ``cfg``, a decoder whose every
+    layer attends: two RMSNorms a layer (four with gemma2's post-norms) and
+    the final one, MLA's kv_norm, the qk-norm's two; RoPE on q and k."""
+    L = cfg.n_layers
+    norms = ((4 if cfg.post_attn_norm else 2) * L + 1) if cfg.norm == "rmsnorm" else 0
+    norms += L * (cfg.mla is not None) + 2 * L * bool(cfg.qk_norm)
+    return norms, 2 * L
+
+
+def norm_rope_launches() -> dict:
+    """B8's forward and backward and B9's wrapper counts, by kernel name."""
+    from repro_torch.kernels.rms_norm import backward as b8_bwd
+    from repro_torch.kernels.rms_norm import kernel as b8
+    from repro_torch.kernels.rotary import kernel as b9
+
+    return {B8_FWD: b8.launches, B8_BWD: b8_bwd.launches, B9_KERNEL: b9.launches}
+
+
+@contextlib.contextmanager
+def capture_counts(step_fn, into: dict):
+    """B8's and B9's launches that sealing ``step_fn`` records into its CUDA
+    graph, into ``into``: the seal's less its warm-up's (one call of
+    ``step_fn.loss_and_grads`` before the capture)."""
+    inner, warm = step_fn.loss_and_grads, {}
+
+    def counted(*args):
+        before = norm_rope_launches()
+        out = inner(*args)
+        warm.update({k: v - before[k] for k, v in norm_rope_launches().items()})
+        return out
+
+    start = norm_rope_launches()
+    step_fn.loss_and_grads = counted
+    try:
+        yield into
+    finally:
+        step_fn.loss_and_grads = inner
+    into.update({k: v - start[k] - warm.get(k, 0) for k, v in norm_rope_launches().items()})
+
+
+def check_norm_rope(rows, cfg, label: str, backward: bool = False, again=None,
+                    captured: dict | None = None) -> None:
+    """Fails unless a profiled replay's kernels (``rows``) hold B8's and B9's
+    kernels as often as ``cfg``'s layers give: a B8 forward a norm, with
+    ``backward`` also its two backward kernels, and a B9 a rotation, twice
+    with ``backward``; adds them to ``NORM_ROPE_REPLAYS``.  A session that
+    recorded fewer of them is read again with ``again`` (a call of the
+    replay), up to three times, from the second of two calls in one
+    session (:func:`second_call_kernels`), each kernel's count the most any
+    session recorded: a session can lose the records of its first kernels
+    (a replay's second kernel is its first norm), never add one.  With
+    ``captured`` (the wrappers' launches the capture recorded into the
+    replayed graph, :func:`capture_counts`), those must be the layers'
+    count, and a profile that still records fewer is reported, not failed:
+    19c's replay has come back with 64 of its 65 norms' forward kernels in
+    every session of a run while the capture held 65 and the replays gave
+    the eager steps' bits."""
+    norms, ropes = norm_rope_calls(cfg)
+    n = 1 + backward
+    want = {B8_FWD: norms, B8_BWD: norms * backward, B8_DSCALE: norms * backward,
+            B9_KERNEL: ropes * n}
+
+    def counts(rows):
+        return {k: sum(c for _, c, key in rows if k in key) for k in want}
+
+    got = counts(rows)
+    if captured is not None:
+        want_captured = {B8_FWD: norms, B8_BWD: norms * backward, B9_KERNEL: ropes * n}
+        say(f"  {label}: B8's and B9's launches the capture recorded {captured} (want "
+            f"{want_captured})")
+        if captured != want_captured:
+            fail(f"{label}: the capture recorded B8's and B9's launches {captured}, want "
+                 f"{want_captured}")
+    for _ in range(3 if again else 0):
+        if got == want or any(got[k] > want[k] for k in want):
+            break
+        say(f"    ({label}: the profiler recorded B8's and B9's kernels {got} of {want}: "
+            "profiling again)")
+        more = counts(by_kernel(second_call_kernels(again)))
+        got = {k: max(v, more[k]) for k, v in got.items()}
+    us = {k: sum(t for t, _, key in rows if k in key) for k in got}
+    total = sum(t for t, _, _ in rows)
+    NORM_ROPE_REPLAYS["replays"] += 1
+    for name, kernels, calls in (("rms_norm", got[B8_FWD], norms),
+                                 ("rms_norm_bwd", got[B8_BWD] + got[B8_DSCALE], norms * backward),
+                                 ("rotary", got[B9_KERNEL], ropes * n)):
+        NORM_ROPE_REPLAYS[name]["kernels"] += kernels
+        NORM_ROPE_REPLAYS[name]["calls"] += calls
+    say(f"  {label}: B8 " + ", ".join(f"{k} x{got[k]} {us[k] / 1e3:.3f} ms" for k in
+                                        (B8_FWD, B8_BWD, B8_DSCALE))
+        + f"; B9 {B9_KERNEL} x{got[B9_KERNEL]} {us[B9_KERNEL] / 1e3:.3f} ms; together "
+        f"{sum(us.values()) / total:.1%} of the replay's kernel time")
+    short = all(got[k] <= want[k] for k in want) and got != want
+    if short and captured is not None:
+        say(f"  {label}: the profiler recorded {got} of the {want} kernels the capture holds")
+    elif got != want:
+        fail(f"{label}: a replay ran B8's and B9's kernels {got}, want {want} ({norms} norms "
+             f"and {ropes} rotations a forward)")
+
+
+# the chains a training step's element-wise kernels are put under: each the
+# layer function whose calls (and, through autograd, whose backward) launch
+# them; the kernels no chain launched are "other: residual and gradient
+# sums, the autograd engine's accumulations"
+# (``_rms``: the name of the qk-norm's and kv_norm's rows in trees before B8)
+CHAIN_FUNCTIONS = (("norm", "layers", "apply_norm"), ("norm", "layers", "_rms_scaled"),
+                   ("norm", "layers", "_rms"), ("rope", "layers", "apply_rope"),
+                   ("swiglu (dense FFN)", "layers", "apply_ffn"),
+                   ("MoE: router, dispatch, combine, activation", "moe", "apply_moe"),
+                   ("attention: projections' reshapes, masks", "layers", "attention"),
+                   ("attention: projections' reshapes, masks", "mla", "mla_attention"),
+                   ("logits: the float32 cast, the soft-cap", "layers", "unembed"),
+                   ("embedding and its gradient", "layers", "embed_tokens"),
+                   ("loss", "train_lib", "cross_entropy"),
+                   ("optimizer: clip and AdamW", "adamw", "adamw_update"))
+# kernels named here are not element-wise: the port's kernels (and cuBLAS's
+# products, GEMM_NAMES)
+PORT_KERNEL_NAMES = ("flash_", "bwd_dot", "bwd_dkdv", "bwd_dq", "stream_pack", "adamw_",
+                     "ce_partials", "ce_backward", "exp_", "rms_", "rotary_", "spin_kernel")
+
+
+@contextlib.contextmanager
+def chain_scopes():
+    """Each function of ``CHAIN_FUNCTIONS`` (those the tree has) wrapped, in
+    every module of the port that holds it, in a ``record_function`` range
+    named ``chain:<chain>``."""
+    import functools
+
+    import torch
+
+    from repro_torch.models import layers, mla, moe
+    from repro_torch.optim import adamw
+    from repro_torch.training import train_lib
+
+    mods = dict(layers=layers, mla=mla, moe=moe, train_lib=train_lib, adamw=adamw)
+    swaps = []
+    for chain, mod, name in CHAIN_FUNCTIONS:
+        fn = getattr(mods[mod], name, None)
+        if fn is None:
+            continue
+
+        def scoped(*a, _fn=fn, _chain=chain, **kw):
+            with torch.profiler.record_function(f"chain:{_chain}"):
+                return _fn(*a, **kw)
+
+        functools.update_wrapper(scoped, fn)
+        for module in list(sys.modules.values()):
+            if getattr(module, "__name__", "").startswith("repro_torch"):
+                for attr, value in list(vars(module).items()):
+                    if value is fn:
+                        swaps.append((module, attr, fn))
+                        setattr(module, attr, scoped)
+    try:
+        yield
+    finally:
+        for module, attr, fn in reversed(swaps):
+            setattr(module, attr, fn)
+
+
+def _chain_of(evt, by_seq: dict) -> str:
+    """The chain of the innermost ``chain:`` range around ``evt``; for an op
+    of the backward, that of the forward op whose autograd node it runs
+    (by sequence number)."""
+    e = evt
+    while e is not None:
+        if e.name.startswith("chain:"):
+            return e.name[len("chain:"):]
+        if e.name.startswith("autograd::engine::evaluate_function: "):
+            return by_seq.get(e.sequence_nr, "other")
+        e = e.cpu_parent
+    return "other"
+
+
+def chain_breakdown(step, label: str, bounds: dict) -> tuple:
+    """One call of ``step`` (an eager training step) under the profiler,
+    the chains' functions in ranges (:func:`chain_scopes`, which change no
+    bit of the step): each device kernel that is not a product or a kernel
+    of the port's, by the chain that launched it, ms beside the chain's
+    bytes bound (``bounds``: chain -> bytes, from :func:`chain_bytes`), the
+    top kernel names of each.  Returns what ``step`` returned and
+    {"chains": {chain: {"ms", "kernels", "bound_ms"}}, and the totals}."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with chain_scopes():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            spin()
+            result = step()
+            torch.cuda.synchronize()
+    events = list(prof.events())
+    by_seq = {}
+    for e in events:
+        if e.sequence_nr is not None and e.sequence_nr >= 0:
+            chain = _chain_of(e, {})
+            if chain != "other" or e.sequence_nr not in by_seq:
+                by_seq[e.sequence_nr] = chain
+    chains: dict = collections.defaultdict(lambda: collections.Counter())
+    us_by: dict = collections.defaultdict(float)
+    linked = 0.0
+    for e in events:
+        for k in getattr(e, "kernels", []) or []:
+            if "spin_kernel" in k.name:
+                continue
+            linked += k.duration
+            if any(w in k.name.lower() for w in GEMM_NAMES + PORT_KERNEL_NAMES):
+                continue
+            chain = _chain_of(e, by_seq)
+            us_by[chain] += k.duration
+            chains[chain][k.name] += 1
+    # the ranges' own spans on the device's timeline are not kernels
+    total = sum(e.time_range.elapsed_us() for e in device_events(prof)
+                if not e.name.startswith("chain:"))
+    ew = sum(us_by.values())
+    say(f"  {label}: an eager step's device kernels {total / 1e3:.3f} ms (of them "
+        f"{linked / 1e3:.3f} linked to the torch op that launched them: the rest are the "
+        f"port's kernels, launched through ctypes), element-wise {ew / 1e3:.3f} ms, by chain "
+        "(ms, kernels, bytes bound ms at 3.35 TB/s):")
+    out = {}
+    for chain, us in sorted(us_by.items(), key=lambda kv: -kv[1]):
+        b = bounds.get(chain)
+        b_ms = None if b is None else b / 3.35e12 * 1e3
+        n = sum(chains[chain].values())
+        out[chain] = dict(ms=us / 1e3, kernels=n, bound_ms=b_ms)
+        top = ", ".join(f"{name[:48]} x{c}" for name, c in chains[chain].most_common(3))
+        say(f"    {chain}: {us / 1e3:.3f} ms, {n} kernels, bound "
+            f"{'not computed' if b_ms is None else f'{b_ms:.3f} ms'}; top: {top}")
+    return result, dict(chains=out, elementwise_ms=ew / 1e3, kernel_ms=total / 1e3,
+                        linked_ms=linked / 1e3)
+
+
+def chain_bytes(cfg, tokens: int) -> dict:
+    """The least bytes of each chain in one training step of ``cfg`` at
+    ``tokens`` tokens, forward and backward, each input read once and each
+    output written once in the model's dtype: the norms (x, y; x, dy, dx),
+    the rotations (x, out both ways), the dense FFN's SwiGLU (gate and up
+    read, h written; gate, up and dh read, their gradients written), the
+    logits' float32 cast both ways, the embedding (rows gathered; the
+    table's gradient written, the rows' read)."""
+    es = 2 if cfg.dtype == "bfloat16" else 4
+    T, D, L, V = tokens, cfg.d_model, cfg.n_layers, cfg.vocab
+    norms = (2 * L + 1) * D + (L * cfg.mla.kv_lora_rank if cfg.mla else 0)
+    if cfg.mla:
+        rope = L * (cfg.n_heads + 1) * cfg.mla.qk_rope_head_dim
+    else:
+        rope = L * (cfg.n_heads + cfg.n_kv_heads) * cfg.resolved_head_dim
+    out = {"norm": T * norms * 5 * es, "rope": T * rope * 4 * es,
+           "logits: the float32 cast, the soft-cap": 2 * T * V * (es + 4),
+           "embedding and its gradient": (V * D + 3 * T * D) * es}
+    if cfg.moe is None:
+        out["swiglu (dense FFN)"] = L * T * cfg.d_ff * 8 * es
+    return out
+
+
 def serve_on_card(cfg) -> tuple:
     """Serve ``cfg`` on the card: random weights drawn there from seed 0,
     then 8 requests of 20-500 prompt tokens and 16 new ones through a
@@ -2134,6 +2747,27 @@ def device_events(prof) -> list:
             and "spin_kernel" not in e.name]
 
 
+def second_call_kernels(run) -> list:
+    """The device kernels of the second of two calls of ``run`` in one
+    profiler session, each after a :func:`spin` kernel: the events that
+    start after the last spin kernel ends.  A session has lost records of
+    its first kernels even after the first spin (19c's training replay on
+    an H100: 2963 of its 2973 kernels, the first norm's among those lost);
+    the second call's are past that."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            spin()
+            run()
+            torch.cuda.synchronize()
+    events = [e for e in prof.events() if "cuda" in str(getattr(e, "device_type", "")).lower()]
+    spins = [e.time_range.end for e in events if "spin_kernel" in e.name]
+    cut = max(spins) if len(spins) == 2 else float("inf")
+    return [e for e in events if e.time_range.start >= cut and "spin_kernel" not in e.name]
+
+
 def kernels_in_one(run, check: bool = True, attempts: int = 4) -> list:
     """The device kernels (torch.profiler events) of one call of ``run``,
     after one unprofiled call.
@@ -2245,6 +2879,8 @@ def step_breakdown(engine) -> tuple[int | None, int]:
         if per_replay != engine.cfg.n_layers:
             fail(f"a prefill replay ran {per_replay} flash kernels for "
                  f"{engine.cfg.n_layers} layers")
+        check_norm_rope(rows, engine.cfg, f"prefill {b} replay",
+                        again=lambda: exe(params, cache, padded, 0, b))
     else:
         say(f"one prefill {b} graph replay: the profiler saw no device time")
     b3 = decode_replay_b3(engine, toks)
@@ -2362,6 +2998,7 @@ def decode_replay_b3(engine, toks) -> int:
         f"{total / 1e3:.3f} ms of kernels (torch.profiler); top:")
     for us, count, key in sorted(rows, reverse=True)[:8]:
         say(f"  {us / total:6.1%} {us / 1e3:8.3f} ms x{count:<4d} {key[:90]}")
+    check_norm_rope(rows, cfg, "decode replay", again=decode_replay)
     return check_b3_replay(rows, 0 if cfg.mla else cfg.n_layers, "decode replay")
 
 
@@ -3038,6 +3675,7 @@ def moe_replays(engine) -> dict:
         if b2 != 3 * L or fl != want_fl:
             fail(f"a {name} replay ran {b2} stream_pack and {fl} flash kernels for {L} "
                  f"layers (want {3 * L} and {want_fl})")
+        check_norm_rope(rows, cfg, f"{name} replay", again=run)
         if name == "decode":
             seen["b3_in_replays"] = check_b3_replay(rows, 0 if cfg.mla else L, "decode replay")
         if cfg.mla:
@@ -3250,7 +3888,7 @@ def batch_decode(model, cfg, make_cache, first, label: str, want_flash_per_step:
         torch.cuda.synchronize()
         _restore(cache, snapshot)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with capture(graph):
             out = step(cache, tok_in)
         got = []
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -5191,7 +5829,12 @@ def train_phi4() -> dict:
     for i in range(TRAIN_EAGER):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        m = step_fn(model, state, batch_to_device(batches[i], "cuda"))[2]
+        if i:
+            m = step_fn(model, state, batch_to_device(batches[i], "cuda"))[2]
+        else:       # the first step, left out of the eager ms, by chain under the profiler
+            m, chains = chain_breakdown(
+                lambda: step_fn(model, state, batch_to_device(batches[0], "cuda"))[2],
+                "19c, the first eager step", chain_bytes(cfg, tokens))
         eager_loss.append(float(m["loss"]))
         eager_ms.append((time.perf_counter() - t) * 1e3)
         eager_gnorm.append(float(m["grad_norm"]))
@@ -5222,7 +5865,6 @@ def train_phi4() -> dict:
     # the seal's warm-up runs loss and grads once before the capture: its
     # launches of B1's backward and B5 are counted apart from the capture's
     warm = {}
-    inner = step_fn.loss_and_grads
 
     def counted(*args):
         start = (backward.launches, b5.launches)
@@ -5230,9 +5872,12 @@ def train_phi4() -> dict:
         warm["bwd"], warm["b5"] = backward.launches - start[0], b5.launches - start[1]
         return out
 
-    step_fn.loss_and_grads = counted
-    sealed = seal_train_step(step_fn, model, state, batches[0])
-    step_fn.loss_and_grads = inner
+    captured: dict = {}
+    with capture_counts(step_fn, captured):
+        inner = step_fn.loss_and_grads        # counted calls it: capture_counts' warm-up count
+        step_fn.loss_and_grads = counted
+        sealed = seal_train_step(step_fn, model, state, batches[0])
+        step_fn.loss_and_grads = inner
     seal_peak, seal_s = torch.cuda.max_memory_allocated(), sealed.seal_s
     say(f"  sealed fwd + bwd + clip + AdamW as one CUDA graph in {seal_s:.2f}s (warm-up "
         f"of loss and grads, empty_cache, capture); peak memory {seal_peak / 2**30:.2f} GiB, "
@@ -5342,6 +5987,8 @@ def train_phi4() -> dict:
         f"{capture_bwd} calls it counted there")
     if b5_kinds != {kind: 1 for kind in B5_KERNELS}:
         fail(f"a replay ran B5's kernels {b5_kinds}, not one of each")
+    check_norm_rope(rows, cfg, "training replay", backward=True, again=lambda: sealed(),
+                    captured=captured)
 
     # checkpoint: the parameters now, one replay, then the same parameters
     # restored into a fresh model and copied into the graph's: same loss
@@ -5382,7 +6029,7 @@ def train_phi4() -> dict:
                 layout_copies=copies, b4_in_replay=b4_kinds, b4_replay_ms=b4_us,
                 b5_in_replay=b5_kinds, b5_replay_ms=b5_us,
                 replay_kernel_ms=total / 1e3, replay_kernels=sum(c for _, c, _ in rows),
-                tokens_per_s=tokens / replay_med * 1e3)
+                tokens_per_s=tokens / replay_med * 1e3, chains=chains)
 
 
 # 19h: deepseek-v2-236b at full width cut to TRAIN_MLA_LAYERS of its 60
@@ -5461,7 +6108,12 @@ def train_deepseek() -> dict:
     for i in range(TRAIN_EAGER):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        m = step_fn(model, state, batch_to_device(batches[i], "cuda"))[2]
+        if i:
+            m = step_fn(model, state, batch_to_device(batches[i], "cuda"))[2]
+        else:       # the first step, left out of the eager ms, by chain under the profiler
+            m, chains = chain_breakdown(
+                lambda: step_fn(model, state, batch_to_device(batches[0], "cuda"))[2],
+                "19h, the first eager step", chain_bytes(cfg, tokens))
         eager_loss.append(float(m["loss"]))
         eager_ms.append((time.perf_counter() - t) * 1e3)
         eager_gnorm.append(float(m["grad_norm"]))
@@ -5484,7 +6136,9 @@ def train_deepseek() -> dict:
     # the same steps sealed as one CUDA graph, from the same state
     model, state = fresh()
     torch.cuda.reset_peak_memory_stats()
-    sealed = seal_train_step(step_fn, model, state, batches[0])
+    captured: dict = {}
+    with capture_counts(step_fn, captured):
+        sealed = seal_train_step(step_fn, model, state, batches[0])
     seal_peak, seal_s = torch.cuda.max_memory_allocated(), sealed.seal_s
     seal = tuple(c1 - c0 for c1, c0 in zip(counts(), eager))
     layout = (b7.layout_copies - copies, pack.layout_copies - pack_copies)
@@ -5548,6 +6202,8 @@ def train_deepseek() -> dict:
     want_kinds = {k: cfg.n_layers for k in B7_KERNELS}
     if b7_kinds != want_kinds:
         fail(f"a replay ran B7's kernels {b7_kinds}, not {want_kinds}")
+    check_norm_rope(rows, cfg, "training replay", backward=True, again=lambda: sealed(),
+                    captured=captured)
     # the forward's gate, up and down and each one's dx and dw, a layer
     b2_want = {f"bf16_wgmma/{lay}": 3 * cfg.n_layers for lay in ("nn", "nt", "tn")}
     b2_got = {v: count for v, count, _ in b2_rows}
@@ -5567,7 +6223,7 @@ def train_deepseek() -> dict:
                 b7_replay_ms={k: v / 1e3 for k, v in b7_us.items()},
                 b2_replay={v: dict(kernels=count, ms=us / 1e3) for v, count, us in b2_rows},
                 shares_ms={k: v / 1e3 for k, v in shares.items()},
-                replay_kernel_ms=total_us / 1e3, parameters=n, leaves=leaves,
+                replay_kernel_ms=total_us / 1e3, parameters=n, leaves=leaves, chains=chains,
                 # for 21f, on the host (the card holds one such model at a
                 # time): the eager steps', which the first replays equal
                 reference=dict(loss=eager_loss, gnorm=eager_gnorm, params=eager_params,
@@ -5722,6 +6378,7 @@ def phase_train(number: int) -> dict:
     from repro_torch.kernels.flash_attention import backward
 
     say(f"== phase {number}: training on the card")
+    release()           # the engines of phases 16-18, held in reference cycles
     train_kernel_sweep()
     bwd_record = train_kernel_timing()
     pack_record = train_b2_backward()
@@ -5960,7 +6617,7 @@ def synced_decode(cfg, model) -> dict:
         torch.cuda.synchronize()
         restore()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with capture(graph):
             out = step(tok_in)
         got = []
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -6956,7 +7613,7 @@ def long_decode(arch: str, layers: int | None, mesh) -> dict:
         torch.cuda.synchronize()
         restore()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with capture(graph):
             _, out = step(tok_in)
         got = []
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -7225,7 +7882,7 @@ def phase_latent_32k(number: int) -> dict:
         torch.cuda.synchronize()
         restore()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with capture(graph):
             out = step(tok_in)
         got = []
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -7406,16 +8063,81 @@ B5_BY_PATH: dict[str, int] = {}
 @contextlib.contextmanager
 def train_path(name: str):
     """Count B4's and B5's launches over one training path into
-    ``B4_BY_PATH[name]`` and ``B5_BY_PATH[name]``."""
+    ``B4_BY_PATH[name]`` and ``B5_BY_PATH[name]``, and B8's and B9's into
+    ``NORM_ROPE_BY_PATH[name]``."""
     from repro_torch.kernels.adamw import kernel as b4
     from repro_torch.kernels.cross_entropy import kernel as b5
 
     b4.launches = b5.launches = 0
     try:
-        yield
+        with norm_rope_path(name):
+            yield
     finally:
         B4_BY_PATH[name] = B4_BY_PATH.get(name, 0) + b4.launches
         B5_BY_PATH[name] = B5_BY_PATH.get(name, 0) + b5.launches
+
+
+# B8's and B9's calls on each path, by kernel module (rms_norm, rms_norm_bwd,
+# rotary; the counts set to 0 just before the path and read just after it)
+NORM_ROPE_BY_PATH: dict[str, dict[str, int]] = {}
+# the paths of models with RMSNorm and RoPE: each must launch B8's forward
+# and B9
+NORM_ROPE_PATHS = ("serve phi4-mini-3.8b", "serve arctic-480b", "serve deepseek-v2-236b",
+                   "train phi4-mini-3.8b (eager steps, seal)", "train smoke configs on the card",
+                   "train deepseek-v2-236b 1 layer (eager steps, seal)",
+                   "sharded train phi4-mini-3.8b on a (1, 1) mesh (eager steps, seal)",
+                   "sharded train deepseek-v2-236b on a (1, 1) mesh (21f)",
+                   "synchronized decode_32k and prefill_32k phi4-mini-3.8b",
+                   "deepseek-v2-236b decode_32k share (phase 23)")
+
+
+@contextlib.contextmanager
+def norm_rope_path(name: str):
+    """Count B8's forward and backward and B9's calls over one path into
+    ``NORM_ROPE_BY_PATH[name]``."""
+    from repro_torch.kernels.rms_norm import backward as b8_bwd
+    from repro_torch.kernels.rms_norm import kernel as b8
+    from repro_torch.kernels.rotary import kernel as b9
+
+    b8.launches = b8_bwd.launches = b9.launches = 0
+    try:
+        yield
+    finally:
+        rec = NORM_ROPE_BY_PATH.setdefault(name, dict(rms_norm=0, rms_norm_bwd=0, rotary=0))
+        rec["rms_norm"] += b8.launches
+        rec["rms_norm_bwd"] += b8_bwd.launches
+        rec["rotary"] += b9.launches
+
+
+def norm_rope_records(record: dict) -> list[tuple[str, dict, str]]:
+    """Phase 3e's record as the kernels line's three entries, ``(name,
+    fields, note)``: B8's forward and backward apart (19h's rows beside
+    each), B9."""
+    def part(rec: dict, bwd: bool) -> dict:
+        keys = ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "bytes", "launch")
+        out = {k: rec[("bwd_" if bwd else "") + k] for k in keys}
+        out.update(shape=rec["shape"], library_ms=None if bwd else rec["library_ms"])
+        if not bwd:
+            out["library"] = rec["library"]
+        return out
+
+    b8, b9 = record["b8"], record["b9"]
+    fwd = dict(part(b8, False), deepseek_19h=part(b8["deepseek_19h"], False),
+               max_abs_err=b8["max_abs_err"])
+    bwd = dict(part(b8, True), deepseek_19h=part(b8["deepseek_19h"], True),
+               max_abs_err=b8["max_abs_err"])
+    return [("rms_norm", fwd,
+             "launches count calls, one kernel each; ms, plain_ms, bound_ms and library_ms "
+             "(F.rms_norm) are at 19c's rows (1024 x 3072 bf16) in a CUDA graph, 19h's "
+             "(8192 x 5120) beside them"),
+            ("rms_norm_bwd", bwd,
+             "launches count calls, two kernels each (the rows, then the blocks' partial "
+             "d(scale) summed in order); ms, plain_ms and bound_ms at 19c's rows in a CUDA "
+             "graph, 19h's beside them; no one PyTorch call computes the gradient alone"),
+            ("rotary", b9,
+             "launches count calls, one kernel each, forward or backward (-sin); ms, plain_ms "
+             "and bound_ms at 19c's q (2, 512, 24, 128) bf16 in a CUDA graph, 19h's q_rope "
+             "beside them; PyTorch has no rotary call")]
 
 
 def main() -> None:
@@ -7435,61 +8157,78 @@ def main() -> None:
     b3_record = phase_decode_kernel()
     b6_record = phase_latent_kernel()
     b7_record = phase_expanded_kernel()
+    b8_b9_record = phase_norm_rope()
     from repro_torch.kernels.decode_attention import kernel as decode
     from repro_torch.kernels.expanded_attention import kernel as expanded
     from repro_torch.kernels.latent_attention import kernel as latent
 
     decode.layout_copies = latent.layout_copies = expanded.layout_copies = 0
+    from repro_torch.kernels.rms_norm import kernel as b8
+    from repro_torch.kernels.rotary import kernel as b9
     from repro_torch.kernels.stream_pack import kernel as pack
+
+    b8.layout_copies = b9.layout_copies = 0
 
     pack.layout_copies = 0
     b3_seen: set = set()
     with b3_instances(b3_seen), b2_variants():
-        with b3_path("serve phi4-mini-3.8b"):
+        with b3_path("serve phi4-mini-3.8b"), norm_rope_path("serve phi4-mini-3.8b"):
             launches, in_replays, _ = phase_serve()
-        with b3_path("phi4-mini-3.8b 2 layers f32 on the card (phase 5)"):
+        with b3_path("phi4-mini-3.8b 2 layers f32 on the card (phase 5)"), \
+                norm_rope_path("phi4-mini-3.8b 2 layers f32 on the card (phase 5)"):
             phase_cpu_parity()
         pack_record = phase_stream_pack()
         with b2_path("nimble branchy cells"):
             pack_launches, pack_in_replays, pack_profiled = phase_nimble()
-        with b3_path("serve arctic-480b"), b2_path("serve arctic-480b"):
+        with b3_path("serve arctic-480b"), b2_path("serve arctic-480b"), \
+                norm_rope_path("serve arctic-480b"):
             arctic = phase_serve_moe("arctic-480b", 8)
-        with b2_path("serve deepseek-v2-236b"), b6_path("serve deepseek-v2-236b"):
+        with b2_path("serve deepseek-v2-236b"), b6_path("serve deepseek-v2-236b"), \
+                norm_rope_path("serve deepseek-v2-236b"):
             deepseek = phase_serve_moe("deepseek-v2-236b", 9)
-        with b3_path("arctic-smoke f32 on the card (phase 10)"):
+        with b3_path("arctic-smoke f32 on the card (phase 10)"), \
+                norm_rope_path("arctic-smoke, deepseek-v2-smoke f32 on the card (phase 10)"):
             phase_moe_cpu_parity(10)
         seen: set = set()
         with b1_calls(seen):
-            with b3_path("serve llava-next-34b"):
+            with b3_path("serve llava-next-34b"), norm_rope_path("llava-next-34b serve, forward"):
                 vlm = phase_vlm(11)
             with b3_path("seamless-m4t-medium decode"):
                 audio = phase_audio(12)
-            with b3_path("zamba2-2.7b decode"):
+            with b3_path("zamba2-2.7b decode"), norm_rope_path("zamba2-2.7b forward, decode"):
                 hybrid = phase_recurrent("zamba2-2.7b", 13)
             phase_recurrent("xlstm-125m", 14)
         check_family_launches(seen)
-        with b3_path("llava, seamless, zamba2 smoke f32 on the card (phase 15)"):
+        with b3_path("llava, seamless, zamba2 smoke f32 on the card (phase 15)"), \
+                norm_rope_path("llava, seamless, zamba2 smoke f32 on the card (phase 15)"):
             phase_families_cpu_parity(15)
         with b3_path("dispatch phi4-mini + deepseek-v2 + smoke lane"), \
                 b2_path("dispatch phi4-mini + deepseek-v2 + smoke lane"), \
-                b6_path("dispatch phi4-mini + deepseek-v2 + smoke lane"):
+                b6_path("dispatch phi4-mini + deepseek-v2 + smoke lane"), \
+                norm_rope_path("dispatch phi4-mini + deepseek-v2 + smoke lane"):
             dispatch = phase_dispatch(16)
-        with b3_path("worker plane phi4-mini (in process)"):
+        with b3_path("worker plane phi4-mini (in process)"), \
+                norm_rope_path("worker plane phi4-mini (in process)"):
             workers = phase_workers(17)
         B3_BY_PATH["worker plane phi4-mini (in the worker)"] = \
             workers["launches"].get("decode_attention", 0)
-        with b3_path("journal recovery phi4-mini"):
+        NORM_ROPE_BY_PATH["worker plane phi4-mini (in the worker)"] = {
+            name: workers["launches"].get(name, 0)
+            for name in ("rms_norm", "rms_norm_bwd", "rotary")}
+        with b3_path("journal recovery phi4-mini"), norm_rope_path("journal recovery phi4-mini"):
             journal = phase_journal(18, workers)
         with b2_path("train (19b, 19d, 19e)"):
             train = phase_train(19)
         phi4, smoke = train["phi4"], train["smoke"]
-        with b3_path("synchronized decode_32k phi4-mini-3.8b"):
+        with b3_path("synchronized decode_32k phi4-mini-3.8b"), \
+                norm_rope_path("synchronized decode_32k and prefill_32k phi4-mini-3.8b"):
             launch = phase_launch(20)
         with b2_path("sharded (phase 21)"):
             sharded = phase_sharded(21, phi4.pop("reference"),
                                     train["deepseek"].pop("reference"))
         long = phase_long(22)
-        with b6_path("deepseek-v2-236b decode_32k share (phase 23)"):
+        with b6_path("deepseek-v2-236b decode_32k share (phase 23)"), \
+                norm_rope_path("deepseek-v2-236b decode_32k share (phase 23)"):
             latent32k = phase_latent_32k(23)
     idle = sorted(name for name, n in B3_BY_PATH.items() if n == 0)
     if idle:
@@ -7525,6 +8264,12 @@ def main() -> None:
     if idle:
         fail(f"B5 was launched no time on the paths {idle}")
     say(f"B5 kernels by path: {B5_BY_PATH}")
+    idle = sorted(name for name in NORM_ROPE_PATHS if not (
+        NORM_ROPE_BY_PATH.get(name, {}).get("rms_norm") and NORM_ROPE_BY_PATH[name]["rotary"]))
+    if idle:
+        fail(f"B8 or B9 was launched no time on the paths {idle}")
+    say(f"B8 and B9 calls by path: {NORM_ROPE_BY_PATH}; layout copies B8 {b8.layout_copies}, "
+        f"B9 {b9.layout_copies}; in the profiled replays {NORM_ROPE_REPLAYS}")
     # launches: the wrappers' counts over the paths' runs (each path's
     # counts set to 0 just before it), by path under launches_by_path;
     # launches_in_replays: the kernels the profiler saw in the paths'
@@ -7659,6 +8404,27 @@ def main() -> None:
         kernels_per_launch=B7_REPLAYS["kernels"] / max(B7_REPLAYS["calls"], 1),
         layout_copies=expanded.layout_copies, train_19h=train["deepseek"], **b7_record,
     )]
+    not_tpu = ("none: not a TPU kernel; XLA's fusion of {} inside the jitted step "
+               "(src/repro/launch/train.py:76)")
+    for kname, rec, note in norm_rope_records(b8_b9_record):
+        kernels.append(dict(
+            name=kname, route="cuda",
+            source=f"src/repro_torch/kernels/{'rotary' if kname == 'rotary' else 'rms_norm'}/"
+                   f"csrc/{'rotary' if kname == 'rotary' else 'rms_norm'}.cu",
+            replaces=not_tpu.format(
+                "src/repro/models/layers.py:79-88 (apply_rope)" if kname == "rotary" else
+                "src/repro/models/layers.py:57-67 (apply_norm's rmsnorm), :241-243 and "
+                "src/repro/models/mla.py:70 (_rms * scale)"),
+            note=note, launches=sum(p[kname] for p in NORM_ROPE_BY_PATH.values()),
+            launches_by_path={path: p[kname] for path, p in NORM_ROPE_BY_PATH.items()},
+            launches_in_replays=NORM_ROPE_REPLAYS[kname]["kernels"],
+            profiled_replays=NORM_ROPE_REPLAYS["replays"],
+            kernels_per_launch=NORM_ROPE_REPLAYS[kname]["kernels"]
+            / max(NORM_ROPE_REPLAYS[kname]["calls"], 1),
+            layout_copies=(b9 if kname == "rotary" else b8).layout_copies,
+            chains_19c=train["phi4"]["chains"] if kname == "rms_norm" else None,
+            chains_19h=train["deepseek"]["chains"] if kname == "rms_norm" else None,
+            **rec))
     say(f"all phases passed in {time.perf_counter() - t_start:.1f}s; seconds by phase: "
         f"{phase_seconds(time.perf_counter())}")
     say(json.dumps({"kernels": kernels}))

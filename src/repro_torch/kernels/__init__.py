@@ -72,6 +72,9 @@ KERNEL_MODULES = {
     "latent_attention": f"{__name__}.latent_attention.kernel",
     "expanded_attention": f"{__name__}.expanded_attention.kernel",
     "expanded_attention_bwd": f"{__name__}.expanded_attention.backward",
+    "rms_norm": f"{__name__}.rms_norm.kernel",
+    "rms_norm_bwd": f"{__name__}.rms_norm.backward",
+    "rotary": f"{__name__}.rotary.kernel",
 }
 
 

@@ -8,9 +8,8 @@ sqrt(d).  Parameters arrive as mappings of tensors (the ``Group``s
 of :class:`repro_torch.models.transformer.Transformer`).  The sharding
 hints stand where the JAX version has them (``constrain``,
 ``gather_fsdp``): no-ops on plain tensors and outside a sharding context,
-they lay DTensors out by their logical axes in sharded execution, where
-the tables and masks made here are lifted beside their DTensor partners
-(:func:`repro_torch.distributed.replicate_like`).
+they lay DTensors out by their logical axes in sharded execution.  RMSNorm
+and RoPE run on the port's kernels B8 and B9, attention on B1 and B3.
 """
 
 from __future__ import annotations
@@ -25,11 +24,13 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.distributed import (all_reduce_over, constrain, constrain_split, gather_fsdp,
-                                     hold_layout, on_local_shards, replicate_like, shard_group,
+                                     hold_layout, on_local_shards, shard_group,
                                      shard_offset)
 from repro_torch.kernels.decode_attention import (combine, decode_attention,
                                                   decode_attention_partials)
 from repro_torch.kernels.flash_attention import mha_flash
+from repro_torch.kernels.rms_norm import rms_norm
+from repro_torch.kernels.rotary import apply_rope, rope_freqs  # noqa: F401
 
 Params = Mapping[str, torch.Tensor]
 NEG_INF = -1e30
@@ -70,15 +71,16 @@ class Shape(tuple):
 # ---------------------------------------------------------------------------
 
 def apply_norm(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """LayerNorm (with ``bias``) on torch ops, or RMSNorm by ``(1 +
+    scale)`` on B8 (:mod:`repro_torch.kernels.rms_norm`), in float32,
+    rounded to x's dtype."""
+    if "bias" not in p:  # rmsnorm
+        return rms_norm(x, p["scale"], eps=cfg.norm_eps, offset=1.0)
     xf = x.float()
-    if "bias" in p:  # layernorm
-        mu = xf.mean(dim=-1, keepdim=True)
-        var = xf.var(dim=-1, keepdim=True, correction=0)
-        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
-        y = y * p["scale"] + p["bias"]
-    else:  # rmsnorm
-        ms = (xf * xf).mean(dim=-1, keepdim=True)
-        y = xf * torch.rsqrt(ms + cfg.norm_eps) * (1.0 + p["scale"])
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+    y = y * p["scale"] + p["bias"]
     return y.to(x.dtype)
 
 
@@ -86,20 +88,8 @@ def apply_norm(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
 # rotary embeddings
 # ---------------------------------------------------------------------------
 
-def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / (theta ** exponents)                     # (head_dim/2,)
-
-
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
-    freqs = replicate_like(rope_freqs(x.shape[-1], theta, x.device), positions)
-    angles = positions[..., :, None].float() * freqs      # (..., seq, hd/2)
-    cos = torch.cos(angles)[..., None, :]                 # (..., seq, 1, hd/2)
-    sin = torch.sin(angles)[..., None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+# apply_rope(x (B, S, heads, head_dim), positions (B, S), theta) and its
+# rope_freqs are B9's (repro_torch.kernels.rotary), imported above
 
 
 # ---------------------------------------------------------------------------
@@ -226,8 +216,8 @@ def attention(
     k = _split_heads(x @ _merge(wk), nkv, h, "kv_heads")
     v = _split_heads(x @ _merge(wv), nkv, h, "kv_heads")
     if cfg.qk_norm:
-        q = (_rms(q) * p["q_norm"]).to(x.dtype)
-        k = (_rms(k) * p["k_norm"]).to(x.dtype)
+        q = _rms_scaled(q, p["q_norm"]).to(x.dtype)
+        k = _rms_scaled(k, p["k_norm"]).to(x.dtype)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     q = constrain(q, "batch", "seq", "heads", "_")
@@ -292,9 +282,10 @@ def _split_heads(t: torch.Tensor, n: int, h: int, axis: str) -> torch.Tensor:
     return constrain_split(t, shape, "batch", "seq", axis, "_").reshape(shape)
 
 
-def _rms(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
-    return xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+def _rms_scaled(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """JAX's ``(_rms(x) * scale).astype(x.dtype)`` on B8: the qk-norm and
+    MLA's ``kv_norm``."""
+    return rms_norm(x, scale, eps=eps, offset=0.0)
 
 
 def _decode_attention(q, k_cache, v_cache, k_new, v_new, *, scale, softcap_val, positions,

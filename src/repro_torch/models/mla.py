@@ -38,7 +38,7 @@ from repro_torch.distributed import constrain, gather_fsdp, on_local_shards, rep
 from repro_torch.kernels.expanded_attention import expanded_attention
 from repro_torch.kernels.latent_attention import latent_attention
 
-from .layers import HEADS, ROWS, Shape, _merge, _rms, apply_rope, write_rows
+from .layers import HEADS, ROWS, Shape, _merge, _rms_scaled, apply_rope, write_rows
 
 
 def mla_shapes(cfg) -> dict[str, Shape]:
@@ -76,7 +76,7 @@ def _project_latents(p: Mapping, x: torch.Tensor, cfg, positions: torch.Tensor):
 
     ckv_full = x @ gather_fsdp(p["w_dkv"], "fsdp", "lora", group="attn")
     c_kv, k_rope = ckv_full.split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
-    c_kv = (_rms(c_kv) * p["kv_norm_scale"]).to(x.dtype)
+    c_kv = _rms_scaled(c_kv, p["kv_norm_scale"]).to(x.dtype)
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
     return q_nope, q_rope, c_kv, k_rope
 

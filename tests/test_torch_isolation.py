@@ -23,7 +23,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "tools" / "adamw_faults.py", ROOT / "tools" / "train_phi4_step.py",
     ROOT / "tools" / "ce_faults.py", ROOT / "tools" / "stream_pack_variants.py",
     ROOT / "tools" / "mla_replays.py", ROOT / "tools" / "expanded_faults.py",
-    ROOT / "tools" / "expanded_variants.py"]
+    ROOT / "tools" / "expanded_variants.py", ROOT / "tools" / "norm_rope_profile.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -90,7 +90,13 @@ def test_port_file_list_is_complete():
                  "src/repro_torch/kernels/expanded_attention/backward.py",
                  "src/repro_torch/kernels/expanded_attention/ops.py",
                  "src/repro_torch/kernels/expanded_attention/ref.py", "tools/expanded_faults.py",
-                 "tools/expanded_variants.py"):
+                 "tools/expanded_variants.py", "src/repro_torch/kernels/rms_norm/kernel.py",
+                 "src/repro_torch/kernels/rms_norm/backward.py",
+                 "src/repro_torch/kernels/rms_norm/ops.py",
+                 "src/repro_torch/kernels/rms_norm/ref.py",
+                 "src/repro_torch/kernels/rotary/kernel.py",
+                 "src/repro_torch/kernels/rotary/ops.py", "src/repro_torch/kernels/rotary/ref.py",
+                 "tools/norm_rope_profile.py"):
         assert must in names
 
 
@@ -105,6 +111,7 @@ def test_importing_the_serving_stack_loads_no_jax():
         "import repro_torch.checkpoint, repro_torch.launch.train\n"
         "import repro_torch.distributed, repro_torch.configs.shapes\n"
         "import repro_torch.launch.mesh, repro_torch.launch.dryrun\n"
+        "import repro_torch.kernels.rms_norm, repro_torch.kernels.rotary\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )
