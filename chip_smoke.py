@@ -95,15 +95,20 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    paths give them (``NORM_CASES``: 19c's 1024 x 3072 and 19h's 8192 x
    5120 rows, MLA's c_kv read in its 576-wide rows, the qk-norm's rows of
    128, the decode rows, the float32 widths of phases 5, 10, 15 and 19d,
-   odd widths in both layouts, a base 16 and 2 bytes off, a row of one;
-   ``ROPE_CASES``: 19c's q and k, 19h's q_rope in 192-wide heads and
+   odd widths in both layouts, a base 16 and 2 bytes off, a row of one,
+   rows wider than the backward's register plan; each case prints both
+   plans and the backward's partial rows' bytes, and fails where the
+   backward's plan assumed other blocks an SM than the card's occupancy
+   gives, or more clusters than it holds at once; ``ROPE_CASES``: 19c's q
+   and k, 19h's q_rope in 192-wide heads and
    k_rope in 576-wide rows where they lie, zamba2's hd 80, served decode
    at offsets, the smoke widths at float32, an odd half, a base 16 bytes
    off), B8 within the tolerances beside ``NORM_RTOL``, B9 bit for bit,
    every case twice with the same bits and no layout copy; ptxas's
    registers and spills; then at 19c's and 19h's shapes each timed in a
    CUDA graph and from Python beside the plain versions, the bytes bound
-   and, for B8's forward, ``F.rms_norm`` (a yardstick only);
+   and one PyTorch call each way (yardsticks only): ``F.rms_norm`` and
+   ``aten._fused_rms_norm_backward`` on a bf16 weight;
 4. serve: phi4-mini-3.8b at full width and depth, bf16, random weights made
    on the card from a seed, 8 requests through ``ServingEngine`` with
    CUDA-graph-sealed steps; checks the tokens and that prefill went
@@ -509,25 +514,16 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-@contextlib.contextmanager
 def capture(graph):
-    """``torch.cuda.graph(graph)`` with Python's cyclic garbage collector
-    held off: an automatic collection inside the capture may free a cycle
-    that holds another CUDA graph (an earlier phase's engine and its sealed
-    steps), and destroying a graph while a stream captures is refused and
-    ends the capture in an error."""
-    import gc
+    """``torch.cuda.graph(graph)`` in its default (global) error mode, with
+    Python's cyclic garbage collector held off (``core.capture.capture_graph``):
+    an automatic collection inside the capture may free a cycle that holds
+    another CUDA graph (an earlier phase's engine and its sealed steps), and
+    destroying a graph while a stream captures is refused and ends the
+    capture in an error."""
+    from repro_torch.core.capture import capture_graph
 
-    import torch
-
-    enabled = gc.isenabled()
-    gc.disable()
-    try:
-        with torch.cuda.graph(graph):
-            yield
-    finally:
-        if enabled:
-            gc.enable()
+    return capture_graph(graph, capture_error_mode="global")
 
 
 def graph_ms(fn, reps: int = 20, iters: int = 50) -> float:
@@ -2042,7 +2038,8 @@ def expanded_time(label, B, S, N, nope, rope, dv, dname, kind) -> dict:
 # rows, MLA's c_kv read in its 576-wide rows, the qk-norm's rows of a head,
 # the decode rows, the float32 widths of phases 5, 10, 15 and 19d, odd widths
 # in both layouts, a base 16 bytes off (vector loads) and 2 bytes off
-# (element loads), a row of one
+# (element loads), a row of one, and rows wider than the backward's register
+# plan (rms_bwd_kernel_wide) in vectors and elements
 NORM_CASES = [
     ("19c apply_norm, phi4-mini", (2, 512), 3072, None, "bfloat16", 1.0, 0),
     ("19h apply_norm, deepseek-v2", (2, 4096), 5120, None, "bfloat16", 1.0, 0),
@@ -2060,6 +2057,8 @@ NORM_CASES = [
     ("base 2 bytes off", (64,), 3072, None, "bfloat16", 1.0, 1),
     ("base 16 bytes off, float32", (64,), 1024, None, "float32", 1.0, 4),
     ("a row of one", (5,), 1, None, "float32", 1.0, 0),
+    ("beyond the register plan, float32", (2, 48), 5120, None, "float32", 1.0, 0),
+    ("beyond the register plan, odd width 9001", (3, 5), 9001, None, "bfloat16", 0.0, 0),
 ]
 # the cases timed: 19c's rows and 19h's
 NORM_TIMED = (0, 1)
@@ -2123,10 +2122,13 @@ def norm_inputs(lead, width, stride, dname, offset, base, seed):
     return x, scale, dy
 
 
-def norm_check(label, lead, width, stride, dname, offset, base, seed) -> tuple[float, float]:
+def norm_check(label, lead, width, stride, dname, offset, base, seed, plan_check: bool = True
+               ) -> tuple[float, float]:
     """B8's forward and backward against the plain versions in float32, each
-    run twice for the same bits; fails on a disagreement.  Returns the worst
-    share of the tolerance and the largest |y - plain|."""
+    run twice for the same bits; fails on a disagreement, and (with
+    ``plan_check``) where the backward's plan assumed another residency
+    than the card's.  Returns the worst share of the tolerance and the
+    largest |y - plain|."""
     import torch
 
     from repro_torch.kernels.rms_norm import backward as b8b
@@ -2155,12 +2157,23 @@ def norm_check(label, lead, width, stride, dname, offset, base, seed) -> tuple[f
     }
     worst = max(shares.values())
     err = (y.float() - want_y).abs().max().item()
+    rows, es = x.numel() // width, x.element_size()
+    vec = bool(b8.aligned(b8.rows_of(x), b8.rows_of(dy)))
+    plan = b8.choose_backward(rows, width, es, vec)
+    occupancy, assumed = bwd_occupancy(plan, es, vec), b8.blocks_an_sm(plan, es, vec)
     say(f"  {label}: x {tuple(x.shape)} {dname} row stride {stride or width}, base +{base}, "
-        f"offset {offset}, {b8.choose_launch(x.numel() // width, width)}; share of the "
-        "tolerance " + ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
+        f"offset {offset}, {b8.choose_launch(rows, width)}, backward {plan} (vector loads {vec}; "
+        f"partial rows {plan.parts * width * 4} B written and read, {bwd_bytes(rows, width, es)}"
+        f" B bound; the card holds (blocks an SM, clusters) {occupancy}, the plan assumed "
+        f"{assumed} blocks an SM); share of the tolerance "
+        + ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
         + f"; max |y - plain| {err:.3e}; same bits twice: {same}")
     if not (worst <= 1.0 and same):
         fail(f"B8 disagrees with its plain version at {label} ({shares}, same bits {same})")
+    if plan_check and (occupancy[0] != assumed or plan.grid > occupancy[1] * plan.cluster):
+        fail(f"B8's backward plan at {label} assumed {assumed} blocks an SM and a grid of "
+             f"{plan.grid} in clusters of {plan.cluster}; the card holds {occupancy[0]} blocks an "
+             f"SM and {occupancy[1]} clusters at once (kernel.REGISTERS or CLUSTER_SMS is stale)")
     return worst, err
 
 
@@ -2215,10 +2228,34 @@ def rope_check(label, B, S, H, hd, layout, dname, positions, seed) -> None:
              f"input ({b9.layout_copies - copies})")
 
 
+def bwd_bytes(rows: int, width: int, elem_bytes: int) -> int:
+    """The bytes B8's backward must move: x and dy read and dx written once,
+    rstd read, scale read and dscale written."""
+    return rows * width * elem_bytes * 3 + rows * 4 + width * 4 * 2
+
+
+def bwd_occupancy(plan, elem_bytes: int, vec: bool = True) -> tuple[int, int]:
+    """The card's blocks an SM and clusters at once for the backward's rows
+    kernel under ``plan`` (``rms_bwd_occupancy``)."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels.rms_norm import kernel as b8
+
+    out = (ctypes.c_int * 2)()
+    b8.raise_on(b8.library(torch.device("cuda")).rms_bwd_occupancy(
+        int(elem_bytes == 2), int(vec), plan.items, plan.stages, plan.threads, plan.smem,
+        plan.cluster, out), "rms_bwd_occupancy")
+    return out[0], out[1]
+
+
 def norm_time(label, lead, width, stride, dname, offset, base) -> dict:
     """B8's forward and backward at one case, in a CUDA graph and launched
-    from Python, beside the plain versions, ``F.rms_norm`` (a yardstick of
-    the forward; the port never calls it) and the bytes bound."""
+    from Python, beside the plain versions, the bytes bound and one PyTorch
+    call each way (yardsticks; the port never calls them): ``F.rms_norm``
+    and ``aten._fused_rms_norm_backward`` on a weight in x's dtype with its
+    own ``_fused_rms_norm``'s rstd."""
     import torch
     import torch.nn.functional as F
 
@@ -2237,9 +2274,20 @@ def norm_time(label, lead, width, stride, dname, offset, base) -> dict:
         weight = weight.to(x.dtype)
         library = f"F.rms_norm, {dname} weight"
     fwd_bytes = rows * width * es * 2 + rows * 4 + width * 4
-    bwd_bytes = rows * width * es * 3 + rows * 4 + width * 4 * 2
+    nbytes = bwd_bytes(rows, width, es)
     fwd_bound, fwd_by = bound(5.0 * rows * width, fwd_bytes, "float32")
-    bwd_bound, bwd_by = bound(10.0 * rows * width, bwd_bytes, "float32")
+    bwd_bound, bwd_by = bound(10.0 * rows * width, nbytes, "float32")
+    plan = b8.choose_backward(rows, width, es)
+    wl = (offset + scale).to(x.dtype)
+    try:
+        rl = torch.ops.aten._fused_rms_norm(x, [width], wl, NORM_EPS)[1]
+        bwd_library = f"aten._fused_rms_norm_backward, {dname} weight"
+        bwd_library_ms = graph_ms(lambda: torch.ops.aten._fused_rms_norm_backward(
+            dy, x, [width], rl, wl, [True, True]))
+    except (AttributeError, RuntimeError, NotImplementedError) as e:
+        bwd_library = f"aten._fused_rms_norm_backward absent in torch {torch.__version__}: " \
+                      f"{type(e).__name__}"
+        bwd_library_ms = None
     rec = dict(
         shape=f"{tuple(x.shape)} {dname}",
         ms=graph_ms(lambda: b8.rms_norm(x, scale, NORM_EPS, offset)),
@@ -2250,16 +2298,20 @@ def norm_time(label, lead, width, stride, dname, offset, base) -> dict:
         bwd_ms=graph_ms(lambda: b8b.rms_norm_bwd(x, scale, rstd, dy, offset)),
         bwd_eager_ms=time_ms(lambda: b8b.rms_norm_bwd(x, scale, rstd, dy, offset), 20),
         bwd_plain_ms=graph_ms(lambda: rms_norm_bwd_ref(x, scale, rstd, dy, offset)),
-        bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by, bwd_bytes=bwd_bytes,
-        launch=str(b8.choose_launch(rows, width)),
-        bwd_launch=str(b8.choose_launch(rows, width, backward=True)))
+        bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by, bwd_bytes=nbytes,
+        bwd_library_ms=bwd_library_ms, bwd_library=bwd_library,
+        bwd_partial_bytes=plan.parts * width * 4 * 2, bwd_occupancy=bwd_occupancy(plan, es),
+        launch=str(b8.choose_launch(rows, width)), bwd_launch=str(plan))
     say(f"  {label} {rec['shape']}: forward {rec['ms']:.5f} ms in a graph ({rec['eager_ms']:.5f} "
         f"from Python), {rec['bound_ms'] / rec['ms']:.1%} of its {rec['bound_ms']:.5f} ms bound "
         f"({fwd_bytes / 1e6:.3f} MB), plain {rec['plain_ms']:.5f}, {library} "
         f"{rec['library_ms']:.5f}; backward {rec['bwd_ms']:.5f} ({rec['bwd_eager_ms']:.5f} from "
         f"Python), {rec['bwd_bound_ms'] / rec['bwd_ms']:.1%} of its {rec['bwd_bound_ms']:.5f} ms "
-        f"bound ({bwd_bytes / 1e6:.3f} MB), plain {rec['bwd_plain_ms']:.5f}; {rec['launch']}, "
-        f"backward {rec['bwd_launch']}")
+        f"bound ({nbytes / 1e6:.3f} MB; partial rows {rec['bwd_partial_bytes'] / 1e6:.3f} MB "
+        f"written and read), plain {rec['bwd_plain_ms']:.5f}, {bwd_library} "
+        f"{'not timed' if bwd_library_ms is None else f'{bwd_library_ms:.5f}'}; "
+        f"{rec['launch']}, backward {rec['bwd_launch']}, the card holds (blocks an SM, clusters) "
+        f"{rec['bwd_occupancy']} of it")
     return rec
 
 
@@ -2282,18 +2334,22 @@ def rope_time(label, B, S, H, hd, layout, dname, positions) -> dict:
     return rec
 
 
+def norm_rope_kernel(line: str):
+    """The B8 or B9 kernel a line of ptxas's report names (its template
+    arguments mangled), or None."""
+    found = re.search(r"(rms_fwd_kernel|rms_bwd_kernel_wide|rms_bwd_kernel_tma|rms_bwd_kernel|"
+                      r"rms_dscale_kernel|rotary_kernel)(I\w+?EEv|v)?", line)
+    return found and found[1] + (found[2] or "")
+
+
 def norm_rope_registers() -> dict:
     """Registers and spills of B8's and B9's kernels, from ptxas's reports."""
     from repro_torch.kernels import build
     from repro_torch.kernels.rms_norm import kernel as b8
     from repro_torch.kernels.rotary import kernel as b9
 
-    def name_in(line):
-        found = re.search(r"(rms_fwd_kernel|rms_bwd_kernel|rms_dscale_kernel|rotary_kernel)"
-                          r"(I\w+?EEv|v)?", line)
-        return found and found[1] + (found[2] or "")
-
-    return ptxas_report([build.build_log(b8.SOURCE), build.build_log(b9.SOURCE)], name_in)
+    return ptxas_report([build.build_log(b8.SOURCE), build.build_log(b9.SOURCE)],
+                        norm_rope_kernel)
 
 
 def phase_norm_rope() -> dict:
@@ -2333,12 +2389,15 @@ def phase_norm_rope() -> dict:
 # kernels by the chain that launched them
 # ---------------------------------------------------------------------------
 
-# B8's and B9's kernels, by a substring of their names
+# B8's and B9's kernels, by a substring of their names (B8_BWD names the
+# backward's rows kernels, rms_bwd_kernel, rms_bwd_kernel_tma and
+# rms_bwd_kernel_wide; B8_DSCALE its finish, rms_dscale_kernel)
 B8_FWD, B8_BWD, B8_DSCALE, B9_KERNEL = ("rms_fwd_kernel", "rms_bwd_kernel", "rms_dscale_kernel",
                                         "rotary_kernel")
+B8_BWD_KERNELS = 2              # a backward call: one B8_BWD and one B8_DSCALE
 # the profiled replays check_norm_rope held, and by kernel module (B8's
-# forward, B8's backward: two kernels a call, B9) the kernels the profiler
-# saw in them and the calls they replay
+# forward, B8's backward: B8_BWD_KERNELS kernels a call, B9) the kernels the
+# profiler saw in them and the calls they replay
 NORM_ROPE_REPLAYS = {"replays": 0, **{k: {"kernels": 0, "calls": 0}
                                       for k in ("rms_norm", "rms_norm_bwd", "rotary")}}
 
@@ -2388,7 +2447,8 @@ def check_norm_rope(rows, cfg, label: str, backward: bool = False, again=None,
                     captured: dict | None = None) -> None:
     """Fails unless a profiled replay's kernels (``rows``) hold B8's and B9's
     kernels as often as ``cfg``'s layers give: a B8 forward a norm, with
-    ``backward`` also its two backward kernels, and a B9 a rotation, twice
+    ``backward`` also its ``B8_BWD_KERNELS`` backward kernels (a B8_BWD
+    and a B8_DSCALE), and a B9 a rotation, twice
     with ``backward``; adds them to ``NORM_ROPE_REPLAYS``.  A session that
     recorded fewer of them is read again with ``again`` (a call of the
     replay), up to three times, from the second of two calls in one
@@ -8116,9 +8176,10 @@ def norm_rope_records(record: dict) -> list[tuple[str, dict, str]]:
     def part(rec: dict, bwd: bool) -> dict:
         keys = ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "bytes", "launch")
         out = {k: rec[("bwd_" if bwd else "") + k] for k in keys}
-        out.update(shape=rec["shape"], library_ms=None if bwd else rec["library_ms"])
-        if not bwd:
-            out["library"] = rec["library"]
+        out.update(shape=rec["shape"], library_ms=rec[("bwd_" if bwd else "") + "library_ms"],
+                   library=rec[("bwd_" if bwd else "") + "library"])
+        if bwd:
+            out.update(partial_bytes=rec["bwd_partial_bytes"], occupancy=rec["bwd_occupancy"])
         return out
 
     b8, b9 = record["b8"], record["b9"]
@@ -8131,9 +8192,11 @@ def norm_rope_records(record: dict) -> list[tuple[str, dict, str]]:
              "(F.rms_norm) are at 19c's rows (1024 x 3072 bf16) in a CUDA graph, 19h's "
              "(8192 x 5120) beside them"),
             ("rms_norm_bwd", bwd,
-             "launches count calls, two kernels each (the rows, then the blocks' partial "
-             "d(scale) summed in order); ms, plain_ms and bound_ms at 19c's rows in a CUDA "
-             "graph, 19h's beside them; no one PyTorch call computes the gradient alone"),
+             f"launches count calls, {B8_BWD_KERNELS} kernels each (the rows, each cluster's "
+             "d(scale) added through distributed shared memory into a partial row; then the "
+             "partial rows summed in a fixed order); ms, plain_ms, bound_ms and library_ms "
+             "(aten._fused_rms_norm_backward, bf16 weight) at 19c's rows in a CUDA graph, "
+             "19h's beside them"),
             ("rotary", b9,
              "launches count calls, one kernel each, forward or backward (-sin); ms, plain_ms "
              "and bound_ms at 19c's q (2, 512, 24, 128) bf16 in a CUDA graph, 19h's q_rope "

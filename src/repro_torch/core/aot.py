@@ -247,9 +247,7 @@ class _CapturedGraph:
         torch.cuda.synchronize(device)      # the warm-up's tensors may go now
         del warm
         self.graph = torch.cuda.CUDAGraph()
-        with torch.no_grad(), torch.cuda.graph(
-            self.graph, capture_error_mode=_capture.CAPTURE_ERROR_MODE
-        ):
+        with torch.no_grad(), _capture.capture_graph(self.graph):
             self.static_out, self._keep = run(static_in)
 
     def __call__(self, flat_args: list) -> list:

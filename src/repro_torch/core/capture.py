@@ -24,6 +24,15 @@ Two measures keep them apart:
   host time is what Nimble measures) that touches the card during a
   capture gets no error and does not break it.
 
+Every capture of the port goes through :func:`capture_graph`, which also
+holds Python's cyclic garbage collector off for the capture's length: an
+automatic collection inside a capture may free a reference cycle that
+holds another CUDA graph (a sealed engine dropped while another lane
+seals, an evicted bucket), and CUDA refuses to destroy a graph while a
+stream captures, which ends the capture in an error.  Thread-local mode
+still checks the capturing thread's own calls, and the collector runs on
+whichever thread allocates.
+
 A thread that holds a shared section must not seal inside it: builds happen
 between sections (the engine fetches a sealed step before it opens the
 section that replays it), and :meth:`CaptureLock.capturing` raises rather
@@ -33,12 +42,32 @@ than deadlock if that rule is broken.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import time
 from typing import Iterator
 
+import torch
+
 #: the error mode every capture of the port uses (see the module docstring)
 CAPTURE_ERROR_MODE = "thread_local"
+
+
+@contextlib.contextmanager
+def capture_graph(graph: "torch.cuda.CUDAGraph", *,
+                  capture_error_mode: str = CAPTURE_ERROR_MODE, **kw) -> Iterator[None]:
+    """``torch.cuda.graph(graph, capture_error_mode=..., **kw)`` with
+    Python's cyclic garbage collector off for the whole capture; the
+    collector's previous state comes back on exit, an exception included
+    (see the module docstring)."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode=capture_error_mode, **kw):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class CaptureLock:

@@ -1,14 +1,17 @@
 """Hopper RMSNorm (B8), the backward: ctypes wrapper over
 ``csrc/rms_norm.cu``'s ``rms_backward``.
 
-:func:`rms_norm_bwd` is one call of two kernels: the rows (x, dy and the
-forward's rstd read once, dx written in x's dtype, each block's float32
-partial of ``dscale`` kept in shared memory and written once), then the
-partials summed in block order into ``dscale``.  No atomics: the same
-inputs give the same bits.  The plain version is
-:func:`.ref.rms_norm_bwd_ref`; the routing, the checks and the layout are
-the forward's (:mod:`.kernel`).  ``launches`` counts calls (two kernels
-each).
+:func:`rms_norm_bwd` is one call of two kernels (:func:`kernel.choose_backward`
+plans them).  The rows: each row's x and dy read once into the registers
+of the team that takes it, dx written in x's dtype, each thread's columns'
+d(scale) sums kept in registers over its rows; the block's teams, then a
+thread-block cluster's CTAs, add their sums in a fixed order into one
+partial row a cluster.  Then ``rms_dscale_kernel`` sums the clusters' rows
+in a fixed order into ``dscale``.  Both go by programmatic dependent
+launch, so each launch overlaps the tail of the kernel before it.  No atomics: the same inputs give the
+same bits.  The plain version is :func:`.ref.rms_norm_bwd_ref`; the
+routing, the checks and the layout are the forward's (:mod:`.kernel`).
+``launches`` counts calls (two kernels each).
 """
 
 from __future__ import annotations
@@ -53,14 +56,15 @@ def rms_norm_bwd(x: torch.Tensor, scale: torch.Tensor, rstd: torch.Tensor, dy: t
     dx = torch.empty(rows, width, dtype=x.dtype, device=x.device)
     if not rows:
         return dx.view(x.shape), torch.zeros(width, dtype=torch.float32, device=x.device)
-    plan = kernel.choose_launch(rows, width, backward=True)
-    partial = torch.empty(plan.grid, width, dtype=torch.float32, device=x.device)
+    vec = kernel.aligned(xr, dr, dx)
+    plan = kernel.choose_backward(rows, width, x.element_size(), bool(vec))
+    partial = torch.empty(plan.parts, width, dtype=torch.float32, device=x.device)
     dscale = torch.empty(width, dtype=torch.float32, device=x.device)
     w = scale.contiguous()
     err = kernel.library(x.device).rms_backward(
         xr.data_ptr(), xr.stride(0), dr.data_ptr(), dr.stride(0), r.data_ptr(), rows, width,
-        w.data_ptr(), offset, int(x.dtype == torch.bfloat16), kernel.aligned(xr, dr, dx),
-        int(plan.warp), plan.threads, plan.grid, dx.data_ptr(), partial.data_ptr(),
+        w.data_ptr(), offset, int(x.dtype == torch.bfloat16), vec, plan.items, plan.stages,
+        plan.threads, plan.grid, plan.cluster, plan.smem, dx.data_ptr(), partial.data_ptr(),
         dscale.data_ptr(), kernel.stream(x.device))
     kernel.raise_on(err, "rms_backward")
     launches += 1

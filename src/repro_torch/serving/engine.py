@@ -355,9 +355,7 @@ class ServingEngine:
         torch.cuda.synchronize(dev)
         del scratch
         graph = torch.cuda.CUDAGraph()
-        with torch.no_grad(), torch.cuda.graph(
-            graph, capture_error_mode=_capture.CAPTURE_ERROR_MODE
-        ):
+        with torch.no_grad(), _capture.capture_graph(graph):
             out = fn(bound_params, bound_cache, *static)
 
         def run_graph(params, cache, *args):

@@ -37,7 +37,7 @@ import torch
 import torch.utils.checkpoint as ckpt
 from torch.distributed.tensor import DTensor, Replicate
 
-from repro_torch.core.capture import CAPTURE_ERROR_MODE, CAPTURE_LOCK
+from repro_torch.core.capture import CAPTURE_LOCK, capture_graph
 from repro_torch.data import shard_batch
 from repro_torch.distributed import (keep_shards, local_part, on_local_shards, replicate_like,
                                      shard_groups, shard_offset, use_sharding_ctx)
@@ -231,7 +231,7 @@ class SealedTrainStep:
             # and the graph's pool do not both hold the step's memory
             torch.cuda.empty_cache()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, capture_error_mode=CAPTURE_ERROR_MODE):
+            with capture_graph(graph):
                 _, _, metrics = self.step(self.model, self.opt_state, self.static)
             torch.cuda.synchronize()
         self.graph, self.metrics = graph, metrics

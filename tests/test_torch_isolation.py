@@ -23,7 +23,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "tools" / "adamw_faults.py", ROOT / "tools" / "train_phi4_step.py",
     ROOT / "tools" / "ce_faults.py", ROOT / "tools" / "stream_pack_variants.py",
     ROOT / "tools" / "mla_replays.py", ROOT / "tools" / "expanded_faults.py",
-    ROOT / "tools" / "expanded_variants.py", ROOT / "tools" / "norm_rope_profile.py"]
+    ROOT / "tools" / "expanded_variants.py", ROOT / "tools" / "norm_rope_profile.py",
+    ROOT / "tools" / "rms_bwd_variants.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -17,10 +17,12 @@ block's row (1100) and a row of one.  Tolerances:
   that size, so an element near 0 keeps no relative precision: a row of
   one has dx 0 up to that rounding).
 
-Also: the plan (:func:`kernel.choose_launch`) at every shape the paths give
-B8, the wrappers' refusals, the rows read where they lie (MLA's c_kv in its
+Also: the plans (:func:`kernel.choose_launch`, :func:`kernel.choose_backward`)
+at every shape the paths give B8 and at widths beyond the backward's
+register plan, the wrappers' refusals, the rows read where they lie (MLA's c_kv in its
 576-wide rows) and a copy counted otherwise, the library call over a fake
-library (the tensors' own pointers and strides, the vector flag, a failed
+library (the tensors' own pointers and strides, the backward's plan and its
+partial-row scratch, the vector flag, a failed
 launch raises and never reaches the plain version, no rows launch
 nothing), the routing (CPU and meta through ``run_plain``, a DTensor
 refused by the wrapper and run on its local shards by the layer's
@@ -236,32 +238,108 @@ PATH_SHAPES = [(1024, 3072), (8192, 5120), (8192, 512), (24576, 128), (4, 3072),
                (4096, 7168), (8, 2560), (32768, 3072)]
 
 
+# the backward's partial d(scale) rows, written once and read once, at most
+# this share of the bytes its bound counts (or a single partial row)
+PART_SHARE = 1 / 5
+
+
+def _kernel_for(width, elem_bytes, vec):
+    """The rows kernel the plan's contract gives a row: a warp when 32
+    threads hold its whole groups in registers, a block through the ring
+    when eight warps do and the rows lie on 16 bytes, else
+    ``rms_bwd_kernel_wide``."""
+    whole = width // (kernel.VEC // elem_bytes)
+    if whole <= 32 * kernel.MAX_ITEMS:
+        return "warp"
+    return "tma" if vec and whole <= kernel.TEAM_THREADS * kernel.MAX_ITEMS else "wide"
+
+
+def _backward_plan_holds(plan, rows, width, elem_bytes, vec):
+    """The backward plan's contract at one shape.  The kernels' strided row
+    loops (row = block x teams + team, stepping by grid x teams) take every
+    row once whatever the grid; the plan gives no block without rows, and
+    each team at least ``ROWS_AHEAD`` rows (a ring block one) where the rows
+    allow.  The grid within what the card holds at once and whole clusters
+    of at most ``MAX_CLUSTER``; the kernel the row's width and alignment
+    call for, its block within its limit; the threads' register groups
+    covering the row's whole groups, no item more than needed; the shared
+    rows one a team within ``MAX_SMEM``."""
+    n = kernel.VEC // elem_bytes
+    teams = plan.teams
+    ahead = 1 if plan.stages else kernel.ROWS_AHEAD
+    assert 1 <= plan.grid and (plan.grid - 1) * teams * ahead < max(rows, 1)
+    assert plan.grid <= kernel.SMS * kernel.blocks_an_sm(plan, elem_bytes, vec)
+    assert plan.cluster in (1, 2, 4, 8) and plan.cluster <= kernel.MAX_CLUSTER
+    assert plan.grid % plan.cluster == 0 and plan.parts == plan.grid // plan.cluster
+    assert plan.threads % 32 == 0 and plan.smem <= kernel.MAX_SMEM
+    assert plan.kind == _kernel_for(width, elem_bytes, vec)
+    if plan.stages:                          # the ring: a block a row, aligned rows
+        assert vec and plan.items and 2 <= plan.stages <= kernel.STAGES
+        assert plan.smem == plan.stages * (2 * width * elem_bytes + 8) + 4 * width
+    else:
+        assert plan.smem == 4 * width * teams
+    whole = width // n
+    if plan.warp:
+        assert plan.threads == 32 * kernel.WARP_ROWS and teams == kernel.WARP_ROWS
+    if plan.items:
+        team_threads = 32 if plan.warp else plan.threads
+        assert plan.threads <= kernel.TEAM_THREADS and 1 <= plan.items <= kernel.MAX_ITEMS
+        assert plan.items * team_threads >= whole
+        assert plan.items == 1 or (plan.items - 1) * team_threads < whole
+    else:
+        assert plan.threads == kernel.WIDE_THREADS and plan.cluster == 1 and teams == 1
+
+
 @pytest.mark.parametrize("rows,width", PATH_SHAPES)
 def test_the_plan_covers_every_row_once(rows, width):
-    """A warp a row up to 1024 elements, eight rows a block; wider rows a
-    block each of 64-512 threads, at most four 16-byte bf16 groups a
-    thread; the backward's persistent grid at most ``BWD_BLOCKS`` and its
-    accumulators within ``MAX_SMEM``."""
+    """The forward: a warp a row up to 1024 elements, eight rows a block;
+    wider rows a block each of 64-512 threads, at most four 16-byte bf16
+    groups a thread.  The backward, at both dtypes: the contract of
+    :func:`_backward_plan_holds`; at bf16 (the paths' dtype at these
+    shapes) every row in registers (no ``rms_bwd_kernel_wide``) and the
+    partial rows' bytes within ``PART_SHARE`` of the bound's."""
     fwd = kernel.choose_launch(rows, width)
-    bwd = kernel.choose_launch(rows, width, backward=True)
-    assert fwd.warp == bwd.warp == (width <= kernel.WARP_MAX)
-    assert fwd.threads == bwd.threads and fwd.threads % 32 == 0
+    assert fwd.warp == (width <= kernel.WARP_MAX) and fwd.threads % 32 == 0
     if fwd.warp:
         assert fwd.threads == 32 * kernel.WARP_ROWS
         assert (fwd.grid - 1) * kernel.WARP_ROWS < rows <= fwd.grid * kernel.WARP_ROWS
-        smem = 4 * width * kernel.WARP_ROWS
     else:
         assert fwd.grid == rows and 64 <= fwd.threads <= 512
         assert -(-width // 8) <= 4 * fwd.threads
-        smem = 4 * width
-    assert bwd.grid == min(fwd.grid, kernel.BWD_BLOCKS) and smem <= kernel.MAX_SMEM
+    for elem_bytes in (2, 4):
+        for vec in (True, False):
+            _backward_plan_holds(kernel.choose_backward(rows, width, elem_bytes, vec), rows,
+                                 width, elem_bytes, vec)
+    bwd = kernel.choose_backward(rows, width, 2)
+    bound_bytes = rows * width * 2 * 3 + rows * 4 + width * 8
+    assert bwd.items > 0
+    assert bwd.parts == 1 or bwd.parts * width * 4 * 2 <= PART_SHARE * bound_bytes
+
+
+@pytest.mark.parametrize("elem_bytes,width", [(2, 8192), (2, 8200), (2, 9001), (4, 4096),
+                                              (4, 4100), (4, 5120), (2, kernel.MAX_WIDTH)])
+def test_a_width_beyond_the_register_plan_still_gets_a_plan(elem_bytes, width):
+    """The widest aligned rows the registers hold (eight warps of four
+    groups a thread) stay there; wider rows, and block rows not on 16
+    bytes, take ``rms_bwd_kernel_wide``, a block a row with its d(scale)
+    sums in shared memory, up to ``MAX_WIDTH``."""
+    for rows, vec in ((3, True), (64, False), (8192, True)):
+        plan = kernel.choose_backward(rows, width, elem_bytes, vec)
+        _backward_plan_holds(plan, rows, width, elem_bytes, vec)
+        inside = width // (kernel.VEC // elem_bytes) <= kernel.TEAM_THREADS * kernel.MAX_ITEMS
+        assert (plan.items > 0) == (inside and vec)
 
 
 def test_the_plan_is_a_function_of_the_shape_alone():
     assert kernel.choose_launch(8192, 5120) == kernel.choose_launch(8192, 5120)
+    assert kernel.choose_backward(8192, 5120, 2) == kernel.choose_backward(8192, 5120, 2)
     for rows, width in ((-1, 8), (4, 0), (2**31, 8), (4, kernel.MAX_WIDTH + 1)):
         with pytest.raises(ValueError, match="rms_norm"):
             kernel.choose_launch(rows, width)
+        with pytest.raises(ValueError, match="rms_norm"):
+            kernel.choose_backward(rows, width, 2)
+    with pytest.raises(ValueError, match="rms_norm"):
+        kernel.choose_backward(4, 8, 8)
 
 
 REFUSALS = ["float16 x", "float64 x", "bf16 scale", "scale's shape", "offset 0.5", "devices",
@@ -343,7 +421,25 @@ def fake_launch(monkeypatch):
     return lib
 
 
-def test_the_library_gets_the_tensors_own_pointers_and_the_plan(fake_launch):
+class _RecordingTorch:
+    """``torch`` for the backward wrapper, recording what ``torch.empty``
+    allocates (the outputs and the partial rows' scratch)."""
+
+    def __init__(self):
+        self.empties = []
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def empty(self, *shape, **kw):
+        t = torch.empty(*shape, **kw)
+        self.empties.append(t)
+        return t
+
+
+def test_the_library_gets_the_tensors_own_pointers_and_the_plan(fake_launch, monkeypatch):
+    recorded = _RecordingTorch()
+    monkeypatch.setattr(backward, "torch", recorded)
     ckv = torch.zeros(2, 7, 576, dtype=torch.bfloat16)[..., :512]
     scale = torch.zeros(512)
     before = (kernel.launches, backward.launches, kernel.layout_copies)
@@ -358,10 +454,40 @@ def test_the_library_gets_the_tensors_own_pointers_and_the_plan(fake_launch):
     assert f[5:] == (0.0, EPS, 1, 1, 1, plan.threads, plan.grid, y.data_ptr(), rstd.data_ptr(),
                      0)
     assert y.shape == ckv.shape and y.is_contiguous() and rstd.shape == (2, 7)
-    bplan = kernel.choose_launch(14, 512, backward=True)
-    assert b[:7] == (ckv.data_ptr(), 576, dy.data_ptr(), 512, rstd.data_ptr(), 14, 512)
-    assert b[8:14] == (0.0, 1, 1, 1, bplan.threads, bplan.grid)
-    assert b[14] == dx.data_ptr() and b[16] == ds.data_ptr() and ds.shape == (512,)
+    bplan = kernel.choose_backward(14, 512, 2)
+    assert len(b) == 21
+    assert b[:8] == (ckv.data_ptr(), 576, dy.data_ptr(), 512, rstd.data_ptr(), 14, 512,
+                     scale.data_ptr())
+    assert b[8:17] == (0.0, 1, 1, bplan.items, bplan.stages, bplan.threads, bplan.grid,
+                       bplan.cluster, bplan.smem)
+    assert b[17] == dx.data_ptr() and b[19] == ds.data_ptr() and ds.shape == (512,)
+    assert b[20] == 0
+    (partial,) = [t for t in recorded.empties if t.data_ptr() == b[18]]
+    assert partial.shape == (bplan.parts, 512) and partial.dtype == torch.float32
+
+
+@pytest.mark.parametrize("rows,width,dtype", [(1024, 3072, torch.bfloat16),
+                                              (64, 7168, torch.bfloat16),
+                                              (15, 1031, torch.bfloat16),
+                                              (64, 5120, torch.float32),
+                                              (3, 9001, torch.bfloat16)])
+def test_the_backward_gets_its_plan_and_scratch(fake_launch, monkeypatch, rows, width, dtype):
+    """At 19c's and Arctic's rows, an odd width, and two widths beyond the
+    register plan (``rms_bwd_kernel_wide``): the library gets
+    ``choose_backward``'s plan for x's dtype and a float32 scratch of one
+    partial row a cluster."""
+    recorded = _RecordingTorch()
+    monkeypatch.setattr(backward, "torch", recorded)
+    x = torch.zeros(rows, width, dtype=dtype)
+    backward.rms_norm_bwd(x, torch.zeros(width), torch.zeros(rows), torch.zeros_like(x), 1.0)
+    (_, b), = fake_launch.calls
+    plan = kernel.choose_backward(rows, width, x.element_size(), bool(b[10]))
+    assert b[9] == int(dtype == torch.bfloat16) and b[10] == int(width % 8 == 0)
+    assert b[11:17] == (plan.items, plan.stages, plan.threads, plan.grid, plan.cluster,
+                        plan.smem)
+    assert plan.kind == _kernel_for(width, x.element_size(), bool(b[10]))
+    (partial,) = [t for t in recorded.empties if t.data_ptr() == b[18]]
+    assert partial.shape == (plan.parts, width) and partial.dtype == torch.float32
 
 
 def test_the_vector_flag(fake_launch):

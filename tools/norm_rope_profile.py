@@ -21,7 +21,9 @@ line:
 * ``replay_ms``: the step sealed as one CUDA graph, each of ``--replays``
   replays on CUDA events; ``replay_kernel_ms``, ``replay_elementwise_ms``
   and ``replay_b8_b9_ms``: one profiled replay's kernels, all, those
-  neither a product nor a kernel of the port's, and B8's and B9's.
+  neither a product nor a kernel of the port's, and B8's and B9's;
+  ``replay_loss``: the loss of the last replay, each replay a step on the
+  first batch.
 
 Unpack the parent commit first (``git archive HEAD~1 | tar -x -C
 build/parent``) to compare it with this tree: parent, change, change,
@@ -107,13 +109,14 @@ def child(root: str, arch: str, replays: int) -> dict:
     model, state = fresh()
     sealed = seal_train_step(step_fn, model, state, batches[0])
     times = [c.time_ms(sealed.graph.replay, 1, warmup=1 if i == 0 else 0) for i in range(replays)]
+    loss = float(sealed.metrics["loss"])
     rows = c.by_kernel(c.kernels_in_replay(lambda: sealed()))
     total = sum(us for us, _, _ in rows)
     ew = sum(us for us, _, key in rows
              if not any(w in key.lower() for w in c.GEMM_NAMES + c.PORT_KERNEL_NAMES))
     b8_b9 = sum(us for us, _, key in rows if "rms_" in key or "rotary_" in key)
     return dict(root=root, arch=arch, build_s=build_s, eager_ms=eager_ms, eager_peak_gib=peak,
-                replay_ms=times, replay_ms_median=float(np.median(times)),
+                replay_ms=times, replay_ms_median=float(np.median(times)), replay_loss=loss,
                 replay_kernel_ms=total / 1e3, replay_elementwise_ms=ew / 1e3,
                 replay_b8_b9_ms=b8_b9 / 1e3,
                 replay_kernels=sum(n for _, n, _ in rows), **chains)
@@ -148,7 +151,7 @@ def main() -> None:
         print(f"{r['arch']} {r['root']}: replay {r['replay_ms_median']:.3f} ms (CUDA events, "
               f"median of {len(r['replay_ms'])}), kernels {r['replay_kernel_ms']:.3f} ms, "
               f"element-wise {r['replay_elementwise_ms']:.3f}, B8 and B9 "
-              f"{r['replay_b8_b9_ms']:.3f}; eager "
+              f"{r['replay_b8_b9_ms']:.3f}, the last replay's loss {r['replay_loss']:.4f}; eager "
               f"{r['eager_ms']} ms, peak "
               f"{r['eager_peak_gib']:.2f} GiB; eager element-wise by chain: {top}")
     out = ROOT / args.out

@@ -340,6 +340,8 @@ def clocks(smoke, pack, torch, seconds: float = 3.0) -> list[dict]:
     import threading
     import time
 
+    from repro_torch.core.capture import capture_graph
+
     def sample(stop, out):
         while not stop.is_set():
             r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
@@ -358,7 +360,7 @@ def clocks(smoke, pack, torch, seconds: float = 3.0) -> list[dict]:
             fn()
         torch.cuda.current_stream().wait_stream(side)
         torch.cuda.synchronize()
-        with torch.cuda.graph(graph):
+        with capture_graph(graph, capture_error_mode="global"):
             for _ in range(10):
                 fn()
         graph.replay()
